@@ -1,0 +1,30 @@
+"""The one-card counterpart of `sml_tpu/parallel/mesh.py`.
+
+There is no mesh, no sharding and no collective on one card: a caller
+names a device, or gets the CUDA card. Entry points run on the card
+unless the caller asks for the CPU; asking for CUDA where there is none
+raises instead of carrying on somewhere else.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+
+def resolve_device(device: Optional[Union[str, torch.device]] = None
+                   ) -> torch.device:
+    """`device` as a `torch.device`; None means the CUDA card.
+
+    Raises RuntimeError when CUDA is asked for (explicitly or by default)
+    and this process has no usable CUDA device."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available to this process; the port runs "
+            "on the card by default — pass device='cpu' to run the plain "
+            "PyTorch versions on the host instead")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev

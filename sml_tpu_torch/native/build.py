@@ -1,0 +1,114 @@
+"""Build the port's CUDA kernels with `nvcc` and load them with `ctypes`.
+
+Each `csrc/<name>.cu` exposes a plain C interface (every pointer and the
+stream a `void*`, sizes as `int`, a `cudaError_t` returned as `int`), so
+it compiles in seconds without PyTorch's headers. The shared library goes
+to `sml_tpu_torch/native/build/` at first use, one per source, keyed by
+the source's content hash so an edited source rebuilds.
+
+Unlike the JAX package's g++ build (`sml_tpu/native/build.py`), which
+returns None and lets the caller fall back, a failed build RAISES: a
+card without its kernel is a broken install, not a slower path.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from typing import Dict, Iterable
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC_DIR = os.path.join(os.path.dirname(_HERE), "csrc")
+BUILD_DIR = os.path.join(_HERE, "build")
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
+
+_libs: Dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+class KernelBuildError(RuntimeError):
+    """`nvcc` is missing or refused a kernel source."""
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: `$CUDA_HOME/bin/nvcc`, else `nvcc` on PATH,
+    else the toolkit's default location."""
+    cands = []
+    if os.environ.get("CUDA_HOME"):
+        cands.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    found = shutil.which("nvcc")
+    if found:
+        cands.append(found)
+    cands.append("/usr/local/cuda/bin/nvcc")
+    for c in cands:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise KernelBuildError(
+        "nvcc not found (set CUDA_HOME or put nvcc on PATH): the port's "
+        "CUDA kernels are built from sml_tpu_torch/csrc at first use")
+
+
+def _lib_path(name: str) -> str:
+    src = os.path.join(CSRC_DIR, f"{name}.cu")
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+
+
+def _compile(name: str, out: str) -> None:
+    src = os.path.join(CSRC_DIR, f"{name}.cu")
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, src]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise KernelBuildError(
+            f"nvcc failed on {src} (exit {proc.returncode}):\n"
+            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+
+
+def build(names: Iterable[str]) -> None:
+    """Compile every named source that has no current library, all
+    `nvcc` processes started together. Raises KernelBuildError."""
+    todo = [(n, _lib_path(n)) for n in names]
+    todo = [(n, p) for n, p in todo if not os.path.exists(p)]
+    errors = []
+    threads = []
+    for n, p in todo:
+        def run(n=n, p=p):
+            try:
+                _compile(n, p)
+            except KernelBuildError as e:
+                errors.append(e)
+        t = threading.Thread(target=run, name=f"nvcc-{n}")
+        t.start()
+        threads.append(t)
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of `csrc/<name>.cu`, built on first use."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            path = _lib_path(name)
+            if not os.path.exists(path):
+                build([name])
+            lib = ctypes.CDLL(path)
+            _libs[name] = lib
+        return lib
+
+
+def kernel_sources() -> list:
+    """Names of every kernel source under `csrc/`."""
+    return sorted(f[:-3] for f in os.listdir(CSRC_DIR) if f.endswith(".cu"))

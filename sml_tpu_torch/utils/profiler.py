@@ -1,0 +1,72 @@
+"""Engine counters and op-level timing spans.
+
+Counterpart of `sml_tpu/utils/profiler.py`: `count`, `span` and `now`,
+without the flight-recorder, audit and watchdog hooks. Counters always
+count (the serving `serve.*` counters are the batcher's own record of
+requests, batches and sheds); spans are kept only while the profiler is
+enabled, so a long-running server does not grow a span list.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import threading
+import time
+from dataclasses import dataclass, field
+from typing import Dict, Iterator, List, Optional
+
+
+def now() -> float:
+    """The engine's monotonic clock, in seconds."""
+    return time.perf_counter()
+
+
+@dataclass
+class Span:
+    name: str
+    wall_s: float
+    rows: Optional[int] = None
+    meta: Dict[str, object] = field(default_factory=dict)
+
+
+class Profiler:
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._spans: List[Span] = []
+        self._counters: Dict[str, float] = {}
+        self.enabled = False
+
+    def count(self, name: str, inc: float = 1.0) -> None:
+        with self._lock:
+            self._counters[name] = self._counters.get(name, 0.0) + inc
+
+    def counters(self) -> Dict[str, float]:
+        with self._lock:
+            return dict(self._counters)
+
+    @contextlib.contextmanager
+    def span(self, name: str, rows: Optional[int] = None,
+             **meta) -> Iterator[None]:
+        """Wall time of the enclosed block, kept when `enabled`."""
+        if not self.enabled:
+            yield
+            return
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            dt = time.perf_counter() - t0
+            with self._lock:
+                self._spans.append(Span(name, dt, rows, meta))
+
+    def spans(self) -> List[Span]:
+        with self._lock:
+            return list(self._spans)
+
+    def reset(self) -> None:
+        with self._lock:
+            self._spans.clear()
+            self._counters.clear()
+
+
+PROFILER = Profiler()
