@@ -14,16 +14,36 @@ Phases:
    the tree models the repository fits (ML 11 XGBoost, ML 07 random
    forest, ML 06 decision tree, a uint16 and an int32 bin matrix), at
    4,096 and 100,000 rows;
-4. main path: an ML 11-shaped model (40 trees, depth 6, 10 features, 64
-   bins) built through the port's loader, scored through
+4. main path, serving: an ML 11-shaped model (40 trees, depth 6, 10
+   features, 64 bins) built through the port's loader, scored through
    `DeviceScorer.score_block` (100,000 rows), evaluated through the fused
    `forest_eval_fn` (exp link, 20,000 labelled rows) and served through
    `MicroBatcher` (96 concurrent requests of 1-64 rows), with the
    kernel's launch count read around it;
-5. times: the kernel, its plain version and its bound at the ML 11
+5. times: the kernel (CUDA-event median of one call, and device time
+   by `torch.profiler`), its plain version and its bound at the ML 11
    shape, beside the card's name and power limit;
 6. breakdown: where one `score_block` call spends its time (binning,
-   staging, kernel, copy back), at 4,096 and 100,000 rows.
+   staging, kernel, copy back), at 4,096 and 100,000 rows;
+7. fit kernels: `hist_accumulate` against its plain version at the ML 11
+   shape (80,000 rows, 64 bins, uint8) for 1-32 slots, at ML 06 (40
+   bins), with uint16 (300 bins) and int32 (70,000 bins) matrices and
+   ~20% zero weights, each launched twice and required bit-identical;
+   `split_scan` against its plain version, exactly, on histograms of
+   dyadic values with ties, masked, all-masked and NaN nodes;
+8. main path, fit: 100,000 seeded ML 11-shaped rows split 80,000 /
+   20,000; `XgboostRegressor` (ML 11: 40 trees, depth 6, 64 bins, step
+   0.15) and `DecisionTreeRegressor` (ML 06: depth 5, 40 bins) fit on the
+   card, with every kernel launch counted, then scored through
+   `DeviceScorer.score_block`; the course's rmse ordering; the same two
+   fits at 16,000 rows on the card and on the CPU agree;
+9. fit times: each fit kernel, its plain version, its bound and (for
+   `hist_accumulate`) one `index_add_` at the ML 11 shape; beside the
+   float64-summing `hist_accumulate`, its f32-accumulating build (timed
+   only, never used by the port) and the cells where each differs from
+   the plain version on the CPU; and where one ML 11 fit spends its time
+   (host binning, staging, kernel device time, the rest), with the
+   card's busy share from `torch.profiler`.
 
 The second-to-last line is a JSON object listing each kernel; the last
 is {"ok": true, "device": {...}}.
@@ -48,6 +68,13 @@ F32_OPS_PER_S = 67e12
 #: the tolerance of kernel against plain: the leaf choice is exact and
 #: only the f32 sum over trees may be ordered differently
 RTOL = 1e-5
+#: histogram cells: |kernel - plain| <= HIST_RTOL * (the cell summed over
+#: |contributions|) + 1e-30; both sum in float64 in another order and
+#: round to f32 once
+HIST_RTOL = 1e-5
+#: held-out rmse of a fit on the card and the same fit on the CPU: the
+#: golden tolerance, max(1e-3, 1e-5 * |rmse|)
+RMSE_ATOL, RMSE_RTOL = 1e-3, 1e-5
 
 
 def card_line() -> str:
@@ -146,6 +173,24 @@ def time_ms(fn, reps: int) -> float:
     return float(np.median(times))
 
 
+def device_ms(fn, reps: int):
+    """Device time of one call by `torch.profiler`: the kernels' device
+    time over `reps` calls, divided by `reps` (the CUDA-event median of
+    `time_ms` also holds the host's gap before the launch). None when
+    the profiler sees no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(float(getattr(ev, "self_device_time_total", 0.0))
+                for ev in prof.key_averages())
+    return total / 1e3 / reps if total > 0 else None
+
+
 def assert_close(got: np.ndarray, want: np.ndarray, what: str) -> float:
     got = np.asarray(got, np.float64)
     want = np.asarray(want, np.float64)
@@ -218,6 +263,18 @@ def ml11_rows(rng, n: int, cats):
     y = 5.0 + 0.3 * X[:, 3] - 0.2 * np.nan_to_num(X[:, 4]) \
         + rng.normal(0, 0.4, n)
     return X, y
+
+
+def fit_labels(rng, X):
+    """Log-price labels for the fit phases, on ML 11-shaped rows: a
+    linear part, per-category offsets of the 36-value categorical, a
+    smooth interaction and noise, so that the boosted ensemble has
+    structure to find that one depth-5 tree cannot hold."""
+    offsets = (np.arange(36) % 7 - 3) * 0.12
+    return (4.8 + 0.3 * X[:, 3] - 0.2 * np.nan_to_num(X[:, 4])
+            + offsets[X[:, 0].astype(np.int64)]
+            + 0.25 * np.tanh(X[:, 6]) * X[:, 7] + 0.2 * (X[:, 1] == 1)
+            + rng.normal(0.0, 0.25, X.shape[0]))
 
 
 def phase_main_path(seed: int, device) -> dict:
@@ -337,8 +394,9 @@ def phase_main_path(seed: int, device) -> dict:
 
 
 def phase_times(seed: int, device, card: str) -> dict:
-    """Kernel, plain and bound at the ML 11 shape, 4096 and 100000 rows.
-    Returns the 100000-row numbers for the kernels line."""
+    """Kernel (CUDA-event median and profiler device time), plain and
+    bound at the ML 11 shape, 4096 and 100000 rows. Returns the
+    100000-row numbers for the kernels line."""
     from sml_tpu_torch.native import traverse_kernel as tk
     out = {}
     for n_rows in (4096, 100_000):
@@ -348,14 +406,16 @@ def phase_times(seed: int, device, card: str) -> dict:
         launches = tk.LAUNCHES
         k_ms = time_ms(lambda: tk.forest_traverse(binned, sf, sb, lv, w,
                                                   depth=depth), 50)
+        d_ms = device_ms(lambda: tk.forest_traverse(binned, sf, sb, lv, w,
+                                                    depth=depth), 50)
         p_ms = time_ms(lambda: tk.forest_margin_plain(binned, sf, sb, lv,
                                                       w, depth), 5)
         tk.LAUNCHES = launches  # timing launches are not the main path's
         b_ms, b_by = bound_ms(binned, sf, sb, depth)
         print(f"time  forest_traverse  ML 11 T=40 depth=6 F=10 uint8 "
-              f"rows={n_rows}: kernel {k_ms!r} ms, plain {p_ms!r} ms, "
-              f"bound {b_ms!r} ms ({b_by}); card {card}")
-        out[n_rows] = (k_ms, p_ms, b_ms, b_by)
+              f"rows={n_rows}: kernel {k_ms!r} ms (device {d_ms!r} ms), "
+              f"plain {p_ms!r} ms, bound {b_ms!r} ms ({b_by}); card {card}")
+        out[n_rows] = (k_ms, d_ms, p_ms, b_ms, b_by)
     return out
 
 
@@ -397,6 +457,508 @@ def phase_breakdown(seed: int, device, card: str) -> None:
     tk.LAUNCHES = launches  # not the main path's launches
 
 
+# ------------------------------------------------------------ fit kernels
+HIST_SHAPES = [
+    # name, rows, bins, bin dtype, slot counts
+    ("ML 11", 80_000, 64, np.uint8, (1, 2, 4, 8, 16, 32)),
+    ("ML 06", 80_000, 40, np.uint8, (1, 2, 4, 8, 16)),
+    ("uint16 bins", 80_000, 300, np.uint16, (8, 32)),
+    ("int32 bins", 80_000, 70_000, np.int32, (2,)),
+]
+SCAN_SHAPES = [
+    # name, bins, node counts
+    ("ML 11", 64, (1, 2, 4, 8, 16, 32)),
+    ("ML 06", 40, (16,)),
+    ("uint16 bins", 300, (32,)),
+    ("histogram past 48 KB a node", 5000, (4,)),
+]
+
+
+def hist_operands(rng, n: int, n_bins: int, dtype, n_slots: int, device):
+    """Seeded rows for one histogram launch: uniform bins and slots,
+    normal gradients, Hessians in [0.1, 1], whole weights with ~20%
+    zeros."""
+    def to(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    binned = rng.integers(0, n_bins, size=(n, N_FEAT)).astype(dtype)
+    lid = rng.integers(0, n_slots, size=n).astype(np.int32)
+    grad = rng.normal(0.0, 1.0, n).astype(np.float32)
+    hess = rng.uniform(0.1, 1.0, n).astype(np.float32)
+    weight = rng.integers(1, 3, n).astype(np.float32)
+    weight[rng.random(n) < 0.2] = 0.0
+    return to(binned), to(lid), to(grad), to(hess), to(weight)
+
+
+def dyadic_hist(rng, n_bins: int, width: int, device):
+    """An (F, B, W, 3) histogram of multiples of 1/8, 1/4 and whole
+    counts (every prefix sum exact in f32) with a repeated feature
+    (exact ties), an all-in-one-bin node, a zero-Hessian node and a node
+    whose squared sums overflow to NaN scores; and a feature mask with
+    some features and one whole node masked."""
+    h = np.zeros((N_FEAT, n_bins, width, 3), np.float32)
+    h[..., 0] = rng.integers(-64, 64, size=h.shape[:3]) / 8.0
+    h[..., 2] = rng.integers(0, 6, size=h.shape[:3])
+    h[..., 1] = h[..., 2] * rng.integers(1, 5, size=h.shape[:3]) / 4.0
+    h[1] = h[0]
+    fmask = (rng.random((width, N_FEAT)) > 0.2).astype(np.float32)
+    fmask[:, 0] = 1.0
+    for w, kind in enumerate(("one bin", "no hessian", "overflow",
+                              "masked")[:max(width - 1, 0)], start=1):
+        if kind == "one bin":
+            h[:, :, w] = 0.0
+            h[:, 2, w] = [1.0, 2.0, 4.0]
+        elif kind == "no hessian":
+            h[:, :, w, 1] = 0.0
+        elif kind == "overflow":
+            h[:, :, w, 0] = np.where(np.arange(n_bins) % 2 == 0, 2.0 ** 70,
+                                     0.0)
+            h[:, :, w, 1] = 0.0
+        else:
+            fmask[w] = 0.0
+    return torch.from_numpy(h).to(device), torch.from_numpy(fmask).to(device)
+
+
+def phase_fit_kernels(seed: int, device) -> dict:
+    """Each fit kernel against its plain version at every shape; returns
+    the largest absolute differences seen."""
+    from sml_tpu_torch.native import hist_kernel as hk
+    worst = {"hist_accumulate": 0.0, "split_scan": 0.0}
+    for i, (name, n, n_bins, dtype, slots) in enumerate(HIST_SHAPES):
+        for n_slots in slots:
+            rng = np.random.default_rng([seed, 21, i, n_slots])
+            b, lid, g, h, w = hist_operands(rng, n, n_bins, dtype, n_slots,
+                                            device)
+            got = hk.hist_accumulate(b, lid, g, h, w, n_bins=n_bins,
+                                     n_slots=n_slots)
+            again = hk.hist_accumulate(b, lid, g, h, w, n_bins=n_bins,
+                                       n_slots=n_slots)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"hist_accumulate {name} S={n_slots}: "
+                                     f"two launches differ")
+            want = hk.hist_accumulate_plain(b, lid, g, h, w, n_bins, n_slots)
+            scale = hk.hist_accumulate_plain(b, lid, g.abs(), h.abs(), w,
+                                             n_bins, n_slots)
+            err = (got - want).abs()
+            if not bool((err <= HIST_RTOL * scale + 1e-30).all()):
+                raise AssertionError(f"hist_accumulate {name} S={n_slots}: "
+                                     f"max abs err {float(err.max())}")
+            if not torch.equal(got[:, 2::3], want[:, 2::3]):
+                raise AssertionError(f"hist_accumulate {name} S={n_slots}: "
+                                     f"weight sums differ")
+            differ = int((got != want).sum())
+            print(f"kernel-vs-plain  hist_accumulate  {name:<12} "
+                  f"rows={n} bins={n_bins} S={n_slots:<2} dtype={b.dtype} "
+                  f"{hk.hist_plan(n, N_FEAT, n_bins, n_slots)} "
+                  f"max_abs_err={float(err.max()):.3e} cells_differing="
+                  f"{differ}/{got.numel()}  deterministic  ok")
+            worst["hist_accumulate"] = max(worst["hist_accumulate"],
+                                           float(err.max()))
+    for i, (name, n_bins, widths) in enumerate(SCAN_SHAPES):
+        for width in widths:
+            err = 0.0
+            for lam, gamma, mi in ((1.0, 0.0, 1.0), (0.0, 0.25, 3.0)):
+                rng = np.random.default_rng([seed, 22, i, width, int(mi)])
+                hist, fmask = dyadic_hist(rng, n_bins, width, device)
+                mi_t = torch.full((1, 1), mi, device=device)
+                got = hk.split_scan(hist, fmask, mi_t, reg_lambda=lam,
+                                    gamma=gamma)
+                torch.cuda.synchronize()
+                want = hk.split_scan_plain(hist, fmask, mi_t, lam, gamma)
+                np.testing.assert_array_equal(
+                    got.cpu().numpy(), want.cpu().numpy(),
+                    err_msg=f"split_scan {name} W={width} lam={lam}")
+                err = max(err, pack_err(got, want))
+            worst["split_scan"] = max(worst["split_scan"], err)
+            print(f"kernel-vs-plain  split_scan  {name:<28} bins={n_bins} "
+                  f"W={width:<2} max_abs_err={err:.3e} exact (ties, masked, "
+                  f"NaN nodes)  ok")
+    return worst
+
+
+def pack_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest |got - want| over a pack: 0 where the two are equal or
+    both NaN (the overflow nodes' gains), inf where only one is NaN."""
+    same = (got == want) | (torch.isnan(got) & torch.isnan(want))
+    d = torch.where(same, torch.zeros_like(got), (got - want).abs())
+    return float(torch.nan_to_num(d, nan=float("inf")).max())
+
+
+def _rmse(pred, label) -> float:
+    d = np.asarray(pred, np.float64) - np.asarray(label, np.float64)
+    return float(np.sqrt(np.mean(d * d)))
+
+
+class KernelWatch:
+    """Counts the plain versions' calls on CUDA tensors while it is
+    installed, and optionally times every wrapper call with CUDA events."""
+
+    def __init__(self, timed: bool = False):
+        from sml_tpu_torch.native import hist_kernel as hk
+        self.hk = hk
+        self.timed = timed
+        self.plain_on_cuda = 0
+        self.events = {"hist_accumulate": [], "split_scan": []}
+        self.saved = {}
+
+    def __enter__(self):
+        hk = self.hk
+        for name in ("hist_accumulate_plain", "split_scan_plain"):
+            fn = getattr(hk, name)
+            self.saved[name] = fn
+
+            def watched(*args, _fn=fn, **kw):
+                if args[0].device.type == "cuda":
+                    self.plain_on_cuda += 1
+                return _fn(*args, **kw)
+            setattr(hk, name, watched)
+        if self.timed:
+            for name in ("hist_accumulate", "split_scan"):
+                fn = getattr(hk, name)
+                self.saved[name] = fn
+
+                def timed_call(*args, _fn=fn, _name=name, **kw):
+                    a = torch.cuda.Event(enable_timing=True)
+                    b = torch.cuda.Event(enable_timing=True)
+                    a.record()
+                    out = _fn(*args, **kw)
+                    b.record()
+                    self.events[_name].append((a, b))
+                    return out
+                setattr(hk, name, timed_call)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.hk, name, fn)
+
+    def kernel_ms(self) -> dict:
+        torch.cuda.synchronize()
+        return {k: sum(a.elapsed_time(b) for a, b in v)
+                for k, v in self.events.items()}
+
+
+def _fit_xgb(X, logy, cats, device):
+    """The ML 11 fit of the course: XGBoost on log price."""
+    from sml_tpu_torch.xgboost import XgboostRegressor
+    return XgboostRegressor(n_estimators=40, learning_rate=0.15, max_depth=6,
+                            max_bins=64, random_state=42).fit(
+        X, logy, categorical=cats, device=device)
+
+
+def _fit_dt(X, logy, cats, device):
+    """The ML 06 fit of the course: a decision tree on price."""
+    from sml_tpu_torch.ml._tree_models import DecisionTreeRegressor
+    return DecisionTreeRegressor(maxDepth=5, maxBins=40).fit(
+        X, np.exp(logy), categorical=cats, device=device)
+
+
+def _held_out(xgb, dt, X, logy, device) -> tuple:
+    """Held-out rmse of both models on price, through the scorer."""
+    from sml_tpu_torch.ml.inference import DeviceScorer
+    price = np.exp(logy)
+    r_xgb = _rmse(np.exp(DeviceScorer(xgb, device=device).score_block(X)),
+                  price)
+    r_dt = _rmse(DeviceScorer(dt, device=device).score_block(X), price)
+    return r_xgb, r_dt
+
+
+def phase_fit(seed: int, device) -> dict:
+    """The fit slice's main path through the estimators, with every
+    kernel's launches counted; the course ordering; and agreement of the
+    card with the CPU at 16,000 rows."""
+    from sml_tpu_torch.native import hist_kernel as hk
+    from sml_tpu_torch.native import traverse_kernel as tk
+    from sml_tpu_torch.utils.profiler import PROFILER
+    cats = {0: 36, 1: 3, 2: 20}
+    rng = np.random.default_rng([seed, 31])
+    X, _ = ml11_rows(rng, 100_000, cats)
+    logy = fit_labels(rng, X)
+    Xtr, ytr, Xte, yte = X[:80_000], logy[:80_000], X[80_000:], logy[80_000:]
+
+    launches, walls, models = {}, {}, {}
+    with KernelWatch() as watch:
+        tk.LAUNCHES = 0
+        PROFILER.reset()
+        for name, fit in (("xgb", _fit_xgb), ("dt", _fit_dt)):
+            for k in hk.LAUNCHES:
+                hk.LAUNCHES[k] = 0
+            t0 = time.perf_counter()
+            models[name] = fit(Xtr, ytr, cats, None)
+            walls[name] = time.perf_counter() - t0
+            launches[name] = dict(hk.LAUNCHES)
+        xgb, dt = models["xgb"], models["dt"]
+        r_xgb, r_dt = _held_out(xgb, dt, Xte, yte, None)
+        traverse = tk.LAUNCHES
+    dispatches = PROFILER.counters().get("tree.fit_dispatch", 0.0)
+    base = _rmse(np.full(len(yte), np.exp(ytr).mean()), np.exp(yte))
+    print(f"main-path fit  XgboostRegressor 80000 rows: "
+          f"{walls['xgb'] * 1e3!r} ms, launches {launches['xgb']}; "
+          f"DecisionTreeRegressor: {walls['dt'] * 1e3!r} ms, launches "
+          f"{launches['dt']}; tree.fit_dispatch="
+          f"{dispatches!r}; forest_traverse launches={traverse} (host clock, "
+          f"first fits: binning, staging and copies included)")
+    print(f"main-path fit  held-out rmse (price, 20000 rows): xgb={r_xgb!r} "
+          f"dt={r_dt!r} mean-label baseline={base!r}")
+    want = {"xgb": 40 * 6, "dt": 5}
+    for model, n in want.items():
+        for k, got in launches[model].items():
+            if got != n:
+                raise AssertionError(f"{model} fit launched {k} {got} "
+                                     f"times, not {n}")
+    if watch.plain_on_cuda:
+        raise AssertionError(f"the plain versions ran {watch.plain_on_cuda} "
+                             f"times on CUDA tensors")
+    if dispatches != 2 or traverse <= 0:
+        raise AssertionError(f"{dispatches} fit dispatches, {traverse} "
+                             f"traversal launches")
+    if xgb.getNumTrees() != 40 or dt.getNumTrees() != 1:
+        raise AssertionError("wrong tree counts")
+    if not r_xgb < r_dt < base:
+        raise AssertionError(f"course ordering broken: xgb {r_xgb}, dt "
+                             f"{r_dt}, baseline {base}")
+
+    # the same fits on 16,000 rows, on the card and with the plain
+    # versions on the CPU
+    small = slice(0, 16_000)
+    card = [fit(Xtr[small], ytr[small], cats, None)
+            for fit in (_fit_xgb, _fit_dt)]
+    host = [fit(Xtr[small], ytr[small], cats, "cpu")
+            for fit in (_fit_xgb, _fit_dt)]
+    r_card = _held_out(*card, Xte, yte, None)
+    r_host = _held_out(*host, Xte, yte, "cpu")
+    same = sum(np.array_equal(a.split_feature, b.split_feature)
+               and np.array_equal(a.split_bin, b.split_bin)
+               for a, b in zip(card[0]._spec.trees + card[1]._spec.trees,
+                               host[0]._spec.trees + host[1]._spec.trees))
+    print(f"fit card-vs-cpu 16000 rows: rmse xgb {r_card[0]!r} vs "
+          f"{r_host[0]!r}, dt {r_card[1]!r} vs {r_host[1]!r}; {same} of 41 "
+          f"trees with identical split tables")
+    for a, b in zip(r_card, r_host):
+        if abs(a - b) > max(RMSE_ATOL, RMSE_RTOL * abs(b)):
+            raise AssertionError(f"card rmse {a} vs cpu rmse {b}")
+    return {"launches": {k: launches["xgb"][k] + launches["dt"][k]
+                         for k in hk.LAUNCHES}}
+
+
+def hist_bound_ms(binned, weight, n_bins: int, n_slots: int):
+    """(ms, by): the bytes `hist_accumulate` must move (bins, slot ids
+    and three f32 per row read once; the (F*B, S*3) f32 histogram
+    written once) over HBM bandwidth, against its operations (per row
+    with w > 0: two products and 3 adds for each of its F cells) over
+    the f32 rate. The sums run in float64, whose rate is not among the
+    published peaks above; they are counted at the f32 rate."""
+    n, n_feat = binned.shape
+    nbytes = n * (n_feat * binned.element_size() + 16) \
+        + n_feat * n_bins * n_slots * 12
+    ops = int((weight > 0).sum()) * (2 + 3 * n_feat)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def scan_bound_ms(hist):
+    """(ms, by): the (F, B, W, 3) histogram, the (W, F) mask and the
+    scalar read once and the (6, W) pack written once, against ~16 f32
+    operations per (node, feature, bin) candidate (3 prefix adds, 2
+    squares, 2 divisions, 7 adds and subtractions, 2 compares)."""
+    n_feat, n_bins, width = hist.shape[:3]
+    nbytes = hist.numel() * 4 + width * n_feat * 4 + 4 + 6 * width * 4
+    ops = 16 * n_feat * n_bins * width
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def hist_f32acc_launcher():
+    """A call of the f32-accumulating build of the `hist_accumulate`
+    kernel (entry point `sml_hist_accumulate_f32acc` of the same source),
+    launched as the port's wrapper launches the float64 one, with its own
+    plan: 12-byte cells, so a tile holds up to twice the features. The
+    port never calls it; it is timed beside the float64 kernel to price
+    the float64 sums."""
+    import ctypes
+    from sml_tpu_torch.native import build
+    from sml_tpu_torch.native import hist_kernel as hk
+    fn = build.load("hist_accumulate").sml_hist_accumulate_f32acc
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 7 \
+        + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def launch(binned, lid, grad, hess, weight, n_bins, n_slots):
+        n, n_feat = binned.shape
+        plan = hk.hist_plan(n, n_feat, n_bins, n_slots, acc_bytes=4)
+        out = torch.empty((n_feat * n_bins, n_slots * 3),
+                          dtype=torch.float32, device=binned.device)
+        scratch = torch.empty((plan.n_chunks, n_feat * n_bins * n_slots * 3),
+                              dtype=torch.float32, device=binned.device)
+        err = fn(hk._BIN_BYTES[binned.dtype], binned.data_ptr(),
+                 lid.data_ptr(), grad.data_ptr(), hess.data_ptr(),
+                 weight.data_ptr(), scratch.data_ptr(), out.data_ptr(), n,
+                 n_feat, n_bins, n_slots, plan.chunk_rows, plan.n_chunks,
+                 plan.ft, plan.bt, plan.st,
+                 torch.cuda.current_stream(binned.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"f32-accumulating hist_accumulate: CUDA "
+                               f"error {err} ({plan})")
+        return out
+    return launch
+
+
+def phase_fit_times(seed: int, device, card: str) -> dict:
+    """Kernel, plain, bound and library times of the fit kernels at the
+    ML 11 shape; returns the numbers of the kernels line. Beside the
+    float64 `hist_accumulate`, times its f32-accumulating build and
+    counts the cells where each differs from the plain version on the
+    CPU (what a CPU fit computes)."""
+    from sml_tpu_torch.native import hist_kernel as hk
+    saved = dict(hk.LAUNCHES)
+    f32acc = hist_f32acc_launcher()
+    out = {}
+    for n_slots in (16, 32):
+        rng = np.random.default_rng([seed, 41, n_slots])
+        b, lid, g, h, w = hist_operands(rng, 80_000, 64, np.uint8, n_slots,
+                                        device)
+        k_ms = time_ms(lambda: hk.hist_accumulate(
+            b, lid, g, h, w, n_bins=64, n_slots=n_slots), 50)
+        d_ms = device_ms(lambda: hk.hist_accumulate(
+            b, lid, g, h, w, n_bins=64, n_slots=n_slots), 50)
+        p_ms = time_ms(lambda: hk.hist_accumulate_plain(
+            b, lid, g, h, w, 64, n_slots), 5)
+        # the library yardstick: one index_add_ of the (row, feature)
+        # contributions on precomputed flat cell indices
+        ok = (w > 0)[:, None].expand(-1, N_FEAT)
+        cell = ((torch.arange(N_FEAT, device=device)[None, :] * 64
+                 + b.to(torch.int64)) * n_slots + lid.to(torch.int64)[:, None])
+        src = torch.stack([g * w, h * w, w], 1)[:, None, :] \
+            .expand(-1, N_FEAT, 3)[ok].contiguous()
+        idx = cell[ok].contiguous()
+        acc = torch.zeros((N_FEAT * 64 * n_slots, 3), device=device)
+        l_ms = time_ms(lambda: acc.index_add_(0, idx, src), 50)
+        b_ms, b_by = hist_bound_ms(b, w, 64, n_slots)
+        print(f"time  hist_accumulate  ML 11 80000 rows F=10 B=64 uint8 "
+              f"S={n_slots}: kernel {k_ms!r} ms (device {d_ms!r} ms), plain "
+              f"{p_ms!r} ms, index_add_ {l_ms!r} ms, bound {b_ms!r} ms "
+              f"({b_by}); card {card}")
+        out[("hist_accumulate", n_slots)] = (k_ms, d_ms, p_ms, b_ms, b_by,
+                                             l_ms)
+        f_ms = time_ms(lambda: f32acc(b, lid, g, h, w, 64, n_slots), 50)
+        fd_ms = device_ms(lambda: f32acc(b, lid, g, h, w, 64, n_slots), 50)
+        cpu = hk.hist_accumulate_plain(b.cpu(), lid.cpu(), g.cpu(), h.cpu(),
+                                       w.cpu(), 64, n_slots)
+        got64 = hk.hist_accumulate(b, lid, g, h, w, n_bins=64,
+                                   n_slots=n_slots).cpu()
+        got32 = f32acc(b, lid, g, h, w, 64, n_slots).cpu()
+        scale = hk.hist_accumulate_plain(b.cpu(), lid.cpu(), g.cpu().abs(),
+                                         h.cpu().abs(), w.cpu(), 64, n_slots)
+        if not bool(((got32 - cpu).abs() <= HIST_RTOL * scale + 1e-30)
+                    .all()):
+            raise AssertionError(f"f32-accumulating hist_accumulate S="
+                                 f"{n_slots} disagrees with the plain "
+                                 f"version")
+        d64, d32 = int((got64 != cpu).sum()), int((got32 != cpu).sum())
+        print(f"time  hist_accumulate f32-accumulating build  ML 11 80000 "
+              f"rows S={n_slots} {hk.hist_plan(80_000, N_FEAT, 64, n_slots, 4)}"
+              f": kernel {f_ms!r} ms (device {fd_ms!r} ms) against float64 "
+              f"{k_ms!r} ms (device {d_ms!r} ms); cells differing from the "
+              f"CPU plain version: float64 {d64}, f32 {d32} of {cpu.numel()}"
+              f"; card {card}")
+        out[("hist_f32acc", n_slots)] = (f_ms, fd_ms, d64, d32)
+    rng = np.random.default_rng([seed, 42])
+    hist = torch.from_numpy(
+        rng.normal(size=(N_FEAT, 64, 32, 3)).astype(np.float32)).to(device)
+    hist[..., 1:] = hist[..., 1:].abs()
+    fmask = torch.ones((32, N_FEAT), device=device)
+    mi = torch.ones((1, 1), device=device)
+    k_ms = time_ms(lambda: hk.split_scan(hist, fmask, mi, reg_lambda=1.0,
+                                         gamma=0.0), 50)
+    d_ms = device_ms(lambda: hk.split_scan(hist, fmask, mi, reg_lambda=1.0,
+                                           gamma=0.0), 50)
+    p_ms = time_ms(lambda: hk.split_scan_plain(hist, fmask, mi, 1.0, 0.0), 5)
+    b_ms, b_by = scan_bound_ms(hist)
+    print(f"time  split_scan  ML 11 F=10 B=64 W=32: kernel {k_ms!r} ms "
+          f"(device {d_ms!r} ms), plain {p_ms!r} ms, bound {b_ms!r} ms "
+          f"({b_by}); card {card}")
+    out[("split_scan", 32)] = (k_ms, d_ms, p_ms, b_ms, b_by, None)
+    hk.LAUNCHES.update(saved)  # timing launches are not the main path's
+    return out
+
+
+def phase_fit_breakdown(seed: int, card: str) -> None:
+    """Where one ML 11 XGBoost fit on fresh rows spends its time: host
+    binning, staging, the fit loop (its kernels' device time by CUDA
+    events around each launch, and the rest: Python glue and small torch
+    ops), host clock. Then the same fit under `torch.profiler`: the
+    card's busy time over the fit loop's wall time."""
+    from sml_tpu_torch.native import hist_kernel as hk
+    from sml_tpu_torch.utils.profiler import PROFILER
+    from sml_tpu_torch.xgboost import XgboostRegressor
+    saved = dict(hk.LAUNCHES)
+    cats = {0: 36, 1: 3, 2: 20}
+    rng = np.random.default_rng([seed, 51])
+    X, _ = ml11_rows(rng, 80_000, cats)
+    logy = fit_labels(rng, X)
+
+    def fit():
+        return XgboostRegressor(n_estimators=40, learning_rate=0.15,
+                                max_depth=6, max_bins=64).fit(
+            X, logy, categorical=cats)
+
+    PROFILER.reset()
+    PROFILER.enabled = True
+    try:
+        with KernelWatch(timed=True) as watch:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fit()
+            wall = time.perf_counter() - t0
+            kms = watch.kernel_ms()
+        spans = {}
+        for sp in PROFILER.spans():
+            spans[sp.name] = spans.get(sp.name, 0.0) + sp.wall_s * 1e3
+    finally:
+        PROFILER.enabled = False
+    prog = spans.get("program.tree_ensemble", 0.0)
+    kern = kms["hist_accumulate"] + kms["split_scan"]
+    print(f"breakdown  XgboostRegressor ML 11 80000 rows, fresh rows: "
+          f"whole fit {wall * 1e3!r} ms; binning.fit "
+          f"{spans.get('binning.fit', 0.0)!r} ms; staging.fit "
+          f"{spans.get('staging.fit', 0.0)!r} ms; fit loop {prog!r} ms, of "
+          f"which kernel time by events {kern!r} ms (hist_accumulate "
+          f"{kms['hist_accumulate']!r}, split_scan {kms['split_scan']!r}) "
+          f"and the rest {prog - kern!r} ms (host clock); card {card}")
+
+    from torch.profiler import ProfilerActivity, profile
+    PROFILER.reset()
+    PROFILER.enabled = True
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fit()
+            torch.cuda.synchronize()
+        prog = sum(sp.wall_s for sp in PROFILER.spans()
+                   if sp.name == "program.tree_ensemble") * 1e3
+    finally:
+        PROFILER.enabled = False
+    busy = {}
+    for ev in prof.key_averages():
+        t = float(getattr(ev, "self_device_time_total",
+                          getattr(ev, "self_cuda_time_total", 0.0))) / 1e3
+        if t > 0:
+            busy[ev.key] = busy.get(ev.key, 0.0) + t
+    total = sum(busy.values())
+    if total <= 0:
+        print("breakdown  torch.profiler saw no device time: busy share "
+              "not measured")
+    else:
+        top = sorted(busy.items(), key=lambda kv: -kv[1])[:6]
+        print(f"breakdown  torch.profiler over one fit: device busy "
+              f"{total!r} ms over a fit loop of {prog!r} ms (busy share "
+              f"{total / prog!r}, profiler on); top kernels "
+              + "; ".join(f"{k[:60]} {v!r} ms" for k, v in top))
+    hk.LAUNCHES.update(saved)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -420,16 +982,43 @@ def main(argv=None) -> int:
     main_path = phase_main_path(args.seed, device)
     times = phase_times(args.seed, device, card)
     phase_breakdown(args.seed, device, card)
+    fit_err = phase_fit_kernels(args.seed, device)
+    fit = phase_fit(args.seed, device)
+    fit_times = phase_fit_times(args.seed, device, card)
+    phase_fit_breakdown(args.seed, card)
 
-    k_ms, p_ms, b_ms, b_by = times[100_000]
+    k_ms, d_ms, p_ms, b_ms, b_by = times[100_000]
     kernels = [{
         "name": "forest_traverse", "route": "cuda",
         "source": "sml_tpu_torch/csrc/forest_traverse.cu",
         "replaces": "sml_tpu/native/traverse_kernel.py:109",
         "launches": main_path["launches"], "max_abs_err": err,
-        "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": None,
+        "ms": k_ms, "device_ms": d_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+        "bound_by": b_by, "library_ms": None,
         "shape": "ML 11: T=40 depth=6 F=10 uint8, 100000 rows"}]
+    k_ms, d_ms, p_ms, b_ms, b_by, l_ms = fit_times[("hist_accumulate", 16)]
+    kernels.append({
+        "name": "hist_accumulate", "route": "cuda",
+        "source": "sml_tpu_torch/csrc/hist_accumulate.cu",
+        "replaces": "sml_tpu/native/hist_kernel.py:128",
+        "launches": fit["launches"]["hist_accumulate"],
+        "max_abs_err": fit_err["hist_accumulate"], "ms": k_ms,
+        "device_ms": d_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+        "bound_by": b_by, "library_ms": l_ms, "deterministic": True,
+        "f32_acc_ms": fit_times[("hist_f32acc", 16)][0],
+        "f32_acc_device_ms": fit_times[("hist_f32acc", 16)][1],
+        "cells_off_cpu_f64": fit_times[("hist_f32acc", 16)][2],
+        "cells_off_cpu_f32": fit_times[("hist_f32acc", 16)][3],
+        "shape": "ML 11: 80000 rows F=10 B=64 uint8, S=16"})
+    k_ms, d_ms, p_ms, b_ms, b_by, _ = fit_times[("split_scan", 32)]
+    kernels.append({
+        "name": "split_scan", "route": "cuda",
+        "source": "sml_tpu_torch/csrc/split_scan.cu",
+        "replaces": "sml_tpu/native/hist_kernel.py:202",
+        "launches": fit["launches"]["split_scan"],
+        "max_abs_err": fit_err["split_scan"], "ms": k_ms, "device_ms": d_ms,
+        "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None, "shape": "ML 11: F=10 B=64 W=32"})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,13 @@
 """Typed configuration registry (the `spark.conf` equivalent), for the
-keys the tree-ensemble serving path reads.
+keys the tree-ensemble serving and fit paths read.
 
 Known keys carry a type and a default; unknown `sml.*` keys raise on
 `get` so a typo cannot silently read a default. Counterpart of
-`sml_tpu/conf.py`, cut to the serving slice.
+`sml_tpu/conf.py`, cut to the ported slices. The JAX package's
+`sml.tree.kernel` and `sml.tree.kernelBlockRows` are not ported: on the
+card there is one path (the kernel, or raise), and block sizes come from
+the shapes, in each kernel's wrapper. Nor is `sml.tree.histSubtraction`:
+the port always builds with subtraction, its default.
 """
 
 from __future__ import annotations

@@ -1,11 +1,12 @@
-"""Staging of compact bin matrices onto the device.
+"""Staging of compact bin matrices and per-row arrays onto the device.
 
 Counterpart of the bin cache of `sml_tpu/ml/_staging.py`
 (`stage_bins_cached`): a quantized bin matrix is copied to the device
 once per content and kept, in its compact dtype (uint8/uint16/int32),
-in an LRU bounded by `sml.tree.binCacheBytes`. Rows are not padded: in
-eager PyTorch nothing compiles per shape, so kernels run on the true
-rows and need no padding mask.
+in an LRU bounded by `sml.tree.binCacheBytes`. Per-row fit arrays
+(the labels) are copied as f32 by `stage_rows`, uncached.
+Rows are not padded: in eager PyTorch nothing compiles per shape, so
+kernels run on the true rows and need no padding mask.
 """
 
 from __future__ import annotations
@@ -105,6 +106,18 @@ def stage_bins_cached(binned: np.ndarray, device: torch.device) -> torch.Tensor:
             while _bin_stage_bytes[0] > budget and len(_bin_stage_cache) > 1:
                 old = next(iter(_bin_stage_cache))
                 _bin_stage_bytes[0] -= _nbytes(_bin_stage_cache.pop(old))
+    return dev
+
+
+def stage_rows(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A per-row host array as a contiguous f32 tensor on `device`,
+    complete before it is returned (like `stage_bins_cached`)."""
+    from ..utils.profiler import PROFILER
+    a = np.ascontiguousarray(a, dtype=np.float32)
+    dev = torch.from_numpy(a).to(device, copy=True)
+    if dev.device.type == "cuda":
+        torch.cuda.current_stream(dev.device).synchronize()
+    PROFILER.count("staging.h2d_bytes", float(a.nbytes))
     return dev
 
 

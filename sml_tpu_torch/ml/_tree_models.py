@@ -1,19 +1,51 @@
-"""Fitted tree-ensemble models, far enough to predict.
+"""Tree-ensemble estimators and models.
 
-Counterpart of `sml_tpu/ml/_tree_models.py` on the predict side:
-`_EnsembleSpec` (the host description of a fitted ensemble, in the same
-arrays the JAX package saves), and the DT/RF/GBT regression and
-classification models over it. Fitting is not ported yet.
+Counterpart of `sml_tpu/ml/_tree_models.py`: `_EnsembleSpec` (the host
+description of a fitted ensemble, in the same arrays the JAX package
+saves), the DT/RF/GBT regression and classification models over it,
+`_fit_ensemble` (the one training path: bin on the host, fit every round
+on the device) and the unsampled estimators `DecisionTreeRegressor`,
+`DecisionTreeClassifier`, `GBTRegressor` and `GBTClassifier`.
+
+The port has no DataFrame: `fit(X, y, categorical=None, device=None)`
+takes a numpy feature matrix and label vector (`categorical` maps a
+feature slot to its cardinality, as the JAX package's `_ml_attrs` do)
+and fits on the card unless `device="cpu"`. Random forests and
+`subsamplingRate < 1` need the sampled-fit slice and are not ported.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, List, Optional
 
 import numpy as np
 
 from .base import load_arrays
-from .tree_impl import Binning, FittedTree, bin_with
+from .tree_impl import (Binning, EnsembleSpec, FittedTree, TreeSpec,
+                        bin_with, feature_importances, fit_ensemble_on_device,
+                        make_bins, require_unsampled)
+
+
+def _feature_k(strategy: str, F: int, is_classification: bool) -> int:
+    s = str(strategy).lower()
+    if s == "auto":
+        s = "sqrt" if is_classification else "onethird"
+    if s == "all":
+        return F
+    if s == "sqrt":
+        return max(1, int(math.sqrt(F)))
+    if s == "log2":
+        return max(1, int(math.log2(F)))
+    if s == "onethird":
+        return max(1, int(F / 3))
+    try:
+        v = float(strategy)
+        if v <= 1.0:
+            return max(1, int(v * F))
+        return min(F, int(v))
+    except ValueError:
+        raise ValueError(f"unknown featureSubsetStrategy {strategy!r}")
 
 
 class _EnsembleSpec:
@@ -103,6 +135,10 @@ class _TreeModelBase:
     def numFeatures(self) -> int:
         return self._spec.n_features
 
+    @property
+    def featureImportances(self) -> np.ndarray:
+        return feature_importances(self._spec.trees, self._spec.n_features)
+
     def getNumTrees(self) -> int:
         return len(self._spec.trees)
 
@@ -127,6 +163,136 @@ class _TreeClassificationModel(_TreeModelBase):
         return (self.predict_probability(X, device) > 0.5).astype(float)
 
 
+def _fit_ensemble(X: np.ndarray, y: np.ndarray, *, categorical: Dict[int, int],
+                  max_depth: int, max_bins: int, min_instances: int,
+                  min_info_gain: float, n_trees: int, feature_k: Optional[int],
+                  bootstrap: bool, subsample: float, seed: int, loss: str,
+                  step_size: float = 0.1, reg_lambda: float = 0.0,
+                  gamma: float = 0.0, boosting: bool = False,
+                  missing: Optional[float] = None,
+                  device=None) -> _EnsembleSpec:
+    """The one training path behind every tree learner: bin on the host,
+    stage the compact bins and the labels on `device` (the card by
+    default), and fit every round there
+    (`tree_impl.fit_ensemble_on_device`). `missing`, when it is a
+    number, becomes NaN before binning (NaN falls in bin 0). `seed` is
+    taken for the JAX signature: an unsampled fit draws no random
+    numbers. A bootstrap of several trees, `subsample < 1` or
+    `feature_k < F` raises NotImplementedError before any work."""
+    from ..device import resolve_device
+    from ..utils.profiler import PROFILER
+    from ._staging import stage_bins_cached, stage_rows
+    dev = resolve_device(device)
+    F = X.shape[1]
+    spec = TreeSpec(max_depth=max_depth, n_bins=max_bins, n_features=F,
+                    feature_k=feature_k or F, min_instances=min_instances,
+                    min_info_gain=min_info_gain, reg_lambda=reg_lambda,
+                    gamma=gamma)
+    es = EnsembleSpec(tree=spec, n_trees=n_trees, loss=loss,
+                      boosting=boosting, bootstrap=bool(bootstrap),
+                      subsample=float(subsample), step_size=float(step_size))
+    require_unsampled(es)
+    y32 = np.asarray(y, np.float32)
+    if missing is not None and not np.isnan(missing):
+        X = X.copy()
+        X[X == missing] = np.nan
+    with PROFILER.span("binning.fit", rows=int(X.shape[0])):
+        binned, binning = make_bins(X, y32, max_bins, categorical)
+    with PROFILER.span("staging.fit", rows=int(X.shape[0])):
+        binned_dev = stage_bins_cached(binned, dev)
+        y_dev = stage_rows(y32, dev)
+    trees, base = fit_ensemble_on_device(binned_dev, y_dev, es)
+    mode = "binary" if loss == "logistic" else "regression"
+    if boosting:
+        weights = np.full(len(trees), step_size, dtype=np.float32)
+        return _EnsembleSpec(trees, max_depth, binning, weights, base, F,
+                             mode)
+    return _EnsembleSpec(trees, max_depth, binning, None, 0.0, F, mode)
+
+
+# ------------------------------------------------------------ estimators
+_TREE_PARAMS = dict(featuresCol="features", labelCol="label",
+                    predictionCol="prediction", maxDepth=5, maxBins=32,
+                    minInstancesPerNode=1, minInfoGain=0.0, seed=None)
+_CLASSIFIER_PARAMS = dict(rawPredictionCol="rawPrediction",
+                          probabilityCol="probability")
+_GBT_PARAMS = dict(maxIter=20, stepSize=0.1, subsamplingRate=1.0)
+
+
+class _Estimator:
+    """Keyword params over declared defaults (`_defaults`); a None value
+    keeps the default and an unknown name raises TypeError."""
+    _defaults: Dict[str, object] = {}
+    _model_cls = None
+
+    def __init__(self, **kwargs):
+        self._params: Dict[str, object] = {}
+        self._set(**kwargs)
+
+    def _set(self, **kwargs):
+        for k, v in kwargs.items():
+            if k not in self._defaults:
+                raise TypeError(f"unexpected param {k!r}")
+            if v is not None:
+                self._params[k] = v
+        return self
+
+    def getOrDefault(self, name: str):
+        return self._params.get(name, self._defaults[name])
+
+    @property
+    def params(self) -> dict:
+        return {k: self.getOrDefault(k) for k in self._defaults}
+
+    def fit(self, X, y, categorical: Optional[Dict[int, int]] = None,
+            device=None):
+        """Fit on a feature matrix (n, F) and labels (n,); rows whose
+        label is not finite are dropped. Returns the model."""
+        X = np.asarray(X, dtype=np.float64)
+        y = np.asarray(y, dtype=np.float64)
+        ok = np.isfinite(y)
+        spec = _fit_ensemble(X[ok], y[ok],
+                             categorical=dict(categorical or {}),
+                             device=device, **self._fit_args())
+        return self._model_cls(spec, self.params)
+
+    def _fit_args(self) -> dict:
+        raise NotImplementedError
+
+
+class _TreeEstimatorBase(_Estimator):
+    _is_classifier = False
+    _loss = "squared"
+
+    def setMaxBins(self, v):
+        return self._set(maxBins=v)
+
+    def setMaxDepth(self, v):
+        return self._set(maxDepth=v)
+
+    def _seed(self) -> int:
+        s = self.getOrDefault("seed")
+        return int(s) if s is not None else 17
+
+    def _fit_args(self) -> dict:
+        g = self.getOrDefault
+        return dict(max_depth=int(g("maxDepth")), max_bins=int(g("maxBins")),
+                    min_instances=int(g("minInstancesPerNode")),
+                    min_info_gain=float(g("minInfoGain")),
+                    n_trees=1, feature_k=None, bootstrap=False,
+                    subsample=1.0, seed=self._seed(), loss=self._loss)
+
+
+class _GBTBase(_TreeEstimatorBase):
+    def _fit_args(self) -> dict:
+        args = super()._fit_args()
+        args.update(n_trees=int(self.getOrDefault("maxIter")),
+                    subsample=float(self.getOrDefault("subsamplingRate")),
+                    step_size=float(self.getOrDefault("stepSize")),
+                    boosting=True)
+        return args
+
+
 class DecisionTreeRegressionModel(_TreeRegressionModel):
     pass
 
@@ -149,3 +315,27 @@ class GBTRegressionModel(_TreeRegressionModel):
 
 class GBTClassificationModel(_TreeClassificationModel):
     pass
+
+
+class DecisionTreeRegressor(_TreeEstimatorBase):
+    _defaults = dict(_TREE_PARAMS)
+    _model_cls = DecisionTreeRegressionModel
+
+
+class DecisionTreeClassifier(_TreeEstimatorBase):
+    _defaults = dict(_TREE_PARAMS, **_CLASSIFIER_PARAMS)
+    _model_cls = DecisionTreeClassificationModel
+    _is_classifier = True
+    _loss = "logistic"
+
+
+class GBTRegressor(_GBTBase):
+    _defaults = dict(_TREE_PARAMS, **_GBT_PARAMS)
+    _model_cls = GBTRegressionModel
+
+
+class GBTClassifier(_GBTBase):
+    _defaults = dict(_TREE_PARAMS, **_GBT_PARAMS, **_CLASSIFIER_PARAMS)
+    _model_cls = GBTClassificationModel
+    _is_classifier = True
+    _loss = "logistic"

@@ -1,20 +1,45 @@
-"""Predict-side host binning of the histogram tree engine.
+"""The histogram tree engine: host binning, the level-wise build, fits.
 
-Counterpart of the host numpy part of `sml_tpu/ml/tree_impl.py`:
-quantile edges and label-ordered category ranks at fit time
-(`make_bins`), and the same edges applied to fresh rows at predict time
-(`bin_with`), into the narrowest bin dtype that holds every bin id.
-The threaded C++ binning of the JAX package is not ported yet; this is
-its numpy branch, with the same semantics (searchsorted 'left';
-non-finite values fall in bin 0).
+Counterpart of `sml_tpu/ml/tree_impl.py`.
+
+- Host binning: quantile edges and label-ordered category ranks at fit
+  time (`make_bins`), and the same edges applied to fresh rows at
+  predict time (`bin_with`), into the narrowest bin dtype that holds
+  every bin id. The threaded C++ binning of the JAX package is not
+  ported yet; this is its numpy branch, with the same semantics
+  (searchsorted 'left'; non-finite values fall in bin 0).
+- The fit: `_make_tree_builder` grows one tree level by level on the
+  device through the two kernels of `native/hist_kernel.py`
+  (`hist_accumulate`, `split_scan`), with histogram subtraction below
+  the root; `fit_ensemble_on_device` runs the rounds of a DT, GBT or
+  XGBoost fit as a Python loop; `fit_tree` builds one tree.
+
+Only unsampled fits are ported: a bootstrap, a row subsample below 1 or
+a feature subspace needs the JAX package's Threefry random streams,
+which the port does not have yet, and raises NotImplementedError.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
+import torch
+
+from ..native import hist_kernel as hk
+
+
+class TreeSpec(NamedTuple):
+    """Static build configuration of one tree."""
+    max_depth: int
+    n_bins: int
+    n_features: int
+    feature_k: int          # features per node; = n_features unsampled
+    min_instances: int
+    min_info_gain: float
+    reg_lambda: float       # L2 on leaf values (0 for plain trees)
+    gamma: float            # min split loss (XGBoost gamma)
 
 
 class FittedTree(NamedTuple):
@@ -184,3 +209,251 @@ def bin_with(X: np.ndarray, binning: Binning) -> np.ndarray:
             total -= _predict_bin_cache.pop(oldest).nbytes
         _predict_bin_cache[key] = out
     return out
+
+
+# ------------------------------------------------------------------ fit
+#: why the port refuses a sampled fit
+SAMPLED_FIT = ("sampled tree fits (bootstrap, subsample < 1, a feature "
+               "subspace) need the JAX package's Threefry random streams; "
+               "they wait for the port's sampled-fit slice")
+
+
+def _make_tree_builder(spec: TreeSpec):
+    """One tree, grown level by level on the operands' device.
+
+    Returns `build(binned_c, binned, grad, hess, weight) -> (pack,
+    node)`: `binned_c` is the compact bin matrix the histogram kernel
+    reads, `binned` the same bins as int32 for row routing; `pack` is the
+    (5, n_nodes) f32 stack [split_feature, split_bin, leaf_value, gain,
+    cover] of the level-order heap (children of i at 2i+1, 2i+2), `node`
+    each row's terminal node.
+
+    Per level: `hist_accumulate` histograms the rows of the level's nodes
+    (below the root only the left children's rows: a right child is its
+    parent minus its left sibling, zero under a parent that did not
+    split, as under the JAX package's default `sml.tree.histSubtraction`);
+    `split_scan` picks each node's best
+    split; a node splits when its gain passes `min_info_gain` and is
+    finite, and its rows go right iff their bin is above the split bin.
+    Every row is routed, weighted or not, so boosting updates the margin
+    of every row. The last level's statistics are a float64 one-hot
+    matmul rounded once to f32: deterministic, unlike a scatter of float
+    atomics, and, like the histograms, deliberately above the JAX
+    package's f32 sums, so that the card and the CPU fit the same trees
+    (see `native/hist_kernel.py`). A node no row reached inherits its parent's value and
+    becomes a leaf."""
+    D, B, F = spec.max_depth, spec.n_bins, spec.n_features
+    if spec.feature_k < F:
+        raise NotImplementedError(SAMPLED_FIT)
+    n_nodes = 2 ** (D + 1) - 1
+    lam = float(spec.reg_lambda)
+
+    def build(binned_c, binned, grad, hess, weight):
+        n = binned.shape[0]
+        dev = binned.device
+        f32 = dict(dtype=torch.float32, device=dev)
+        node = torch.zeros(n, dtype=torch.int64, device=dev)
+        active = torch.ones(n, dtype=torch.bool, device=dev)
+        split_feature = torch.full((n_nodes,), -1, dtype=torch.int32,
+                                   device=dev)
+        split_bin = torch.zeros(n_nodes, dtype=torch.int32, device=dev)
+        gains = torch.zeros(n_nodes, **f32)
+        node_G = torch.zeros(n_nodes, **f32)
+        node_H = torch.zeros(n_nodes, **f32)
+        node_W = torch.zeros(n_nodes, **f32)
+        min_inst = torch.full((1, 1), float(spec.min_instances), **f32)
+
+        hist_prev = split_prev = None
+        for level in range(D):
+            width = 2 ** level
+            base = width - 1
+            lid = node - base
+            in_level = active & (lid >= 0) & (lid < width)
+            lid_c = torch.where(in_level, lid, 0)
+            wq = torch.where(in_level, weight, 0.0)
+            if level == 0:
+                hist = hk.hist_accumulate(
+                    binned_c, lid_c.to(torch.int32), grad, hess, wq,
+                    n_bins=B, n_slots=1).reshape(F, B, 1, 3)
+            else:
+                half = width // 2
+                w_left = torch.where(lid_c % 2 == 0, wq, 0.0)
+                left = hk.hist_accumulate(
+                    binned_c, (lid_c // 2).to(torch.int32), grad, hess,
+                    w_left, n_bins=B, n_slots=half).reshape(F, B, half, 3)
+                parent = hist_prev \
+                    * split_prev.to(torch.float32)[None, None, :, None]
+                hist = torch.stack([left, parent - left], dim=3) \
+                    .reshape(F, B, width, 3)
+            pack6 = hk.split_scan(hist, torch.ones((width, F), **f32),
+                                  min_inst, reg_lambda=lam, gamma=spec.gamma)
+            best_f = pack6[0].to(torch.int64)
+            best_b = pack6[1].to(torch.int64)
+            best_gain = pack6[2]
+            do_split = (best_gain > spec.min_info_gain) \
+                & torch.isfinite(best_gain)
+            idx = slice(base, base + width)
+            node_G[idx] = pack6[3]
+            node_H[idx] = pack6[4]
+            node_W[idx] = pack6[5]
+            split_feature[idx] = torch.where(do_split, best_f, -1) \
+                .to(torch.int32)
+            split_bin[idx] = best_b.to(torch.int32)
+            gains[idx] = torch.where(do_split, best_gain, 0.0)
+            moves = in_level & do_split[lid_c]
+            xbin = binned.gather(1, best_f[lid_c][:, None])[:, 0]
+            child = 2 * node + 1 + (xbin > best_b[lid_c]).to(torch.int64)
+            node = torch.where(moves, child, node)
+            active = moves
+            hist_prev, split_prev = hist, do_split
+
+        width = 2 ** D
+        base = width - 1
+        lid = node - base
+        in_level = (lid >= 0) & (lid < width) & (weight > 0)
+        lid_c = torch.where(in_level, lid, 0)
+        wq = torch.where(in_level, weight, 0.0)
+        onehot = torch.nn.functional.one_hot(lid_c, width) \
+            .to(torch.float64) * (wq > 0)[:, None]
+        lstats = (onehot.T @ torch.stack([grad * wq, hess * wq, wq], dim=1)
+                  .to(torch.float64)).to(torch.float32)
+        node_G[base:] = lstats[:, 0]
+        node_H[base:] = lstats[:, 1]
+        node_W[base:] = lstats[:, 2]
+        leaf_value = -node_G / ((node_H + lam) + 1e-12)
+        parent = torch.clamp(
+            (torch.arange(n_nodes, device=dev) - 1) // 2, min=0)
+        covered = node_W > 0
+        for _ in range(D):
+            leaf_value = torch.where(covered, leaf_value, leaf_value[parent])
+        split_feature = torch.where(covered, split_feature, -1)
+        pack = torch.stack([split_feature.to(torch.float32),
+                            split_bin.to(torch.float32), leaf_value, gains,
+                            node_H])
+        return pack, node
+
+    return build
+
+
+class EnsembleSpec(NamedTuple):
+    """Static configuration of a whole-ensemble fit."""
+    tree: TreeSpec
+    n_trees: int
+    loss: str           # "squared" | "logistic"
+    boosting: bool
+    bootstrap: bool
+    subsample: float
+    step_size: float
+
+
+def _base_margin_fn(loss: str):
+    """The base margin of the labels: their mean, or its log-odds
+    (clipped to [1e-6, 1 - 1e-6]) for the logistic loss. The mean is
+    taken in float64 and rounded to f32 once (the JAX package sums in
+    f32), so the base does not depend on the device's order of
+    summation and the card and the CPU start from the same bits."""
+    def base_fn(y):
+        mean = torch.mean(y.to(torch.float64)).to(torch.float32)
+        if loss == "logistic":
+            p0 = torch.clamp(mean, 1e-6, 1 - 1e-6)
+            return torch.log(p0 / (1 - p0))
+        return mean
+    return base_fn
+
+
+def require_unsampled(es: EnsembleSpec) -> None:
+    """Raise NotImplementedError for a fit that would draw random
+    numbers: a bootstrap of more than one tree, a row subsample below 1,
+    a feature subspace. (The JAX package draws bootstrap weights only
+    when there are several trees: one bootstrapped tree sees every row
+    once.)"""
+    if (es.bootstrap and es.n_trees > 1) or es.subsample < 1.0 \
+            or es.tree.feature_k < es.tree.n_features:
+        raise NotImplementedError(SAMPLED_FIT)
+
+
+def _unpack_trees(packs) -> list:
+    """(T, 5, n_nodes) host pack -> FittedTree list."""
+    return [FittedTree(split_feature=p[0].astype(np.int32),
+                       split_bin=p[1].astype(np.int32),
+                       leaf_value=p[2].astype(np.float32),
+                       gain=p[3].astype(np.float32),
+                       cover=p[4].astype(np.float32)) for p in packs]
+
+
+def fit_ensemble_on_device(binned_dev: torch.Tensor, y_dev: torch.Tensor,
+                           es: EnsembleSpec) -> Tuple[List[FittedTree], float]:
+    """Fit the rounds of an unsampled DT, GBT or XGBoost ensemble on the
+    operands' device; returns (trees, base margin).
+
+    Each round computes the gradients and Hessians (squared: margin - y
+    and 1; logistic: sigmoid(margin) - y and p(1-p) floored at 1e-6;
+    without boosting -y and 1), builds one tree over every row (weight
+    1), and with boosting adds `step_size * leaf` of each row's
+    terminal node to its margin. The trees come back in one copy at the
+    end. Raises NotImplementedError for a sampled fit."""
+    from ..utils.profiler import PROFILER
+    require_unsampled(es)
+    n = binned_dev.shape[0]
+    with PROFILER.span("program.tree_ensemble", rows=int(n),
+                       route=binned_dev.device.type, trees=es.n_trees):
+        PROFILER.count("tree.fit_dispatch")
+        build = _make_tree_builder(es.tree)
+        binned = binned_dev.to(torch.int32)
+        y = y_dev
+        base = _base_margin_fn(es.loss)(y)
+        margin = base.expand(n).clone()
+        ones = torch.ones_like(y)
+        packs = []
+        for _ in range(es.n_trees):
+            if not es.boosting:
+                grad, hess = -y, ones
+            elif es.loss == "logistic":
+                p = torch.sigmoid(margin)
+                grad = p - y
+                hess = torch.clamp(p * (1 - p), min=1e-6)
+            else:
+                grad, hess = margin - y, ones
+            pack, node_fin = build(binned_dev, binned, grad, hess, ones)
+            if es.boosting:
+                margin = margin + es.step_size * pack[2][node_fin]
+            packs.append(pack)
+        host = torch.stack(packs).cpu().numpy()
+        base_f = float(base)
+    return _unpack_trees(host), base_f
+
+
+def fit_tree(binned_dev: torch.Tensor, grad_dev: torch.Tensor,
+             hess_dev: torch.Tensor, weight_dev: torch.Tensor,
+             spec: TreeSpec) -> FittedTree:
+    """Build one tree from staged device tensors (rows weighted by
+    `weight_dev`; 0 leaves a row out). A node of zero cover takes its
+    parent's value and becomes a leaf, in node order."""
+    from ..utils.profiler import PROFILER
+    build = _make_tree_builder(spec)
+    PROFILER.count("tree.fit_dispatch")
+    pack, _ = build(binned_dev, binned_dev.to(torch.int32), grad_dev,
+                    hess_dev, weight_dev)
+    tree = _unpack_trees(pack.cpu().numpy()[None])[0]
+    sf, lv, cov = tree.split_feature, tree.leaf_value, tree.cover
+    for i in range(1, len(lv)):
+        if cov[i] == 0:
+            lv[i] = lv[(i - 1) // 2]
+            sf[i] = -1
+    return tree
+
+
+def feature_importances(trees, n_features: int) -> np.ndarray:
+    """Gain-weighted importance, normalized to sum 1 (Spark semantics:
+    per-tree normalization, then averaged over trees)."""
+    total = np.zeros(n_features, dtype=np.float64)
+    for t in trees:
+        imp = np.zeros(n_features, dtype=np.float64)
+        for node, f in enumerate(t.split_feature):
+            if f >= 0:
+                imp[int(f)] += max(float(t.gain[node]), 0.0)
+        s = imp.sum()
+        if s > 0:
+            total += imp / s
+    s = total.sum()
+    return total / s if s > 0 else total

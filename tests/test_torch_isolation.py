@@ -1,7 +1,7 @@
 """The port stands alone: importing every module of `sml_tpu_torch` loads
 neither JAX nor the JAX package, and without a CUDA device the entry
-points raise rather than carry on on the CPU (each check runs in a fresh
-interpreter with no CUDA device visible)."""
+points (scoring and fitting) raise rather than carry on on the CPU (each
+check runs in a fresh interpreter with no CUDA device visible)."""
 
 import os
 import shutil
@@ -38,8 +38,44 @@ def test_importing_the_whole_port_loads_no_jax_and_no_sml_tpu():
     proc = _run(IMPORT_ALL)
     assert proc.returncode == 0, proc.stderr
     count, bad = proc.stdout.strip().split(" ", 1)
-    assert int(count) >= 15
+    assert int(count) >= 16
     assert bad == "[]"
+
+
+def test_the_fit_modules_are_among_the_imported():
+    proc = _run(IMPORT_ALL.replace("print(len(names), bad)",
+                                   "print(sorted(names))"))
+    assert proc.returncode == 0, proc.stderr
+    for name in ("sml_tpu_torch.native.hist_kernel",
+                 "sml_tpu_torch.ml.tree_impl", "sml_tpu_torch.ml._tree_models",
+                 "sml_tpu_torch.xgboost"):
+        assert name in proc.stdout
+
+
+FIT_WITHOUT_DEVICE = """
+import numpy as np
+from sml_tpu_torch.xgboost import XgboostRegressor
+rng = np.random.default_rng(0)
+X = rng.normal(size=(300, 4))
+y = X[:, 0] + 0.1 * rng.normal(size=300)
+model = XgboostRegressor(n_estimators=3, max_depth=3, max_bins=16).fit(
+    X, y, device="cpu")
+print(model.getNumTrees(), model.predict(X[:2], device="cpu").shape)
+try:
+    XgboostRegressor().fit(X, y)
+except RuntimeError as e:
+    print("raised:", e)
+else:
+    print("no error")
+"""
+
+
+def test_fit_without_device_raises_when_cuda_is_absent():
+    proc = _run(FIT_WITHOUT_DEVICE)
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.strip().splitlines()
+    assert lines[0] == "3 (2,)"
+    assert lines[1].startswith("raised: no CUDA device")
 
 
 SCORER_WITHOUT_DEVICE = """
