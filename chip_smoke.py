@@ -27,7 +27,8 @@ Phases:
    staging, kernel, copy back), at 4,096 and 100,000 rows;
 7. fit kernels: `hist_accumulate` against its plain version at the ML 11
    shape (80,000 rows, 64 bins, uint8) for 1-32 slots, at ML 06 (40
-   bins), with uint16 (300 bins) and int32 (70,000 bins) matrices and
+   bins), with uint16 (300 bins) and int32 (70,000 bins) matrices, an
+   odd row count, a few rows and rows too wide to stage their bins, with
    ~20% zero weights, each launched twice and required bit-identical;
    `split_scan` against its plain version, exactly, on histograms of
    dyadic values with ties, masked, all-masked and NaN nodes;
@@ -37,13 +38,18 @@ Phases:
    card, with every kernel launch counted, then scored through
    `DeviceScorer.score_block`; the course's rmse ordering; the same two
    fits at 16,000 rows on the card and on the CPU agree;
-9. fit times: each fit kernel, its plain version, its bound and (for
-   `hist_accumulate`) one `index_add_` at the ML 11 shape; beside the
-   float64-summing `hist_accumulate`, its f32-accumulating build (timed
-   only, never used by the port) and the cells where each differs from
-   the plain version on the CPU; and where one ML 11 fit spends its time
+9. fit times: each fit kernel (CUDA-event median, and device time of
+   the kernel's own launches by `torch.profiler`, "not measured" unless
+   the profiler saw each launch), its plain version, its bound and (for
+   `hist_accumulate`) one `index_add_` at every shape the ML 11 fit
+   launches it at, and their sum over one fit (40 trees x 6 levels);
+   beside the float64-summing `hist_accumulate` at 16 and 32 slots, its
+   f32-accumulating build (timed only, never used by the port) and the
+   cells where each differs from the plain version on the CPU; the
+   wrappers' host time per call; and where one ML 11 fit spends its time
    (host binning, staging, kernel device time, the rest), with the
-   card's busy share from `torch.profiler`.
+   card's busy share and the fit kernels' device time from
+   `torch.profiler`.
 
 The second-to-last line is a JSON object listing each kernel; the last
 is {"ok": true, "device": {...}}.
@@ -173,22 +179,56 @@ def time_ms(fn, reps: int) -> float:
     return float(np.median(times))
 
 
-def device_ms(fn, reps: int):
-    """Device time of one call by `torch.profiler`: the kernels' device
-    time over `reps` calls, divided by `reps` (the CUDA-event median of
-    `time_ms` also holds the host's gap before the launch). None when
-    the profiler sees no device time."""
+def device_ms(fn, reps: int, names, per_call: int = 1):
+    """Device time of one call by `torch.profiler`: the device time of
+    the kernels whose names contain one of `names`, over `reps` calls,
+    divided by `reps` (the CUDA-event median of `time_ms` also holds the
+    host's gap before the launch). A window in which the profiler did not
+    see exactly reps x `per_call` launches of those kernels is retaken, up
+    to three times; then None ("not measured")."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(float(getattr(ev, "self_device_time_total", 0.0))
-                for ev in prof.key_averages())
-    return total / 1e3 / reps if total > 0 else None
+    for _ in range(3):   # a window where the profiler lost events is retaken
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total, count = 0.0, 0
+        for ev in prof.key_averages():
+            t = float(getattr(ev, "self_device_time_total", 0.0))
+            if t > 0 and any(nm in ev.key for nm in names):
+                total += t
+                count += int(ev.count)
+        if count == reps * per_call and total > 0:
+            return total / 1e3 / reps
+        print(f"device time of {names}: the profiler saw {count} launches, "
+              f"not {reps * per_call}")
+    print(f"device time of {names}: not measured")
+    return None
+
+
+def fmt_ms(x) -> str:
+    return "not measured" if x is None else repr(x)
+
+
+def host_us(fn, calls: int = 400) -> float:
+    """Median host time of one call in microseconds: perf_counter around
+    the call, no synchronise inside (the launch is asynchronous); the
+    queue is drained every 50 calls, outside the timed calls."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for i in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+        if i % 50 == 49:
+            torch.cuda.synchronize()
+    torch.cuda.synchronize()
+    return float(np.median(times)) * 1e6
 
 
 def assert_close(got: np.ndarray, want: np.ndarray, what: str) -> float:
@@ -407,13 +447,14 @@ def phase_times(seed: int, device, card: str) -> dict:
         k_ms = time_ms(lambda: tk.forest_traverse(binned, sf, sb, lv, w,
                                                   depth=depth), 50)
         d_ms = device_ms(lambda: tk.forest_traverse(binned, sf, sb, lv, w,
-                                                    depth=depth), 50)
+                                                    depth=depth), 50,
+                         ("forest_traverse_kernel",))
         p_ms = time_ms(lambda: tk.forest_margin_plain(binned, sf, sb, lv,
                                                       w, depth), 5)
         tk.LAUNCHES = launches  # timing launches are not the main path's
         b_ms, b_by = bound_ms(binned, sf, sb, depth)
         print(f"time  forest_traverse  ML 11 T=40 depth=6 F=10 uint8 "
-              f"rows={n_rows}: kernel {k_ms!r} ms (device {d_ms!r} ms), "
+              f"rows={n_rows}: kernel {k_ms!r} ms (device {fmt_ms(d_ms)} ms), "
               f"plain {p_ms!r} ms, bound {b_ms!r} ms ({b_by}); card {card}")
         out[n_rows] = (k_ms, d_ms, p_ms, b_ms, b_by)
     return out
@@ -459,11 +500,16 @@ def phase_breakdown(seed: int, device, card: str) -> None:
 
 # ------------------------------------------------------------ fit kernels
 HIST_SHAPES = [
-    # name, rows, bins, bin dtype, slot counts
-    ("ML 11", 80_000, 64, np.uint8, (1, 2, 4, 8, 16, 32)),
-    ("ML 06", 80_000, 40, np.uint8, (1, 2, 4, 8, 16)),
-    ("uint16 bins", 80_000, 300, np.uint16, (8, 32)),
-    ("int32 bins", 80_000, 70_000, np.int32, (2,)),
+    # name, rows, features, bins, bin dtype, slot counts
+    ("ML 11", 80_000, N_FEAT, 64, np.uint8, (1, 2, 4, 8, 16, 32)),
+    ("ML 06", 80_000, N_FEAT, 40, np.uint8, (1, 2, 4, 8, 16)),
+    ("uint16 bins", 80_000, N_FEAT, 300, np.uint16, (8, 32)),
+    ("int32 bins", 80_000, N_FEAT, 70_000, np.int32, (2,)),
+    # the last rows past a multiple of 16 (plain loads), a chunk of a
+    # few rows, and rows too wide to stage their bins
+    ("odd rows", 80_001, N_FEAT, 64, np.uint8, (8,)),
+    ("few rows", 37, N_FEAT, 64, np.uint8, (4,)),
+    ("wide rows", 20_000, 400, 16, np.int32, (4,)),
 ]
 SCAN_SHAPES = [
     # name, bins, node counts
@@ -474,13 +520,14 @@ SCAN_SHAPES = [
 ]
 
 
-def hist_operands(rng, n: int, n_bins: int, dtype, n_slots: int, device):
+def hist_operands(rng, n: int, n_bins: int, dtype, n_slots: int, device,
+                  n_feat: int = N_FEAT):
     """Seeded rows for one histogram launch: uniform bins and slots,
     normal gradients, Hessians in [0.1, 1], whole weights with ~20%
     zeros."""
     def to(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-    binned = rng.integers(0, n_bins, size=(n, N_FEAT)).astype(dtype)
+    binned = rng.integers(0, n_bins, size=(n, n_feat)).astype(dtype)
     lid = rng.integers(0, n_slots, size=n).astype(np.int32)
     grad = rng.normal(0.0, 1.0, n).astype(np.float32)
     hess = rng.uniform(0.1, 1.0, n).astype(np.float32)
@@ -523,11 +570,11 @@ def phase_fit_kernels(seed: int, device) -> dict:
     the largest absolute differences seen."""
     from sml_tpu_torch.native import hist_kernel as hk
     worst = {"hist_accumulate": 0.0, "split_scan": 0.0}
-    for i, (name, n, n_bins, dtype, slots) in enumerate(HIST_SHAPES):
+    for i, (name, n, n_feat, n_bins, dtype, slots) in enumerate(HIST_SHAPES):
         for n_slots in slots:
             rng = np.random.default_rng([seed, 21, i, n_slots])
             b, lid, g, h, w = hist_operands(rng, n, n_bins, dtype, n_slots,
-                                            device)
+                                            device, n_feat)
             got = hk.hist_accumulate(b, lid, g, h, w, n_bins=n_bins,
                                      n_slots=n_slots)
             again = hk.hist_accumulate(b, lid, g, h, w, n_bins=n_bins,
@@ -547,9 +594,11 @@ def phase_fit_kernels(seed: int, device) -> dict:
                 raise AssertionError(f"hist_accumulate {name} S={n_slots}: "
                                      f"weight sums differ")
             differ = int((got != want).sum())
+            plan = hk.hist_plan(n, n_feat, n_bins, n_slots,
+                                bin_bytes=b.element_size())
             print(f"kernel-vs-plain  hist_accumulate  {name:<12} "
-                  f"rows={n} bins={n_bins} S={n_slots:<2} dtype={b.dtype} "
-                  f"{hk.hist_plan(n, N_FEAT, n_bins, n_slots)} "
+                  f"rows={n} F={n_feat} bins={n_bins} S={n_slots:<2} "
+                  f"dtype={b.dtype} {plan} "
                   f"max_abs_err={float(err.max()):.3e} cells_differing="
                   f"{differ}/{got.numel()}  deterministic  ok")
             worst["hist_accumulate"] = max(worst["hist_accumulate"],
@@ -770,6 +819,24 @@ def scan_bound_ms(hist):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+#: ML 11's tree levels: slots histogrammed (with subtraction) and nodes
+#: scanned at each of its 6 levels, and its 40 trees
+FIT_LEVEL_SLOTS = (1, 1, 2, 4, 8, 16)
+FIT_LEVEL_NODES = (1, 2, 4, 8, 16, 32)
+FIT_TREES = 40
+#: the kernels each wrapper launches, by name in the profiler
+HIST_KERNELS = ("hist_cluster_kernel", "hist_reduce_kernel")
+SCAN_KERNELS = ("split_scan_kernel",)
+
+
+def hist_launches(n: int, n_bins: int, n_slots: int, **kw) -> int:
+    """Kernels one `hist_accumulate` call launches: the cluster pass, and
+    the pass over the clusters' partials when there is more than one."""
+    from sml_tpu_torch.native import hist_kernel as hk
+    p = hk.hist_plan(n, N_FEAT, n_bins, n_slots, **kw)
+    return 1 + int(p.n_chunks // p.cluster > 1)
+
+
 def hist_f32acc_launcher():
     """A call of the f32-accumulating build of the `hist_accumulate`
     kernel (entry point `sml_hist_accumulate_f32acc` of the same source),
@@ -781,48 +848,60 @@ def hist_f32acc_launcher():
     from sml_tpu_torch.native import build
     from sml_tpu_torch.native import hist_kernel as hk
     fn = build.load("hist_accumulate").sml_hist_accumulate_f32acc
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 7 \
-        + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.argtypes = hk.HIST_ARGTYPES
     fn.restype = ctypes.c_int
 
     def launch(binned, lid, grad, hess, weight, n_bins, n_slots):
         n, n_feat = binned.shape
-        plan = hk.hist_plan(n, n_feat, n_bins, n_slots, acc_bytes=4)
-        out = torch.empty((n_feat * n_bins, n_slots * 3),
-                          dtype=torch.float32, device=binned.device)
-        scratch = torch.empty((plan.n_chunks, n_feat * n_bins * n_slots * 3),
-                              dtype=torch.float32, device=binned.device)
-        err = fn(hk._BIN_BYTES[binned.dtype], binned.data_ptr(),
-                 lid.data_ptr(), grad.data_ptr(), hess.data_ptr(),
-                 weight.data_ptr(), scratch.data_ptr(), out.data_ptr(), n,
-                 n_feat, n_bins, n_slots, plan.chunk_rows, plan.n_chunks,
-                 plan.ft, plan.bt, plan.st,
-                 torch.cuda.current_stream(binned.device).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"f32-accumulating hist_accumulate: CUDA "
-                               f"error {err} ({plan})")
-        return out
+        plan = hk.hist_plan(n, n_feat, n_bins, n_slots,
+                            bin_bytes=binned.element_size(), acc_bytes=4)
+        return hk.launch_hist(fn, plan, binned, lid, grad, hess, weight,
+                              n_bins, n_slots, torch.float32)
     return launch
 
 
+def wrapper_host_us(device) -> dict:
+    """Median host time of one call of each fit wrapper, in microseconds
+    (`host_us`): `hist_accumulate` at ML 11, S=16, and `split_scan` at
+    ML 11, W=32. The launch counts are restored after."""
+    from sml_tpu_torch.native import hist_kernel as hk
+    saved = dict(hk.LAUNCHES)
+    rng = np.random.default_rng([0, 43])
+    b, lid, g, h, w = hist_operands(rng, 80_000, 64, np.uint8, 16, device)
+    hist = torch.rand((N_FEAT, 64, 32, 3), device=device)
+    fmask = torch.ones((32, N_FEAT), device=device)
+    mi = torch.ones((1, 1), device=device)
+    out = {"hist_accumulate": host_us(lambda: hk.hist_accumulate(
+               b, lid, g, h, w, n_bins=64, n_slots=16)),
+           "split_scan": host_us(lambda: hk.split_scan(
+               hist, fmask, mi, reg_lambda=1.0, gamma=0.0))}
+    hk.LAUNCHES.update(saved)
+    return out
+
+
 def phase_fit_times(seed: int, device, card: str) -> dict:
-    """Kernel, plain, bound and library times of the fit kernels at the
-    ML 11 shape; returns the numbers of the kernels line. Beside the
-    float64 `hist_accumulate`, times its f32-accumulating build and
-    counts the cells where each differs from the plain version on the
-    CPU (what a CPU fit computes)."""
+    """Kernel, plain, bound and library times of the fit kernels at every
+    shape the ML 11 fit launches them at (`hist_accumulate` at 1-16
+    slots, and 32; `split_scan` at 1-32 nodes); the per-fit kernel device
+    time these give; the wrappers' host time per call. Beside the float64
+    `hist_accumulate` at S=16 and 32, times its f32-accumulating build and
+    counts the cells where each differs from the plain version on the CPU
+    (what a CPU fit computes). Returns the numbers of the kernels line."""
     from sml_tpu_torch.native import hist_kernel as hk
     saved = dict(hk.LAUNCHES)
     f32acc = hist_f32acc_launcher()
     out = {}
-    for n_slots in (16, 32):
+    for n_slots in (1, 2, 4, 8, 16, 32):
         rng = np.random.default_rng([seed, 41, n_slots])
         b, lid, g, h, w = hist_operands(rng, 80_000, 64, np.uint8, n_slots,
                                         device)
-        k_ms = time_ms(lambda: hk.hist_accumulate(
-            b, lid, g, h, w, n_bins=64, n_slots=n_slots), 50)
-        d_ms = device_ms(lambda: hk.hist_accumulate(
-            b, lid, g, h, w, n_bins=64, n_slots=n_slots), 50)
+
+        def call():
+            return hk.hist_accumulate(b, lid, g, h, w, n_bins=64,
+                                      n_slots=n_slots)
+        k_ms = time_ms(call, 50)
+        d_ms = device_ms(call, 50, HIST_KERNELS,
+                         hist_launches(80_000, 64, n_slots))
         p_ms = time_ms(lambda: hk.hist_accumulate_plain(
             b, lid, g, h, w, 64, n_slots), 5)
         # the library yardstick: one index_add_ of the (row, feature)
@@ -837,17 +916,21 @@ def phase_fit_times(seed: int, device, card: str) -> dict:
         l_ms = time_ms(lambda: acc.index_add_(0, idx, src), 50)
         b_ms, b_by = hist_bound_ms(b, w, 64, n_slots)
         print(f"time  hist_accumulate  ML 11 80000 rows F=10 B=64 uint8 "
-              f"S={n_slots}: kernel {k_ms!r} ms (device {d_ms!r} ms), plain "
+              f"S={n_slots} {hk.hist_plan(80_000, N_FEAT, 64, n_slots)}: "
+              f"kernel {k_ms!r} ms (device {fmt_ms(d_ms)} ms), plain "
               f"{p_ms!r} ms, index_add_ {l_ms!r} ms, bound {b_ms!r} ms "
               f"({b_by}); card {card}")
         out[("hist_accumulate", n_slots)] = (k_ms, d_ms, p_ms, b_ms, b_by,
                                              l_ms)
+        if n_slots < 16:
+            continue
         f_ms = time_ms(lambda: f32acc(b, lid, g, h, w, 64, n_slots), 50)
-        fd_ms = device_ms(lambda: f32acc(b, lid, g, h, w, 64, n_slots), 50)
+        fd_ms = device_ms(lambda: f32acc(b, lid, g, h, w, 64, n_slots), 50,
+                          HIST_KERNELS, hist_launches(80_000, 64, n_slots,
+                                                      acc_bytes=4))
         cpu = hk.hist_accumulate_plain(b.cpu(), lid.cpu(), g.cpu(), h.cpu(),
                                        w.cpu(), 64, n_slots)
-        got64 = hk.hist_accumulate(b, lid, g, h, w, n_bins=64,
-                                   n_slots=n_slots).cpu()
+        got64 = call().cpu()
         got32 = f32acc(b, lid, g, h, w, 64, n_slots).cpu()
         scale = hk.hist_accumulate_plain(b.cpu(), lid.cpu(), g.cpu().abs(),
                                          h.cpu().abs(), w.cpu(), 64, n_slots)
@@ -858,33 +941,55 @@ def phase_fit_times(seed: int, device, card: str) -> dict:
                                  f"version")
         d64, d32 = int((got64 != cpu).sum()), int((got32 != cpu).sum())
         print(f"time  hist_accumulate f32-accumulating build  ML 11 80000 "
-              f"rows S={n_slots} {hk.hist_plan(80_000, N_FEAT, 64, n_slots, 4)}"
-              f": kernel {f_ms!r} ms (device {fd_ms!r} ms) against float64 "
-              f"{k_ms!r} ms (device {d_ms!r} ms); cells differing from the "
-              f"CPU plain version: float64 {d64}, f32 {d32} of {cpu.numel()}"
-              f"; card {card}")
+              f"rows S={n_slots} "
+              f"{hk.hist_plan(80_000, N_FEAT, 64, n_slots, acc_bytes=4)}: "
+              f"kernel {f_ms!r} ms (device {fmt_ms(fd_ms)} ms) against "
+              f"float64 {k_ms!r} ms (device {fmt_ms(d_ms)} ms); cells "
+              f"differing from the CPU plain version: float64 {d64}, f32 "
+              f"{d32} of {cpu.numel()}; card {card}")
         out[("hist_f32acc", n_slots)] = (f_ms, fd_ms, d64, d32)
-    rng = np.random.default_rng([seed, 42])
-    hist = torch.from_numpy(
-        rng.normal(size=(N_FEAT, 64, 32, 3)).astype(np.float32)).to(device)
-    hist[..., 1:] = hist[..., 1:].abs()
-    fmask = torch.ones((32, N_FEAT), device=device)
-    mi = torch.ones((1, 1), device=device)
-    k_ms = time_ms(lambda: hk.split_scan(hist, fmask, mi, reg_lambda=1.0,
-                                         gamma=0.0), 50)
-    d_ms = device_ms(lambda: hk.split_scan(hist, fmask, mi, reg_lambda=1.0,
-                                           gamma=0.0), 50)
-    p_ms = time_ms(lambda: hk.split_scan_plain(hist, fmask, mi, 1.0, 0.0), 5)
-    b_ms, b_by = scan_bound_ms(hist)
-    print(f"time  split_scan  ML 11 F=10 B=64 W=32: kernel {k_ms!r} ms "
-          f"(device {d_ms!r} ms), plain {p_ms!r} ms, bound {b_ms!r} ms "
-          f"({b_by}); card {card}")
-    out[("split_scan", 32)] = (k_ms, d_ms, p_ms, b_ms, b_by, None)
+    for width in FIT_LEVEL_NODES:
+        rng = np.random.default_rng([seed, 42, width])
+        hist = torch.from_numpy(rng.normal(
+            size=(N_FEAT, 64, width, 3)).astype(np.float32)).to(device)
+        hist[..., 1:] = hist[..., 1:].abs()
+        fmask = torch.ones((width, N_FEAT), device=device)
+        mi = torch.ones((1, 1), device=device)
+
+        def scan():
+            return hk.split_scan(hist, fmask, mi, reg_lambda=1.0, gamma=0.0)
+        k_ms = time_ms(scan, 50)
+        d_ms = device_ms(scan, 50, SCAN_KERNELS)
+        p_ms = time_ms(lambda: hk.split_scan_plain(hist, fmask, mi, 1.0,
+                                                   0.0), 5)
+        b_ms, b_by = scan_bound_ms(hist)
+        print(f"time  split_scan  ML 11 F=10 B=64 W={width} "
+              f"{hk.scan_plan(N_FEAT, 64)}: kernel {k_ms!r} ms (device "
+              f"{fmt_ms(d_ms)} ms), plain {p_ms!r} ms, bound {b_ms!r} ms "
+              f"({b_by}); card {card}")
+        out[("split_scan", width)] = (k_ms, d_ms, p_ms, b_ms, b_by, None)
+    per_fit = {}
+    for name, levels in (("hist_accumulate", FIT_LEVEL_SLOTS),
+                         ("split_scan", FIT_LEVEL_NODES)):
+        ds = [out[(name, k)][1] for k in levels]
+        per_fit[name] = None if None in ds else FIT_TREES * sum(ds)
+    out["per_fit"] = per_fit
+    print(f"time  per-fit kernel device time, ML 11 (40 trees x levels at "
+          f"S={FIT_LEVEL_SLOTS} and W={FIT_LEVEL_NODES}, named-kernel "
+          f"profiler time at each shape): hist_accumulate "
+          f"{fmt_ms(per_fit['hist_accumulate'])} ms, split_scan "
+          f"{fmt_ms(per_fit['split_scan'])} ms; card {card}")
     hk.LAUNCHES.update(saved)  # timing launches are not the main path's
+    host = wrapper_host_us(device)
+    out["host_us"] = host
+    print(f"time  wrapper host time per call (perf_counter median, no "
+          f"synchronise): hist_accumulate ML 11 S=16 "
+          f"{host['hist_accumulate']!r} us, split_scan ML 11 W=32 "
+          f"{host['split_scan']!r} us; card {card}")
     return out
 
 
-def phase_fit_breakdown(seed: int, card: str) -> None:
+def phase_fit_breakdown(seed: int, card: str, per_fit: dict) -> None:
     """Where one ML 11 XGBoost fit on fresh rows spends its time: host
     binning, staging, the fit loop (its kernels' device time by CUDA
     events around each launch, and the rest: Python glue and small torch
@@ -956,6 +1061,14 @@ def phase_fit_breakdown(seed: int, card: str) -> None:
               f"{total!r} ms over a fit loop of {prog!r} ms (busy share "
               f"{total / prog!r}, profiler on); top kernels "
               + "; ".join(f"{k[:60]} {v!r} ms" for k, v in top))
+        for name, kern in (("hist_accumulate", HIST_KERNELS),
+                           ("split_scan", SCAN_KERNELS)):
+            whole = sum(v for k, v in busy.items()
+                        if any(nm in k for nm in kern))
+            print(f"breakdown  {name} device time over one ML 11 fit: "
+                  f"{whole!r} ms by the profiler over the fit, against "
+                  f"{fmt_ms(per_fit[name])} ms summed from the per-shape "
+                  f"times (40 trees x levels); card {card}")
     hk.LAUNCHES.update(saved)
 
 
@@ -985,7 +1098,7 @@ def main(argv=None) -> int:
     fit_err = phase_fit_kernels(args.seed, device)
     fit = phase_fit(args.seed, device)
     fit_times = phase_fit_times(args.seed, device, card)
-    phase_fit_breakdown(args.seed, card)
+    phase_fit_breakdown(args.seed, card, fit_times["per_fit"])
 
     k_ms, d_ms, p_ms, b_ms, b_by = times[100_000]
     kernels = [{
@@ -1009,6 +1122,8 @@ def main(argv=None) -> int:
         "f32_acc_device_ms": fit_times[("hist_f32acc", 16)][1],
         "cells_off_cpu_f64": fit_times[("hist_f32acc", 16)][2],
         "cells_off_cpu_f32": fit_times[("hist_f32acc", 16)][3],
+        "per_fit_device_ms": fit_times["per_fit"]["hist_accumulate"],
+        "host_us": fit_times["host_us"]["hist_accumulate"],
         "shape": "ML 11: 80000 rows F=10 B=64 uint8, S=16"})
     k_ms, d_ms, p_ms, b_ms, b_by, _ = fit_times[("split_scan", 32)]
     kernels.append({
@@ -1018,7 +1133,10 @@ def main(argv=None) -> int:
         "launches": fit["launches"]["split_scan"],
         "max_abs_err": fit_err["split_scan"], "ms": k_ms, "device_ms": d_ms,
         "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": None, "shape": "ML 11: F=10 B=64 W=32"})
+        "library_ms": None,
+        "per_fit_device_ms": fit_times["per_fit"]["split_scan"],
+        "host_us": fit_times["host_us"]["split_scan"],
+        "shape": "ML 11: F=10 B=64 W=32"})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -5,8 +5,10 @@
 replace the TPU kernels of the same names in
 `sml_tpu/native/hist_kernel.py`. Their signatures are the JAX ones
 without `interpret`, `block_rows` and `hist_dtype`: operands and results
-are f32, as the JAX package computes off the TPU, and the row chunks and
-tiles come from the shapes (`hist_plan`), never from configuration.
+are f32, as the JAX package computes off the TPU, and the launches
+(row chunks, tiles, clusters, staging; warps and bin segments) come from
+the shapes (`hist_plan`, `scan_plan`, cached per shape), never from
+configuration or from the device.
 
 `hist_accumulate` sums in float64 and rounds each cell to f32 once,
 deliberately above the Pallas body's f32 sums: the result then hardly
@@ -23,6 +25,7 @@ falls back.
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 from typing import NamedTuple
 
@@ -35,22 +38,70 @@ _count_lock = threading.Lock()
 _BIN_BYTES = {torch.uint8: 1, torch.uint16: 2, torch.int32: 4}
 _fns = {}
 
-#: shared-memory bytes of one block's histogram tile: two blocks per SM
-_TILE_BYTES = 100 * 1024
-#: warps (one feature each) per block
-_MAX_WARPS = 8
-#: rows of one chunk, before the scratch bound
-_CHUNK_ROWS = 2048
-#: bound on the chunk-partials scratch
+#: the card the plans are sized for: an H100 SXM (the plan never asks the
+#: device, so the order of the sums depends on the shapes alone)
+_SMS = 132
+#: shared memory one block may use, and one SM holds, in bytes; each
+#: resident block also takes 1 KB of the SM's for the system
+_SMEM_BLOCK = 227 * 1024
+_SMEM_SM = 228 * 1024
+_SMEM_RESERVED = 1024
+#: threads and 32-bit registers an SM holds, and the registers a thread
+#: of `hist_accumulate` may use (its launch bounds)
+_SM_THREADS = 2048
+_SM_REGS = 65536
+_REGS = 64
+#: shared-memory bytes of one block's histogram tile and its lane tags:
+#: four or more blocks per SM
+_TILE_BYTES = 52 * 1024
+#: warps that own a feature each, and threads, per block
+_MAX_WARPS = 16
+_MIN_THREADS = 256
+#: rows a feature warp takes in one round (one to a lane); chunks and
+#: staged sub-chunks are multiples of it
+_ROUND = 32
+#: row buffers in a block's ring (`kStages` in the kernel), the rows of
+#: one (the sizes the plan may take), and the most bytes of bins one holds
+_STAGES = 3
+_SUB_ROWS = (64, 128, 256)
+_STAGE_BIN_BYTES = 8 * 1024
+#: owning warps an SM is given before other choices count
+_SM_WARPS = 12
+#: rows of one chunk: the least, and the most before the scratch bound
+_MIN_CHUNK_ROWS = 256
+_MAX_CHUNK_ROWS = 4096
+#: blocks of a thread block cluster (the portable limit)
+_MAX_CLUSTER = 8
+#: the share of the card's block slots one wave of clusters is sized to
+#: fill: a cluster's blocks share one GPC (16-18 SMs), which leaves some
+#: slots of each GPC to no whole cluster
+_WAVE_SHARE = (7, 8)
+#: bound on the cluster-partials scratch
 _SCRATCH_BYTES = 64 << 20
+#: split_scan: dynamic shared memory of one block (48 KB without opting
+#: in, less the block's 256 static bytes), and warps (features) per block
+_SCAN_SMEM = 47 * 1024
+_SCAN_MAX_WARPS = 16
 
 
 class HistPlan(NamedTuple):
-    chunk_rows: int
-    n_chunks: int
-    ft: int   # features per tile (one warp each)
-    bt: int   # bins per tile
-    st: int   # slots per tile
+    chunk_rows: int   # rows of a chunk, a multiple of 32
+    n_chunks: int     # a multiple of `cluster`; trailing chunks may be empty
+    ft: int           # features per tile (one warp each)
+    bt: int           # bins per tile
+    st: int           # slots per tile
+    groups: int       # slot groups of a tile (one warp each per feature)
+    cluster: int      # chunks (blocks) per thread block cluster
+    sub_rows: int     # rows staged at a time, a multiple of 32
+    stage_bins: int   # 1: bins are staged too; 0: read from global memory
+    threads: int      # per block
+    smem: int         # dynamic shared memory of a block, in bytes
+
+
+class ScanPlan(NamedTuple):
+    warps: int        # per block (node), one feature each at a time
+    seg: int          # bins a warp stages at a time
+    smem: int         # dynamic shared memory of a block, in bytes
 
 
 def _even(total: int, most: int) -> int:
@@ -60,31 +111,110 @@ def _even(total: int, most: int) -> int:
     return -(-total // tiles)
 
 
-def hist_plan(n: int, n_feat: int, n_bins: int, n_slots: int,
-              acc_bytes: int = 8) -> HistPlan:
-    """Row chunks and shared-memory tiles of `hist_accumulate`, from the
-    shapes alone. A tile of ft features x bt bins x st slots holds three
-    sums of `acc_bytes` (8: the port's float64; 4: the f32-accumulating
-    build that `chip_smoke.py` times) a cell within `_TILE_BYTES`:
-    features are tiled first, then slots, then bins. Chunks are
-    `_CHUNK_ROWS` rows (a multiple of 32) unless the (chunks, F*B*S*3)
-    scratch would pass `_SCRATCH_BYTES`; then they grow."""
-    cell = 3 * acc_bytes
+def _up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def hist_smem(acc_bytes: int, ft: int, bt: int, st: int, groups: int,
+              sub_rows: int, row_bin_bytes: int) -> int:
+    """Dynamic shared memory of one `hist_accumulate` block, as the
+    kernel lays it out (`Layout` in `csrc/hist_accumulate.cu`): an
+    mbarrier per stage, the tile, a one-byte lane tag per cell, two lists
+    of rows (uint16) of each slot group and their counts, and a ring of
+    `_STAGES` row buffers of [bins][lid][g][h][w]."""
+    keys = ft * bt * st
+    buf = _up(sub_rows * row_bin_bytes, 16) + 16 * sub_rows
+    return (_up(8 * _STAGES, 16) + _up(3 * acc_bytes * keys, 16)
+            + _up(keys, 16) + _up(4 * groups * sub_rows, 16)
+            + _up(8 * groups, 16) + _STAGES * buf)
+
+
+@functools.lru_cache(maxsize=512)
+def hist_plan(n: int, n_feat: int, n_bins: int, n_slots: int, *,
+              bin_bytes: int = 1, acc_bytes: int = 8) -> HistPlan:
+    """The launch of `hist_accumulate`, from the shapes alone.
+
+    A tile of ft features x bt bins x st slots holds three sums of
+    `acc_bytes` (8: the port's float64; 4: the f32-accumulating build
+    that `chip_smoke.py` times) a cell, and its lane tag, within
+    `_TILE_BYTES`: features are tiled first, then slots, then bins. A
+    warp owns one feature's cells of one of `groups` slot groups and
+    walks only the rows of its group, which a listing warp per group
+    lists a sub-chunk ahead. Rows are staged `sub_rows` at a
+    time into a ring of `_STAGES` buffers (their bins too, when they fit
+    `_STAGE_BIN_BYTES`). Of the feature tiles, group counts and sub-chunk
+    sizes that fit, the plan takes the one that keeps the most owning
+    warps resident on an SM (up to `_SM_WARPS`; then fewer groups, wider
+    feature tiles, staged bins, longer sub-chunks), as many blocks to an
+    SM as its shared memory, threads and registers hold. Chunks are sized so that about one
+    wave of blocks covers the rows (about `_MIN_CHUNK_ROWS` to
+    `_MAX_CHUNK_ROWS` rows), then grouped in whole clusters of up to
+    `_MAX_CLUSTER`; the clusters' float64 partials stay within
+    `_SCRATCH_BYTES`, else chunks grow."""
+    cell = 3 * acc_bytes + 1   # three sums and the cell's lane tag
     if n_bins * n_slots * cell <= _TILE_BYTES:
         bt, st = n_bins, n_slots
-        ft = _even(n_feat, min(_MAX_WARPS,
-                               _TILE_BYTES // (n_bins * n_slots * cell)))
+        ft_most = min(_MAX_WARPS, _TILE_BYTES // (n_bins * n_slots * cell))
     elif n_bins * cell <= _TILE_BYTES:
-        ft, bt = 1, n_bins
+        ft_most, bt = 1, n_bins
         st = _even(n_slots, _TILE_BYTES // (n_bins * cell))
     else:
-        ft, st = 1, 1
+        ft_most, st = 1, 1
         bt = _even(n_bins, _TILE_BYTES // cell)
-    per_chunk = n_feat * n_bins * n_slots * cell
-    chunks = min(-(-n // _CHUNK_ROWS), max(1, _SCRATCH_BYTES // per_chunk))
-    chunk_rows = -(-max(n, 1) // max(chunks, 1))
-    chunk_rows = -(-chunk_rows // 32) * 32
-    return HistPlan(chunk_rows, max(1, -(-n // chunk_rows)), ft, bt, st)
+    best = None
+    for ft in sorted({_even(n_feat, k) for k in range(1, ft_most + 1)}):
+        for groups in (1, 2, 4, 8, 16):
+            if groups > st or (ft + 1) * groups > _MAX_WARPS \
+                    or (groups - 1) * -(-st // groups) >= st:
+                continue   # too many warps, or a group with no slot
+            for sub in _SUB_ROWS:
+                if sub < _ROUND * groups:
+                    continue
+                stage_bins = sub * n_feat * bin_bytes <= _STAGE_BIN_BYTES
+                row_bins = n_feat * bin_bytes if stage_bins else 0
+                # owners, then one listing warp per group
+                threads = 32 * max((ft + 1) * groups, _MIN_THREADS // 32)
+                smem = hist_smem(acc_bytes, ft, bt, st, groups, sub,
+                                 row_bins)
+                per_sm = min(_SMEM_SM // (smem + _SMEM_RESERVED),
+                             _SM_THREADS // threads,
+                             _SM_REGS // (threads * _REGS))
+                if smem > _SMEM_BLOCK or per_sm < 1:
+                    continue
+                score = (min(per_sm * ft * groups, _SM_WARPS), -groups, ft,
+                         stage_bins, sub)
+                if best is None or score > best[0]:
+                    best = (score, ft, groups, sub, int(stage_bins), threads,
+                            smem, per_sm)
+    _, ft, groups, sub, stage_bins, threads, smem, per_sm = best
+    tiles = -(-n_feat // ft) * -(-n_bins // bt) * -(-n_slots // st)
+    want = max(1, _SMS * per_sm * _WAVE_SHARE[0] // _WAVE_SHARE[1] // tiles)
+    chunk_rows = min(_MAX_CHUNK_ROWS,
+                     max(_MIN_CHUNK_ROWS, _up(-(-max(n, 1) // want), _ROUND)))
+    chunks = -(-max(n, 1) // chunk_rows)
+    cluster = min(_MAX_CLUSTER, chunks)
+    clusters = max(1, chunks // cluster)   # whole clusters within the wave
+    if clusters > 1:
+        per_part = n_feat * n_bins * n_slots * 3 * acc_bytes
+        clusters = min(clusters, max(1, _SCRATCH_BYTES // per_part))
+    n_chunks = clusters * cluster
+    chunk_rows = _up(-(-max(n, 1) // n_chunks), _ROUND)
+    if sub > chunk_rows:
+        sub = chunk_rows
+        smem = hist_smem(acc_bytes, ft, bt, st, groups, sub,
+                         n_feat * bin_bytes if stage_bins else 0)
+    return HistPlan(chunk_rows, n_chunks, ft, bt, st, groups, cluster, sub,
+                    stage_bins, threads, smem)
+
+
+@functools.lru_cache(maxsize=512)
+def scan_plan(n_feat: int, n_bins: int) -> ScanPlan:
+    """The launch of `split_scan`: one block per node, one warp per
+    feature (at most `_SCAN_MAX_WARPS`), each staging up to `seg` bins of
+    12 bytes at a time within `_SCAN_SMEM` for the block."""
+    warps = min(n_feat, _SCAN_MAX_WARPS)
+    seg = min(n_bins, _SCAN_SMEM // (12 * warps))
+    return ScanPlan(warps, seg, 12 * seg * warps)
 
 
 # ------------------------------------------------------------ plain versions
@@ -209,20 +339,72 @@ def _check_scan(hist, feat_mask, min_inst) -> None:
 
 
 # ------------------------------------------------------------ launches
+#: ctypes argument types of each entry point
+HIST_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 7 \
+    + [ctypes.c_int] * 14 + [ctypes.c_void_p]
+_SCAN_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
+    + [ctypes.c_float] * 2 + [ctypes.c_void_p]
+
+
 def _kernel(name: str):
     fn = _fns.get(name)
     if fn is None:
         from . import build
         fn = getattr(build.load(name), f"sml_{name}")
-        if name == "hist_accumulate":
-            fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 7 \
-                + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-        else:
-            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 \
-                + [ctypes.c_float] * 2 + [ctypes.c_void_p]
+        fn.argtypes = HIST_ARGTYPES if name == "hist_accumulate" \
+            else _SCAN_ARGTYPES
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return fn
+
+
+def _launch(dev: torch.device, fn, *args) -> int:
+    """`fn(*args, stream)` on the current stream of `dev`, with `dev` the
+    current device (the launch goes to the current one); switches device
+    only when it is not already current."""
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return fn(*args, stream)
+    with torch.cuda.device(dev):
+        return fn(*args, stream)
+
+
+def check_aligned(*ts) -> None:
+    """The histogram kernel stages rows with bulk copies, which need
+    16-byte-aligned addresses: raise for an operand that is not (a view
+    at an odd offset), rather than copy it."""
+    for t in ts:
+        if t.data_ptr() % 16:
+            raise ValueError(f"hist_accumulate needs 16-byte-aligned "
+                             f"operands; a {t.dtype} operand lies at "
+                             f"{t.data_ptr():#x} (pass a fresh tensor)")
+
+
+def launch_hist(fn, plan: HistPlan, binned, lid, grad, hess, weight,
+                n_bins: int, n_slots: int, acc_dtype) -> torch.Tensor:
+    """Launch a `hist_accumulate` entry point (`fn`) with `plan` on the
+    current stream; allocates the output and, with more than one
+    cluster, the (clusters, F*B*S*3) `acc_dtype` scratch."""
+    n, n_feat = binned.shape
+    dev = binned.device
+    out = torch.empty((n_feat * n_bins, n_slots * 3), dtype=torch.float32,
+                      device=dev)
+    parts = plan.n_chunks // plan.cluster
+    scratch = None if parts == 1 else torch.empty(
+        (parts, n_feat * n_bins * n_slots * 3), dtype=acc_dtype, device=dev)
+    err = _launch(dev, fn, _BIN_BYTES[binned.dtype], binned.data_ptr(),
+                  lid.data_ptr(), grad.data_ptr(), hess.data_ptr(),
+                  weight.data_ptr(),
+                  None if scratch is None else scratch.data_ptr(),
+                  out.data_ptr(), n, n_feat, n_bins, n_slots,
+                  plan.chunk_rows, plan.n_chunks, plan.ft, plan.bt, plan.st,
+                  plan.groups, plan.cluster, plan.sub_rows, plan.stage_bins,
+                  plan.threads)
+    if err != 0:
+        raise RuntimeError(f"hist_accumulate launch failed: CUDA error {err} "
+                           f"(n={n}, F={n_feat}, B={n_bins}, S={n_slots}, "
+                           f"{plan})")
+    return out
 
 
 def _count(name: str) -> None:
@@ -239,10 +421,11 @@ def hist_accumulate(binned: torch.Tensor, lid: torch.Tensor,
     layout). `binned` is the compact bin matrix, `lid` each row's slot,
     `weight` its weight (0 leaves the row out).
 
-    CUDA operands launch the kernel on the current stream: a pass that
-    sums each chunk of rows in float64 into a scratch array, then a sum
-    over chunks in chunk order, rounded to f32. The result is
-    bit-identical from run to run. CPU operands run
+    CUDA operands (16-byte aligned) launch the kernel on the current
+    stream: blocks of row chunks sum their cells in float64, clusters of
+    them add their tiles in rank order, and (with more than one cluster)
+    a second pass sums the clusters' partials in order, rounded to f32.
+    The result is bit-identical from run to run. CPU operands run
     `hist_accumulate_plain`."""
     B, S = int(n_bins), int(n_slots)
     _check_hist(binned, lid, grad, hess, weight, B, S)
@@ -252,23 +435,13 @@ def hist_accumulate(binned: torch.Tensor, lid: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"hist_accumulate runs on cuda or cpu, not {dev}")
     n, n_feat = binned.shape
-    out = torch.empty((n_feat * B, S * 3), dtype=torch.float32, device=dev)
     if n == 0:
-        return out.zero_()
-    plan = hist_plan(n, n_feat, B, S)
-    scratch = torch.empty((plan.n_chunks, n_feat * B * S * 3),
-                          dtype=torch.float64, device=dev)
-    fn = _kernel("hist_accumulate")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(_BIN_BYTES[binned.dtype], binned.data_ptr(), lid.data_ptr(),
-                 grad.data_ptr(), hess.data_ptr(), weight.data_ptr(),
-                 scratch.data_ptr(), out.data_ptr(), n, n_feat, B, S,
-                 plan.chunk_rows, plan.n_chunks, plan.ft, plan.bt, plan.st,
-                 stream)
-    if err != 0:
-        raise RuntimeError(f"hist_accumulate launch failed: CUDA error {err} "
-                           f"(n={n}, F={n_feat}, B={B}, S={S}, {plan})")
+        return torch.zeros((n_feat * B, S * 3), dtype=torch.float32,
+                           device=dev)
+    check_aligned(binned, lid, grad, hess, weight)
+    plan = hist_plan(n, n_feat, B, S, bin_bytes=_BIN_BYTES[binned.dtype])
+    out = launch_hist(_kernel("hist_accumulate"), plan, binned, lid, grad,
+                      hess, weight, B, S, torch.float64)
     _count("hist_accumulate")
     return out
 
@@ -289,15 +462,14 @@ def split_scan(hist: torch.Tensor, feat_mask: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"split_scan runs on cuda or cpu, not {dev}")
     n_feat, n_bins, width = hist.shape[:3]
+    plan = scan_plan(n_feat, n_bins)
     out = torch.empty((6, width), dtype=torch.float32, device=dev)
-    fn = _kernel("split_scan")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(hist.data_ptr(), feat_mask.data_ptr(), min_inst.data_ptr(),
-                 out.data_ptr(), n_feat, n_bins, width, float(reg_lambda),
-                 float(gamma), stream)
+    err = _launch(dev, _kernel("split_scan"), hist.data_ptr(),
+                  feat_mask.data_ptr(), min_inst.data_ptr(), out.data_ptr(),
+                  n_feat, n_bins, width, plan.warps, plan.seg,
+                  float(reg_lambda), float(gamma))
     if err != 0:
         raise RuntimeError(f"split_scan launch failed: CUDA error {err} "
-                           f"(F={n_feat}, B={n_bins}, W={width})")
+                           f"(F={n_feat}, B={n_bins}, W={width}, {plan})")
     _count("split_scan")
     return out

@@ -190,18 +190,93 @@ def test_wrappers_refuse_bad_operands():
                       reg_lambda=1.0, gamma=0.0)
 
 
-@pytest.mark.parametrize("n, n_feat, n_bins, n_slots", [
-    (80_000, 10, 64, 1), (80_000, 10, 64, 16), (80_000, 10, 64, 32),
-    (64_000, 10, 40, 16), (80_000, 10, 300, 32), (50_000, 4, 70_000, 2),
-    (5, 3, 8, 1), (1_000_000, 10, 256, 64)])
-def test_hist_plan_fits_shared_memory_and_covers_every_row(n, n_feat, n_bins,
-                                                           n_slots):
-    p = hk.hist_plan(n, n_feat, n_bins, n_slots)
-    tile = 24 * p.ft * p.bt * p.st
-    assert tile <= hk._TILE_BYTES and 1 <= p.ft <= hk._MAX_WARPS
-    assert p.bt <= n_bins and p.st <= n_slots and p.ft <= n_feat
-    assert p.chunk_rows % 32 == 0
-    assert p.chunk_rows * p.n_chunks >= n > p.chunk_rows * (p.n_chunks - 1)
-    if p.n_chunks > 1:
-        assert p.n_chunks * n_feat * n_bins * n_slots * 24 \
+@pytest.mark.parametrize("n, n_feat, n_bins, n_slots, bin_bytes, acc_bytes", [
+    (80_000, 10, 64, 1, 1, 8), (80_000, 10, 64, 16, 1, 8),
+    (80_000, 10, 64, 32, 1, 8), (64_000, 10, 40, 16, 1, 8),
+    (80_000, 10, 300, 32, 2, 8), (50_000, 4, 70_000, 2, 4, 8),
+    (5, 3, 8, 1, 1, 8), (1_000_000, 10, 256, 64, 1, 8),
+    (80_000, 10, 64, 16, 1, 4), (80_001, 10, 64, 8, 1, 8),
+    (3_001, 400, 16, 4, 4, 8), (16_000, 10, 64, 4, 1, 8)])
+def test_hist_plan_fits_shared_memory_and_covers_every_row(
+        n, n_feat, n_bins, n_slots, bin_bytes, acc_bytes):
+    """The launch of `hist_accumulate` fits the card (shared memory of a
+    block and of an SM, clusters, grid and block limits), covers every
+    row exactly once, and stages rows with bulk copies whose addresses and
+    sizes are multiples of 16 bytes."""
+    p = hk.hist_plan(n, n_feat, n_bins, n_slots, bin_bytes=bin_bytes,
+                     acc_bytes=acc_bytes)
+    assert (3 * acc_bytes + 1) * p.ft * p.bt * p.st <= hk._TILE_BYTES
+    assert 1 <= p.ft <= min(hk._MAX_WARPS, n_feat)
+    assert 1 <= p.groups <= p.st and (p.ft + 1) * p.groups <= hk._MAX_WARPS
+    # the slot groups (ceil(st / groups) slots each) cover the tile's slots
+    gs = -(-p.st // p.groups)
+    assert (p.groups - 1) * gs < p.st <= p.groups * gs
+    assert 1 <= p.bt <= n_bins and 1 <= p.st <= n_slots
+    # shared memory: the kernel's layout, a block's limit, and at least
+    # one resident block per SM with its reserved kilobyte
+    row_bins = n_feat * bin_bytes if p.stage_bins else 0
+    assert p.smem == hk.hist_smem(acc_bytes, p.ft, p.bt, p.st, p.groups,
+                                  p.sub_rows, row_bins)
+    assert p.smem <= 227 * 1024
+    per_sm = (228 * 1024) // (p.smem + 1024)
+    assert per_sm >= 1 and per_sm * (p.smem + 1024) <= 228 * 1024
+    assert p.sub_rows * row_bins <= hk._STAGE_BIN_BYTES
+    assert p.sub_rows in hk._SUB_ROWS or p.sub_rows == p.chunk_rows
+    assert p.sub_rows < 2 ** 16          # row lists hold uint16
+    # clusters, grid and block
+    assert 1 <= p.cluster <= 8 and p.n_chunks % p.cluster == 0
+    assert -(-n_feat // p.ft) <= 65535
+    assert -(-n_bins // p.bt) * -(-n_slots // p.st) <= 65535
+    assert p.n_chunks < 2 ** 31
+    assert p.threads % 32 == 0 and 32 * (p.ft + 1) * p.groups <= p.threads
+    assert p.threads <= 512
+    parts = p.n_chunks // p.cluster
+    if parts > 1:
+        assert parts * n_feat * n_bins * n_slots * 3 * acc_bytes \
             <= hk._SCRATCH_BYTES
+    # rows: chunks and their staged sub-chunks cover [0, n) exactly once,
+    # at 16-byte-aligned offsets, in bulk copies of multiples of 16 bytes
+    assert p.chunk_rows % 32 == 0 and p.sub_rows % 32 == 0
+    assert p.sub_rows <= p.chunk_rows
+    seen = np.zeros(n, np.int64)
+    for c in range(p.n_chunks):
+        begin, end = c * p.chunk_rows, min((c + 1) * p.chunk_rows, n)
+        for r in range(begin, end, p.sub_rows):
+            cnt = min(p.sub_rows, end - r)
+            seen[r:r + cnt] += 1
+            bulk = cnt & ~15
+            assert (r * n_feat * bin_bytes) % 16 == 0 and (r * 4) % 16 == 0
+            assert (bulk * n_feat * bin_bytes) % 16 == 0 and (bulk * 4) % 16 == 0
+            assert cnt == bulk or r + cnt == n   # only the matrix's last rows
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("n_feat, n_bins, width", [
+    (10, 64, 1), (10, 64, 2), (10, 64, 4), (10, 64, 8), (10, 64, 16),
+    (10, 64, 32), (10, 40, 16), (10, 300, 32), (10, 5000, 4), (40, 64, 8)])
+def test_scan_plan_fits_shared_memory(n_feat, n_bins, width):
+    """The launch of `split_scan` at every shape `chip_smoke.py` checks,
+    the 5,000-bin node past 48 KB included: a block per node within 48
+    KB of shared memory (static included), one warp per feature up to the limit, and bin
+    segments that cover every bin of a feature."""
+    p = hk.scan_plan(n_feat, n_bins)
+    assert p.warps == min(n_feat, hk._SCAN_MAX_WARPS) <= 32
+    # dynamic within 47 KB, so that with its 256 static bytes the block
+    # stays within 48 KB without opting in
+    assert p.smem == 12 * p.seg * p.warps <= 47 * 1024
+    assert 1 <= p.seg <= n_bins
+    # a feature is staged whole (one pass) whenever the block's warps
+    # can hold their features whole
+    assert (p.seg == n_bins) == (12 * p.warps * n_bins <= 47 * 1024)
+    starts = range(0, n_bins, p.seg)
+    assert sum(min(p.seg, n_bins - b0) for b0 in starts) == n_bins
+    assert width < 2 ** 31   # one block per node on the grid's x axis
+
+
+def test_hist_wrapper_refuses_unaligned_operands():
+    """Bulk copies need 16-byte-aligned operands: a view at an odd offset
+    raises instead of being copied."""
+    w = torch.ones(33)
+    hk.check_aligned(w[:32], torch.zeros((4, 3), dtype=torch.uint8))
+    with pytest.raises(ValueError, match="16-byte"):
+        hk.check_aligned(w[1:])
