@@ -10,19 +10,24 @@ Phases:
 1. device: the card's name and power limit (from nvidia-smi);
 2. build: every kernel source, with one nvcc process each, in parallel;
 3. kernels: `forest_traverse` against its plain PyTorch version on the
-   card, on seeded random ensembles with early leaves, at the widths of
-   the tree models the repository fits (ML 11 XGBoost, ML 07 random
-   forest, ML 06 decision tree, a uint16 and an int32 bin matrix), at
-   4,096 and 100,000 rows;
+   card, bit for bit, on seeded random ensembles with early leaves and
+   feature ids past the row, at the widths of the tree models the
+   repository fits (ML 11 XGBoost, ML 07 random forest, ML 06 decision
+   tree, a uint16 and an int32 bin matrix) at 1, 37, 64, 4,096 and
+   100,000 rows, and at shapes that take the kernel's other paths: rows
+   too wide to stage their bins (400 features), trees built in chunks
+   (300 trees, in many tree groups and in one; depth 13) and trees past
+   shared memory (depth 16);
 4. main path, serving: an ML 11-shaped model (40 trees, depth 6, 10
    features, 64 bins) built through the port's loader, scored through
    `DeviceScorer.score_block` (100,000 rows), evaluated through the fused
    `forest_eval_fn` (exp link, 20,000 labelled rows) and served through
    `MicroBatcher` (96 concurrent requests of 1-64 rows), with the
-   kernel's launch count read around it;
+   kernel's launch count read around it and split by row count;
 5. times: the kernel (CUDA-event median of one call, and device time
    by `torch.profiler`), its plain version and its bound at the ML 11
-   shape, beside the card's name and power limit;
+   shape at 64, 4,096 and 100,000 rows, beside the card's name and
+   power limit;
 6. breakdown: where one `score_block` call spends its time (binning,
    staging, kernel, copy back), at 4,096 and 100,000 rows;
 7. fit kernels: `hist_accumulate` against its plain version at the ML 11
@@ -71,8 +76,10 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 
-#: the tolerance of kernel against plain: the leaf choice is exact and
-#: only the f32 sum over trees may be ordered differently
+#: the tolerance of the card's scores against the CPU's (`score_block`
+#: on both): the leaf choice is exact and the two sums over trees are
+#: f32 in one order; the kernel itself is held to its plain version bit
+#: for bit
 RTOL = 1e-5
 #: histogram cells: |kernel - plain| <= HIST_RTOL * (the cell summed over
 #: |contributions|) + 1e-30; both sum in float64 in another order and
@@ -117,13 +124,35 @@ SHAPES = [
     ("int32 bins", 40, 6, 70_000, np.int32, "step"),
 ]
 N_FEAT = 10
+#: row counts of the kernel checks: requests of one row to a full
+#: request, a serving batch, the ML 12 batch size
+CHECK_ROWS = (1, 37, 64, 4096, 100_000)
+#: shapes of the kernel's other paths, each with its row counts, its
+#: features and what its plan must hold
+PATH_SHAPES = [
+    # (shape, rows, features, plan fields)
+    (("wide rows", 8, 6, 16, np.int32, "step"), (37, 4096), 400,
+     {"path": "shared", "stage_x": 0}),
+    (("many trees", 300, 6, 64, np.uint8, "step"), (37, 4096), N_FEAT,
+     {"path": "shared", "n_chunks": 2}),
+    # one tree group, its running sum carried across chunks in `out`
+    (("many trees", 300, 6, 64, np.uint8, "step"), (100_000,), N_FEAT,
+     {"path": "shared", "n_chunks": 2, "groups": 1}),
+    (("deep, tree chunks", 4, 13, 300, np.uint16, "step"), (37, 4096),
+     N_FEAT, {"path": "shared", "n_chunks": 2}),
+    (("deep, global memory", 2, 16, 300, np.uint16, "step"), (37, 4096),
+     N_FEAT, {"path": "global"}),
+]
 
 
-def shape_operands(rng, shape, n_rows: int, device):
+def shape_operands(rng, shape, n_rows: int, device, n_feat: int = N_FEAT):
+    """Seeded operands of one kernel check: a random ensemble of `shape`
+    (with ~1% of its split features past the row) and uniform bins."""
     _, T, depth, n_bins, dtype, wkind = shape
-    sf, sb, lv = random_tables(rng, T, depth, n_bins, N_FEAT)
+    sf, sb, lv = random_tables(rng, T, depth, n_bins, n_feat)
+    sf[(sf >= 0) & (rng.random(sf.shape) < 0.01)] = n_feat + 3
     w = np.full(T, 0.15 if wkind == "step" else 1.0 / T, np.float32)
-    binned = rng.integers(0, n_bins, size=(n_rows, N_FEAT)).astype(dtype)
+    binned = rng.integers(0, n_bins, size=(n_rows, n_feat)).astype(dtype)
     to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
     return to(binned), to(sf), to(sb), to(lv), to(w), depth
 
@@ -139,23 +168,40 @@ def levels_descended(binned, sf, sb, depth: int) -> int:
             f = sf[t].to(torch.int64)[node]
             internal = f >= 0
             total += int(internal.sum())
-            xb = x.gather(1, f.clamp(min=0)[:, None])[:, 0]
+            xb = x.gather(1, f.clamp(0, x.shape[1] - 1)[:, None])[:, 0]
+            xb = torch.where(f < x.shape[1], xb, 0)
             child = 2 * node + 1 + (xb > sb[t].to(torch.int64)[node]).long()
             node = torch.where(internal, child, node)
     return total
 
 
+def table_bytes(sf, depth: int) -> int:
+    """Bytes of the node tables a traversal must read: sf and sb of each
+    internal node a row can reach (sf and lv at an early leaf), lv of
+    each reachable last-level node. A node below an early leaf is never
+    reached."""
+    f = sf[:, :2 ** (depth + 1) - 1].cpu().numpy()
+    reach = np.ones(f.shape, bool)
+    for lvl in range(1, depth + 1):
+        j = np.arange(2 ** lvl - 1, 2 ** (lvl + 1) - 1)
+        par = (j - 1) // 2
+        reach[:, j] = reach[:, par] & (f[:, par] >= 0)
+    nrec = 2 ** depth - 1
+    return 8 * int(reach[:, :nrec].sum()) + 4 * int(reach[:, nrec:].sum())
+
+
 def bound_ms(binned, sf, sb, depth: int):
     """(ms, "bytes" or "operations"): the larger of the bytes the call
-    must move over HBM bandwidth (bins read once, tables and weights
-    read once, margins written once) and its operations over the f32
-    rate outside the tensor cores (per node visit a compare and the
-    child index, 3; per row and tree the weighted add, 2). The guide's
-    table lists no integer rate, so integer work is counted at the f32
-    rate."""
+    must move over HBM bandwidth (bins read once, the reachable part of
+    the tables (`table_bytes`) and the weights read once, margins written
+    once) and its operations over the f32 rate outside the tensor cores
+    (per node visit a compare and the child index, 3; per row and tree
+    the weighted add, 2). The guide's table lists no integer rate, so
+    integer work is counted at the f32 rate."""
     n, n_feat = binned.shape
-    T, N = sf.shape
-    nbytes = n * n_feat * binned.element_size() + 12 * T * N + 4 * T + 4 * n
+    T = sf.shape[0]
+    nbytes = n * n_feat * binned.element_size() + table_bytes(sf, depth) \
+        + 4 * T + 4 * n
     ops = 3 * levels_descended(binned, sf, sb, depth) + 2 * n * T
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
@@ -247,23 +293,34 @@ def assert_close(got: np.ndarray, want: np.ndarray, what: str) -> float:
 
 # ------------------------------------------------------------ phases
 def phase_kernels(seed: int, device) -> float:
-    """Kernel against plain at every shape and row count; returns the
-    largest absolute difference seen."""
+    """Kernel against plain, bit for bit, at every shape and row count,
+    each launch's plan printed and the other paths' plans checked;
+    returns the largest absolute difference seen (0.0)."""
     from sml_tpu_torch.native import traverse_kernel as tk
+    cases = [(s, CHECK_ROWS, N_FEAT, {"path": "shared", "stage_x": 1,
+                                      "n_chunks": 1}) for s in SHAPES]
     worst = 0.0
-    for i, shape in enumerate(SHAPES):
-        for n_rows in (4096, 100_000):
+    for i, (shape, rows, n_feat, expect) in enumerate(cases + PATH_SHAPES):
+        for n_rows in rows:
             rng = np.random.default_rng([seed, i, n_rows])
-            ops = shape_operands(rng, shape, n_rows, device)
-            binned, sf, sb, lv, w, depth = ops
+            binned, sf, sb, lv, w, depth = shape_operands(
+                rng, shape, n_rows, device, n_feat)
+            plan = tk.traverse_plan(n_rows, n_feat, binned.element_size(),
+                                    *sf.shape, depth)
+            if any(getattr(plan, k) != v for k, v in expect.items()):
+                raise AssertionError(f"forest_traverse {shape[0]} x {n_rows}"
+                                     f": {plan} does not hold {expect}")
             got = tk.forest_traverse(binned, sf, sb, lv, w, depth=depth)
             torch.cuda.synchronize()
             want = tk.forest_margin_plain(binned, sf, sb, lv, w, depth)
-            err = assert_close(got.cpu().numpy(), want.cpu().numpy(),
-                               f"forest_traverse {shape[0]} x {n_rows}")
-            print(f"kernel-vs-plain  forest_traverse  {shape[0]:<14} "
-                  f"rows={n_rows:<7} dtype={binned.dtype} "
-                  f"max_abs_err={err:.3e}  ok")
+            got, want = got.cpu().numpy(), want.cpu().numpy()
+            np.testing.assert_array_equal(
+                got, want, err_msg=f"forest_traverse {shape[0]} x {n_rows}")
+            err = float(np.abs(got - want).max(initial=0.0))
+            print(f"kernel-vs-plain  forest_traverse  {shape[0]:<19} "
+                  f"rows={n_rows:<7} T={sf.shape[0]} depth={depth} "
+                  f"F={n_feat} dtype={binned.dtype}: {plan} "
+                  f"max_abs_err={err!r} bit-equal  ok")
             worst = max(worst, err)
     return worst
 
@@ -319,7 +376,8 @@ def fit_labels(rng, X):
 
 def phase_main_path(seed: int, device) -> dict:
     """Score, evaluate and serve through the port's entry points; return
-    the launch count of the run."""
+    the launch count of the run and its split by row count."""
+    from sml_tpu_torch.ml import inference
     from sml_tpu_torch.ml.evaluation import _reg_metric, host_reg_stats
     from sml_tpu_torch.ml.inference import DeviceScorer, forest_eval_fn
     from sml_tpu_torch.ml.tree_impl import bin_with
@@ -341,7 +399,16 @@ def phase_main_path(seed: int, device) -> dict:
             plain_on_cuda[0] += 1
         return plain(binned, *args)
 
+    # the row count of every traversal the scoring path asks for
+    launch_rows = []
+    traverse = inference.forest_traverse
+
+    def counted_traverse(binned, *args, **kw):
+        launch_rows.append(binned.shape[0])
+        return traverse(binned, *args, **kw)
+
     tk.forest_margin_plain = watched_plain
+    inference.forest_traverse = counted_traverse
     PROFILER.reset()
     tk.LAUNCHES = 0
     try:
@@ -413,6 +480,7 @@ def phase_main_path(seed: int, device) -> dict:
     finally:
         launches = tk.LAUNCHES
         tk.forest_margin_plain = plain
+        inference.forest_traverse = traverse
     counters = PROFILER.counters()
     if launches <= 0:
         raise AssertionError("the main path launched forest_traverse 0 times")
@@ -426,36 +494,67 @@ def phase_main_path(seed: int, device) -> dict:
           f"served {len(reqs)} requests in "
           f"{int(counters.get('serve.batches', 0))} batches; "
           f"forest_traverse launches={launches}")
+    split = {"<=64": sum(r <= 64 for r in launch_rows),
+             "65-4096": sum(64 < r <= 4096 for r in launch_rows),
+             ">4096": sum(r > 4096 for r in launch_rows)}
+    if len(launch_rows) != launches:
+        raise AssertionError(f"{len(launch_rows)} traversals asked for, "
+                             f"{launches} launches")
+    print(f"main-path  forest_traverse launches by rows: {split} "
+          f"(rows of the larger ones: "
+          f"{sorted(r for r in launch_rows if r > 64)})")
 
     # agreement with the plain version on the host, on a small input
     cpu = DeviceScorer(model, device="cpu").score_block(X[:2000])
     assert_close(pred[:2000], cpu, "score_block cuda vs cpu")
-    return {"launches": launches}
+    return {"launches": launches, "launches_by_rows": split}
+
+
+#: row counts `forest_traverse` is timed at: a full request, a serving
+#: batch, the ML 12 batch size
+TIME_ROWS = (64, 4096, 100_000)
+
+
+def ml11_operands(seed: int, n_rows: int, device):
+    """The seeded ML 11-shaped operands (`SHAPES[0]`) the kernel is timed
+    on at `n_rows` rows."""
+    rng = np.random.default_rng([seed, 0, n_rows])
+    return shape_operands(rng, SHAPES[0], n_rows, device)
+
+
+def traverse_ms(ops, reps: int):
+    """(CUDA-event median, profiler device time) of one `forest_traverse`
+    call on `ops`; the launches made here are not counted."""
+    from sml_tpu_torch.native import traverse_kernel as tk
+    binned, sf, sb, lv, w, depth = ops
+    launches = tk.LAUNCHES
+
+    def call():
+        return tk.forest_traverse(binned, sf, sb, lv, w, depth=depth)
+    k_ms = time_ms(call, reps)
+    d_ms = device_ms(call, reps, ("forest_traverse",))
+    tk.LAUNCHES = launches
+    return k_ms, d_ms
 
 
 def phase_times(seed: int, device, card: str) -> dict:
     """Kernel (CUDA-event median and profiler device time), plain and
-    bound at the ML 11 shape, 4096 and 100000 rows. Returns the
-    100000-row numbers for the kernels line."""
+    bound at the ML 11 shape at each of `TIME_ROWS`, for the kernels
+    line."""
     from sml_tpu_torch.native import traverse_kernel as tk
     out = {}
-    for n_rows in (4096, 100_000):
-        rng = np.random.default_rng([seed, 0, n_rows])
-        binned, sf, sb, lv, w, depth = shape_operands(rng, SHAPES[0],
-                                                      n_rows, device)
-        launches = tk.LAUNCHES
-        k_ms = time_ms(lambda: tk.forest_traverse(binned, sf, sb, lv, w,
-                                                  depth=depth), 50)
-        d_ms = device_ms(lambda: tk.forest_traverse(binned, sf, sb, lv, w,
-                                                    depth=depth), 50,
-                         ("forest_traverse_kernel",))
+    for n_rows in TIME_ROWS:
+        ops = ml11_operands(seed, n_rows, device)
+        binned, sf, sb, lv, w, depth = ops
+        k_ms, d_ms = traverse_ms(ops, 100)
         p_ms = time_ms(lambda: tk.forest_margin_plain(binned, sf, sb, lv,
                                                       w, depth), 5)
-        tk.LAUNCHES = launches  # timing launches are not the main path's
         b_ms, b_by = bound_ms(binned, sf, sb, depth)
+        plan = tk.traverse_plan(n_rows, N_FEAT, 1, *sf.shape, depth)
         print(f"time  forest_traverse  ML 11 T=40 depth=6 F=10 uint8 "
-              f"rows={n_rows}: kernel {k_ms!r} ms (device {fmt_ms(d_ms)} ms), "
-              f"plain {p_ms!r} ms, bound {b_ms!r} ms ({b_by}); card {card}")
+              f"rows={n_rows} {plan}: kernel {k_ms!r} ms (device "
+              f"{fmt_ms(d_ms)} ms), plain {p_ms!r} ms, bound {b_ms!r} ms "
+              f"({b_by}); card {card}")
         out[n_rows] = (k_ms, d_ms, p_ms, b_ms, b_by)
     return out
 
@@ -1105,10 +1204,15 @@ def main(argv=None) -> int:
         "name": "forest_traverse", "route": "cuda",
         "source": "sml_tpu_torch/csrc/forest_traverse.cu",
         "replaces": "sml_tpu/native/traverse_kernel.py:109",
-        "launches": main_path["launches"], "max_abs_err": err,
+        "launches": main_path["launches"],
+        "launches_by_rows": main_path["launches_by_rows"],
+        "max_abs_err": err,
         "ms": k_ms, "device_ms": d_ms, "plain_ms": p_ms, "bound_ms": b_ms,
         "bound_by": b_by, "library_ms": None,
-        "shape": "ML 11: T=40 depth=6 F=10 uint8, 100000 rows"}]
+        "shape": "ML 11: T=40 depth=6 F=10 uint8, 100000 rows",
+        "by_rows": {str(n): dict(zip(("ms", "device_ms", "plain_ms",
+                                      "bound_ms", "bound_by"), times[n]))
+                    for n in TIME_ROWS}}]
     k_ms, d_ms, p_ms, b_ms, b_by, l_ms = fit_times[("hist_accumulate", 16)]
     kernels.append({
         "name": "hist_accumulate", "route": "cuda",

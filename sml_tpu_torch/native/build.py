@@ -19,7 +19,7 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Tuple
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(os.path.dirname(_HERE), "csrc")
@@ -28,7 +28,7 @@ BUILD_DIR = os.path.join(_HERE, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
 
-_libs: Dict[str, ctypes.CDLL] = {}
+_libs: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
 _lock = threading.Lock()
 
 
@@ -54,18 +54,22 @@ def nvcc_path() -> str:
         "CUDA kernels are built from sml_tpu_torch/csrc at first use")
 
 
-def _lib_path(name: str) -> str:
+def _lib_path(name: str, defines: Tuple[str, ...] = ()) -> str:
     src = os.path.join(CSRC_DIR, f"{name}.cu")
+    h = hashlib.sha256()
     with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+        h.update(f.read())
+    if defines:
+        h.update(repr(defines).encode())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
-def _compile(name: str, out: str) -> None:
+def _compile(name: str, out: str, defines: Tuple[str, ...] = ()) -> None:
     src = os.path.join(CSRC_DIR, f"{name}.cu")
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, src]
+    cmd = [nvcc_path(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o",
+           tmp, src]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise KernelBuildError(
@@ -96,16 +100,21 @@ def build(names: Iterable[str]) -> None:
         raise errors[0]
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of `csrc/<name>.cu`, built on first use."""
+def load(name: str, defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The loaded library of `csrc/<name>.cu`, built on first use; with
+    `defines` (macro names passed as -D), a build of its own."""
+    key = (name, tuple(defines))
     with _lock:
-        lib = _libs.get(name)
+        lib = _libs.get(key)
         if lib is None:
-            path = _lib_path(name)
+            path = _lib_path(name, key[1])
             if not os.path.exists(path):
-                build([name])
+                if key[1]:
+                    _compile(name, path, key[1])
+                else:
+                    build([name])
             lib = ctypes.CDLL(path)
-            _libs[name] = lib
+            _libs[key] = lib
         return lib
 
 
