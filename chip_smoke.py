@@ -36,16 +36,25 @@ Phases:
    odd row count, a few rows and rows too wide to stage their bins, with
    ~20% zero weights, each launched twice and required bit-identical;
    `split_scan` against its plain version, exactly, on histograms of
-   dyadic values with ties, masked, all-masked and NaN nodes;
+   dyadic values with ties, masked, all-masked and NaN nodes; the draw
+   kernels against theirs under the fit's keys of seeds 0, 17 and 42 and
+   rounds 0, 1 and 19: `row_weights` (Bernoulli 0.7 and Poisson 1.0 at 1,
+   37, 80,000 and 100,001 rows; Bernoulli bit-equal, a Poisson count
+   differing only where its log-sum lies within 2 ulps of -rate) and
+   `feature_mask` (1, 2, 16 and 32 nodes of F=10, k=3 and F=400, k=20;
+   bit-equal);
 8. main path, fit: 100,000 seeded ML 11-shaped rows split 80,000 /
    20,000; `XgboostRegressor` (ML 11: 40 trees, depth 6, 64 bins, step
-   0.15) and `DecisionTreeRegressor` (ML 06: depth 5, 40 bins) fit on the
-   card, with every kernel launch counted, then scored through
-   `DeviceScorer.score_block`; the course's rmse ordering; the same two
-   fits at 16,000 rows on the card and on the CPU agree;
+   0.15), `DecisionTreeRegressor` (ML 06: depth 5, 40 bins),
+   `RandomForestRegressor` (ML 07: 20 trees, depth 6, 40 bins, seed 42,
+   a third of the features a node) and ML 11's XGBoost with
+   `subsample=0.8` fit on the card, with every kernel launch counted,
+   then scored through `DeviceScorer.score_block`; the course's rmse
+   orderings (xgb < dt, rf < dt); the same four fits at 16,000 rows on
+   the card and on the CPU agree;
 9. fit times: each fit kernel (CUDA-event median, and device time of
-   the kernel's own launches by `torch.profiler`, "not measured" unless
-   the profiler saw each launch), its plain version, its bound and (for
+   the kernel's own launches by `torch.profiler`, "not measured" when
+   the profiler lost more than one launch), its plain version, its bound and (for
    `hist_accumulate`) one `index_add_` at every shape the ML 11 fit
    launches it at, and their sum over one fit (40 trees x 6 levels);
    beside the float64-summing `hist_accumulate` at 16 and 32 slots, its
@@ -54,10 +63,13 @@ Phases:
    wrappers' host time per call; and where one ML 11 fit spends its time
    (host binning, staging, kernel device time, the rest), with the
    card's busy share and the fit kernels' device time from
-   `torch.profiler`.
+   `torch.profiler`; the draw kernels' times (`row_weights` at 80,000
+   rows, `feature_mask` at W=32, F=10) beside their plain versions and
+   bounds, and the same split of one ML 07 random-forest fit.
 
-The second-to-last line is a JSON object listing each kernel; the last
-is {"ok": true, "device": {...}}.
+The second-to-last line is a JSON object listing each kernel, with the
+launches the profiler saw in each window behind its device times
+("device_windows"); the last is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -225,32 +237,48 @@ def time_ms(fn, reps: int) -> float:
     return float(np.median(times))
 
 
-def device_ms(fn, reps: int, names, per_call: int = 1):
-    """Device time of one call by `torch.profiler`: the device time of
-    the kernels whose names contain one of `names`, over `reps` calls,
-    divided by `reps` (the CUDA-event median of `time_ms` also holds the
-    host's gap before the launch). A window in which the profiler did not
-    see exactly reps x `per_call` launches of those kernels is retaken, up
-    to three times; then None ("not measured")."""
+#: what each `device_ms` call measured -> the launches a window should
+#: hold ("want") and the launches the profiler saw in each window taken
+#: ("seen"; a window short by one is accepted), for the kernels line
+DEVICE_WINDOWS = {}
+
+
+def device_ms(fn, reps: int, names, per_call: int = 1, what: str = ""):
+    """Device time of one call by `torch.profiler`: over `reps` calls,
+    each kernel whose name contains one of `names` at its mean device
+    time over the launches the profiler saw, times its launches a call
+    (the CUDA-event median of `time_ms` also holds the host's gap before
+    the launch). The profiler may lose one kernel record of a window (on
+    the H100 it lost one in every window after the serving phases); a
+    window that saw neither reps x `per_call` launches nor one fewer is
+    retaken, up to three times; then None ("not measured"). The counts
+    each window saw go to `DEVICE_WINDOWS[what]`."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
+    want = reps * per_call
+    seen_by_window = []
+    DEVICE_WINDOWS[what or "/".join(names)] = {"want": want,
+                                               "seen": seen_by_window}
     for _ in range(3):   # a window where the profiler lost events is retaken
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        total, count = 0.0, 0
+        seen = {}        # kernel name -> (device us, launches)
         for ev in prof.key_averages():
             t = float(getattr(ev, "self_device_time_total", 0.0))
             if t > 0 and any(nm in ev.key for nm in names):
-                total += t
-                count += int(ev.count)
-        if count == reps * per_call and total > 0:
-            return total / 1e3 / reps
+                tot, cnt = seen.get(ev.key, (0.0, 0))
+                seen[ev.key] = (tot + t, cnt + int(ev.count))
+        count = sum(cnt for _, cnt in seen.values())
+        seen_by_window.append(count)
+        if want - 1 <= count <= want:
+            return sum(tot / cnt * round(cnt / reps)
+                       for tot, cnt in seen.values()) / 1e3
         print(f"device time of {names}: the profiler saw {count} launches, "
-              f"not {reps * per_call}")
+              f"not {want}")
     print(f"device time of {names}: not measured")
     return None
 
@@ -522,7 +550,7 @@ def ml11_operands(seed: int, n_rows: int, device):
     return shape_operands(rng, SHAPES[0], n_rows, device)
 
 
-def traverse_ms(ops, reps: int):
+def traverse_ms(ops, reps: int, what: str = "forest_traverse"):
     """(CUDA-event median, profiler device time) of one `forest_traverse`
     call on `ops`; the launches made here are not counted."""
     from sml_tpu_torch.native import traverse_kernel as tk
@@ -532,7 +560,7 @@ def traverse_ms(ops, reps: int):
     def call():
         return tk.forest_traverse(binned, sf, sb, lv, w, depth=depth)
     k_ms = time_ms(call, reps)
-    d_ms = device_ms(call, reps, ("forest_traverse",))
+    d_ms = device_ms(call, reps, ("forest_traverse",), what=what)
     tk.LAUNCHES = launches
     return k_ms, d_ms
 
@@ -546,7 +574,7 @@ def phase_times(seed: int, device, card: str) -> dict:
     for n_rows in TIME_ROWS:
         ops = ml11_operands(seed, n_rows, device)
         binned, sf, sb, lv, w, depth = ops
-        k_ms, d_ms = traverse_ms(ops, 100)
+        k_ms, d_ms = traverse_ms(ops, 100, f"forest_traverse rows={n_rows}")
         p_ms = time_ms(lambda: tk.forest_margin_plain(binned, sf, sb, lv,
                                                       w, depth), 5)
         b_ms, b_by = bound_ms(binned, sf, sb, depth)
@@ -732,40 +760,163 @@ def pack_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return float(torch.nan_to_num(d, nan=float("inf")).max())
 
 
+# ------------------------------------------------------------ draw kernels
+#: the draw checks' seeds and rounds; row counts (one row, a few, the fit
+#: phase's 80,000 and an odd count past it); and (F, k) of the masks at
+#: each node count
+DRAW_SEEDS = (0, 17, 42)
+DRAW_ROUNDS = (0, 1, 19)
+DRAW_ROWS = (1, 37, 80_000, 100_001)
+MASK_SHAPES = ((10, 3), (400, 20))
+MASK_WIDTHS = (1, 2, 16, 32)
+#: the mode and rate of each row-weights check: the subsample's Bernoulli
+#: and the forest's bootstrap
+DRAW_MODES = (("bernoulli", 0.7), ("poisson", 1.0))
+#: a Poisson count of the kernel may differ from its plain version only
+#: at rows whose log-sum came this close to -rate (in f32 ulps)
+BOUNDARY_ULPS = 2
+
+
+def draw_key(seed: int, t: int):
+    """Round t's row-weight key of a fit seeded `seed`:
+    `fold_in(fold_in(prng_key(seed), 0), t)`."""
+    from sml_tpu_torch.utils import prng
+    return prng.fold_in(prng.fold_in(prng.prng_key(seed), 0), t)
+
+
+def near_boundary(key, lam: float, n: int, device) -> torch.Tensor:
+    """Rows whose f32 log-sum (the plain version's float64-rounded log)
+    came within `BOUNDARY_ULPS` of -lam at some step of Knuth's loop."""
+    from sml_tpu_torch.utils import prng
+    neg = torch.tensor(-lam, dtype=torch.float32)
+    neg_bits = int(neg.view(torch.int32))
+    log_prod = torch.zeros(n, dtype=torch.float32, device=device)
+    near = torch.zeros(n, dtype=torch.bool, device=device)
+    rng = key
+    while bool((log_prod > neg.to(device)).any()):
+        rng, sub = prng.split(rng)
+        log_prod = log_prod + prng.log_f32(prng.uniform(sub, n, device))
+        gap = (log_prod.view(torch.int32).to(torch.int64) - neg_bits).abs()
+        near |= (log_prod < 0) & (gap <= BOUNDARY_ULPS)
+    return near
+
+
+def phase_draw_kernels(device) -> dict:
+    """`row_weights` (Bernoulli p=0.7 and Poisson λ=1 at `DRAW_ROWS`) and
+    `feature_mask` (`MASK_SHAPES` at `MASK_WIDTHS` nodes) against their
+    plain versions on the card, under the fit's keys of seeds 0, 17 and
+    42 and rounds 0, 1 and 19: weights of either mode and masks bit-equal,
+    a Poisson count differing only within `BOUNDARY_ULPS` of -rate.
+    Returns the largest absolute differences seen."""
+    from sml_tpu_torch.native import prng_kernel as pk
+    from sml_tpu_torch.utils import prng
+    saved = dict(pk.LAUNCHES)
+    worst = {"row_weights": 0.0, "feature_mask": 0.0}
+    for mode, rate in DRAW_MODES:
+        for n in DRAW_ROWS:
+            differ = 0
+            for seed in DRAW_SEEDS:
+                for t in DRAW_ROUNDS:
+                    key = draw_key(seed, t)
+                    got = pk.row_weights(key, n, mode, rate, device)
+                    torch.cuda.synchronize()
+                    want = pk.row_weights_plain(key, n, mode, rate, device)
+                    off = got != want
+                    if bool(off.any()):
+                        away = off if mode == "bernoulli" else \
+                            off & ~near_boundary(key, rate, n, device)
+                        if bool(away.any()):
+                            raise AssertionError(
+                                f"row_weights {mode} n={n} seed={seed} "
+                                f"t={t}: {int(away.sum())} rows differ "
+                                f"away from the log boundary")
+                    differ += int(off.sum())
+                    worst["row_weights"] = max(
+                        worst["row_weights"],
+                        float((got - want).abs().max()))
+            print(f"kernel-vs-plain  row_weights  {mode} rate={rate} "
+                  f"rows={n:<6} {pk.draw_plan(n)} seeds={DRAW_SEEDS} "
+                  f"rounds={DRAW_ROUNDS}: rows differing {differ} (within "
+                  f"{BOUNDARY_ULPS} ulps of -rate)  ok")
+    for n_feat, k in MASK_SHAPES:
+        for width in MASK_WIDTHS:
+            for seed in DRAW_SEEDS:
+                for t in DRAW_ROUNDS:
+                    level = width.bit_length() - 1
+                    key = prng.fold_in(prng.fold_in(prng.prng_key(seed), t),
+                                       level)
+                    got = pk.feature_mask(key, width, n_feat, k, device)
+                    torch.cuda.synchronize()
+                    want = pk.feature_mask_plain(key, width, n_feat, k,
+                                                 device)
+                    if not torch.equal(got, want):
+                        raise AssertionError(
+                            f"feature_mask W={width} F={n_feat} k={k} "
+                            f"seed={seed} t={t}: "
+                            f"{int((got != want).sum())} cells differ")
+                    if not bool((got.sum(1) == k).all()):
+                        raise AssertionError(f"feature_mask W={width} "
+                                             f"F={n_feat}: not k a node")
+            print(f"kernel-vs-plain  feature_mask  W={width:<2} F={n_feat} "
+                  f"k={k} {pk.mask_plan(n_feat)} seeds={DRAW_SEEDS} "
+                  f"rounds={DRAW_ROUNDS}: bit-equal  ok")
+    pk.LAUNCHES.update(saved)  # checks are not the main path's launches
+    return worst
+
+
 def _rmse(pred, label) -> float:
     d = np.asarray(pred, np.float64) - np.asarray(label, np.float64)
     return float(np.sqrt(np.mean(d * d)))
 
 
+#: the fit's kernel wrappers and their plain versions, by module
+FIT_WRAPPERS = {"hist_kernel": ("hist_accumulate", "split_scan"),
+                "prng_kernel": ("row_weights", "feature_mask")}
+
+
+def _on_cuda(args) -> bool:
+    """Whether a call's arguments name the card: a CUDA tensor, or (for
+    the draw kernels, whose operands are shapes) a CUDA device."""
+    return any((isinstance(a, torch.Tensor) and a.is_cuda)
+               or (isinstance(a, torch.device) and a.type == "cuda")
+               for a in args)
+
+
 class KernelWatch:
-    """Counts the plain versions' calls on CUDA tensors while it is
-    installed, and optionally times every wrapper call with CUDA events."""
+    """Counts the plain versions' calls on the card while it is
+    installed, and optionally times every wrapper call with CUDA
+    events."""
 
     def __init__(self, timed: bool = False):
-        from sml_tpu_torch.native import hist_kernel as hk
-        self.hk = hk
+        from sml_tpu_torch.native import hist_kernel, prng_kernel
+        self.modules = {"hist_kernel": hist_kernel,
+                        "prng_kernel": prng_kernel}
         self.timed = timed
         self.plain_on_cuda = 0
-        self.events = {"hist_accumulate": [], "split_scan": []}
-        self.saved = {}
+        self.events = {name: [] for names in FIT_WRAPPERS.values()
+                       for name in names}
+        self.saved = []
+
+    def _patch(self, mod, name, fn):
+        self.saved.append((mod, name, getattr(mod, name)))
+        setattr(mod, name, fn)
 
     def __enter__(self):
-        hk = self.hk
-        for name in ("hist_accumulate_plain", "split_scan_plain"):
-            fn = getattr(hk, name)
-            self.saved[name] = fn
+        for modname, names in FIT_WRAPPERS.items():
+            mod = self.modules[modname]
+            for name in names:
+                plain = getattr(mod, f"{name}_plain")
 
-            def watched(*args, _fn=fn, **kw):
-                if args[0].device.type == "cuda":
-                    self.plain_on_cuda += 1
-                return _fn(*args, **kw)
-            setattr(hk, name, watched)
-        if self.timed:
-            for name in ("hist_accumulate", "split_scan"):
-                fn = getattr(hk, name)
-                self.saved[name] = fn
+                def watched(*args, _fn=plain, **kw):
+                    if _on_cuda(list(args) + list(kw.values())):
+                        self.plain_on_cuda += 1
+                    return _fn(*args, **kw)
+                self._patch(mod, f"{name}_plain", watched)
+                if not self.timed:
+                    continue
 
-                def timed_call(*args, _fn=fn, _name=name, **kw):
+                def timed_call(*args, _fn=getattr(mod, name), _name=name,
+                               **kw):
                     a = torch.cuda.Event(enable_timing=True)
                     b = torch.cuda.Event(enable_timing=True)
                     a.record()
@@ -773,12 +924,12 @@ class KernelWatch:
                     b.record()
                     self.events[_name].append((a, b))
                     return out
-                setattr(hk, name, timed_call)
+                self._patch(mod, name, timed_call)
         return self
 
     def __exit__(self, *exc):
-        for name, fn in self.saved.items():
-            setattr(self.hk, name, fn)
+        for mod, name, fn in reversed(self.saved):
+            setattr(mod, name, fn)
 
     def kernel_ms(self) -> dict:
         torch.cuda.synchronize()
@@ -801,21 +952,69 @@ def _fit_dt(X, logy, cats, device):
         X, np.exp(logy), categorical=cats, device=device)
 
 
-def _held_out(xgb, dt, X, logy, device) -> tuple:
-    """Held-out rmse of both models on price, through the scorer."""
+def _fit_rf(X, logy, cats, device):
+    """The ML 07 fit of the course: a random forest on price (20 trees,
+    depth 6, 40 bins, seed 42; `auto` features: a third a node)."""
+    from sml_tpu_torch.ml._tree_models import RandomForestRegressor
+    return RandomForestRegressor(numTrees=20, maxDepth=6, maxBins=40,
+                                 seed=42).fit(
+        X, np.exp(logy), categorical=cats, device=device)
+
+
+def _fit_xgb_sub(X, logy, cats, device):
+    """ML 11's XGBoost with a row subsample of 0.8 a round."""
+    from sml_tpu_torch.xgboost import XgboostRegressor
+    return XgboostRegressor(n_estimators=40, learning_rate=0.15, max_depth=6,
+                            max_bins=64, random_state=42, subsample=0.8).fit(
+        X, logy, categorical=cats, device=device)
+
+
+#: the fits of the main path: estimator, whether it fits log price, and
+#: the launches of each kernel it must make (hist_accumulate and
+#: split_scan a level; row_weights a sampled round; feature_mask a level
+#: of a forest)
+FITS = {
+    "xgb": (_fit_xgb, True, {"hist_accumulate": 240, "split_scan": 240,
+                             "row_weights": 0, "feature_mask": 0}),
+    "dt": (_fit_dt, False, {"hist_accumulate": 5, "split_scan": 5,
+                            "row_weights": 0, "feature_mask": 0}),
+    "rf": (_fit_rf, False, {"hist_accumulate": 120, "split_scan": 120,
+                            "row_weights": 20, "feature_mask": 120}),
+    "xgb_sub": (_fit_xgb_sub, True, {"hist_accumulate": 240,
+                                     "split_scan": 240, "row_weights": 40,
+                                     "feature_mask": 0}),
+}
+
+
+def _held_out(models: dict, X, logy, device) -> dict:
+    """Held-out rmse of each model on price, through the scorer."""
     from sml_tpu_torch.ml.inference import DeviceScorer
     price = np.exp(logy)
-    r_xgb = _rmse(np.exp(DeviceScorer(xgb, device=device).score_block(X)),
-                  price)
-    r_dt = _rmse(DeviceScorer(dt, device=device).score_block(X), price)
-    return r_xgb, r_dt
+    out = {}
+    for name, model in models.items():
+        pred = DeviceScorer(model, device=device).score_block(X)
+        out[name] = _rmse(np.exp(pred) if FITS[name][1] else pred, price)
+    return out
+
+
+def _launch_counts() -> tuple:
+    """The launch counts of the fit's wrappers and of the draw wrappers
+    (each a dict by kernel)."""
+    from sml_tpu_torch.native import hist_kernel as hk
+    from sml_tpu_torch.native import prng_kernel as pk
+    return hk.LAUNCHES, pk.LAUNCHES
+
+
+def _fit_launches() -> dict:
+    """Every fit kernel's launch count, in one dict."""
+    hist, draw = _launch_counts()
+    return dict(hist, **draw)
 
 
 def phase_fit(seed: int, device) -> dict:
-    """The fit slice's main path through the estimators, with every
-    kernel's launches counted; the course ordering; and agreement of the
-    card with the CPU at 16,000 rows."""
-    from sml_tpu_torch.native import hist_kernel as hk
+    """The fit slice's main path through the estimators (`FITS`), with
+    every kernel's launches counted; the course orderings; and agreement
+    of the card with the CPU at 16,000 rows."""
     from sml_tpu_torch.native import traverse_kernel as tk
     from sml_tpu_torch.utils.profiler import PROFILER
     cats = {0: 36, 1: 3, 2: 20}
@@ -828,65 +1027,68 @@ def phase_fit(seed: int, device) -> dict:
     with KernelWatch() as watch:
         tk.LAUNCHES = 0
         PROFILER.reset()
-        for name, fit in (("xgb", _fit_xgb), ("dt", _fit_dt)):
-            for k in hk.LAUNCHES:
-                hk.LAUNCHES[k] = 0
+        for name, (fit, _, _) in FITS.items():
+            for counts in _launch_counts():
+                for k in counts:
+                    counts[k] = 0
             t0 = time.perf_counter()
             models[name] = fit(Xtr, ytr, cats, None)
             walls[name] = time.perf_counter() - t0
-            launches[name] = dict(hk.LAUNCHES)
-        xgb, dt = models["xgb"], models["dt"]
-        r_xgb, r_dt = _held_out(xgb, dt, Xte, yte, None)
+            launches[name] = _fit_launches()
+        rmse = _held_out(models, Xte, yte, None)
         traverse = tk.LAUNCHES
     dispatches = PROFILER.counters().get("tree.fit_dispatch", 0.0)
     base = _rmse(np.full(len(yte), np.exp(ytr).mean()), np.exp(yte))
-    print(f"main-path fit  XgboostRegressor 80000 rows: "
-          f"{walls['xgb'] * 1e3!r} ms, launches {launches['xgb']}; "
-          f"DecisionTreeRegressor: {walls['dt'] * 1e3!r} ms, launches "
-          f"{launches['dt']}; tree.fit_dispatch="
-          f"{dispatches!r}; forest_traverse launches={traverse} (host clock, "
-          f"first fits: binning, staging and copies included)")
-    print(f"main-path fit  held-out rmse (price, 20000 rows): xgb={r_xgb!r} "
-          f"dt={r_dt!r} mean-label baseline={base!r}")
-    want = {"xgb": 40 * 6, "dt": 5}
-    for model, n in want.items():
-        for k, got in launches[model].items():
-            if got != n:
-                raise AssertionError(f"{model} fit launched {k} {got} "
-                                     f"times, not {n}")
+    for name, (_, _, want) in FITS.items():
+        print(f"main-path fit  {type(models[name]).__name__} ({name}) "
+              f"80000 rows: {walls[name] * 1e3!r} ms, launches "
+              f"{launches[name]} (host clock, first fits: binning, staging "
+              f"and copies included)")
+        if launches[name] != want:
+            raise AssertionError(f"{name} fit launched {launches[name]}, "
+                                 f"not {want}")
+    print(f"main-path fit  tree.fit_dispatch={dispatches!r}; "
+          f"forest_traverse launches={traverse}")
+    print(f"main-path fit  held-out rmse (price, 20000 rows): "
+          + ", ".join(f"{k}={v!r}" for k, v in rmse.items())
+          + f", mean-label baseline={base!r}")
     if watch.plain_on_cuda:
         raise AssertionError(f"the plain versions ran {watch.plain_on_cuda} "
                              f"times on CUDA tensors")
-    if dispatches != 2 or traverse <= 0:
+    if dispatches != len(FITS) or traverse <= 0:
         raise AssertionError(f"{dispatches} fit dispatches, {traverse} "
                              f"traversal launches")
-    if xgb.getNumTrees() != 40 or dt.getNumTrees() != 1:
-        raise AssertionError("wrong tree counts")
-    if not r_xgb < r_dt < base:
-        raise AssertionError(f"course ordering broken: xgb {r_xgb}, dt "
-                             f"{r_dt}, baseline {base}")
+    trees = {k: m.getNumTrees() for k, m in models.items()}
+    if trees != {"xgb": 40, "dt": 1, "rf": 20, "xgb_sub": 40}:
+        raise AssertionError(f"wrong tree counts {trees}")
+    # ML 11: boosting beats the tree; ML 07: the forest beats the tree
+    if not (rmse["xgb"] < rmse["dt"] < base and rmse["rf"] < rmse["dt"]
+            and rmse["xgb_sub"] < rmse["dt"]):
+        raise AssertionError(f"course ordering broken: {rmse}, baseline "
+                             f"{base}")
 
     # the same fits on 16,000 rows, on the card and with the plain
     # versions on the CPU
     small = slice(0, 16_000)
-    card = [fit(Xtr[small], ytr[small], cats, None)
-            for fit in (_fit_xgb, _fit_dt)]
-    host = [fit(Xtr[small], ytr[small], cats, "cpu")
-            for fit in (_fit_xgb, _fit_dt)]
-    r_card = _held_out(*card, Xte, yte, None)
-    r_host = _held_out(*host, Xte, yte, "cpu")
-    same = sum(np.array_equal(a.split_feature, b.split_feature)
-               and np.array_equal(a.split_bin, b.split_bin)
-               for a, b in zip(card[0]._spec.trees + card[1]._spec.trees,
-                               host[0]._spec.trees + host[1]._spec.trees))
-    print(f"fit card-vs-cpu 16000 rows: rmse xgb {r_card[0]!r} vs "
-          f"{r_host[0]!r}, dt {r_card[1]!r} vs {r_host[1]!r}; {same} of 41 "
-          f"trees with identical split tables")
-    for a, b in zip(r_card, r_host):
-        if abs(a - b) > max(RMSE_ATOL, RMSE_RTOL * abs(b)):
-            raise AssertionError(f"card rmse {a} vs cpu rmse {b}")
-    return {"launches": {k: launches["xgb"][k] + launches["dt"][k]
-                         for k in hk.LAUNCHES}}
+    card = {k: f(Xtr[small], ytr[small], cats, None)
+            for k, (f, _, _) in FITS.items()}
+    host = {k: f(Xtr[small], ytr[small], cats, "cpu")
+            for k, (f, _, _) in FITS.items()}
+    r_card = _held_out(card, Xte, yte, None)
+    r_host = _held_out(host, Xte, yte, "cpu")
+    for k in FITS:
+        same = sum(np.array_equal(a.split_feature, b.split_feature)
+                   and np.array_equal(a.split_bin, b.split_bin)
+                   for a, b in zip(card[k]._spec.trees, host[k]._spec.trees))
+        print(f"fit card-vs-cpu 16000 rows {k}: rmse {r_card[k]!r} vs "
+              f"{r_host[k]!r}; {same} of {card[k].getNumTrees()} trees with "
+              f"identical split tables")
+        if abs(r_card[k] - r_host[k]) > max(RMSE_ATOL,
+                                            RMSE_RTOL * abs(r_host[k])):
+            raise AssertionError(f"{k}: card rmse {r_card[k]} vs cpu rmse "
+                                 f"{r_host[k]}")
+    return {"launches": {k: sum(launches[m][k] for m in FITS)
+                         for k in launches["xgb"]}}
 
 
 def hist_bound_ms(binned, weight, n_bins: int, n_slots: int):
@@ -1000,7 +1202,8 @@ def phase_fit_times(seed: int, device, card: str) -> dict:
                                       n_slots=n_slots)
         k_ms = time_ms(call, 50)
         d_ms = device_ms(call, 50, HIST_KERNELS,
-                         hist_launches(80_000, 64, n_slots))
+                         hist_launches(80_000, 64, n_slots),
+                         f"hist_accumulate S={n_slots}")
         p_ms = time_ms(lambda: hk.hist_accumulate_plain(
             b, lid, g, h, w, 64, n_slots), 5)
         # the library yardstick: one index_add_ of the (row, feature)
@@ -1026,7 +1229,8 @@ def phase_fit_times(seed: int, device, card: str) -> dict:
         f_ms = time_ms(lambda: f32acc(b, lid, g, h, w, 64, n_slots), 50)
         fd_ms = device_ms(lambda: f32acc(b, lid, g, h, w, 64, n_slots), 50,
                           HIST_KERNELS, hist_launches(80_000, 64, n_slots,
-                                                      acc_bytes=4))
+                                                      acc_bytes=4),
+                          f"hist_accumulate f32-accumulating S={n_slots}")
         cpu = hk.hist_accumulate_plain(b.cpu(), lid.cpu(), g.cpu(), h.cpu(),
                                        w.cpu(), 64, n_slots)
         got64 = call().cpu()
@@ -1058,7 +1262,7 @@ def phase_fit_times(seed: int, device, card: str) -> dict:
         def scan():
             return hk.split_scan(hist, fmask, mi, reg_lambda=1.0, gamma=0.0)
         k_ms = time_ms(scan, 50)
-        d_ms = device_ms(scan, 50, SCAN_KERNELS)
+        d_ms = device_ms(scan, 50, SCAN_KERNELS, what=f"split_scan W={width}")
         p_ms = time_ms(lambda: hk.split_scan_plain(hist, fmask, mi, 1.0,
                                                    0.0), 5)
         b_ms, b_by = scan_bound_ms(hist)
@@ -1088,25 +1292,119 @@ def phase_fit_times(seed: int, device, card: str) -> dict:
     return out
 
 
-def phase_fit_breakdown(seed: int, card: str, per_fit: dict) -> None:
-    """Where one ML 11 XGBoost fit on fresh rows spends its time: host
-    binning, staging, the fit loop (its kernels' device time by CUDA
-    events around each launch, and the rest: Python glue and small torch
-    ops), host clock. Then the same fit under `torch.profiler`: the
-    card's busy time over the fit loop's wall time."""
-    from sml_tpu_torch.native import hist_kernel as hk
+#: integer operations of one Threefry-2x32 hash (the key schedule's two
+#: XORs; 2 + 15 adds of key injections; 20 rounds of an add, a rotate and
+#: an XOR), of an f32 uniform from it (an XOR of the two words, a shift,
+#: an OR, a subtraction), and of the f32 log jax's Knuth loop takes,
+#: counted at its least on this card: a hardware log2 and a multiply by
+#: ln 2 (what `__logf` compiles to); the port's float64 log is its own
+#: choice, not the function's work
+HASH_OPS = 79
+UNIFORM_OPS = HASH_OPS + 4
+LOG_OPS = 2
+
+
+def _bound(nbytes: int, ops: int):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def draw_bound_ms(weights: torch.Tensor, mode: str):
+    """(ms, by) of `row_weights`: 4 bytes a row written, against a
+    uniform and a compare a Bernoulli row, or, for Poisson, what these
+    draws needed: count + 1 steps of a row (a uniform, a log, an add and
+    a compare each) and the key chain's two hashes a step, once. Integer
+    work is counted at the f32 rate (the guide's table lists no other)."""
+    n = weights.numel()
+    if mode == "bernoulli":
+        ops = n * (UNIFORM_OPS + 1)
+    else:
+        steps = weights.to(torch.int64) + 1
+        ops = int(steps.sum()) * (UNIFORM_OPS + LOG_OPS + 2) \
+            + 2 * HASH_OPS * int(steps.max())
+    return _bound(4 * n, ops)
+
+
+def mask_bound_ms(width: int, n_feat: int):
+    """(ms, by) of `feature_mask`: the (W, F) f32 mask written, against a
+    uniform a cell and what selecting a node's k smallest of F values
+    needs at the least: a linear-time selection, about one compare a
+    cell, and a cell's compare with the k-th value. (The kernel ranks by
+    counting, F compares a cell; that is its own choice.)"""
+    cells = width * n_feat
+    return _bound(4 * cells, cells * (UNIFORM_OPS + 2))
+
+
+def phase_draw_times(device, card: str) -> dict:
+    """Kernel (CUDA-event median and profiler device time), plain and
+    bound of `row_weights` at the fit phase's 80,000 rows (Bernoulli 0.7
+    and Poisson 1.0) and of `feature_mask` at ML 07's last level (W=32,
+    F=10, k=3); the wrappers' host time per call. Returns the numbers of
+    the kernels line."""
+    from sml_tpu_torch.native import prng_kernel as pk
+    from sml_tpu_torch.utils import prng
+    saved = dict(pk.LAUNCHES)
+    out = {}
+    key = draw_key(42, 0)
+    for mode, rate in DRAW_MODES:
+        def call(mode=mode, rate=rate):
+            return pk.row_weights(key, 80_000, mode, rate, device)
+        k_ms = time_ms(call, 100)
+        d_ms = device_ms(call, 100, ("row_weights_kernel",),
+                         what=f"row_weights {mode}")
+        p_ms = time_ms(lambda: pk.row_weights_plain(key, 80_000, mode, rate,
+                                                    device), 5)
+        b_ms, b_by = draw_bound_ms(call(), mode)
+        print(f"time  row_weights  {mode} rate={rate} 80000 rows "
+              f"{pk.draw_plan(80_000)}: kernel {k_ms!r} ms (device "
+              f"{fmt_ms(d_ms)} ms), plain {p_ms!r} ms, bound {b_ms!r} ms "
+              f"({b_by}); card {card}")
+        out[("row_weights", mode)] = (k_ms, d_ms, p_ms, b_ms, b_by)
+    mkey = prng.fold_in(prng.fold_in(prng.prng_key(42), 0), 5)
+
+    def mask():
+        return pk.feature_mask(mkey, 32, N_FEAT, 3, device)
+    k_ms = time_ms(mask, 100)
+    d_ms = device_ms(mask, 100, ("feature_mask_kernel",),
+                     what="feature_mask W=32")
+    p_ms = time_ms(lambda: pk.feature_mask_plain(mkey, 32, N_FEAT, 3,
+                                                 device), 5)
+    b_ms, b_by = mask_bound_ms(32, N_FEAT)
+    print(f"time  feature_mask  W=32 F={N_FEAT} k=3 {pk.mask_plan(N_FEAT)}: "
+          f"kernel {k_ms!r} ms (device {fmt_ms(d_ms)} ms), plain {p_ms!r} "
+          f"ms, bound {b_ms!r} ms ({b_by}); card {card}")
+    out["feature_mask"] = (k_ms, d_ms, p_ms, b_ms, b_by)
+    out["host_us"] = {
+        "row_weights": host_us(lambda: pk.row_weights(
+            key, 80_000, "poisson", 1.0, device)),
+        "feature_mask": host_us(mask)}
+    print(f"time  wrapper host time per call (perf_counter median, no "
+          f"synchronise): row_weights poisson 80000 rows "
+          f"{out['host_us']['row_weights']!r} us, feature_mask W=32 "
+          f"{out['host_us']['feature_mask']!r} us; card {card}")
+    pk.LAUNCHES.update(saved)  # timing launches are not the main path's
+    return out
+
+
+def phase_fit_breakdown(seed: int, card: str, label: str, fit,
+                        per_fit=None) -> None:
+    """Where one fit (`fit(X, logy, cats, device)`, of `FITS`) on 80,000
+    fresh rows spends its time: host binning, staging, the fit loop (its
+    kernels' device time by CUDA events around each launch, and the rest:
+    Python glue and small torch ops), host clock. Then the same fit under
+    `torch.profiler`: the card's busy time over the fit loop's wall time,
+    and (given the ML 11 per-shape sums `per_fit`) each fit kernel's
+    device time beside them."""
     from sml_tpu_torch.utils.profiler import PROFILER
-    from sml_tpu_torch.xgboost import XgboostRegressor
-    saved = dict(hk.LAUNCHES)
+    saved = [dict(counts) for counts in _launch_counts()]
     cats = {0: 36, 1: 3, 2: 20}
     rng = np.random.default_rng([seed, 51])
     X, _ = ml11_rows(rng, 80_000, cats)
     logy = fit_labels(rng, X)
 
-    def fit():
-        return XgboostRegressor(n_estimators=40, learning_rate=0.15,
-                                max_depth=6, max_bins=64).fit(
-            X, logy, categorical=cats)
+    def run():
+        return fit(X, logy, cats, None)
 
     PROFILER.reset()
     PROFILER.enabled = True
@@ -1114,7 +1412,7 @@ def phase_fit_breakdown(seed: int, card: str, per_fit: dict) -> None:
         with KernelWatch(timed=True) as watch:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            fit()
+            run()
             wall = time.perf_counter() - t0
             kms = watch.kernel_ms()
         spans = {}
@@ -1123,14 +1421,13 @@ def phase_fit_breakdown(seed: int, card: str, per_fit: dict) -> None:
     finally:
         PROFILER.enabled = False
     prog = spans.get("program.tree_ensemble", 0.0)
-    kern = kms["hist_accumulate"] + kms["split_scan"]
-    print(f"breakdown  XgboostRegressor ML 11 80000 rows, fresh rows: "
-          f"whole fit {wall * 1e3!r} ms; binning.fit "
-          f"{spans.get('binning.fit', 0.0)!r} ms; staging.fit "
-          f"{spans.get('staging.fit', 0.0)!r} ms; fit loop {prog!r} ms, of "
-          f"which kernel time by events {kern!r} ms (hist_accumulate "
-          f"{kms['hist_accumulate']!r}, split_scan {kms['split_scan']!r}) "
-          f"and the rest {prog - kern!r} ms (host clock); card {card}")
+    kern = sum(kms.values())
+    print(f"breakdown  {label} 80000 rows, fresh rows: whole fit "
+          f"{wall * 1e3!r} ms; binning.fit {spans.get('binning.fit', 0.0)!r} "
+          f"ms; staging.fit {spans.get('staging.fit', 0.0)!r} ms; fit loop "
+          f"{prog!r} ms, of which kernel time by events {kern!r} ms ("
+          + ", ".join(f"{k} {v!r}" for k, v in kms.items() if v)
+          + f") and the rest {prog - kern!r} ms (host clock); card {card}")
 
     from torch.profiler import ProfilerActivity, profile
     PROFILER.reset()
@@ -1138,7 +1435,7 @@ def phase_fit_breakdown(seed: int, card: str, per_fit: dict) -> None:
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            fit()
+            run()
             torch.cuda.synchronize()
         prog = sum(sp.wall_s for sp in PROFILER.spans()
                    if sp.name == "program.tree_ensemble") * 1e3
@@ -1156,19 +1453,26 @@ def phase_fit_breakdown(seed: int, card: str, per_fit: dict) -> None:
               "not measured")
     else:
         top = sorted(busy.items(), key=lambda kv: -kv[1])[:6]
-        print(f"breakdown  torch.profiler over one fit: device busy "
+        print(f"breakdown  torch.profiler over one {label} fit: device busy "
               f"{total!r} ms over a fit loop of {prog!r} ms (busy share "
               f"{total / prog!r}, profiler on); top kernels "
               + "; ".join(f"{k[:60]} {v!r} ms" for k, v in top))
-        for name, kern in (("hist_accumulate", HIST_KERNELS),
-                           ("split_scan", SCAN_KERNELS)):
+        kernels = (("hist_accumulate", HIST_KERNELS),
+                   ("split_scan", SCAN_KERNELS),
+                   ("row_weights", ("row_weights_kernel",)),
+                   ("feature_mask", ("feature_mask_kernel",)))
+        for name, names in kernels:
             whole = sum(v for k, v in busy.items()
-                        if any(nm in k for nm in kern))
-            print(f"breakdown  {name} device time over one ML 11 fit: "
-                  f"{whole!r} ms by the profiler over the fit, against "
-                  f"{fmt_ms(per_fit[name])} ms summed from the per-shape "
-                  f"times (40 trees x levels); card {card}")
-    hk.LAUNCHES.update(saved)
+                        if any(nm in k for nm in names))
+            if not whole:
+                continue
+            beside = "" if per_fit is None or name not in per_fit else (
+                f", against {fmt_ms(per_fit[name])} ms summed from the "
+                f"per-shape times (40 trees x levels)")
+            print(f"breakdown  {name} device time over one {label} fit: "
+                  f"{whole!r} ms by the profiler{beside}; card {card}")
+    for counts, before in zip(_launch_counts(), saved):
+        counts.update(before)  # not the main path's launches
 
 
 def main(argv=None) -> int:
@@ -1195,13 +1499,23 @@ def main(argv=None) -> int:
     times = phase_times(args.seed, device, card)
     phase_breakdown(args.seed, device, card)
     fit_err = phase_fit_kernels(args.seed, device)
+    fit_err.update(phase_draw_kernels(device))
     fit = phase_fit(args.seed, device)
     fit_times = phase_fit_times(args.seed, device, card)
-    phase_fit_breakdown(args.seed, card, fit_times["per_fit"])
+    draw_times = phase_draw_times(device, card)
+    phase_fit_breakdown(args.seed, card, "ML 11 XgboostRegressor", _fit_xgb,
+                        fit_times["per_fit"])
+    phase_fit_breakdown(args.seed, card, "ML 07 RandomForestRegressor",
+                        _fit_rf)
+
+    def windows(kernel: str) -> dict:
+        return {what: seen for what, seen in DEVICE_WINDOWS.items()
+                if what.startswith(kernel)}
 
     k_ms, d_ms, p_ms, b_ms, b_by = times[100_000]
     kernels = [{
         "name": "forest_traverse", "route": "cuda",
+        "device_windows": windows("forest_traverse"),
         "source": "sml_tpu_torch/csrc/forest_traverse.cu",
         "replaces": "sml_tpu/native/traverse_kernel.py:109",
         "launches": main_path["launches"],
@@ -1216,6 +1530,7 @@ def main(argv=None) -> int:
     k_ms, d_ms, p_ms, b_ms, b_by, l_ms = fit_times[("hist_accumulate", 16)]
     kernels.append({
         "name": "hist_accumulate", "route": "cuda",
+        "device_windows": windows("hist_accumulate"),
         "source": "sml_tpu_torch/csrc/hist_accumulate.cu",
         "replaces": "sml_tpu/native/hist_kernel.py:128",
         "launches": fit["launches"]["hist_accumulate"],
@@ -1232,6 +1547,7 @@ def main(argv=None) -> int:
     k_ms, d_ms, p_ms, b_ms, b_by, _ = fit_times[("split_scan", 32)]
     kernels.append({
         "name": "split_scan", "route": "cuda",
+        "device_windows": windows("split_scan"),
         "source": "sml_tpu_torch/csrc/split_scan.cu",
         "replaces": "sml_tpu/native/hist_kernel.py:202",
         "launches": fit["launches"]["split_scan"],
@@ -1241,6 +1557,32 @@ def main(argv=None) -> int:
         "per_fit_device_ms": fit_times["per_fit"]["split_scan"],
         "host_us": fit_times["host_us"]["split_scan"],
         "shape": "ML 11: F=10 B=64 W=32"})
+    draws = "jax.random (XLA) at sml_tpu/ml/tree_impl.py:551-553, :785-796"
+    k_ms, d_ms, p_ms, b_ms, b_by = draw_times[("row_weights", "poisson")]
+    kernels.append({
+        "name": "row_weights", "route": "cuda",
+        "device_windows": windows("row_weights"),
+        "source": "sml_tpu_torch/csrc/threefry.cu", "replaces": draws,
+        "launches": fit["launches"]["row_weights"],
+        "max_abs_err": fit_err["row_weights"], "ms": k_ms, "device_ms": d_ms,
+        "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None,
+        "bernoulli": dict(zip(("ms", "device_ms", "plain_ms", "bound_ms",
+                               "bound_by"),
+                              draw_times[("row_weights", "bernoulli")])),
+        "host_us": draw_times["host_us"]["row_weights"],
+        "shape": "80000 rows, Poisson rate 1 (the ML 07 bootstrap)"})
+    k_ms, d_ms, p_ms, b_ms, b_by = draw_times["feature_mask"]
+    kernels.append({
+        "name": "feature_mask", "route": "cuda",
+        "device_windows": windows("feature_mask"),
+        "source": "sml_tpu_torch/csrc/threefry.cu", "replaces": draws,
+        "launches": fit["launches"]["feature_mask"],
+        "max_abs_err": fit_err["feature_mask"], "ms": k_ms,
+        "device_ms": d_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+        "bound_by": b_by, "library_ms": None,
+        "host_us": draw_times["host_us"]["feature_mask"],
+        "shape": "ML 07: W=32 F=10 k=3"})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -12,10 +12,13 @@ Ported so far:
   predict+eval (`ml/inference.py`, over the `forest_traverse` kernel in
   `native/traverse_kernel.py`), the regression metrics
   (`ml/evaluation.py`) and the micro-batching server (`serving/`);
-- the fit path of unsampled tree ensembles: the DT, GBT and XGBoost
+- the fit path of tree ensembles: the DT, RF, GBT and XGBoost
   estimators (`ml/_tree_models.py`, `xgboost.py`) over the level-wise
   builder of `ml/tree_impl.py` and its two kernels, `hist_accumulate`
-  and `split_scan` (`native/hist_kernel.py`).
+  and `split_scan` (`native/hist_kernel.py`); sampled fits (bootstrap
+  forests, per-node feature subspaces, `subsample < 1`) draw jax's
+  Threefry streams (`utils/prng.py`) through the `row_weights` and
+  `feature_mask` kernels (`native/prng_kernel.py`).
 
 Entry points run on the CUDA card unless the caller passes
 device="cpu"; without a card they raise.

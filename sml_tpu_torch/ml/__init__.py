@@ -2,10 +2,13 @@
 (`sml_tpu.ml`)."""
 
 from ._tree_models import (DecisionTreeClassifier, DecisionTreeRegressor,
-                           GBTClassifier, GBTRegressor, spec_from_arrays)
+                           GBTClassifier, GBTRegressor,
+                           RandomForestClassifier, RandomForestRegressor,
+                           spec_from_arrays)
 from .base import load_model
 from .inference import DeviceScorer, forest_eval_fn, predict_forest_sharded
 
 __all__ = ["DecisionTreeClassifier", "DecisionTreeRegressor", "DeviceScorer",
-           "GBTClassifier", "GBTRegressor", "forest_eval_fn", "load_model",
+           "GBTClassifier", "GBTRegressor", "RandomForestClassifier",
+           "RandomForestRegressor", "forest_eval_fn", "load_model",
            "predict_forest_sharded", "spec_from_arrays"]

@@ -4,14 +4,16 @@ Counterpart of `sml_tpu/ml/_tree_models.py`: `_EnsembleSpec` (the host
 description of a fitted ensemble, in the same arrays the JAX package
 saves), the DT/RF/GBT regression and classification models over it,
 `_fit_ensemble` (the one training path: bin on the host, fit every round
-on the device) and the unsampled estimators `DecisionTreeRegressor`,
-`DecisionTreeClassifier`, `GBTRegressor` and `GBTClassifier`.
+on the device) and the estimators `DecisionTreeRegressor`,
+`DecisionTreeClassifier`, `RandomForestRegressor`,
+`RandomForestClassifier`, `GBTRegressor` and `GBTClassifier`.
 
 The port has no DataFrame: `fit(X, y, categorical=None, device=None)`
 takes a numpy feature matrix and label vector (`categorical` maps a
 feature slot to its cardinality, as the JAX package's `_ml_attrs` do)
-and fits on the card unless `device="cpu"`. Random forests and
-`subsamplingRate < 1` need the sampled-fit slice and are not ported.
+and fits on the card unless `device="cpu"`. Random forests (a Poisson
+bootstrap and a per-node feature subspace) and `subsamplingRate < 1`
+draw the JAX package's Threefry streams from the estimator's seed.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import numpy as np
 from .base import load_arrays
 from .tree_impl import (Binning, EnsembleSpec, FittedTree, TreeSpec,
                         bin_with, feature_importances, fit_ensemble_on_device,
-                        make_bins, require_unsampled)
+                        make_bins)
 
 
 def _feature_k(strategy: str, F: int, is_classification: bool) -> int:
@@ -175,10 +177,9 @@ def _fit_ensemble(X: np.ndarray, y: np.ndarray, *, categorical: Dict[int, int],
     stage the compact bins and the labels on `device` (the card by
     default), and fit every round there
     (`tree_impl.fit_ensemble_on_device`). `missing`, when it is a
-    number, becomes NaN before binning (NaN falls in bin 0). `seed` is
-    taken for the JAX signature: an unsampled fit draws no random
-    numbers. A bootstrap of several trees, `subsample < 1` or
-    `feature_k < F` raises NotImplementedError before any work."""
+    number, becomes NaN before binning (NaN falls in bin 0). `seed`
+    keys the Threefry streams of a sampled fit: a bootstrap of several
+    trees, `subsample < 1` or `feature_k < F`."""
     from ..device import resolve_device
     from ..utils.profiler import PROFILER
     from ._staging import stage_bins_cached, stage_rows
@@ -189,9 +190,9 @@ def _fit_ensemble(X: np.ndarray, y: np.ndarray, *, categorical: Dict[int, int],
                     min_info_gain=min_info_gain, reg_lambda=reg_lambda,
                     gamma=gamma)
     es = EnsembleSpec(tree=spec, n_trees=n_trees, loss=loss,
-                      boosting=boosting, bootstrap=bool(bootstrap),
+                      boosting=boosting,
+                      bootstrap=bool(bootstrap) and n_trees > 1,
                       subsample=float(subsample), step_size=float(step_size))
-    require_unsampled(es)
     y32 = np.asarray(y, np.float32)
     if missing is not None and not np.isnan(missing):
         X = X.copy()
@@ -201,7 +202,7 @@ def _fit_ensemble(X: np.ndarray, y: np.ndarray, *, categorical: Dict[int, int],
     with PROFILER.span("staging.fit", rows=int(X.shape[0])):
         binned_dev = stage_bins_cached(binned, dev)
         y_dev = stage_rows(y32, dev)
-    trees, base = fit_ensemble_on_device(binned_dev, y_dev, es)
+    trees, base = fit_ensemble_on_device(binned_dev, y_dev, es, seed)
     mode = "binary" if loss == "logistic" else "regression"
     if boosting:
         weights = np.full(len(trees), step_size, dtype=np.float32)
@@ -217,6 +218,8 @@ _TREE_PARAMS = dict(featuresCol="features", labelCol="label",
 _CLASSIFIER_PARAMS = dict(rawPredictionCol="rawPrediction",
                           probabilityCol="probability")
 _GBT_PARAMS = dict(maxIter=20, stepSize=0.1, subsamplingRate=1.0)
+_RF_PARAMS = dict(numTrees=20, featureSubsetStrategy="auto",
+                  subsamplingRate=1.0)
 
 
 class _Estimator:
@@ -253,10 +256,10 @@ class _Estimator:
         ok = np.isfinite(y)
         spec = _fit_ensemble(X[ok], y[ok],
                              categorical=dict(categorical or {}),
-                             device=device, **self._fit_args())
+                             device=device, **self._fit_args(X.shape[1]))
         return self._model_cls(spec, self.params)
 
-    def _fit_args(self) -> dict:
+    def _fit_args(self, n_features: int) -> dict:
         raise NotImplementedError
 
 
@@ -274,7 +277,7 @@ class _TreeEstimatorBase(_Estimator):
         s = self.getOrDefault("seed")
         return int(s) if s is not None else 17
 
-    def _fit_args(self) -> dict:
+    def _fit_args(self, n_features: int) -> dict:
         g = self.getOrDefault
         return dict(max_depth=int(g("maxDepth")), max_bins=int(g("maxBins")),
                     min_instances=int(g("minInstancesPerNode")),
@@ -283,9 +286,22 @@ class _TreeEstimatorBase(_Estimator):
                     subsample=1.0, seed=self._seed(), loss=self._loss)
 
 
+class _RandomForestBase(_TreeEstimatorBase):
+    """A bootstrap forest: Poisson(subsamplingRate) row weights per tree
+    and `featureSubsetStrategy`'s features per node."""
+    def _fit_args(self, n_features: int) -> dict:
+        g = self.getOrDefault
+        args = super()._fit_args(n_features)
+        args.update(n_trees=int(g("numTrees")),
+                    feature_k=_feature_k(g("featureSubsetStrategy"),
+                                         n_features, self._is_classifier),
+                    bootstrap=True, subsample=float(g("subsamplingRate")))
+        return args
+
+
 class _GBTBase(_TreeEstimatorBase):
-    def _fit_args(self) -> dict:
-        args = super()._fit_args()
+    def _fit_args(self, n_features: int) -> dict:
+        args = super()._fit_args(n_features)
         args.update(n_trees=int(self.getOrDefault("maxIter")),
                     subsample=float(self.getOrDefault("subsamplingRate")),
                     step_size=float(self.getOrDefault("stepSize")),
@@ -325,6 +341,18 @@ class DecisionTreeRegressor(_TreeEstimatorBase):
 class DecisionTreeClassifier(_TreeEstimatorBase):
     _defaults = dict(_TREE_PARAMS, **_CLASSIFIER_PARAMS)
     _model_cls = DecisionTreeClassificationModel
+    _is_classifier = True
+    _loss = "logistic"
+
+
+class RandomForestRegressor(_RandomForestBase):
+    _defaults = dict(_TREE_PARAMS, **_RF_PARAMS)
+    _model_cls = RandomForestRegressionModel
+
+
+class RandomForestClassifier(_RandomForestBase):
+    _defaults = dict(_TREE_PARAMS, **_RF_PARAMS, **_CLASSIFIER_PARAMS)
+    _model_cls = RandomForestClassificationModel
     _is_classifier = True
     _loss = "logistic"
 

@@ -11,12 +11,14 @@ Counterpart of `sml_tpu/ml/tree_impl.py`.
 - The fit: `_make_tree_builder` grows one tree level by level on the
   device through the two kernels of `native/hist_kernel.py`
   (`hist_accumulate`, `split_scan`), with histogram subtraction below
-  the root; `fit_ensemble_on_device` runs the rounds of a DT, GBT or
-  XGBoost fit as a Python loop; `fit_tree` builds one tree.
-
-Only unsampled fits are ported: a bootstrap, a row subsample below 1 or
-a feature subspace needs the JAX package's Threefry random streams,
-which the port does not have yet, and raises NotImplementedError.
+  the root; `fit_ensemble_on_device` runs the rounds of a DT, RF, GBT
+  or XGBoost fit as a Python loop; `fit_tree` builds one tree.
+- Sampling, as the JAX package draws it: a round's row weights (Poisson
+  for a bootstrap of several trees, else Bernoulli for a subsample
+  below 1) and each level's per-node feature subspace (when fewer than
+  all features are candidates) come from the Threefry keys of
+  `utils/prng.py`, derived on the host, and are drawn on the device by
+  the kernels of `native/prng_kernel.py`.
 """
 
 from __future__ import annotations
@@ -28,6 +30,8 @@ import numpy as np
 import torch
 
 from ..native import hist_kernel as hk
+from ..native import prng_kernel as pk
+from ..utils import prng
 
 
 class TreeSpec(NamedTuple):
@@ -212,18 +216,13 @@ def bin_with(X: np.ndarray, binning: Binning) -> np.ndarray:
 
 
 # ------------------------------------------------------------------ fit
-#: why the port refuses a sampled fit
-SAMPLED_FIT = ("sampled tree fits (bootstrap, subsample < 1, a feature "
-               "subspace) need the JAX package's Threefry random streams; "
-               "they wait for the port's sampled-fit slice")
-
-
 def _make_tree_builder(spec: TreeSpec):
     """One tree, grown level by level on the operands' device.
 
-    Returns `build(binned_c, binned, grad, hess, weight) -> (pack,
-    node)`: `binned_c` is the compact bin matrix the histogram kernel
-    reads, `binned` the same bins as int32 for row routing; `pack` is the
+    Returns `build(binned_c, binned, grad, hess, weight, feat_rng) ->
+    (pack, node)`: `binned_c` is the compact bin matrix the histogram
+    kernel reads, `binned` the same bins as int32 for row routing,
+    `feat_rng` the tree's feature key (a host pair); `pack` is the
     (5, n_nodes) f32 stack [split_feature, split_bin, leaf_value, gain,
     cover] of the level-order heap (children of i at 2i+1, 2i+2), `node`
     each row's terminal node.
@@ -233,7 +232,9 @@ def _make_tree_builder(spec: TreeSpec):
     parent minus its left sibling, zero under a parent that did not
     split, as under the JAX package's default `sml.tree.histSubtraction`);
     `split_scan` picks each node's best
-    split; a node splits when its gain passes `min_info_gain` and is
+    split among the level's candidate features (with `feature_k < F`,
+    the `feature_mask` draw under `fold_in(feat_rng, level)`, else all of
+    them); a node splits when its gain passes `min_info_gain` and is
     finite, and its rows go right iff their bin is above the split bin.
     Every row is routed, weighted or not, so boosting updates the margin
     of every row. The last level's statistics are a float64 one-hot
@@ -243,12 +244,10 @@ def _make_tree_builder(spec: TreeSpec):
     (see `native/hist_kernel.py`). A node no row reached inherits its parent's value and
     becomes a leaf."""
     D, B, F = spec.max_depth, spec.n_bins, spec.n_features
-    if spec.feature_k < F:
-        raise NotImplementedError(SAMPLED_FIT)
     n_nodes = 2 ** (D + 1) - 1
     lam = float(spec.reg_lambda)
 
-    def build(binned_c, binned, grad, hess, weight):
+    def build(binned_c, binned, grad, hess, weight, feat_rng):
         n = binned.shape[0]
         dev = binned.device
         f32 = dict(dtype=torch.float32, device=dev)
@@ -285,8 +284,13 @@ def _make_tree_builder(spec: TreeSpec):
                     * split_prev.to(torch.float32)[None, None, :, None]
                 hist = torch.stack([left, parent - left], dim=3) \
                     .reshape(F, B, width, 3)
-            pack6 = hk.split_scan(hist, torch.ones((width, F), **f32),
-                                  min_inst, reg_lambda=lam, gamma=spec.gamma)
+            if spec.feature_k < F:
+                fmask = pk.feature_mask(prng.fold_in(feat_rng, level),
+                                        width, F, spec.feature_k, dev)
+            else:
+                fmask = torch.ones((width, F), **f32)
+            pack6 = hk.split_scan(hist, fmask, min_inst, reg_lambda=lam,
+                                  gamma=spec.gamma)
             best_f = pack6[0].to(torch.int64)
             best_b = pack6[1].to(torch.int64)
             best_gain = pack6[2]
@@ -361,17 +365,6 @@ def _base_margin_fn(loss: str):
     return base_fn
 
 
-def require_unsampled(es: EnsembleSpec) -> None:
-    """Raise NotImplementedError for a fit that would draw random
-    numbers: a bootstrap of more than one tree, a row subsample below 1,
-    a feature subspace. (The JAX package draws bootstrap weights only
-    when there are several trees: one bootstrapped tree sees every row
-    once.)"""
-    if (es.bootstrap and es.n_trees > 1) or es.subsample < 1.0 \
-            or es.tree.feature_k < es.tree.n_features:
-        raise NotImplementedError(SAMPLED_FIT)
-
-
 def _unpack_trees(packs) -> list:
     """(T, 5, n_nodes) host pack -> FittedTree list."""
     return [FittedTree(split_feature=p[0].astype(np.int32),
@@ -381,22 +374,38 @@ def _unpack_trees(packs) -> list:
                        cover=p[4].astype(np.float32)) for p in packs]
 
 
+def round_weights(key, t: int, n: int, es: EnsembleSpec,
+                  device) -> torch.Tensor:
+    """Round t's (n,) row weights, as the JAX package draws them under
+    `kt = fold_in(key, t)`: Poisson(subsample) counts for a bootstrap of
+    several trees, else Bernoulli(subsample) for a subsample below 1,
+    else ones. (One bootstrapped tree sees every row once.)"""
+    kt = prng.fold_in(key, t)
+    if es.bootstrap and es.n_trees > 1:
+        return pk.row_weights(kt, n, "poisson", es.subsample, device)
+    if es.subsample < 1.0:
+        return pk.row_weights(kt, n, "bernoulli", es.subsample, device)
+    return torch.ones(n, dtype=torch.float32, device=device)
+
+
 def fit_ensemble_on_device(binned_dev: torch.Tensor, y_dev: torch.Tensor,
-                           es: EnsembleSpec) -> Tuple[List[FittedTree], float]:
-    """Fit the rounds of an unsampled DT, GBT or XGBoost ensemble on the
+                           es: EnsembleSpec, seed: int
+                           ) -> Tuple[List[FittedTree], float]:
+    """Fit the rounds of a DT, RF, GBT or XGBoost ensemble on the
     operands' device; returns (trees, base margin).
 
     Each round computes the gradients and Hessians (squared: margin - y
     and 1; logistic: sigmoid(margin) - y and p(1-p) floored at 1e-6;
-    without boosting -y and 1), builds one tree over every row (weight
-    1), and with boosting adds `step_size * leaf` of each row's
-    terminal node to its margin. The trees come back in one copy at the
-    end. Raises NotImplementedError for a sampled fit."""
+    without boosting -y and 1), draws its row weights (`round_weights`
+    under `fold_in(prng_key(seed), 0)`), builds one tree with the
+    feature key `fold_in(prng_key(seed), t)`, and with boosting adds
+    `step_size * leaf` of each row's terminal node to its margin. The
+    trees come back in one copy at the end."""
     from ..utils.profiler import PROFILER
-    require_unsampled(es)
     n = binned_dev.shape[0]
+    dev = binned_dev.device
     with PROFILER.span("program.tree_ensemble", rows=int(n),
-                       route=binned_dev.device.type, trees=es.n_trees):
+                       route=dev.type, trees=es.n_trees):
         PROFILER.count("tree.fit_dispatch")
         build = _make_tree_builder(es.tree)
         binned = binned_dev.to(torch.int32)
@@ -404,8 +413,10 @@ def fit_ensemble_on_device(binned_dev: torch.Tensor, y_dev: torch.Tensor,
         base = _base_margin_fn(es.loss)(y)
         margin = base.expand(n).clone()
         ones = torch.ones_like(y)
+        rng = prng.prng_key(seed)
+        key = prng.fold_in(rng, 0)
         packs = []
-        for _ in range(es.n_trees):
+        for t in range(es.n_trees):
             if not es.boosting:
                 grad, hess = -y, ones
             elif es.loss == "logistic":
@@ -414,7 +425,9 @@ def fit_ensemble_on_device(binned_dev: torch.Tensor, y_dev: torch.Tensor,
                 hess = torch.clamp(p * (1 - p), min=1e-6)
             else:
                 grad, hess = margin - y, ones
-            pack, node_fin = build(binned_dev, binned, grad, hess, ones)
+            weight = round_weights(key, t, n, es, dev)
+            pack, node_fin = build(binned_dev, binned, grad, hess, weight,
+                                   prng.fold_in(rng, t))
             if es.boosting:
                 margin = margin + es.step_size * pack[2][node_fin]
             packs.append(pack)
@@ -425,15 +438,19 @@ def fit_ensemble_on_device(binned_dev: torch.Tensor, y_dev: torch.Tensor,
 
 def fit_tree(binned_dev: torch.Tensor, grad_dev: torch.Tensor,
              hess_dev: torch.Tensor, weight_dev: torch.Tensor,
-             spec: TreeSpec) -> FittedTree:
+             spec: TreeSpec, rng: int = 0, feat_key=None) -> FittedTree:
     """Build one tree from staged device tensors (rows weighted by
-    `weight_dev`; 0 leaves a row out). A node of zero cover takes its
-    parent's value and becomes a leaf, in node order."""
+    `weight_dev`; 0 leaves a row out). `feat_key`, a key pair, draws the
+    levels' feature subspaces when `spec.feature_k` is below the feature
+    count; without it the key is `prng_key(rng)`. A node of zero cover
+    takes its parent's value and becomes a leaf, in node order."""
     from ..utils.profiler import PROFILER
     build = _make_tree_builder(spec)
+    if feat_key is None:
+        feat_key = prng.prng_key(rng)
     PROFILER.count("tree.fit_dispatch")
     pack, _ = build(binned_dev, binned_dev.to(torch.int32), grad_dev,
-                    hess_dev, weight_dev)
+                    hess_dev, weight_dev, prng.as_key(feat_key))
     tree = _unpack_trees(pack.cpu().numpy()[None])[0]
     sf, lv, cov = tree.split_feature, tree.leaf_value, tree.cover
     for i in range(1, len(lv)):

@@ -21,6 +21,8 @@ import subprocess
 import threading
 from typing import Dict, Iterable, Tuple
 
+import torch
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(os.path.dirname(_HERE), "csrc")
 BUILD_DIR = os.path.join(_HERE, "build")
@@ -121,3 +123,14 @@ def load(name: str, defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
 def kernel_sources() -> list:
     """Names of every kernel source under `csrc/`."""
     return sorted(f[:-3] for f in os.listdir(CSRC_DIR) if f.endswith(".cu"))
+
+
+def launch_on_stream(dev: torch.device, fn, *args) -> int:
+    """`fn(*args, stream)` on the current stream of `dev`, with `dev` the
+    current device (the launch goes to the current one); switches device
+    only when it is not already current."""
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return fn(*args, stream)
+    with torch.cuda.device(dev):
+        return fn(*args, stream)

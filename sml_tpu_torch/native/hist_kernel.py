@@ -31,6 +31,8 @@ from typing import NamedTuple
 
 import torch
 
+from . import build
+
 #: kernel launches made by each wrapper in this process
 LAUNCHES = {"hist_accumulate": 0, "split_scan": 0}
 _count_lock = threading.Lock()
@@ -349,24 +351,12 @@ _SCAN_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
 def _kernel(name: str):
     fn = _fns.get(name)
     if fn is None:
-        from . import build
         fn = getattr(build.load(name), f"sml_{name}")
         fn.argtypes = HIST_ARGTYPES if name == "hist_accumulate" \
             else _SCAN_ARGTYPES
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return fn
-
-
-def _launch(dev: torch.device, fn, *args) -> int:
-    """`fn(*args, stream)` on the current stream of `dev`, with `dev` the
-    current device (the launch goes to the current one); switches device
-    only when it is not already current."""
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    if dev.index is None or dev.index == torch.cuda.current_device():
-        return fn(*args, stream)
-    with torch.cuda.device(dev):
-        return fn(*args, stream)
 
 
 def check_aligned(*ts) -> None:
@@ -392,14 +382,13 @@ def launch_hist(fn, plan: HistPlan, binned, lid, grad, hess, weight,
     parts = plan.n_chunks // plan.cluster
     scratch = None if parts == 1 else torch.empty(
         (parts, n_feat * n_bins * n_slots * 3), dtype=acc_dtype, device=dev)
-    err = _launch(dev, fn, _BIN_BYTES[binned.dtype], binned.data_ptr(),
-                  lid.data_ptr(), grad.data_ptr(), hess.data_ptr(),
-                  weight.data_ptr(),
-                  None if scratch is None else scratch.data_ptr(),
-                  out.data_ptr(), n, n_feat, n_bins, n_slots,
-                  plan.chunk_rows, plan.n_chunks, plan.ft, plan.bt, plan.st,
-                  plan.groups, plan.cluster, plan.sub_rows, plan.stage_bins,
-                  plan.threads)
+    err = build.launch_on_stream(
+        dev, fn, _BIN_BYTES[binned.dtype], binned.data_ptr(),
+        lid.data_ptr(), grad.data_ptr(), hess.data_ptr(), weight.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), out.data_ptr(), n,
+        n_feat, n_bins, n_slots, plan.chunk_rows, plan.n_chunks, plan.ft,
+        plan.bt, plan.st, plan.groups, plan.cluster, plan.sub_rows,
+        plan.stage_bins, plan.threads)
     if err != 0:
         raise RuntimeError(f"hist_accumulate launch failed: CUDA error {err} "
                            f"(n={n}, F={n_feat}, B={n_bins}, S={n_slots}, "
@@ -464,10 +453,10 @@ def split_scan(hist: torch.Tensor, feat_mask: torch.Tensor,
     n_feat, n_bins, width = hist.shape[:3]
     plan = scan_plan(n_feat, n_bins)
     out = torch.empty((6, width), dtype=torch.float32, device=dev)
-    err = _launch(dev, _kernel("split_scan"), hist.data_ptr(),
-                  feat_mask.data_ptr(), min_inst.data_ptr(), out.data_ptr(),
-                  n_feat, n_bins, width, plan.warps, plan.seg,
-                  float(reg_lambda), float(gamma))
+    err = build.launch_on_stream(
+        dev, _kernel("split_scan"), hist.data_ptr(), feat_mask.data_ptr(),
+        min_inst.data_ptr(), out.data_ptr(), n_feat, n_bins, width,
+        plan.warps, plan.seg, float(reg_lambda), float(gamma))
     if err != 0:
         raise RuntimeError(f"split_scan launch failed: CUDA error {err} "
                            f"(F={n_feat}, B={n_bins}, W={width}, {plan})")

@@ -29,6 +29,8 @@ from typing import NamedTuple
 
 import torch
 
+from . import build
+
 #: kernel launches made by `forest_traverse` in this process
 LAUNCHES = 0
 _count_lock = threading.Lock()
@@ -215,7 +217,6 @@ def _check(binned, sf, sb, lv, weights, depth: int) -> None:
 def _kernel():
     global _fn
     if _fn is None:
-        from . import build
         fn = build.load("forest_traverse").sml_forest_traverse
         fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 \
             + [ctypes.c_int] * 12 + [ctypes.c_void_p]
@@ -250,13 +251,8 @@ def forest_traverse(binned: torch.Tensor, sf: torch.Tensor,
     args = (bin_bytes, binned.data_ptr(), sf.data_ptr(), sb.data_ptr(),
             lv.data_ptr(), weights.data_ptr(), out.data_ptr(), n, n_feat,
             n_trees, n_nodes, depth, int(p.path == "shared"), p.tile_rows,
-            p.groups, p.threads, p.chunk, p.grid, p.stage_x,
-            torch.cuda.current_stream(dev).cuda_stream)
-    if dev.index is None or dev.index == torch.cuda.current_device():
-        err = fn(*args)
-    else:
-        with torch.cuda.device(dev):
-            err = fn(*args)
+            p.groups, p.threads, p.chunk, p.grid, p.stage_x)
+    err = build.launch_on_stream(dev, fn, *args)
     if err != 0:
         raise RuntimeError(f"forest_traverse launch failed: CUDA error "
                            f"{err} (n={n}, F={n_feat}, T={n_trees}, "

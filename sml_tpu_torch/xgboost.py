@@ -5,8 +5,9 @@ params and fit through the same `_fit_ensemble` as GBT: boosted
 second-order trees on the port's histogram kernels. `use_gpu`, `device`,
 `num_workers` and `tree_method` are accepted for surface parity and not
 read: `fit(X, y, device=...)` chooses where the fit runs (the card by
-default). `subsample < 1` needs the sampled-fit slice and raises
-NotImplementedError. The boosted ensembles are the same `_EnsembleSpec`
+default). `subsample < 1` draws each round's rows by Bernoulli weights
+from the Threefry stream of `random_state`, as the JAX package does. The
+boosted ensembles are the same `_EnsembleSpec`
 as GBT's, so the models subclass the same bases.
 """
 
@@ -35,7 +36,7 @@ class XgboostClassifierModel(_TreeClassificationModel):
 class _XgboostBase(_Estimator):
     _loss = "squared"
 
-    def _fit_args(self) -> dict:
+    def _fit_args(self, n_features: int) -> dict:
         g = self.getOrDefault
         return dict(max_depth=int(g("max_depth")), max_bins=int(g("max_bins")),
                     min_instances=int(g("min_child_weight")),

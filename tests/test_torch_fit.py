@@ -19,6 +19,15 @@ with live outputs only, never with GOLDEN.json pins.
   on real-valued labels. Round 1's split tables are identical; held-out
   predictions agree to rtol 1e-4 (histograms differ in the last bits of
   their f32 sums, which compound over boosting rounds).
+- Sampled fits draw the JAX package's Threefry streams (Poisson bootstrap
+  weights, Bernoulli subsample weights, per-node feature subspaces), so
+  on dyadic labels every tree's split table is identical. Unboosted fits
+  (random forests, a tree with a feature subspace) sum dyadic gradients
+  and agree exactly, leaf values to rtol 1e-6. A boosted fit's gradients
+  are not dyadic (the base margin is a mean and every round adds
+  step * leaf), so its leaf values and gains differ in the last bits of
+  the two packages' sums: within rtol 1e-6 plus 1e-6 of the tree's
+  largest value (a leaf near zero is a difference of larger sums).
 - Courseware: the ML 06 decision tree and the ML 11 XGBoost model on the
   JAX pipeline's features; held-out rmse agrees within
   max(1e-3, 1e-5*|rmse|), the golden tolerance. These JAX fits run on a
@@ -156,25 +165,90 @@ def test_ensemble_round_one_tables_and_predictions(confs, kind):
                                atol=1e-4 * np.abs(want).max())
 
 
-@pytest.mark.parametrize("kw", [dict(bootstrap=True, n_trees=3),
-                                dict(subsample=0.8, n_trees=3),
-                                dict(feature_k=2, n_trees=1)])
-def test_sampled_fits_raise(kw):
-    X, y, cat = _data(n=200)
-    args = dict(dict(categorical=cat, max_depth=3, max_bins=16,
-                     min_instances=1, min_info_gain=0.0, feature_k=None,
-                     bootstrap=False, subsample=1.0, seed=1,
-                     loss="squared"), **kw)
-    with pytest.raises(NotImplementedError, match="sampled-fit slice"):
-        ptm._fit_ensemble(X, y, device="cpu", **args)
+SAMPLED = {
+    "rf_bootstrap": dict(max_depth=4, n_trees=5, bootstrap=True,
+                         feature_k=2, loss="squared"),
+    "rf_bootstrap_rate": dict(max_depth=4, n_trees=4, bootstrap=True,
+                              subsample=0.7, feature_k=3, loss="squared"),
+    "rf_classifier": dict(max_depth=4, n_trees=4, bootstrap=True,
+                          feature_k=2, loss="logistic"),
+    "dt_subspace": dict(max_depth=5, n_trees=1, feature_k=3,
+                        loss="squared"),
+    "gbt_subsample": dict(max_depth=3, n_trees=5, subsample=0.7,
+                          loss="squared", boosting=True, step_size=0.5),
+    "xgb_subsample": dict(max_depth=4, n_trees=5, subsample=0.7,
+                          loss="squared", boosting=True, step_size=0.3,
+                          reg_lambda=1.0, gamma=0.1),
+}
+
+
+@pytest.mark.parametrize("kind", sorted(SAMPLED))
+def test_sampled_fits_give_the_jax_split_tables(confs, kind):
+    X, y, cat = _data(dyadic=True, seed=4)
+    if kind == "rf_classifier":
+        y = (y > np.median(y)).astype(np.float32)
+    kw = dict(SAMPLED[kind], max_bins=24)
+    sj, sp = _fit_both(X, y, cat, **kw)
+    assert len(sp.trees) == len(sj.trees) == kw["n_trees"]
+    boosted = kw.get("boosting", False)
+    for tj, tp in zip(sj.trees, sp.trees):
+        _assert_tables(tj, tp, exact_values=not boosted)
+        if boosted:
+            for fld in ("leaf_value", "gain", "cover"):
+                want = getattr(tj, fld)
+                np.testing.assert_allclose(
+                    getattr(tp, fld), want, rtol=1e-6,
+                    atol=1e-6 * np.abs(want).max(), err_msg=fld)
+    # the draws matter: trees of one fit differ from each other
+    assert len({t.split_feature.tobytes() for t in sp.trees}) \
+        == (1 if kw["n_trees"] == 1 else len(sp.trees))
+
+
+def test_fit_tree_with_a_feature_key_matches_jax(confs):
+    from sml_tpu.ml import tree_impl as jti
+    from sml_tpu.ml._staging import stage_sharded
+    X, y, cat = _data(dyadic=True, seed=6)
+    binned, _ = jti.make_bins(X, y, 32, cat)
+    weight = np.random.default_rng(2).integers(0, 3, len(y)) \
+        .astype(np.float32)
+    grad, hess = -y, np.ones_like(y)
+    kw = dict(max_depth=4, n_bins=32, n_features=X.shape[1], feature_k=2,
+              min_instances=1, min_info_gain=0.0, reg_lambda=0.0,
+              gamma=0.0)
+    b_dev, _, _ = stage_sharded(binned)
+    n_pad = b_dev.shape[0]
+    jargs = [jti.stage_aligned(a, n_pad) for a in (grad, hess, weight)]
+    pargs = [torch.from_numpy(a) for a in (grad, hess, weight)]
+    feat_key = np.asarray(_jax_key_data(11, 3), np.uint32)
+    tj = jti.fit_tree(b_dev, *jargs, jti.TreeSpec(**kw), feat_key=feat_key)
+    tp = pti.fit_tree(torch.from_numpy(binned), *pargs, pti.TreeSpec(**kw),
+                      feat_key=feat_key)
+    _assert_tables(tj, tp, exact_values=True)
+    # without a key both draw from PRNGKey(rng)
+    tj = jti.fit_tree(b_dev, *jargs, jti.TreeSpec(**kw), rng=5)
+    tp = pti.fit_tree(torch.from_numpy(binned), *pargs, pti.TreeSpec(**kw),
+                      rng=5)
+    _assert_tables(tj, tp, exact_values=True)
+
+
+def _jax_key_data(seed: int, data: int) -> np.ndarray:
+    import jax
+    return np.asarray(jax.random.key_data(
+        jax.random.fold_in(jax.random.PRNGKey(seed), data)))
 
 
 def test_estimators_raise_on_sampling_and_unknown_params():
+    """Sampled estimators fit; what still raises is a Poisson rate that
+    jax would draw by rejection (10 and above, not ported) and a param
+    the estimator does not declare."""
     X, y, _ = _data(n=200)
-    with pytest.raises(NotImplementedError):
-        XgboostRegressor(subsample=0.5).fit(X, y, device="cpu")
-    with pytest.raises(NotImplementedError):
-        ptm.GBTRegressor(subsamplingRate=0.7).fit(X, y, device="cpu")
+    assert XgboostRegressor(subsample=0.5, n_estimators=2).fit(
+        X, y, device="cpu").getNumTrees() == 2
+    assert ptm.GBTRegressor(subsamplingRate=0.7, maxIter=2).fit(
+        X, y, device="cpu").getNumTrees() == 2
+    with pytest.raises(ValueError, match="Knuth"):
+        ptm.RandomForestRegressor(numTrees=2, subsamplingRate=10.0).fit(
+            X, y, device="cpu")
     with pytest.raises(TypeError):
         XgboostRegressor(rounds_per_dispatch=2)
     with pytest.raises(TypeError):
@@ -208,6 +282,41 @@ def test_estimator_params_map_like_the_jax_package(confs):
         X, (y > 0).astype(float), device="cpu")
     p = c.predict_probability(X[:50], device="cpu")
     assert ((p > 0) & (p < 1)).all()
+
+
+def test_random_forest_params_map_like_the_jax_package(confs):
+    """The forest estimators hand `_fit_ensemble` what the JAX ones hand
+    theirs (numTrees, the strategy's feature count, bootstrap,
+    subsamplingRate, seed 17 by default, squared or logistic loss): the
+    same trees come out of both surfaces on the same rows."""
+    from sml_tpu.ml._tree_models import _feature_k, _fit_ensemble as jfit
+    X, y, cat = _data(n=1500, seed=9, dyadic=True)
+    label = (y > np.median(y)).astype(float)
+    m = ptm.RandomForestClassifier(numTrees=3, maxDepth=3, maxBins=20,
+                                   subsamplingRate=0.8).fit(
+        X, label, categorical=cat, device="cpu")
+    sj = jfit(X, label, categorical=cat, max_depth=3, max_bins=20,
+              min_instances=1, min_info_gain=0.0, n_trees=3,
+              feature_k=_feature_k("auto", X.shape[1], True),
+              bootstrap=True, subsample=0.8, seed=17, loss="logistic")
+    assert isinstance(m, ptm.RandomForestClassificationModel)
+    assert m._spec.mode == "binary" and m._spec.tree_weights is None
+    for tj, tp in zip(sj.trees, m._spec.trees):
+        _assert_tables(tj, tp, exact_values=True)
+    p = m.predict_probability(X[:50], device="cpu")
+    assert ((p >= 0) & (p <= 1)).all()
+    r = ptm.RandomForestRegressor(numTrees=2, maxDepth=3, maxBins=20,
+                                  featureSubsetStrategy="sqrt",
+                                  seed=4).fit(X, y, categorical=cat,
+                                              device="cpu")
+    sj = jfit(X, y, categorical=cat, max_depth=3, max_bins=20,
+              min_instances=1, min_info_gain=0.0, n_trees=2,
+              feature_k=_feature_k("sqrt", X.shape[1], False),
+              bootstrap=True, subsample=1.0, seed=4, loss="squared")
+    assert isinstance(r, ptm.RandomForestRegressionModel)
+    assert r.params["numTrees"] == 2 and r.params["subsamplingRate"] == 1.0
+    for tj, tp in zip(sj.trees, r._spec.trees):
+        _assert_tables(tj, tp, exact_values=True)
 
 
 @pytest.mark.parametrize("strategy", ["auto", "all", "sqrt", "log2",
@@ -311,3 +420,23 @@ def test_ml11_xgboost_rmse_matches_jax(confs, airbnb):
                and np.array_equal(a.split_bin, b.split_bin)
                for a, b in zip(model._spec.trees, sj.trees))
     assert same >= 20, f"{same} of 40 trees share their split tables"
+
+
+def test_ml07_random_forest_rmse_matches_jax(confs, airbnb):
+    from sml_tpu.ml._tree_models import _feature_k
+    (Xtr, ptr, _), (Xte, pte, _) = airbnb["train"], airbnb["test"]
+    sj = _one_device_fit(
+        Xtr, ptr, categorical=airbnb["cat"], max_depth=6, max_bins=40,
+        min_instances=1, min_info_gain=0.0, n_trees=20,
+        feature_k=_feature_k("auto", Xtr.shape[1], False), bootstrap=True,
+        subsample=1.0, seed=42, loss="squared")
+    model = ptm.RandomForestRegressor(maxDepth=6, numTrees=20, maxBins=40,
+                                      seed=42).fit(
+        Xtr, ptr, categorical=airbnb["cat"], device="cpu")
+    got = _rmse(model.predict(Xte, device="cpu"), pte)
+    want = _rmse(sj.predict_margin(Xte), pte)
+    _close_rmse(got, want)
+    same = sum(np.array_equal(a.split_feature, b.split_feature)
+               and np.array_equal(a.split_bin, b.split_bin)
+               for a, b in zip(model._spec.trees, sj.trees))
+    assert same >= 10, f"{same} of 20 trees share their split tables"

@@ -47,6 +47,8 @@ def test_the_fit_modules_are_among_the_imported():
                                    "print(sorted(names))"))
     assert proc.returncode == 0, proc.stderr
     for name in ("sml_tpu_torch.native.hist_kernel",
+                 "sml_tpu_torch.native.prng_kernel",
+                 "sml_tpu_torch.utils.prng",
                  "sml_tpu_torch.ml.tree_impl", "sml_tpu_torch.ml._tree_models",
                  "sml_tpu_torch.xgboost"):
         assert name in proc.stdout
