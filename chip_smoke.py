@@ -2,13 +2,15 @@
 
     python3 chip_smoke.py [--seed N]
 
-Run from the repository root. It needs a CUDA card and `nvcc` (it builds
-every kernel under `sml_tpu_torch/csrc/` at first use) and exits non-zero
-without printing a result when either is missing or any phase fails.
+Run from the repository root. It needs a CUDA card, `nvcc` and `g++` (it
+builds every kernel under `sml_tpu_torch/csrc/` and the host binning at
+first use) and exits non-zero without printing a result when any is
+missing or any phase fails.
 
 Phases:
 1. device: the card's name and power limit (from nvidia-smi);
-2. build: every kernel source, with one nvcc process each, in parallel;
+2. build: every kernel source (nvcc) and the host binning (g++), with one
+   compiler process each, in parallel;
 3. kernels: `forest_traverse` against its plain PyTorch version on the
    card, bit for bit, on seeded random ensembles with early leaves and
    feature ids past the row, at the widths of the tree models the
@@ -29,20 +31,26 @@ Phases:
    shape at 64, 4,096 and 100,000 rows, beside the card's name and
    power limit;
 6. breakdown: where one `score_block` call spends its time (binning,
-   staging, kernel, copy back), at 4,096 and 100,000 rows;
+   staging, kernel, copy back), at 4,096 and 100,000 rows; the host
+   binning's C++ kernel against its NumPy version on the same rows
+   (`bin_with`'s search at 4,096 and 100,000 rows, `make_bins` at
+   80,000), equal and timed;
 7. fit kernels: `hist_accumulate` against its plain version at the ML 11
    shape (80,000 rows, 64 bins, uint8) for 1-32 slots, at ML 06 (40
    bins), with uint16 (300 bins) and int32 (70,000 bins) matrices, an
    odd row count, a few rows and rows too wide to stage their bins, with
-   ~20% zero weights, each launched twice and required bit-identical;
+   ~20% zero weights, and at the ML 07 grid's fused shape (640,008 rows,
+   40 bins, 96 slots), each launched twice and required bit-identical;
    `split_scan` against its plain version, exactly, on histograms of
-   dyadic values with ties, masked, all-masked and NaN nodes; the draw
-   kernels against theirs under the fit's keys of seeds 0, 17 and 42 and
-   rounds 0, 1 and 19: `row_weights` (Bernoulli 0.7 and Poisson 1.0 at 1,
-   37, 80,000 and 100,001 rows; Bernoulli bit-equal, a Poisson count
-   differing only where its log-sum lies within 2 ulps of -rate) and
-   `feature_mask` (1, 2, 16 and 32 nodes of F=10, k=3 and F=400, k=20;
-   bit-equal);
+   dyadic values with ties, masked, all-masked and NaN nodes, and at the
+   fused shape (W = 12 x 16) with a per-node least child weight of mixed
+   1/2/5; the draw kernels against theirs under the fit's keys of seeds
+   0, 17 and 42 and rounds 0, 1 and 19: `row_weights` (Bernoulli 0.7 and
+   Poisson 1.0 at 1, 37, 80,000 and 100,001 rows, and 12 elements of
+   mixed mode and rate at 53,334 rows each; Bernoulli bit-equal, a
+   Poisson count differing only where its log-sum lies within 2 ulps of
+   -rate) and `feature_mask` (1, 2, 16 and 32 nodes of F=10, k=3 and
+   F=400, k=20, and 12 elements of mixed k at 16 nodes; bit-equal);
 8. main path, fit: 100,000 seeded ML 11-shaped rows split 80,000 /
    20,000; `XgboostRegressor` (ML 11: 40 trees, depth 6, 64 bins, step
    0.15), `DecisionTreeRegressor` (ML 06: depth 5, 40 bins),
@@ -65,7 +73,25 @@ Phases:
    card's busy share and the fit kernels' device time from
    `torch.profiler`; the draw kernels' times (`row_weights` at 80,000
    rows, `feature_mask` at W=32, F=10) beside their plain versions and
-   bounds, and the same split of one ML 07 random-forest fit.
+   bounds, and the same split of one ML 07 random-forest fit;
+10. main path, tuning: the ML 07 CrossValidator grid (random forest,
+   maxBins 40, seed 42, maxDepth {2, 5} x numTrees {10, 20}) over 3
+   seeded folds of phase 8's 80,000 training rows, fitted as one fused
+   fit (`fit_cv_grid`, 12 elements) with every kernel launch counted
+   (100 `hist_accumulate`, `split_scan` and `feature_mask`, 20
+   `row_weights`), each element scored on its validation fold
+   (`fused_reg_stats_from_matrix`, 12 `forest_traverse` launches); the
+   same 12 fits one by one through `RandomForestRegressor` (630 / 630 /
+   630 / 180 launches); every fused element's split tables equal to its
+   sequential fit's, leaves within rtol 1e-6, rmse within
+   max(1e-3, 1e-5·|rmse|); the same grid at `sml.cv.maxFusedTrials` 5
+   (3 fused fits) and 1 (4 fold-fused fits) gives the same models; the
+   rmse matrix, its fold means and the best grid point; the walls,
+   `binning.fit` and fit loops of the fused grid and the sequential fits
+   (each run three times, in turns, from empty caches); the fused fit's
+   card busy share and kernel device time by `torch.profiler`. (The
+   fused shapes' kernel times beside their bounds are in phases 7 and
+   9.) A JSON line before the card's gives the tuning numbers.
 
 The second-to-last line is a JSON object listing each kernel, with the
 launches the profiler saw in each window behind its device times
@@ -625,6 +651,59 @@ def phase_breakdown(seed: int, device, card: str) -> None:
     tk.LAUNCHES = launches  # not the main path's launches
 
 
+def _median_ms(fn, calls: int = 5):
+    """(median host ms of `calls` calls of fn, the last result)."""
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        out = fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times)), out
+
+
+def phase_binning(seed: int, card: str) -> dict:
+    """The host binning's C++ kernel (`tree_impl._bin_columns`) against
+    its NumPy version (`_bin_columns_plain`) on the same fresh ML
+    11-shaped rows: bins equal, and each one's median host time over 5
+    calls, for `bin_with`'s search (the ML 11 model's edges and category
+    ranks) at 4,096 and 100,000 rows, and for `make_bins` (a fit's
+    `binning.fit`: quantiles, then the search) at 80,000 rows."""
+    from sml_tpu_torch.ml import tree_impl
+    model, cats = ml11_model(seed)
+    binning = model._spec.binning
+    edge_list, dtype = tree_impl.binning_edges_and_dtype(binning)
+    out = {}
+    for n_rows in (4096, 100_000):
+        X, _ = ml11_rows(np.random.default_rng([seed, 14, n_rows]), n_rows,
+                         cats)
+        cpp, got = _median_ms(lambda: tree_impl._bin_columns(
+            X, edge_list, binning.cat_remap, dtype))
+        plain, want = _median_ms(lambda: tree_impl._bin_columns_plain(
+            X, edge_list, binning.cat_remap, dtype))
+        np.testing.assert_array_equal(got, want)
+        out[f"bin_with {n_rows}"] = (cpp, plain)
+        print(f"binning  bin_with search ML 11 rows={n_rows}: C++ {cpp!r} "
+              f"ms, NumPy {plain!r} ms, bins equal (host clock, median of "
+              f"5); card {card}")
+    rng = np.random.default_rng([seed, 15])
+    X, _ = ml11_rows(rng, 80_000, cats)
+    y = fit_labels(rng, X)
+    cpp, (got, _) = _median_ms(lambda: tree_impl.make_bins(X, y, 64, cats))
+    kernel = tree_impl._bin_columns
+    tree_impl._bin_columns = tree_impl._bin_columns_plain
+    try:
+        plain, (want, _) = _median_ms(
+            lambda: tree_impl.make_bins(X, y, 64, cats))
+    finally:
+        tree_impl._bin_columns = kernel
+    np.testing.assert_array_equal(got, want)
+    out["make_bins 80000"] = (cpp, plain)
+    print(f"binning  make_bins ML 11 80000 rows 64 bins: C++ {cpp!r} ms, "
+          f"NumPy {plain!r} ms, bins equal (host clock, median of 5); "
+          f"card {card}")
+    return out
+
+
 # ------------------------------------------------------------ fit kernels
 HIST_SHAPES = [
     # name, rows, features, bins, bin dtype, slot counts
@@ -637,6 +716,9 @@ HIST_SHAPES = [
     ("odd rows", 80_001, N_FEAT, 64, np.uint8, (8,)),
     ("few rows", 37, N_FEAT, 64, np.uint8, (4,)),
     ("wide rows", 20_000, 400, 16, np.int32, (4,)),
+    # the last level of the ML 07 grid fused: 12 elements of 53,334 rows
+    # end to end, 12 x 8 left-child slots
+    ("ML 07 grid", 640_008, N_FEAT, 40, np.uint8, (96,)),
 ]
 SCAN_SHAPES = [
     # name, bins, node counts
@@ -736,7 +818,7 @@ def phase_fit_kernels(seed: int, device) -> dict:
             for lam, gamma, mi in ((1.0, 0.0, 1.0), (0.0, 0.25, 3.0)):
                 rng = np.random.default_rng([seed, 22, i, width, int(mi)])
                 hist, fmask = dyadic_hist(rng, n_bins, width, device)
-                mi_t = torch.full((1, 1), mi, device=device)
+                mi_t = torch.full((width,), mi, device=device)
                 got = hk.split_scan(hist, fmask, mi_t, reg_lambda=lam,
                                     gamma=gamma)
                 torch.cuda.synchronize()
@@ -749,7 +831,29 @@ def phase_fit_kernels(seed: int, device) -> dict:
             print(f"kernel-vs-plain  split_scan  {name:<28} bins={n_bins} "
                   f"W={width:<2} max_abs_err={err:.3e} exact (ties, masked, "
                   f"NaN nodes)  ok")
+    # the fused grid's last level: 12 elements of 16 nodes, each element's
+    # nodes held to its own least child weight
+    rng = np.random.default_rng([seed, 23])
+    hist, fmask = dyadic_hist(rng, 40, FUSED_NODES, device)
+    mi_t = torch.from_numpy(np.repeat(FUSED_MIN_INST, FUSED_NODES
+                                      // len(FUSED_MIN_INST))).to(device)
+    got = hk.split_scan(hist, fmask, mi_t, reg_lambda=0.0, gamma=0.0)
+    torch.cuda.synchronize()
+    want = hk.split_scan_plain(hist, fmask, mi_t, 0.0, 0.0)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy(),
+                                  err_msg="split_scan per-node min_inst")
+    err = pack_err(got, want)
+    worst["split_scan"] = max(worst["split_scan"], err)
+    print(f"kernel-vs-plain  split_scan  ML 07 grid, per-node min_inst "
+          f"bins=40 W={FUSED_NODES} (12 x 16, min_inst 1/2/5) "
+          f"max_abs_err={err:.3e} exact  ok")
     return worst
+
+
+#: the ML 07 grid's fused last level: 12 elements x 16 nodes, and a least
+#: child weight of 1, 2 or 5 per element
+FUSED_NODES = 12 * 16
+FUSED_MIN_INST = np.asarray([1.0, 2.0, 5.0] * 4, np.float32)
 
 
 def pack_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -801,43 +905,100 @@ def near_boundary(key, lam: float, n: int, device) -> torch.Tensor:
     return near
 
 
+def key_tensor(keys, device) -> torch.Tensor:
+    """Host key pairs as the (E, 2) uint32 tensor the draw kernels read."""
+    return torch.tensor([list(k) for k in keys], dtype=torch.uint32,
+                        device=device)
+
+
+#: the batched draw check: 12 elements of mixed mode and rate (and row
+#: counts up to 53,334, the ML 07 grid's longest training fold), and of
+#: mixed k for the masks
+BATCH_SEEDS = tuple(range(12))
+BATCH_MODES = (("poisson", 1.0), ("bernoulli", 0.7), ("ones", 1.0),
+               ("poisson", 0.5), ("bernoulli", 0.3), ("poisson", 0.9)) * 2
+BATCH_ROWS = 53_334
+BATCH_COUNTS = (53_334, 53_333, 53_334, 53_000, 53_334, 53_333) * 2
+BATCH_K = (3, 10, 1, 5) * 3
+
+
+def batch_draws(device, t: int = 3):
+    """The batched check's operands: round t's weight keys and level 4's
+    mask keys of the 12 elements (seeds `BATCH_SEEDS`), the weight table
+    and each element's k."""
+    from sml_tpu_torch.ml import tree_impl
+    from sml_tpu_torch.utils import prng
+    rngs = np.asarray([prng.prng_key(s) for s in BATCH_SEEDS], np.uint32)
+    draws = tree_impl.fit_draws(rngs, t + 1, 5,
+                                [m for m, _ in BATCH_MODES],
+                                [r for _, r in BATCH_MODES],
+                                list(BATCH_COUNTS), BATCH_ROWS, device)
+    ks = torch.tensor(BATCH_K, dtype=torch.int32, device=device)
+    return draws, draws.keys[t, 0], draws.keys[t, 1 + 4], ks
+
+
 def phase_draw_kernels(device) -> dict:
     """`row_weights` (Bernoulli p=0.7 and Poisson λ=1 at `DRAW_ROWS`) and
     `feature_mask` (`MASK_SHAPES` at `MASK_WIDTHS` nodes) against their
     plain versions on the card, under the fit's keys of seeds 0, 17 and
-    42 and rounds 0, 1 and 19: weights of either mode and masks bit-equal,
-    a Poisson count differing only within `BOUNDARY_ULPS` of -rate.
+    42 and rounds 0, 1 and 19, one element each; then 12 elements at once
+    (`batch_draws`): weights of either mode and masks bit-equal, a
+    Poisson count differing only within `BOUNDARY_ULPS` of -rate.
     Returns the largest absolute differences seen."""
     from sml_tpu_torch.native import prng_kernel as pk
     from sml_tpu_torch.utils import prng
     saved = dict(pk.LAUNCHES)
     worst = {"row_weights": 0.0, "feature_mask": 0.0}
+
+    def check_weights(keys, table, n, modes, what):
+        got = pk.row_weights(keys, *table, n)
+        torch.cuda.synchronize()
+        want = pk.row_weights_plain(keys, *table, n)
+        off = (got != want).view(len(modes), n)
+        for e, (mode, rate) in enumerate(modes):
+            if mode == "poisson" and bool(off[e].any()):
+                off[e] &= ~near_boundary(tuple(keys[e].tolist()), rate, n,
+                                         device)
+            if bool(off[e].any()):
+                raise AssertionError(f"row_weights {what} element {e} "
+                                     f"({mode}): {int(off[e].sum())} rows "
+                                     f"differ away from the log boundary")
+        worst["row_weights"] = max(worst["row_weights"],
+                                   float((got - want).abs().max()))
+        return int((got != want).sum())
+
     for mode, rate in DRAW_MODES:
         for n in DRAW_ROWS:
             differ = 0
             for seed in DRAW_SEEDS:
                 for t in DRAW_ROUNDS:
-                    key = draw_key(seed, t)
-                    got = pk.row_weights(key, n, mode, rate, device)
-                    torch.cuda.synchronize()
-                    want = pk.row_weights_plain(key, n, mode, rate, device)
-                    off = got != want
-                    if bool(off.any()):
-                        away = off if mode == "bernoulli" else \
-                            off & ~near_boundary(key, rate, n, device)
-                        if bool(away.any()):
-                            raise AssertionError(
-                                f"row_weights {mode} n={n} seed={seed} "
-                                f"t={t}: {int(away.sum())} rows differ "
-                                f"away from the log boundary")
-                    differ += int(off.sum())
-                    worst["row_weights"] = max(
-                        worst["row_weights"],
-                        float((got - want).abs().max()))
+                    differ += check_weights(
+                        key_tensor([draw_key(seed, t)], device),
+                        pk.weight_table([mode], [rate], [n], device), n,
+                        [(mode, rate)], f"n={n} seed={seed} t={t}")
             print(f"kernel-vs-plain  row_weights  {mode} rate={rate} "
                   f"rows={n:<6} {pk.draw_plan(n)} seeds={DRAW_SEEDS} "
                   f"rounds={DRAW_ROUNDS}: rows differing {differ} (within "
                   f"{BOUNDARY_ULPS} ulps of -rate)  ok")
+    draws, wkeys, mkeys, ks = batch_draws(device)
+    differ = check_weights(wkeys, (draws.modes, draws.rates, draws.counts),
+                           BATCH_ROWS, BATCH_MODES, "12 elements")
+    print(f"kernel-vs-plain  row_weights  12 elements of mixed mode and rate "
+          f"{BATCH_MODES[:6]} x 2, {BATCH_ROWS} rows each (counts "
+          f"{BATCH_COUNTS[:6]} x 2) {pk.draw_plan(BATCH_ROWS)}: rows "
+          f"differing {differ} (within {BOUNDARY_ULPS} ulps of -rate)  ok")
+
+    def check_mask(keys, kt, width, n_feat, what):
+        got = pk.feature_mask(keys, kt, width, n_feat)
+        torch.cuda.synchronize()
+        want = pk.feature_mask_plain(keys, kt, width, n_feat)
+        if not torch.equal(got, want):
+            raise AssertionError(f"feature_mask {what}: "
+                                 f"{int((got != want).sum())} cells differ")
+        per_node = kt.repeat_interleave(width).clamp(max=n_feat)
+        if not bool((got.sum(1) == per_node).all()):
+            raise AssertionError(f"feature_mask {what}: not k a node")
+
     for n_feat, k in MASK_SHAPES:
         for width in MASK_WIDTHS:
             for seed in DRAW_SEEDS:
@@ -845,21 +1006,18 @@ def phase_draw_kernels(device) -> dict:
                     level = width.bit_length() - 1
                     key = prng.fold_in(prng.fold_in(prng.prng_key(seed), t),
                                        level)
-                    got = pk.feature_mask(key, width, n_feat, k, device)
-                    torch.cuda.synchronize()
-                    want = pk.feature_mask_plain(key, width, n_feat, k,
-                                                 device)
-                    if not torch.equal(got, want):
-                        raise AssertionError(
-                            f"feature_mask W={width} F={n_feat} k={k} "
-                            f"seed={seed} t={t}: "
-                            f"{int((got != want).sum())} cells differ")
-                    if not bool((got.sum(1) == k).all()):
-                        raise AssertionError(f"feature_mask W={width} "
-                                             f"F={n_feat}: not k a node")
+                    check_mask(key_tensor([key], device),
+                               torch.tensor([k], dtype=torch.int32,
+                                            device=device),
+                               width, n_feat,
+                               f"W={width} F={n_feat} k={k} seed={seed} "
+                               f"t={t}")
             print(f"kernel-vs-plain  feature_mask  W={width:<2} F={n_feat} "
                   f"k={k} {pk.mask_plan(n_feat)} seeds={DRAW_SEEDS} "
                   f"rounds={DRAW_ROUNDS}: bit-equal  ok")
+    check_mask(mkeys, ks, 16, N_FEAT, "12 elements")
+    print(f"kernel-vs-plain  feature_mask  12 elements x W=16 F={N_FEAT} "
+          f"k={BATCH_K[:4]} x 3 {pk.mask_plan(N_FEAT)}: bit-equal  ok")
     pk.LAUNCHES.update(saved)  # checks are not the main path's launches
     return worst
 
@@ -1011,16 +1169,22 @@ def _fit_launches() -> dict:
     return dict(hist, **draw)
 
 
+def fit_rows(seed: int):
+    """The fit phases' 100,000 seeded ML 11-shaped rows, their log-price
+    labels and the categorical map."""
+    cats = {0: 36, 1: 3, 2: 20}
+    rng = np.random.default_rng([seed, 31])
+    X, _ = ml11_rows(rng, 100_000, cats)
+    return X, fit_labels(rng, X), cats
+
+
 def phase_fit(seed: int, device) -> dict:
     """The fit slice's main path through the estimators (`FITS`), with
     every kernel's launches counted; the course orderings; and agreement
     of the card with the CPU at 16,000 rows."""
     from sml_tpu_torch.native import traverse_kernel as tk
     from sml_tpu_torch.utils.profiler import PROFILER
-    cats = {0: 36, 1: 3, 2: 20}
-    rng = np.random.default_rng([seed, 31])
-    X, _ = ml11_rows(rng, 100_000, cats)
-    logy = fit_labels(rng, X)
+    X, logy, cats = fit_rows(seed)
     Xtr, ytr, Xte, yte = X[:80_000], logy[:80_000], X[80_000:], logy[80_000:]
 
     launches, walls, models = {}, {}, {}
@@ -1171,7 +1335,7 @@ def wrapper_host_us(device) -> dict:
     b, lid, g, h, w = hist_operands(rng, 80_000, 64, np.uint8, 16, device)
     hist = torch.rand((N_FEAT, 64, 32, 3), device=device)
     fmask = torch.ones((32, N_FEAT), device=device)
-    mi = torch.ones((1, 1), device=device)
+    mi = torch.ones(32, device=device)
     out = {"hist_accumulate": host_us(lambda: hk.hist_accumulate(
                b, lid, g, h, w, n_bins=64, n_slots=16)),
            "split_scan": host_us(lambda: hk.split_scan(
@@ -1180,11 +1344,57 @@ def wrapper_host_us(device) -> dict:
     return out
 
 
+def time_hist(ops, n_bins: int, n_slots: int, what: str, reps: int = 50):
+    """(kernel ms, device ms, plain ms, bound ms, bound by, index_add_ ms)
+    of one `hist_accumulate` call on `ops` (binned, lid, grad, hess,
+    weight); the library yardstick is one `index_add_` of the (row,
+    feature) contributions on precomputed flat cell indices."""
+    from sml_tpu_torch.native import hist_kernel as hk
+    b, lid, g, h, w = ops
+    n = b.shape[0]
+
+    def call():
+        return hk.hist_accumulate(b, lid, g, h, w, n_bins=n_bins,
+                                  n_slots=n_slots)
+    k_ms = time_ms(call, reps)
+    d_ms = device_ms(call, reps, HIST_KERNELS,
+                     hist_launches(n, n_bins, n_slots), what)
+    p_ms = time_ms(lambda: hk.hist_accumulate_plain(
+        b, lid, g, h, w, n_bins, n_slots), 5)
+    ok = (w > 0)[:, None].expand(-1, N_FEAT)
+    cell = ((torch.arange(N_FEAT, device=b.device)[None, :] * n_bins
+             + b.to(torch.int64)) * n_slots + lid.to(torch.int64)[:, None])
+    src = torch.stack([g * w, h * w, w], 1)[:, None, :] \
+        .expand(-1, N_FEAT, 3)[ok].contiguous()
+    idx = cell[ok].contiguous()
+    acc = torch.zeros((N_FEAT * n_bins * n_slots, 3), device=b.device)
+    l_ms = time_ms(lambda: acc.index_add_(0, idx, src), reps)
+    return (k_ms, d_ms, p_ms, *hist_bound_ms(b, w, n_bins, n_slots), l_ms)
+
+
+def time_scan(hist, mi, what: str):
+    """(kernel ms, device ms, plain ms, bound ms, bound by, None) of one
+    `split_scan` call on `hist` with every feature a candidate and the
+    per-node least child weights `mi`."""
+    from sml_tpu_torch.native import hist_kernel as hk
+    fmask = torch.ones((hist.shape[2], N_FEAT), device=hist.device)
+
+    def scan():
+        return hk.split_scan(hist, fmask, mi, reg_lambda=1.0, gamma=0.0)
+    k_ms = time_ms(scan, 50)
+    d_ms = device_ms(scan, 50, SCAN_KERNELS, what=what)
+    p_ms = time_ms(lambda: hk.split_scan_plain(hist, fmask, mi, 1.0, 0.0),
+                   5)
+    return (k_ms, d_ms, p_ms, *scan_bound_ms(hist), None)
+
+
 def phase_fit_times(seed: int, device, card: str) -> dict:
     """Kernel, plain, bound and library times of the fit kernels at every
     shape the ML 11 fit launches them at (`hist_accumulate` at 1-16
-    slots, and 32; `split_scan` at 1-32 nodes); the per-fit kernel device
-    time these give; the wrappers' host time per call. Beside the float64
+    slots, and 32; `split_scan` at 1-32 nodes) and at the last level of
+    the ML 07 grid fused (640,008 rows, 96 slots; 192 nodes); the
+    per-fit kernel device time these give; the wrappers' host time per
+    call. Beside the float64
     `hist_accumulate` at S=16 and 32, times its f32-accumulating build and
     counts the cells where each differs from the plain version on the CPU
     (what a CPU fit computes). Returns the numbers of the kernels line."""
@@ -1196,34 +1406,18 @@ def phase_fit_times(seed: int, device, card: str) -> dict:
         rng = np.random.default_rng([seed, 41, n_slots])
         b, lid, g, h, w = hist_operands(rng, 80_000, 64, np.uint8, n_slots,
                                         device)
-
-        def call():
-            return hk.hist_accumulate(b, lid, g, h, w, n_bins=64,
-                                      n_slots=n_slots)
-        k_ms = time_ms(call, 50)
-        d_ms = device_ms(call, 50, HIST_KERNELS,
-                         hist_launches(80_000, 64, n_slots),
-                         f"hist_accumulate S={n_slots}")
-        p_ms = time_ms(lambda: hk.hist_accumulate_plain(
-            b, lid, g, h, w, 64, n_slots), 5)
-        # the library yardstick: one index_add_ of the (row, feature)
-        # contributions on precomputed flat cell indices
-        ok = (w > 0)[:, None].expand(-1, N_FEAT)
-        cell = ((torch.arange(N_FEAT, device=device)[None, :] * 64
-                 + b.to(torch.int64)) * n_slots + lid.to(torch.int64)[:, None])
-        src = torch.stack([g * w, h * w, w], 1)[:, None, :] \
-            .expand(-1, N_FEAT, 3)[ok].contiguous()
-        idx = cell[ok].contiguous()
-        acc = torch.zeros((N_FEAT * 64 * n_slots, 3), device=device)
-        l_ms = time_ms(lambda: acc.index_add_(0, idx, src), 50)
-        b_ms, b_by = hist_bound_ms(b, w, 64, n_slots)
+        k_ms, d_ms, p_ms, b_ms, b_by, l_ms = out[
+            ("hist_accumulate", n_slots)] = time_hist(
+                (b, lid, g, h, w), 64, n_slots, f"hist_accumulate S={n_slots}")
         print(f"time  hist_accumulate  ML 11 80000 rows F=10 B=64 uint8 "
               f"S={n_slots} {hk.hist_plan(80_000, N_FEAT, 64, n_slots)}: "
               f"kernel {k_ms!r} ms (device {fmt_ms(d_ms)} ms), plain "
               f"{p_ms!r} ms, index_add_ {l_ms!r} ms, bound {b_ms!r} ms "
               f"({b_by}); card {card}")
-        out[("hist_accumulate", n_slots)] = (k_ms, d_ms, p_ms, b_ms, b_by,
-                                             l_ms)
+
+        def call():
+            return hk.hist_accumulate(b, lid, g, h, w, n_bins=64,
+                                      n_slots=n_slots)
         if n_slots < 16:
             continue
         f_ms = time_ms(lambda: f32acc(b, lid, g, h, w, 64, n_slots), 50)
@@ -1256,21 +1450,33 @@ def phase_fit_times(seed: int, device, card: str) -> dict:
         hist = torch.from_numpy(rng.normal(
             size=(N_FEAT, 64, width, 3)).astype(np.float32)).to(device)
         hist[..., 1:] = hist[..., 1:].abs()
-        fmask = torch.ones((width, N_FEAT), device=device)
-        mi = torch.ones((1, 1), device=device)
-
-        def scan():
-            return hk.split_scan(hist, fmask, mi, reg_lambda=1.0, gamma=0.0)
-        k_ms = time_ms(scan, 50)
-        d_ms = device_ms(scan, 50, SCAN_KERNELS, what=f"split_scan W={width}")
-        p_ms = time_ms(lambda: hk.split_scan_plain(hist, fmask, mi, 1.0,
-                                                   0.0), 5)
-        b_ms, b_by = scan_bound_ms(hist)
+        k_ms, d_ms, p_ms, b_ms, b_by, _ = out[("split_scan", width)] = \
+            time_scan(hist, torch.ones(width, device=device),
+                      f"split_scan W={width}")
         print(f"time  split_scan  ML 11 F=10 B=64 W={width} "
               f"{hk.scan_plan(N_FEAT, 64)}: kernel {k_ms!r} ms (device "
               f"{fmt_ms(d_ms)} ms), plain {p_ms!r} ms, bound {b_ms!r} ms "
               f"({b_by}); card {card}")
-        out[("split_scan", width)] = (k_ms, d_ms, p_ms, b_ms, b_by, None)
+    # the ML 07 grid's fused shapes: a last level's histogram of 12
+    # elements end to end, and its scan over 12 x 16 nodes
+    rng = np.random.default_rng([seed, 44])
+    ops = hist_operands(rng, 640_008, 40, np.uint8, 96, device)
+    k_ms, d_ms, p_ms, b_ms, b_by, l_ms = out[("hist_accumulate", "fused")] \
+        = time_hist(ops, 40, 96, "hist_accumulate fused S=96", reps=20)
+    print(f"time  hist_accumulate  ML 07 grid fused 640008 rows F=10 B=40 "
+          f"uint8 S=96 {hk.hist_plan(640_008, N_FEAT, 40, 96)}: kernel "
+          f"{k_ms!r} ms (device {fmt_ms(d_ms)} ms), plain {p_ms!r} ms, "
+          f"index_add_ {l_ms!r} ms, bound {b_ms!r} ms ({b_by}); card {card}")
+    hist = torch.from_numpy(rng.normal(
+        size=(N_FEAT, 40, FUSED_NODES, 3)).astype(np.float32)).to(device)
+    hist[..., 1:] = hist[..., 1:].abs()
+    mi = torch.from_numpy(np.repeat(FUSED_MIN_INST, 16)).to(device)
+    k_ms, d_ms, p_ms, b_ms, b_by, _ = out[("split_scan", "fused")] = \
+        time_scan(hist, mi, f"split_scan fused W={FUSED_NODES}")
+    print(f"time  split_scan  ML 07 grid fused F=10 B=40 W={FUSED_NODES} "
+          f"{hk.scan_plan(N_FEAT, 40)}: kernel {k_ms!r} ms (device "
+          f"{fmt_ms(d_ms)} ms), plain {p_ms!r} ms, bound {b_ms!r} ms "
+          f"({b_by}); card {card}")
     per_fit = {}
     for name, levels in (("hist_accumulate", FIT_LEVEL_SLOTS),
                          ("split_scan", FIT_LEVEL_NODES)):
@@ -1339,51 +1545,142 @@ def mask_bound_ms(width: int, n_feat: int):
 def phase_draw_times(device, card: str) -> dict:
     """Kernel (CUDA-event median and profiler device time), plain and
     bound of `row_weights` at the fit phase's 80,000 rows (Bernoulli 0.7
-    and Poisson 1.0) and of `feature_mask` at ML 07's last level (W=32,
-    F=10, k=3); the wrappers' host time per call. Returns the numbers of
-    the kernels line."""
+    and Poisson 1.0, one element) and at the ML 07 grid fused (12
+    elements of 53,334 rows, Poisson 1.0), and of `feature_mask` at ML
+    07's last level (W=32, F=10, k=3) and at the fused grid's (12
+    elements x W=16); the wrappers' host time per call. Returns the
+    numbers of the kernels line."""
+    from sml_tpu_torch.ml.tree_impl import fit_keys
     from sml_tpu_torch.native import prng_kernel as pk
     from sml_tpu_torch.utils import prng
     saved = dict(pk.LAUNCHES)
     out = {}
-    key = draw_key(42, 0)
-    for mode, rate in DRAW_MODES:
-        def call(mode=mode, rate=rate):
-            return pk.row_weights(key, 80_000, mode, rate, device)
+
+    def time_draw(keys, table, n, mode, what):
+        def call():
+            return pk.row_weights(keys, *table, n)
         k_ms = time_ms(call, 100)
-        d_ms = device_ms(call, 100, ("row_weights_kernel",),
-                         what=f"row_weights {mode}")
-        p_ms = time_ms(lambda: pk.row_weights_plain(key, 80_000, mode, rate,
-                                                    device), 5)
-        b_ms, b_by = draw_bound_ms(call(), mode)
+        d_ms = device_ms(call, 100, ("row_weights_kernel",), what=what)
+        p_ms = time_ms(lambda: pk.row_weights_plain(keys, *table, n), 5)
+        return (k_ms, d_ms, p_ms, *draw_bound_ms(call(), mode))
+
+    keys = key_tensor([draw_key(42, 0)], device)
+    for mode, rate in DRAW_MODES:
+        table = pk.weight_table([mode], [rate], [80_000], device)
+        k_ms, d_ms, p_ms, b_ms, b_by = out[("row_weights", mode)] = \
+            time_draw(keys, table, 80_000, mode, f"row_weights {mode}")
         print(f"time  row_weights  {mode} rate={rate} 80000 rows "
               f"{pk.draw_plan(80_000)}: kernel {k_ms!r} ms (device "
               f"{fmt_ms(d_ms)} ms), plain {p_ms!r} ms, bound {b_ms!r} ms "
               f"({b_by}); card {card}")
-        out[("row_weights", mode)] = (k_ms, d_ms, p_ms, b_ms, b_by)
-    mkey = prng.fold_in(prng.fold_in(prng.prng_key(42), 0), 5)
+    # the ML 07 grid fused: 12 elements' Poisson(1) bootstraps a round
+    rngs = np.asarray([prng.prng_key(42)] * 12, np.uint32)
+    gkeys = torch.from_numpy(fit_keys(rngs, 1, 5)[0, 0]).to(device)
+    table = pk.weight_table(["poisson"] * 12, [1.0] * 12,
+                            [53_333, 53_333, 53_334] * 4, device)
+    k_ms, d_ms, p_ms, b_ms, b_by = out[("row_weights", "fused")] = \
+        time_draw(gkeys, table, 53_334, "poisson", "row_weights fused")
+    print(f"time  row_weights  ML 07 grid fused: 12 elements x 53334 rows, "
+          f"Poisson 1.0 {pk.draw_plan(53_334)}: kernel {k_ms!r} ms (device "
+          f"{fmt_ms(d_ms)} ms), plain {p_ms!r} ms, bound {b_ms!r} ms "
+          f"({b_by}); card {card}")
 
-    def mask():
-        return pk.feature_mask(mkey, 32, N_FEAT, 3, device)
-    k_ms = time_ms(mask, 100)
-    d_ms = device_ms(mask, 100, ("feature_mask_kernel",),
-                     what="feature_mask W=32")
-    p_ms = time_ms(lambda: pk.feature_mask_plain(mkey, 32, N_FEAT, 3,
-                                                 device), 5)
-    b_ms, b_by = mask_bound_ms(32, N_FEAT)
+    def time_mask(mkeys, ks, width, what):
+        def mask():
+            return pk.feature_mask(mkeys, ks, width, N_FEAT)
+        k_ms = time_ms(mask, 100)
+        d_ms = device_ms(mask, 100, ("feature_mask_kernel",), what=what)
+        p_ms = time_ms(lambda: pk.feature_mask_plain(mkeys, ks, width,
+                                                     N_FEAT), 5)
+        return (k_ms, d_ms, p_ms,
+                *mask_bound_ms(width * ks.shape[0], N_FEAT)), mask
+
+    mkey = key_tensor([prng.fold_in(prng.fold_in(prng.prng_key(42), 0), 5)],
+                      device)
+    three = torch.tensor([3], dtype=torch.int32, device=device)
+    out["feature_mask"], mask = time_mask(mkey, three, 32,
+                                          "feature_mask W=32")
+    k_ms, d_ms, p_ms, b_ms, b_by = out["feature_mask"]
     print(f"time  feature_mask  W=32 F={N_FEAT} k=3 {pk.mask_plan(N_FEAT)}: "
           f"kernel {k_ms!r} ms (device {fmt_ms(d_ms)} ms), plain {p_ms!r} "
           f"ms, bound {b_ms!r} ms ({b_by}); card {card}")
-    out["feature_mask"] = (k_ms, d_ms, p_ms, b_ms, b_by)
+    out[("feature_mask", "fused")], _ = time_mask(
+        torch.from_numpy(fit_keys(rngs, 1, 5)[0, 5]).to(device),
+        three.repeat(12), 16, "feature_mask fused")
+    k_ms, d_ms, p_ms, b_ms, b_by = out[("feature_mask", "fused")]
+    print(f"time  feature_mask  ML 07 grid fused: 12 elements x W=16 "
+          f"F={N_FEAT} k=3 {pk.mask_plan(N_FEAT)}: kernel {k_ms!r} ms "
+          f"(device {fmt_ms(d_ms)} ms), plain {p_ms!r} ms, bound {b_ms!r} "
+          f"ms ({b_by}); card {card}")
+    table = pk.weight_table(["poisson"], [1.0], [80_000], device)
     out["host_us"] = {
-        "row_weights": host_us(lambda: pk.row_weights(
-            key, 80_000, "poisson", 1.0, device)),
+        "row_weights": host_us(lambda: pk.row_weights(keys, *table,
+                                                      80_000)),
         "feature_mask": host_us(mask)}
     print(f"time  wrapper host time per call (perf_counter median, no "
           f"synchronise): row_weights poisson 80000 rows "
           f"{out['host_us']['row_weights']!r} us, feature_mask W=32 "
           f"{out['host_us']['feature_mask']!r} us; card {card}")
     pk.LAUNCHES.update(saved)  # timing launches are not the main path's
+    return out
+
+
+def profile_busy(run, span: str):
+    """(device ms by kernel name, wall ms of the port's `span` spans) of
+    one `run()` under `torch.profiler`, with the port's spans on."""
+    from torch.profiler import ProfilerActivity, profile
+    from sml_tpu_torch.utils.profiler import PROFILER
+    PROFILER.reset()
+    PROFILER.enabled = True
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        prog = sum(sp.wall_s for sp in PROFILER.spans()
+                   if sp.name == span) * 1e3
+    finally:
+        PROFILER.enabled = False
+    busy = {}
+    for ev in prof.key_averages():
+        t = float(getattr(ev, "self_device_time_total",
+                          getattr(ev, "self_cuda_time_total", 0.0))) / 1e3
+        if t > 0:
+            busy[ev.key] = busy.get(ev.key, 0.0) + t
+    return busy, prog
+
+
+def print_busy(label: str, busy: dict, prog: float, card: str,
+               per_fit=None) -> dict:
+    """The card's busy share over a fit loop's wall time, its top
+    kernels, and each fit kernel's device time (beside the ML 11
+    per-shape sums `per_fit`, given them); returns those numbers."""
+    total = sum(busy.values())
+    if total <= 0:
+        print("breakdown  torch.profiler saw no device time: busy share "
+              "not measured")
+        return {}
+    top = sorted(busy.items(), key=lambda kv: -kv[1])[:6]
+    print(f"breakdown  torch.profiler over one {label} fit: device busy "
+          f"{total!r} ms over a fit loop of {prog!r} ms (busy share "
+          f"{total / prog!r}, profiler on); top kernels "
+          + "; ".join(f"{k[:60]} {v!r} ms" for k, v in top))
+    kernels = (("hist_accumulate", HIST_KERNELS),
+               ("split_scan", SCAN_KERNELS),
+               ("row_weights", ("row_weights_kernel",)),
+               ("feature_mask", ("feature_mask_kernel",)))
+    out = {"busy_ms": total, "loop_ms": prog}
+    for name, names in kernels:
+        whole = sum(v for k, v in busy.items()
+                    if any(nm in k for nm in names))
+        if not whole:
+            continue
+        out[name] = whole
+        beside = "" if per_fit is None or name not in per_fit else (
+            f", against {fmt_ms(per_fit[name])} ms summed from the "
+            f"per-shape times (40 trees x levels)")
+        print(f"breakdown  {name} device time over one {label} fit: "
+              f"{whole!r} ms by the profiler{beside}; card {card}")
     return out
 
 
@@ -1429,50 +1726,258 @@ def phase_fit_breakdown(seed: int, card: str, label: str, fit,
           + ", ".join(f"{k} {v!r}" for k, v in kms.items() if v)
           + f") and the rest {prog - kern!r} ms (host clock); card {card}")
 
-    from torch.profiler import ProfilerActivity, profile
-    PROFILER.reset()
-    PROFILER.enabled = True
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            run()
-            torch.cuda.synchronize()
-        prog = sum(sp.wall_s for sp in PROFILER.spans()
-                   if sp.name == "program.tree_ensemble") * 1e3
-    finally:
-        PROFILER.enabled = False
-    busy = {}
-    for ev in prof.key_averages():
-        t = float(getattr(ev, "self_device_time_total",
-                          getattr(ev, "self_cuda_time_total", 0.0))) / 1e3
-        if t > 0:
-            busy[ev.key] = busy.get(ev.key, 0.0) + t
-    total = sum(busy.values())
-    if total <= 0:
-        print("breakdown  torch.profiler saw no device time: busy share "
-              "not measured")
-    else:
-        top = sorted(busy.items(), key=lambda kv: -kv[1])[:6]
-        print(f"breakdown  torch.profiler over one {label} fit: device busy "
-              f"{total!r} ms over a fit loop of {prog!r} ms (busy share "
-              f"{total / prog!r}, profiler on); top kernels "
-              + "; ".join(f"{k[:60]} {v!r} ms" for k, v in top))
-        kernels = (("hist_accumulate", HIST_KERNELS),
-                   ("split_scan", SCAN_KERNELS),
-                   ("row_weights", ("row_weights_kernel",)),
-                   ("feature_mask", ("feature_mask_kernel",)))
-        for name, names in kernels:
-            whole = sum(v for k, v in busy.items()
-                        if any(nm in k for nm in names))
-            if not whole:
-                continue
-            beside = "" if per_fit is None or name not in per_fit else (
-                f", against {fmt_ms(per_fit[name])} ms summed from the "
-                f"per-shape times (40 trees x levels)")
-            print(f"breakdown  {name} device time over one {label} fit: "
-                  f"{whole!r} ms by the profiler{beside}; card {card}")
+    print_busy(label, *profile_busy(run, "program.tree_ensemble"), card,
+               per_fit)
     for counts, before in zip(_launch_counts(), saved):
         counts.update(before)  # not the main path's launches
+
+
+# ------------------------------------------------------------ tuning
+#: the ML 07 CrossValidator grid (the course's random forest: maxBins 40,
+#: seed 42, `auto` features, a third of 10): maxDepth x numTrees, over
+#: 3 folds
+TUNE_DEPTHS = (2, 5)
+TUNE_TREES = (10, 20)
+TUNE_FOLDS = 3
+#: fused and one-by-one runs of the grid, in turns
+TUNE_REPS = 3
+#: the fit kernels, as `_fit_launches` names them
+FIT_KERNELS = ("hist_accumulate", "split_scan", "feature_mask",
+               "row_weights")
+
+
+def tune_grid() -> list:
+    """The grid's points as `fit_cv_grid` takes them, numTrees fastest."""
+    from sml_tpu_torch.ml._tree_models import _feature_k
+    return [dict(max_depth=d, max_bins=40, min_instances=1,
+                 min_info_gain=0.0, n_trees=t, bootstrap=True,
+                 feature_k=_feature_k("auto", N_FEAT, False),
+                 subsample=1.0, seed=42)
+            for d in TUNE_DEPTHS for t in TUNE_TREES]
+
+
+def tune_folds(seed: int):
+    """Phase 8's 80,000 training rows (price labels, as ML 07 fits) in 3
+    seeded folds: each fold's training rows (the other two) and its
+    validation rows."""
+    X, logy, cats = fit_rows(seed)
+    X, price = X[:80_000], np.exp(logy[:80_000])
+    parts = np.array_split(
+        np.random.default_rng([seed, 61]).permutation(len(price)),
+        TUNE_FOLDS)
+    train = [np.sort(np.concatenate([parts[j] for j in range(TUNE_FOLDS)
+                                     if j != i])) for i in range(TUNE_FOLDS)]
+    return ([X[i] for i in train], [price[i] for i in train],
+            [(X[p], price[p]) for p in parts], cats)
+
+
+def expected_launches(trials, chunks) -> dict:
+    """The fit kernels' launches of fits whose elements are `chunks`
+    (lists of grid indices, one fit each): T_max x D_max of each level
+    kernel and T_max of `row_weights` a fit."""
+    out = dict.fromkeys(FIT_KERNELS, 0)
+    for chunk in chunks:
+        T = max(trials[g]["n_trees"] for g in chunk)
+        D = max(trials[g]["max_depth"] for g in chunk)
+        for k in FIT_KERNELS:
+            out[k] += T if k == "row_weights" else T * D
+    return out
+
+
+def clear_fit_caches() -> None:
+    """Empty the host bins caches and the device staging cache, so that a
+    timed run bins and stages its rows itself, as a fresh CV does."""
+    from sml_tpu_torch.ml import _staging, tree_impl
+    from sml_tpu_torch.ml import _tree_models as ptm
+    with ptm._bins_lock:
+        ptm._bins_cache.clear()
+        ptm._bins_cache_order.clear()
+        ptm._bins_cache_bytes[0] = 0
+    with tree_impl._predict_bin_lock:
+        tree_impl._predict_bin_cache.clear()
+    with _staging._stage_lock:
+        _staging._bin_stage_cache.clear()
+        _staging._bin_stage_bytes[0] = 0
+
+
+def phase_tuning(seed: int, device, card: str) -> dict:
+    """The ML 07 grid over 3 folds: fused (`fit_cv_grid` at
+    `sml.cv.maxFusedTrials` 16: one fit of 12 elements), then one by one
+    (`RandomForestRegressor.fit`), then fused at 5 (3 fits) and 1 (4
+    fold-fused fits), each from empty caches, with every launch counted
+    and each model scored on its validation fold
+    (`fused_reg_stats_from_matrix`). Checks the launch counts, every
+    element's split tables and leaves against its sequential fit's, the
+    rmse, and the models of the other chunkings; prints the rmse matrix,
+    its fold means, the best point, the walls and the fused fit's busy
+    share. Returns the launches and the walls."""
+    from sml_tpu_torch.conf import GLOBAL_CONF
+    from sml_tpu_torch.ml import _tree_models as ptm
+    from sml_tpu_torch.ml.evaluation import _reg_metric
+    from sml_tpu_torch.native import traverse_kernel as tk
+    from sml_tpu_torch.utils.profiler import PROFILER
+    Xs, ys, val, cats = tune_folds(seed)
+    trials = tune_grid()
+    G = len(trials)
+    keys = [(g, f) for g in range(G) for f in range(TUNE_FOLDS)]
+
+    def fused(max_fused: int):
+        def fit():
+            prev = GLOBAL_CONF.get("sml.cv.maxFusedTrials")
+            GLOBAL_CONF.set("sml.cv.maxFusedTrials", max_fused)
+            try:
+                return ptm.fit_cv_grid(Xs, ys, cats, trials)
+            finally:
+                GLOBAL_CONF.set("sml.cv.maxFusedTrials", prev)
+        return fit
+
+    def sequential():
+        return {(g, f): ptm.RandomForestRegressor(
+            numTrees=trials[g]["n_trees"], maxDepth=trials[g]["max_depth"],
+            maxBins=40, seed=42).fit(Xs[f], ys[f], categorical=cats)._spec
+            for g, f in keys}
+
+    def run(fit, what: str):
+        clear_fit_caches()
+        for counts in _launch_counts():
+            for k in counts:
+                counts[k] = 0
+        tk.LAUNCHES = 0
+        PROFILER.reset()
+        PROFILER.enabled = True
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            models = fit()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            rmse = {key: _reg_metric("rmse", *ptm.fused_reg_stats_from_matrix(
+                models[key], *val[key[1]])) for key in keys}
+            t2 = time.perf_counter()
+            spans = PROFILER.spans()
+            dispatches = PROFILER.counters().get("tree.fit_dispatch", 0.0)
+        finally:
+            PROFILER.enabled = False
+        launches = dict(_fit_launches(), forest_traverse=tk.LAUNCHES)
+
+        def span_ms(pred):
+            return sum(sp.wall_s for sp in spans if pred(sp.name)) * 1e3
+        out = {"models": models, "rmse": rmse, "launches": launches,
+               "fit_ms": (t1 - t0) * 1e3, "eval_ms": (t2 - t1) * 1e3,
+               "binning_ms": span_ms(lambda n: n == "binning.fit"),
+               "loop_ms": span_ms(
+                   lambda n: n.startswith("program.tree_ensemble")),
+               "dispatches": dispatches}
+        print(f"tuning  {what}: fit {out['fit_ms']!r} ms (binning.fit "
+              f"{out['binning_ms']!r} ms, fit loops {out['loop_ms']!r} ms),"
+              f" validation scoring {out['eval_ms']!r} ms, {dispatches!r} "
+              f"fit dispatches, launches {launches} (host clock, from empty "
+              f"caches); card {card}")
+        return out
+
+    want = dict(expected_launches(trials, [list(range(G))]),
+                forest_traverse=G * TUNE_FOLDS)
+    want_seq = dict(expected_launches(trials, [[g] for g, _ in keys]),
+                    forest_traverse=G * TUNE_FOLDS)
+    reps = {"fused": [], "sequential": []}
+    with KernelWatch() as watch:
+        # fused and one by one in turns: host walls vary from call to call
+        for rep in range(TUNE_REPS):
+            reps["fused"].append(run(
+                fused(16), f"fused, sml.cv.maxFusedTrials=16 (1 fit of 12 "
+                f"elements), rep {rep}"))
+            reps["sequential"].append(run(
+                sequential, f"one by one (12 RandomForestRegressor fits), "
+                f"rep {rep}"))
+        five = run(fused(5), "fused, sml.cv.maxFusedTrials=5 (3 fits)")
+        one = run(fused(1), "fold-fused, sml.cv.maxFusedTrials=1 (4 fits)")
+    if watch.plain_on_cuda:
+        raise AssertionError(f"the plain versions ran {watch.plain_on_cuda} "
+                             f"times on CUDA tensors")
+    for fz, sq in zip(reps["fused"], reps["sequential"]):
+        if fz["launches"] != want or fz["dispatches"] != 1:
+            raise AssertionError(f"fused grid: {fz['launches']}, "
+                                 f"{fz['dispatches']} fits; want {want}, 1")
+        if sq["launches"] != want_seq or sq["dispatches"] != len(keys):
+            raise AssertionError(f"one by one: {sq['launches']}, want "
+                                 f"{want_seq}")
+    fz, sq = reps["fused"][0], reps["sequential"][0]
+    for what, rs in reps.items():
+        print(f"tuning  {what}: median of {TUNE_REPS} in turns: "
+              + ", ".join(f"{k} {float(np.median([r[k] for r in rs]))!r} ms"
+                          for k in ("fit_ms", "binning_ms", "loop_ms",
+                                    "eval_ms"))
+              + f" (each run: {[round(r['fit_ms'], 1) for r in rs]}); card "
+              f"{card}")
+    chunks5 = [[g for g, _ in keys[lo:lo + 5]] for lo in range(0, 12, 5)]
+    for got, chunks, fits in ((five, chunks5, 3),
+                              (one, [[g] for g in range(G)], G)):
+        want_k = dict(expected_launches(trials, chunks),
+                      forest_traverse=G * TUNE_FOLDS)
+        if got["launches"] != want_k or got["dispatches"] != fits:
+            raise AssertionError(f"chunked grid: {got['launches']}, "
+                                 f"{got['dispatches']} fits; want {want_k}, "
+                                 f"{fits}")
+
+    def compare(a: dict, b: dict, what: str):
+        trees = exact = leaves = leaves_equal = 0
+        for key in keys:
+            for ta, tb in zip(a["models"][key].trees, b["models"][key].trees):
+                if not (np.array_equal(ta.split_feature, tb.split_feature)
+                        and np.array_equal(ta.split_bin, tb.split_bin)):
+                    raise AssertionError(f"{what} {key}: split tables "
+                                         f"differ")
+                np.testing.assert_allclose(ta.leaf_value, tb.leaf_value,
+                                           rtol=1e-6, err_msg=f"{what} {key}")
+                trees += 1
+                exact += all(np.array_equal(getattr(ta, f), getattr(tb, f))
+                             for f in ta._fields)
+                leaves += ta.leaf_value.size
+                leaves_equal += int((ta.leaf_value == tb.leaf_value).sum())
+            ra, rb = a["rmse"][key], b["rmse"][key]
+            if abs(ra - rb) > max(RMSE_ATOL, RMSE_RTOL * abs(rb)):
+                raise AssertionError(f"{what} {key}: rmse {ra} vs {rb}")
+        print(f"tuning  {what}: split tables identical in {trees} of {trees} "
+              f"trees, leaves within rtol 1e-6; {exact} trees bit-equal in "
+              f"every field, {leaves_equal} of {leaves} leaf values "
+              f"bit-equal; rmse within max(1e-3, 1e-5*|rmse|)")
+
+    compare(fz, sq, "fused vs one by one")
+    for rep in range(1, TUNE_REPS):
+        compare(reps["fused"][rep], fz, f"fused rep {rep} vs rep 0")
+    compare(five, fz, "maxFusedTrials=5 vs 16")
+    compare(one, fz, "maxFusedTrials=1 vs 16")
+    m = np.asarray([[fz["rmse"][(g, f)] for f in range(TUNE_FOLDS)]
+                    for g in range(G)])
+    if not np.isfinite(m).all() or m.shape != (G, TUNE_FOLDS):
+        raise AssertionError(f"rmse matrix {m}")
+    means = m.mean(axis=1)
+    best = int(np.argmin(means))
+    print(f"tuning  rmse (price) by grid point (maxDepth, numTrees) and "
+          f"fold:\n" + "\n".join(
+              f"  maxDepth={trials[g]['max_depth']} numTrees="
+              f"{trials[g]['n_trees']}: {m[g].tolist()} mean "
+              f"{float(means[g])!r}"
+              for g in range(G))
+          + f"\ntuning  avgMetrics {means.tolist()}; best maxDepth="
+          f"{trials[best]['max_depth']} numTrees={trials[best]['n_trees']}")
+    if not trials[best]["max_depth"] == max(TUNE_DEPTHS):
+        raise AssertionError(f"the deeper forest should win: {means}")
+    busy = print_busy("fused ML 07 grid (12 elements)", *profile_busy(
+        fused(16), "program.tree_ensemble_trials"), card)
+    for counts in _launch_counts():
+        for k in counts:
+            counts[k] = 0
+    tk.LAUNCHES = 0
+    return {"fused": fz["launches"], "sequential": sq["launches"],
+            "walls": {k: [{m: r[m] for m in ("fit_ms", "binning_ms",
+                                              "loop_ms", "eval_ms")}
+                          for r in rs]
+                      for k, rs in (("fused", reps["fused"]),
+                                    ("sequential", reps["sequential"]),
+                                    ("max_fused_5", [five]),
+                                    ("max_fused_1", [one]))},
+            "busy": busy}
 
 
 def main(argv=None) -> int:
@@ -1490,14 +1995,15 @@ def main(argv=None) -> int:
           f"python {sys.version.split()[0]}")
 
     t0 = time.perf_counter()
-    build.build(build.kernel_sources())
-    print(f"build: {build.kernel_sources()} in "
-          f"{time.perf_counter() - t0:.1f} s")
+    build.build(build.kernel_sources() + build.host_sources())
+    print(f"build: {build.kernel_sources()} (nvcc) and "
+          f"{build.host_sources()} (g++) in {time.perf_counter() - t0:.1f} s")
 
     err = phase_kernels(args.seed, device)
     main_path = phase_main_path(args.seed, device)
     times = phase_times(args.seed, device, card)
     phase_breakdown(args.seed, device, card)
+    binning = phase_binning(args.seed, card)
     fit_err = phase_fit_kernels(args.seed, device)
     fit_err.update(phase_draw_kernels(device))
     fit = phase_fit(args.seed, device)
@@ -1507,6 +2013,11 @@ def main(argv=None) -> int:
                         fit_times["per_fit"])
     phase_fit_breakdown(args.seed, card, "ML 07 RandomForestRegressor",
                         _fit_rf)
+    tuning = phase_tuning(args.seed, device, card)
+
+    def by_path(kernel: str) -> dict:
+        return {"fit": fit["launches"][kernel],
+                "tuning": tuning["fused"][kernel]}
 
     def windows(kernel: str) -> dict:
         return {what: seen for what, seen in DEVICE_WINDOWS.items()
@@ -1518,7 +2029,10 @@ def main(argv=None) -> int:
         "device_windows": windows("forest_traverse"),
         "source": "sml_tpu_torch/csrc/forest_traverse.cu",
         "replaces": "sml_tpu/native/traverse_kernel.py:109",
-        "launches": main_path["launches"],
+        "launches": main_path["launches"]
+        + tuning["fused"]["forest_traverse"],
+        "launches_by_path": {"serving": main_path["launches"],
+                             "tuning": tuning["fused"]["forest_traverse"]},
         "launches_by_rows": main_path["launches_by_rows"],
         "max_abs_err": err,
         "ms": k_ms, "device_ms": d_ms, "plain_ms": p_ms, "bound_ms": b_ms,
@@ -1527,62 +2041,79 @@ def main(argv=None) -> int:
         "by_rows": {str(n): dict(zip(("ms", "device_ms", "plain_ms",
                                       "bound_ms", "bound_by"), times[n]))
                     for n in TIME_ROWS}}]
-    k_ms, d_ms, p_ms, b_ms, b_by, l_ms = fit_times[("hist_accumulate", 16)]
-    kernels.append({
-        "name": "hist_accumulate", "route": "cuda",
-        "device_windows": windows("hist_accumulate"),
-        "source": "sml_tpu_torch/csrc/hist_accumulate.cu",
-        "replaces": "sml_tpu/native/hist_kernel.py:128",
-        "launches": fit["launches"]["hist_accumulate"],
-        "max_abs_err": fit_err["hist_accumulate"], "ms": k_ms,
-        "device_ms": d_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-        "bound_by": b_by, "library_ms": l_ms, "deterministic": True,
-        "f32_acc_ms": fit_times[("hist_f32acc", 16)][0],
-        "f32_acc_device_ms": fit_times[("hist_f32acc", 16)][1],
-        "cells_off_cpu_f64": fit_times[("hist_f32acc", 16)][2],
-        "cells_off_cpu_f32": fit_times[("hist_f32acc", 16)][3],
-        "per_fit_device_ms": fit_times["per_fit"]["hist_accumulate"],
-        "host_us": fit_times["host_us"]["hist_accumulate"],
-        "shape": "ML 11: 80000 rows F=10 B=64 uint8, S=16"})
-    k_ms, d_ms, p_ms, b_ms, b_by, _ = fit_times[("split_scan", 32)]
-    kernels.append({
-        "name": "split_scan", "route": "cuda",
-        "device_windows": windows("split_scan"),
-        "source": "sml_tpu_torch/csrc/split_scan.cu",
-        "replaces": "sml_tpu/native/hist_kernel.py:202",
-        "launches": fit["launches"]["split_scan"],
-        "max_abs_err": fit_err["split_scan"], "ms": k_ms, "device_ms": d_ms,
-        "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": None,
-        "per_fit_device_ms": fit_times["per_fit"]["split_scan"],
-        "host_us": fit_times["host_us"]["split_scan"],
-        "shape": "ML 11: F=10 B=64 W=32"})
+    def numbers(t, keys=("ms", "device_ms", "plain_ms", "bound_ms",
+                         "bound_by", "library_ms")) -> dict:
+        return dict(zip(keys, t))
+
+    ml11 = numbers(fit_times[("hist_accumulate", 16)])
+    kernels.append(dict(
+        name="hist_accumulate", route="cuda",
+        device_windows=windows("hist_accumulate"),
+        source="sml_tpu_torch/csrc/hist_accumulate.cu",
+        replaces="sml_tpu/native/hist_kernel.py:128",
+        launches=sum(by_path("hist_accumulate").values()),
+        launches_by_path=by_path("hist_accumulate"),
+        max_abs_err=fit_err["hist_accumulate"],
+        **numbers(fit_times[("hist_accumulate", "fused")]),
+        shape="ML 07 grid fused: 640008 rows F=10 B=40 uint8, S=96",
+        ml11=dict(ml11, shape="ML 11: 80000 rows F=10 B=64 uint8, S=16"),
+        deterministic=True,
+        f32_acc_ms=fit_times[("hist_f32acc", 16)][0],
+        f32_acc_device_ms=fit_times[("hist_f32acc", 16)][1],
+        cells_off_cpu_f64=fit_times[("hist_f32acc", 16)][2],
+        cells_off_cpu_f32=fit_times[("hist_f32acc", 16)][3],
+        per_fit_device_ms=fit_times["per_fit"]["hist_accumulate"],
+        host_us=fit_times["host_us"]["hist_accumulate"]))
+    kernels.append(dict(
+        name="split_scan", route="cuda",
+        device_windows=windows("split_scan"),
+        source="sml_tpu_torch/csrc/split_scan.cu",
+        replaces="sml_tpu/native/hist_kernel.py:202",
+        launches=sum(by_path("split_scan").values()),
+        launches_by_path=by_path("split_scan"),
+        max_abs_err=fit_err["split_scan"],
+        **numbers(fit_times[("split_scan", "fused")]),
+        shape="ML 07 grid fused: F=10 B=40 W=192 (12 x 16), per-node "
+              "min_inst",
+        ml11=dict(numbers(fit_times[("split_scan", 32)]),
+                  shape="ML 11: F=10 B=64 W=32"),
+        per_fit_device_ms=fit_times["per_fit"]["split_scan"],
+        host_us=fit_times["host_us"]["split_scan"]))
     draws = "jax.random (XLA) at sml_tpu/ml/tree_impl.py:551-553, :785-796"
-    k_ms, d_ms, p_ms, b_ms, b_by = draw_times[("row_weights", "poisson")]
-    kernels.append({
-        "name": "row_weights", "route": "cuda",
-        "device_windows": windows("row_weights"),
-        "source": "sml_tpu_torch/csrc/threefry.cu", "replaces": draws,
-        "launches": fit["launches"]["row_weights"],
-        "max_abs_err": fit_err["row_weights"], "ms": k_ms, "device_ms": d_ms,
-        "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": None,
-        "bernoulli": dict(zip(("ms", "device_ms", "plain_ms", "bound_ms",
-                               "bound_by"),
-                              draw_times[("row_weights", "bernoulli")])),
-        "host_us": draw_times["host_us"]["row_weights"],
-        "shape": "80000 rows, Poisson rate 1 (the ML 07 bootstrap)"})
-    k_ms, d_ms, p_ms, b_ms, b_by = draw_times["feature_mask"]
-    kernels.append({
-        "name": "feature_mask", "route": "cuda",
-        "device_windows": windows("feature_mask"),
-        "source": "sml_tpu_torch/csrc/threefry.cu", "replaces": draws,
-        "launches": fit["launches"]["feature_mask"],
-        "max_abs_err": fit_err["feature_mask"], "ms": k_ms,
-        "device_ms": d_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-        "bound_by": b_by, "library_ms": None,
-        "host_us": draw_times["host_us"]["feature_mask"],
-        "shape": "ML 07: W=32 F=10 k=3"})
+    five = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")
+    kernels.append(dict(
+        name="row_weights", route="cuda",
+        device_windows=windows("row_weights"),
+        source="sml_tpu_torch/csrc/threefry.cu", replaces=draws,
+        launches=sum(by_path("row_weights").values()),
+        launches_by_path=by_path("row_weights"),
+        max_abs_err=fit_err["row_weights"],
+        **numbers(draw_times[("row_weights", "fused")], five),
+        library_ms=None,
+        shape="ML 07 grid fused: 12 elements x 53334 rows, Poisson rate 1",
+        poisson=dict(numbers(draw_times[("row_weights", "poisson")], five),
+                     shape="80000 rows, Poisson rate 1 (the ML 07 "
+                           "bootstrap)"),
+        bernoulli=numbers(draw_times[("row_weights", "bernoulli")], five),
+        host_us=draw_times["host_us"]["row_weights"]))
+    kernels.append(dict(
+        name="feature_mask", route="cuda",
+        device_windows=windows("feature_mask"),
+        source="sml_tpu_torch/csrc/threefry.cu", replaces=draws,
+        launches=sum(by_path("feature_mask").values()),
+        launches_by_path=by_path("feature_mask"),
+        max_abs_err=fit_err["feature_mask"],
+        **numbers(draw_times[("feature_mask", "fused")], five),
+        library_ms=None,
+        shape="ML 07 grid fused: 12 elements x W=16, F=10 k=3",
+        ml07=dict(numbers(draw_times["feature_mask"], five),
+                  shape="ML 07: W=32 F=10 k=3"),
+        host_us=draw_times["host_us"]["feature_mask"]))
+    print(json.dumps({"tuning": {
+        "launches_fused": tuning["fused"],
+        "launches_one_by_one": tuning["sequential"],
+        "walls_ms": tuning["walls"], "busy_ms": tuning["busy"],
+        "binning_ms_cpp_numpy": binning}}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -18,7 +18,13 @@ Ported so far:
   and `split_scan` (`native/hist_kernel.py`); sampled fits (bootstrap
   forests, per-node feature subspaces, `subsample < 1`) draw jax's
   Threefry streams (`utils/prng.py`) through the `row_weights` and
-  `feature_mask` kernels (`native/prng_kernel.py`).
+  `feature_mask` kernels (`native/prng_kernel.py`);
+- tuning's device half: the (grid point x fold) fits of a DT/RF
+  cross-validation grid as fused fits whose elements share each level's
+  kernel launches (`fit_ensembles_trials`, `fit_ensembles_folds` in
+  `ml/tree_impl.py`; `fit_cv_grid` and `fused_reg_stats_from_matrix` in
+  `ml/_tree_models.py`), and the host binning's threaded C++ kernel
+  (`native/binning.py`, `csrc/binning.cc`).
 
 Entry points run on the CUDA card unless the caller passes
 device="cpu"; without a card they raise.

@@ -3,11 +3,13 @@ keys the tree-ensemble serving and fit paths read.
 
 Known keys carry a type and a default; unknown `sml.*` keys raise on
 `get` so a typo cannot silently read a default. Counterpart of
-`sml_tpu/conf.py`, cut to the ported slices. The JAX package's
-`sml.tree.kernel` and `sml.tree.kernelBlockRows` are not ported: on the
-card there is one path (the kernel, or raise), and block sizes come from
-the shapes, in each kernel's wrapper. Nor is `sml.tree.histSubtraction`:
-the port always builds with subtraction, its default.
+`sml_tpu/conf.py`, cut to the ported slices (serving, the fits and
+tuning's device half). The JAX package's `sml.tree.kernel` and
+`sml.tree.kernelBlockRows` are not ported: on the card there is one
+path (the kernel, or raise), and block sizes come from the shapes, in
+each kernel's wrapper. Nor is `sml.tree.histSubtraction`: the port
+always builds with subtraction, its default. Nor is
+`sml.cv.trialAxisDevices`: one card has one layout.
 """
 
 from __future__ import annotations
@@ -53,7 +55,14 @@ _register("sml.predict.binCacheBytes", 1 << 30, int,
           "LRU byte bound for memoized predict-time binned matrices")
 _register("sml.tree.binCacheBytes", 2 << 30, int,
           "Device-bytes budget for the content-keyed cache of staged "
-          "compact bin matrices")
+          "compact bin matrices and stacked fold matrices")
+_register("sml.fit.foldStackBytes", 1 << 30, int,
+          "Byte bound for the fit-time fold-stack memo (stacked CV fold "
+          "datasets reused across a tuning grid)")
+_register("sml.cv.maxFusedTrials", 16, int,
+          "Max (grid point x fold) fits fused into one device fit: a "
+          "G-point grid over k folds costs ceil(G*k/maxFusedTrials) fit "
+          "dispatches; <= 1 fuses only the folds (one fit per grid point)")
 
 
 class TorchConf:

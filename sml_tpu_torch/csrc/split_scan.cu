@@ -7,9 +7,14 @@
 //   GL^2/((HL+lam)+1e-12) + (G-GL)^2/(((H-HL)+lam)+1e-12)
 //     - G^2/((H+lam)+1e-12)
 // with G, H, W each feature's OWN totals, the candidate masks (WL >= mi,
-// W-WL >= mi, not the last bin, feature allowed for the node), and the
+// W-WL >= mi with mi the node's own minimum, not the last bin, feature
+// allowed for the node), and the
 // argmax over the flat index f*B + b, emitting a (6, W) f32 pack
 //   [best feature, best bin, 0.5*best - gamma, G, H, W of feature 0].
+// The Pallas kernel takes one (1, 1) minimum; the JAX package's grid-fused
+// fit vmaps it over its trials, each with its own. Here the nodes of every
+// element of a fused fit share one launch, so each node carries its own
+// minimum (a sequential fit passes the same value for every node).
 //
 // The argmax follows jnp.argmax: the lowest flat index wins a tie, a NaN
 // counts as larger than any number and the first NaN wins, and a node
@@ -119,7 +124,7 @@ __global__ void split_scan_kernel(const float* __restrict__ hist,
   const int lane = threadIdx.x % kWarp;
   const int n_warps = blockDim.x / kWarp;
   float* s = smem + static_cast<int64_t>(warp) * seg * 3;
-  const float mi = min_inst[0];
+  const float mi = min_inst[w];
 
   float best = 0.0f;
   int best_i = -1;
@@ -206,7 +211,8 @@ __global__ void split_scan_kernel(const float* __restrict__ hist,
 }  // namespace
 
 // hist: f32 (n_feat, n_bins, width, 3); feat_mask: f32 (width, n_feat);
-// min_inst: f32 (1, 1); out: f32 (6, width). One block of n_warps warps
+// min_inst: f32 (width,), each node's least child weight; out: f32
+// (6, width). One block of n_warps warps
 // per node; each warp stages `seg` bins at a time (seg*n_warps*12 bytes of
 // dynamic shared memory, at most 47 KB: with the static 256 bytes the
 // block stays within 48 KB without opting in). Returns a cudaError_t.

@@ -1,9 +1,10 @@
 """Staging of compact bin matrices and per-row arrays onto the device.
 
 Counterpart of the bin cache of `sml_tpu/ml/_staging.py`
-(`stage_bins_cached`): a quantized bin matrix is copied to the device
-once per content and kept, in its compact dtype (uint8/uint16/int32),
-in an LRU bounded by `sml.tree.binCacheBytes`. Per-row fit arrays
+(`stage_bins_cached`, `stage_stacked_cached`): a quantized bin matrix,
+or a stack of fold matrices or labels, is copied to the device once per
+content and kept, in its compact dtype (uint8/uint16/int32), in an LRU
+bounded by `sml.tree.binCacheBytes`. Per-row fit arrays
 (the labels) are copied as f32 by `stage_rows`, uncached.
 Rows are not padded: in eager PyTorch nothing compiles per shape, so
 kernels run on the true rows and need no padding mask.
@@ -107,6 +108,13 @@ def stage_bins_cached(binned: np.ndarray, device: torch.device) -> torch.Tensor:
                 old = next(iter(_bin_stage_cache))
                 _bin_stage_bytes[0] -= _nbytes(_bin_stage_cache.pop(old))
     return dev
+
+
+def stage_stacked_cached(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """The device copy of a fold- or element-stacked array (elements,
+    rows, ...) through the same cache as `stage_bins_cached`: a tuning
+    grid stages its fold stacks once, not once per fit."""
+    return stage_bins_cached(a, device)
 
 
 def stage_rows(a: np.ndarray, device: torch.device) -> torch.Tensor:

@@ -4,9 +4,13 @@ Counterpart of `sml_tpu/ml/_tree_models.py`: `_EnsembleSpec` (the host
 description of a fitted ensemble, in the same arrays the JAX package
 saves), the DT/RF/GBT regression and classification models over it,
 `_fit_ensemble` (the one training path: bin on the host, fit every round
-on the device) and the estimators `DecisionTreeRegressor`,
-`DecisionTreeClassifier`, `RandomForestRegressor`,
-`RandomForestClassifier`, `GBTRegressor` and `GBTClassifier`.
+on the device), tuning's device half (`_fit_ensemble_folds`,
+`_fit_ensembles_grid` and `fit_cv_grid`: a grid's (grid point, fold)
+fits fused on the device; `fused_reg_stats_from_matrix`: each model's
+regression statistics on its validation rows) and the estimators
+`DecisionTreeRegressor`, `DecisionTreeClassifier`,
+`RandomForestRegressor`, `RandomForestClassifier`, `GBTRegressor` and
+`GBTClassifier`.
 
 The port has no DataFrame: `fit(X, y, categorical=None, device=None)`
 takes a numpy feature matrix and label vector (`categorical` maps a
@@ -19,10 +23,13 @@ draw the JAX package's Threefry streams from the estimator's seed.
 from __future__ import annotations
 
 import math
+import threading
 from typing import Dict, List, Optional
 
 import numpy as np
 
+from ..utils.prng import prng_key
+from . import tree_impl
 from .base import load_arrays
 from .tree_impl import (Binning, EnsembleSpec, FittedTree, TreeSpec,
                         bin_with, feature_importances, fit_ensemble_on_device,
@@ -165,6 +172,55 @@ class _TreeClassificationModel(_TreeModelBase):
         return (self.predict_probability(X, device) > 0.5).astype(float)
 
 
+_bins_cache: dict = {}
+_bins_cache_order: list = []
+_bins_cache_bytes: list = [0]
+_bins_inflight: dict = {}   # key -> Event set when that key's bins land
+_bins_lock = threading.Lock()
+_BINS_CACHE_MAX_BYTES = 1 << 30
+
+
+def _cached_bins(X, y32, max_bins, categorical):
+    """`make_bins` memoized by (content of X and y, max_bins,
+    categorical): CV folds and tuning grids refit on the same matrices
+    once per parameter set, and a repeated content gets the very same
+    (binned, binning) objects back (`build_fold_stacks` keys on their
+    ids). Bounded at 1 GB of bin matrices, oldest first; a thread that
+    asks for content another thread is binning waits for it."""
+    from ._staging import _content_key, _normalize
+    Xc = _normalize(X)
+    key = (_content_key(Xc), _content_key(_normalize(y32)), int(max_bins),
+           tuple(sorted((categorical or {}).items())))
+    while True:
+        with _bins_lock:
+            hit = _bins_cache.get(key)
+            if hit is None and key not in _bins_inflight:
+                _bins_inflight[key] = threading.Event()
+                break  # this thread bins
+            waiter = _bins_inflight.get(key) if hit is None else None
+        if hit is not None:
+            return hit
+        waiter.wait()
+    try:
+        hit = make_bins(Xc, y32, max_bins, categorical)
+        cost = hit[0].nbytes
+        with _bins_lock:
+            _bins_cache[key] = hit
+            _bins_cache_order.append((key, cost))
+            _bins_cache_bytes[0] += cost
+            while _bins_cache_bytes[0] > _BINS_CACHE_MAX_BYTES \
+                    and len(_bins_cache_order) > 1:
+                old, old_cost = _bins_cache_order.pop(0)
+                _bins_cache.pop(old, None)
+                _bins_cache_bytes[0] -= old_cost
+    finally:
+        with _bins_lock:
+            ev = _bins_inflight.pop(key, None)
+        if ev is not None:
+            ev.set()
+    return hit
+
+
 def _fit_ensemble(X: np.ndarray, y: np.ndarray, *, categorical: Dict[int, int],
                   max_depth: int, max_bins: int, min_instances: int,
                   min_info_gain: float, n_trees: int, feature_k: Optional[int],
@@ -198,7 +254,7 @@ def _fit_ensemble(X: np.ndarray, y: np.ndarray, *, categorical: Dict[int, int],
         X = X.copy()
         X[X == missing] = np.nan
     with PROFILER.span("binning.fit", rows=int(X.shape[0])):
-        binned, binning = make_bins(X, y32, max_bins, categorical)
+        binned, binning = _cached_bins(X, y32, max_bins, categorical)
     with PROFILER.span("staging.fit", rows=int(X.shape[0])):
         binned_dev = stage_bins_cached(binned, dev)
         y_dev = stage_rows(y32, dev)
@@ -209,6 +265,171 @@ def _fit_ensemble(X: np.ndarray, y: np.ndarray, *, categorical: Dict[int, int],
         return _EnsembleSpec(trees, max_depth, binning, weights, base, F,
                              mode)
     return _EnsembleSpec(trees, max_depth, binning, None, 0.0, F, mode)
+
+
+def _fit_ensemble_folds(Xs, ys, cats, *, max_depth: int, max_bins: int,
+                        min_instances: int, min_info_gain: float,
+                        n_trees: int, feature_k: Optional[int],
+                        bootstrap: bool, subsample: float, seed: int,
+                        loss: str = "squared",
+                        device=None) -> List[_EnsembleSpec]:
+    """`_fit_ensemble` of one DT/RF spec on k fold datasets (numpy
+    matrices and labels) as one fused fit on `device`
+    (`tree_impl.fit_ensembles_folds`): one launch of each kernel a level
+    for all k. Each fold is binned on its own rows (`_cached_bins`), as
+    its sequential fit bins it."""
+    from ..utils.profiler import PROFILER
+    binned_list, binnings, y32s = [], [], []
+    with PROFILER.span("binning.fit", rows=int(sum(len(y) for y in ys))):
+        for X, y in zip(Xs, ys):
+            y32 = np.asarray(y, np.float32)
+            binned, binning = _cached_bins(X, y32, max_bins, cats)
+            binned_list.append(binned)
+            binnings.append(binning)
+            y32s.append(y32)
+    F = Xs[0].shape[1]
+    bst, yst, mst = tree_impl.build_fold_stacks(binned_list, y32s)
+    spec = TreeSpec(max_depth=max_depth, n_bins=max_bins, n_features=F,
+                    feature_k=feature_k or F, min_instances=min_instances,
+                    min_info_gain=min_info_gain, reg_lambda=0.0, gamma=0.0)
+    es = EnsembleSpec(tree=spec, n_trees=n_trees, loss=loss, boosting=False,
+                      bootstrap=bool(bootstrap) and n_trees > 1,
+                      subsample=float(subsample), step_size=0.1)
+    results = tree_impl.fit_ensembles_folds(bst, yst, mst, es, seed,
+                                            device=device)
+    mode = "binary" if loss == "logistic" else "regression"
+    return [_EnsembleSpec(trees, max_depth, binnings[k], None, 0.0, F, mode)
+            for k, (trees, _) in enumerate(results)]
+
+
+def _fit_ensembles_grid(Xs, ys, cats, trials, max_fused: int,
+                        loss: str = "squared", device=None):
+    """Grid-fused CV fits of DT/RF: `trials` holds one hyperparameter
+    dict per grid point (max_depth, max_bins, min_instances,
+    min_info_gain, n_trees, feature_k (None: every feature), bootstrap,
+    subsample, seed); every (grid point, fold) pair becomes one element
+    of a fused fit (`tree_impl.fit_ensembles_trials`) on `device`, in
+    chunks of `max_fused` elements, so a G-point grid over k folds costs
+    ceil(G*k / max_fused) fits.
+
+    A chunk runs at its elements' maxima of depth, bins and trees (the
+    JAX package compiles one program at the grid's; eager PyTorch
+    compiles nothing, and a chunk of shallow points launches less); each
+    element gates itself down to its own values, and keeps its own trees
+    and the nodes of its own depth. Elements of fewer bins pad to the
+    most (safe while every min_instances >= 1: a split past an element's
+    own bins leaves an empty right child). Binning is per (fold,
+    maxBins), through `_cached_bins`.
+
+    Returns {(grid_index, fold_index): _EnsembleSpec}."""
+    from ..utils.profiler import PROFILER
+    if any(t["min_instances"] < 1 for t in trials):
+        raise ValueError("fused grid fits need min_instances >= 1")
+    F, k = Xs[0].shape[1], len(Xs)
+    y32s = [np.asarray(y, np.float32) for y in ys]
+    binned: Dict[tuple, np.ndarray] = {}
+    binnings: Dict[tuple, Binning] = {}
+    with PROFILER.span("binning.fit", rows=int(sum(len(y) for y in ys))):
+        for mb in sorted({t["max_bins"] for t in trials}):
+            for fi, (X, y32) in enumerate(zip(Xs, y32s)):
+                binned[(fi, mb)], binnings[(fi, mb)] = _cached_bins(
+                    X, y32, mb, cats)
+    n_pad = max(b.shape[0] for b in binned.values())
+    elems = [(gi, fi) for gi in range(len(trials)) for fi in range(k)]
+    mode = "binary" if loss == "logistic" else "regression"
+    out: Dict[tuple, _EnsembleSpec] = {}
+    max_fused = max(1, int(max_fused))
+    for lo in range(0, len(elems), max_fused):
+        chunk = elems[lo:lo + max_fused]
+        E = len(chunk)
+        ts = [trials[gi] for gi, _ in chunk]
+        es = EnsembleSpec(
+            tree=TreeSpec(max_depth=max(t["max_depth"] for t in ts),
+                          n_bins=max(t["max_bins"] for t in ts),
+                          n_features=F, feature_k=F, min_instances=1,
+                          min_info_gain=0.0, reg_lambda=0.0, gamma=0.0),
+            n_trees=max(t["n_trees"] for t in ts), loss=loss,
+            boosting=False, bootstrap=False, subsample=1.0, step_size=0.1)
+        stack_dtype = np.result_type(*[binned[(fi, trials[gi]["max_bins"])]
+                                       .dtype for gi, fi in chunk])
+        bst = np.zeros((E, n_pad, F), dtype=stack_dtype)
+        yst = np.zeros((E, n_pad), dtype=np.float32)
+        mst = np.zeros((E, n_pad), dtype=np.float32)
+        for e, (gi, fi) in enumerate(chunk):
+            b = binned[(fi, trials[gi]["max_bins"])]
+            bst[e, :b.shape[0]] = b
+            yst[e, :len(y32s[fi])] = y32s[fi]
+            mst[e, :len(y32s[fi])] = 1.0
+        packs, _ = tree_impl.fit_ensembles_trials(
+            bst, yst, mst, es,
+            rngs=[prng_key(int(t["seed"])) for t in ts],
+            depth=[t["max_depth"] for t in ts],
+            feature_k=[t["feature_k"] or F for t in ts],
+            min_inst=[t["min_instances"] for t in ts],
+            min_gain=[t["min_info_gain"] for t in ts],
+            bootstrap=[bool(t["bootstrap"]) and t["n_trees"] > 1
+                       for t in ts],
+            subsample=[t["subsample"] for t in ts], device=device)
+        for e, (gi, fi) in enumerate(chunk):
+            t = trials[gi]
+            n_nodes = 2 ** (t["max_depth"] + 1) - 1
+            trees = tree_impl._unpack_trees(
+                packs[e, :t["n_trees"], :, :n_nodes])
+            out[(gi, fi)] = _EnsembleSpec(
+                trees, int(t["max_depth"]), binnings[(fi, t["max_bins"])],
+                None, 0.0, F, mode)
+    return out
+
+
+def fit_cv_grid(Xs, ys, cats, trials, loss: str = "squared", device=None):
+    """The device half of cross-validating a DT/RF grid: the G x k
+    (grid point, fold) fits, fused in chunks of `sml.cv.maxFusedTrials`
+    elements (`_fit_ensembles_grid`), or with the key at 1 or below, one
+    fold-fused fit per grid point (`_fit_ensemble_folds`). Returns
+    {(grid_index, fold_index): _EnsembleSpec}."""
+    from ..conf import GLOBAL_CONF
+    max_fused = GLOBAL_CONF.getInt("sml.cv.maxFusedTrials")
+    if max_fused > 1:
+        return _fit_ensembles_grid(Xs, ys, cats, trials, max_fused, loss,
+                                   device)
+    keys = ("max_depth", "max_bins", "min_instances", "min_info_gain",
+            "n_trees", "feature_k", "bootstrap", "subsample", "seed")
+    out = {}
+    for gi, t in enumerate(trials):
+        specs = _fit_ensemble_folds(Xs, ys, cats, loss=loss, device=device,
+                                    **{k: t[k] for k in keys})
+        out.update(((gi, fi), sp) for fi, sp in enumerate(specs))
+    return out
+
+
+def fused_reg_stats_from_matrix(spec: _EnsembleSpec, X: np.ndarray,
+                                lab: np.ndarray, link: str = "identity",
+                                device=None):
+    """The five regression statistics (n, Σd², Σ|d|, Σl, Σl²) of a
+    regression ensemble's predictions on raw rows against `lab`, from
+    one fused traversal and reduction on `device`
+    (`inference.forest_eval_fn`); rows whose label is not finite are
+    left out. Returns None for a classification ensemble (its metrics
+    are not these)."""
+    from ..device import resolve_device
+    from ..utils.profiler import PROFILER
+    from ._staging import stage_bins_cached, stage_rows
+    from .inference import _tables, forest_eval_fn
+    if spec.mode != "regression":
+        return None
+    dev = resolve_device(device)
+    with PROFILER.span("binning.predict", rows=int(X.shape[0])):
+        binned = bin_with(np.asarray(X, dtype=np.float64), spec.binning)
+    lab = np.asarray(lab, np.float64)
+    if binned.shape[0] != len(lab):
+        raise ValueError(f"{binned.shape[0]} rows against {len(lab)} labels")
+    finite = np.isfinite(lab)
+    stats = forest_eval_fn(spec.depth, link)(
+        stage_bins_cached(binned, dev),
+        stage_rows(np.where(finite, lab, 0.0), dev),
+        stage_rows(finite, dev), *_tables(*spec.stacked(), dev),
+        float(spec.base))
+    return tuple(float(s) for s in stats)
 
 
 # ------------------------------------------------------------ estimators

@@ -5,20 +5,26 @@ Counterpart of `sml_tpu/ml/tree_impl.py`.
 - Host binning: quantile edges and label-ordered category ranks at fit
   time (`make_bins`), and the same edges applied to fresh rows at
   predict time (`bin_with`), into the narrowest bin dtype that holds
-  every bin id. The threaded C++ binning of the JAX package is not
-  ported yet; this is its numpy branch, with the same semantics
-  (searchsorted 'left'; non-finite values fall in bin 0).
-- The fit: `_make_tree_builder` grows one tree level by level on the
-  device through the two kernels of `native/hist_kernel.py`
-  (`hist_accumulate`, `split_scan`), with histogram subtraction below
-  the root; `fit_ensemble_on_device` runs the rounds of a DT, RF, GBT
-  or XGBoost fit as a Python loop; `fit_tree` builds one tree.
+  every bin id. The search runs in the threaded C++ kernel of
+  `native/binning.py` (`_bin_columns`); `_bin_columns_plain` is its
+  NumPy version (searchsorted 'left'; non-finite values fall in bin 0).
+- The fit: `_make_tree_builder` grows one tree of each of E elements
+  level by level on the device through the two kernels of
+  `native/hist_kernel.py` (`hist_accumulate`, `split_scan`), with
+  histogram subtraction below the root and one launch of each a level
+  whatever E is; `_fit_elements` runs the rounds as a Python loop.
+  `fit_ensemble_on_device` fits a DT, RF, GBT or XGBoost ensemble (one
+  element), `fit_ensembles_folds` one spec on k fold datasets, and
+  `fit_ensembles_trials` the (grid point x fold) elements of a tuning
+  grid, each gated to its own hyperparameters (`TrialDyn`);
+  `build_fold_stacks` stacks the folds; `fit_tree` builds one tree.
 - Sampling, as the JAX package draws it: a round's row weights (Poisson
   for a bootstrap of several trees, else Bernoulli for a subsample
   below 1) and each level's per-node feature subspace (when fewer than
-  all features are candidates) come from the Threefry keys of
-  `utils/prng.py`, derived on the host, and are drawn on the device by
-  the kernels of `native/prng_kernel.py`.
+  all features are candidates, and always in a fused tuning fit) come
+  from the Threefry keys of `utils/prng.py`, all derived on the host
+  and copied to the device once a fit (`fit_keys`), and are drawn there
+  by the kernels of `native/prng_kernel.py`.
 """
 
 from __future__ import annotations
@@ -151,8 +157,21 @@ def make_bins(X: np.ndarray, y: np.ndarray, max_bins: int,
 
 def _bin_columns(X: np.ndarray, edge_list, remaps: Dict[int, np.ndarray],
                  out_dtype=np.int32) -> np.ndarray:
-    """Full-column discretization against known edges/remaps
-    (searchsorted 'left'; non-finite -> bin 0)."""
+    """Full-column discretization against known edges/remaps: the
+    threaded C++ kernel (`native/binning.py`) for the continuous
+    features, then the category ranks; identical to `_bin_columns_plain`
+    (searchsorted 'left'; non-finite -> bin 0). Raises if the kernel
+    cannot be built."""
+    from ..native import binning
+    binned = binning.bin_continuous(X, edge_list, remaps) \
+        .astype(out_dtype, copy=False)
+    return _remap_categories(binned, X, remaps)
+
+
+def _bin_columns_plain(X: np.ndarray, edge_list,
+                       remaps: Dict[int, np.ndarray],
+                       out_dtype=np.int32) -> np.ndarray:
+    """`_bin_columns` in NumPy, the C++ kernel's plain version."""
     n, F = X.shape
     binned = np.zeros((n, F), dtype=out_dtype)
     for f in range(F):
@@ -164,6 +183,13 @@ def _bin_columns(X: np.ndarray, edge_list, remaps: Dict[int, np.ndarray],
         col = X[:, f]
         binned[:, f] = np.searchsorted(qs, col, side="left").astype(out_dtype)
         binned[~np.isfinite(col), f] = 0  # missing -> lowest bin
+    return _remap_categories(binned, X, remaps)
+
+
+def _remap_categories(binned: np.ndarray, X: np.ndarray,
+                      remaps: Dict[int, np.ndarray]) -> np.ndarray:
+    """Each categorical slot's bins: its label-ordered category ranks
+    (ids clipped to the known categories)."""
     for f, rank in remaps.items():
         ids = np.clip(X[:, f].astype(np.int64), 0, len(rank) - 1)
         binned[:, f] = rank[ids]
@@ -216,124 +242,219 @@ def bin_with(X: np.ndarray, binning: Binning) -> np.ndarray:
 
 
 # ------------------------------------------------------------------ fit
+class TrialDyn(NamedTuple):
+    """Per-element hyperparameters of a fit of E elements, each an (E,)
+    host array: a fused tuning fit runs at its elements' maxima
+    (`TreeSpec`) and each element gates itself down to its own. A
+    sequential fit is one element whose values are its spec's."""
+    depth: np.ndarray           # splits only at level < depth
+    feature_k: np.ndarray       # features a node may split on
+    min_instances: np.ndarray   # least weight of a child
+    min_info_gain: np.ndarray   # least gain of a split
+
+
+def _spec_dyn(spec: TreeSpec, E: int) -> TrialDyn:
+    """Every element at `spec`'s own values."""
+    return TrialDyn(depth=np.full(E, spec.max_depth),
+                    feature_k=np.full(E, spec.feature_k),
+                    min_instances=np.full(E, spec.min_instances, np.float32),
+                    min_info_gain=np.full(E, spec.min_info_gain, np.float32))
+
+
+class _Elements(NamedTuple):
+    """Device constants of a fit of E elements whose rows lie end to end
+    in blocks of n_pad, made once a fit (`_elements`)."""
+    E: int
+    n_pad: int
+    erow: torch.Tensor        # (E*n_pad,) int64: each row's element
+    levels: torch.Tensor      # (3, E*(2^D - 1)) f32: per level and node,
+    #                           [min_inst, min_gain (+inf at or past the
+    #                           element's depth), 1 below its depth else 0]
+    mask_k: torch.Tensor      # (E,) int32: features a node, per element
+    draw_masks: bool          # whether levels draw feature masks
+    term_base: torch.Tensor   # (E*n_pad,) int64: first node of the row's
+    #                           element's last level
+    term_idx: torch.Tensor    # (E, n_nodes) int64: a node's slot in its
+    #                           element's last level (clamped)
+    term_mask: torch.Tensor   # (E, n_nodes) bool: the node is on it
+
+
+def _elements(spec: TreeSpec, dyn: TrialDyn, n_pad: int, dev,
+              draw_masks: bool) -> _Elements:
+    """The per-element gates of `dyn` laid out per level and node, and
+    each element's last level, copied to `dev` once."""
+    D = spec.max_depth
+    E = len(dyn.depth)
+    depth = np.asarray(dyn.depth, np.int64)
+    if (depth < 0).any() or (depth > D).any():
+        raise ValueError(f"element depths must lie in [0, {D}], got {depth}")
+    cols = []
+    for level in range(D):
+        w = 2 ** level
+        below = level < depth
+        cols.append(np.stack([
+            np.repeat(np.asarray(dyn.min_instances, np.float32), w),
+            np.repeat(np.where(below, np.asarray(dyn.min_info_gain,
+                                                 np.float32), np.inf), w),
+            np.repeat(below.astype(np.float32), w)]))
+    levels = np.concatenate(cols, axis=1) if cols \
+        else np.zeros((3, 0), np.float32)
+    n_nodes = 2 ** (D + 1) - 1
+    node_level = np.floor(np.log2(np.arange(n_nodes) + 1)).astype(np.int64)
+    base = 2 ** depth - 1
+    term_mask = node_level[None, :] == depth[:, None]
+    term_idx = np.clip(np.arange(n_nodes)[None, :] - base[:, None], 0,
+                       2 ** D - 1)
+    def to(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    erow = torch.arange(E, device=dev).repeat_interleave(n_pad)
+    return _Elements(E=E, n_pad=n_pad, erow=erow,
+                     levels=to(levels.astype(np.float32)),
+                     mask_k=to(np.asarray(dyn.feature_k, np.int32)),
+                     draw_masks=draw_masks,
+                     term_base=to(base)[erow], term_idx=to(term_idx),
+                     term_mask=to(term_mask))
+
+
 def _make_tree_builder(spec: TreeSpec):
-    """One tree, grown level by level on the operands' device.
+    """One tree for each of E elements, grown level by level on the
+    operands' device; a sequential fit is E = 1.
 
-    Returns `build(binned_c, binned, grad, hess, weight, feat_rng) ->
-    (pack, node)`: `binned_c` is the compact bin matrix the histogram
-    kernel reads, `binned` the same bins as int32 for row routing,
-    `feat_rng` the tree's feature key (a host pair); `pack` is the
-    (5, n_nodes) f32 stack [split_feature, split_bin, leaf_value, gain,
-    cover] of the level-order heap (children of i at 2i+1, 2i+2), `node`
-    each row's terminal node.
+    Returns `build(binned_c, binned, grad, hess, weight, mask_keys, el)
+    -> (pack, node)`. The E elements' rows lie end to end in blocks of
+    `el.n_pad` (`_Elements`): `binned_c` is the compact (E*n_pad, F) bin
+    matrix the histogram kernel reads, `binned` the same bins as int32
+    for row routing, `mask_keys` the (D, E, 2) uint32 device keys of the
+    levels' feature masks (`fold_in(feat_rng, level)` of each element).
+    `pack` is the (E, 5, n_nodes) f32 stack [split_feature, split_bin,
+    leaf_value, gain, cover] of each element's level-order heap (children
+    of i at 2i+1, 2i+2), `node` each row's terminal node in its element's
+    tree.
 
-    Per level: `hist_accumulate` histograms the rows of the level's nodes
-    (below the root only the left children's rows: a right child is its
-    parent minus its left sibling, zero under a parent that did not
-    split, as under the JAX package's default `sml.tree.histSubtraction`);
-    `split_scan` picks each node's best
-    split among the level's candidate features (with `feature_k < F`,
-    the `feature_mask` draw under `fold_in(feat_rng, level)`, else all of
-    them); a node splits when its gain passes `min_info_gain` and is
-    finite, and its rows go right iff their bin is above the split bin.
+    Per level, whatever E is, one launch of each kernel: `hist_accumulate`
+    histograms the rows of every element's level nodes into slot
+    `e * width + node` (below the root only the left children's rows,
+    into `e * width/2 + node/2`: a right child is its parent minus its
+    left sibling, zero under a parent that did not split, as under the
+    JAX package's default `sml.tree.histSubtraction`); `feature_mask`
+    draws the level's candidate features under each element's key (with
+    `el.draw_masks`; else all features are candidates); `split_scan`
+    picks each of the E * width nodes' best split, each held to its
+    element's least child weight. A node splits when it lies above its
+    element's depth and its gain is finite and passes its element's
+    `min_info_gain`; its rows go right iff their bin is above the split
+    bin. A node at or below its element's depth stores split bin 0, as
+    its element's own (shallower) fit stores.
+
     Every row is routed, weighted or not, so boosting updates the margin
-    of every row. The last level's statistics are a float64 one-hot
-    matmul rounded once to f32: deterministic, unlike a scatter of float
-    atomics, and, like the histograms, deliberately above the JAX
-    package's f32 sums, so that the card and the CPU fit the same trees
-    (see `native/hist_kernel.py`). A node no row reached inherits its parent's value and
-    becomes a leaf."""
+    of every row. The statistics of each element's last level are a
+    float64 one-hot product (batched over elements) rounded once to f32:
+    deterministic, unlike a scatter of float atomics, and, like the
+    histograms, deliberately above the JAX package's f32 sums, so that
+    the card and the CPU fit the same trees (see `native/hist_kernel.py`).
+    A node no row reached inherits its parent's value and becomes a
+    leaf."""
     D, B, F = spec.max_depth, spec.n_bins, spec.n_features
     n_nodes = 2 ** (D + 1) - 1
     lam = float(spec.reg_lambda)
 
-    def build(binned_c, binned, grad, hess, weight, feat_rng):
+    def build(binned_c, binned, grad, hess, weight, mask_keys, el):
+        E, n_pad = el.E, el.n_pad
         n = binned.shape[0]
         dev = binned.device
         f32 = dict(dtype=torch.float32, device=dev)
         node = torch.zeros(n, dtype=torch.int64, device=dev)
         active = torch.ones(n, dtype=torch.bool, device=dev)
-        split_feature = torch.full((n_nodes,), -1, dtype=torch.int32,
+        split_feature = torch.full((E, n_nodes), -1, dtype=torch.int32,
                                    device=dev)
-        split_bin = torch.zeros(n_nodes, dtype=torch.int32, device=dev)
-        gains = torch.zeros(n_nodes, **f32)
-        node_G = torch.zeros(n_nodes, **f32)
-        node_H = torch.zeros(n_nodes, **f32)
-        node_W = torch.zeros(n_nodes, **f32)
-        min_inst = torch.full((1, 1), float(spec.min_instances), **f32)
+        split_bin = torch.zeros((E, n_nodes), dtype=torch.int32, device=dev)
+        gains = torch.zeros((E, n_nodes), **f32)
+        node_G = torch.zeros((E, n_nodes), **f32)
+        node_H = torch.zeros((E, n_nodes), **f32)
+        node_W = torch.zeros((E, n_nodes), **f32)
 
         hist_prev = split_prev = None
         for level in range(D):
             width = 2 ** level
             base = width - 1
+            gates = el.levels[:, E * base:E * (base + width)]
             lid = node - base
             in_level = active & (lid >= 0) & (lid < width)
             lid_c = torch.where(in_level, lid, 0)
             wq = torch.where(in_level, weight, 0.0)
             if level == 0:
                 hist = hk.hist_accumulate(
-                    binned_c, lid_c.to(torch.int32), grad, hess, wq,
-                    n_bins=B, n_slots=1).reshape(F, B, 1, 3)
+                    binned_c, el.erow.to(torch.int32), grad, hess, wq,
+                    n_bins=B, n_slots=E).reshape(F, B, E, 3)
             else:
                 half = width // 2
                 w_left = torch.where(lid_c % 2 == 0, wq, 0.0)
+                slot = (el.erow * half + lid_c // 2).to(torch.int32)
                 left = hk.hist_accumulate(
-                    binned_c, (lid_c // 2).to(torch.int32), grad, hess,
-                    w_left, n_bins=B, n_slots=half).reshape(F, B, half, 3)
+                    binned_c, slot, grad, hess, w_left, n_bins=B,
+                    n_slots=E * half).reshape(F, B, E * half, 3)
                 parent = hist_prev \
                     * split_prev.to(torch.float32)[None, None, :, None]
                 hist = torch.stack([left, parent - left], dim=3) \
-                    .reshape(F, B, width, 3)
-            if spec.feature_k < F:
-                fmask = pk.feature_mask(prng.fold_in(feat_rng, level),
-                                        width, F, spec.feature_k, dev)
+                    .reshape(F, B, E * width, 3)
+            if el.draw_masks:
+                fmask = pk.feature_mask(mask_keys[level], el.mask_k, width,
+                                        F)
             else:
-                fmask = torch.ones((width, F), **f32)
-            pack6 = hk.split_scan(hist, fmask, min_inst, reg_lambda=lam,
+                fmask = torch.ones((E * width, F), **f32)
+            pack6 = hk.split_scan(hist, fmask, gates[0], reg_lambda=lam,
                                   gamma=spec.gamma)
             best_f = pack6[0].to(torch.int64)
             best_b = pack6[1].to(torch.int64)
             best_gain = pack6[2]
-            do_split = (best_gain > spec.min_info_gain) \
-                & torch.isfinite(best_gain)
+            do_split = (best_gain > gates[1]) & torch.isfinite(best_gain)
             idx = slice(base, base + width)
-            node_G[idx] = pack6[3]
-            node_H[idx] = pack6[4]
-            node_W[idx] = pack6[5]
-            split_feature[idx] = torch.where(do_split, best_f, -1) \
-                .to(torch.int32)
-            split_bin[idx] = best_b.to(torch.int32)
-            gains[idx] = torch.where(do_split, best_gain, 0.0)
-            moves = in_level & do_split[lid_c]
-            xbin = binned.gather(1, best_f[lid_c][:, None])[:, 0]
-            child = 2 * node + 1 + (xbin > best_b[lid_c]).to(torch.int64)
+            node_G[:, idx] = pack6[3].view(E, width)
+            node_H[:, idx] = pack6[4].view(E, width)
+            node_W[:, idx] = pack6[5].view(E, width)
+            split_feature[:, idx] = torch.where(do_split, best_f, -1) \
+                .to(torch.int32).view(E, width)
+            split_bin[:, idx] = (pack6[1] * gates[2]).to(torch.int32) \
+                .view(E, width)
+            gains[:, idx] = torch.where(do_split, best_gain, 0.0) \
+                .view(E, width)
+            slot = el.erow * width + lid_c
+            moves = in_level & do_split[slot]
+            xbin = binned.gather(1, best_f[slot][:, None])[:, 0]
+            child = 2 * node + 1 + (xbin > best_b[slot]).to(torch.int64)
             node = torch.where(moves, child, node)
             active = moves
             hist_prev, split_prev = hist, do_split
 
+        # each element's last level: its rows at or past its first node
         width = 2 ** D
-        base = width - 1
-        lid = node - base
-        in_level = (lid >= 0) & (lid < width) & (weight > 0)
+        lid = node - el.term_base
+        in_level = (lid >= 0) & (weight > 0)
         lid_c = torch.where(in_level, lid, 0)
         wq = torch.where(in_level, weight, 0.0)
         onehot = torch.nn.functional.one_hot(lid_c, width) \
             .to(torch.float64) * (wq > 0)[:, None]
-        lstats = (onehot.T @ torch.stack([grad * wq, hess * wq, wq], dim=1)
-                  .to(torch.float64)).to(torch.float32)
-        node_G[base:] = lstats[:, 0]
-        node_H[base:] = lstats[:, 1]
-        node_W[base:] = lstats[:, 2]
+        stats = torch.stack([grad * wq, hess * wq, wq], dim=1) \
+            .to(torch.float64)
+        lstats = torch.bmm(onehot.view(E, n_pad, width).transpose(1, 2),
+                           stats.view(E, n_pad, 3)).to(torch.float32)
+        node_G = torch.where(el.term_mask,
+                             lstats[..., 0].gather(1, el.term_idx), node_G)
+        node_H = torch.where(el.term_mask,
+                             lstats[..., 1].gather(1, el.term_idx), node_H)
+        node_W = torch.where(el.term_mask,
+                             lstats[..., 2].gather(1, el.term_idx), node_W)
         leaf_value = -node_G / ((node_H + lam) + 1e-12)
         parent = torch.clamp(
             (torch.arange(n_nodes, device=dev) - 1) // 2, min=0)
         covered = node_W > 0
         for _ in range(D):
-            leaf_value = torch.where(covered, leaf_value, leaf_value[parent])
+            leaf_value = torch.where(covered, leaf_value,
+                                     leaf_value[:, parent])
         split_feature = torch.where(covered, split_feature, -1)
         pack = torch.stack([split_feature.to(torch.float32),
                             split_bin.to(torch.float32), leaf_value, gains,
-                            node_H])
+                            node_H], dim=1)
         return pack, node
 
     return build
@@ -350,19 +471,20 @@ class EnsembleSpec(NamedTuple):
     step_size: float
 
 
-def _base_margin_fn(loss: str):
-    """The base margin of the labels: their mean, or its log-odds
+def _base_margins(loss: str, y: torch.Tensor, counts: torch.Tensor):
+    """Each element's base margin: the mean of its labels (its first
+    `counts[e]` of each n_pad block; the rest are 0), or its log-odds
     (clipped to [1e-6, 1 - 1e-6]) for the logistic loss. The mean is
     taken in float64 and rounded to f32 once (the JAX package sums in
-    f32), so the base does not depend on the device's order of
-    summation and the card and the CPU start from the same bits."""
-    def base_fn(y):
-        mean = torch.mean(y.to(torch.float64)).to(torch.float32)
-        if loss == "logistic":
-            p0 = torch.clamp(mean, 1e-6, 1 - 1e-6)
-            return torch.log(p0 / (1 - p0))
-        return mean
-    return base_fn
+    f32), so the base does not depend on the device's order of summation
+    and the card and the CPU start from the same bits."""
+    E = counts.shape[0]
+    mean = (y.view(E, -1).to(torch.float64).sum(dim=1)
+            / counts.to(torch.float64)).to(torch.float32)
+    if loss == "logistic":
+        p0 = torch.clamp(mean, 1e-6, 1 - 1e-6)
+        return torch.log(p0 / (1 - p0))
+    return mean
 
 
 def _unpack_trees(packs) -> list:
@@ -374,66 +496,252 @@ def _unpack_trees(packs) -> list:
                        cover=p[4].astype(np.float32)) for p in packs]
 
 
-def round_weights(key, t: int, n: int, es: EnsembleSpec,
-                  device) -> torch.Tensor:
-    """Round t's (n,) row weights, as the JAX package draws them under
-    `kt = fold_in(key, t)`: Poisson(subsample) counts for a bootstrap of
-    several trees, else Bernoulli(subsample) for a subsample below 1,
-    else ones. (One bootstrapped tree sees every row once.)"""
-    kt = prng.fold_in(key, t)
-    if es.bootstrap and es.n_trees > 1:
-        return pk.row_weights(kt, n, "poisson", es.subsample, device)
-    if es.subsample < 1.0:
-        return pk.row_weights(kt, n, "bernoulli", es.subsample, device)
-    return torch.ones(n, dtype=torch.float32, device=device)
+def weight_mode(bootstrap: bool, n_trees: int, subsample: float) -> str:
+    """How an element's rounds weigh its rows, as the JAX package draws
+    them: Poisson(subsample) counts for a bootstrap of several trees,
+    else Bernoulli(subsample) for a subsample below 1, else once each.
+    (One bootstrapped tree sees every row once.)"""
+    if bootstrap and n_trees > 1:
+        return "poisson"
+    return "bernoulli" if subsample < 1.0 else "ones"
+
+
+def fit_keys(rngs: np.ndarray, n_trees: int, depth: int) -> np.ndarray:
+    """Every key a fit of E elements draws under, derived on the host:
+    (T, 1 + D, E, 2) uint32, where [t, 0] is round t's row-weight key
+    `fold_in(fold_in(rng, 0), t)` of each element and [t, 1 + level] its
+    level's feature-mask key `fold_in(fold_in(rng, t), level)`."""
+    rngs = np.asarray(rngs, np.uint32).reshape(-1, 2)
+    t = np.arange(n_trees)[:, None]
+    weights = prng.fold_in_keys(prng.fold_in_keys(rngs, 0)[None], t)
+    feat = prng.fold_in_keys(rngs[None], t)
+    masks = prng.fold_in_keys(feat[:, None],
+                              np.arange(depth)[None, :, None])
+    return np.concatenate([weights[:, None], masks], axis=1)
+
+
+class Draws(NamedTuple):
+    """A fit's draw operands on its device, copied once a fit."""
+    keys: torch.Tensor      # (T, 1 + D, E, 2) uint32 (`fit_keys`)
+    modes: torch.Tensor     # (E,) int32, rates (E,) f32, counts (E,) int32
+    rates: torch.Tensor     # (`prng_kernel.weight_table`)
+    counts: torch.Tensor
+    sampled: bool           # False: every row of every element weighs 1
+
+
+def fit_draws(rngs, n_trees: int, depth: int, modes, rates, counts,
+              n_pad: int, device) -> Draws:
+    """The keys and per-element weight operands of a fit of E elements,
+    on `device`."""
+    keys = torch.from_numpy(fit_keys(rngs, n_trees, depth)).to(device)
+    sampled = any(m != "ones" for m in modes) \
+        or any(int(c) != n_pad for c in counts)
+    return Draws(keys, *pk.weight_table(modes, rates, counts, device),
+                 sampled=sampled)
+
+
+def round_weights(draws: Draws, t: int, n_pad: int) -> torch.Tensor:
+    """Round t's (E * n_pad,) f32 row weights of every element: one
+    `row_weights` launch, or ones when nothing is sampled."""
+    if not draws.sampled:
+        return torch.ones(draws.counts.shape[0] * n_pad, dtype=torch.float32,
+                          device=draws.keys.device)
+    return pk.row_weights(draws.keys[t, 0], draws.modes, draws.rates,
+                          draws.counts, n_pad)
+
+
+def _fit_elements(binned_c: torch.Tensor, y: torch.Tensor, n_pad: int,
+                  es: EnsembleSpec, rngs, dyn: TrialDyn, modes, rates,
+                  counts, always_mask: bool):
+    """Fit E elements whose rows lie end to end in blocks of n_pad
+    (`binned_c` (E*n_pad, F) compact bins, `y` (E*n_pad,) f32 labels,
+    0-padded past each element's `counts[e]` rows) on their device, each
+    at its own `dyn` gates, row-weight mode and rate (`weight_mode`) and
+    Threefry key `rngs[e]`. Returns the (E, T, 5, n_nodes) host packs and
+    the (E,) f32 base margins.
+
+    Each round computes the gradients and Hessians (squared: margin - y
+    and 1; logistic: sigmoid(margin) - y and p(1-p) floored at 1e-6;
+    without boosting -y and 1), draws its row weights (`round_weights`),
+    builds one tree of every element (one launch of each kernel a level,
+    whatever E is), and with boosting adds `step_size * leaf` of each
+    row's terminal node to its margin. Keys and gates are copied to the
+    device once; the trees come back in one copy at the end."""
+    dev = binned_c.device
+    E = len(counts)
+    D, F = es.tree.max_depth, es.tree.n_features
+    draw_masks = always_mask or bool((np.asarray(dyn.feature_k) < F).any())
+    el = _elements(es.tree, dyn, n_pad, dev, draw_masks)
+    draws = fit_draws(rngs, es.n_trees, D, modes, rates, counts, n_pad, dev)
+    build = _make_tree_builder(es.tree)
+    binned = binned_c.to(torch.int32)
+    base = _base_margins(es.loss, y, draws.counts)
+    margin = base[el.erow]
+    ones = torch.ones_like(y)
+    row_node = el.erow * (2 ** (D + 1) - 1)
+    packs = []
+    for t in range(es.n_trees):
+        if not es.boosting:
+            grad, hess = -y, ones
+        elif es.loss == "logistic":
+            p = torch.sigmoid(margin)
+            grad = p - y
+            hess = torch.clamp(p * (1 - p), min=1e-6)
+        else:
+            grad, hess = margin - y, ones
+        weight = round_weights(draws, t, n_pad)
+        pack, node_fin = build(binned_c, binned, grad, hess, weight,
+                               draws.keys[t, 1:], el)
+        if es.boosting:
+            margin = margin + es.step_size \
+                * pack[:, 2].reshape(-1)[row_node + node_fin]
+        packs.append(pack)
+    return torch.stack(packs, dim=1).cpu().numpy(), base.cpu().numpy()
 
 
 def fit_ensemble_on_device(binned_dev: torch.Tensor, y_dev: torch.Tensor,
                            es: EnsembleSpec, seed: int
                            ) -> Tuple[List[FittedTree], float]:
     """Fit the rounds of a DT, RF, GBT or XGBoost ensemble on the
-    operands' device; returns (trees, base margin).
-
-    Each round computes the gradients and Hessians (squared: margin - y
-    and 1; logistic: sigmoid(margin) - y and p(1-p) floored at 1e-6;
-    without boosting -y and 1), draws its row weights (`round_weights`
-    under `fold_in(prng_key(seed), 0)`), builds one tree with the
-    feature key `fold_in(prng_key(seed), t)`, and with boosting adds
-    `step_size * leaf` of each row's terminal node to its margin. The
-    trees come back in one copy at the end."""
+    operands' device; returns (trees, base margin). One element of
+    `_fit_elements`, keyed `prng_key(seed)`."""
     from ..utils.profiler import PROFILER
     n = binned_dev.shape[0]
     dev = binned_dev.device
     with PROFILER.span("program.tree_ensemble", rows=int(n),
                        route=dev.type, trees=es.n_trees):
         PROFILER.count("tree.fit_dispatch")
-        build = _make_tree_builder(es.tree)
-        binned = binned_dev.to(torch.int32)
-        y = y_dev
-        base = _base_margin_fn(es.loss)(y)
-        margin = base.expand(n).clone()
-        ones = torch.ones_like(y)
-        rng = prng.prng_key(seed)
-        key = prng.fold_in(rng, 0)
-        packs = []
-        for t in range(es.n_trees):
-            if not es.boosting:
-                grad, hess = -y, ones
-            elif es.loss == "logistic":
-                p = torch.sigmoid(margin)
-                grad = p - y
-                hess = torch.clamp(p * (1 - p), min=1e-6)
-            else:
-                grad, hess = margin - y, ones
-            weight = round_weights(key, t, n, es, dev)
-            pack, node_fin = build(binned_dev, binned, grad, hess, weight,
-                                   prng.fold_in(rng, t))
-            if es.boosting:
-                margin = margin + es.step_size * pack[2][node_fin]
-            packs.append(pack)
-        host = torch.stack(packs).cpu().numpy()
-        base_f = float(base)
-    return _unpack_trees(host), base_f
+        packs, bases = _fit_elements(
+            binned_dev, y_dev, n, es, np.asarray([prng.prng_key(seed)]),
+            _spec_dyn(es.tree, 1),
+            [weight_mode(es.bootstrap, es.n_trees, es.subsample)],
+            [es.subsample], [n], always_mask=False)
+    return _unpack_trees(packs[0]), float(bases[0])
+
+
+#: build_fold_stacks memo: key -> (sources, ys, stacks, bytes)
+_stack_memo: Dict[tuple, tuple] = {}
+_stack_memo_lock = threading.Lock()
+
+
+def build_fold_stacks(binned_list, y_list):
+    """(bst, yst, mst) fold stacks, each fold's rows padded with zeros to
+    the longest fold's, memoized by source-array identity: `_cached_bins`
+    returns id-stable arrays for repeated content, so a grid over
+    maxDepth x numTrees builds the stack once, not once per parameter map
+    (the memo holds the sources, keeping their ids valid). The newest
+    stack is always kept; older ones go while the memo holds two or more
+    or passes `sml.fit.foldStackBytes`."""
+    from ..conf import GLOBAL_CONF
+    n_pad = max(b.shape[0] for b in binned_list)
+    key = (tuple(id(b) for b in binned_list),
+           tuple(id(y) for y in y_list), n_pad)
+    with _stack_memo_lock:
+        hit = _stack_memo.get(key)
+        if hit is not None:
+            return hit[2]
+        fo, F = len(binned_list), binned_list[0].shape[1]
+        bst = np.zeros((fo, n_pad, F), dtype=binned_list[0].dtype)
+        yst = np.zeros((fo, n_pad), dtype=np.float32)
+        mst = np.zeros((fo, n_pad), dtype=np.float32)
+        for k, (b, y) in enumerate(zip(binned_list, y_list)):
+            bst[k, :b.shape[0]] = b
+            yst[k, :len(y)] = y
+            mst[k, :len(y)] = 1.0
+        new_bytes = bst.nbytes + yst.nbytes + mst.nbytes
+        max_bytes = GLOBAL_CONF.getInt("sml.fit.foldStackBytes")
+        total = new_bytes + sum(e[3] for e in _stack_memo.values())
+        while _stack_memo and (len(_stack_memo) >= 2 or total > max_bytes):
+            total -= _stack_memo.pop(next(iter(_stack_memo)))[3]
+        _stack_memo[key] = (list(binned_list), list(y_list),
+                            (bst, yst, mst), new_bytes)
+    return bst, yst, mst
+
+
+def _row_counts(mst: np.ndarray) -> List[int]:
+    """Each element's row count from its row mask, which must be ones on
+    its first rows and zeros after (`build_fold_stacks`' layout)."""
+    counts = [int(m.sum()) for m in mst]
+    for m, c in zip(mst, counts):
+        if not ((m[:c] == 1.0).all() and (m[c:] == 0.0).all()):
+            raise ValueError("a row mask must be ones on an element's first "
+                             "rows and zeros after")
+    return counts
+
+
+def _stage_stacks(bst, yst, device):
+    """The stacks' device copies as (E*n_pad, F) bins and (E*n_pad,)
+    labels, through the staging cache."""
+    from ..device import resolve_device
+    from ._staging import stage_stacked_cached
+    dev = resolve_device(device)
+    E, n_pad = bst.shape[0], bst.shape[1]
+    b = stage_stacked_cached(bst, dev).view(E * n_pad, bst.shape[2])
+    y = stage_stacked_cached(np.asarray(yst, np.float32), dev) \
+        .view(E * n_pad)
+    return b, y
+
+
+def fit_ensembles_folds(bst, yst, mst, es: EnsembleSpec, seed: int = 0,
+                        device=None):
+    """Fit the same EnsembleSpec on k stacked fold datasets (`bst` (k,
+    n_pad, F), `yst` and `mst` (k, n_pad), from `build_fold_stacks`) as
+    one fused fit on `device` (the card by default): one launch of each
+    kernel a level for all k folds. Every fold draws under
+    `prng_key(seed)`, as each of its sequential fits would. Returns
+    [(trees, base)] per fold."""
+    from ..utils.profiler import PROFILER
+    fo, n_pad = bst.shape[0], bst.shape[1]
+    counts = _row_counts(mst)
+    b_dev, y_dev = _stage_stacks(bst, yst, device)
+    with PROFILER.span("program.tree_ensemble_folds", rows=int(fo * n_pad),
+                       route=b_dev.device.type, trees=es.n_trees * fo):
+        PROFILER.count("tree.fit_dispatch")
+        packs, bases = _fit_elements(
+            b_dev, y_dev, n_pad, es,
+            np.asarray([prng.prng_key(seed)] * fo), _spec_dyn(es.tree, fo),
+            [weight_mode(es.bootstrap, es.n_trees, es.subsample)] * fo,
+            [es.subsample] * fo, counts, always_mask=False)
+    return [(_unpack_trees(packs[k]), float(bases[k])) for k in range(fo)]
+
+
+def fit_ensembles_trials(bst, yst, mst, es: EnsembleSpec, rngs, depth,
+                         feature_k, min_inst, min_gain, bootstrap,
+                         subsample, device=None):
+    """Fit E = bst.shape[0] (grid point x fold) DT/RF elements as one
+    fused fit on `device` (the card by default): `es` holds the grid
+    maxima (depth, bins, trees), and each element gates itself down to
+    its own depth, feature count, least child weight and least gain
+    (`TrialDyn`) and draws its rows' weights (Poisson(subsample) where
+    `bootstrap`, else Bernoulli(subsample) below 1, else ones) and
+    feature masks (always drawn, its `feature_k` of F) under its key
+    `rngs[e]`. Each level launches each kernel once, whatever E is, so a
+    G-point grid over k folds costs ceil(G*k / sml.cv.maxFusedTrials)
+    fits, not G*k.
+
+    Returns the (E, n_trees, 5, n_nodes) packs at the grid maxima and
+    the (E,) bases; the caller cuts each element to its own trees."""
+    from ..utils.profiler import PROFILER
+    if es.boosting:
+        raise ValueError("fused trials fit DT and RF elements, not boosting")
+    E, n_pad = bst.shape[0], bst.shape[1]
+    counts = _row_counts(mst)
+    dyn = TrialDyn(depth=np.asarray(depth, np.int64),
+                   feature_k=np.asarray(feature_k, np.int32),
+                   min_instances=np.asarray(min_inst, np.float32),
+                   min_info_gain=np.asarray(min_gain, np.float32))
+    sub = np.asarray(subsample, np.float32)
+    # `bootstrap` already holds only for elements of several trees
+    modes = ["poisson" if b else "bernoulli" if s < 1.0 else "ones"
+             for b, s in zip(np.asarray(bootstrap, bool), sub)]
+    b_dev, y_dev = _stage_stacks(bst, yst, device)
+    with PROFILER.span("program.tree_ensemble_trials", rows=int(E * n_pad),
+                       route=b_dev.device.type, trees=es.n_trees * E):
+        PROFILER.count("tree.fit_dispatch")
+        packs, bases = _fit_elements(
+            b_dev, y_dev, n_pad, es, np.asarray(rngs, np.uint32), dyn,
+            modes, [float(s) for s in sub], counts, always_mask=True)
+    return packs, bases
 
 
 def fit_tree(binned_dev: torch.Tensor, grad_dev: torch.Tensor,
@@ -448,10 +756,16 @@ def fit_tree(binned_dev: torch.Tensor, grad_dev: torch.Tensor,
     build = _make_tree_builder(spec)
     if feat_key is None:
         feat_key = prng.prng_key(rng)
+    dev = binned_dev.device
+    n = binned_dev.shape[0]
+    el = _elements(spec, _spec_dyn(spec, 1), n, dev,
+                   spec.feature_k < spec.n_features)
+    keys = prng.fold_in_keys(np.asarray([prng.as_key(feat_key)]),
+                             np.arange(spec.max_depth)[:, None])
     PROFILER.count("tree.fit_dispatch")
     pack, _ = build(binned_dev, binned_dev.to(torch.int32), grad_dev,
-                    hess_dev, weight_dev, prng.as_key(feat_key))
-    tree = _unpack_trees(pack.cpu().numpy()[None])[0]
+                    hess_dev, weight_dev, torch.from_numpy(keys).to(dev), el)
+    tree = _unpack_trees(pack.cpu().numpy())[0]
     sf, lv, cov = tree.split_feature, tree.leaf_value, tree.cover
     for i in range(1, len(lv)):
         if cov[i] == 0:

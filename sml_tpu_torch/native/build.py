@@ -1,14 +1,18 @@
-"""Build the port's CUDA kernels with `nvcc` and load them with `ctypes`.
+"""Build the port's native sources and load them with `ctypes`.
 
-Each `csrc/<name>.cu` exposes a plain C interface (every pointer and the
-stream a `void*`, sizes as `int`, a `cudaError_t` returned as `int`), so
-it compiles in seconds without PyTorch's headers. The shared library goes
-to `sml_tpu_torch/native/build/` at first use, one per source, keyed by
-the source's content hash so an edited source rebuilds.
+Each `csrc/<name>.cu` is a CUDA kernel source with a plain C interface
+(every pointer and the stream a `void*`, sizes as `int`, a `cudaError_t`
+returned as `int`), so `nvcc` compiles it in seconds without PyTorch's
+headers. Each `csrc/<name>.cc` is C++ for the host (the binning), built
+with `g++`. The shared library goes to `sml_tpu_torch/native/build/` at
+first use, one per source, keyed by the source's content hash so an
+edited source rebuilds; it is written under a temporary name and renamed
+into place, so processes that build at once each load a whole library.
 
 Unlike the JAX package's g++ build (`sml_tpu/native/build.py`), which
 returns None and lets the caller fall back, a failed build RAISES: a
-card without its kernel is a broken install, not a slower path.
+card without its kernel, or a host without its binning, is a broken
+install, not a slower path.
 """
 
 from __future__ import annotations
@@ -29,13 +33,14 @@ BUILD_DIR = os.path.join(_HERE, "build")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
+GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
 _libs: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
 _lock = threading.Lock()
 
 
 class KernelBuildError(RuntimeError):
-    """`nvcc` is missing or refused a kernel source."""
+    """`nvcc` or `g++` is missing or refused a source."""
 
 
 def nvcc_path() -> str:
@@ -56,8 +61,14 @@ def nvcc_path() -> str:
         "CUDA kernels are built from sml_tpu_torch/csrc at first use")
 
 
+def _source(name: str) -> str:
+    """`csrc/<name>.cu`, else `csrc/<name>.cc`."""
+    cu = os.path.join(CSRC_DIR, f"{name}.cu")
+    return cu if os.path.exists(cu) else os.path.join(CSRC_DIR, f"{name}.cc")
+
+
 def _lib_path(name: str, defines: Tuple[str, ...] = ()) -> str:
-    src = os.path.join(CSRC_DIR, f"{name}.cu")
+    src = _source(name)
     h = hashlib.sha256()
     with open(src, "rb") as f:
         h.update(f.read())
@@ -67,22 +78,32 @@ def _lib_path(name: str, defines: Tuple[str, ...] = ()) -> str:
 
 
 def _compile(name: str, out: str, defines: Tuple[str, ...] = ()) -> None:
-    src = os.path.join(CSRC_DIR, f"{name}.cu")
+    src = _source(name)
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o",
-           tmp, src]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
+    if src.endswith(".cu"):
+        cc, flags = nvcc_path(), NVCC_FLAGS
+    else:
+        cc, flags = shutil.which("g++"), GXX_FLAGS
+        if cc is None:
+            raise KernelBuildError(f"g++ not found: {src} is built from "
+                                   f"source at first use")
+    cmd = [cc, *flags, *(f"-D{d}" for d in defines), "-o", tmp, src]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+    except OSError as e:
+        raise KernelBuildError(f"{cmd[0]} could not run on {src}: {e}")
     if proc.returncode != 0:
         raise KernelBuildError(
-            f"nvcc failed on {src} (exit {proc.returncode}):\n"
-            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+            f"{os.path.basename(cc)} failed on {src} (exit "
+            f"{proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}"
+            f"{proc.stderr}")
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
 
 
 def build(names: Iterable[str]) -> None:
     """Compile every named source that has no current library, all
-    `nvcc` processes started together. Raises KernelBuildError."""
+    compiler processes started together. Raises KernelBuildError."""
     todo = [(n, _lib_path(n)) for n in names]
     todo = [(n, p) for n, p in todo if not os.path.exists(p)]
     errors = []
@@ -93,7 +114,7 @@ def build(names: Iterable[str]) -> None:
                 _compile(n, p)
             except KernelBuildError as e:
                 errors.append(e)
-        t = threading.Thread(target=run, name=f"nvcc-{n}")
+        t = threading.Thread(target=run, name=f"build-{n}")
         t.start()
         threads.append(t)
     for t in threads:
@@ -123,6 +144,11 @@ def load(name: str, defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
 def kernel_sources() -> list:
     """Names of every kernel source under `csrc/`."""
     return sorted(f[:-3] for f in os.listdir(CSRC_DIR) if f.endswith(".cu"))
+
+
+def host_sources() -> list:
+    """Names of every host C++ source under `csrc/`."""
+    return sorted(f[:-3] for f in os.listdir(CSRC_DIR) if f.endswith(".cc"))
 
 
 def launch_on_stream(dev: torch.device, fn, *args) -> int:

@@ -253,7 +253,8 @@ def split_scan_plain(hist: torch.Tensor, feat_mask: torch.Tensor,
                      gamma: float) -> torch.Tensor:
     """The kernel's function in plain PyTorch ops: the (6, W) f32 pack
     [best feature, best bin, 0.5*best - gamma, G, H, W] of every node of
-    an (F, B, W, 3) histogram. The prefix over bins is a sequential f32
+    an (F, B, W, 3) histogram, each node's candidates held to its own
+    least child weight `min_inst[w]`. The prefix over bins is a sequential f32
     sum from 0 (one add per bin), every operation is rounded on its own
     in the kernel's association, and the argmax keeps the lowest flat
     index f*B + b on ties, ranks a NaN above every number (the first
@@ -274,7 +275,7 @@ def split_scan_plain(hist: torch.Tensor, feat_mask: torch.Tensor,
         return (g * g) / ((hh + lam) + 1e-12)
 
     score = (term(GL, HL) + term(G - GL, H - HL)) - term(G, H)
-    mi = min_inst.reshape(())
+    mi = min_inst[:, None, None]
     ok = (WL >= mi) & ((W - WL) >= mi)
     ok = ok & (torch.arange(n_bins, device=hist.device) < n_bins - 1)
     ok = ok & (feat_mask > 0)[:, :, None]
@@ -331,8 +332,8 @@ def _check_scan(hist, feat_mask, min_inst) -> None:
     if tuple(feat_mask.shape) != (width, n_feat):
         raise ValueError(f"feat_mask must be ({width}, {n_feat}), got "
                          f"{tuple(feat_mask.shape)}")
-    if tuple(min_inst.shape) != (1, 1):
-        raise ValueError(f"min_inst must be (1, 1), got "
+    if tuple(min_inst.shape) != (width,):
+        raise ValueError(f"min_inst must be ({width},), one a node, got "
                          f"{tuple(min_inst.shape)}")
     if min(n_feat, n_bins, width) < 1 or 3 * n_feat * n_bins >= 2 ** 31:
         raise ValueError(f"empty or oversized histogram "
@@ -440,7 +441,8 @@ def split_scan(hist: torch.Tensor, feat_mask: torch.Tensor,
                gamma: float) -> torch.Tensor:
     """The (6, W) f32 best-split pack of every node of an (F, B, W, 3)
     histogram (see `split_scan_plain`). `feat_mask` is (W, F) f32 (a
-    feature is a candidate where it is > 0), `min_inst` a (1, 1) f32.
+    feature is a candidate where it is > 0), `min_inst` a (W,) f32: each
+    node's least child weight.
 
     CUDA operands launch the kernel on the current stream; CPU operands
     run `split_scan_plain`."""

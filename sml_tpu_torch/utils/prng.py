@@ -7,7 +7,9 @@ jax's default `jax_threefry_partitionable=True` with 64-bit types off.
 
 - Host key arithmetic: a key is a pair `(k1, k2)` of Python ints in
   [0, 2**32). `prng_key`, `fold_in` and `split` derive each round's and
-  each level's key on the host, with no device work.
+  each level's key on the host, with no device work; `fold_in_keys` does
+  it for a whole array of keys at once (numpy), as a fused fit derives
+  every key of its elements, rounds and levels.
 - Plain tensor versions on any device (`random_bits`, `uniform`,
   `bernoulli`, `poisson_knuth`, `feature_mask`): uint32 arithmetic
   emulated in int64 and masked after each add and rotate. They are the
@@ -32,6 +34,7 @@ from __future__ import annotations
 import math
 from typing import Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 MASK32 = 0xFFFFFFFF
@@ -63,6 +66,12 @@ def threefry2x32(key: Key, x1, x2):
     ints, non-negative integer numpy arrays and int64 tensors holding
     values in [0, 2**32); returns the pair of hashed words."""
     k1, k2 = as_key(key)
+    return _threefry(k1, k2, x1, x2)
+
+
+def _threefry(k1, k2, x1, x2):
+    """The hash on keys and counters of any of the types above (the keys
+    may be uint64 numpy arrays too)."""
     ks = (k1, k2, k1 ^ k2 ^ KS_PARITY)
     x1 = (x1 + ks[0]) & MASK32
     x2 = (x2 + ks[1]) & MASK32
@@ -84,6 +93,15 @@ def prng_key(seed: int) -> Key:
 def fold_in(key: Key, data: int) -> Key:
     """`fold_in(key, data)`: the hash of the pair (0, data as uint32)."""
     return threefry2x32(key, 0, int(data) & MASK32)
+
+
+def fold_in_keys(keys, data) -> np.ndarray:
+    """`fold_in` of an array of keys (..., 2) with `data` (an int or an
+    array broadcasting against keys[..., 0]): (..., 2) uint32."""
+    k = np.asarray(keys, np.uint64) & MASK32
+    x2 = np.asarray(data, np.int64).astype(np.uint64) & MASK32
+    h1, h2 = _threefry(k[..., 0], k[..., 1], np.zeros_like(x2), x2)
+    return np.stack(np.broadcast_arrays(h1, h2), axis=-1).astype(np.uint32)
 
 
 def split(key: Key) -> Tuple[Key, Key]:

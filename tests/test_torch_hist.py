@@ -117,9 +117,11 @@ def _jax_scan(hist, fmask, mi, lam, gamma):
 
 
 def _port_scan(hist, fmask, mi, lam, gamma):
+    """The port's scan with `mi` for every node (a sequential fit's
+    broadcast minimum)."""
     return hk.split_scan(torch.from_numpy(hist), torch.from_numpy(fmask),
-                         torch.full((1, 1), float(mi)), reg_lambda=lam,
-                         gamma=gamma).numpy()
+                         torch.full((hist.shape[2],), float(mi)),
+                         reg_lambda=lam, gamma=gamma).numpy()
 
 
 @pytest.mark.parametrize("lam, gamma, mi, masked", [
@@ -145,6 +147,40 @@ def test_split_scan_matches_jax_exactly(lam, gamma, mi, masked):
     assert want[2, 1] == -np.inf and want[:2, 1].tolist() == [0.0, 0.0]
     if masked:
         assert want[2, 4] == -np.inf and want[:2, 4].tolist() == [0.0, 0.0]
+
+
+@pytest.mark.parametrize("lam, gamma", [(0.0, 0.0), (1.0, 0.25)])
+def test_split_scan_per_node_min_inst_matches_vmapped_jax(lam, gamma):
+    """A fused fit's scan: the nodes of E elements side by side, node
+    e * width + j held to element e's least child weight. The JAX
+    package gets the same by vmapping its scan over the elements, each
+    with a (1, 1) minimum (`sml_tpu/ml/tree_impl.py:567`); exact on
+    dyadic histograms."""
+    import jax
+    from sml_tpu.native.hist_kernel import split_scan
+    rng = np.random.default_rng([7, int(lam), int(gamma * 4)])
+    n_feat, n_bins, width = 4, 12, 6
+    mins = np.asarray([1.0, 2.0, 5.0, 1.0, 3.0], np.float32)
+    E = len(mins)
+    hists = np.stack([_dyadic_hist(rng, n_feat, n_bins, width)
+                      for _ in range(E)])             # (E, F, B, w, 3)
+    fmasks = (rng.random((E, width, n_feat)) > 0.3).astype(np.float32)
+    want = np.asarray(jax.vmap(lambda h, m, mi: split_scan(
+        h, m, mi, reg_lambda=lam, gamma=gamma, interpret=True))(
+            jnp.asarray(hists), jnp.asarray(fmasks),
+            jnp.asarray(mins.reshape(E, 1, 1))))      # (E, 6, w)
+    hist = np.ascontiguousarray(
+        hists.transpose(1, 2, 0, 3, 4).reshape(n_feat, n_bins, E * width, 3))
+    got = hk.split_scan(torch.from_numpy(hist),
+                        torch.from_numpy(fmasks.reshape(E * width, n_feat)),
+                        torch.from_numpy(np.repeat(mins, width)),
+                        reg_lambda=lam, gamma=gamma).numpy()
+    np.testing.assert_array_equal(
+        got, want.transpose(1, 0, 2).reshape(6, E * width))
+    # the minimum matters: a single broadcast one gives another pack
+    one = _port_scan(hist, fmasks.reshape(E * width, n_feat), 1.0, lam,
+                     gamma)
+    assert not np.array_equal(np.nan_to_num(one), np.nan_to_num(got))
 
 
 def test_split_scan_uses_each_features_own_totals():
@@ -180,14 +216,17 @@ def test_wrappers_refuse_bad_operands():
                            n_bins=4, n_slots=1)
     hist = torch.zeros((2, 4, 3, 3))
     fm = torch.ones((3, 2))
-    mi = torch.ones((1, 1))
+    mi = torch.ones(3)
     with pytest.raises(TypeError):
         hk.split_scan(hist.double(), fm, mi, reg_lambda=1.0, gamma=0.0)
     with pytest.raises(ValueError):
         hk.split_scan(hist, fm.T.contiguous(), mi, reg_lambda=1.0, gamma=0.0)
     with pytest.raises(ValueError):
-        hk.split_scan(hist, fm, torch.ones((1, 1), device="meta"),
+        hk.split_scan(hist, fm, torch.ones(3, device="meta"),
                       reg_lambda=1.0, gamma=0.0)
+    with pytest.raises(ValueError, match="one a node"):
+        hk.split_scan(hist, fm, torch.ones((1, 1)), reg_lambda=1.0,
+                      gamma=0.0)
 
 
 @pytest.mark.parametrize("n, n_feat, n_bins, n_slots, bin_bytes, acc_bytes", [

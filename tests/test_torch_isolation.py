@@ -48,7 +48,10 @@ def test_the_fit_modules_are_among_the_imported():
     assert proc.returncode == 0, proc.stderr
     for name in ("sml_tpu_torch.native.hist_kernel",
                  "sml_tpu_torch.native.prng_kernel",
-                 "sml_tpu_torch.utils.prng",
+                 "sml_tpu_torch.native.binning",
+                 "sml_tpu_torch.native.build",
+                 "sml_tpu_torch.utils.prng", "sml_tpu_torch.conf",
+                 "sml_tpu_torch.ml._staging",
                  "sml_tpu_torch.ml.tree_impl", "sml_tpu_torch.ml._tree_models",
                  "sml_tpu_torch.xgboost"):
         assert name in proc.stdout
@@ -77,6 +80,33 @@ def test_fit_without_device_raises_when_cuda_is_absent():
     assert proc.returncode == 0, proc.stderr
     lines = proc.stdout.strip().splitlines()
     assert lines[0] == "3 (2,)"
+    assert lines[1].startswith("raised: no CUDA device")
+
+
+GRID_WITHOUT_DEVICE = """
+import numpy as np
+from sml_tpu_torch.ml._tree_models import _fit_ensembles_grid
+rng = np.random.default_rng(0)
+Xs = [rng.normal(size=(200, 3)) for _ in range(2)]
+ys = [X[:, 0] for X in Xs]
+trials = [dict(max_depth=d, max_bins=8, min_instances=1, min_info_gain=0.0,
+               n_trees=2, feature_k=None, bootstrap=True, subsample=1.0,
+               seed=1) for d in (1, 2)]
+print(len(_fit_ensembles_grid(Xs, ys, {}, trials, 16, device="cpu")))
+try:
+    _fit_ensembles_grid(Xs, ys, {}, trials, 16)
+except RuntimeError as e:
+    print("raised:", e)
+else:
+    print("no error")
+"""
+
+
+def test_grid_fit_without_device_raises_when_cuda_is_absent():
+    proc = _run(GRID_WITHOUT_DEVICE)
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.strip().splitlines()
+    assert lines[0] == "4"
     assert lines[1].startswith("raised: no CUDA device")
 
 

@@ -175,40 +175,118 @@ def test_poisson_rates_outside_knuths_loop_raise():
 
 
 # ------------------------------------------------------------ wrappers
+def _draws(seeds, modes, rates, counts, n_pad, n_trees=20, depth=3):
+    """A fit's draw operands on the CPU for elements keyed by `seeds`."""
+    rngs = np.asarray([prng.prng_key(s) for s in seeds], np.uint32)
+    return pti.fit_draws(rngs, n_trees, depth, modes, rates, counts, n_pad,
+                         "cpu")
+
+
 @pytest.mark.parametrize("mode, rate", [("bernoulli", 0.7),
                                         ("poisson", 1.0),
                                         ("poisson", 0.7)])
 @pytest.mark.parametrize("t", [0, 1, 19])
 def test_round_weights_are_the_jax_fit_draws(mode, rate, t):
     """The weights a round of the port's fit draws
-    (`tree_impl.round_weights`) against the JAX fit's own draw under
+    (`tree_impl.round_weights` under the keys of `tree_impl.fit_keys`)
+    against the JAX fit's own draw under
     `kt = fold_in(fold_in(PRNGKey(seed), 0), t)`."""
     n = 3001
     seed = 17
     kt = jax.random.fold_in(jax.random.fold_in(_jkey(seed), 0), t)
     if mode == "poisson":
         want = np.asarray(jax.random.poisson(kt, rate, (n,)))
-        es_kw = dict(bootstrap=True, n_trees=20)
+        assert pti.weight_mode(True, 20, rate) == mode
     else:
         want = np.asarray(jax.random.bernoulli(kt, rate, (n,)))
-        es_kw = dict(bootstrap=False, n_trees=5)
-    spec = pti.TreeSpec(3, 16, 4, 4, 1, 0.0, 0.0, 0.0)
-    es = pti.EnsembleSpec(tree=spec, loss="squared", boosting=False,
-                          subsample=rate, step_size=0.1, **es_kw)
-    key = prng.fold_in(prng.prng_key(seed), 0)
-    got = pti.round_weights(key, t, n, es, "cpu").numpy()
+        assert pti.weight_mode(False, 5, rate) == mode
+    got = pti.round_weights(_draws([seed], [mode], [rate], [n], n), t,
+                            n).numpy()
     assert got.dtype == np.float32
     np.testing.assert_array_equal(got, want.astype(np.float32))
 
 
 def test_unsampled_rounds_weigh_every_row_once():
-    spec = pti.TreeSpec(3, 16, 4, 4, 1, 0.0, 0.0, 0.0)
     for kw in (dict(bootstrap=True, n_trees=1), dict(bootstrap=False,
                                                      n_trees=4)):
-        es = pti.EnsembleSpec(tree=spec, loss="squared", boosting=False,
-                              subsample=1.0, step_size=0.1, **kw)
-        got = pti.round_weights(prng.prng_key(1), 2, 50, es, "cpu")
-        assert torch.equal(got, torch.ones(50))
+        mode = pti.weight_mode(subsample=1.0, **kw)
+        assert mode == "ones"
+        draws = _draws([1], [mode], [1.0], [50], 50)
+        assert not draws.sampled
+        assert torch.equal(pti.round_weights(draws, 2, 50), torch.ones(50))
+    # a padded element weighs its padding 0, through the draw
+    draws = _draws([1, 2], ["ones", "ones"], [1.0, 1.0], [50, 47], 50)
+    got = pti.round_weights(draws, 2, 50)
+    assert draws.sampled and got.tolist() == [1.0] * 97 + [0.0] * 3
+
+
+def test_fit_keys_are_the_jax_fit_keys():
+    """Every key of a fit of three elements, derived on the host at once:
+    round t's weight key `fold_in(fold_in(rng, 0), t)` and level l's
+    mask key `fold_in(fold_in(rng, t), l)` of each element."""
+    seeds = (42, 7, 2 ** 31 + 3)
+    rngs = np.asarray([prng.prng_key(s) for s in seeds], np.uint32)
+    keys = pti.fit_keys(rngs, 4, 3)
+    assert keys.shape == (4, 4, 3, 2) and keys.dtype == np.uint32
+    for e, seed in enumerate(seeds):
+        root = _jkey(seed)
+        for t in range(4):
+            assert tuple(keys[t, 0, e].tolist()) == _pair(
+                jax.random.fold_in(jax.random.fold_in(root, 0), t))
+            for level in range(3):
+                assert tuple(keys[t, 1 + level, e].tolist()) == _pair(
+                    jax.random.fold_in(jax.random.fold_in(root, t), level))
+
+
+def test_batched_row_weights_match_jax_element_by_element():
+    """One round of five elements of mixed mode and rate and of
+    different row counts: each element's block equals its own jax draw
+    over its rows (a Poisson count off only within 2 ulps of -rate) and
+    0 on the padding."""
+    n_pad = 4001
+    seeds = (0, 17, 42, 7, 1234)
+    modes = ["poisson", "bernoulli", "ones", "poisson", "bernoulli"]
+    rates = [1.0, 0.7, 1.0, 0.5, 0.3]
+    counts = [4001, 3999, 4000, 2500, 4001]
+    draws = _draws(seeds, modes, rates, counts, n_pad)
+    t = 3
+    before = dict(pk.LAUNCHES)
+    got = pti.round_weights(draws, t, n_pad).numpy().reshape(5, n_pad)
+    assert pk.LAUNCHES == before   # the plain version is no launch
+    for e, (seed, mode, rate, n) in enumerate(zip(seeds, modes, rates,
+                                                  counts)):
+        kt = jax.random.fold_in(jax.random.fold_in(_jkey(seed), 0), t)
+        if mode == "poisson":
+            want = np.asarray(jax.random.poisson(kt, rate, (n_pad,)))
+        elif mode == "bernoulli":
+            want = np.asarray(jax.random.bernoulli(kt, rate, (n_pad,)))
+        else:
+            want = np.ones(n_pad)
+        want = want.astype(np.float32)
+        want[n:] = 0.0
+        differ = np.flatnonzero(got[e] != want)
+        if mode == "poisson":
+            near = _jax_log_sum_near_boundary(_pair(kt), rate, n_pad)
+            assert near[differ].all(), differ
+        else:
+            assert differ.size == 0, (mode, differ)
+
+
+def test_batched_feature_mask_matches_jax_element_by_element():
+    """A level's masks of four elements with their own k, side by side:
+    element e's nodes are its own jax draw under its level key."""
+    width, n_feat = 8, 10
+    seeds, ks = (42, 1, 17, 3), [3, 10, 1, 5]
+    keys = [jax.random.fold_in(jax.random.fold_in(_jkey(s), 2), 3)
+            for s in seeds]
+    kt = torch.tensor([_pair(k) for k in keys], dtype=torch.uint32)
+    got = pk.feature_mask(kt, torch.tensor(ks, dtype=torch.int32), width,
+                          n_feat)
+    assert got.dtype == torch.float32 and got.shape == (4 * width, n_feat)
+    for e, (key, k) in enumerate(zip(keys, ks)):
+        want = _jax_feature_mask(key, width, n_feat, k)
+        np.testing.assert_array_equal(
+            got[e * width:(e + 1) * width].numpy(), want.astype(np.float32))
 
 
 @pytest.mark.parametrize("width, n_feat, k", [(2, 10, 3), (32, 10, 3),
@@ -216,7 +294,9 @@ def test_unsampled_rounds_weigh_every_row_once():
 def test_feature_mask_wrapper_on_cpu_is_the_plain_draw(width, n_feat, k):
     key = prng.fold_in(prng.fold_in(prng.prng_key(42), 4), 2)
     before = dict(pk.LAUNCHES)
-    got = pk.feature_mask(key, width, n_feat, k, "cpu")
+    got = pk.feature_mask(torch.tensor([key], dtype=torch.uint32),
+                          torch.tensor([k], dtype=torch.int32), width,
+                          n_feat)
     assert got.dtype == torch.float32 and got.shape == (width, n_feat)
     want = _jax_feature_mask(jax.random.wrap_key_data(
         np.asarray(key, np.uint32)), width, n_feat, k)
@@ -225,20 +305,28 @@ def test_feature_mask_wrapper_on_cpu_is_the_plain_draw(width, n_feat, k):
 
 
 def test_wrappers_refuse_bad_arguments():
-    key = prng.prng_key(0)
+    key = torch.tensor([prng.prng_key(0)], dtype=torch.uint32)
+    k = torch.tensor([3], dtype=torch.int32)
     with pytest.raises(ValueError, match="mode"):
-        pk.row_weights(key, 10, "uniform", 0.5, "cpu")
+        pk.weight_table(["uniform"], [0.5], [10], "cpu")
     with pytest.raises(ValueError, match="Knuth"):
-        pk.row_weights(key, 10, "poisson", 12.0, "cpu")
+        pk.weight_table(["poisson"], [12.0], [10], "cpu")
     with pytest.raises(ValueError, match="row count"):
-        pk.row_weights(key, -1, "bernoulli", 0.5, "cpu")
+        pk.weight_table(["bernoulli"], [0.5], [-1], "cpu")
     with pytest.raises(ValueError, match="cuda or cpu"):
-        pk.row_weights(key, 10, "bernoulli", 0.5, "meta")
+        pk.weight_table(["bernoulli"], [0.5], [10], "meta")
+    table = pk.weight_table(["bernoulli"], [0.5], [10], "cpu")
+    with pytest.raises(TypeError, match="uint32"):
+        pk.row_weights(key.to(torch.int64), *table, 10)
+    with pytest.raises(TypeError, match="per-element"):
+        pk.row_weights(torch.cat([key, key]), *table, 10)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        pk.row_weights(key.to("meta"), *(t.to("meta") for t in table), 10)
     with pytest.raises(ValueError, match="oversized"):
-        pk.feature_mask(key, 0, 10, 3, "cpu")
+        pk.feature_mask(key, k, 0, 10)
     with pytest.raises(ValueError, match="cuda or cpu"):
-        pk.feature_mask(key, 2, 10, 3, "meta")
-    assert pk.row_weights(key, 0, "poisson", 1.0, "cpu").shape == (0,)
+        pk.feature_mask(key.to("meta"), k.to("meta"), 2, 10)
+    assert pk.row_weights(key, *table, 0).shape == (0,)
 
 
 @pytest.mark.parametrize("n", [1, 255, 256, 80_000, 100_001])
