@@ -91,7 +91,29 @@ Phases:
    (each run three times, in turns, from empty caches); the fused fit's
    card busy share and kernel device time by `torch.profiler`. (The
    fused shapes' kernel times beside their bounds are in phases 7 and
-   9.) A JSON line before the card's gives the tuning numbers.
+   9.) A JSON line before the card's gives the tuning numbers;
+11. main path, DataFrame: the course's pipelines as users run them, on
+   the session's device (`sml.device`, the card): the port's
+   `make_airbnb_dataset(n=100_000, seed=42)` -> createDataFrame ->
+   randomSplit([0.8, 0.2], seed=42) -> cache -> Pipeline(Imputer(median),
+   StringIndexer(skip), VectorAssembler(idx + imp), estimator).fit(train)
+   -> transform(test) -> RegressionEvaluator(labelCol="price"), for ML 06
+   (`DecisionTreeRegressor(maxDepth=5, maxBins=40)`), ML 07
+   (`RandomForestRegressor(maxDepth=6, numTrees=20, maxBins=40,
+   seed=42)`) and ML 11 (`XgboostRegressor(n_estimators=40,
+   learning_rate=0.15, max_depth=6, max_bins=64, random_state=42)` on
+   log price, evaluated through `F.exp`), with every kernel's launches
+   counted around each fit and each evaluate (5 / 5, 120 / 120 / 20 /
+   120 and 240 / 240; one `forest_traverse` an evaluate, through the
+   pushdown, with no prediction column materialized); each DataFrame
+   fit equal to the port's matrix fit (`fit(X, y, categorical)`) on the
+   matrix and slots the fitted prep stages assemble, bit for bit and in
+   its launches; each pushdown rmse against `score_block` +
+   `host_reg_stats` on the same rows; rf < dt and xgb < rf; the same
+   pipelines at 16,000 rows on the card and on the CPU agreeing; the
+   100,000-row rmse beside GOLDEN.json's pins (information only); and
+   the host-clock split of one ML 07 pipeline. A JSON line before the
+   card's gives these numbers.
 
 The second-to-last line is a JSON object listing each kernel, with the
 launches the profiler saw in each window behind its device times
@@ -1980,6 +2002,252 @@ def phase_tuning(seed: int, device, card: str) -> dict:
             "busy": busy}
 
 
+# ------------------------------------------------- phase 11: DataFrames
+#: the course's prep columns (ML 06 / ML 07 / ML 11)
+DF_CAT = ["neighbourhood_cleansed", "room_type", "property_type"]
+DF_NUM = ["accommodates", "bathrooms", "bedrooms", "beds", "minimum_nights",
+          "number_of_reviews", "review_scores_rating"]
+DF_IDX = [c + "_idx" for c in DF_CAT]
+DF_IMP = [c + "_imp" for c in DF_NUM]
+
+
+def df_estimator(name: str):
+    """The course's estimator of a pipeline: ML 06's tree, ML 07's
+    forest (on price) or ML 11's XGBoost (on log price)."""
+    from sml_tpu_torch.ml.regression import (DecisionTreeRegressor,
+                                             RandomForestRegressor)
+    from sml_tpu_torch.xgboost import XgboostRegressor
+    if name == "dt":
+        return DecisionTreeRegressor(labelCol="price", maxDepth=5,
+                                     maxBins=40)
+    if name == "rf":
+        return RandomForestRegressor(labelCol="price", maxDepth=6,
+                                     numTrees=20, maxBins=40, seed=42)
+    return XgboostRegressor(n_estimators=40, learning_rate=0.15,
+                            max_depth=6, max_bins=64, random_state=42)
+
+
+def df_prep():
+    """Imputer(median), StringIndexer(skip) and VectorAssembler(idx +
+    imp): the course's prep stages."""
+    from sml_tpu_torch.ml.feature import (Imputer, StringIndexer,
+                                          VectorAssembler)
+    return [Imputer(strategy="median", inputCols=DF_NUM, outputCols=DF_IMP),
+            StringIndexer(inputCols=DF_CAT, outputCols=DF_IDX,
+                          handleInvalid="skip"),
+            VectorAssembler(inputCols=DF_IDX + DF_IMP, outputCol="features")]
+
+
+def df_splits(n: int):
+    """createDataFrame(make_airbnb_dataset(n, seed=42)) ->
+    randomSplit([0.8, 0.2], seed=42), both halves cached."""
+    from sml_tpu_torch.courseware import make_airbnb_dataset
+    from sml_tpu_torch.frame.session import get_session
+    df = get_session().createDataFrame(make_airbnb_dataset(n=n, seed=42))
+    train, test = df.randomSplit([0.8, 0.2], seed=42)
+    return train.cache(), test.cache()
+
+
+def _zero_launches() -> None:
+    from sml_tpu_torch.native import traverse_kernel as tk
+    for counts in _launch_counts():
+        for k in counts:
+            counts[k] = 0
+    tk.LAUNCHES = 0
+
+
+def _all_launches() -> dict:
+    from sml_tpu_torch.native import traverse_kernel as tk
+    return dict(_fit_launches(), forest_traverse=tk.LAUNCHES)
+
+
+def df_course_run(train, test) -> dict:
+    """The three pipelines fitted on `train` and evaluated on `test` on
+    the session's device: {name: (PipelineModel, rmse, fit launches,
+    evaluate launches, whether the prediction frame stayed lazy)}."""
+    from sml_tpu_torch import functions as F
+    from sml_tpu_torch.ml import Pipeline
+    from sml_tpu_torch.ml.evaluation import RegressionEvaluator
+    ev = RegressionEvaluator(labelCol="price")
+    out = {}
+    for name in ("dt", "rf", "xgb"):
+        tr, te = train, test
+        if name == "xgb":
+            tr = train.withColumn("label", F.log(F.col("price")))
+            te = test.withColumn("label", F.log(F.col("price")))
+        _zero_launches()
+        model = Pipeline(stages=df_prep() + [df_estimator(name)]).fit(tr)
+        fit_l = _all_launches()
+        _zero_launches()
+        pred = model.transform(te)
+        if name == "xgb":
+            pred = pred.withColumn("prediction", F.exp(F.col("prediction")))
+        rmse = ev.evaluate(pred)
+        out[name] = (model, rmse, fit_l, _all_launches(),
+                     pred._parts is None, tr, te)
+    return out
+
+
+def _prepped(model, frame):
+    """`frame` through a pipeline model's prep stages."""
+    for s in model.stages[:-1]:
+        frame = s.transform(frame)
+    return frame
+
+
+def phase_dataframe(device, card: str) -> dict:
+    """The course's DataFrame pipelines on `device` (the session's
+    `sml.device`), at full width (10 features) on 100,000 rows; each
+    DataFrame fit against the port's matrix fit; the evaluator's
+    pushdown; the card against the CPU at 16,000 rows; and the
+    host-clock split of one ML 07 pipeline."""
+    import os
+    from sml_tpu_torch.conf import GLOBAL_CONF
+    from sml_tpu_torch.ml._staging import extract_xy
+    from sml_tpu_torch.ml._tree_models import _categorical_slots
+    from sml_tpu_torch.ml.evaluation import _reg_metric, host_reg_stats
+    from sml_tpu_torch.ml.inference import DeviceScorer
+    GLOBAL_CONF.set("sml.device", device.type)
+    t0 = time.perf_counter()
+    train, test = df_splits(100_000)
+    print(f"dataframe: 100000 rows made, split and cached in "
+          f"{(time.perf_counter() - t0) * 1e3!r} ms; train "
+          f"{train.count()} test {test.count()} rows, "
+          f"{train.getNumPartitions()} partitions")
+    with KernelWatch() as watch:
+        runs = df_course_run(train, test)
+        for name, (model, rmse, fit_l, eval_l, lazy, tr, te) in \
+                runs.items():
+            want_fit = dict(FITS[name][2], forest_traverse=0)
+            want_eval = dict.fromkeys(want_fit, 0)
+            want_eval["forest_traverse"] = 1
+            print(f"dataframe {name}: fit launches {fit_l}, evaluate "
+                  f"launches {eval_l}, rmse {rmse!r}, prediction column "
+                  f"materialized: {not lazy}")
+            if fit_l != want_fit or eval_l != want_eval or not lazy:
+                raise AssertionError(f"{name}: fit {fit_l} (want "
+                                     f"{want_fit}), evaluate {eval_l}, "
+                                     f"lazy {lazy}")
+            # the same fit through the matrix entry point, on the matrix
+            # and slots the fitted prep stages assemble
+            label = "label" if name == "xgb" else "price"
+            prep = _prepped(model, tr)
+            X, y, _ = extract_xy(prep, "features", label)
+            cats = _categorical_slots(prep, "features")
+            _zero_launches()
+            matrix = df_estimator(name).fit(X, y, categorical=cats,
+                                            device=device)
+            if _all_launches() != fit_l:
+                raise AssertionError(f"{name}: matrix fit launched "
+                                     f"{_all_launches()}, the DataFrame "
+                                     f"fit {fit_l}")
+            df_model = model.stages[-1]
+            same = all(
+                np.array_equal(getattr(a, f), getattr(b, f))
+                for a, b in zip(df_model._spec.trees, matrix._spec.trees)
+                for f in ("split_feature", "split_bin", "leaf_value",
+                          "gain", "cover"))
+            if not same or df_model.getNumTrees() != matrix.getNumTrees():
+                raise AssertionError(f"{name}: the DataFrame fit differs "
+                                     f"from the matrix fit")
+            # the pushdown's rmse against score_block + host statistics
+            tprep = _prepped(model, te)
+            Xt, _, _ = extract_xy(tprep, "features", "price")
+            pred = DeviceScorer(df_model, device=device).score_block(Xt)
+            if name == "xgb":
+                pred = np.exp(pred)
+            host = _reg_metric("rmse", *host_reg_stats(
+                np.asarray(pred, np.float64),
+                np.asarray(tprep._whole()["price"], np.float64)))
+            print(f"dataframe {name}: {df_model.getNumTrees()} trees equal "
+                  f"to the matrix fit's bit for bit; pushdown rmse "
+                  f"{rmse!r} vs score_block + host_reg_stats {host!r}")
+            if abs(rmse - host) > max(RMSE_ATOL, RMSE_RTOL * abs(host)):
+                raise AssertionError(f"{name}: pushdown rmse {rmse} vs "
+                                     f"{host}")
+    if watch.plain_on_cuda:
+        raise AssertionError(f"the plain versions ran {watch.plain_on_cuda} "
+                             f"times on CUDA tensors")
+    rmse = {k: v[1] for k, v in runs.items()}
+    if not (rmse["rf"] < rmse["dt"] and rmse["xgb"] < rmse["rf"]):
+        raise AssertionError(f"course ordering broken: {rmse}")
+    golden = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "GOLDEN.json")
+    with open(golden) as f:
+        pins = json.load(f)["metrics"]
+    print("dataframe 100000-row rmse beside GOLDEN.json's pins (the JAX "
+          "package's 8-device CPU mesh; information only): "
+          + ", ".join(f"{k}={rmse[k]!r} (pin {pins['rmse_' + k]})"
+                      for k in ("dt", "rf", "xgb")))
+
+    # the same pipelines at 16,000 rows, on the card and on the CPU
+    small = df_splits(16_000)
+    on_card = df_course_run(*small)
+    GLOBAL_CONF.set("sml.device", "cpu")
+    try:
+        on_cpu = df_course_run(*small)
+    finally:
+        GLOBAL_CONF.set("sml.device", device.type)
+    for k in on_card:
+        a, b = on_card[k][1], on_cpu[k][1]
+        print(f"dataframe card-vs-cpu 16000 rows {k}: rmse {a!r} vs {b!r}")
+        if abs(a - b) > max(RMSE_ATOL, RMSE_RTOL * abs(b)):
+            raise AssertionError(f"{k}: card rmse {a} vs cpu rmse {b}")
+
+    split = df_ml07_split()
+    print(f"dataframe ML 07 pipeline split, 100000 rows (host clock, ms, "
+          f"caches emptied first): {json.dumps(split)} on {card}")
+    return {"fit": {k: sum(runs[n][2][k] for n in runs)
+                    for k in runs["dt"][2]},
+            "evaluate": {k: sum(runs[n][3][k] for n in runs)
+                         for k in runs["dt"][3]},
+            "rmse": rmse, "split_ms": split}
+
+
+def df_ml07_split() -> dict:
+    """Host-clock ms of the parts of one ML 07 pipeline, each part ending
+    in materialized frames (or a fitted model, or a metric) so that it
+    holds its own work: createDataFrame, randomSplit and its sort, the
+    prep stages' fits, assembly, the estimator's fit, transform +
+    evaluate."""
+    from sml_tpu_torch.courseware import make_airbnb_dataset
+    from sml_tpu_torch.frame.dataframe import DataFrame
+    from sml_tpu_torch.frame.session import get_session
+    from sml_tpu_torch.ml import PipelineModel
+    from sml_tpu_torch.ml.evaluation import RegressionEvaluator
+    clear_fit_caches()
+    cols = make_airbnb_dataset(n=100_000, seed=42)
+    imputer, indexer, assembler = df_prep()
+    out = {}
+    t = time.perf_counter()
+
+    def lap(what):
+        nonlocal t
+        now = time.perf_counter()
+        out[what] = (now - t) * 1e3
+        t = now
+    df = get_session().createDataFrame(cols).cache()
+    lap("createDataFrame")
+    train, test = df.randomSplit([0.8, 0.2], seed=42)
+    train.cache()
+    test.cache()
+    lap("randomSplit")
+    one = DataFrame.from_partitions([train._whole()])
+    imp_model = imputer.fit(one)
+    imputed = imp_model.transform(one).cache()
+    idx_model = indexer.fit(imputed)
+    lap("prep fits")
+    feats = assembler.transform(idx_model.transform(imputed)).cache()
+    lap("assembly")
+    rf = df_estimator("rf").fit(feats)
+    lap("estimator fit")
+    model = PipelineModel([imp_model, idx_model, assembler, rf])
+    RegressionEvaluator(labelCol="price").evaluate(model.transform(test))
+    lap("transform + evaluate")
+    out["total"] = sum(out.values())
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2014,10 +2282,12 @@ def main(argv=None) -> int:
     phase_fit_breakdown(args.seed, card, "ML 07 RandomForestRegressor",
                         _fit_rf)
     tuning = phase_tuning(args.seed, device, card)
+    frames = phase_dataframe(device, card)
 
     def by_path(kernel: str) -> dict:
         return {"fit": fit["launches"][kernel],
-                "tuning": tuning["fused"][kernel]}
+                "tuning": tuning["fused"][kernel],
+                "dataframe": frames["fit"][kernel]}
 
     def windows(kernel: str) -> dict:
         return {what: seen for what, seen in DEVICE_WINDOWS.items()
@@ -2030,9 +2300,12 @@ def main(argv=None) -> int:
         "source": "sml_tpu_torch/csrc/forest_traverse.cu",
         "replaces": "sml_tpu/native/traverse_kernel.py:109",
         "launches": main_path["launches"]
-        + tuning["fused"]["forest_traverse"],
+        + tuning["fused"]["forest_traverse"]
+        + frames["evaluate"]["forest_traverse"],
         "launches_by_path": {"serving": main_path["launches"],
-                             "tuning": tuning["fused"]["forest_traverse"]},
+                             "tuning": tuning["fused"]["forest_traverse"],
+                             "dataframe": frames["evaluate"][
+                                 "forest_traverse"]},
         "launches_by_rows": main_path["launches_by_rows"],
         "max_abs_err": err,
         "ms": k_ms, "device_ms": d_ms, "plain_ms": p_ms, "bound_ms": b_ms,
@@ -2114,6 +2387,10 @@ def main(argv=None) -> int:
         "launches_one_by_one": tuning["sequential"],
         "walls_ms": tuning["walls"], "busy_ms": tuning["busy"],
         "binning_ms_cpp_numpy": binning}}))
+    print(json.dumps({"dataframe": {
+        "launches_fit": frames["fit"], "launches_evaluate":
+        frames["evaluate"], "rmse": frames["rmse"],
+        "ml07_split_ms": frames["split_ms"]}}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

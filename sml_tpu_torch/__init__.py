@@ -26,6 +26,21 @@ Ported so far:
   `ml/_tree_models.py`), and the host binning's threaded C++ kernel
   (`native/binning.py`, `csrc/binning.cc`).
 
+- the host layer: a DataFrame over numpy blocks with Spark's
+  `randomSplit` draw for draw (`frame/`, `native/hashing.py` over
+  `csrc/murmur3.cc`, `frame/sampling.py` over `csrc/xorshift.cc`),
+  Params and Pipeline (`ml/param.py`, `ml/base.py`), the feature stages
+  (`ml/feature.py`), the evaluators (`ml/evaluation.py`), and tree
+  estimators and models that take DataFrames.
+
 Entry points run on the CUDA card unless the caller passes
-device="cpu"; without a card they raise.
+device="cpu"; without a card they raise. The DataFrame entry points
+(a tree estimator's `fit(df)`, a model's `transform`, the evaluators)
+read the device from the session's `sml.device` key instead.
 """
+
+from .conf import GLOBAL_CONF
+from .frame import DataFrame, Row, TpuSession, functions, get_session
+
+__all__ = ["DataFrame", "GLOBAL_CONF", "Row", "TpuSession", "functions",
+           "get_session"]

@@ -1,10 +1,14 @@
 """Typed configuration registry (the `spark.conf` equivalent), for the
-keys the tree-ensemble serving and fit paths read.
+keys the DataFrame layer and the tree-ensemble serving and fit paths
+read.
 
 Known keys carry a type and a default; unknown `sml.*` keys raise on
 `get` so a typo cannot silently read a default. Counterpart of
-`sml_tpu/conf.py`, cut to the ported slices (serving, the fits and
-tuning's device half). The JAX package's `sml.tree.kernel` and
+`sml_tpu/conf.py`, cut to the ported slices (serving, the fits,
+tuning's device half and the host layer). `sml.device` has no JAX
+counterpart key: it is the port's form of the JAX package's
+process-wide platform choice (`jax.config.update("jax_platforms",
+...)`). The JAX package's `sml.tree.kernel` and
 `sml.tree.kernelBlockRows` are not ported: on the card there is one
 path (the kernel, or raise), and block sizes come from the shapes, in
 each kernel's wrapper. Nor is `sml.tree.histSubtraction`: the port
@@ -59,6 +63,21 @@ _register("sml.tree.binCacheBytes", 2 << 30, int,
 _register("sml.fit.foldStackBytes", 1 << 30, int,
           "Byte bound for the fit-time fold-stack memo (stacked CV fold "
           "datasets reused across a tuning grid)")
+_register("sml.device", "cuda", str,
+          "Device the DataFrame entry points run on (a tree estimator's "
+          "fit(df), a model's transform, the evaluators), through "
+          "device.resolve_device: the card by default; 'cpu' runs the "
+          "kernels' plain versions on the host")
+_register("sml.default.parallelism", 8, int,
+          "Default partition count for new data sources")
+_register("sml.shuffle.partitions", 8, int,
+          "Partition count after shuffles (spark.sql.shuffle.partitions)")
+_register("spark.sql.shuffle.partitions", 8, int,
+          "Alias kept for course compatibility")
+_register("sml.split.sampler", "spark", str,
+          "randomSplit sampler: 'spark' = draw-for-draw Spark parity "
+          "(per-partition determinism sort + XORShiftRandom Bernoulli "
+          "cells); 'legacy' = the JAX package's pre-Spark numpy draws")
 _register("sml.cv.maxFusedTrials", 16, int,
           "Max (grid point x fold) fits fused into one device fit: a "
           "G-point grid over k folds costs ceil(G*k/maxFusedTrials) fit "
@@ -78,6 +97,10 @@ class TorchConf:
             if ent is not None and not isinstance(value, type(ent.default)):
                 value = ent.caster(value)
             self._values[key] = value
+            # keep spark.* aliases and sml.* keys in step both ways
+            alias = _ALIASES.get(key)
+            if alias is not None:
+                self._values[alias] = value
 
     def get(self, key: str, default: Optional[Any] = None) -> Any:
         with self._lock:
@@ -94,5 +117,17 @@ class TorchConf:
     def getInt(self, key: str) -> int:
         return int(self.get(key))
 
+    def unset(self, key: str) -> None:
+        with self._lock:
+            self._values.pop(key, None)
+            alias = _ALIASES.get(key)
+            if alias is not None:
+                self._values.pop(alias, None)
+
+
+_ALIASES = {
+    "spark.sql.shuffle.partitions": "sml.shuffle.partitions",
+    "sml.shuffle.partitions": "spark.sql.shuffle.partitions",
+}
 
 GLOBAL_CONF = TorchConf()

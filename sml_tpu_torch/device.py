@@ -28,3 +28,10 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def session_device() -> torch.device:
+    """The device of the DataFrame entry points: the `sml.device` key,
+    through `resolve_device` (so a missing card raises)."""
+    from .conf import GLOBAL_CONF
+    return resolve_device(GLOBAL_CONF.get("sml.device"))

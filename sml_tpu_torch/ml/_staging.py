@@ -8,12 +8,16 @@ bounded by `sml.tree.binCacheBytes`. Per-row fit arrays
 (the labels) are copied as f32 by `stage_rows`, uncached.
 Rows are not padded: in eager PyTorch nothing compiles per shape, so
 kernels run on the true rows and need no padding mask.
+
+`extract_features` and `extract_xy` hand a frame's feature block and
+label column to the fits and models, as the JAX package's do: the
+features as a C-contiguous f32 matrix, the labels as f32.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -134,3 +138,36 @@ def bin_cache_stats() -> dict:
     with _stage_lock:
         return {"entries": len(_bin_stage_cache),
                 "bytes": _bin_stage_bytes[0]}
+
+
+def extract_features(df, featuresCol: str) -> np.ndarray:
+    """The (n, d) f32 matrix of a frame's features column
+    (`features_of` over all its rows)."""
+    return features_of(df._whole(), featuresCol)
+
+
+def features_of(block, featuresCol: str) -> np.ndarray:
+    """The (n, d) f32 matrix of a block's vector column (a 2-D block), of
+    a column of vectors or lists, or of one numeric column as a
+    1-feature matrix."""
+    from .linalg import to_matrix
+    col = block[featuresCol]
+    if col.ndim == 2:
+        X = col
+    elif col.dtype.kind == "O":
+        X = to_matrix(col)
+    else:
+        X = np.asarray(col, dtype=np.float64)[:, None]
+    return np.ascontiguousarray(X, dtype=np.float32)
+
+
+def extract_xy(df, featuresCol: str, labelCol: str,
+               weightCol: Optional[str] = None
+               ) -> Tuple[np.ndarray, np.ndarray, Optional[np.ndarray]]:
+    """(features, labels, weights) of a frame: `extract_features`, and
+    the label (and weight) column as f32."""
+    whole = df._whole()
+    X = extract_features(df, featuresCol)
+    y = np.asarray(whole[labelCol], dtype=np.float32)
+    w = np.asarray(whole[weightCol], dtype=np.float32) if weightCol else None
+    return X, y, w

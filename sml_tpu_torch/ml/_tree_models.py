@@ -12,12 +12,19 @@ regression statistics on its validation rows) and the estimators
 `RandomForestRegressor`, `RandomForestClassifier`, `GBTRegressor` and
 `GBTClassifier`.
 
-The port has no DataFrame: `fit(X, y, categorical=None, device=None)`
-takes a numpy feature matrix and label vector (`categorical` maps a
-feature slot to its cardinality, as the JAX package's `_ml_attrs` do)
-and fits on the card unless `device="cpu"`. Random forests (a Poisson
-bootstrap and a per-node feature subspace) and `subsamplingRate < 1`
-draw the JAX package's Threefry streams from the estimator's seed.
+The estimators and models are `Params` with the JAX package's params.
+`fit(df)` takes a DataFrame: the features' vector column, the label
+column, and the categorical slots VectorAssembler recorded in the
+frame's `_ml_attrs`; it fits on the session's device (`sml.device`).
+`fit(X, y, categorical=None, device=None)` takes a numpy feature matrix
+and label vector (`categorical` maps a feature slot to its cardinality)
+and fits on the card unless `device="cpu"`; a DataFrame and a matrix
+are told apart by type. `transform(df)` appends the prediction column;
+on a regressor's lazy transform a `RegressionEvaluator` takes the
+pushdown (`_TreeEvalHook`): one fused traversal and reduction on the
+device, and five scalars back. Random forests (a Poisson bootstrap and
+a per-node feature subspace) and `subsamplingRate < 1` draw the JAX
+package's Threefry streams from the estimator's seed.
 """
 
 from __future__ import annotations
@@ -28,9 +35,11 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from ..frame.column import block_len
 from ..utils.prng import prng_key
 from . import tree_impl
-from .base import load_arrays
+from .base import (Estimator, Model, RegStatsHook, load_arrays,
+                   save_arrays)
 from .tree_impl import (Binning, EnsembleSpec, FittedTree, TreeSpec,
                         bin_with, feature_importances, fit_ensemble_on_device,
                         make_bins)
@@ -98,6 +107,26 @@ class _EnsembleSpec:
             return predict_forest_sharded(binned, sf, sb, lv, w, self.depth,
                                           base=self.base, device=dev)
 
+    def save(self, path: str) -> None:
+        """`<path>/data.npz` in the JAX package's keys
+        (`spec_from_arrays` reads them back)."""
+        remap_keys = sorted(self.binning.cat_remap)
+        save_arrays(
+            path,
+            split_feature=np.stack([t.split_feature for t in self.trees]),
+            split_bin=np.stack([t.split_bin for t in self.trees]),
+            leaf_value=np.stack([t.leaf_value for t in self.trees]),
+            gain=np.stack([t.gain for t in self.trees]),
+            cover=np.stack([t.cover for t in self.trees]),
+            edges=self.binning.edges,
+            tree_weights=(self.tree_weights if self.tree_weights is not None
+                          else np.zeros(0)),
+            scalars=np.asarray([self.depth, self.base, self.n_features,
+                                1.0 if self.mode == "binary" else 0.0,
+                                len(remap_keys)], dtype=np.float64),
+            remap_slots=np.asarray(remap_keys, dtype=np.int64),
+            **{f"remap_{k}": self.binning.cat_remap[k] for k in remap_keys})
+
     @classmethod
     def load(cls, path: str) -> "_EnsembleSpec":
         """The spec of a model directory saved by either package."""
@@ -126,19 +155,57 @@ def spec_from_arrays(arrays: Dict[str, np.ndarray]) -> _EnsembleSpec:
                          "binary" if is_bin else "regression")
 
 
-class _TreeModelBase:
-    """A fitted tree ensemble: its spec, uid and saved params."""
+# ---------------------------------------------------------------- params
+#: name -> (default, doc), as the JAX package declares them
+_TREE_PARAMS = {
+    "featuresCol": ("features", "features column"),
+    "labelCol": ("label", "label column"),
+    "predictionCol": ("prediction", "prediction column"),
+    "maxDepth": (5, "max tree depth"),
+    "maxBins": (32, "max discretization bins"),
+    "minInstancesPerNode": (1, "min rows per child"),
+    "minInfoGain": (0.0, "min split gain"),
+    "seed": (None, "random seed"),
+}
+_CLASSIFIER_PARAMS = {
+    "rawPredictionCol": ("rawPrediction", "raw scores"),
+    "probabilityCol": ("probability", "probabilities"),
+}
+_RF_PARAMS = dict(_TREE_PARAMS, **{
+    "numTrees": (20, "number of trees"),
+    "featureSubsetStrategy": ("auto",
+                              "auto|all|sqrt|log2|onethird|fraction"),
+    "subsamplingRate": (1.0, "bootstrap rate"),
+})
+_GBT_PARAMS = dict(_TREE_PARAMS, **{
+    "maxIter": (20, "boosting rounds"),
+    "stepSize": (0.1, "learning rate"),
+    "subsamplingRate": (1.0, "row subsample per round"),
+})
 
-    def __init__(self, spec: _EnsembleSpec, params: Optional[dict] = None,
-                 uid: Optional[str] = None):
+
+def _categorical_slots(df, featuresCol: str) -> Dict[int, int]:
+    """The categorical slots (slot -> cardinality) VectorAssembler
+    recorded for a frame's features column."""
+    attrs = getattr(df, "_ml_attrs", {}).get(featuresCol) or {}
+    return {int(k): int(v) for k, v in (attrs.get("slots") or {}).items()}
+
+
+class _DeclaredParams:
+    """Declares the class's `_params` table (name -> (default, doc))."""
+    _params: Dict[str, tuple] = {}
+
+    def _init_params(self):
+        for name, (default, doc) in self._params.items():
+            self._declareParam(name, default=default, doc=doc)
+
+
+class _TreeModelBase(_DeclaredParams, Model):
+    """A fitted tree ensemble: its spec and its estimator's params."""
+
+    def __init__(self, spec: Optional[_EnsembleSpec] = None):
+        super().__init__()
         self._spec = spec
-        self.params = dict(params or {})
-        self.uid = uid
-
-    @classmethod
-    def _load(cls, path: str, meta: dict):
-        return cls(_EnsembleSpec.load(path), meta.get("params"),
-                   meta.get("uid"))
 
     @property
     def numFeatures(self) -> int:
@@ -151,25 +218,95 @@ class _TreeModelBase:
     def getNumTrees(self) -> int:
         return len(self._spec.trees)
 
+    @property
+    def treeWeights(self) -> List[float]:
+        if self._spec.tree_weights is None:
+            return [1.0] * len(self._spec.trees)
+        return [float(w) for w in self._spec.tree_weights]
+
+    def _margin(self, block, device) -> np.ndarray:
+        from ._staging import features_of
+        return self._spec.predict_margin(
+            features_of(block, self.getOrDefault("featuresCol")), device)
+
+    def _save_state(self, path):
+        self._spec.save(path)
+
+    def _load_state(self, path, meta):
+        self._spec = _EnsembleSpec.load(path)
+
+
+class _TreeEvalHook(RegStatsHook):
+    """Evaluator pushdown of a lazy tree-regression transform: the
+    predictions and the five statistics come from one fused traversal
+    and reduction on the device (`fused_reg_stats_from_matrix`), with
+    no prediction column."""
+
+    def _compute(self, raw, lab, label_col: str):
+        from ._staging import features_of
+        X = features_of(raw, self._tail.getOrDefault("featuresCol"))
+        return fused_reg_stats_from_matrix(self._tail._spec, X, lab,
+                                           link=self._link,
+                                           device=self._device)
+
 
 class _TreeRegressionModel(_TreeModelBase):
     def predict(self, X: np.ndarray, device=None) -> np.ndarray:
         """The prediction column for raw rows (n, F)."""
         return self._spec.predict_margin(np.asarray(X, np.float64), device)
 
+    def _transform(self, df):
+        from ..device import session_device
+        device = session_device()
+        oc = self.getOrDefault("predictionCol")
+
+        def fn(block, ctx):
+            out = dict(block)
+            out[oc] = self._margin(block, device) if block_len(block) \
+                else np.zeros(0)
+            return out
+
+        out = df._derive_rowlocal(fn, op="predict")
+        out._fused_eval = _TreeEvalHook(self, df, device)
+        return out
+
 
 class _TreeClassificationModel(_TreeModelBase):
-    def predict_probability(self, X: np.ndarray, device=None) -> np.ndarray:
+    @staticmethod
+    def _p1(spec: _EnsembleSpec, margin: np.ndarray) -> np.ndarray:
         """P(class 1): forests of probability leaves clip, boosted
         margins go through the sigmoid."""
-        m = self._spec.predict_margin(np.asarray(X, np.float64), device)
-        if self._spec.tree_weights is None:
-            return np.clip(m, 0.0, 1.0)
-        return 1.0 / (1.0 + np.exp(-m))
+        if spec.tree_weights is None:
+            return np.clip(margin, 0.0, 1.0)
+        return 1.0 / (1.0 + np.exp(-margin))
+
+    def predict_probability(self, X: np.ndarray, device=None) -> np.ndarray:
+        return self._p1(self._spec, self._spec.predict_margin(
+            np.asarray(X, np.float64), device))
 
     def predict(self, X: np.ndarray, device=None) -> np.ndarray:
         """The prediction column: 1.0 where P(class 1) > 0.5."""
         return (self.predict_probability(X, device) > 0.5).astype(float)
+
+    def _transform(self, df):
+        from ..device import session_device
+        device = session_device()
+        oc = self.getOrDefault("predictionCol")
+        rc = self.getOrDefault("rawPredictionCol")
+        prc = self.getOrDefault("probabilityCol")
+
+        def fn(block, ctx):
+            out = dict(block)
+            n = block_len(block)
+            p1 = self._p1(self._spec, self._margin(block, device)) if n \
+                else np.zeros(0)
+            probs = np.stack([1 - p1, p1], axis=1)
+            out[rc] = probs
+            out[prc] = probs.copy()
+            out[oc] = (p1 > 0.5).astype(float)
+            return out
+
+        return df._derive_rowlocal(fn, op="predict")
 
 
 _bins_cache: dict = {}
@@ -433,66 +570,57 @@ def fused_reg_stats_from_matrix(spec: _EnsembleSpec, X: np.ndarray,
 
 
 # ------------------------------------------------------------ estimators
-_TREE_PARAMS = dict(featuresCol="features", labelCol="label",
-                    predictionCol="prediction", maxDepth=5, maxBins=32,
-                    minInstancesPerNode=1, minInfoGain=0.0, seed=None)
-_CLASSIFIER_PARAMS = dict(rawPredictionCol="rawPrediction",
-                          probabilityCol="probability")
-_GBT_PARAMS = dict(maxIter=20, stepSize=0.1, subsamplingRate=1.0)
-_RF_PARAMS = dict(numTrees=20, featureSubsetStrategy="auto",
-                  subsamplingRate=1.0)
-
-
-class _Estimator:
-    """Keyword params over declared defaults (`_defaults`); a None value
-    keeps the default and an unknown name raises TypeError."""
-    _defaults: Dict[str, object] = {}
+class _Estimator(_DeclaredParams, Estimator):
+    """A tree learner: keyword params over its `_params` table (a None
+    value keeps the default; an unknown name raises TypeError)."""
     _model_cls = None
 
     def __init__(self, **kwargs):
-        self._params: Dict[str, object] = {}
+        super().__init__()
+        for k in kwargs:
+            if k not in self._params:
+                raise TypeError(f"{type(self).__name__} got an unexpected "
+                                f"param {k!r}")
         self._set(**kwargs)
 
-    def _set(self, **kwargs):
-        for k, v in kwargs.items():
-            if k not in self._defaults:
-                raise TypeError(f"unexpected param {k!r}")
-            if v is not None:
-                self._params[k] = v
-        return self
-
-    def getOrDefault(self, name: str):
-        return self._params.get(name, self._defaults[name])
-
-    @property
-    def params(self) -> dict:
-        return {k: self.getOrDefault(k) for k in self._defaults}
-
-    def fit(self, X, y, categorical: Optional[Dict[int, int]] = None,
-            device=None):
-        """Fit on a feature matrix (n, F) and labels (n,); rows whose
-        label is not finite are dropped. Returns the model."""
-        X = np.asarray(X, dtype=np.float64)
+    def fit(self, dataset, y=None, categorical: Optional[Dict[int, int]]
+            = None, device=None, params: Optional[dict] = None):
+        """Fit on a DataFrame (`fit(df)`, `fit(df, paramMap)`) on the
+        session's device, or on a feature matrix (n, F) and labels (n,)
+        (`fit(X, y, categorical, device)`) on `device`, the card by
+        default. Rows whose label is not finite are dropped. Returns the
+        model."""
+        from ..frame.dataframe import DataFrame
+        if isinstance(dataset, DataFrame):
+            return super().fit(dataset, y if y is not None else params)
+        X = np.asarray(dataset)
+        if X.dtype != np.float32:  # f32 features bin as f32, as in JAX
+            X = X.astype(np.float64)
         y = np.asarray(y, dtype=np.float64)
         ok = np.isfinite(y)
         spec = _fit_ensemble(X[ok], y[ok],
                              categorical=dict(categorical or {}),
                              device=device, **self._fit_args(X.shape[1]))
-        return self._model_cls(spec, self.params)
+        model = self._model_cls(spec)
+        model._inherit_params(self)
+        return model
+
+    def _fit(self, df):
+        from ..device import session_device
+        from ._staging import extract_xy
+        fc = self.getOrDefault("featuresCol")
+        X, y, _ = extract_xy(df, fc, self.getOrDefault("labelCol"))
+        return self.fit(X, y, categorical=_categorical_slots(df, fc),
+                        device=session_device())
 
     def _fit_args(self, n_features: int) -> dict:
         raise NotImplementedError
 
 
 class _TreeEstimatorBase(_Estimator):
+    _params = _TREE_PARAMS
     _is_classifier = False
     _loss = "squared"
-
-    def setMaxBins(self, v):
-        return self._set(maxBins=v)
-
-    def setMaxDepth(self, v):
-        return self._set(maxDepth=v)
 
     def _seed(self) -> int:
         s = self.getOrDefault("seed")
@@ -510,6 +638,8 @@ class _TreeEstimatorBase(_Estimator):
 class _RandomForestBase(_TreeEstimatorBase):
     """A bootstrap forest: Poisson(subsamplingRate) row weights per tree
     and `featureSubsetStrategy`'s features per node."""
+    _params = _RF_PARAMS
+
     def _fit_args(self, n_features: int) -> dict:
         g = self.getOrDefault
         args = super()._fit_args(n_features)
@@ -521,6 +651,8 @@ class _RandomForestBase(_TreeEstimatorBase):
 
 
 class _GBTBase(_TreeEstimatorBase):
+    _params = _GBT_PARAMS
+
     def _fit_args(self, n_features: int) -> dict:
         args = super()._fit_args(n_features)
         args.update(n_trees=int(self.getOrDefault("maxIter")),
@@ -531,60 +663,61 @@ class _GBTBase(_TreeEstimatorBase):
 
 
 class DecisionTreeRegressionModel(_TreeRegressionModel):
-    pass
+    _params = _TREE_PARAMS
+
+    @property
+    def depth(self) -> int:
+        return self._spec.depth
 
 
 class DecisionTreeClassificationModel(_TreeClassificationModel):
-    pass
+    _params = dict(_TREE_PARAMS, **_CLASSIFIER_PARAMS)
 
 
 class RandomForestRegressionModel(_TreeRegressionModel):
-    pass
+    _params = _RF_PARAMS
 
 
 class RandomForestClassificationModel(_TreeClassificationModel):
-    pass
+    _params = dict(_RF_PARAMS, **_CLASSIFIER_PARAMS)
 
 
 class GBTRegressionModel(_TreeRegressionModel):
-    pass
+    _params = _GBT_PARAMS
 
 
 class GBTClassificationModel(_TreeClassificationModel):
-    pass
+    _params = dict(_GBT_PARAMS, **_CLASSIFIER_PARAMS)
 
 
 class DecisionTreeRegressor(_TreeEstimatorBase):
-    _defaults = dict(_TREE_PARAMS)
     _model_cls = DecisionTreeRegressionModel
 
 
 class DecisionTreeClassifier(_TreeEstimatorBase):
-    _defaults = dict(_TREE_PARAMS, **_CLASSIFIER_PARAMS)
+    _params = dict(_TREE_PARAMS, **_CLASSIFIER_PARAMS)
     _model_cls = DecisionTreeClassificationModel
     _is_classifier = True
     _loss = "logistic"
 
 
 class RandomForestRegressor(_RandomForestBase):
-    _defaults = dict(_TREE_PARAMS, **_RF_PARAMS)
     _model_cls = RandomForestRegressionModel
 
 
 class RandomForestClassifier(_RandomForestBase):
-    _defaults = dict(_TREE_PARAMS, **_RF_PARAMS, **_CLASSIFIER_PARAMS)
+    _params = dict(_RF_PARAMS, **_CLASSIFIER_PARAMS)
     _model_cls = RandomForestClassificationModel
     _is_classifier = True
     _loss = "logistic"
 
 
 class GBTRegressor(_GBTBase):
-    _defaults = dict(_TREE_PARAMS, **_GBT_PARAMS)
     _model_cls = GBTRegressionModel
 
 
 class GBTClassifier(_GBTBase):
-    _defaults = dict(_TREE_PARAMS, **_GBT_PARAMS, **_CLASSIFIER_PARAMS)
+    _params = dict(_GBT_PARAMS, **_CLASSIFIER_PARAMS)
     _model_cls = GBTClassificationModel
     _is_classifier = True
     _loss = "logistic"

@@ -1,20 +1,162 @@
-"""Loader of the on-disk model format written by the JAX package.
+"""Transformer / Estimator / Model / Pipeline, and on-disk persistence.
 
-A saved model is a directory holding `metadata.json` ({class, uid,
-params, extra}) and `data.npz` with its array state
-(`sml_tpu/ml/base.py`, `Saveable._save_to` and `save_arrays`). The
-class named in `metadata.json` is the JAX package's; it maps to the
-port's class through `MODEL_CLASSES`, a plain table, so loading never
-imports the JAX package.
+The port's copy of `sml_tpu/ml/base.py`. A Transformer's
+`.transform(df)` appends columns; an Estimator's `.fit(df)` learns and
+returns a Model, itself a Transformer. `Pipeline` chains stages and
+fits them one by one; `PipelineModel` applies them one by one.
+
+Persistence is the JAX package's format: a directory with
+`metadata.json` ({class, uid, params, extra}) and an optional `data.npz`
+of arrays; a pipeline holds `stages/NN_uid/` subdirectories. The port
+writes the JAX package's class names into `metadata.json`, and maps a
+name back to its own class through `_model_classes()`, a plain table, so a
+model saved by either package loads in both and loading never imports
+the JAX package (nor any module a file names).
+
+Not ported yet: the featurizer's fused fit and transform
+(`try_fast_fit`, `_attach_fused_features`, `_ScorerEvalHook`,
+`PipelineModel._fast_transform`; `ml/featurizer.py`), which the JAX
+package takes when the stage shapes allow and which give the
+stage-by-stage results; and run autologging (`autolog_fit`).
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import os
-from typing import Dict
+import shutil
+from typing import Any, Dict, List, Optional
 
 import numpy as np
+
+from .param import Params
+
+
+def _model_classes() -> dict:
+    """The loader's table: the JAX package's class name -> the port's
+    class (built at each use: it names classes of modules that import
+    this one)."""
+    from .. import xgboost
+    from . import _tree_models as tm
+    from . import feature as ft
+    tree = {f"sml_tpu.ml._tree_models.{c}": getattr(tm, c) for c in (
+        "DecisionTreeRegressionModel", "DecisionTreeClassificationModel",
+        "RandomForestRegressionModel", "RandomForestClassificationModel",
+        "GBTRegressionModel", "GBTClassificationModel",
+        "DecisionTreeRegressor", "DecisionTreeClassifier",
+        "RandomForestRegressor", "RandomForestClassifier", "GBTRegressor",
+        "GBTClassifier")}
+    feat = {f"sml_tpu.ml.feature.{c}": getattr(ft, c) for c in (
+        "VectorAssembler", "StringIndexer", "StringIndexerModel",
+        "IndexToString", "OneHotEncoder", "OneHotEncoderModel", "Imputer",
+        "ImputerModel", "StandardScaler", "StandardScalerModel",
+        "Bucketizer", "RFormula", "RFormulaModel")}
+    xgb = {f"sml_tpu.xgboost.{c}": getattr(xgboost, c) for c in (
+        "XgboostRegressorModel", "XgboostClassifierModel",
+        "XgboostRegressor", "XgboostClassifier")}
+    return dict(tree, **feat, **xgb,
+                **{"sml_tpu.ml.base.Pipeline": Pipeline,
+                   "sml_tpu.ml.base.PipelineModel": PipelineModel})
+
+
+def jax_class_name(klass) -> str:
+    """The JAX package's name of a port class, as `metadata.json` holds
+    it."""
+    for name, k in _model_classes().items():
+        if k is klass:
+            return name
+    raise TypeError(f"{klass.__name__} has no counterpart in the saved "
+                    f"format")
+
+
+def load(path: str):
+    """The port's object for a directory saved by either package's
+    `save(path)`. Raises ValueError for a class the port does not carry
+    yet."""
+    with open(os.path.join(path, "metadata.json")) as f:
+        meta = json.load(f)
+    klass = _model_classes().get(meta["class"])
+    if klass is None:
+        raise ValueError(f"{path}: the port cannot load {meta['class']!r} "
+                         f"yet (tree models, feature stages and pipelines "
+                         f"only)")
+    obj = klass.__new__(klass)
+    Params.__init__(obj)
+    if meta.get("uid"):
+        obj.uid = meta["uid"]
+    obj._init_params()
+    obj._params_from_dict(meta.get("params", {}))
+    obj._load_state(path, meta.get("extra", {}))
+    return obj
+
+
+load_model = load
+load_native = load
+
+
+class MLWriter:
+    def __init__(self, instance: "Saveable"):
+        self._instance = instance
+        self._overwrite = False
+
+    def overwrite(self) -> "MLWriter":
+        self._overwrite = True
+        return self
+
+    def save(self, path: str) -> None:
+        if os.path.exists(path):
+            if not self._overwrite:
+                raise IOError(f"Path {path} already exists; use "
+                              f".overwrite()")
+            shutil.rmtree(path)
+        self._instance._save_to(path)
+
+
+class Saveable:
+    """Mixin providing write()/save()/load() over the directory format."""
+
+    def write(self) -> MLWriter:
+        return MLWriter(self)
+
+    def save(self, path: str) -> None:
+        self.write().save(path)
+
+    # -- subclass hooks ---------------------------------------------------
+    def _extra_metadata(self) -> Dict[str, Any]:
+        return {}
+
+    def _save_state(self, path: str) -> None:
+        """Save non-param array/object state; default: nothing."""
+
+    def _load_state(self, path: str, meta: Dict[str, Any]) -> None:
+        """Restore non-param state; default: nothing."""
+
+    def _init_params(self) -> None:
+        """Subclasses declare their Params here (called by both __init__
+        and load); default: nothing."""
+
+    # -- machinery --------------------------------------------------------
+    def _save_to(self, path: str) -> None:
+        os.makedirs(path, exist_ok=True)
+        meta = {
+            "class": jax_class_name(type(self)),
+            "uid": getattr(self, "uid", None),
+            "params": self._params_to_dict() if isinstance(self, Params)
+            else {},
+            "extra": self._extra_metadata(),
+        }
+        with open(os.path.join(path, "metadata.json"), "w") as f:
+            json.dump(meta, f, indent=2, default=str)
+        self._save_state(path)
+
+    @classmethod
+    def load(cls, path: str) -> Any:
+        return load(path)
+
+
+def save_arrays(path: str, **arrays) -> None:
+    np.savez(os.path.join(path, "data.npz"), **arrays)
 
 
 def load_arrays(path: str) -> Dict[str, np.ndarray]:
@@ -27,36 +169,236 @@ def load_arrays(path: str) -> Dict[str, np.ndarray]:
         return {k: z[k] for k in z.files}
 
 
-def _model_classes() -> dict:
-    from .. import xgboost
-    from . import _tree_models as tm
-    return {
-        "sml_tpu.ml._tree_models.DecisionTreeRegressionModel":
-            tm.DecisionTreeRegressionModel,
-        "sml_tpu.ml._tree_models.DecisionTreeClassificationModel":
-            tm.DecisionTreeClassificationModel,
-        "sml_tpu.ml._tree_models.RandomForestRegressionModel":
-            tm.RandomForestRegressionModel,
-        "sml_tpu.ml._tree_models.RandomForestClassificationModel":
-            tm.RandomForestClassificationModel,
-        "sml_tpu.ml._tree_models.GBTRegressionModel": tm.GBTRegressionModel,
-        "sml_tpu.ml._tree_models.GBTClassificationModel":
-            tm.GBTClassificationModel,
-        "sml_tpu.xgboost.XgboostRegressorModel":
-            xgboost.XgboostRegressorModel,
-        "sml_tpu.xgboost.XgboostClassifierModel":
-            xgboost.XgboostClassifierModel,
-    }
+def _save_stages(stages, path: str) -> None:
+    for i, s in enumerate(stages):
+        s._save_to(os.path.join(path, "stages", f"{i:02d}_{s.uid}"))
 
 
-def load_model(path: str):
-    """The port's model for a directory saved by the JAX package's
-    `model.save(path)`. Raises ValueError for a class the port does not
-    carry yet."""
-    with open(os.path.join(path, "metadata.json")) as f:
-        meta = json.load(f)
-    klass = _model_classes().get(meta["class"])
-    if klass is None:
-        raise ValueError(f"{path}: the port cannot load {meta['class']!r} "
-                         f"yet (tree-ensemble models only)")
-    return klass._load(path, meta)
+def _load_stages(path: str) -> list:
+    stage_dir = os.path.join(path, "stages")
+    if not os.path.exists(stage_dir):
+        return []
+    return [load(os.path.join(stage_dir, d))
+            for d in sorted(os.listdir(stage_dir))]
+
+
+class Transformer(Params, Saveable):
+    def __init__(self):
+        Params.__init__(self)
+        self._init_params()
+
+    def transform(self, df, params: Optional[dict] = None):
+        if params:
+            return self.copy(params).transform(df)
+        return self._transform(df)
+
+    def _transform(self, df):
+        raise NotImplementedError
+
+
+class Estimator(Params, Saveable):
+    def __init__(self):
+        Params.__init__(self)
+        self._init_params()
+
+    def fit(self, df, params: Optional[dict] = None):
+        if params:
+            return self.copy(params).fit(df)
+        return self._fit(df)
+
+    def _fit(self, df):
+        raise NotImplementedError
+
+
+class Model(Transformer):
+    """A fitted Transformer (MLlib: Model[M] extends Transformer)."""
+
+    def _inherit_params(self, est: Params) -> "Model":
+        """Copy the estimator's set params onto this model (shared
+        names)."""
+        for p, v in est._paramMap.items():
+            if self.hasParam(p.name):
+                self._paramMap[self.getParam(p.name)] = v
+        return self
+
+
+class Evaluator(Params, Saveable):
+    def __init__(self):
+        Params.__init__(self)
+        self._init_params()
+
+    def evaluate(self, df, params: Optional[dict] = None) -> float:
+        """The metric of `df`. Like every DataFrame entry point it runs
+        on the session's device (`sml.device`), and raises without a
+        card unless that is the CPU."""
+        from ..device import session_device
+        session_device()
+        if params:
+            return self.copy(params).evaluate(df)
+        return self._evaluate(df)
+
+    def _evaluate(self, df) -> float:
+        raise NotImplementedError
+
+    def isLargerBetter(self) -> bool:
+        return True
+
+
+class Pipeline(Estimator):
+    """`Pipeline(stages=[...])`: fit estimators and apply transformers in
+    order."""
+
+    def _init_params(self):
+        self._declareParam("stages", default=[], doc="pipeline stages")
+
+    def __init__(self, stages: Optional[List] = None):
+        super().__init__()
+        if stages is not None:
+            self._set(stages=stages)
+
+    def getStages(self) -> List:
+        return self.getOrDefault("stages")
+
+    def setStages(self, stages: List) -> "Pipeline":
+        return self._set(stages=stages)
+
+    def _fit(self, df) -> "PipelineModel":
+        from ..frame.dataframe import DataFrame
+        stages = self.getStages()
+        cur = df
+        if isinstance(df, DataFrame):
+            # collapse to one partition first, as the JAX package does:
+            # each stage's per-partition fn then runs once over the whole
+            # frame; row-local transforms and global fits give the same
+            # results in any layout
+            cur = DataFrame.from_partitions([df._whole()],
+                                            session=df._session)
+            cur._ml_attrs = dict(df._ml_attrs)
+        fitted: List[Transformer] = []
+        for i, stage in enumerate(stages):
+            last = i == len(stages) - 1
+            if isinstance(stage, Estimator):
+                model = stage.fit(cur)
+                fitted.append(model)
+                if not last:
+                    cur = model.transform(cur)
+            elif isinstance(stage, Transformer):
+                fitted.append(stage)
+                if not last:
+                    cur = stage.transform(cur)
+            else:
+                raise TypeError(f"stage {stage!r} is neither Estimator nor "
+                                f"Transformer")
+        return PipelineModel(fitted)
+
+    def copy(self, extra=None) -> "Pipeline":
+        that = super().copy(extra)
+        # stages hold estimators with their own params: apply any extra
+        # params addressed to them (tuning passes {est.param: v} through)
+        if extra:
+            new_stages = []
+            for s in that.getStages():
+                applicable = {p: v for p, v in extra.items()
+                              if getattr(p, "parent", None) == s.uid}
+                new_stages.append(s.copy(applicable) if applicable else s)
+            that._paramMap[that.getParam("stages")] = new_stages
+        return that
+
+    def _extra_metadata(self):
+        return {"n_stages": len(self.getStages())}
+
+    def _save_state(self, path: str) -> None:
+        _save_stages(self.getStages(), path)
+
+    def _load_state(self, path: str, meta) -> None:
+        self._paramMap[self.getParam("stages")] = _load_stages(path)
+
+
+class PipelineModel(Model):
+    def _init_params(self):
+        pass
+
+    def __init__(self, stages: Optional[List[Transformer]] = None):
+        super().__init__()
+        self.stages: List[Transformer] = stages or []
+
+    def _transform(self, df):
+        cur = df
+        for s in self.stages:
+            cur = s.transform(cur)
+        return cur
+
+    def copy(self, extra=None) -> "PipelineModel":
+        that = super().copy(extra)
+        that.stages = [s.copy(extra) for s in self.stages]
+        return that
+
+    def _extra_metadata(self):
+        return {"n_stages": len(self.stages)}
+
+    def _save_state(self, path: str) -> None:
+        _save_stages(self.stages, path)
+
+    def _load_state(self, path: str, meta) -> None:
+        self.stages = _load_stages(path)
+
+
+class RegStatsHook:
+    """Evaluator pushdown hook of a lazy model-transform frame.
+
+    `RegressionEvaluator` consults `reg_stats` on an unmaterialized
+    transform frame: a subclass computes the five regression sufficient
+    statistics (n, Σd², Σ|d|, Σl, Σl²) from the transform's parent frame,
+    without assembling the transform's output. The hook declines
+    (returns None, and the evaluator materializes the frame) when the
+    evaluator asks about another prediction column, or the label column
+    is missing, empty or not numeric; any other error propagates."""
+
+    #: elementwise links a hook may apply to its predictions, by numpy
+    #: name (`with_link`)
+    LINKS = frozenset({"identity", "exp", "log"})
+
+    def __init__(self, tail, parent, device=None):
+        self._tail = tail
+        self._parent = parent
+        self._device = device
+        self._stats_cache: dict = {}
+        self._link = "identity"
+
+    def with_link(self, link: str, col_name: str):
+        """A clone of this hook whose predictions pass through the
+        elementwise `link` before the reductions (the ML 11 shape: fit
+        on log(label), evaluate exp(prediction) on the raw scale). None
+        (the caller keeps no hook) unless `col_name` is this hook's own
+        prediction column, the link is known and no link is applied
+        yet."""
+        if link not in self.LINKS or self._link != "identity" or \
+                self._tail.getOrDefault("predictionCol") != col_name:
+            return None
+        clone = copy.copy(self)
+        clone._link = link
+        clone._stats_cache = {}
+        return clone
+
+    def _label_ok(self, label_col: str) -> bool:
+        return True
+
+    def _compute(self, raw, lab, label_col: str):
+        raise NotImplementedError
+
+    def reg_stats(self, prediction_col: str, label_col: str):
+        cached = self._stats_cache.get((prediction_col, label_col))
+        if cached is not None:
+            return cached  # rmse, then mae, then r2 cost one pass
+        if self._tail.getOrDefault("predictionCol") != prediction_col:
+            return None
+        raw = self._parent._whole()
+        lab = raw.get(label_col)
+        if lab is None or len(lab) == 0 or lab.ndim != 1 or \
+                lab.dtype.kind not in "fiub" or \
+                not self._label_ok(label_col):
+            return None
+        stats = self._compute(raw, lab.astype(np.float64), label_col)
+        if stats is not None:
+            self._stats_cache[(prediction_col, label_col)] = stats
+        return stats

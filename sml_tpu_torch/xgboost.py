@@ -4,11 +4,12 @@
 params and fit through the same `_fit_ensemble` as GBT: boosted
 second-order trees on the port's histogram kernels. `use_gpu`, `device`,
 `num_workers` and `tree_method` are accepted for surface parity and not
-read: `fit(X, y, device=...)` chooses where the fit runs (the card by
-default). `subsample < 1` draws each round's rows by Bernoulli weights
-from the Threefry stream of `random_state`, as the JAX package does. The
-boosted ensembles are the same `_EnsembleSpec`
-as GBT's, so the models subclass the same bases.
+read: `fit(df)` runs on the session's device (`sml.device`) and
+`fit(X, y, device=...)` on the device it is given (the card by default).
+`subsample < 1` draws each round's rows by Bernoulli weights from the
+Threefry stream of `random_state`, as the JAX package does. The boosted
+ensembles are the same `_EnsembleSpec` as GBT's, so the models subclass
+the same bases.
 """
 
 from __future__ import annotations
@@ -16,21 +17,39 @@ from __future__ import annotations
 from .ml._tree_models import (_Estimator, _TreeClassificationModel,
                               _TreeRegressionModel)
 
-_XGB_PARAMS = dict(featuresCol="features", labelCol="label",
-                   predictionCol="prediction", n_estimators=100,
-                   learning_rate=0.3, max_depth=6, max_bins=256,
-                   reg_lambda=1.0, gamma=0.0, subsample=1.0,
-                   min_child_weight=1.0, random_state=0,
-                   missing=float("nan"), num_workers=None, use_gpu=False,
-                   device=None, tree_method="hist")
+#: name -> (default, doc), the JAX package's params but for
+#: `rounds_per_dispatch` (the chunked boosting scan, not ported)
+_XGB_PARAMS = {
+    "featuresCol": ("features", "features column"),
+    "labelCol": ("label", "label column"),
+    "predictionCol": ("prediction", "prediction column"),
+    "n_estimators": (100, "boosting rounds"),
+    "learning_rate": (0.3, "eta"),
+    "max_depth": (6, "tree depth"),
+    "max_bins": (256, "histogram bins"),
+    "reg_lambda": (1.0, "L2 on leaf weights"),
+    "gamma": (0.0, "min split loss"),
+    "subsample": (1.0, "row subsample per round"),
+    "min_child_weight": (1.0, "min hessian per child"),
+    "random_state": (0, "seed"),
+    "missing": (float("nan"), "value treated as missing"),
+    "num_workers": (None, "data shards (defaults to mesh size)"),
+    "use_gpu": (False, "accepted for surface parity"),
+    "device": (None, "compute engine"),
+    "tree_method": ("hist", "histogram engine"),
+}
+_XGB_CLASSIFIER_PARAMS = dict(_XGB_PARAMS, **{
+    "rawPredictionCol": ("rawPrediction", "raw scores"),
+    "probabilityCol": ("probability", "probabilities"),
+})
 
 
 class XgboostRegressorModel(_TreeRegressionModel):
-    pass
+    _params = _XGB_PARAMS
 
 
 class XgboostClassifierModel(_TreeClassificationModel):
-    pass
+    _params = _XGB_CLASSIFIER_PARAMS
 
 
 class _XgboostBase(_Estimator):
@@ -51,12 +70,11 @@ class _XgboostBase(_Estimator):
 
 
 class XgboostRegressor(_XgboostBase):
-    _defaults = dict(_XGB_PARAMS)
+    _params = _XGB_PARAMS
     _model_cls = XgboostRegressorModel
 
 
 class XgboostClassifier(_XgboostBase):
-    _defaults = dict(_XGB_PARAMS, rawPredictionCol="rawPrediction",
-                     probabilityCol="probability")
+    _params = _XGB_CLASSIFIER_PARAMS
     _model_cls = XgboostClassifierModel
     _loss = "logistic"

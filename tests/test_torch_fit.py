@@ -314,7 +314,8 @@ def test_random_forest_params_map_like_the_jax_package(confs):
               feature_k=_feature_k("sqrt", X.shape[1], False),
               bootstrap=True, subsample=1.0, seed=4, loss="squared")
     assert isinstance(r, ptm.RandomForestRegressionModel)
-    assert r.params["numTrees"] == 2 and r.params["subsamplingRate"] == 1.0
+    assert r.getOrDefault("numTrees") == 2 and \
+        r.getOrDefault("subsamplingRate") == 1.0
     for tj, tp in zip(sj.trees, r._spec.trees):
         _assert_tables(tj, tp, exact_values=True)
 

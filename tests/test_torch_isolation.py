@@ -1,6 +1,8 @@
-"""The port stands alone: importing every module of `sml_tpu_torch` loads
-neither JAX nor the JAX package, and without a CUDA device the entry
-points (scoring and fitting) raise rather than carry on on the CPU (each
+"""The port stands alone: importing every module of `sml_tpu_torch`, and
+running a DataFrame pipeline with the session's device set to the CPU,
+loads neither JAX, the JAX package, pandas nor pyarrow; and without a
+CUDA device the entry points (scoring, fitting, and a DataFrame fit,
+transform and evaluate) raise rather than carry on on the CPU (each
 check runs in a fresh interpreter with no CUDA device visible)."""
 
 import os
@@ -29,7 +31,8 @@ names = [m.name for m in pkgutil.walk_packages(sml_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 bad = sorted(k for k in sys.modules
-             if k.split(".")[0] in ("jax", "jaxlib", "sml_tpu"))
+             if k.split(".")[0] in ("jax", "jaxlib", "sml_tpu", "pandas",
+                                    "pyarrow"))
 print(len(names), bad)
 """
 
@@ -38,7 +41,7 @@ def test_importing_the_whole_port_loads_no_jax_and_no_sml_tpu():
     proc = _run(IMPORT_ALL)
     assert proc.returncode == 0, proc.stderr
     count, bad = proc.stdout.strip().split(" ", 1)
-    assert int(count) >= 16
+    assert int(count) >= 36
     assert bad == "[]"
 
 
@@ -55,6 +58,77 @@ def test_the_fit_modules_are_among_the_imported():
                  "sml_tpu_torch.ml.tree_impl", "sml_tpu_torch.ml._tree_models",
                  "sml_tpu_torch.xgboost"):
         assert name in proc.stdout
+
+
+def test_the_host_layer_modules_are_among_the_imported():
+    proc = _run(IMPORT_ALL.replace("print(len(names), bad)",
+                                   "print(sorted(names))"))
+    assert proc.returncode == 0, proc.stderr
+    for name in ("frame.dataframe", "frame.column", "frame.functions",
+                 "frame.sampling", "frame.session", "frame.types",
+                 "native.hashing", "courseware", "ml.param", "ml.linalg",
+                 "ml.base", "ml.feature", "ml.evaluation", "ml.regression",
+                 "ml.classification"):
+        assert f"sml_tpu_torch.{name}" in proc.stdout
+
+
+PIPELINE = """
+import sys
+import numpy as np
+from sml_tpu_torch import functions as F, get_session, GLOBAL_CONF
+from sml_tpu_torch.courseware import make_airbnb_dataset
+from sml_tpu_torch.ml import Pipeline
+from sml_tpu_torch.ml.evaluation import RegressionEvaluator
+from sml_tpu_torch.ml.feature import Imputer, StringIndexer, VectorAssembler
+from sml_tpu_torch.ml.regression import DecisionTreeRegressor
+GLOBAL_CONF.set("sml.device", DEVICE)
+num = ["bedrooms", "bathrooms", "accommodates"]
+df = get_session().createDataFrame(make_airbnb_dataset(n=600, seed=1))
+train, test = df.randomSplit([0.8, 0.2], seed=42)
+prep = Pipeline(stages=[
+    Imputer(strategy="median", inputCols=num, outputCols=num),
+    StringIndexer(inputCol="room_type", outputCol="rt",
+                  handleInvalid="skip"),
+    VectorAssembler(inputCols=["rt"] + num, outputCol="features")]).fit(train)
+tr, te = prep.transform(train), prep.transform(test)
+est = DecisionTreeRegressor(labelCol="price", maxDepth=3, maxBins=16)
+for what, call in (("fit", lambda: est.fit(tr)),
+                   ("transform", lambda: model.transform(te)),
+                   ("evaluate", lambda: RegressionEvaluator(
+                       labelCol="price").evaluate(scored))):
+    try:
+        out = call()
+    except RuntimeError as e:
+        print(what, "raised:", e)
+        GLOBAL_CONF.set("sml.device", "cpu")
+        out = call()
+        GLOBAL_CONF.set("sml.device", DEVICE)
+    if what == "fit":
+        model = out
+    elif what == "transform":
+        scored = out
+    else:
+        print("rmse", np.isfinite(out))
+bad = sorted(k for k in sys.modules
+             if k.split(".")[0] in ("jax", "jaxlib", "sml_tpu", "pandas",
+                                    "pyarrow"))
+print(bad)
+"""
+
+
+def test_dataframe_pipeline_on_the_cpu_loads_no_pandas_jax_or_sml_tpu():
+    proc = _run(PIPELINE.replace("DEVICE", repr("cpu")))
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines() == ["rmse True", "[]"]
+
+
+def test_dataframe_entry_points_raise_without_a_card():
+    proc = _run(PIPELINE.replace("DEVICE", repr("cuda")))
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.strip().splitlines()
+    for line, what in zip(lines, ("fit", "transform", "evaluate")):
+        assert line.startswith(f"{what} raised: no CUDA device"), lines
+    assert lines[3:] == ["rmse True", "[]"]
 
 
 FIT_WITHOUT_DEVICE = """
