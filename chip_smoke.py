@@ -115,6 +115,29 @@ Phases:
    the host-clock split of one ML 07 pipeline. A JSON line before the
    card's gives these numbers.
 
+12. main path, model selection (tuning's host half):
+   the port's `make_airbnb_dataset(n=100_000, seed=42)` with ML 01's
+   median imputation, split 80/20, on the session's device: (a)
+   `CrossValidator` over ML 07's `RandomForestRegressor(labelCol="price",
+   seed=42)` with the course's grid (maxDepth {2, 5} x numTrees {5, 10},
+   3 folds, parallelism 4, seed 42) on the indexed, assembled frame, fused
+   (one fit of 12 elements: 50 / 50 / 50 / 10 launches, 12 traversals)
+   and as placed trials (`sml.cv.batchFolds=false`: 315 / 315 / 315 /
+   90), the best point's refit on top, `avgMetrics` and the best point
+   equal; (b) the pipeline (StringIndexer, VectorAssembler, RF) inside the
+   CV at parallelism 1 and 4, `avgMetrics` equal; (c) the CV inside the
+   pipeline (ML 07L); (d) `TrainValidationSplit`, fused and placed equal;
+   (e) `fmin` over ML 08's space (12 trials, TPE past its 10 startup
+   trials) with a pipeline objective: `SparkTrials(parallelism=2)` and a
+   `score_batch` over `fused_param_scores` at 2 candidates a dispatch give
+   one trial history, `Trials()` one by one agrees with it through trial
+   11 (the first TPE proposal; whether trial 12 agrees too is printed),
+   every trial ok; each launch count exact and no plain version run on
+   the card; (a) at 16,000 rows on the card and on the CPU agreeing; and
+   the walls (fused and placed; `fmin`'s `score_batch` with its prep fit
+   inside the wall) and the host/device split of one pipeline fit, in
+   the tuning JSON line's "selection".
+
 The second-to-last line is a JSON object listing each kernel, with the
 launches the profiler saw in each window behind its device times
 ("device_windows"); the last is {"ok": true, "device": {...}}.
@@ -1063,9 +1086,9 @@ def _on_cuda(args) -> bool:
 
 
 class KernelWatch:
-    """Counts the plain versions' calls on the card while it is
-    installed, and optionally times every wrapper call with CUDA
-    events."""
+    """Counts the plain versions' calls on the card (the fit kernels' and
+    the traversal's) while it is installed, and optionally times every
+    fit wrapper call with CUDA events."""
 
     def __init__(self, timed: bool = False):
         from sml_tpu_torch.native import hist_kernel, prng_kernel
@@ -1073,6 +1096,7 @@ class KernelWatch:
                         "prng_kernel": prng_kernel}
         self.timed = timed
         self.plain_on_cuda = 0
+        self.lock = threading.Lock()
         self.events = {name: [] for names in FIT_WRAPPERS.values()
                        for name in names}
         self.saved = []
@@ -1082,16 +1106,20 @@ class KernelWatch:
         setattr(mod, name, fn)
 
     def __enter__(self):
+        def watch(mod, name):
+            def watched(*args, _fn=getattr(mod, name), **kw):
+                if _on_cuda(list(args) + list(kw.values())):
+                    with self.lock:  # trials call it from threads
+                        self.plain_on_cuda += 1
+                return _fn(*args, **kw)
+            self._patch(mod, name, watched)
+
+        from sml_tpu_torch.native import traverse_kernel
+        watch(traverse_kernel, "forest_margin_plain")
         for modname, names in FIT_WRAPPERS.items():
             mod = self.modules[modname]
             for name in names:
-                plain = getattr(mod, f"{name}_plain")
-
-                def watched(*args, _fn=plain, **kw):
-                    if _on_cuda(list(args) + list(kw.values())):
-                        self.plain_on_cuda += 1
-                    return _fn(*args, **kw)
-                self._patch(mod, f"{name}_plain", watched)
+                watch(mod, f"{name}_plain")
                 if not self.timed:
                     continue
 
@@ -1102,7 +1130,8 @@ class KernelWatch:
                     a.record()
                     out = _fn(*args, **kw)
                     b.record()
-                    self.events[_name].append((a, b))
+                    with self.lock:
+                        self.events[_name].append((a, b))
                     return out
                 self._patch(mod, name, timed_call)
         return self
@@ -2248,6 +2277,411 @@ def df_ml07_split() -> dict:
     return out
 
 
+# ------------------------------------------- phase 12: model selection
+#: ML 01's cleansing: these columns' NULLs imputed by their medians, in
+#: place, before the ML 07 / ML 08 lessons split the frame
+SEL_IMPUTED = ["bedrooms", "bathrooms", "review_scores_rating"]
+#: ML 07's features (`tests/test_lessons.py:324-356`)
+SEL_FEATURES = ["room_typeIndex", "bedrooms", "accommodates",
+                "number_of_reviews"]
+SEL_DEPTHS = (2, 5)
+SEL_TREES = (5, 10)
+SEL_FOLDS = 3
+#: fmin's trials: past TPE's 10 startup trials
+SEL_EVALS = 12
+#: the kernels counted on this phase's paths
+SEL_KERNELS = FIT_KERNELS + ("forest_traverse",)
+
+
+def sel_frames(n: int):
+    """make_airbnb_dataset(n, seed=42) -> createDataFrame -> ML 01's
+    median imputation -> randomSplit([0.8, 0.2], seed=42), both halves
+    cached."""
+    from sml_tpu_torch.courseware import make_airbnb_dataset
+    from sml_tpu_torch.frame.session import get_session
+    from sml_tpu_torch.ml.feature import Imputer
+    df = get_session().createDataFrame(make_airbnb_dataset(n=n, seed=42))
+    df = Imputer(strategy="median", inputCols=SEL_IMPUTED,
+                 outputCols=SEL_IMPUTED).fit(df).transform(df)
+    train, test = df.randomSplit([0.8, 0.2], seed=42)
+    return train.cache(), test.cache()
+
+
+def sel_prep():
+    """ML 07's prep stages: StringIndexer(room_type, skip) and
+    VectorAssembler."""
+    from sml_tpu_torch.ml.feature import StringIndexer, VectorAssembler
+    return [StringIndexer(inputCols=["room_type"],
+                          outputCols=["room_typeIndex"],
+                          handleInvalid="skip"),
+            VectorAssembler(inputCols=SEL_FEATURES, outputCol="features")]
+
+
+def sel_rf():
+    from sml_tpu_torch.ml.regression import RandomForestRegressor
+    return RandomForestRegressor(labelCol="price", seed=42)
+
+
+def sel_grid(rf):
+    """The course's grid: maxDepth {2, 5} x numTrees {5, 10}."""
+    from sml_tpu_torch.ml import ParamGridBuilder
+    return (ParamGridBuilder()
+            .addGrid(rf.getParam("maxDepth"), list(SEL_DEPTHS))
+            .addGrid(rf.getParam("numTrees"), list(SEL_TREES)).build())
+
+
+def sel_cv(est, grid, parallelism: int):
+    from sml_tpu_torch.ml import CrossValidator
+    from sml_tpu_torch.ml.evaluation import RegressionEvaluator
+    return CrossValidator(estimator=est, estimatorParamMaps=grid,
+                          evaluator=RegressionEvaluator(labelCol="price"),
+                          numFolds=SEL_FOLDS, parallelism=parallelism,
+                          seed=42)
+
+
+def sel_point(rf, pmap) -> tuple:
+    """(maxDepth, numTrees) of a grid point."""
+    ec = rf.copy(pmap)
+    return int(ec.getOrDefault("maxDepth")), int(ec.getOrDefault("numTrees"))
+
+
+def add_launches(*counts) -> dict:
+    return {k: sum(c.get(k, 0) for c in counts) for k in SEL_KERNELS}
+
+
+def fits_launches(points, fused: bool) -> dict:
+    """The fit kernels' launches of RF fits at (depth, trees) points: one
+    fused fit of them all, or one fit each (`expected_launches`)."""
+    trials = [{"max_depth": d, "n_trees": t} for d, t in points]
+    idx = list(range(len(points)))
+    return add_launches(expected_launches(
+        trials, [idx] if fused else [[i] for i in idx]))
+
+
+def sel_measured(fn):
+    """(fn(), launches, host-clock ms) from zeroed counts."""
+    _zero_launches()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return out, _all_launches(), (time.perf_counter() - t0) * 1e3
+
+
+#: every launch phase 12 checks, summed by kernel
+SEL_LAUNCHES: dict = {}
+
+
+def sel_expect(what: str, got: dict, want: dict) -> None:
+    print(f"selection {what}: launches {got}")
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, want {want}")
+    for k, v in got.items():
+        SEL_LAUNCHES[k] = SEL_LAUNCHES.get(k, 0) + v
+
+
+def sel_objective(pipe, rf, fit_df, val_df, ev, score_batch=None):
+    """ML 08's objective: the pipeline at a trial's (max_depth,
+    num_trees), fitted on `fit_df`, its rmse on `val_df`; with
+    `score_batch`, a generation's losses from the fused fits."""
+    from sml_tpu_torch.tune import STATUS_OK
+
+    def objective(params):
+        m = pipe.copy({rf.getParam("maxDepth"): int(params["max_depth"]),
+                       rf.getParam("numTrees"): int(params["num_trees"])}
+                      ).fit(fit_df)
+        return {"loss": ev.evaluate(m.transform(val_df)),
+                "status": STATUS_OK}
+
+    if score_batch is not None:
+        objective.score_batch = score_batch
+    return objective
+
+
+def sel_fmin(objective, trials):
+    """ML 08's search (`tests/test_lessons.py:377-378`) over SEL_EVALS
+    trials from `RandomState(42)`: the history as (params, loss,
+    status)."""
+    from sml_tpu_torch.tune import fmin, hp, tpe
+    space = {"max_depth": hp.quniform("max_depth", 2, 5, 1),
+             "num_trees": hp.quniform("num_trees", 5, 10, 5)}
+    fmin(objective, space, algo=tpe, max_evals=SEL_EVALS, trials=trials,
+         rstate=np.random.RandomState(42))
+    return [({k: v[0] for k, v in t["misc"]["vals"].items()},
+             t["result"]["loss"], t["result"]["status"])
+            for t in trials.trials]
+
+
+def phase_selection(device, card: str, n: int = 100_000,
+                    cpu_rows: int = 16_000) -> dict:
+    """Tuning's host half on `device` (the session's `sml.device`), from
+    `make_airbnb_dataset(n, seed=42)`: (a) CrossValidator over ML 07's
+    random forest on an indexed, assembled frame, fused and as placed
+    trials (`sml.cv.batchFolds=false`); (b) the pipeline inside the CV at
+    parallelism 1 and 4; (c) the CV inside the pipeline (ML 07L); (d)
+    TrainValidationSplit; (e) fmin over ML 08's space three ways; and (a)
+    at `cpu_rows` rows
+    on the card and on the CPU. Every launch counted and checked; returns
+    the numbers of the JSON line."""
+    from sml_tpu_torch.conf import GLOBAL_CONF
+    from sml_tpu_torch.ml import Pipeline, TrainValidationSplit
+    from sml_tpu_torch.ml.evaluation import RegressionEvaluator
+    from sml_tpu_torch.ml.tuning import fused_param_scores
+    from sml_tpu_torch.tune import STATUS_OK, SparkTrials, Trials
+    from sml_tpu_torch.utils.profiler import PROFILER
+    GLOBAL_CONF.set("sml.device", device.type)
+    out = {"card": card}
+    ev = RegressionEvaluator(labelCol="price")
+    t0 = time.perf_counter()
+    train, test = sel_frames(n)
+    feat_train = Pipeline(stages=sel_prep()).fit(train).transform(train)
+    feat_train.cache()
+    print(f"selection: {n} rows made, imputed, split and featurized in "
+          f"{(time.perf_counter() - t0) * 1e3!r} ms; train "
+          f"{train.count()} rows; card {card}")
+    rf = sel_rf()
+    grid = sel_grid(rf)
+    points = [sel_point(rf, pm) for pm in grid]
+    elements = [p for p in points for _ in range(SEL_FOLDS)]
+    walls = {}
+    with KernelWatch() as watch:
+        # (a) CV over the RF on the featurized frame: fused, then placed
+        runs = {}
+        for mode, fused in (("fused", True), ("placed", False)):
+            GLOBAL_CONF.set("sml.cv.batchFolds", fused)
+            try:
+                clear_fit_caches()
+                cvm, got, ms = sel_measured(
+                    lambda: sel_cv(rf, grid, 4).fit(feat_train))
+            finally:
+                GLOBAL_CONF.unset("sml.cv.batchFolds")
+            best = int(np.argmin(cvm.avgMetrics))
+            want = add_launches(
+                fits_launches(elements, fused), fits_launches(
+                    [points[best]], False),
+                {"forest_traverse": len(elements)})
+            sel_expect(f"(a) CV {mode}", got, want)
+            runs[mode] = (list(cvm.avgMetrics), best)
+            walls[f"cv_{mode}_ms"] = ms
+        if runs["fused"] != runs["placed"]:
+            raise AssertionError(f"(a) fused {runs['fused']} vs placed "
+                                 f"{runs['placed']}")
+        avg, best = runs["fused"]
+        print(f"selection (a) avgMetrics {avg} (fused and placed equal bit "
+              f"for bit), best maxDepth={points[best][0]} "
+              f"numTrees={points[best][1]}; walls fused "
+              f"{walls['cv_fused_ms']!r} ms, placed {walls['cv_placed_ms']!r}"
+              f" ms (host clock, parallelism 4); card {card}")
+        out["a"] = {"avgMetrics": avg, "best": list(points[best])}
+
+        # (b) the pipeline inside the CV, at parallelism 1 and 4
+        pipe = Pipeline(stages=sel_prep() + [rf])
+        by_par = {}
+        for par in (1, 4):
+            clear_fit_caches()
+            cvm, got, ms = sel_measured(
+                lambda: sel_cv(pipe, grid, par).fit(train))
+            best_b = int(np.argmin(cvm.avgMetrics))
+            want = add_launches(fits_launches(elements, False),
+                                fits_launches([points[best_b]], False),
+                                {"forest_traverse": len(elements)})
+            sel_expect(f"(b) pipeline in CV, parallelism {par}", got, want)
+            by_par[par] = list(cvm.avgMetrics)
+            walls[f"pipeline_in_cv_par{par}_ms"] = ms
+        if by_par[1] != by_par[4]:
+            raise AssertionError(f"(b) parallelism 1 {by_par[1]} vs 4 "
+                                 f"{by_par[4]}")
+        print(f"selection (b) avgMetrics {by_par[1]} at parallelism 1 and 4,"
+              f" bit for bit; walls {walls['pipeline_in_cv_par1_ms']!r} / "
+              f"{walls['pipeline_in_cv_par4_ms']!r} ms; card {card}")
+        out["b"] = {"avgMetrics": by_par[1]}
+
+        # the host/device split of one pipeline-inside-CV fit: fold 0's
+        # training rows, the grid's largest point
+        folds = train.randomSplit([1.0 / SEL_FOLDS] * SEL_FOLDS, seed=42)
+        fold_train = folds[1].union(folds[2]).cache()
+        one = Pipeline(stages=sel_prep() + [rf.copy(grid[-1])])
+        clear_fit_caches()
+        PROFILER.reset()
+        PROFILER.enabled = True
+        on_card = device.type == "cuda"
+        try:
+            with KernelWatch(timed=on_card) as timed:
+                _, got, ms = sel_measured(lambda: one.fit(fold_train))
+                kernel_ms = sum(timed.kernel_ms().values()) if on_card \
+                    else float("nan")
+            spans = PROFILER.spans()
+        finally:
+            PROFILER.enabled = False
+
+        def span_ms(name):
+            return sum(sp.wall_s for sp in spans
+                       if sp.name.startswith(name)) * 1e3
+        split = {"fit_ms": ms, "binning_ms": span_ms("binning.fit"),
+                 "staging_ms": span_ms("staging.fit"),
+                 "fit_loop_ms": span_ms("program.tree_ensemble"),
+                 "kernels_event_ms": kernel_ms}
+        # the prep stages' fits, their frames and the extraction
+        split["prep_and_frames_ms"] = ms - (
+            split["binning_ms"] + split["staging_ms"] + split["fit_loop_ms"])
+        split["host_ms"] = ms - kernel_ms
+        print(f"selection one pipeline-in-CV fit (maxDepth "
+              f"{points[-1][0]}, numTrees {points[-1][1]}, "
+              f"{fold_train.count()} rows): {split} (host clock; kernels by "
+              f"CUDA events around the wrapper calls); card {card}")
+        out["pipeline_fit_split_ms"] = split
+
+        # (c) the CV inside the pipeline (ML 07L)
+        clear_fit_caches()
+        inner = Pipeline(stages=sel_prep() + [sel_cv(rf, grid, 4)])
+        pm, got, ms = sel_measured(lambda: inner.fit(train))
+        cvm = pm.stages[-1]
+        best_c = int(np.argmin(cvm.avgMetrics))
+        sel_expect("(c) CV in pipeline, fit", got, add_launches(
+            fits_launches(elements, True),
+            fits_launches([points[best_c]], False),
+            {"forest_traverse": len(elements)}))
+        rmse_c, got, _ = sel_measured(lambda: ev.evaluate(pm.transform(test)))
+        sel_expect("(c) CV in pipeline, evaluate", got,
+                   add_launches({"forest_traverse": 1}))
+        if not np.isfinite(rmse_c) or rmse_c <= 0:
+            raise AssertionError(f"(c) rmse {rmse_c}")
+        walls["cv_in_pipeline_ms"] = ms
+        print(f"selection (c) avgMetrics {list(cvm.avgMetrics)}, held-out "
+              f"rmse {rmse_c!r}; card {card}")
+        out["c"] = {"avgMetrics": list(cvm.avgMetrics), "rmse": rmse_c}
+
+        # (d) TrainValidationSplit on the featurized frame
+        tvs_runs = {}
+        for mode, fused in (("fused", True), ("placed", False)):
+            GLOBAL_CONF.set("sml.cv.batchFolds", fused)
+            try:
+                clear_fit_caches()
+                tvm, got, ms = sel_measured(lambda: TrainValidationSplit(
+                    estimator=rf, estimatorParamMaps=grid, evaluator=ev,
+                    parallelism=4, seed=42).fit(feat_train))
+            finally:
+                GLOBAL_CONF.unset("sml.cv.batchFolds")
+            best_d = int(np.argmin(tvm.validationMetrics))
+            sel_expect(f"(d) TVS {mode}", got, add_launches(
+                fits_launches(points, fused),
+                fits_launches([points[best_d]], False),
+                {"forest_traverse": len(points)}))
+            tvs_runs[mode] = list(tvm.validationMetrics)
+            walls[f"tvs_{mode}_ms"] = ms
+        if tvs_runs["fused"] != tvs_runs["placed"]:
+            raise AssertionError(f"(d) {tvs_runs}")
+        print(f"selection (d) validationMetrics {tvs_runs['fused']} (fused "
+              f"and placed equal bit for bit); card {card}")
+        out["d"] = {"validationMetrics": tvs_runs["fused"]}
+
+        # (e) fmin over ML 08's space, three ways
+        fit_df, val_df = train.randomSplit([0.8, 0.2], seed=42)
+        fit_df.cache()
+        val_df.cache()
+
+        def per_trial():
+            return sel_objective(pipe, rf, fit_df, val_df, ev)
+
+        def batched():
+            # the prep fitted and applied once a search, inside its wall
+            # (the per-trial objective refits it on every trial)
+            prep = Pipeline(stages=sel_prep()).fit(fit_df)
+            f_fit = prep.transform(fit_df).cache()
+            f_val = prep.transform(val_df).cache()
+
+            def score_batch(values):
+                return fused_param_scores(rf, [
+                    {rf.getParam("maxDepth"): int(v["max_depth"]),
+                     rf.getParam("numTrees"): int(v["num_trees"])}
+                    for v in values], f_fit, f_val, ev)
+            return sel_objective(pipe, rf, fit_df, val_df, ev, score_batch)
+
+        histories = {}
+        for mode, trials, objective in (
+                ("Trials", Trials(), per_trial),
+                ("SparkTrials(2)", SparkTrials(parallelism=2), per_trial),
+                ("score_batch", Trials(), batched)):
+            GLOBAL_CONF.set("sml.tune.candidatesPerDispatch", 2)
+            try:
+                clear_fit_caches()
+                hist, got, ms = sel_measured(
+                    lambda: sel_fmin(objective(), trials))
+            finally:
+                GLOBAL_CONF.unset("sml.tune.candidatesPerDispatch")
+            pts = [(int(p["max_depth"]), int(p["num_trees"]))
+                   for p, _, _ in hist]
+            fits = [pts[i:i + 2] for i in range(0, len(pts), 2)] \
+                if objective is batched else [[p] for p in pts]
+            sel_expect(f"(e) fmin {mode}", got, add_launches(
+                *[fits_launches(g, True) for g in fits],
+                {"forest_traverse": len(pts)}))
+            if len(hist) != SEL_EVALS or any(s != STATUS_OK
+                                             for _, _, s in hist):
+                raise AssertionError(f"(e) {mode}: {hist}")
+            histories[mode] = hist
+            walls[f"fmin_{mode}_ms"] = ms
+        seq, par, fused = (histories["Trials"], histories["SparkTrials(2)"],
+                           histories["score_batch"])
+        # a generation's proposals share one posterior (the JAX package's
+        # fmin): generations of 2 (SparkTrials(2), score_batch at 2
+        # candidates a dispatch) propose alike; one by one (Trials) agrees
+        # with them through trial 11, the first TPE proposal
+        if par != fused or seq[:SEL_EVALS - 1] != par[:SEL_EVALS - 1]:
+            raise AssertionError(f"(e) histories differ:\n{seq}\n{par}\n"
+                                 f"{fused}")
+        loss_of = {}
+        for hist in histories.values():
+            for p, loss, _ in hist:
+                key = tuple(sorted(p.items()))
+                if loss_of.setdefault(key, loss) != loss:
+                    raise AssertionError(f"(e) {key}: losses {loss} and "
+                                         f"{loss_of[key]}")
+        # trial 12 is proposed from 11 trials one by one and from 10 in a
+        # generation of 2, so it may differ; it is recorded, not gated
+        last_equal = seq[-1] == par[-1]
+        print(f"selection (e) fmin trial history (max_depth, num_trees, "
+              f"loss): {[(p['max_depth'], p['num_trees'], l) for p, l, _ in par]}"
+              f" in generations of 2 (SparkTrials(2) and score_batch, bit "
+              f"for bit); Trials one by one {[(p['max_depth'], p['num_trees'], l) for p, l, _ in seq]}"
+              f" (equal through trial {SEL_EVALS - 1}; trial {SEL_EVALS} "
+              f"{'equal' if last_equal else 'differs'}); every trial ok, "
+              f"each point's loss the same in every run; card {card}")
+        out["e"] = {"generations_of_2": [[p["max_depth"], p["num_trees"], l]
+                                         for p, l, _ in par],
+                    "one_by_one": [[p["max_depth"], p["num_trees"], l]
+                                   for p, l, _ in seq],
+                    f"trial_{SEL_EVALS}_one_by_one_equal": last_equal}
+    if watch.plain_on_cuda:
+        raise AssertionError(f"the plain versions ran {watch.plain_on_cuda} "
+                             f"times on CUDA tensors")
+    out["walls_ms"] = walls
+
+    # (a) at cpu_rows rows, on the card and on the CPU
+    small = sel_frames(cpu_rows)
+    metrics = {}
+    for dev in (device.type, "cpu"):
+        GLOBAL_CONF.set("sml.device", dev)
+        try:
+            clear_fit_caches()
+            ft = Pipeline(stages=sel_prep()).fit(small[0]).transform(
+                small[0]).cache()
+            metrics[dev] = list(sel_cv(rf, grid, 4).fit(ft).avgMetrics)
+        finally:
+            GLOBAL_CONF.set("sml.device", device.type)
+    for a, b in zip(metrics[device.type], metrics["cpu"]):
+        if abs(a - b) > max(RMSE_ATOL, RMSE_RTOL * abs(b)):
+            raise AssertionError(f"card {metrics[device.type]} vs cpu "
+                                 f"{metrics['cpu']}")
+    print(f"selection card-vs-cpu {cpu_rows} rows (a): avgMetrics "
+          f"{metrics[device.type]} vs {metrics['cpu']}")
+    out["card_vs_cpu"] = metrics
+    _zero_launches()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2283,11 +2717,13 @@ def main(argv=None) -> int:
                         _fit_rf)
     tuning = phase_tuning(args.seed, device, card)
     frames = phase_dataframe(device, card)
+    selection = phase_selection(device, card)
 
     def by_path(kernel: str) -> dict:
         return {"fit": fit["launches"][kernel],
                 "tuning": tuning["fused"][kernel],
-                "dataframe": frames["fit"][kernel]}
+                "dataframe": frames["fit"][kernel],
+                "selection": SEL_LAUNCHES[kernel]}
 
     def windows(kernel: str) -> dict:
         return {what: seen for what, seen in DEVICE_WINDOWS.items()
@@ -2301,11 +2737,13 @@ def main(argv=None) -> int:
         "replaces": "sml_tpu/native/traverse_kernel.py:109",
         "launches": main_path["launches"]
         + tuning["fused"]["forest_traverse"]
-        + frames["evaluate"]["forest_traverse"],
+        + frames["evaluate"]["forest_traverse"]
+        + SEL_LAUNCHES["forest_traverse"],
         "launches_by_path": {"serving": main_path["launches"],
                              "tuning": tuning["fused"]["forest_traverse"],
                              "dataframe": frames["evaluate"][
-                                 "forest_traverse"]},
+                                 "forest_traverse"],
+                             "selection": SEL_LAUNCHES["forest_traverse"]},
         "launches_by_rows": main_path["launches_by_rows"],
         "max_abs_err": err,
         "ms": k_ms, "device_ms": d_ms, "plain_ms": p_ms, "bound_ms": b_ms,
@@ -2386,7 +2824,7 @@ def main(argv=None) -> int:
         "launches_fused": tuning["fused"],
         "launches_one_by_one": tuning["sequential"],
         "walls_ms": tuning["walls"], "busy_ms": tuning["busy"],
-        "binning_ms_cpp_numpy": binning}}))
+        "binning_ms_cpp_numpy": binning, "selection": selection}}))
     print(json.dumps({"dataframe": {
         "launches_fit": frames["fit"], "launches_evaluate":
         frames["evaluate"], "rmse": frames["rmse"],

@@ -31,7 +31,11 @@ Ported so far:
   `csrc/murmur3.cc`, `frame/sampling.py` over `csrc/xorshift.cc`),
   Params and Pipeline (`ml/param.py`, `ml/base.py`), the feature stages
   (`ml/feature.py`), the evaluators (`ml/evaluation.py`), and tree
-  estimators and models that take DataFrames.
+  estimators and models that take DataFrames;
+- model selection: CrossValidator and TrainValidationSplit
+  (`ml/tuning.py`; a DT/RF grid as fused fits, anything else as placed
+  trials on the card, `device.run_placed_trials`), hyperopt's `fmin`
+  (`tune/`).
 
 Entry points run on the CUDA card unless the caller passes
 device="cpu"; without a card they raise. The DataFrame entry points

@@ -5,7 +5,7 @@ read.
 Known keys carry a type and a default; unknown `sml.*` keys raise on
 `get` so a typo cannot silently read a default. Counterpart of
 `sml_tpu/conf.py`, cut to the ported slices (serving, the fits,
-tuning's device half and the host layer). `sml.device` has no JAX
+tuning and the host layer). `sml.device` has no JAX
 counterpart key: it is the port's form of the JAX package's
 process-wide platform choice (`jax.config.update("jax_platforms",
 ...)`). The JAX package's `sml.tree.kernel` and
@@ -29,6 +29,12 @@ class ConfEntry:
     default: Any
     caster: Callable[[str], Any]
     doc: str = ""
+
+
+def _to_bool(v: Any) -> bool:
+    if isinstance(v, bool):
+        return v
+    return str(v).strip().lower() in ("true", "1", "yes", "on")
 
 
 _KNOWN: Dict[str, ConfEntry] = {}
@@ -82,6 +88,19 @@ _register("sml.cv.maxFusedTrials", 16, int,
           "Max (grid point x fold) fits fused into one device fit: a "
           "G-point grid over k folds costs ceil(G*k/maxFusedTrials) fit "
           "dispatches; <= 1 fuses only the folds (one fit per grid point)")
+_register("sml.cv.batchFolds", True, _to_bool,
+          "Fuse tree-regressor CV/TVS trial fits: with "
+          "sml.cv.maxFusedTrials > 1 the grid axis fuses too, so a G-point "
+          "grid over k folds costs ceil(G*k/maxFusedTrials) tree-fit "
+          "dispatches; every element is its sequential fit bit for bit. "
+          "false forces placed trials")
+_register("sml.tune.candidatesPerDispatch", 4, int,
+          "TPE candidates proposed AND scored per generation for "
+          "batch-capable fmin objectives (fn.score_batch): a "
+          "tree-estimator objective backed by "
+          "ml.tuning.fused_param_scores pays one fused device fit per "
+          "generation instead of one per trial; <= 1 keeps the "
+          "sequential propose-score loop")
 
 
 class TorchConf:
@@ -116,6 +135,9 @@ class TorchConf:
 
     def getInt(self, key: str) -> int:
         return int(self.get(key))
+
+    def getBool(self, key: str) -> bool:
+        return _to_bool(self.get(key))
 
     def unset(self, key: str) -> None:
         with self._lock:

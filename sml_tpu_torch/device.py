@@ -4,11 +4,15 @@ There is no mesh, no sharding and no collective on one card: a caller
 names a device, or gets the CUDA card. Entry points run on the card
 unless the caller asks for the CPU; asking for CUDA where there is none
 raises instead of carrying on somewhere else.
+
+`run_placed_trials` is the one-card form of the JAX package's placed
+trials: tuning's trials run `parallelism` worker threads wide, all on
+the session's device.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Callable, List, Optional, Sequence, Union
 
 import torch
 
@@ -35,3 +39,19 @@ def session_device() -> torch.device:
     through `resolve_device` (so a missing card raises)."""
     from .conf import GLOBAL_CONF
     return resolve_device(GLOBAL_CONF.get("sml.device"))
+
+
+def run_placed_trials(jobs: Sequence, fn: Callable, parallelism: int
+                      ) -> List:
+    """`fn(job)` for every job, `parallelism` worker threads wide, all on
+    the session's device (one card has one layout; the JAX package gives
+    each worker its own submesh). Results come back in job order. An
+    exception in a trial propagates."""
+    jobs = list(jobs)
+    session_device()  # no card: raise before any trial starts
+    parallelism = max(1, int(parallelism))
+    if parallelism <= 1 or len(jobs) <= 1:
+        return [fn(job) for job in jobs]
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(max_workers=min(parallelism, len(jobs))) as pool:
+        return list(pool.map(fn, jobs))

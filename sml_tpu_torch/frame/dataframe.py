@@ -25,6 +25,7 @@ Not ported yet (they wait for their slices): `join`, `crossJoin`,
 
 from __future__ import annotations
 
+import threading
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -115,6 +116,7 @@ class DataFrame:
                  op: str = "frame"):
         self._op = op
         self._compute = compute
+        self._lock = threading.RLock()
         self._session = session
         self._schema_hint = schema
         self._parts: Optional[Partitions] = None
@@ -149,20 +151,24 @@ class DataFrame:
                    op="from_partitions")
 
     def _materialize(self) -> Partitions:
-        if self._parts is None:
-            with PROFILER.span(f"materialize.{self._op}"):
-                self._parts = self._compute() or [{}]
-            offs, acc = [], 0
-            for p in self._parts:
-                offs.append(acc)
-                acc += block_len(p)
-            self._offsets = offs
-            # release the recipe: its closure holds the parent chain
-            self._compute = None  # type: ignore[assignment]
-            # an evaluator-pushdown hook is dead once the frame is
-            # materialized: drop it so it stops pinning the parent
-            if self.__dict__.get("_fused_eval") is not None:
-                self.__dict__["_fused_eval"] = None
+        # tuning's trials share frames across threads: one computes, the
+        # others wait for its partitions
+        with self._lock:
+            if self._parts is None:
+                with PROFILER.span(f"materialize.{self._op}"):
+                    parts = self._compute() or [{}]
+                offs, acc = [], 0
+                for p in parts:
+                    offs.append(acc)
+                    acc += block_len(p)
+                self._offsets = offs
+                self._parts = parts
+                # release the recipe: its closure holds the parent chain
+                self._compute = None  # type: ignore[assignment]
+                # an evaluator-pushdown hook is dead once the frame is
+                # materialized: drop it so it stops pinning the parent
+                if self.__dict__.get("_fused_eval") is not None:
+                    self.__dict__["_fused_eval"] = None
         return self._parts
 
     def _contexts(self) -> List[EvalContext]:

@@ -605,13 +605,21 @@ class _Estimator(_DeclaredParams, Estimator):
         model._inherit_params(self)
         return model
 
-    def _fit(self, df):
-        from ..device import session_device
+    def _extract(self, df):
+        """(features, labels, categorical slots) of a frame, rows whose
+        label is not finite dropped: what `fit(df)` fits on."""
         from ._staging import extract_xy
         fc = self.getOrDefault("featuresCol")
         X, y, _ = extract_xy(df, fc, self.getOrDefault("labelCol"))
-        return self.fit(X, y, categorical=_categorical_slots(df, fc),
-                        device=session_device())
+        ok = np.isfinite(y)
+        if not ok.all():
+            X, y = X[ok], y[ok]
+        return X, y, _categorical_slots(df, fc)
+
+    def _fit(self, df):
+        from ..device import session_device
+        X, y, cats = self._extract(df)
+        return self.fit(X, y, categorical=cats, device=session_device())
 
     def _fit_args(self, n_features: int) -> dict:
         raise NotImplementedError

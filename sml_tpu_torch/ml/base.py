@@ -40,6 +40,7 @@ def _model_classes() -> dict:
     from .. import xgboost
     from . import _tree_models as tm
     from . import feature as ft
+    from . import tuning as tn
     tree = {f"sml_tpu.ml._tree_models.{c}": getattr(tm, c) for c in (
         "DecisionTreeRegressionModel", "DecisionTreeClassificationModel",
         "RandomForestRegressionModel", "RandomForestClassificationModel",
@@ -55,7 +56,10 @@ def _model_classes() -> dict:
     xgb = {f"sml_tpu.xgboost.{c}": getattr(xgboost, c) for c in (
         "XgboostRegressorModel", "XgboostClassifierModel",
         "XgboostRegressor", "XgboostClassifier")}
-    return dict(tree, **feat, **xgb,
+    tuning = {f"sml_tpu.ml.tuning.{c}": getattr(tn, c) for c in (
+        "CrossValidator", "CrossValidatorModel", "TrainValidationSplit",
+        "TrainValidationSplitModel")}
+    return dict(tree, **feat, **xgb, **tuning,
                 **{"sml_tpu.ml.base.Pipeline": Pipeline,
                    "sml_tpu.ml.base.PipelineModel": PipelineModel})
 
@@ -79,8 +83,8 @@ def load(path: str):
     klass = _model_classes().get(meta["class"])
     if klass is None:
         raise ValueError(f"{path}: the port cannot load {meta['class']!r} "
-                         f"yet (tree models, feature stages and pipelines "
-                         f"only)")
+                         f"yet (tree models, feature stages, pipelines "
+                         f"and validators only)")
     obj = klass.__new__(klass)
     Params.__init__(obj)
     if meta.get("uid"):

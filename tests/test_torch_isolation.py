@@ -1,9 +1,11 @@
 """The port stands alone: importing every module of `sml_tpu_torch`, and
-running a DataFrame pipeline with the session's device set to the CPU,
-loads neither JAX, the JAX package, pandas nor pyarrow; and without a
-CUDA device the entry points (scoring, fitting, and a DataFrame fit,
-transform and evaluate) raise rather than carry on on the CPU (each
-check runs in a fresh interpreter with no CUDA device visible)."""
+running a DataFrame pipeline, a CrossValidator and `fmin` with the
+session's device set to the CPU, loads neither JAX, the JAX package,
+pandas nor pyarrow; and without a CUDA device the entry points
+(scoring, fitting, a DataFrame fit, transform and evaluate, a
+CrossValidator's fit and `fmin`'s placed trials) raise rather than carry
+on on the CPU (each check runs in a fresh interpreter with no CUDA
+device visible)."""
 
 import os
 import shutil
@@ -70,6 +72,72 @@ def test_the_host_layer_modules_are_among_the_imported():
                  "ml.base", "ml.feature", "ml.evaluation", "ml.regression",
                  "ml.classification"):
         assert f"sml_tpu_torch.{name}" in proc.stdout
+
+
+def test_the_selection_modules_are_among_the_imported():
+    proc = _run(IMPORT_ALL.replace("print(len(names), bad)",
+                                   "print(sorted(names))"))
+    assert proc.returncode == 0, proc.stderr
+    for name in ("tune", "tune._fmin", "tune._space", "ml.tuning"):
+        assert f"sml_tpu_torch.{name}" in proc.stdout
+
+
+SELECTION = """
+import sys
+import numpy as np
+from sml_tpu_torch import get_session, GLOBAL_CONF
+from sml_tpu_torch.courseware import make_airbnb_dataset
+from sml_tpu_torch.ml import CrossValidator, ParamGridBuilder, Pipeline
+from sml_tpu_torch.ml.evaluation import RegressionEvaluator
+from sml_tpu_torch.ml.feature import StringIndexer, VectorAssembler
+from sml_tpu_torch.ml.regression import RandomForestRegressor
+from sml_tpu_torch.tune import SparkTrials, fmin, hp, tpe
+GLOBAL_CONF.set("sml.device", DEVICE)
+df = get_session().createDataFrame(make_airbnb_dataset(n=600, seed=1))
+rf = RandomForestRegressor(labelCol="price", maxBins=16, seed=1)
+pipe = Pipeline(stages=[
+    StringIndexer(inputCol="room_type", outputCol="rt", handleInvalid="skip"),
+    VectorAssembler(inputCols=["rt", "accommodates"], outputCol="features"),
+    rf])
+grid = ParamGridBuilder().addGrid(rf.getParam("maxDepth"), [2, 3]).build()
+ev = RegressionEvaluator(labelCol="price")
+for what, call in (
+        ("cv", lambda: CrossValidator(estimator=pipe, estimatorParamMaps=grid,
+                                      evaluator=ev, numFolds=2,
+                                      parallelism=2).fit(df).avgMetrics),
+        ("fmin", lambda: fmin(lambda p: float(p["x"]) ** 2,
+                              {"x": hp.uniform("x", -1, 1)}, algo=tpe,
+                              max_evals=4,
+                              trials=SparkTrials(parallelism=2),
+                              rstate=np.random.RandomState(0)))):
+    try:
+        out = call()
+    except RuntimeError as e:
+        print(what, "raised:", e)
+        GLOBAL_CONF.set("sml.device", "cpu")
+        out = call()
+        GLOBAL_CONF.set("sml.device", DEVICE)
+    print(what, len(out))
+bad = sorted(k for k in sys.modules
+             if k.split(".")[0] in ("jax", "jaxlib", "sml_tpu", "pandas",
+                                    "pyarrow"))
+print(bad)
+"""
+
+
+def test_model_selection_on_the_cpu_loads_no_pandas_jax_or_sml_tpu():
+    proc = _run(SELECTION.replace("DEVICE", repr("cpu")))
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines() == ["cv 2", "fmin 1", "[]"]
+
+
+def test_model_selection_entry_points_raise_without_a_card():
+    proc = _run(SELECTION.replace("DEVICE", repr("cuda")))
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.strip().splitlines()
+    assert lines[0].startswith("cv raised: no CUDA device"), lines
+    assert lines[2].startswith("fmin raised: no CUDA device"), lines
+    assert [lines[1], lines[3], lines[4]] == ["cv 2", "fmin 1", "[]"]
 
 
 PIPELINE = """
