@@ -138,6 +138,36 @@ Phases:
    inside the wall) and the host/device split of one pipeline fit, in
    the tuning JSON line's "selection".
 
+13. main path, chunked plane and warm start, on phase 8's rows: (a) ML
+   11's XGBoost from an `ArrayChunkSource` of 8,192-row chunks through
+   `fit_ensemble_chunked` (bin caches emptied first): every tree bit-equal
+   to phase 8's matrix fit, 240 / 240 / 0 / 0 launches, no bins staged by
+   the fit (it reads the assembled matrix), `predict_chunked` of the
+   20,000 held-out rows bit-equal to `predict_margin`; (b) 20 rounds,
+   then `warm_start_ensemble_chunked` of 20 more at `rounds_per_dispatch`
+   5: bit-equal to (a), the margin replay exactly one `forest_traverse`
+   launch, 4 `tree.fit_dispatch`; the replay on the card bit-equal to
+   `forest_margin_plain` with the same `init`, and timed beside its
+   bound; `init` (a tensor and a number) bit-equal to the plain version
+   on the kernel's trees-in-parallel, one-group, tree-chunk and global
+   paths; (c) `checkpointed_fit` (40 rounds, `rounds_per_dispatch` 10)
+   stopped right after its second checkpoint and run again: it resumes
+   (`ct.resumes` +1) and equals the uninterrupted fit and (a); (d) ML 07's
+   `RandomForestRegressor(numTrees=20, maxDepth=6, maxBins=40,
+   seed=42).fit_chunked` on price equal to its `fit(categorical={})` in
+   trees and launches, and `cross_validate_chunked` (k=3) fold RMSEs; (e)
+   a `GeneratorChunkSource` of 4,194,304 x 10 f32 rows (32 chunks of
+   131,072, made from the seed chunk by chunk; the sketch compresses):
+   the ingest's sketch / prep / dispatch seconds and rows/s at
+   `sml.data.prefetchChunks` 2 and 1, the dispatch / drain order, the
+   device memory pass 2 adds (held under the compact bytes plus two
+   chunk blocks plus 16 MB); XGBoost (depth 6, 64 bins, 10 rounds) from
+   it; the rows made whole for the checks only: the assembled matrix
+   equal to `bin_with` byte for byte, the trees to a fit through
+   `_fit_ensemble(prebinned=...)` that stages its own copy, each edge
+   within one bin width of `np.quantile`. A `{"chunked": ...}` JSON line
+   gives these numbers.
+
 The second-to-last line is a JSON object listing each kernel, with the
 launches the profiler saw in each window behind its device times
 ("device_windows"); the last is {"ok": true, "device": {...}}.
@@ -147,6 +177,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import threading
@@ -1303,7 +1334,7 @@ def phase_fit(seed: int, device) -> dict:
             raise AssertionError(f"{k}: card rmse {r_card[k]} vs cpu rmse "
                                  f"{r_host[k]}")
     return {"launches": {k: sum(launches[m][k] for m in FITS)
-                         for k in launches["xgb"]}}
+                         for k in launches["xgb"]}, "xgb": models["xgb"]}
 
 
 def hist_bound_ms(binned, weight, n_bins: int, n_slots: int):
@@ -2682,6 +2713,365 @@ def phase_selection(device, card: str, n: int = 100_000,
     return out
 
 
+# ------------------------------- phase 13: chunked plane and warm start
+#: ML 11's XGBoost fit (`_fit_xgb`) as `fit_ensemble_chunked` arguments
+CHUNK_XGB = dict(n_trees=40, max_depth=6, max_bins=64, min_instances=1,
+                 min_info_gain=0.0, feature_k=None, bootstrap=False,
+                 subsample=1.0, seed=42, loss="squared", step_size=0.15,
+                 reg_lambda=1.0, gamma=0.0, boosting=True)
+CHUNK_ROWS = 8192
+#: phase 13(e): rows and features of the generator source, its chunks
+GEN_ROWS, GEN_FEAT, GEN_CHUNK = 4_194_304, 10, 131_072
+#: the kernels of the chunked paths
+CHUNK_KERNELS = FIT_KERNELS + ("forest_traverse",)
+#: shapes that take each of `forest_traverse`'s paths with `init`: (shape,
+#: rows, plan fields)
+INIT_PATHS = [
+    (SHAPES[0], 37, {"path": "shared", "n_chunks": 1}),     # trees in
+    (SHAPES[0], 100_000, {"path": "shared", "groups": 1}),  # parallel; one
+    (("many trees", 300, 6, 64, np.uint8, "step"), 4096,    # group; chunks
+     {"path": "shared", "n_chunks": 2}),
+    (("many trees", 300, 6, 64, np.uint8, "step"), 100_000,
+     {"path": "shared", "n_chunks": 2, "groups": 1}),
+    (("deep, global memory", 2, 16, 300, np.uint16, "step"), 4096,
+     {"path": "global"}),
+]
+
+
+def same_spec(a, b, what: str) -> None:
+    """Every table of every tree and the base equal, bit for bit."""
+    if len(a.trees) != len(b.trees) or a.base != b.base:
+        raise AssertionError(f"{what}: {len(a.trees)} vs {len(b.trees)} "
+                             f"trees, base {a.base!r} vs {b.base!r}")
+    for i, (ta, tb) in enumerate(zip(a.trees, b.trees)):
+        for fld in ta._fields:
+            if not np.array_equal(getattr(ta, fld), getattr(tb, fld)):
+                raise AssertionError(f"{what}: tree {i} {fld} differs")
+
+
+def _launch_delta(before: dict) -> dict:
+    now_ = _all_launches()
+    return {k: now_[k] - before[k] for k in now_}
+
+
+def _clear_chunk_caches() -> None:
+    from sml_tpu_torch.ml import _chunked
+    clear_fit_caches()
+    _chunked._ingest_memo.clear()
+
+
+def gen_maker(seed: int):
+    """(13e) the generator: chunk [start, stop) of f32 rows made from
+    (seed, start), labels a noisy linear function of two features."""
+    def make(start, stop):
+        r = np.random.default_rng([seed, start])
+        Xc = r.normal(size=(stop - start, GEN_FEAT)).astype(np.float32)
+        yc = (Xc[:, 0] - 0.5 * Xc[:, 1]
+              + r.normal(0, 0.3, stop - start)).astype(np.float32)
+        return Xc, yc
+    return make
+
+
+def phase_chunked(seed: int, device, card: str, xgb=None,
+                  n_rows: int = 80_000, gen_rows: int = GEN_ROWS,
+                  gen_chunk: int = GEN_CHUNK) -> dict:
+    """Phase 13: the chunked data plane and warm start on the card, at
+    the ML 11 and ML 07 widths (depth not cut). `xgb` is phase 8's ML 11
+    matrix fit (fitted here when None); smaller `n_rows` / `gen_rows`
+    rehearse the phase on the CPU."""
+    import tempfile
+    from sml_tpu_torch.ct import checkpointed_fit
+    from sml_tpu_torch.frame._chunks import (ArrayChunkSource,
+                                             GeneratorChunkSource)
+    from sml_tpu_torch.ml import _chunked as pch
+    from sml_tpu_torch.ml._staging import stage_bins_cached
+    from sml_tpu_torch.ml._tree_models import (RandomForestRegressor,
+                                               _fit_ensemble)
+    from sml_tpu_torch.ml.tree_impl import bin_with
+    from sml_tpu_torch.native import traverse_kernel as tk
+    from sml_tpu_torch.utils.profiler import PROFILER
+    from sml_tpu_torch.conf import GLOBAL_CONF
+    dev = None if device.type == "cuda" else "cpu"
+    X, logy, cats = fit_rows(seed)
+    Xtr, ytr = X[:n_rows], logy[:n_rows]
+    Xte = X[80_000:] if n_rows == 80_000 else X[n_rows:n_rows + 4_000]
+    if xgb is None:
+        xgb = _fit_xgb(Xtr, ytr, cats, dev)
+    src = lambda: ArrayChunkSource(Xtr, ytr, chunk_rows=CHUNK_ROWS)  # noqa: E731
+    xgb_kw = dict(CHUNK_XGB, categorical=cats)
+    out, chunked = {}, {k: 0 for k in CHUNK_KERNELS}
+
+    def counts():
+        return PROFILER.counters()
+
+    def add(delta):
+        for k in chunked:
+            chunked[k] += delta[k]
+
+    with KernelWatch() as watch:
+        # (a) ML 11 XGBoost from 8,192-row chunks, against phase 8's fit
+        _clear_chunk_caches()
+        c0, l0 = counts(), _all_launches()
+        t0 = time.perf_counter()
+        spec_a = pch.fit_ensemble_chunked(src(), device=dev, **xgb_kw)
+        wall_a = time.perf_counter() - t0
+        got = _launch_delta(l0)
+        c1 = counts()
+        add(got)
+        want = {"hist_accumulate": 240, "split_scan": 240,
+                "feature_mask": 0, "row_weights": 0, "forest_traverse": 0}
+        if got != want:
+            raise AssertionError(f"(a) launches {got}, not {want}")
+        if c1.get("staging.bin_cache_miss", 0) \
+                != c0.get("staging.bin_cache_miss", 0):
+            raise AssertionError("(a) the fit staged its own bins instead of "
+                                 "the assembled matrix")
+        same_spec(spec_a, xgb._spec, "(a) chunked vs matrix ML 11 fit")
+        l0 = _all_launches()
+        pred = pch.predict_chunked(spec_a, ArrayChunkSource(
+            Xte, chunk_rows=CHUNK_ROWS), device=dev)
+        add(_launch_delta(l0))
+        if not np.array_equal(pred, xgb._spec.predict_margin(Xte, dev)):
+            raise AssertionError("(a) predict_chunked differs from "
+                                 "predict_margin")
+        print(f"chunked (a) ML 11 XgboostRegressor from {n_rows} rows in "
+              f"chunks of {CHUNK_ROWS}: {len(spec_a.trees)} trees bit-equal "
+              f"to the matrix fit, launches {got}, no bins staged by the "
+              f"fit, {wall_a * 1e3!r} ms (host clock, ingest included); "
+              f"predict_chunked of {len(Xte)} rows bit-equal to "
+              f"predict_margin; card {card}")
+        out["a"] = {"launches": got, "wall_ms": wall_a * 1e3}
+
+        # (b) 20 rounds, then 20 appended in segments of 5
+        part = pch.fit_ensemble_chunked(src(), device=dev,
+                                        **dict(xgb_kw, n_trees=20))
+        d0, l0 = counts().get("tree.fit_dispatch", 0.0), _all_launches()
+        warm = pch.warm_start_ensemble_chunked(
+            part, src(), n_new_trees=20, seed=42, step_size=0.15,
+            reg_lambda=1.0, rounds_per_dispatch=5, device=dev)
+        got = _launch_delta(l0)
+        add(got)
+        dispatches = counts().get("tree.fit_dispatch", 0.0) - d0
+        same_spec(warm, spec_a, "(b) warm start 20 + 20 vs 40")
+        if got["forest_traverse"] != 1 or dispatches != 4:
+            raise AssertionError(f"(b) {got['forest_traverse']} replay "
+                                 f"launches, {dispatches} fit dispatches")
+        print(f"chunked (b) warm start: 20 rounds + 20 appended "
+              f"(rounds_per_dispatch=5) bit-equal to (a); the replay one "
+              f"forest_traverse launch; tree.fit_dispatch {dispatches!r}")
+        out["b"] = {"launches": got, "fit_dispatch": dispatches}
+
+        # (c) a checkpointed fit stopped after its second checkpoint
+        class Stop(RuntimeError):
+            pass
+
+        def stop_at(t):
+            if t == 20:
+                raise Stop()
+
+        params = dict(n_trees=40, max_depth=6, max_bins=64, seed=42,
+                      categorical=cats, step_size=0.15, reg_lambda=1.0,
+                      rounds_per_dispatch=10, device=dev)
+        with tempfile.TemporaryDirectory() as tmp:
+            whole = checkpointed_fit(src(), os.path.join(tmp, "a"), **params)
+            ckdir = os.path.join(tmp, "b")
+            try:
+                checkpointed_fit(src(), ckdir, on_checkpoint=stop_at,
+                                 **params)
+                raise AssertionError("(c) the fit was not stopped")
+            except Stop:
+                pass
+            r0 = counts().get("ct.resumes", 0.0)
+            resumed = checkpointed_fit(src(), ckdir, **params)
+            resumes = counts().get("ct.resumes", 0.0) - r0
+            left = os.path.exists(ckdir)
+        same_spec(resumed, whole, "(c) resumed vs uninterrupted")
+        same_spec(resumed, spec_a, "(c) resumed vs (a)")
+        if resumes != 1 or left:
+            raise AssertionError(f"(c) ct.resumes +{resumes}, directory "
+                                 f"left: {left}")
+        print(f"chunked (c) checkpointed fit stopped after round 20 of 40 "
+              f"(rounds_per_dispatch=10), resumed (ct.resumes +1): "
+              f"bit-equal to the uninterrupted fit and to (a)")
+
+        # (d) ML 07's random forest from chunks, and its chunked CV
+        price = np.exp(ytr)
+        rf = RandomForestRegressor(numTrees=20, maxDepth=6, maxBins=40,
+                                   seed=42)
+        _clear_chunk_caches()
+        l0 = _all_launches()
+        m_chunk = rf.fit_chunked(ArrayChunkSource(Xtr, price,
+                                                  chunk_rows=CHUNK_ROWS),
+                                 device=dev)
+        got = _launch_delta(l0)
+        add(got)
+        l0 = _all_launches()
+        m_mat = rf.fit(Xtr, price, categorical={}, device=dev)
+        want = _launch_delta(l0)
+        same_spec(m_chunk._spec, m_mat._spec, "(d) RF fit_chunked vs fit")
+        if got != want:
+            raise AssertionError(f"(d) launches {got} vs {want}")
+        l0 = _all_launches()
+        t0 = time.perf_counter()
+        cv = pch.cross_validate_chunked(
+            ArrayChunkSource(Xtr, price, chunk_rows=CHUNK_ROWS), 3, 42,
+            categorical={}, max_depth=6, max_bins=40, n_trees=20,
+            feature_k=3, bootstrap=True, seed=42, device=dev)
+        cv_ms = (time.perf_counter() - t0) * 1e3
+        add(_launch_delta(l0))
+        if not all(np.isfinite(cv["fold_rmse"])):
+            raise AssertionError(f"(d) CV {cv}")
+        print(f"chunked (d) ML 07 RandomForestRegressor.fit_chunked: 20 "
+              f"trees bit-equal to fit(categorical={{}}), launches {got}; "
+              f"cross_validate_chunked k=3 fold rmse {cv['fold_rmse']} "
+              f"(avg {cv['avg_rmse']!r}), {cv_ms!r} ms; card {card}")
+        out["d"] = {"launches": got, "fold_rmse": cv["fold_rmse"]}
+
+        # (e) a generator source that is never whole
+        make = gen_maker(seed)
+        gen = lambda: GeneratorChunkSource(  # noqa: E731
+            gen_rows, GEN_FEAT, make, chunk_rows=gen_chunk,
+            fingerprint=("chip-smoke-13e", seed, gen_rows))
+        t_e = time.perf_counter()
+        _clear_chunk_caches()
+        ings = {}
+        for depth_ in (2, 1):
+            GLOBAL_CONF.set("sml.data.prefetchChunks", depth_)
+            try:
+                t0 = time.perf_counter()
+                ings[depth_] = pch.ingest_source(
+                    gen(), 64, {}, device=dev,
+                    sketch=None if depth_ == 2 else ings[2].sketch)
+                ings[depth_].stats["wall_s"] = time.perf_counter() - t0
+            finally:
+                GLOBAL_CONF.unset("sml.data.prefetchChunks")
+        ing = ings[2]
+        if ing.stats["sketch_exact"]:
+            raise AssertionError("(e) the sketch did not compress")
+        order = ing.stats["order"]
+        if order.index(("dispatch", 1)) > order.index(("drain", 0)):
+            raise AssertionError(f"(e) no overlap: {order[:6]}")
+        l0 = _all_launches()
+        spec_e = pch.fit_ensemble_chunked(
+            gen(), device=dev, **dict(CHUNK_XGB, categorical={}, n_trees=10,
+                                      seed=seed))
+        add(_launch_delta(l0))
+        Xg = np.concatenate([make(s, min(s + gen_chunk, gen_rows))[0]
+                             for s in range(0, gen_rows, gen_chunk)])
+        yg = np.concatenate([make(s, min(s + gen_chunk, gen_rows))[1]
+                             for s in range(0, gen_rows, gen_chunk)])
+        whole_bins = bin_with(Xg, ing.binning)
+        miss0 = counts().get("staging.bin_cache_miss", 0)
+        assembled = stage_bins_cached(ing.binned, device).cpu().numpy()
+        if counts().get("staging.bin_cache_miss", 0) != miss0:
+            raise AssertionError("(e) the assembled matrix is not cached")
+        if not np.array_equal(assembled, whole_bins):
+            raise AssertionError("(e) the assembled matrix differs from "
+                                 "bin_with of the whole rows")
+        clear_fit_caches()
+        spec_m = _fit_ensemble(
+            None, yg, categorical={}, prebinned=(whole_bins, ing.binning),
+            device=dev, **dict(CHUNK_XGB, n_trees=10, seed=seed))
+        same_spec(spec_e, spec_m, "(e) chunked vs prebinned whole-rows fit")
+        probs = np.linspace(0, 1, 65)[1:-1]
+        worst = 0.0
+        for f in range(GEN_FEAT):
+            exact = np.quantile(Xg[:, f], probs)
+            err = np.abs(ing.binning.edges[f, :len(probs)] - exact).max()
+            if err >= np.diff(exact).max():
+                raise AssertionError(f"(e) feature {f} edges off by {err}")
+            worst = max(worst, float(err / np.diff(exact).max()))
+        e_s = time.perf_counter() - t_e
+        compact = ing.stats["compact_bytes"]
+        block = gen_chunk * GEN_FEAT
+        peak = ing.stats["chunk_stage_peak_bytes"]
+        raw = gen_rows * GEN_FEAT * 4
+        if peak is not None and peak > compact + 2 * block + 16 * 2 ** 20:
+            raise AssertionError(f"(e) pass 2 added {peak} bytes")
+        for d_, g in sorted(ings.items(), reverse=True):
+            st = g.stats
+            print(f"chunked (e) ingest of {gen_rows} x {GEN_FEAT} f32 rows "
+                  f"in {st['n_chunks']} chunks at prefetchChunks={d_}: "
+                  f"sketch {st['sketch_s']!r} s{' (reused)' if d_ == 1 else ''}"
+                  f", prep {st['prep_s']!r} s (summed over workers), "
+                  f"dispatch {st['dispatch_s']!r} s, pass 2 "
+                  f"{st['pipeline_s']!r} s, wall {st['wall_s']!r} s, "
+                  f"{gen_rows / st['wall_s']!r} rows/s (host clock); card "
+                  f"{card}")
+        print(f"chunked (e) order {order[:8]} ... (dispatch 1 before drain "
+              f"0); pass 2 added {peak} bytes of device memory (compact "
+              f"{compact}, + 2 chunk blocks {compact + 2 * block}, raw f32 "
+              f"{raw}); assembled matrix == bin_with byte for byte; 10 "
+              f"trees bit-equal to the prebinned fit; edges within "
+              f"{worst!r} of a bin width of np.quantile; phase (e) "
+              f"{e_s!r} s")
+        out["e"] = {
+            "rows": gen_rows, "chunks": ing.stats["n_chunks"],
+            "ingest": {str(d_): {k: g.stats[k] for k in (
+                "sketch_s", "prep_s", "dispatch_s", "pipeline_s", "wall_s")}
+                for d_, g in ings.items()},
+            "order_head": order[:8], "pass2_device_bytes": peak,
+            "compact_bytes": compact, "chunk_block_bytes": block,
+            "raw_f32_bytes": raw, "edge_err_bin_widths": worst,
+            "phase_s": e_s}
+    if watch.plain_on_cuda:
+        raise AssertionError(f"the plain versions ran {watch.plain_on_cuda} "
+                             f"times on CUDA tensors")
+    # the replay and `init` against the plain version, outside the
+    # main path's watch
+    Bd = stage_bins_cached(bin_with(Xtr, part.binning), device)
+    tabs = [torch.from_numpy(np.ascontiguousarray(np.stack(
+        [getattr(t, f) for t in part.trees]), dt)).to(device)
+        for f, dt in (("split_feature", np.int32),
+                      ("split_bin", np.int32),
+                      ("leaf_value", np.float32))]
+    w = torch.full((20,), 0.15, dtype=torch.float32, device=device)
+    replay = tk.forest_traverse(Bd, *tabs, w, depth=6, init=part.base)
+    plain = tk.forest_margin_plain(Bd, *tabs, w, 6, init=part.base)
+    if not torch.equal(replay, plain):
+        raise AssertionError("(b) the replay differs from "
+                             "forest_margin_plain")
+    print(f"chunked (b) the replay ({n_rows} rows, 20 trees) on the "
+          f"card bit-equal to forest_margin_plain with init=base")
+    if device.type == "cuda":
+        run = lambda: tk.forest_traverse(Bd, *tabs, w, depth=6,  # noqa: E731
+                                         init=part.base)
+        b_ms, b_by = bound_ms(Bd, tabs[0], tabs[1], 6)
+        out["replay"] = {
+            "ms": time_ms(run, 50),
+            "device_ms": device_ms(run, 50, ("forest_traverse",),
+                                   what="forest_traverse replay"),
+            "plain_ms": time_ms(lambda: tk.forest_margin_plain(
+                Bd, *tabs, w, 6, init=part.base), 5),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "shape": f"ML 11 replay: {n_rows} rows F=10 uint8, T=20 "
+                     f"depth=6, init=base"}
+        print(f"chunked (b) replay times: {out['replay']}; card {card}")
+    # the kernel with `init` on each of its paths, tensor and number
+    for i, (shape, n, expect) in enumerate(INIT_PATHS):
+        rng = np.random.default_rng([seed, 13, i])
+        ops = shape_operands(rng, shape, n, device)
+        plan = tk.traverse_plan(n, N_FEAT, ops[0].element_size(),
+                                *ops[1].shape, ops[5])
+        if any(getattr(plan, k) != v for k, v in expect.items()):
+            raise AssertionError(f"init path {shape[0]} x {n}: {plan} "
+                                 f"does not hold {expect}")
+        start = torch.from_numpy(rng.normal(size=n).astype(
+            np.float32)).to(device)
+        for init in (start, 0.625):
+            k_out = tk.forest_traverse(*ops[:5], depth=ops[5], init=init)
+            p_out = tk.forest_margin_plain(*ops, init=init)
+            if not torch.equal(k_out, p_out):
+                raise AssertionError(f"init path {shape[0]} x {n} "
+                                     f"({type(init).__name__}) differs")
+        print(f"kernel-vs-plain  forest_traverse init  {shape[0]:<19} "
+              f"rows={n:<7}: {plan} bit-equal (tensor and number)  ok")
+    out["launches"] = chunked
+    print(f"chunked launches on the main path: {chunked}")
+    _zero_launches()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2718,12 +3108,14 @@ def main(argv=None) -> int:
     tuning = phase_tuning(args.seed, device, card)
     frames = phase_dataframe(device, card)
     selection = phase_selection(device, card)
+    chunked = phase_chunked(args.seed, device, card, fit["xgb"])
 
     def by_path(kernel: str) -> dict:
         return {"fit": fit["launches"][kernel],
                 "tuning": tuning["fused"][kernel],
                 "dataframe": frames["fit"][kernel],
-                "selection": SEL_LAUNCHES[kernel]}
+                "selection": SEL_LAUNCHES[kernel],
+                "chunked": chunked["launches"][kernel]}
 
     def windows(kernel: str) -> dict:
         return {what: seen for what, seen in DEVICE_WINDOWS.items()
@@ -2738,12 +3130,17 @@ def main(argv=None) -> int:
         "launches": main_path["launches"]
         + tuning["fused"]["forest_traverse"]
         + frames["evaluate"]["forest_traverse"]
-        + SEL_LAUNCHES["forest_traverse"],
+        + SEL_LAUNCHES["forest_traverse"]
+        + chunked["launches"]["forest_traverse"],
         "launches_by_path": {"serving": main_path["launches"],
                              "tuning": tuning["fused"]["forest_traverse"],
                              "dataframe": frames["evaluate"][
                                  "forest_traverse"],
-                             "selection": SEL_LAUNCHES["forest_traverse"]},
+                             "selection": SEL_LAUNCHES["forest_traverse"],
+                             "chunked": chunked["launches"][
+                                 "forest_traverse"]},
+        "replay_launches": chunked["b"]["launches"]["forest_traverse"],
+        "replay": chunked["replay"],
         "launches_by_rows": main_path["launches_by_rows"],
         "max_abs_err": err,
         "ms": k_ms, "device_ms": d_ms, "plain_ms": p_ms, "bound_ms": b_ms,
@@ -2825,6 +3222,8 @@ def main(argv=None) -> int:
         "launches_one_by_one": tuning["sequential"],
         "walls_ms": tuning["walls"], "busy_ms": tuning["busy"],
         "binning_ms_cpp_numpy": binning, "selection": selection}}))
+    print(json.dumps({"chunked": {k: v for k, v in chunked.items()
+                                  if k != "replay"}}))
     print(json.dumps({"dataframe": {
         "launches_fit": frames["fit"], "launches_evaluate":
         frames["evaluate"], "rmse": frames["rmse"],

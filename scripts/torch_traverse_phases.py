@@ -72,7 +72,7 @@ def main(argv=None) -> int:
                 lv.data_ptr(), w.data_ptr(), out.data_ptr(), binned.shape[0],
                 binned.shape[1], sf.shape[0], sf.shape[1], depth, 1,
                 p.tile_rows, p.groups, p.threads, p.chunk, p.grid, p.stage_x,
-                torch.cuda.current_stream().cuda_stream)
+                None, 0.0, torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"launch failed: CUDA error {err} ({p})")
 

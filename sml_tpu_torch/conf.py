@@ -66,6 +66,30 @@ _register("sml.predict.binCacheBytes", 1 << 30, int,
 _register("sml.tree.binCacheBytes", 2 << 30, int,
           "Device-bytes budget for the content-keyed cache of staged "
           "compact bin matrices and stacked fold matrices")
+_register("sml.tree.roundsPerDispatch", 0, int,
+          "Boosting rounds between round-level hook points: k > 0 splits "
+          "a boosted fit's rounds into ceil(n_trees/k) segments, each "
+          "counted as one tree.fit_dispatch, and an on_rounds hook (the "
+          "round checkpoints of ct/) fires at each segment boundary but "
+          "the last; 0 = the whole ensemble as one segment (default). "
+          "The trees do not depend on it")
+_register("sml.data.chunkRows", 65536, int,
+          "Row-block size of the out-of-core data plane (frame/_chunks.py): "
+          "ChunkSources yield chunks of at most this many rows, and the "
+          "chunked ingest quantizes and stages one chunk at a time, so "
+          "host residency is a few chunk buffers plus the compact bin "
+          "matrix, never the raw float data")
+_register("sml.data.sketchBuckets", 2048, int,
+          "Centroid budget per feature of the streamed-quantization "
+          "quantile sketch: below the exact cap the sketch holds raw "
+          "values (bin edges bit-identical to make_bins), above it each "
+          "feature compresses to this many weight-uniform centroids "
+          "(edges within one bin width for buckets >> maxBins)")
+_register("sml.data.prefetchChunks", 2, int,
+          "Chunked-ingest lookahead: chunks dispatched (copied to the "
+          "device from pinned staging buffers) ahead of the drain point, "
+          "so chunk i+1's host quantization overlaps chunk i's copy; also "
+          "the number of pinned staging buffers. 1 = fully synchronous")
 _register("sml.fit.foldStackBytes", 1 << 30, int,
           "Byte bound for the fit-time fold-stack memo (stacked CV fold "
           "datasets reused across a tuning grid)")

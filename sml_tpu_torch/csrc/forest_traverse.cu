@@ -68,9 +68,20 @@
 //   traversed by the global-memory kernel, one thread per row.
 //
 // Numerics. Leaf choice is exact (integer compares). The tree sum is f32
-// in tree order from 0.0f, each multiply and add rounded on its own (no
-// FMA contraction), so it is bit-equal to the sequential f32 loop and to
-// forest_margin_plain.
+// in tree order from each row's starting value, each multiply and add
+// rounded on its own (no FMA contraction), so it is bit-equal to the
+// sequential f32 loop and to forest_margin_plain.
+//
+// The starting value. Prediction starts every row from 0.0f (the wrapper
+// adds the base margin afterwards, in float64). A warm start's margin
+// replay (sml_tpu_torch/ml/tree_impl.py, resume_ensemble_on_device)
+// starts from the base margin: the fit's carry is ((base + s*l0) + s*l1)
+// + ..., every operation rounded in f32, and adding the base at the end
+// would round differently. So the first chunk of trees reads `init[row]`
+// (an (n,) f32 operand) or, with init null, `init_value` (0.0f for
+// prediction, whose bits do not change); later chunks read `out[row]`,
+// as they always did. It is the JAX package's plain-jnp replay
+// (sml_tpu/ml/tree_impl.py:985-1011) as one launch.
 //
 // Contract. Launches on the caller's stream, does not synchronise,
 // allocates nothing. Returns cudaGetLastError() after the launch.
@@ -256,13 +267,22 @@ struct TileBins {
   }
 };
 
-// Row r's sum of a tile's leaf values in tree order (adding to what
-// earlier chunks left in `out`), loads ahead of the adds.
+// A row's starting value: init[row], or init_value when init is null.
+__device__ __forceinline__ float start_value(const float* __restrict__ init,
+                                             float init_value, int64_t row) {
+  return init != nullptr ? init[row] : init_value;
+}
+
+// Row r's sum of a tile's leaf values in tree order (adding to its
+// starting value on the first chunk of trees, else to what earlier chunks
+// left in `out`), loads ahead of the adds.
 __device__ __forceinline__ void sum_row(const float* __restrict__ vals,
-                                        float* __restrict__ out, int64_t row,
-                                        int r, int tile_rows, int tc,
+                                        float* __restrict__ out,
+                                        const float* __restrict__ init,
+                                        float init_value, int64_t row, int r,
+                                        int tile_rows, int tc,
                                         bool first_chunk) {
-  float acc = first_chunk ? 0.0f : out[row];
+  float acc = first_chunk ? start_value(init, init_value, row) : out[row];
   int t = 0;
   for (; t + kSumAhead <= tc; t += kSumAhead) {
     float v[kSumAhead];
@@ -282,6 +302,7 @@ forest_traverse_tiles(const BinT* __restrict__ binned,
                       const int32_t* __restrict__ sb,
                       const float* __restrict__ lv,
                       const float* __restrict__ w, float* __restrict__ out,
+                      const float* __restrict__ init, float init_value,
                       int n, int n_feat, int n_trees, int n_nodes, int depth,
                       int tile_rows, int groups, int chunk) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -431,7 +452,11 @@ forest_traverse_tiles(const BinT* __restrict__ binned,
       if (groups == 1) {
         // one group: a thread runs every tree of its row in order and adds
         // the values as it goes (no leaf-value buffer, no separate sum)
-        float acc = t0 == 0 || r >= rows ? 0.0f : out[row0 + r];
+        float acc = 0.0f;
+        if (r < rows) {
+          acc = t0 == 0 ? start_value(init, init_value, row0 + r)
+                        : out[row0 + r];
+        }
         for (; q + kBatch <= tc; q += kBatch) {
           acc = descend<kBatch, BinT, kStageX, true>(
               s_rec, s_leaf, x, vals, xrow, n_feat, depth, nrec, tile_rows, r,
@@ -466,16 +491,16 @@ forest_traverse_tiles(const BinT* __restrict__ binned,
         bins.store(binned, n, n_feat, tile_rows, next, s_x((k + 1) & 1));
       }
       if (groups > 1 && k > 0 && tid < prev_rows) {
-        sum_row(s_vals((k - 1) & 1), out, prev0 + tid, tid, tile_rows, tc,
-                t0 == 0);
+        sum_row(s_vals((k - 1) & 1), out, init, init_value, prev0 + tid, tid,
+                tile_rows, tc, t0 == 0);
       }
       prev0 = row0;
       prev_rows = rows;
     }
     __syncthreads();  // the last tile's leaf values are written
     if (groups > 1 && k > 0 && tid < prev_rows) {
-      sum_row(s_vals((k - 1) & 1), out, prev0 + tid, tid, tile_rows, tc,
-              t0 == 0);
+      sum_row(s_vals((k - 1) & 1), out, init, init_value, prev0 + tid, tid,
+              tile_rows, tc, t0 == 0);
     }
   }
   STAMP(5);
@@ -488,12 +513,13 @@ forest_traverse_global(const BinT* __restrict__ binned,
                        const int32_t* __restrict__ sb,
                        const float* __restrict__ lv,
                        const float* __restrict__ w, float* __restrict__ out,
+                       const float* __restrict__ init, float init_value,
                        int n, int n_feat, int n_trees, int n_nodes,
                        int depth) {
   const int row = blockIdx.x * blockDim.x + threadIdx.x;
   if (row >= n) return;
   const BinT* x = binned + static_cast<size_t>(row) * n_feat;
-  float acc = 0.0f;
+  float acc = start_value(init, init_value, row);
   for (int t = 0; t < n_trees; ++t) {
     const size_t base = static_cast<size_t>(t) * n_nodes;
     int node = 0;
@@ -534,49 +560,56 @@ cudaError_t allow_smem(size_t bytes) {
 
 template <typename BinT, bool kStageX>
 cudaError_t launch_tiles(const BinT* b, const int32_t* f, const int32_t* s,
-                         const float* v, const float* wt, float* o, int n,
-                         int n_feat, int n_trees, int n_nodes, int depth,
-                         const Plan& p, cudaStream_t stream) {
+                         const float* v, const float* wt, float* o,
+                         const float* in, float in_value, int n, int n_feat,
+                         int n_trees, int n_nodes, int depth, const Plan& p,
+                         cudaStream_t stream) {
   const Layout L(p.chunk, depth, p.tile_rows, n_feat, kStageX, p.groups > 1);
   if (L.total > kSmemBlock) return cudaErrorInvalidValue;
   cudaError_t err = allow_smem<BinT, kStageX>(L.total);
   if (err != cudaSuccess) return err;
   forest_traverse_tiles<BinT, kStageX><<<p.grid, p.threads, L.total, stream>>>(
-      b, f, s, v, wt, o, n, n_feat, n_trees, n_nodes, depth, p.tile_rows,
-      p.groups, p.chunk);
+      b, f, s, v, wt, o, in, in_value, n, n_feat, n_trees, n_nodes, depth,
+      p.tile_rows, p.groups, p.chunk);
   return cudaGetLastError();
 }
 
 template <typename BinT>
 cudaError_t launch(const void* binned, const void* sf, const void* sb,
-                   const void* lv, const void* w, void* out, int n,
-                   int n_feat, int n_trees, int n_nodes, int depth,
-                   const Plan& p, cudaStream_t stream) {
+                   const void* lv, const void* w, void* out, const void* init,
+                   float init_value, int n, int n_feat, int n_trees,
+                   int n_nodes, int depth, const Plan& p,
+                   cudaStream_t stream) {
   const BinT* b = static_cast<const BinT*>(binned);
   const int32_t* f = static_cast<const int32_t*>(sf);
   const int32_t* s = static_cast<const int32_t*>(sb);
   const float* v = static_cast<const float*>(lv);
   const float* wt = static_cast<const float*>(w);
   float* o = static_cast<float*>(out);
+  const float* in = static_cast<const float*>(init);
   if (!p.shared) {
     const dim3 grid((n + kGlobalThreads - 1) / kGlobalThreads);
     forest_traverse_global<BinT><<<grid, kGlobalThreads, 0, stream>>>(
-        b, f, s, v, wt, o, n, n_feat, n_trees, n_nodes, depth);
+        b, f, s, v, wt, o, in, init_value, n, n_feat, n_trees, n_nodes, depth);
     return cudaGetLastError();
   }
   if (p.stage_x) {
-    return launch_tiles<BinT, true>(b, f, s, v, wt, o, n, n_feat, n_trees,
-                                    n_nodes, depth, p, stream);
+    return launch_tiles<BinT, true>(b, f, s, v, wt, o, in, init_value, n,
+                                    n_feat, n_trees, n_nodes, depth, p,
+                                    stream);
   }
-  return launch_tiles<BinT, false>(b, f, s, v, wt, o, n, n_feat, n_trees,
-                                   n_nodes, depth, p, stream);
+  return launch_tiles<BinT, false>(b, f, s, v, wt, o, in, init_value, n,
+                                   n_feat, n_trees, n_nodes, depth, p,
+                                   stream);
 }
 
 }  // namespace
 
 // bin_bytes: 1 = uint8, 2 = uint16, 4 = int32 bin matrix (n, n_feat),
 // row-major. sf, sb: int32 (n_trees, n_nodes); lv: f32 (n_trees,
-// n_nodes); w: f32 (n_trees,); out: f32 (n,). The launch (traverse_plan):
+// n_nodes); w: f32 (n_trees,); out: f32 (n,); init: f32 (n,), each row's
+// starting value, or null for init_value in every row. The launch
+// (traverse_plan):
 // shared = 0 runs the global-memory kernel (256 threads a block, one row
 // each); shared = 1 runs the tiled kernel with `grid` blocks of `threads`
 // = tile_rows * groups threads, tile_rows a multiple of 32, trees staged
@@ -588,6 +621,7 @@ extern "C" int sml_forest_traverse(int bin_bytes, const void* binned,
                                    int n_nodes, int depth, int shared,
                                    int tile_rows, int groups, int threads,
                                    int chunk, int grid, int stage_x,
+                                   const void* init, float init_value,
                                    void* stream) {
   if (n <= 0 || n_feat <= 0 || n_trees <= 0 || n_nodes <= 0 || depth < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -603,15 +637,18 @@ extern "C" int sml_forest_traverse(int bin_bytes, const void* binned,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (bin_bytes) {
     case 1:
-      return static_cast<int>(launch<uint8_t>(binned, sf, sb, lv, w, out, n,
+      return static_cast<int>(launch<uint8_t>(binned, sf, sb, lv, w, out,
+                                              init, init_value, n,
                                               n_feat, n_trees, n_nodes, depth,
                                               p, s));
     case 2:
-      return static_cast<int>(launch<uint16_t>(binned, sf, sb, lv, w, out, n,
+      return static_cast<int>(launch<uint16_t>(binned, sf, sb, lv, w, out,
+                                               init, init_value, n,
                                                n_feat, n_trees, n_nodes, depth,
                                                p, s));
     case 4:
-      return static_cast<int>(launch<int32_t>(binned, sf, sb, lv, w, out, n,
+      return static_cast<int>(launch<int32_t>(binned, sf, sb, lv, w, out,
+                                              init, init_value, n,
                                               n_feat, n_trees, n_nodes, depth,
                                               p, s));
     default:

@@ -15,6 +15,11 @@ The port's copy of `sml_tpu/frame/sampling.py`:
   `nextDouble` is java.util.Random's two-word construction over the
   XORShift `next(bits)` (`hash_seed`, `XORShiftRandom`).
 
+`row_uniforms` is not Spark's sampler: it is the chunked data plane's
+random-access draw (`frame/_chunks.py`), one uniform per global row
+index, so split and fold membership do not depend on how a source is
+chunked.
+
 `partition_uniforms` draws the stream in the C++ library
 `csrc/xorshift.cc`, built with g++ at first use; a build that fails
 raises. `XORShiftRandom` is its pure-Python reference, for the tests.
@@ -192,3 +197,25 @@ def presplit_sort(block: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
             continue
         return {c: v[order] for c, v in block.items()}
     return block
+
+
+# ----------------------------------------------------- stateless per-row draws
+_U64 = np.uint64
+_SPLITMIX_GAMMA = 0x9E3779B97F4A7C15  # splitmix64's golden-gamma increment
+
+
+def row_uniforms(seed: int, start: int, n: int) -> np.ndarray:
+    """A uniform [0, 1) float64 per global row index in [start, start +
+    n): the splitmix64 finalizer over a (seed, index) counter, so any
+    chunk draws its own rows with no sequential state and every row's
+    value is the same whatever chunking asked."""
+    if n == 0:
+        return np.empty(0, dtype=np.float64)
+    idx = np.arange(start, start + n, dtype=np.uint64)
+    z = (_U64((int(seed) * 0xD1B54A32D192ED03) & 0xFFFFFFFFFFFFFFFF)
+         + (idx + _U64(1)) * _U64(_SPLITMIX_GAMMA))
+    z = (z ^ (z >> _U64(30))) * _U64(0xBF58476D1CE4E5B9)
+    z = (z ^ (z >> _U64(27))) * _U64(0x94D049BB133111EB)
+    z = z ^ (z >> _U64(31))
+    # the top 53 bits as a double in [0, 1)
+    return (z >> _U64(11)).astype(np.float64) * (2.0 ** -53)

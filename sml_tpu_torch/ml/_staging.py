@@ -5,7 +5,9 @@ Counterpart of the bin cache of `sml_tpu/ml/_staging.py`
 or a stack of fold matrices or labels, is copied to the device once per
 content and kept, in its compact dtype (uint8/uint16/int32), in an LRU
 bounded by `sml.tree.binCacheBytes`. Per-row fit arrays
-(the labels) are copied as f32 by `stage_rows`, uncached.
+(the labels) are copied as f32 by `stage_rows`, uncached. The chunked
+ingest assembles a bin matrix on the device chunk by chunk
+(`ChunkAssembler`) and adopts it into the cache (`insert_bins_cached`).
 Rows are not padded: in eager PyTorch nothing compiles per shape, so
 kernels run on the true rows and need no padding mask.
 
@@ -87,7 +89,6 @@ def stage_bins_cached(binned: np.ndarray, device: torch.device) -> torch.Tensor:
     A copy made here is complete before it is returned (the staging
     stream is synchronised), so a tensor cached by one thread can be
     read on another thread's stream."""
-    from ..conf import GLOBAL_CONF
     from ..utils.profiler import PROFILER
     a = _normalize(binned)
     key = (_content_key(a), str(device))
@@ -103,6 +104,14 @@ def stage_bins_cached(binned: np.ndarray, device: torch.device) -> torch.Tensor:
         torch.cuda.current_stream(dev.device).synchronize()
     PROFILER.count("staging.bin_cache_miss")
     PROFILER.count("staging.h2d_bytes", float(a.nbytes))
+    _bin_cache_store(key, dev)
+    return dev
+
+
+def _bin_cache_store(key, dev: torch.Tensor) -> None:
+    """Keep `dev` under `key` (a first store wins), evicting the oldest
+    entries past `sml.tree.binCacheBytes` (the newest always stays)."""
+    from ..conf import GLOBAL_CONF
     budget = GLOBAL_CONF.getInt("sml.tree.binCacheBytes")
     with _stage_lock:
         if key not in _bin_stage_cache:
@@ -111,7 +120,89 @@ def stage_bins_cached(binned: np.ndarray, device: torch.device) -> torch.Tensor:
             while _bin_stage_bytes[0] > budget and len(_bin_stage_cache) > 1:
                 old = next(iter(_bin_stage_cache))
                 _bin_stage_bytes[0] -= _nbytes(_bin_stage_cache.pop(old))
+
+
+def insert_bins_cached(binned_host: np.ndarray,
+                       dev: torch.Tensor) -> torch.Tensor:
+    """Adopt a device bin matrix assembled elsewhere (the chunked
+    ingest's, `ChunkAssembler`) into the bin cache under its host
+    mirror's content key, so that a later `stage_bins_cached` of the same
+    rows on the same device hits it with no second copy. The tensor must
+    be complete (the assembler's `finish`)."""
+    key = (_content_key(_normalize(binned_host)), str(dev.device))
+    _bin_cache_store(key, dev)
     return dev
+
+
+class ChunkAssembler:
+    """The resident (n, F) compact bin matrix on `device`, assembled
+    chunk by chunk: the out-of-core ingest's device half (the JAX
+    package's donated `dynamic_update_slice` program,
+    `sml_tpu/ml/_staging.py:308-365`).
+
+    On the card the matrix is one `torch.empty((n, F))` in the bin dtype;
+    each chunk's block is copied into its own rows (no fixed window, no
+    padding) from one of `depth` pinned host buffers, reused in turn, on
+    a copy stream of its own. A copy from pageable memory would not be
+    asynchronous, so the overlap with the next chunk's quantization
+    needs the pinned buffers. A CUDA event records each copy: `put`
+    waits on a buffer's previous event before refilling it, and the
+    caller's drain waits on each in order. On the CPU the block is
+    copied in place and there is nothing to wait for.
+
+    Counts `ingest.h2d_bytes`."""
+
+    def __init__(self, n: int, n_feat: int, dtype: np.dtype,
+                 device: torch.device, depth: int):
+        self.device = device
+        self.matrix = torch.empty((n, n_feat),
+                                  dtype=torch.from_numpy(
+                                      np.zeros(0, dtype)).dtype,
+                                  device=device)
+        self._row_bytes = n_feat * np.dtype(dtype).itemsize
+        self._cuda = device.type == "cuda"
+        depth = max(int(depth), 1)
+        self._pinned = [None] * depth
+        self._events = [None] * depth
+        self._stream = torch.cuda.Stream(device) if self._cuda else None
+        self._k = 0
+
+    def put(self, start: int, block: np.ndarray):
+        """Copy `block` (rows, F) into rows [start, start + rows); returns
+        the copy's event (None on the CPU), for the caller's drain."""
+        from ..utils.profiler import PROFILER
+        rows = block.shape[0]
+        PROFILER.count("ingest.h2d_bytes", float(block.nbytes))
+        if not self._cuda:
+            self.matrix[start:start + rows] = torch.from_numpy(
+                np.ascontiguousarray(block))
+            return None
+        slot = self._k % len(self._pinned)
+        self._k += 1
+        if self._events[slot] is not None:
+            self._events[slot].synchronize()   # the buffer is free again
+        buf = self._pinned[slot]
+        if buf is None or buf.shape[0] < rows:
+            buf = torch.empty((rows, self._row_bytes), dtype=torch.uint8,
+                              pin_memory=True)
+            self._pinned[slot] = buf
+        buf.numpy()[:rows] = np.ascontiguousarray(block).view(
+            np.uint8).reshape(rows, self._row_bytes)
+        dst = self.matrix.view(torch.uint8)[start:start + rows]
+        # the matrix was allocated on the caller's stream
+        self._stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(self._stream):
+            dst.copy_(buf[:rows], non_blocking=True)
+            ev = torch.cuda.Event()
+            ev.record(self._stream)
+        self._events[slot] = ev
+        return ev
+
+    def finish(self) -> torch.Tensor:
+        """The assembled matrix, every copy complete."""
+        if self._cuda:
+            self._stream.synchronize()
+        return self.matrix
 
 
 def stage_stacked_cached(a: np.ndarray, device: torch.device) -> torch.Tensor:

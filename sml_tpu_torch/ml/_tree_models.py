@@ -4,7 +4,9 @@ Counterpart of `sml_tpu/ml/_tree_models.py`: `_EnsembleSpec` (the host
 description of a fitted ensemble, in the same arrays the JAX package
 saves), the DT/RF/GBT regression and classification models over it,
 `_fit_ensemble` (the one training path: bin on the host, fit every round
-on the device), tuning's device half (`_fit_ensemble_folds`,
+on the device; `prebinned=` is the chunked fits' entry), the warm start
+(`warm_start_ensemble`, `_resume_ensemble`: rounds appended to a saved
+boosted spec), tuning's device half (`_fit_ensemble_folds`,
 `_fit_ensembles_grid` and `fit_cv_grid`: a grid's (grid point, fold)
 fits fused on the device; `fused_reg_stats_from_matrix`: each model's
 regression statistics on its validation rows) and the estimators
@@ -358,26 +360,44 @@ def _cached_bins(X, y32, max_bins, categorical):
     return hit
 
 
-def _fit_ensemble(X: np.ndarray, y: np.ndarray, *, categorical: Dict[int, int],
-                  max_depth: int, max_bins: int, min_instances: int,
-                  min_info_gain: float, n_trees: int, feature_k: Optional[int],
-                  bootstrap: bool, subsample: float, seed: int, loss: str,
-                  step_size: float = 0.1, reg_lambda: float = 0.0,
-                  gamma: float = 0.0, boosting: bool = False,
-                  missing: Optional[float] = None,
-                  device=None) -> _EnsembleSpec:
+def _fit_ensemble(X: Optional[np.ndarray], y: np.ndarray, *,
+                  categorical: Dict[int, int], max_depth: int, max_bins: int,
+                  min_instances: int, min_info_gain: float, n_trees: int,
+                  feature_k: Optional[int], bootstrap: bool, subsample: float,
+                  seed: int, loss: str, step_size: float = 0.1,
+                  reg_lambda: float = 0.0, gamma: float = 0.0,
+                  boosting: bool = False, missing: Optional[float] = None,
+                  rounds_per_dispatch: Optional[int] = None, prebinned=None,
+                  on_rounds=None, device=None) -> _EnsembleSpec:
     """The one training path behind every tree learner: bin on the host,
     stage the compact bins and the labels on `device` (the card by
     default), and fit every round there
     (`tree_impl.fit_ensemble_on_device`). `missing`, when it is a
     number, becomes NaN before binning (NaN falls in bin 0). `seed`
     keys the Threefry streams of a sampled fit: a bootstrap of several
-    trees, `subsample < 1` or `feature_k < F`."""
+    trees, `subsample < 1` or `feature_k < F`.
+
+    `prebinned=(binned, binning)` is the out-of-core entry
+    (`ml/_chunked.py`): the compact matrix was quantized chunk by chunk
+    and its device copy assembled into the bin cache, so X may be None;
+    everything after binning is the same path. A boosted fit runs in
+    segments of `rounds_per_dispatch` rounds, and `on_rounds(t_done,
+    trees_so_far, base)` fires at each boundary but the last (the
+    round checkpoints of `ct/`); the trees do not depend on either."""
     from ..device import resolve_device
     from ..utils.profiler import PROFILER
     from ._staging import stage_bins_cached, stage_rows
     dev = resolve_device(device)
-    F = X.shape[1]
+    y32 = np.asarray(y, np.float32)
+    if prebinned is not None:
+        binned, binning = prebinned
+    else:
+        if missing is not None and not np.isnan(missing):
+            X = X.copy()
+            X[X == missing] = np.nan
+        with PROFILER.span("binning.fit", rows=int(X.shape[0])):
+            binned, binning = _cached_bins(X, y32, max_bins, categorical)
+    F = binned.shape[1]
     spec = TreeSpec(max_depth=max_depth, n_bins=max_bins, n_features=F,
                     feature_k=feature_k or F, min_instances=min_instances,
                     min_info_gain=min_info_gain, reg_lambda=reg_lambda,
@@ -386,22 +406,87 @@ def _fit_ensemble(X: np.ndarray, y: np.ndarray, *, categorical: Dict[int, int],
                       boosting=boosting,
                       bootstrap=bool(bootstrap) and n_trees > 1,
                       subsample=float(subsample), step_size=float(step_size))
-    y32 = np.asarray(y, np.float32)
-    if missing is not None and not np.isnan(missing):
-        X = X.copy()
-        X[X == missing] = np.nan
-    with PROFILER.span("binning.fit", rows=int(X.shape[0])):
-        binned, binning = _cached_bins(X, y32, max_bins, categorical)
-    with PROFILER.span("staging.fit", rows=int(X.shape[0])):
+    with PROFILER.span("staging.fit", rows=int(binned.shape[0])):
         binned_dev = stage_bins_cached(binned, dev)
         y_dev = stage_rows(y32, dev)
-    trees, base = fit_ensemble_on_device(binned_dev, y_dev, es, seed)
+    trees, base = fit_ensemble_on_device(binned_dev, y_dev, es, seed,
+                                         rounds_per_dispatch, on_rounds)
     mode = "binary" if loss == "logistic" else "regression"
     if boosting:
         weights = np.full(len(trees), step_size, dtype=np.float32)
         return _EnsembleSpec(trees, max_depth, binning, weights, base, F,
                              mode)
     return _EnsembleSpec(trees, max_depth, binning, None, 0.0, F, mode)
+
+
+def _resume_ensemble(spec: _EnsembleSpec, binned: np.ndarray,
+                     y32: np.ndarray, *, n_new_trees: int, seed: int,
+                     feature_k: Optional[int] = None, min_instances: int = 1,
+                     min_info_gain: float = 0.0, reg_lambda: float = 0.0,
+                     gamma: float = 0.0, subsample: float = 1.0,
+                     bootstrap: bool = False,
+                     step_size: Optional[float] = None,
+                     loss: Optional[str] = None,
+                     rounds_per_dispatch: Optional[int] = None,
+                     on_rounds=None, device=None) -> _EnsembleSpec:
+    """The warm start of `warm_start_ensemble` and
+    `ml/_chunked.warm_start_ensemble_chunked`: stage the rows, already
+    binned under the saved spec's binning (the appended rounds split on
+    the bin ids the saved trees use), replay the saved rounds' margin on
+    `device` and append `n_new_trees` boosting rounds
+    (`tree_impl.resume_ensemble_on_device`). Round t draws under the same
+    key whether fitted at once or appended, so k rounds and a warm start
+    of N - k equal N rounds bit for bit on the same rows and seed. The
+    base is the saved spec's. Raises for a spec that is not boosted, and
+    for a `step_size` other than the saved one (it would rescale the
+    saved rounds' share of every prediction)."""
+    from ..device import resolve_device
+    from ._staging import stage_bins_cached, stage_rows
+    if spec.tree_weights is None:
+        raise ValueError(
+            "warm start needs a boosted spec (GBT/xgboost): forest/DT "
+            "trees average independent rounds — refit those whole")
+    saved_step = float(spec.tree_weights[0])
+    step = float(step_size) if step_size is not None else saved_step
+    if np.float32(step) != np.float32(saved_step):
+        raise ValueError(
+            f"warm start cannot change step_size: the saved rounds were "
+            f"fitted at {saved_step} (got {step}); refit full to move it")
+    dev = resolve_device(device)
+    loss = loss or ("logistic" if spec.mode == "binary" else "squared")
+    F = spec.n_features
+    max_bins = spec.binning.edges.shape[1] + 1
+    n_total = len(spec.trees) + int(n_new_trees)
+    tspec = TreeSpec(max_depth=spec.depth, n_bins=max_bins, n_features=F,
+                     feature_k=feature_k or F, min_instances=min_instances,
+                     min_info_gain=min_info_gain, reg_lambda=reg_lambda,
+                     gamma=gamma)
+    es = EnsembleSpec(tree=tspec, n_trees=n_total, loss=loss, boosting=True,
+                      bootstrap=bool(bootstrap) and n_total > 1,
+                      subsample=float(subsample), step_size=step)
+    new_trees, base = tree_impl.resume_ensemble_on_device(
+        stage_bins_cached(binned, dev), stage_rows(y32, dev), es, seed,
+        spec.trees, float(spec.base), rounds_per_dispatch, on_rounds)
+    trees = list(spec.trees) + list(new_trees)
+    weights = np.full(len(trees), step, dtype=np.float32)
+    return _EnsembleSpec(trees, spec.depth, spec.binning, weights,
+                         float(base), F, spec.mode)
+
+
+def warm_start_ensemble(spec: _EnsembleSpec, X: np.ndarray, y: np.ndarray,
+                        *, n_new_trees: int, seed: int,
+                        **resume_kwargs) -> _EnsembleSpec:
+    """Append `n_new_trees` boosting rounds to a saved boosted spec on
+    in-memory rows (X, y), binned with the saved binning (`bin_with`: a
+    warm start never moves the edges). Keyword arguments are
+    `_resume_ensemble`'s (subsample, step_size, feature_k,
+    rounds_per_dispatch, on_rounds, device, ...); step_size and loss
+    default to the saved spec's. The out-of-core twin is
+    `ml/_chunked.warm_start_ensemble_chunked`."""
+    binned = bin_with(np.asarray(X), spec.binning)
+    return _resume_ensemble(spec, binned, np.asarray(y, np.float32),
+                            n_new_trees=n_new_trees, seed=seed,
+                            **resume_kwargs)
 
 
 def _fit_ensemble_folds(Xs, ys, cats, *, max_depth: int, max_bins: int,
@@ -623,6 +708,44 @@ class _Estimator(_DeclaredParams, Estimator):
 
     def _fit_args(self, n_features: int) -> dict:
         raise NotImplementedError
+
+    def fit_chunked(self, source, device=None):
+        """Fit on a `frame._chunks.ChunkSource` through the streamed
+        quantization (`ml/_chunked.fit_ensemble_chunked`) on `device` (the
+        card by default): the raw rows are never whole. Returns the model
+        `fit` would; with an exact sketch, the same model as `fit` on the
+        materialized rows. Categorical slots are not read from a source
+        (`categorical={}`, as in the JAX package). The DT, RF and GBT
+        params apply; an XGBoost estimator has no `maxDepth` and raises,
+        as in the JAX package (its chunked path is
+        `fit_ensemble_chunked` with XGBoost's arguments)."""
+        from ._chunked import fit_ensemble_chunked
+        g = self.getOrDefault
+        kwargs = dict(categorical={}, max_depth=int(g("maxDepth")),
+                      max_bins=int(g("maxBins")),
+                      min_instances=int(g("minInstancesPerNode")),
+                      min_info_gain=float(g("minInfoGain")),
+                      seed=self._seed(),
+                      loss="logistic" if self._is_classifier else "squared")
+        if self.hasParam("maxIter"):        # boosted (GBT)
+            kwargs.update(n_trees=int(g("maxIter")), feature_k=None,
+                          bootstrap=False,
+                          subsample=float(g("subsamplingRate")),
+                          step_size=float(g("stepSize")), boosting=True)
+        elif self.hasParam("numTrees"):     # bootstrap forest
+            kwargs.update(n_trees=int(g("numTrees")),
+                          feature_k=_feature_k(g("featureSubsetStrategy"),
+                                               source.n_features,
+                                               self._is_classifier),
+                          bootstrap=True,
+                          subsample=float(g("subsamplingRate")))
+        else:                               # one decision tree
+            kwargs.update(n_trees=1, feature_k=None, bootstrap=False,
+                          subsample=1.0)
+        model = self._model_cls(fit_ensemble_chunked(source, device=device,
+                                                     **kwargs))
+        model._inherit_params(self)
+        return model
 
 
 class _TreeEstimatorBase(_Estimator):

@@ -12,9 +12,12 @@ Counterpart of `sml_tpu/ml/tree_impl.py`.
   level by level on the device through the two kernels of
   `native/hist_kernel.py` (`hist_accumulate`, `split_scan`), with
   histogram subtraction below the root and one launch of each a level
-  whatever E is; `_fit_elements` runs the rounds as a Python loop.
+  whatever E is; `_fit_elements` runs the rounds as a Python loop, from
+  a start round and margin, in segments with a hook between them.
   `fit_ensemble_on_device` fits a DT, RF, GBT or XGBoost ensemble (one
-  element), `fit_ensembles_folds` one spec on k fold datasets, and
+  element), `resume_ensemble_on_device` appends boosting rounds to saved
+  ones after replaying their margin in one `forest_traverse` launch
+  (the warm start), `fit_ensembles_folds` one spec on k fold datasets, and
   `fit_ensembles_trials` the (grid point x fold) elements of a tuning
   grid, each gated to its own hyperparameters (`TrialDyn`);
   `build_fold_stacks` stacks the folds; `fit_tree` builds one tree.
@@ -552,35 +555,61 @@ def round_weights(draws: Draws, t: int, n_pad: int) -> torch.Tensor:
 
 def _fit_elements(binned_c: torch.Tensor, y: torch.Tensor, n_pad: int,
                   es: EnsembleSpec, rngs, dyn: TrialDyn, modes, rates,
-                  counts, always_mask: bool):
+                  counts, always_mask: bool, *, t0: int = 0,
+                  margin: Optional[torch.Tensor] = None,
+                  base: Optional[float] = None, segment: int = 0,
+                  on_rounds=None):
     """Fit E elements whose rows lie end to end in blocks of n_pad
     (`binned_c` (E*n_pad, F) compact bins, `y` (E*n_pad,) f32 labels,
     0-padded past each element's `counts[e]` rows) on their device, each
     at its own `dyn` gates, row-weight mode and rate (`weight_mode`) and
-    Threefry key `rngs[e]`. Returns the (E, T, 5, n_nodes) host packs and
-    the (E,) f32 base margins.
+    Threefry key `rngs[e]`. Runs rounds t0 .. es.n_trees - 1 and returns
+    their (E, T - t0, 5, n_nodes) host packs and the (E,) f32 base
+    margins.
 
     Each round computes the gradients and Hessians (squared: margin - y
     and 1; logistic: sigmoid(margin) - y and p(1-p) floored at 1e-6;
     without boosting -y and 1), draws its row weights (`round_weights`),
     builds one tree of every element (one launch of each kernel a level,
     whatever E is), and with boosting adds `step_size * leaf` of each
-    row's terminal node to its margin. Keys and gates are copied to the
-    device once; the trees come back in one copy at the end."""
+    row's terminal node to its margin, each multiply and add rounded in
+    f32. Keys and gates are copied to the device once, for all T rounds
+    (`fit_keys`), so round t draws under the same key whether it is
+    fitted here from round 0 or appended to saved rounds.
+
+    A warm start passes the saved rounds' count `t0`, their replayed
+    `margin` ((E*n_pad,) f32) and the saved `base`; a fresh fit starts
+    from the base of its labels (`_base_margins`), or from `base` when
+    given. The rounds run in segments of `segment` rounds (all of them
+    when 0), each counted once as `tree.fit_dispatch`; `on_rounds(t_done,
+    packs, bases)` fires at every segment boundary but the last, with the
+    host packs (E, t_done - t0, 5, n_nodes) of the rounds so far (each
+    segment's packs copied to the host once) and the (E,) bases. Without
+    a hook the packs come back in one copy at the end."""
+    from ..utils.profiler import PROFILER
     dev = binned_c.device
     E = len(counts)
     D, F = es.tree.max_depth, es.tree.n_features
+    T = es.n_trees
     draw_masks = always_mask or bool((np.asarray(dyn.feature_k) < F).any())
     el = _elements(es.tree, dyn, n_pad, dev, draw_masks)
-    draws = fit_draws(rngs, es.n_trees, D, modes, rates, counts, n_pad, dev)
+    draws = fit_draws(rngs, T, D, modes, rates, counts, n_pad, dev)
     build = _make_tree_builder(es.tree)
     binned = binned_c.to(torch.int32)
-    base = _base_margins(es.loss, y, draws.counts)
-    margin = base[el.erow]
+    if base is None:
+        bases = _base_margins(es.loss, y, draws.counts)
+    else:
+        bases = torch.full((E,), float(base), dtype=torch.float32,
+                           device=dev)
+    if margin is None:
+        margin = bases[el.erow]
     ones = torch.ones_like(y)
     row_node = el.erow * (2 ** (D + 1) - 1)
-    packs = []
-    for t in range(es.n_trees):
+    segment = segment if segment > 0 else max(T - t0, 1)
+    packs, host = [], []
+    for t in range(t0, T):
+        if (t - t0) % segment == 0:
+            PROFILER.count("tree.fit_dispatch")
         if not es.boosting:
             grad, hess = -y, ones
         elif es.loss == "logistic":
@@ -596,27 +625,115 @@ def _fit_elements(binned_c: torch.Tensor, y: torch.Tensor, n_pad: int,
             margin = margin + es.step_size \
                 * pack[:, 2].reshape(-1)[row_node + node_fin]
         packs.append(pack)
-    return torch.stack(packs, dim=1).cpu().numpy(), base.cpu().numpy()
+        done = t + 1
+        if on_rounds is not None and done < T \
+                and (done - t0) % segment == 0:
+            host.append(torch.stack(packs, dim=1).cpu().numpy())
+            packs = []
+            on_rounds(done, np.concatenate(host, axis=1),
+                      bases.cpu().numpy())
+    if packs:
+        host.append(torch.stack(packs, dim=1).cpu().numpy())
+    out = np.concatenate(host, axis=1) if host \
+        else np.zeros((E, 0, 5, 2 ** (D + 1) - 1), np.float32)
+    return out, bases.cpu().numpy()
+
+
+def _segment(es: EnsembleSpec, rounds_per_dispatch: Optional[int]) -> int:
+    """Rounds a segment of a fit (`_fit_elements`): rounds_per_dispatch,
+    else `sml.tree.roundsPerDispatch`; 0 (one segment) for a fit that is
+    not boosted, as the JAX package dispatches those whole."""
+    from ..conf import GLOBAL_CONF
+    rounds = (rounds_per_dispatch if rounds_per_dispatch is not None
+              else GLOBAL_CONF.getInt("sml.tree.roundsPerDispatch"))
+    return int(rounds) if es.boosting and rounds > 0 else 0
 
 
 def fit_ensemble_on_device(binned_dev: torch.Tensor, y_dev: torch.Tensor,
-                           es: EnsembleSpec, seed: int
+                           es: EnsembleSpec, seed: int,
+                           rounds_per_dispatch: Optional[int] = None,
+                           on_rounds=None
                            ) -> Tuple[List[FittedTree], float]:
     """Fit the rounds of a DT, RF, GBT or XGBoost ensemble on the
     operands' device; returns (trees, base margin). One element of
-    `_fit_elements`, keyed `prng_key(seed)`."""
+    `_fit_elements`, keyed `prng_key(seed)`. A boosted fit runs in
+    segments of `rounds_per_dispatch` rounds (`_segment`), and
+    `on_rounds(t_done, trees_so_far, base)`, the round checkpoints' hook,
+    fires at each boundary but the last; the trees do not depend on
+    either."""
     from ..utils.profiler import PROFILER
     n = binned_dev.shape[0]
     dev = binned_dev.device
+    hook = None
+    if on_rounds is not None:
+        def hook(t_done, packs, bases):
+            on_rounds(t_done, _unpack_trees(packs[0]), float(bases[0]))
     with PROFILER.span("program.tree_ensemble", rows=int(n),
                        route=dev.type, trees=es.n_trees):
-        PROFILER.count("tree.fit_dispatch")
         packs, bases = _fit_elements(
             binned_dev, y_dev, n, es, np.asarray([prng.prng_key(seed)]),
             _spec_dyn(es.tree, 1),
             [weight_mode(es.bootstrap, es.n_trees, es.subsample)],
-            [es.subsample], [n], always_mask=False)
+            [es.subsample], [n], always_mask=False,
+            segment=_segment(es, rounds_per_dispatch), on_rounds=hook)
     return _unpack_trees(packs[0]), float(bases[0])
+
+
+def resume_ensemble_on_device(binned_dev: torch.Tensor, y_dev: torch.Tensor,
+                              es: EnsembleSpec, seed: int, init_trees,
+                              base: float,
+                              rounds_per_dispatch: Optional[int] = None,
+                              on_rounds=None
+                              ) -> Tuple[List[FittedTree], float]:
+    """Warm-start boosting: append rounds len(init_trees) .. es.n_trees
+    - 1 to saved rounds, on the operands' device. The saved rounds'
+    margin is replayed in one `forest_traverse` launch with `init=base`
+    and every weight `step_size`: each row's ((base + s*l0) + s*l1) + ...
+    in f32, the carry of the fit that made them. The appended rounds then
+    run through `_fit_elements` from round t0 under the same keys, so k
+    rounds and a warm start of N - k equal N rounds bit for bit on the
+    same rows. The base is the saved one, never recomputed from the new
+    labels. `on_rounds(t_done, new_trees, base)` fires at each segment
+    boundary but the last with the appended rounds so far. Returns
+    (appended trees, base)."""
+    from ..native.traverse_kernel import forest_traverse
+    from ..utils.profiler import PROFILER
+    if not es.boosting:
+        raise ValueError("warm-start resume requires a boosting ensemble "
+                         "(forest/DT rounds are independent — refit whole)")
+    t0 = len(init_trees)
+    if es.n_trees <= t0:
+        return [], float(base)
+    n = binned_dev.shape[0]
+    dev = binned_dev.device
+    D = es.tree.max_depth
+    with PROFILER.span("program.tree_resume", rows=int(n), route=dev.type,
+                       trees=es.n_trees - t0):
+        if t0:
+            def table(name, dtype):
+                return torch.from_numpy(np.ascontiguousarray(np.stack(
+                    [getattr(t, name) for t in init_trees]), dtype)).to(dev)
+            margin = forest_traverse(
+                binned_dev, table("split_feature", np.int32),
+                table("split_bin", np.int32),
+                table("leaf_value", np.float32),
+                torch.full((t0,), es.step_size, dtype=torch.float32,
+                           device=dev), depth=D, init=float(base))
+        else:
+            margin = torch.full((n,), float(base), dtype=torch.float32,
+                                device=dev)
+        hook = None
+        if on_rounds is not None:
+            def hook(t_done, packs, bases):
+                on_rounds(t_done, _unpack_trees(packs[0]), float(bases[0]))
+        packs, _ = _fit_elements(
+            binned_dev, y_dev, n, es, np.asarray([prng.prng_key(seed)]),
+            _spec_dyn(es.tree, 1),
+            [weight_mode(es.bootstrap, es.n_trees, es.subsample)],
+            [es.subsample], [n], always_mask=False, t0=t0, margin=margin,
+            base=float(base), segment=_segment(es, rounds_per_dispatch),
+            on_rounds=hook)
+    return _unpack_trees(packs[0]), float(base)
 
 
 #: build_fold_stacks memo: key -> (sources, ys, stacks, bytes)
@@ -696,7 +813,6 @@ def fit_ensembles_folds(bst, yst, mst, es: EnsembleSpec, seed: int = 0,
     b_dev, y_dev = _stage_stacks(bst, yst, device)
     with PROFILER.span("program.tree_ensemble_folds", rows=int(fo * n_pad),
                        route=b_dev.device.type, trees=es.n_trees * fo):
-        PROFILER.count("tree.fit_dispatch")
         packs, bases = _fit_elements(
             b_dev, y_dev, n_pad, es,
             np.asarray([prng.prng_key(seed)] * fo), _spec_dyn(es.tree, fo),
@@ -737,7 +853,6 @@ def fit_ensembles_trials(bst, yst, mst, es: EnsembleSpec, rngs, depth,
     b_dev, y_dev = _stage_stacks(bst, yst, device)
     with PROFILER.span("program.tree_ensemble_trials", rows=int(E * n_pad),
                        route=b_dev.device.type, trees=es.n_trees * E):
-        PROFILER.count("tree.fit_dispatch")
         packs, bases = _fit_elements(
             b_dev, y_dev, n_pad, es, np.asarray(rngs, np.uint32), dyn,
             modes, [float(s) for s in sub], counts, always_mask=True)

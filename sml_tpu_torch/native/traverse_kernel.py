@@ -15,6 +15,13 @@ The ensemble is the level-order heap of `_EnsembleSpec.stacked()`:
 per-tree weights `w` f32 (T,). A row goes right at a node iff its bin
 is greater than the split bin.
 
+`init`, optional, is each row's starting value (an (n,) f32 tensor, or
+a number for every row): the sum over trees starts there instead of at
+0. Prediction leaves it out (and adds the base margin afterwards, in
+float64); a warm start's margin replay passes the base margin, so that
+the replay is the fit's f32 carry ((base + w*l0) + w*l1) + ... bit for
+bit (`ml/tree_impl.resume_ensemble_on_device`).
+
 The launch comes from the shapes alone (`traverse_plan`, cached per
 shape). The kernel builds compact tables in shared memory, with early
 leaves completed so that every descent takes exactly `depth` steps.
@@ -159,22 +166,34 @@ def traverse_plan(n: int, n_feat: int, bin_bytes: int, n_trees: int,
     return global_plan if best is None else best[1]
 
 
+def _start(init, n: int, device) -> torch.Tensor:
+    """Each row's starting value as a fresh (n,) f32 tensor: zeros, the
+    number `init` rounded to f32, or a copy of the (n,) tensor."""
+    if init is None:
+        return torch.zeros(n, dtype=torch.float32, device=device)
+    if isinstance(init, torch.Tensor):
+        return init.to(device=device, dtype=torch.float32, copy=True)
+    return torch.full((n,), float(init), dtype=torch.float32, device=device)
+
+
 def forest_margin_plain(binned: torch.Tensor, sf: torch.Tensor,
                         sb: torch.Tensor, lv: torch.Tensor,
-                        weights: torch.Tensor, depth: int) -> torch.Tensor:
+                        weights: torch.Tensor, depth: int,
+                        init=None) -> torch.Tensor:
     """The kernel's function in plain PyTorch ops: per tree, `depth`
     gather-and-compare steps over all rows, then the weighted leaf value
-    added in tree order in f32 (each multiply and add rounded, like the
-    kernel). Bins widen to int64 before any indexing (uint16 has little
-    operator support). A row at a leaf stays there for the remaining
-    levels; a feature id past the row reads as bin 0."""
+    added in tree order in f32 to each row's starting value (`init`; 0
+    without it), each multiply and add rounded, like the kernel. Bins
+    widen to int64 before any indexing (uint16 has little operator
+    support). A row at a leaf stays there for the remaining levels; a
+    feature id past the row reads as bin 0."""
     x = binned.to(torch.int64)
     n, n_feat = x.shape
     sf64 = sf.to(torch.int64)
     sb64 = sb.to(torch.int64)
     lv32 = lv.to(torch.float32)
     w32 = weights.to(torch.float32)
-    acc = torch.zeros(n, dtype=torch.float32, device=x.device)
+    acc = _start(init, n, x.device)
     for t in range(sf64.shape[0]):
         node = torch.zeros(n, dtype=torch.int64, device=x.device)
         for _ in range(depth):
@@ -187,7 +206,7 @@ def forest_margin_plain(binned: torch.Tensor, sf: torch.Tensor,
     return acc
 
 
-def _check(binned, sf, sb, lv, weights, depth: int) -> None:
+def _check(binned, sf, sb, lv, weights, depth: int, init=None) -> None:
     if binned.dim() != 2 or binned.dtype not in _BIN_BYTES:
         raise TypeError(f"binned must be a 2-D uint8/uint16/int32 tensor, "
                         f"got {tuple(binned.shape)} {binned.dtype}")
@@ -212,6 +231,12 @@ def _check(binned, sf, sb, lv, weights, depth: int) -> None:
         raise ValueError("operands must be contiguous")
     if binned.shape[0] >= 2 ** 31 or n_trees * n_nodes >= 2 ** 31:
         raise ValueError("row count and T*N must be below 2^31")
+    if isinstance(init, torch.Tensor):
+        if init.shape != (binned.shape[0],) or init.dtype != torch.float32:
+            raise ValueError(f"init must be an ({binned.shape[0]},) float32 "
+                             f"tensor, got {tuple(init.shape)} {init.dtype}")
+        if init.device != binned.device or not init.is_contiguous():
+            raise ValueError("init must be contiguous, on the bins' device")
 
 
 def _kernel():
@@ -219,7 +244,8 @@ def _kernel():
     if _fn is None:
         fn = build.load("forest_traverse").sml_forest_traverse
         fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 \
-            + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+            + [ctypes.c_int] * 12 + [ctypes.c_void_p, ctypes.c_float,
+                                     ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -227,17 +253,20 @@ def _kernel():
 
 def forest_traverse(binned: torch.Tensor, sf: torch.Tensor,
                     sb: torch.Tensor, lv: torch.Tensor,
-                    weights: torch.Tensor, *, depth: int) -> torch.Tensor:
-    """Weighted ensemble margin, (n,) f32, on the operands' device.
+                    weights: torch.Tensor, *, depth: int,
+                    init=None) -> torch.Tensor:
+    """Weighted ensemble margin, (n,) f32, on the operands' device, each
+    row's sum started from `init` (an (n,) f32 tensor or a number; 0
+    when None).
 
     CUDA operands launch the kernel on the current stream of their
     device (no synchronisation; the caller's copy back to the host
     orders after it). CPU operands run `forest_margin_plain`."""
     global LAUNCHES
-    _check(binned, sf, sb, lv, weights, depth)
+    _check(binned, sf, sb, lv, weights, depth, init)
     dev = binned.device
     if dev.type == "cpu":
-        return forest_margin_plain(binned, sf, sb, lv, weights, depth)
+        return forest_margin_plain(binned, sf, sb, lv, weights, depth, init)
     if dev.type != "cuda":
         raise ValueError(f"forest_traverse runs on cuda or cpu, not {dev}")
     n, n_feat = binned.shape
@@ -248,10 +277,13 @@ def forest_traverse(binned: torch.Tensor, sf: torch.Tensor,
     n_trees, n_nodes = sf.shape
     bin_bytes = _BIN_BYTES[binned.dtype]
     p = traverse_plan(n, n_feat, bin_bytes, n_trees, n_nodes, depth)
+    tensor_init = isinstance(init, torch.Tensor)
     args = (bin_bytes, binned.data_ptr(), sf.data_ptr(), sb.data_ptr(),
             lv.data_ptr(), weights.data_ptr(), out.data_ptr(), n, n_feat,
             n_trees, n_nodes, depth, int(p.path == "shared"), p.tile_rows,
-            p.groups, p.threads, p.chunk, p.grid, p.stage_x)
+            p.groups, p.threads, p.chunk, p.grid, p.stage_x,
+            init.data_ptr() if tensor_init else None,
+            0.0 if tensor_init or init is None else float(init))
     err = build.launch_on_stream(dev, fn, *args)
     if err != 0:
         raise RuntimeError(f"forest_traverse launch failed: CUDA error "

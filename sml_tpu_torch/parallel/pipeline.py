@@ -1,0 +1,93 @@
+"""A double-buffered staging pipeline: prep on worker threads, serial
+dispatch, ordered drain.
+
+The port's copy of `prefetch_pipeline` from `sml_tpu/parallel/pipeline.py`,
+which the chunked ingest (`ml/_chunked.py`) runs: chunk i+1's prep (host
+quantization, C++ that releases the GIL) runs on a worker thread while
+chunk i's dispatch (an asynchronous copy to the card) is still in flight,
+and drain waits for each in order.
+
+Every dispatch and drain counts `<family>.dispatch` / `<family>.drain`
+in the port's `PROFILER`, and appends `(kind, i)` to `order` when the
+caller passes a list: the order in which chunk i+1 dispatches before
+chunk i drains is the overlap's proof. (The JAX package records these
+as flight-recorder events and holds a stall-watchdog ticket per item;
+both wait for the port's obs.)
+"""
+
+from __future__ import annotations
+
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Iterable, Iterator, Optional
+
+
+def prefetch_pipeline(items: Iterable, prep: Callable, dispatch: Callable,
+                      drain: Callable, *, depth: int, workers: int = 4,
+                      family: str = "infer",
+                      order: Optional[list] = None) -> Iterator:
+    """Run `items` through prep -> dispatch -> drain with `depth` items
+    dispatched ahead of the drain point; yields the drains' results.
+
+    - `prep(item)` runs on one of `workers` threads, at most `workers`
+      items ahead of the dispatch point (the source is never drained
+      eagerly).
+    - `dispatch(i, prepped)` runs serially in submission order and
+      returns an in-flight handle.
+    - `drain(i, handle)` finishes item i, in order.
+    - `depth` <= 1 is synchronous: each item drains before the next
+      dispatches.
+
+    A caller that stops early, or a dispatch or drain that raises, still
+    drains every item in flight (errors of those drains are dropped:
+    they only release resources)."""
+    from ..utils.profiler import PROFILER
+
+    depth = max(int(depth), 1)
+    pending: deque = deque()
+
+    def note(kind: str, i: int) -> None:
+        PROFILER.count(f"{family}.{kind}")
+        if order is not None:
+            order.append((kind, i))
+
+    def drain_one():
+        i, handle = pending.popleft()
+        out = drain(i, handle)
+        note("drain", i)
+        return out
+
+    with ThreadPoolExecutor(max_workers=max(int(workers), 1)) as ex:
+        it = iter(items)
+        preps: deque = deque()
+
+        def submit_next() -> bool:
+            try:
+                item = next(it)
+            except StopIteration:
+                return False
+            preps.append(ex.submit(prep, item))
+            return True
+
+        try:
+            for _ in range(max(int(workers), 1)):
+                submit_next()
+            i = 0
+            while preps:
+                prepped = preps.popleft().result()
+                submit_next()
+                handle = dispatch(i, prepped)
+                note("dispatch", i)
+                pending.append((i, handle))
+                i += 1
+                if len(pending) >= depth:
+                    yield drain_one()
+            while pending:
+                yield drain_one()
+        finally:
+            while pending:
+                j, handle = pending.popleft()
+                try:
+                    drain(j, handle)
+                except Exception:
+                    pass

@@ -7,7 +7,10 @@ second-order trees on the port's histogram kernels. `use_gpu`, `device`,
 read: `fit(df)` runs on the session's device (`sml.device`) and
 `fit(X, y, device=...)` on the device it is given (the card by default).
 `subsample < 1` draws each round's rows by Bernoulli weights from the
-Threefry stream of `random_state`, as the JAX package does. The boosted
+Threefry stream of `random_state`, as the JAX package does.
+`rounds_per_dispatch` splits the rounds into segments, each counted as
+one `tree.fit_dispatch` (the JAX package's staged scan); the trees do
+not depend on it. The boosted
 ensembles are the same `_EnsembleSpec` as GBT's, so the models subclass
 the same bases.
 """
@@ -17,8 +20,7 @@ from __future__ import annotations
 from .ml._tree_models import (_Estimator, _TreeClassificationModel,
                               _TreeRegressionModel)
 
-#: name -> (default, doc), the JAX package's params but for
-#: `rounds_per_dispatch` (the chunked boosting scan, not ported)
+#: name -> (default, doc), the JAX package's params
 _XGB_PARAMS = {
     "featuresCol": ("features", "features column"),
     "labelCol": ("label", "label column"),
@@ -37,6 +39,9 @@ _XGB_PARAMS = {
     "use_gpu": (False, "accepted for surface parity"),
     "device": (None, "compute engine"),
     "tree_method": ("hist", "histogram engine"),
+    "rounds_per_dispatch": (None, "boosting rounds a segment of the fit "
+                                  "(None = sml.tree.roundsPerDispatch "
+                                  "conf; 0 = the whole ensemble as one)"),
 }
 _XGB_CLASSIFIER_PARAMS = dict(_XGB_PARAMS, **{
     "rawPredictionCol": ("rawPrediction", "raw scores"),
@@ -66,7 +71,10 @@ class _XgboostBase(_Estimator):
                     step_size=float(g("learning_rate")),
                     reg_lambda=float(g("reg_lambda")),
                     gamma=float(g("gamma")), boosting=True,
-                    missing=float(g("missing")))
+                    missing=float(g("missing")),
+                    rounds_per_dispatch=(
+                        None if g("rounds_per_dispatch") is None
+                        else int(g("rounds_per_dispatch"))))
 
 
 class XgboostRegressor(_XgboostBase):

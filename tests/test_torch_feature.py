@@ -249,7 +249,7 @@ def test_estimator_params_match_jax():
         assert p.explainParams() == j.explainParams()
         assert p.getMaxDepth() == j.getMaxDepth()
     j, p = JX(n_estimators=3), PX(n_estimators=3)
-    jnames = {x.name for x in j.params} - {"rounds_per_dispatch"}
+    jnames = {x.name for x in j.params}
     assert {x.name for x in p.params} == jnames
     for name in jnames - {"device", "tree_method", "missing"}:
         assert p.getOrDefault(name) == j.getOrDefault(name), name

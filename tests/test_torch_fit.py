@@ -250,7 +250,7 @@ def test_estimators_raise_on_sampling_and_unknown_params():
         ptm.RandomForestRegressor(numTrees=2, subsamplingRate=10.0).fit(
             X, y, device="cpu")
     with pytest.raises(TypeError):
-        XgboostRegressor(rounds_per_dispatch=2)
+        XgboostRegressor(numTrees=2)
     with pytest.raises(TypeError):
         ptm.DecisionTreeRegressor(numTrees=3)
 

@@ -3,8 +3,8 @@ running a DataFrame pipeline, a CrossValidator and `fmin` with the
 session's device set to the CPU, loads neither JAX, the JAX package,
 pandas nor pyarrow; and without a CUDA device the entry points
 (scoring, fitting, a DataFrame fit, transform and evaluate, a
-CrossValidator's fit and `fmin`'s placed trials) raise rather than carry
-on on the CPU (each check runs in a fresh interpreter with no CUDA
+CrossValidator's fit, `fmin`'s placed trials and the chunked fits)
+raise rather than carry on on the CPU (each check runs in a fresh interpreter with no CUDA
 device visible)."""
 
 import os
@@ -80,6 +80,54 @@ def test_the_selection_modules_are_among_the_imported():
     assert proc.returncode == 0, proc.stderr
     for name in ("tune", "tune._fmin", "tune._space", "ml.tuning"):
         assert f"sml_tpu_torch.{name}" in proc.stdout
+
+
+def test_the_chunked_plane_modules_are_among_the_imported():
+    proc = _run(IMPORT_ALL.replace("print(len(names), bad)",
+                                   "print(sorted(names))"))
+    assert proc.returncode == 0, proc.stderr
+    for name in ("frame._chunks", "parallel", "parallel.pipeline",
+                 "ml._chunked", "ct", "ct._checkpoint"):
+        assert f"sml_tpu_torch.{name}" in proc.stdout
+
+
+CHUNKED = """
+import sys
+import numpy as np
+from sml_tpu_torch.ct import checkpointed_fit
+from sml_tpu_torch.frame._chunks import ArrayChunkSource
+from sml_tpu_torch.ml._chunked import fit_ensemble_chunked
+rng = np.random.default_rng(0)
+X = rng.normal(size=(600, 4))
+y = X[:, 0] + rng.normal(0, 0.1, 600)
+for what, call in (
+        ("fit", lambda dev: fit_ensemble_chunked(
+            ArrayChunkSource(X, y, chunk_rows=128), max_depth=2,
+            max_bins=8, n_trees=2, boosting=True, device=dev)),
+        ("checkpointed", lambda dev: checkpointed_fit(
+            ArrayChunkSource(X, y, chunk_rows=128), CKDIR, n_trees=4,
+            max_depth=2, max_bins=8, rounds_per_dispatch=2, device=dev))):
+    try:
+        out = call(None)
+    except RuntimeError as e:
+        print(what, "raised:", e)
+        out = call("cpu")
+    print(what, len(out.trees))
+bad = sorted(k for k in sys.modules
+             if k.split(".")[0] in ("jax", "jaxlib", "sml_tpu", "pandas",
+                                    "pyarrow"))
+print(bad)
+"""
+
+
+def test_chunked_fits_load_no_jax_and_raise_without_a_card(tmp_path):
+    proc = _run(CHUNKED.replace("CKDIR", repr(str(tmp_path / "ck"))))
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.strip().splitlines()
+    assert lines[0].startswith("fit raised: no CUDA device"), lines
+    assert lines[2].startswith("checkpointed raised: no CUDA device"), lines
+    assert [lines[1], lines[3], lines[4]] == ["fit 2", "checkpointed 4",
+                                              "[]"]
 
 
 SELECTION = """
