@@ -168,6 +168,35 @@ Phases:
    within one bin width of `np.quantile`. A `{"chunked": ...}` JSON line
    gives these numbers.
 
+14. main path, the non-tree programs, on the session's device at the
+   golden suite's widths (`tests/test_golden_metrics.py:44-134`): (a)
+   phase 11's 100,000 rows split 80/20 through ML 03's prep (Imputer,
+   StringIndexer, OneHotEncoder), `LinearRegression(labelCol="price")`
+   on the imputed bedrooms (ML 02) and on the 49 one-hot and numeric
+   features (ML 03), and ridge (regParam 0.1) and elastic net (0.1,
+   0.5) on ML 03's: each below the mean-price baseline and its
+   predictions within 2e-5 of the largest |prediction| of the same fit
+   on the CPU; (b) MLE 03's `LogisticRegression` on priceClass (the
+   training median): the card's IRLS iterations the CPU's and its
+   held-out AUROC within 1e-6; (c) MLE 02's `KMeans` (k 3 and 8, 20
+   iterations, seed 221) over the 7 imputed numerics: no assignment
+   differing from the CPU's, centers and cost within rtol 1e-6; (d) MLE
+   01's `ALS` (rank 8, 10 iterations, regParam 0.1, cold start drop) on
+   `make_movielens_dataset(1000, 400, 100_000, seed=42)`: below the
+   mean-rating baseline, rmse the CPU's within rtol 1e-6; its
+   CrossValidator over rank {4, 12} (3 folds, placed trials); ALS rank
+   12 at the MovieLens 1M shape (6,040 x 3,700, 1,000,000 drawn
+   ratings) below its baseline, with its peak device memory; (e)
+   `DeviceScorer` on the ML 03 PipelineModel, `score_block` at 4,096 and
+   100,000 rows equal to `transform` (rtol 1e-12) and timed, and
+   `bench.py`'s serving leg through the batcher (8 clients, 8-row
+   requests, 2,000 requests, max batch 256, flush 1,000 µs) with zero
+   sheds. TF32 must be off and no kernel of the port may launch (these
+   programs are torch matmuls, cumsums and batched solves); each fit's
+   wall and the card's busy share (`torch.profiler`) are printed beside
+   the card's name and power limit, and a `{"nontree": ...}` JSON line
+   gives these numbers.
+
 The second-to-last line is a JSON object listing each kernel, with the
 launches the profiler saw in each window behind its device times
 ("device_windows"); the last is {"ok": true, "device": {...}}.
@@ -1709,7 +1738,8 @@ def phase_draw_times(device, card: str) -> dict:
 
 def profile_busy(run, span: str):
     """(device ms by kernel name, wall ms of the port's `span` spans) of
-    one `run()` under `torch.profiler`, with the port's spans on."""
+    one `run()` under `torch.profiler`, with the port's spans on. Only
+    the device's own rows count."""
     from torch.profiler import ProfilerActivity, profile
     from sml_tpu_torch.utils.profiler import PROFILER
     PROFILER.reset()
@@ -1723,8 +1753,15 @@ def profile_busy(run, span: str):
                    if sp.name == span) * 1e3
     finally:
         PROFILER.enabled = False
+    from torch.autograd import DeviceType
     busy = {}
     for ev in prof.key_averages():
+        # device rows only (kernels, copies, fills): an operator's row
+        # repeats its kernels' time, and "Activity Buffer Request" is
+        # the profiler's own
+        if ev.device_type != DeviceType.CUDA or \
+                ev.key.startswith("Activity Buffer"):
+            continue
         t = float(getattr(ev, "self_device_time_total",
                           getattr(ev, "self_cuda_time_total", 0.0))) / 1e3
         if t > 0:
@@ -3072,6 +3109,456 @@ def phase_chunked(seed: int, device, card: str, xgb=None,
     return out
 
 
+# ------------------------------------------- phase 14: non-tree programs
+NT_OHE = [c + "_ohe" for c in DF_CAT]
+#: (a) the linear fits: ML 02 (bedrooms alone), ML 03 (one-hot slots and
+#: numerics), and ridge and elastic net on ML 03's features
+NT_LINEAR = {"ml02": {}, "ml03": {}, "ridge": {"regParam": 0.1},
+             "enet": {"regParam": 0.1, "elasticNetParam": 0.5}}
+#: card against CPU: linear predictions within this share of the largest
+#: |prediction| (the tolerance the CPU tests hold the port to against the
+#: JAX package; ML 03's Gram has a condition number near 1e8), AUROC,
+#: KMeans centers and cost, and ALS rmse
+NT_PRED_TOL = 2e-5
+NT_AUC_ATOL = 1e-6
+NT_RTOL = 1e-6
+#: (d) MLE 01: the golden suite's ratings; MovieLens 1M's users, items
+#: and drawn ratings (`bench.py:140-147`)
+NT_GOLDEN_RATINGS = (1000, 400, 100_000)
+NT_ML1M = (6040, 3700, 1_000_000)
+#: (e) `bench.py`'s serving leg: clients, rows a request, requests, max
+#: batch rows, flush µs
+NT_SERVE = (8, 8, 2000, 256, 1000)
+
+
+def nt_prep():
+    """ML 03's prep stages: Imputer(median), StringIndexer(skip) and
+    OneHotEncoder."""
+    from sml_tpu_torch.ml.feature import (Imputer, OneHotEncoder,
+                                          StringIndexer)
+    return [Imputer(strategy="median", inputCols=DF_NUM, outputCols=DF_IMP),
+            StringIndexer(inputCols=DF_CAT, outputCols=DF_IDX,
+                          handleInvalid="skip"),
+            OneHotEncoder(inputCols=DF_IDX, outputCols=NT_OHE)]
+
+
+def walled(fn, device):
+    """(fn(), host-clock ms), the device synchronised on both sides."""
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+#: warm fits timed after each first fit (their median is reported)
+NT_REPS = 3
+
+
+def fit_walls(fit, device):
+    """(the first fit's result, its wall ms, the median wall ms of
+    NT_REPS more): the first call also loads the kernels it meets."""
+    out, first = walled(fit, device)
+    warm = float(np.median([walled(fit, device)[1]
+                            for _ in range(NT_REPS)]))
+    return out, first, warm
+
+
+def through(stages, frame):
+    """`frame` through fitted stages, materialized once."""
+    for s in stages:
+        frame = s.transform(frame)
+    frame = frame.cache()
+    frame._whole()
+    return frame
+
+
+def on_cpu(fn):
+    """fn() with the session's device set to the CPU."""
+    from sml_tpu_torch.conf import GLOBAL_CONF
+    prev = GLOBAL_CONF.get("sml.device")
+    GLOBAL_CONF.set("sml.device", "cpu")
+    try:
+        return fn()
+    finally:
+        GLOBAL_CONF.set("sml.device", prev)
+
+
+def nt_busy(label: str, run, span: str, card: str, device) -> dict:
+    """The card's busy share over one more `run()` (the span's wall), by
+    `torch.profiler`; not measured on the CPU."""
+    if device.type != "cuda":
+        return {}
+    return print_busy(label, *profile_busy(run, span), card)
+
+
+def mean_baseline(train_col: np.ndarray, test_col: np.ndarray) -> float:
+    """The rmse of predicting the training mean."""
+    mean = float(np.mean(train_col))
+    return float(np.sqrt(np.mean((np.asarray(test_col, np.float64)
+                                  - mean) ** 2)))
+
+
+def nt_linear(train, test, device, card: str) -> tuple:
+    """(a) ML 02 / ML 03 and the penalized fits; (b) MLE 03's logistic
+    regression. Returns (numbers, the ML 03 pipeline model)."""
+    from sml_tpu_torch import functions as F
+    from sml_tpu_torch.ml import (LinearRegression, LogisticRegression,
+                                  Pipeline)
+    from sml_tpu_torch.ml.evaluation import (BinaryClassificationEvaluator,
+                                             RegressionEvaluator)
+    from sml_tpu_torch.ml.feature import VectorAssembler
+    ev = RegressionEvaluator(labelCol="price")
+    # bedrooms is NULL on 3% of the rows: ML 02 reads the imputed column
+    va = {"ml02": VectorAssembler(inputCols=["bedrooms_imp"],
+                                  outputCol="features"),
+          "ml03": VectorAssembler(inputCols=NT_OHE + DF_IMP,
+                                  outputCol="features")}
+    out, frames, pipes = {}, {}, {}
+    for name in ("ml02", "ml03"):
+        pipes[name], ms = walled(lambda: Pipeline(stages=nt_prep() + [
+            va[name], LinearRegression(labelCol="price")]).fit(train),
+            device)
+        frames[name] = (through(pipes[name].stages[:-1], train),
+                        through(pipes[name].stages[:-1], test))
+        out[f"{name}_pipeline_fit_ms"] = ms
+    width = frames["ml03"][0]._whole()["features"].shape[1]
+    base = mean_baseline(train._whole()["price"], test._whole()["price"])
+    for name, kw in NT_LINEAR.items():
+        tr, te = frames["ml02" if name == "ml02" else "ml03"]
+
+        def fit():
+            return LinearRegression(labelCol="price", **kw).fit(tr)
+
+        model, ms, warm = fit_walls(fit, device)
+        scored = model.transform(te)
+        pred = scored._whole()["prediction"]
+        rmse = ev.evaluate(scored)
+        cpu = on_cpu(fit)
+        pred_cpu = on_cpu(lambda: cpu.transform(te)._whole()["prediction"])
+        err = float(np.max(np.abs(pred - pred_cpu)))
+        same = bool(np.array_equal(model._coefficients, cpu._coefficients)
+                    and model.intercept == cpu.intercept)
+        print(f"nontree (a) {name}: LinearRegression({kw}) on {tr.count()} "
+              f"rows x {model.numFeatures} features: fit {ms!r} ms (warm "
+              f"{warm!r}), test "
+              f"rmse {rmse!r} (mean-price baseline {base!r}); card against "
+              f"CPU: predictions max |diff| {err!r}, coefficients "
+              f"bit-equal {same}; card {card}")
+        if not rmse < base:
+            raise AssertionError(f"{name}: rmse {rmse} not below the "
+                                 f"baseline {base}")
+        if err > NT_PRED_TOL * float(np.max(np.abs(pred_cpu))):
+            raise AssertionError(f"{name}: card predictions differ from "
+                                 f"the CPU's by {err}")
+        out[name] = {"fit_ms": ms, "fit_ms_warm": warm, "rmse": rmse,
+                     "card_cpu_max_diff": err,
+                     "coefficients_bit_equal": same,
+                     "features": model.numFeatures,
+                     "busy": nt_busy(f"LinearRegression {name}", fit,
+                                     "program.gram", card, device)}
+    out["baseline_rmse"] = base
+    if width != 49:
+        raise AssertionError(f"ML 03 assembles {width} features, not 49")
+
+    # (b) MLE 03 / ML 07L: priceClass at the training median
+    tr, te = frames["ml03"]
+    median = float(np.median(train._whole()["price"]))
+    label = F.when(F.col("price") >= median, 1.0).otherwise(0.0)
+    tr_l, te_l = tr.withColumn("label", label), te.withColumn("label", label)
+    tr_l._whole()
+    bev = BinaryClassificationEvaluator(labelCol="label")
+
+    def logit():
+        return LogisticRegression(labelCol="label").fit(tr_l)
+
+    model, ms, warm = fit_walls(logit, device)
+    auc = bev.evaluate(model.transform(te_l))
+    cpu = on_cpu(logit)
+    auc_cpu = on_cpu(lambda: bev.evaluate(cpu.transform(te_l)))
+    iters = (model.summary.totalIterations, cpu.summary.totalIterations)
+    print(f"nontree (b) LogisticRegression on priceClass (median "
+          f"{median!r}): fit {ms!r} ms (warm {warm!r}), {iters[0]} IRLS "
+          f"iterations (CPU "
+          f"{iters[1]}), test AUROC {auc!r} (CPU {auc_cpu!r}), training "
+          f"accuracy {model.summary.accuracy!r}; card {card}")
+    if iters[0] != iters[1] or abs(auc - auc_cpu) > NT_AUC_ATOL:
+        raise AssertionError(f"logistic: card {iters[0]} iterations, AUROC "
+                             f"{auc}; CPU {iters[1]}, {auc_cpu}")
+    out["logistic"] = {"fit_ms": ms, "fit_ms_warm": warm,
+                       "iterations": iters[0], "auroc": auc,
+                       "auroc_cpu": auc_cpu,
+                       "busy": nt_busy("LogisticRegression", logit,
+                                       "program.irls", card, device)}
+    return out, pipes["ml03"]
+
+
+def nt_kmeans(train, device, card: str) -> dict:
+    """(c) MLE 02: KMeans k=3 and k=8 (20 iterations, seed 221) over the
+    7 imputed numerics of the training rows."""
+    from sml_tpu_torch.ml import KMeans, Pipeline
+    from sml_tpu_torch.ml.feature import Imputer, VectorAssembler
+    feats = Pipeline(stages=[
+        Imputer(strategy="median", inputCols=DF_NUM, outputCols=DF_IMP),
+        VectorAssembler(inputCols=DF_IMP, outputCol="features")]).fit(train)
+    km = through([feats], train)
+    out = {}
+    for k in (3, 8):
+        def fit():
+            return KMeans(k=k, maxIter=20, seed=221).fit(km)
+
+        model, ms, warm = fit_walls(fit, device)
+        cpu = on_cpu(fit)
+        a, b = np.stack(model.clusterCenters()), np.stack(cpu.clusterCenters())
+        c_err = float(np.max(np.abs(a - b)) / np.max(np.abs(b)))
+        cost, cost_cpu = model.summary.trainingCost, cpu.summary.trainingCost
+        flips = int(np.sum(model.transform(km)._whole()["prediction"]
+                           != on_cpu(lambda: cpu.transform(km)._whole()[
+                               "prediction"])))
+        print(f"nontree (c) KMeans k={k} on {km.count()} rows x 7: fit "
+              f"{ms!r} ms (warm {warm!r}), cost {cost!r} (CPU "
+              f"{cost_cpu!r}), centers max "
+              f"|diff| / max |center| {c_err!r}, assignments differing "
+              f"{flips}; card {card}")
+        if flips or c_err > NT_RTOL or abs(cost - cost_cpu) > \
+                NT_RTOL * abs(cost_cpu):
+            raise AssertionError(f"kmeans k={k}: {flips} flips, centers "
+                                 f"{c_err}, cost {cost} vs {cost_cpu}")
+        out[f"k{k}"] = {"fit_ms": ms, "fit_ms_warm": warm, "cost": cost,
+                        "center_rel_diff": c_err,
+                        "busy": nt_busy(f"KMeans k={k}", fit, "program.lloyd",
+                                        card, device)}
+    return out
+
+
+def nt_als(device, card: str, golden=NT_GOLDEN_RATINGS,
+           ml1m=NT_ML1M) -> dict:
+    """(d) MLE 01: ALS at the golden suite's shape on the card and the
+    CPU, MLE 01's CV over rank {4, 12} as placed trials, and ALS at the
+    MovieLens 1M shape on the card alone."""
+    from sml_tpu_torch.courseware import make_movielens_dataset
+    from sml_tpu_torch.frame.session import get_session
+    from sml_tpu_torch.ml import ALS, CrossValidator, ParamGridBuilder
+    from sml_tpu_torch.ml.evaluation import RegressionEvaluator
+    from sml_tpu_torch.ml.tuning import fused_cv_applies
+    ev = RegressionEvaluator(labelCol="rating")
+    kw = dict(userCol="userId", itemCol="movieId", ratingCol="rating",
+              maxIter=10, regParam=0.1, seed=42, coldStartStrategy="drop")
+    out = {}
+
+    def split(shape):
+        df = get_session().createDataFrame(make_movielens_dataset(
+            *shape, seed=42))
+        tr, te = df.randomSplit([0.8, 0.2], seed=42)
+        return through([], tr), through([], te)
+
+    def scored(model, te):
+        kept = model.transform(te)
+        return ev.evaluate(kept), kept._whole()["rating"]
+
+    # (i) the golden shape
+    tr, te = split(golden)
+
+    def fit():
+        return ALS(rank=8, **kw).fit(tr)
+
+    model, ms, warm = fit_walls(fit, device)
+    rmse, kept = scored(model, te)
+    cpu = on_cpu(fit)
+    rmse_cpu = on_cpu(lambda: scored(cpu, te)[0])
+    base = mean_baseline(tr._whole()["rating"], kept)
+    f_err = float(max(np.max(np.abs(model._uf - cpu._uf)),
+                      np.max(np.abs(model._if - cpu._if))))
+    print(f"nontree (d)(i) ALS rank 8 on {tr.count()} ratings "
+          f"({len(model._user_ids)} users x {len(model._item_ids)} items): "
+          f"fit {ms!r} ms (warm {warm!r}), test rmse {rmse!r} (CPU "
+          f"{rmse_cpu!r}, mean-rating "
+          f"baseline {base!r}), factors max |card - CPU| {f_err!r}; "
+          f"card {card}")
+    if not rmse < base or abs(rmse - rmse_cpu) > NT_RTOL * rmse_cpu:
+        raise AssertionError(f"als golden: rmse {rmse}, CPU {rmse_cpu}, "
+                             f"baseline {base}")
+    out["golden"] = {"fit_ms": ms, "fit_ms_warm": warm, "rmse": rmse,
+                     "rmse_cpu": rmse_cpu,
+                     "baseline_rmse": base, "factor_max_diff": f_err,
+                     "busy": nt_busy("ALS golden", fit, "program.als_fit",
+                                     card, device)}
+
+    # (ii) MLE 01's CV over rank, placed trials
+    als = ALS(**kw)
+    grid = ParamGridBuilder().addGrid(als.getParam("rank"), [4, 12]).build()
+    if fused_cv_applies(als, grid):
+        raise AssertionError("an ALS grid took the fused tree path")
+    def cv():
+        return CrossValidator(estimator=als, estimatorParamMaps=grid,
+                              evaluator=ev, numFolds=3, seed=42).fit(tr)
+
+    cvm, ms = walled(cv, device)
+    best = cvm.bestModel.rank
+    avg = [float(m) for m in cvm.avgMetrics]
+    print(f"nontree (d)(ii) CrossValidator(ALS, rank {{4, 12}}, 3 folds) "
+          f"as placed trials: {ms!r} ms, avgMetrics {avg!r}, "
+          f"best rank {best}; card {card}")
+    if not all(np.isfinite(avg)) or best not in (4, 12):
+        raise AssertionError(f"als cv: {avg}, best {best}")
+    out["cv"] = {"wall_ms": ms, "avg_rmse": avg, "best_rank": best,
+                 "busy": nt_busy("ALS CV (7 fits)", cv, "program.als_fit",
+                                 card, device)}
+
+    # (iii) the MovieLens 1M shape, on the card alone
+    (tr, te), gen_ms = walled(lambda: split(ml1m), device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+    def fit1m():
+        return ALS(rank=12, **kw).fit(tr)
+
+    model, ms = walled(fit1m, device)
+    peak = torch.cuda.max_memory_allocated() if device.type == "cuda" \
+        else None
+    warm = float(np.median([walled(fit1m, device)[1]
+                            for _ in range(NT_REPS)]))
+    rmse, kept = scored(model, te)
+    base = mean_baseline(tr._whole()["rating"], kept)
+    print(f"nontree (d)(iii) ALS rank 12 at the MovieLens 1M shape: "
+          f"{tr.count()} training ratings ({len(model._user_ids)} users x "
+          f"{len(model._item_ids)} items; made and split in {gen_ms!r} ms): "
+          f"fit {ms!r} ms (warm {warm!r}), peak device memory {peak} "
+          f"bytes, test rmse "
+          f"{rmse!r} (baseline {base!r}); card {card}")
+    if not rmse < base:
+        raise AssertionError(f"als 1m: rmse {rmse}, baseline {base}")
+    out["ml1m"] = {"fit_ms": ms, "fit_ms_warm": warm, "rmse": rmse,
+                   "baseline_rmse": base,
+                   "ratings": tr.count(), "peak_bytes": peak,
+                   "busy": nt_busy("ALS MovieLens 1M", fit1m,
+                                   "program.als_fit", card, device)}
+    return out
+
+
+def nt_serving(pipe, n: int, device, card: str) -> dict:
+    """(e) `DeviceScorer` on the ML 03 PipelineModel: `score_block`
+    against `transform` and its latency, then `bench.py`'s serving leg
+    through the batcher."""
+    from sml_tpu_torch.courseware import make_airbnb_dataset
+    from sml_tpu_torch.frame.session import get_session
+    from sml_tpu_torch.ml import DeviceScorer
+    from sml_tpu_torch.serving import MicroBatcher
+    from sml_tpu_torch.utils.profiler import PROFILER
+    full = through(pipe.stages[:-1], get_session().createDataFrame(
+        make_airbnb_dataset(n=n, seed=42)))
+    X = np.asarray(full._whole()["features"], np.float64)
+    want = pipe.stages[-1].transform(full)._whole()["prediction"]
+    scorer = DeviceScorer(pipe, device=device)
+    out = {}
+    for rows in (4096, len(X)):
+        got = scorer.score_block(X[:rows])
+        np.testing.assert_allclose(got, want[:rows], rtol=1e-12, atol=0)
+        times = []
+        for _ in range(20):
+            _, ms = walled(lambda: scorer.score_block(X[:rows]), device)
+            times.append(ms)
+        out[f"score_block_ms_{rows}"] = float(np.median(times))
+        print(f"nontree (e) DeviceScorer(ML 03 PipelineModel).score_block "
+              f"at {rows} rows: equal to transform (rtol 1e-12); median "
+              f"{out[f'score_block_ms_{rows}']!r} ms of 20 (host clock, "
+              f"staging and copy back included); card {card}")
+
+    clients, req_rows, n_req, max_batch, flush = NT_SERVE
+    before = PROFILER.counters()
+    lat, errors, left = [], [], [n_req]
+    lock = threading.Lock()
+    rng = np.random.default_rng(7)
+    starts = rng.integers(0, len(X) - req_rows, n_req)
+    with MicroBatcher(scorer.score_block, max_batch_rows=max_batch,
+                      flush_micros=flush) as server:
+        def client():
+            while True:
+                with lock:
+                    if left[0] == 0:
+                        return
+                    left[0] -= 1
+                    i = left[0]
+                rows = X[starts[i]:starts[i] + req_rows]
+                t0 = time.perf_counter()
+                try:
+                    res = server.submit(rows).result(60)
+                except RuntimeError as e:   # RequestShed
+                    errors.append(repr(e))
+                    continue
+                with lock:
+                    lat.append((time.perf_counter() - t0) * 1e3)
+                want_rows = want[starts[i]:starts[i] + req_rows]
+                if not np.allclose(res, want_rows, rtol=1e-12, atol=0):
+                    errors.append(f"request {i} differs")
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client) for _ in range(clients)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        wall = time.perf_counter() - t0
+    after = PROFILER.counters()
+
+    def delta(k):
+        return after.get(k, 0.0) - before.get(k, 0.0)
+
+    sheds = delta("serve.shed")
+    batches = delta("serve.batches")
+    out["serve"] = {"requests": len(lat), "sheds": sheds,
+                    "batches": batches, "rows_per_batch":
+                    delta("serve.rows") / max(batches, 1),
+                    "p50_ms": float(np.percentile(lat, 50)),
+                    "p99_ms": float(np.percentile(lat, 99)),
+                    "requests_per_s": len(lat) / wall}
+    print(f"nontree (e) serving leg ({clients} clients, {req_rows}-row "
+          f"requests, {n_req} requests, max batch {max_batch}, flush "
+          f"{flush} us): {json.dumps(out['serve'])}; card {card}")
+    if errors or sheds or len(lat) != n_req:
+        raise AssertionError(f"serving: {len(lat)} answered, {sheds} shed, "
+                             f"errors {errors[:3]}")
+    return out
+
+
+def phase_nontree(device, card: str, n: int = 100_000,
+                  golden=NT_GOLDEN_RATINGS, ml1m=NT_ML1M) -> dict:
+    """Phase 14: the non-tree programs on `device` (the session's
+    `sml.device`) at the golden suite's widths: (a) ML 02 / ML 03 linear
+    regression with ridge and elastic net, (b) MLE 03's logistic
+    regression, (c) MLE 02's KMeans, (d) MLE 01's ALS, its CV and the
+    MovieLens 1M shape, (e) a linear PipelineModel served; each fit
+    against the CPU's. None of them launches a kernel of the port (their
+    work is torch matmuls, cumsums and batched solves), and the plain
+    versions never run on the card. Smaller `n`, `golden` and `ml1m`
+    rehearse it on the CPU."""
+    from sml_tpu_torch.conf import GLOBAL_CONF
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on")
+    GLOBAL_CONF.set("sml.device", device.type)
+    _zero_launches()
+    t0 = time.perf_counter()
+    with KernelWatch() as watch:
+        train, test = df_splits(n)
+        linear, ml03 = nt_linear(train, test, device, card)
+        out = {"card": card, "tf32": bool(
+            torch.backends.cuda.matmul.allow_tf32), "linear": linear,
+            "kmeans": nt_kmeans(train, device, card),
+            "als": nt_als(device, card, golden, ml1m),
+            "serving": nt_serving(ml03, n, device, card)}
+    launches = _all_launches()
+    if any(launches.values()) or watch.plain_on_cuda:
+        raise AssertionError(f"the non-tree programs launched {launches}; "
+                             f"plain versions on the card "
+                             f"{watch.plain_on_cuda}")
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"nontree: every check passed in {out['phase_s']!r} s; no "
+          f"kernel of the port launched ({launches}); TF32 off")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3109,6 +3596,7 @@ def main(argv=None) -> int:
     frames = phase_dataframe(device, card)
     selection = phase_selection(device, card)
     chunked = phase_chunked(args.seed, device, card, fit["xgb"])
+    nontree = phase_nontree(device, card)
 
     def by_path(kernel: str) -> dict:
         return {"fit": fit["launches"][kernel],
@@ -3224,6 +3712,7 @@ def main(argv=None) -> int:
         "binning_ms_cpp_numpy": binning, "selection": selection}}))
     print(json.dumps({"chunked": {k: v for k, v in chunked.items()
                                   if k != "replay"}}))
+    print(json.dumps({"nontree": nontree}))
     print(json.dumps({"dataframe": {
         "launches_fit": frames["fit"], "launches_evaluate":
         frames["evaluate"], "rmse": frames["rmse"],

@@ -35,12 +35,17 @@ Ported so far:
 - model selection: CrossValidator and TrainValidationSplit
   (`ml/tuning.py`; a DT/RF grid as fused fits, anything else as placed
   trials on the card, `device.run_placed_trials`), hyperopt's `fmin`
-  (`tune/`).
+  (`tune/`);
+- the non-tree programs: LinearRegression and LogisticRegression on a
+  Gram pass and IRLS (`ml/linear_impl.py`, `ml/regression.py`,
+  `ml/classification.py`), KMeans (`ml/clustering.py`), ALS
+  (`ml/recommendation.py`), the linear kind of `DeviceScorer`, and
+  `courseware.make_movielens_dataset`.
 
 Entry points run on the CUDA card unless the caller passes
 device="cpu"; without a card they raise. The DataFrame entry points
-(a tree estimator's `fit(df)`, a model's `transform`, the evaluators)
-read the device from the session's `sml.device` key instead.
+(an estimator's `fit(df)`, a model's `transform`, the evaluators) read
+the device from the session's `sml.device` key instead.
 """
 
 from .conf import GLOBAL_CONF

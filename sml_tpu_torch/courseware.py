@@ -1,10 +1,11 @@
 """The course's synthetic datasets, as dicts of numpy columns.
 
-The port's copy of `make_airbnb_dataset` from `sml_tpu/courseware.py`:
-the same draws from the same generator in the same order (NaN sprinkle
-included), so `createDataFrame(make_airbnb_dataset(n, seed))` holds the
-JAX package's rows. The rest of the courseware (the dataset installer,
-the answer harness, the other datasets) waits for its slice.
+The port's copies of `make_airbnb_dataset` and `make_movielens_dataset`
+from `sml_tpu/courseware.py`: the same draws from the same generator in
+the same order (NaN sprinkle included), so `createDataFrame(...)` of
+either holds the JAX package's rows in its order. The rest of the
+courseware (the dataset installer, the answer harness, the other
+datasets) waits for its slice.
 """
 
 from __future__ import annotations
@@ -81,3 +82,26 @@ def make_airbnb_dataset(n: int = 10000, seed: int = 42
     for c in ("bedrooms", "bathrooms", "review_scores_rating"):
         out[c][rng.random(n) < 0.03] = np.nan
     return out
+
+
+def make_movielens_dataset(n_users: int = 1000, n_items: int = 400,
+                           n_ratings: int = 50000, seed: int = 7
+                           ) -> Dict[str, np.ndarray]:
+    """MovieLens-shaped ratings (userId, movieId, rating in half stars,
+    timestamp) from a rank-6 model plus noise, one row per (user, movie)
+    pair: the first of the drawn duplicates, in draw order (pandas'
+    `drop_duplicates` keeping the first)."""
+    rng = np.random.default_rng(seed)
+    rank = 6
+    U = rng.normal(0, 0.6, (n_users, rank))
+    V = rng.normal(0, 0.6, (n_items, rank))
+    u = rng.integers(0, n_users, n_ratings)
+    i = rng.integers(0, n_items, n_ratings)
+    raw = (U[u] * V[i]).sum(1) + 3.4 + rng.normal(0, 0.4, n_ratings)
+    cols = {"userId": u.astype(np.int64), "movieId": i.astype(np.int64),
+            "rating": np.clip(np.round(raw * 2) / 2, 0.5, 5.0),
+            "timestamp": rng.integers(9e8, 1e9, n_ratings)}
+    _, first = np.unique(cols["userId"] * n_items + cols["movieId"],
+                         return_index=True)
+    keep = np.sort(first)
+    return {c: v[keep] for c, v in cols.items()}

@@ -39,7 +39,11 @@ def _model_classes() -> dict:
     this one)."""
     from .. import xgboost
     from . import _tree_models as tm
+    from . import classification as cl
+    from . import clustering as km
     from . import feature as ft
+    from . import recommendation as rc
+    from . import regression as rg
     from . import tuning as tn
     tree = {f"sml_tpu.ml._tree_models.{c}": getattr(tm, c) for c in (
         "DecisionTreeRegressionModel", "DecisionTreeClassificationModel",
@@ -59,7 +63,20 @@ def _model_classes() -> dict:
     tuning = {f"sml_tpu.ml.tuning.{c}": getattr(tn, c) for c in (
         "CrossValidator", "CrossValidatorModel", "TrainValidationSplit",
         "TrainValidationSplitModel")}
-    return dict(tree, **feat, **xgb, **tuning,
+    linear = {
+        "sml_tpu.ml.regression.LinearRegression": rg.LinearRegression,
+        "sml_tpu.ml.regression.LinearRegressionModel":
+            rg.LinearRegressionModel,
+        "sml_tpu.ml.classification.LogisticRegression":
+            cl.LogisticRegression,
+        "sml_tpu.ml.classification.LogisticRegressionModel":
+            cl.LogisticRegressionModel,
+        "sml_tpu.ml.clustering.KMeans": km.KMeans,
+        "sml_tpu.ml.clustering.BisectingKMeans": km.BisectingKMeans,
+        "sml_tpu.ml.clustering.KMeansModel": km.KMeansModel,
+        "sml_tpu.ml.recommendation.ALS": rc.ALS,
+        "sml_tpu.ml.recommendation.ALSModel": rc.ALSModel}
+    return dict(tree, **feat, **xgb, **tuning, **linear,
                 **{"sml_tpu.ml.base.Pipeline": Pipeline,
                    "sml_tpu.ml.base.PipelineModel": PipelineModel})
 
@@ -83,8 +100,9 @@ def load(path: str):
     klass = _model_classes().get(meta["class"])
     if klass is None:
         raise ValueError(f"{path}: the port cannot load {meta['class']!r} "
-                         f"yet (tree models, feature stages, pipelines "
-                         f"and validators only)")
+                         f"yet (tree, linear, KMeans and ALS models and "
+                         f"estimators, feature stages, pipelines and "
+                         f"validators only)")
     obj = klass.__new__(klass)
     Params.__init__(obj)
     if meta.get("uid"):

@@ -230,8 +230,12 @@ def test_model_classes_predict(specs):
 
 
 def test_scorer_refuses_models_without_an_ensemble():
-    with pytest.raises(TypeError, match="tree ensembles only"):
-        pinf.DeviceScorer(types.SimpleNamespace(_coefficients=[1.0]),
+    # a model with neither an ensemble nor coefficients (a KMeans model's
+    # centers); a linear model's coefficients are scored
+    # (tests/test_torch_linear.py)
+    with pytest.raises(TypeError,
+                       match="tree ensembles and linear models only"):
+        pinf.DeviceScorer(types.SimpleNamespace(_centers=[[1.0]]),
                           device="cpu")
 
 

@@ -91,6 +91,82 @@ def test_the_chunked_plane_modules_are_among_the_imported():
         assert f"sml_tpu_torch.{name}" in proc.stdout
 
 
+def test_the_nontree_modules_are_among_the_imported():
+    proc = _run(IMPORT_ALL.replace("print(len(names), bad)",
+                                   "print(sorted(names))"))
+    assert proc.returncode == 0, proc.stderr
+    for name in ("ml.linear_impl", "ml.regression", "ml.classification",
+                 "ml.clustering", "ml.recommendation", "ml.inference",
+                 "courseware"):
+        assert f"sml_tpu_torch.{name}'" in proc.stdout
+
+
+NONTREE = """
+import sys
+import numpy as np
+from sml_tpu_torch import get_session, GLOBAL_CONF
+from sml_tpu_torch.courseware import make_airbnb_dataset, make_movielens_dataset
+from sml_tpu_torch.ml import (ALS, DeviceScorer, KMeans, LinearRegression,
+                              LogisticRegression)
+from sml_tpu_torch.ml.feature import Imputer, VectorAssembler
+GLOBAL_CONF.set("sml.device", DEVICE)
+num = ["bedrooms", "bathrooms", "accommodates"]
+df = get_session().createDataFrame(make_airbnb_dataset(n=400, seed=1))
+df = Imputer(strategy="median", inputCols=num, outputCols=num).fit(df) \\
+    .transform(df)
+df = VectorAssembler(inputCols=num, outputCol="features").transform(df)
+df = df.withColumn("label", df["price"] > 150)
+ratings = get_session().createDataFrame(make_movielens_dataset(40, 30, 600, 2))
+for what, call in (
+        ("linear", lambda: LinearRegression(labelCol="price").fit(df)
+         .transform(df).count()),
+        ("logistic", lambda: LogisticRegression().fit(df).summary
+         .numInstances),
+        ("kmeans", lambda: KMeans(k=3, seed=1).fit(df).summary.k),
+        ("als", lambda: ALS(userCol="userId", itemCol="movieId", rank=3,
+                            maxIter=2).fit(ratings).rank),
+        ("scorer", lambda: len(DeviceScorer(
+            model, device=GLOBAL_CONF.get("sml.device")).score_block(
+            np.ones((5, 3)))))):
+    try:
+        out = call()
+    except RuntimeError as e:
+        print(what, "raised:", e)
+        GLOBAL_CONF.set("sml.device", "cpu")
+        out = call()
+        GLOBAL_CONF.set("sml.device", DEVICE)
+    if what == "linear":
+        GLOBAL_CONF.set("sml.device", "cpu")
+        model = LinearRegression(labelCol="price").fit(df)
+        GLOBAL_CONF.set("sml.device", DEVICE)
+    print(what, out)
+bad = sorted(k for k in sys.modules
+             if k.split(".")[0] in ("jax", "jaxlib", "sml_tpu", "pandas",
+                                    "pyarrow"))
+print(bad)
+"""
+
+NONTREE_OUT = ["linear 400", "logistic 400", "kmeans 3", "als 3",
+               "scorer 5", "[]"]
+
+
+def test_nontree_programs_on_the_cpu_load_no_pandas_jax_or_sml_tpu():
+    proc = _run(NONTREE.replace("DEVICE", repr("cpu")))
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines() == NONTREE_OUT
+
+
+def test_nontree_entry_points_raise_without_a_card():
+    proc = _run(NONTREE.replace("DEVICE", repr("cuda")))
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.strip().splitlines()
+    raised = [ln for ln in lines if " raised: " in ln]
+    assert [ln.split(" ")[0] for ln in raised] == [
+        "linear", "logistic", "kmeans", "als", "scorer"], lines
+    assert all("no CUDA device" in ln for ln in raised), lines
+    assert [ln for ln in lines if " raised: " not in ln] == NONTREE_OUT
+
+
 CHUNKED = """
 import sys
 import numpy as np

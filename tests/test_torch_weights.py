@@ -118,12 +118,13 @@ def test_directory_loader_maps_class_and_tables(specs, tmp_path, jax_cls,
 
 def test_directory_loader_refuses_other_classes(tmp_path):
     import json
-    os.makedirs(tmp_path / "lin")
-    with open(tmp_path / "lin" / "metadata.json", "w") as f:
-        json.dump({"class": "sml_tpu.ml.regression.LinearRegressionModel",
+    # a saveable JAX class the loader's table does not carry
+    os.makedirs(tmp_path / "ev")
+    with open(tmp_path / "ev" / "metadata.json", "w") as f:
+        json.dump({"class": "sml_tpu.ml.evaluation.RegressionEvaluator",
                    "uid": "x", "params": {}, "extra": {}}, f)
     with pytest.raises(ValueError, match="cannot load"):
-        load_model(str(tmp_path / "lin"))
+        load_model(str(tmp_path / "ev"))
 
 
 @pytest.mark.parametrize("kind", ["rf", "xgb"])
