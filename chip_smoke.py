@@ -44,13 +44,20 @@ Phases:
    `split_scan` against its plain version, exactly, on histograms of
    dyadic values with ties, masked, all-masked and NaN nodes, and at the
    fused shape (W = 12 x 16) with a per-node least child weight of mixed
-   1/2/5; the draw kernels against theirs under the fit's keys of seeds
-   0, 17 and 42 and rounds 0, 1 and 19: `row_weights` (Bernoulli 0.7 and
-   Poisson 1.0 at 1, 37, 80,000 and 100,001 rows, and 12 elements of
-   mixed mode and rate at 53,334 rows each; Bernoulli bit-equal, a
+   1/2/5; the draw kernels against theirs (`DRAW_CASES`), each a whole
+   fit's draws in one launch under the fit's own keys: ML 07's forest
+   (20 rounds of 80,000 Poisson(1) rows and 20 x 63 nodes of masks, F=10,
+   k=3; seeds 42, 0 and 17), ML 11's subsample (40 rounds of 80,000
+   Bernoulli(0.8) rows), the ML 07 grid fused (20 rounds x 12 elements x
+   53,334 rows and 20 x 12 x 31 nodes), ML 07's last 4 rounds and last
+   round and the fused grid's last round (with the fits above, every
+   rows-a-thread build of `row_weights`: 8, 2, 1 and 4 on an H100), 12
+   elements of mixed mode, rate, row count and k from a warm start at
+   round 1, odd row counts (1, 37,
+   100,001) with masks past a warp (F=400, 33), of one warp (F=32) and
+   of one feature; Bernoulli weights, ones and masks bit-equal, a
    Poisson count differing only where its log-sum lies within 2 ulps of
-   -rate) and `feature_mask` (1, 2, 16 and 32 nodes of F=10, k=3 and
-   F=400, k=20, and 12 elements of mixed k at 16 nodes; bit-equal);
+   -rate;
 8. main path, fit: 100,000 seeded ML 11-shaped rows split 80,000 /
    20,000; `XgboostRegressor` (ML 11: 40 trees, depth 6, 64 bins, step
    0.15), `DecisionTreeRegressor` (ML 06: depth 5, 40 bins),
@@ -71,18 +78,21 @@ Phases:
    wrappers' host time per call; and where one ML 11 fit spends its time
    (host binning, staging, kernel device time, the rest), with the
    card's busy share and the fit kernels' device time from
-   `torch.profiler`; the draw kernels' times (`row_weights` at 80,000
-   rows, `feature_mask` at W=32, F=10) beside their plain versions and
-   bounds, and the same split of one ML 07 random-forest fit;
+   `torch.profiler`; the draw kernels' times (a whole fit's draws at ML
+   07's, ML 11's subsample's and the fused grid's shapes, and one round
+   of each: the two sides of `draw_plan`'s rows a thread) beside
+   their plain versions and bounds (integer and f64 work at the card's
+   rates, `card_rates`), and the same split of one ML 07 random-forest
+   fit;
 10. main path, tuning: the ML 07 CrossValidator grid (random forest,
    maxBins 40, seed 42, maxDepth {2, 5} x numTrees {10, 20}) over 3
    seeded folds of phase 8's 80,000 training rows, fitted as one fused
    fit (`fit_cv_grid`, 12 elements) with every kernel launch counted
-   (100 `hist_accumulate`, `split_scan` and `feature_mask`, 20
+   (100 `hist_accumulate` and `split_scan`, one `feature_mask` and one
    `row_weights`), each element scored on its validation fold
    (`fused_reg_stats_from_matrix`, 12 `forest_traverse` launches); the
    same 12 fits one by one through `RandomForestRegressor` (630 / 630 /
-   630 / 180 launches); every fused element's split tables equal to its
+   12 / 12 launches); every fused element's split tables equal to its
    sequential fit's, leaves within rtol 1e-6, rmse within
    max(1e-3, 1e-5·|rmse|); the same grid at `sml.cv.maxFusedTrials` 5
    (3 fused fits) and 1 (4 fold-fused fits) gives the same models; the
@@ -103,8 +113,8 @@ Phases:
    seed=42)`) and ML 11 (`XgboostRegressor(n_estimators=40,
    learning_rate=0.15, max_depth=6, max_bins=64, random_state=42)` on
    log price, evaluated through `F.exp`), with every kernel's launches
-   counted around each fit and each evaluate (5 / 5, 120 / 120 / 20 /
-   120 and 240 / 240; one `forest_traverse` an evaluate, through the
+   counted around each fit and each evaluate (5 / 5, 120 / 120 / 1 / 1
+   and 240 / 240; one `forest_traverse` an evaluate, through the
    pushdown, with no prediction column materialized); each DataFrame
    fit equal to the port's matrix fit (`fit(X, y, categorical)`) on the
    matrix and slots the fitted prep stages assemble, bit for bit and in
@@ -121,9 +131,9 @@ Phases:
    `CrossValidator` over ML 07's `RandomForestRegressor(labelCol="price",
    seed=42)` with the course's grid (maxDepth {2, 5} x numTrees {5, 10},
    3 folds, parallelism 4, seed 42) on the indexed, assembled frame, fused
-   (one fit of 12 elements: 50 / 50 / 50 / 10 launches, 12 traversals)
-   and as placed trials (`sml.cv.batchFolds=false`: 315 / 315 / 315 /
-   90), the best point's refit on top, `avgMetrics` and the best point
+   (one fit of 12 elements: 50 / 50 / 1 / 1 launches, 12 traversals)
+   and as placed trials (`sml.cv.batchFolds=false`: 315 / 315 / 12 /
+   12), the best point's refit on top, `avgMetrics` and the best point
    equal; (b) the pipeline (StringIndexer, VectorAssembler, RF) inside the
    CV at parallelism 1 and 4, `avgMetrics` equal; (c) the CV inside the
    pipeline (ML 07L); (d) `TrainValidationSplit`, fused and placed equal;
@@ -211,13 +221,22 @@ import subprocess
 import sys
 import threading
 import time
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
-#: H100 SXM published peaks (NVIDIA data sheet, at a 700 W limit)
+#: H100 SXM published peaks (NVIDIA data sheet, at a 700 W limit): HBM
+#: bytes a second, and f32 floating-point operations a second outside the
+#: tensor cores (an FMA counts two)
 HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
+F32_FLOPS_PER_S = 67e12
+#: lanes a Hopper SM issues a clock for 32-bit integer and for float64
+#: instructions (64 each, against 128 for f32); `card_rates` scales them
+#: by the card's SM count and maximum SM clock. An integer or f64 op is
+#: one lane's instruction (an f64 FMA counts one)
+INT32_LANES_PER_SM = 64
+F64_LANES_PER_SM = 64
 
 #: the tolerance of the card's scores against the CPU's (`score_block`
 #: on both): the leaf choice is exact and the two sums over trees are
@@ -238,6 +257,39 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+_RATES = {}
+
+
+def card_rates() -> dict:
+    """The card's INT32 and f64 instruction rates (ops a second): 64
+    lanes an SM a clock, times the SM count torch reports and the
+    maximum SM clock nvidia-smi reports; with the clock and SM count."""
+    if not _RATES:
+        mhz = float(subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, check=True, timeout=60).stdout.split()[0])
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        _RATES.update(int32=INT32_LANES_PER_SM * sms * mhz * 1e6,
+                      f64=F64_LANES_PER_SM * sms * mhz * 1e6,
+                      sm_mhz=mhz, sms=sms)
+    return _RATES
+
+
+def bound_of(nbytes: int, int_ops: int = 0, f32_flops: int = 0,
+             f64_ops: int = 0):
+    """(ms, "bytes" or "operations"): the least time of a call, the
+    larger of its bytes over HBM bandwidth and, for each kind of work,
+    its operations over the card's rate for that kind (integer and f64 at
+    `card_rates`, f32 at `F32_FLOPS_PER_S`)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    rates = card_rates() if int_ops or f64_ops else {}
+    t_ops = max(int_ops / rates["int32"] if int_ops else 0.0,
+                f32_flops / F32_FLOPS_PER_S,
+                f64_ops / rates["f64"] if f64_ops else 0.0) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 # ------------------------------------------------------------ ensembles
@@ -337,18 +389,16 @@ def bound_ms(binned, sf, sb, depth: int):
     """(ms, "bytes" or "operations"): the larger of the bytes the call
     must move over HBM bandwidth (bins read once, the reachable part of
     the tables (`table_bytes`) and the weights read once, margins written
-    once) and its operations over the f32 rate outside the tensor cores
-    (per node visit a compare and the child index, 3; per row and tree
-    the weighted add, 2). The guide's table lists no integer rate, so
-    integer work is counted at the f32 rate."""
+    once) and its operations (`bound_of`): per node visit a compare and
+    the child index, 3 integer ops; per row and tree the weighted add, an
+    f32 FMA (2 flops)."""
     n, n_feat = binned.shape
     T = sf.shape[0]
     nbytes = n * n_feat * binned.element_size() + table_bytes(sf, depth) \
         + 4 * T + 4 * n
-    ops = 3 * levels_descended(binned, sf, sb, depth) + 2 * n * T
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return bound_of(nbytes,
+                    int_ops=3 * levels_descended(binned, sf, sb, depth),
+                    f32_flops=2 * n * T)
 
 
 def time_ms(fn, reps: int) -> float:
@@ -370,7 +420,7 @@ def time_ms(fn, reps: int) -> float:
 
 #: what each `device_ms` call measured -> the launches a window should
 #: hold ("want") and the launches the profiler saw in each window taken
-#: ("seen"; a window short by one is accepted), for the kernels line
+#: ("seen"; a window up to 5% short is accepted), for the kernels line
 DEVICE_WINDOWS = {}
 
 
@@ -379,11 +429,12 @@ def device_ms(fn, reps: int, names, per_call: int = 1, what: str = ""):
     each kernel whose name contains one of `names` at its mean device
     time over the launches the profiler saw, times its launches a call
     (the CUDA-event median of `time_ms` also holds the host's gap before
-    the launch). The profiler may lose one kernel record of a window (on
-    the H100 it lost one in every window after the serving phases); a
-    window that saw neither reps x `per_call` launches nor one fewer is
-    retaken, up to three times; then None ("not measured"). The counts
-    each window saw go to `DEVICE_WINDOWS[what]`."""
+    the launch). The profiler may lose a few kernel records of a window
+    (on the H100 one to three a window, by machine); a window that lost
+    more than 5% of its reps x `per_call` launches (at least one is
+    allowed) is retaken, up to three times; then None ("not measured").
+    The counts each window saw go to `DEVICE_WINDOWS[what]`, and the
+    kernels line gives each device time's beside it (`seen_of`)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -405,13 +456,22 @@ def device_ms(fn, reps: int, names, per_call: int = 1, what: str = ""):
                 seen[ev.key] = (tot + t, cnt + int(ev.count))
         count = sum(cnt for _, cnt in seen.values())
         seen_by_window.append(count)
-        if want - 1 <= count <= want:
+        if want - max(1, want // 20) <= count <= want:
             return sum(tot / cnt * round(cnt / reps)
                        for tot, cnt in seen.values()) / 1e3
         print(f"device time of {names}: the profiler saw {count} launches, "
               f"not {want}")
     print(f"device time of {names}: not measured")
     return None
+
+
+def seen_of(what: str):
+    """The launches the profiler saw against those wanted in the window
+    a device time of `what` was taken from ("98/100"; one a window, for a
+    median over windows), or None where none was taken."""
+    hits = [w for k, w in DEVICE_WINDOWS.items()
+            if k == what or k.startswith(what + " window ")]
+    return ", ".join(f"{w['seen'][-1]}/{w['want']}" for w in hits) or None
 
 
 def fmt_ms(x) -> str:
@@ -970,27 +1030,89 @@ def pack_err(got: torch.Tensor, want: torch.Tensor) -> float:
 
 
 # ------------------------------------------------------------ draw kernels
-#: the draw checks' seeds and rounds; row counts (one row, a few, the fit
-#: phase's 80,000 and an odd count past it); and (F, k) of the masks at
-#: each node count
-DRAW_SEEDS = (0, 17, 42)
-DRAW_ROUNDS = (0, 1, 19)
-DRAW_ROWS = (1, 37, 80_000, 100_001)
-MASK_SHAPES = ((10, 3), (400, 20))
-MASK_WIDTHS = (1, 2, 16, 32)
-#: the mode and rate of each row-weights check: the subsample's Bernoulli
-#: and the forest's bootstrap
-DRAW_MODES = (("bernoulli", 0.7), ("poisson", 1.0))
 #: a Poisson count of the kernel may differ from its plain version only
 #: at rows whose log-sum came this close to -rate (in f32 ulps)
 BOUNDARY_ULPS = 2
 
 
-def draw_key(seed: int, t: int):
-    """Round t's row-weight key of a fit seeded `seed`:
-    `fold_in(fold_in(prng_key(seed), 0), t)`."""
+class DrawCase(NamedTuple):
+    """A fit's whole draws: per element a seed, (mode, rate), row count
+    and k; rounds t0 .. trees-1 of rows padded to n_pad, levels of
+    n_feat features (depth 0: no masks)."""
+    what: str
+    seeds: tuple
+    modes: tuple
+    counts: tuple
+    ks: tuple
+    n_pad: int
+    trees: int
+    t0: int
+    depth: int
+    n_feat: int
+
+
+#: the main paths' draws, each one launch of each kernel a fit: ML 07's
+#: forest (seed 42: 20 rounds of Poisson(1) over 80,000 rows, 6 levels of
+#: masks, 3 of 10 features a node), ML 11's XGBoost at subsample 0.8 (40
+#: rounds of Bernoulli(0.8), no masks) and the ML 07 grid fused (12
+#: elements of the fold counts 53,333 / 53,333 / 53,334, 20 rounds, 5
+#: levels)
+RF_DRAWS = DrawCase("ML 07 RF", (42,), (("poisson", 1.0),), (80_000,),
+                    (3,), 80_000, 20, 0, 6, 10)
+SUB_DRAWS = DrawCase("ML 11 subsample 0.8", (42,), (("bernoulli", 0.8),),
+                     (80_000,), (10,), 80_000, 40, 0, 0, 10)
+FUSED_DRAWS = DrawCase("ML 07 grid fused", (42,) * 12,
+                       (("poisson", 1.0),) * 12,
+                       (53_333, 53_333, 53_334) * 4, (3,) * 12, 53_334, 20,
+                       0, 5, 10)
+#: and shapes that reach the kernels' other paths: the same under seeds 0
+#: and 17; ML 07's last 4 rounds and last round, and the fused grid's last
+#: round (a warm start's few rounds: 2, 1 and 4 rows a thread on an H100,
+#: where the fits above take 8); 12 elements of mixed mode, rate, row
+#: count and k from a warm start at round 1; odd row counts (1, 37,
+#: 100,001) with masks past a warp (F = 400, 33) and of one warp (F = 32)
+#: and one feature
+DRAW_CASES = (
+    RF_DRAWS, RF_DRAWS._replace(what="ML 07 RF seed 0", seeds=(0,)),
+    RF_DRAWS._replace(what="ML 07 RF seed 17", seeds=(17,)),
+    RF_DRAWS._replace(what="ML 07 RF from round 16", t0=16),
+    RF_DRAWS._replace(what="ML 07 RF from round 19", t0=19),
+    FUSED_DRAWS._replace(what="ML 07 grid fused from round 19", t0=19),
+    SUB_DRAWS, SUB_DRAWS._replace(what="ML 11 subsample seed 17",
+                                  seeds=(17,)),
+    FUSED_DRAWS,
+    DrawCase("12 elements of mixed mode and rate, from round 1",
+             tuple(range(12)),
+             (("poisson", 1.0), ("bernoulli", 0.7), ("ones", 1.0),
+              ("poisson", 0.5), ("bernoulli", 0.3), ("poisson", 0.9)) * 2,
+             (53_334, 53_333, 53_334, 53_000, 53_334, 53_333) * 2,
+             (3, 10, 1, 5) * 3, 53_334, 4, 1, 5, 10),
+    DrawCase("odd rows, F=400, from round 1", (0, 17, 42),
+             (("poisson", 1.0), ("bernoulli", 0.7), ("poisson", 0.5)),
+             (100_001, 37, 1), (20, 400, 1), 100_001, 3, 1, 6, 400),
+    DrawCase("F=33", (5,), (("poisson", 3.5),), (37,), (7,), 37, 3, 0, 4,
+             33),
+    DrawCase("F=32", (5, 6), (("poisson", 9.5), ("bernoulli", 0.5)),
+             (37, 30), (31, 1), 37, 3, 0, 4, 32),
+    DrawCase("F=1", (5,), (("bernoulli", 0.5),), (37,), (1,), 37, 2, 0, 3,
+             1),
+)
+
+
+def case_draws(case: DrawCase, device, rows: Optional[int] = None):
+    """(draws, ks, n_pad) of a case on `device` through the fit's own
+    `fit_draws`; `rows` caps the row counts (a rehearsal on the CPU)."""
+    from sml_tpu_torch.ml import tree_impl
     from sml_tpu_torch.utils import prng
-    return prng.fold_in(prng.fold_in(prng.prng_key(seed), 0), t)
+    n_pad = case.n_pad if rows is None else min(case.n_pad, rows)
+    rngs = np.asarray([prng.prng_key(s) for s in case.seeds], np.uint32)
+    draws = tree_impl.fit_draws(rngs, case.trees, max(case.depth, 1),
+                                [m for m, _ in case.modes],
+                                [r for _, r in case.modes],
+                                [min(c, n_pad) for c in case.counts], n_pad,
+                                device)
+    ks = torch.tensor(case.ks, dtype=torch.int32, device=device)
+    return draws, ks, n_pad
 
 
 def near_boundary(key, lam: float, n: int, device) -> torch.Tensor:
@@ -1010,119 +1132,77 @@ def near_boundary(key, lam: float, n: int, device) -> torch.Tensor:
     return near
 
 
-def key_tensor(keys, device) -> torch.Tensor:
-    """Host key pairs as the (E, 2) uint32 tensor the draw kernels read."""
-    return torch.tensor([list(k) for k in keys], dtype=torch.uint32,
-                        device=device)
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize()
 
 
-#: the batched draw check: 12 elements of mixed mode and rate (and row
-#: counts up to 53,334, the ML 07 grid's longest training fold), and of
-#: mixed k for the masks
-BATCH_SEEDS = tuple(range(12))
-BATCH_MODES = (("poisson", 1.0), ("bernoulli", 0.7), ("ones", 1.0),
-               ("poisson", 0.5), ("bernoulli", 0.3), ("poisson", 0.9)) * 2
-BATCH_ROWS = 53_334
-BATCH_COUNTS = (53_334, 53_333, 53_334, 53_000, 53_334, 53_333) * 2
-BATCH_K = (3, 10, 1, 5) * 3
-
-
-def batch_draws(device, t: int = 3):
-    """The batched check's operands: round t's weight keys and level 4's
-    mask keys of the 12 elements (seeds `BATCH_SEEDS`), the weight table
-    and each element's k."""
-    from sml_tpu_torch.ml import tree_impl
-    from sml_tpu_torch.utils import prng
-    rngs = np.asarray([prng.prng_key(s) for s in BATCH_SEEDS], np.uint32)
-    draws = tree_impl.fit_draws(rngs, t + 1, 5,
-                                [m for m, _ in BATCH_MODES],
-                                [r for _, r in BATCH_MODES],
-                                list(BATCH_COUNTS), BATCH_ROWS, device)
-    ks = torch.tensor(BATCH_K, dtype=torch.int32, device=device)
-    return draws, draws.keys[t, 0], draws.keys[t, 1 + 4], ks
-
-
-def phase_draw_kernels(device) -> dict:
-    """`row_weights` (Bernoulli p=0.7 and Poisson λ=1 at `DRAW_ROWS`) and
-    `feature_mask` (`MASK_SHAPES` at `MASK_WIDTHS` nodes) against their
-    plain versions on the card, under the fit's keys of seeds 0, 17 and
-    42 and rounds 0, 1 and 19, one element each; then 12 elements at once
-    (`batch_draws`): weights of either mode and masks bit-equal, a
-    Poisson count differing only within `BOUNDARY_ULPS` of -rate.
-    Returns the largest absolute differences seen."""
+def phase_draw_kernels(device, rows: Optional[int] = None) -> dict:
+    """Each case of `DRAW_CASES` drawn whole, one `fit_row_weights` and
+    one `fit_feature_masks` launch, against the plain versions round by
+    round and level by level: Bernoulli weights, ones and masks bit-equal,
+    a Poisson count differing only within `BOUNDARY_ULPS` of -rate, every
+    node holding k candidates. `rows` caps the row counts (on the CPU the
+    wrappers run the plain versions: a rehearsal). Returns the largest
+    absolute differences seen."""
     from sml_tpu_torch.native import prng_kernel as pk
-    from sml_tpu_torch.utils import prng
     saved = dict(pk.LAUNCHES)
     worst = {"row_weights": 0.0, "feature_mask": 0.0}
-
-    def check_weights(keys, table, n, modes, what):
-        got = pk.row_weights(keys, *table, n)
-        torch.cuda.synchronize()
-        want = pk.row_weights_plain(keys, *table, n)
-        off = (got != want).view(len(modes), n)
-        for e, (mode, rate) in enumerate(modes):
-            if mode == "poisson" and bool(off[e].any()):
-                off[e] &= ~near_boundary(tuple(keys[e].tolist()), rate, n,
-                                         device)
-            if bool(off[e].any()):
-                raise AssertionError(f"row_weights {what} element {e} "
-                                     f"({mode}): {int(off[e].sum())} rows "
-                                     f"differ away from the log boundary")
+    # the card's SMs (an H100's 132 where the CPU rehearses)
+    sms = pk._sm_count(device) if device.type == "cuda" else 132
+    rows_a_thread = set()
+    for case in DRAW_CASES:
+        draws, ks, n_pad = case_draws(case, device, rows)
+        E, R = len(case.seeds), case.trees - case.t0
+        keys = draws.keys[case.t0:, 0]
+        plan = pk.draw_plan(n_pad, R * E, sms)
+        rows_a_thread.add(plan.rows)
+        got = pk.fit_row_weights(keys, draws.modes, draws.rates,
+                                 draws.counts, n_pad)
+        _sync(device)
+        want = pk.fit_row_weights_plain(keys, draws.modes, draws.rates,
+                                        draws.counts, n_pad)
+        off = (got != want).view(R, E, n_pad)
+        for r in range(R):
+            for e, (mode, rate) in enumerate(case.modes):
+                if mode == "poisson" and bool(off[r, e].any()):
+                    off[r, e] &= ~near_boundary(tuple(keys[r, e].tolist()),
+                                                rate, n_pad, device)
+                if bool(off[r, e].any()):
+                    raise AssertionError(
+                        f"row_weights {case.what} round {case.t0 + r} "
+                        f"element {e} ({mode}): {int(off[r, e].sum())} rows "
+                        f"differ away from the log boundary")
         worst["row_weights"] = max(worst["row_weights"],
                                    float((got - want).abs().max()))
-        return int((got != want).sum())
-
-    for mode, rate in DRAW_MODES:
-        for n in DRAW_ROWS:
-            differ = 0
-            for seed in DRAW_SEEDS:
-                for t in DRAW_ROUNDS:
-                    differ += check_weights(
-                        key_tensor([draw_key(seed, t)], device),
-                        pk.weight_table([mode], [rate], [n], device), n,
-                        [(mode, rate)], f"n={n} seed={seed} t={t}")
-            print(f"kernel-vs-plain  row_weights  {mode} rate={rate} "
-                  f"rows={n:<6} {pk.draw_plan(n)} seeds={DRAW_SEEDS} "
-                  f"rounds={DRAW_ROUNDS}: rows differing {differ} (within "
-                  f"{BOUNDARY_ULPS} ulps of -rate)  ok")
-    draws, wkeys, mkeys, ks = batch_draws(device)
-    differ = check_weights(wkeys, (draws.modes, draws.rates, draws.counts),
-                           BATCH_ROWS, BATCH_MODES, "12 elements")
-    print(f"kernel-vs-plain  row_weights  12 elements of mixed mode and rate "
-          f"{BATCH_MODES[:6]} x 2, {BATCH_ROWS} rows each (counts "
-          f"{BATCH_COUNTS[:6]} x 2) {pk.draw_plan(BATCH_ROWS)}: rows "
-          f"differing {differ} (within {BOUNDARY_ULPS} ulps of -rate)  ok")
-
-    def check_mask(keys, kt, width, n_feat, what):
-        got = pk.feature_mask(keys, kt, width, n_feat)
-        torch.cuda.synchronize()
-        want = pk.feature_mask_plain(keys, kt, width, n_feat)
-        if not torch.equal(got, want):
-            raise AssertionError(f"feature_mask {what}: "
-                                 f"{int((got != want).sum())} cells differ")
-        per_node = kt.repeat_interleave(width).clamp(max=n_feat)
-        if not bool((got.sum(1) == per_node).all()):
-            raise AssertionError(f"feature_mask {what}: not k a node")
-
-    for n_feat, k in MASK_SHAPES:
-        for width in MASK_WIDTHS:
-            for seed in DRAW_SEEDS:
-                for t in DRAW_ROUNDS:
-                    level = width.bit_length() - 1
-                    key = prng.fold_in(prng.fold_in(prng.prng_key(seed), t),
-                                       level)
-                    check_mask(key_tensor([key], device),
-                               torch.tensor([k], dtype=torch.int32,
-                                            device=device),
-                               width, n_feat,
-                               f"W={width} F={n_feat} k={k} seed={seed} "
-                               f"t={t}")
-            print(f"kernel-vs-plain  feature_mask  W={width:<2} F={n_feat} "
-                  f"k={k} {pk.mask_plan(n_feat)} seeds={DRAW_SEEDS} "
-                  f"rounds={DRAW_ROUNDS}: bit-equal  ok")
-    check_mask(mkeys, ks, 16, N_FEAT, "12 elements")
-    print(f"kernel-vs-plain  feature_mask  12 elements x W=16 F={N_FEAT} "
-          f"k={BATCH_K[:4]} x 3 {pk.mask_plan(N_FEAT)}: bit-equal  ok")
+        line = (f"kernel-vs-plain  {case.what}: row_weights {R} rounds x "
+                f"{E} x {n_pad} rows in one launch {plan}: "
+                f"rows differing {int((got != want).sum())} (within "
+                f"{BOUNDARY_ULPS} ulps of -rate)")
+        if case.depth:
+            mkeys = draws.keys[case.t0:, 1:1 + case.depth]
+            got = pk.fit_feature_masks(mkeys, ks, case.n_feat)
+            _sync(device)
+            want = pk.fit_feature_masks_plain(mkeys, ks, case.n_feat)
+            if not torch.equal(got, want):
+                raise AssertionError(f"feature_mask {case.what}: "
+                                     f"{int((got != want).sum())} cells "
+                                     f"differ")
+            per_node = torch.cat([ks.repeat_interleave(2 ** level)
+                                  for level in range(case.depth)])
+            if not bool((got.sum(2) == per_node.clamp(
+                    max=case.n_feat)).all()):
+                raise AssertionError(f"feature_mask {case.what}: not k a "
+                                     f"node")
+            nodes = R * E * (2 ** case.depth - 1)
+            line += (f"; feature_mask {R} x {E} x {2 ** case.depth - 1} "
+                     f"nodes x F={case.n_feat} in one launch "
+                     f"{pk.mask_plan(nodes, case.n_feat)}: bit-equal")
+        print(line + "  ok")
+    if rows is None and rows_a_thread != set(pk._DRAW_ROWS):
+        raise AssertionError(f"the draw cases reach rows a thread "
+                             f"{sorted(rows_a_thread)}, not each of the "
+                             f"kernel's {sorted(pk._DRAW_ROWS)}")
     pk.LAUNCHES.update(saved)  # checks are not the main path's launches
     return worst
 
@@ -1132,9 +1212,12 @@ def _rmse(pred, label) -> float:
     return float(np.sqrt(np.mean(d * d)))
 
 
-#: the fit's kernel wrappers and their plain versions, by module
-FIT_WRAPPERS = {"hist_kernel": ("hist_accumulate", "split_scan"),
-                "prng_kernel": ("row_weights", "feature_mask")}
+#: the fit's kernel wrappers (each with its `_plain` version) and the
+#: kernel each launches, by module
+FIT_WRAPPERS = {"hist_kernel": (("hist_accumulate", "hist_accumulate"),
+                                ("split_scan", "split_scan")),
+                "prng_kernel": (("fit_row_weights", "row_weights"),
+                                ("fit_feature_masks", "feature_mask"))}
 
 
 def _on_cuda(args) -> bool:
@@ -1157,8 +1240,8 @@ class KernelWatch:
         self.timed = timed
         self.plain_on_cuda = 0
         self.lock = threading.Lock()
-        self.events = {name: [] for names in FIT_WRAPPERS.values()
-                       for name in names}
+        self.events = {kernel: [] for pairs in FIT_WRAPPERS.values()
+                       for _, kernel in pairs}
         self.saved = []
 
     def _patch(self, mod, name, fn):
@@ -1176,14 +1259,14 @@ class KernelWatch:
 
         from sml_tpu_torch.native import traverse_kernel
         watch(traverse_kernel, "forest_margin_plain")
-        for modname, names in FIT_WRAPPERS.items():
+        for modname, pairs in FIT_WRAPPERS.items():
             mod = self.modules[modname]
-            for name in names:
+            for name, kernel in pairs:
                 watch(mod, f"{name}_plain")
                 if not self.timed:
                     continue
 
-                def timed_call(*args, _fn=getattr(mod, name), _name=name,
+                def timed_call(*args, _fn=getattr(mod, name), _name=kernel,
                                **kw):
                     a = torch.cuda.Event(enable_timing=True)
                     b = torch.cuda.Event(enable_timing=True)
@@ -1240,17 +1323,17 @@ def _fit_xgb_sub(X, logy, cats, device):
 
 #: the fits of the main path: estimator, whether it fits log price, and
 #: the launches of each kernel it must make (hist_accumulate and
-#: split_scan a level; row_weights a sampled round; feature_mask a level
-#: of a forest)
+#: split_scan a level; row_weights once a sampled fit; feature_mask once
+#: a forest fit)
 FITS = {
     "xgb": (_fit_xgb, True, {"hist_accumulate": 240, "split_scan": 240,
                              "row_weights": 0, "feature_mask": 0}),
     "dt": (_fit_dt, False, {"hist_accumulate": 5, "split_scan": 5,
                             "row_weights": 0, "feature_mask": 0}),
     "rf": (_fit_rf, False, {"hist_accumulate": 120, "split_scan": 120,
-                            "row_weights": 20, "feature_mask": 120}),
+                            "row_weights": 1, "feature_mask": 1}),
     "xgb_sub": (_fit_xgb_sub, True, {"hist_accumulate": 240,
-                                     "split_scan": 240, "row_weights": 40,
+                                     "split_scan": 240, "row_weights": 1,
                                      "feature_mask": 0}),
 }
 
@@ -1371,15 +1454,12 @@ def hist_bound_ms(binned, weight, n_bins: int, n_slots: int):
     and three f32 per row read once; the (F*B, S*3) f32 histogram
     written once) over HBM bandwidth, against its operations (per row
     with w > 0: two products and 3 adds for each of its F cells) over
-    the f32 rate. The sums run in float64, whose rate is not among the
-    published peaks above; they are counted at the f32 rate."""
+    the f64 rate (`bound_of`): the sums run in float64."""
     n, n_feat = binned.shape
     nbytes = n * (n_feat * binned.element_size() + 16) \
         + n_feat * n_bins * n_slots * 12
-    ops = int((weight > 0).sum()) * (2 + 3 * n_feat)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return bound_of(nbytes,
+                    f64_ops=int((weight > 0).sum()) * (2 + 3 * n_feat))
 
 
 def scan_bound_ms(hist):
@@ -1389,10 +1469,7 @@ def scan_bound_ms(hist):
     squares, 2 divisions, 7 adds and subtractions, 2 compares)."""
     n_feat, n_bins, width = hist.shape[:3]
     nbytes = hist.numel() * 4 + width * n_feat * 4 + 4 + 6 * width * 4
-    ops = 16 * n_feat * n_bins * width
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return bound_of(nbytes, f32_flops=16 * n_feat * n_bins * width)
 
 
 #: ML 11's tree levels: slots histogrammed (with subtraction) and nodes
@@ -1609,128 +1686,191 @@ def phase_fit_times(seed: int, device, card: str) -> dict:
     return out
 
 
-#: integer operations of one Threefry-2x32 hash (the key schedule's two
+#: integer instructions of one Threefry-2x32 hash (the key schedule's two
 #: XORs; 2 + 15 adds of key injections; 20 rounds of an add, a rotate and
-#: an XOR), of an f32 uniform from it (an XOR of the two words, a shift,
-#: an OR, a subtraction), and of the f32 log jax's Knuth loop takes,
-#: counted at its least on this card: a hardware log2 and a multiply by
-#: ln 2 (what `__logf` compiles to); the port's float64 log is its own
-#: choice, not the function's work
-HASH_OPS = 79
-UNIFORM_OPS = HASH_OPS + 4
-LOG_OPS = 2
+#: an XOR) and of an f32 uniform from it (an XOR of the two words, a
+#: shift, an OR; then one f32 subtraction)
+HASH_INT_OPS = 79
+UNIFORM_INT_OPS = HASH_INT_OPS + 3
+#: f64 instructions of a Poisson step's log: the conversion in, `log` in
+#: float64 (libdevice: a reduction of the exponent, a reciprocal and a
+#: polynomial in fused multiply-adds, about 20 on the path every row
+#: takes) and the rounding out
+LOG_F64_OPS = 22
 
 
-def _bound(nbytes: int, ops: int):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def draw_bound_ms(weights: torch.Tensor, mode: str):
-    """(ms, by) of `row_weights`: 4 bytes a row written, against a
-    uniform and a compare a Bernoulli row, or, for Poisson, what these
-    draws needed: count + 1 steps of a row (a uniform, a log, an add and
-    a compare each) and the key chain's two hashes a step, once. Integer
-    work is counted at the f32 rate (the guide's table lists no other)."""
-    n = weights.numel()
+def draw_bound_ms(weights: torch.Tensor, counts, mode: str):
+    """(ms, by) of `fit_row_weights` on these draws ((R, E * n_pad)
+    weights, each element's row count): 4 bytes a row written and a key
+    pair a (round, element) read; a Bernoulli row a uniform and a
+    compare; a Poisson row count + 1 steps, each a uniform, an f64 log
+    and an f32 add and compare, and each (round, element)'s key chain,
+    two hashes a step up to its longest row, once. Integer and f64 work at
+    the card's rates (`bound_of`)."""
+    R, n = weights.shape
+    E = len(counts)
+    w = weights.view(R, E, n // E)
+    valid = torch.arange(n // E, device=w.device)[None, None, :] \
+        < torch.as_tensor(counts, device=w.device)[None, :, None]
+    nbytes = 4 * R * n + 8 * R * E + 12 * E
     if mode == "bernoulli":
-        ops = n * (UNIFORM_OPS + 1)
-    else:
-        steps = weights.to(torch.int64) + 1
-        ops = int(steps.sum()) * (UNIFORM_OPS + LOG_OPS + 2) \
-            + 2 * HASH_OPS * int(steps.max())
-    return _bound(4 * n, ops)
+        rows = int(valid.sum()) * R
+        return bound_of(nbytes, int_ops=rows * UNIFORM_INT_OPS,
+                        f32_flops=2 * rows)
+    steps = torch.where(valid, w.to(torch.int64) + 1, 0)
+    total = int(steps.sum())
+    chain = int(steps.amax(dim=2).sum())
+    return bound_of(nbytes,
+                    int_ops=total * UNIFORM_INT_OPS + 2 * HASH_INT_OPS * chain,
+                    f32_flops=3 * total, f64_ops=total * LOG_F64_OPS)
 
 
-def mask_bound_ms(width: int, n_feat: int):
-    """(ms, by) of `feature_mask`: the (W, F) f32 mask written, against a
-    uniform a cell and what selecting a node's k smallest of F values
-    needs at the least: a linear-time selection, about one compare a
-    cell, and a cell's compare with the k-th value. (The kernel ranks by
-    counting, F compares a cell; that is its own choice.)"""
-    cells = width * n_feat
-    return _bound(4 * cells, cells * (UNIFORM_OPS + 2))
+def poisson_hashes(weights: torch.Tensor, counts, plan) -> tuple:
+    """(lane hashes the kernel's warps issue, hashes the rows need) of a
+    Poisson draw ((R, E * n_pad) weights) under a launch plan: a row
+    needs count + 1 uniforms and its (round, element) two chain hashes a
+    step up to its longest row, once; a warp (32 threads, each over
+    `plan.rows` rows strided by the block's width) issues for 32 lanes at
+    every step the two chain hashes and each row slot's uniform while any
+    lane's row in that slot still counts."""
+    R, n = weights.shape
+    E = len(counts)
+    n_pad = n // E
+    valid = torch.arange(n_pad, device=weights.device)[None, None, :] \
+        < torch.as_tensor(counts, device=weights.device)[None, :, None]
+    steps = torch.where(valid, weights.view(R, E, n_pad).to(torch.int64)
+                        + 1, 0).view(R * E, n_pad)
+    padded = plan.blocks * plan.threads * plan.rows
+    steps = torch.nn.functional.pad(steps, (0, padded - n_pad))
+    slot = steps.view(R * E, plan.blocks, plan.rows, plan.threads // 32,
+                      32).amax(dim=4)
+    issued = 32 * (int(slot.sum()) + 2 * int(slot.amax(dim=2).sum()))
+    return issued, int(steps.sum()) + 2 * int(steps.amax(dim=1).sum())
+
+
+def mask_bound_ms(nodes: int, n_feat: int, n_keys: int):
+    """(ms, by) of `fit_feature_masks` over `nodes` nodes of F features:
+    the f32 mask written and the level keys read, against a uniform a
+    cell and what selecting a node's k smallest of F values needs at the
+    least: a linear-time selection, about one compare a cell, and a
+    cell's compare with the k-th value (f32 compares). The kernel ranks
+    by counting, F compares a cell; that is its own choice."""
+    cells = nodes * n_feat
+    return bound_of(4 * cells + 8 * n_keys, int_ops=cells * UNIFORM_INT_OPS,
+                    f32_flops=3 * cells)
+
+
+def device_median_ms(fn, names, what: str, reps: int = 100,
+                     windows: int = 3):
+    """The median over `windows` profiler windows of `reps` calls of the
+    kernel's device time a call (`device_ms`, the mean over the launches
+    a window saw), or None where no window was measured."""
+    got = [device_ms(fn, reps, names, what=f"{what} window {i}")
+           for i in range(windows)]
+    got = [g for g in got if g is not None]
+    return float(np.median(got)) if got else None
+
+
+def once_ms(fn) -> float:
+    """One call's device time by CUDA events, after one call to warm up
+    (the plain versions: seconds a call at the fits' shapes)."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b)
 
 
 def phase_draw_times(device, card: str) -> dict:
-    """Kernel (CUDA-event median and profiler device time), plain and
-    bound of `row_weights` at the fit phase's 80,000 rows (Bernoulli 0.7
-    and Poisson 1.0, one element) and at the ML 07 grid fused (12
-    elements of 53,334 rows, Poisson 1.0), and of `feature_mask` at ML
-    07's last level (W=32, F=10, k=3) and at the fused grid's (12
-    elements x W=16); the wrappers' host time per call. Returns the
-    numbers of the kernels line."""
-    from sml_tpu_torch.ml.tree_impl import fit_keys
+    """Kernel (CUDA-event median of a launch, and the median over
+    profiler windows of its device time), plain and bound of the whole-fit
+    draws at the main paths' shapes (`RF_DRAWS`, `SUB_DRAWS`,
+    `FUSED_DRAWS`), and of one round of each: `fit_row_weights` at the
+    rows a thread `draw_plan` picks there (8 over these fits, 1 or 4 over
+    one round: the two sides of its choice) and `fit_feature_masks`; the
+    wrappers' host time per call. Returns the numbers of the kernels
+    line."""
     from sml_tpu_torch.native import prng_kernel as pk
-    from sml_tpu_torch.utils import prng
     saved = dict(pk.LAUNCHES)
+    rates = card_rates()
+    print(f"time  card rates: {rates['sms']} SMs at {rates['sm_mhz']!r} MHz "
+          f"(max SM clock): INT32 {rates['int32']!r} ops/s, f64 "
+          f"{rates['f64']!r} ops/s, f32 {F32_FLOPS_PER_S!r} flops/s; card "
+          f"{card}")
     out = {}
+    for case in (RF_DRAWS, SUB_DRAWS, FUSED_DRAWS):
+        draws, ks, n_pad = case_draws(case, device)
+        mode, rate = case.modes[0]
+        E = len(case.seeds)
+        for start in (case.t0, case.trees - 1):   # every round, and one
+            R = case.trees - start
+            keys = draws.keys[start:, 0]
+            label = f"{case.what}: {R} x {E} x {n_pad} rows"
+            plan = pk.draw_plan(n_pad, R * E, rates["sms"])
 
-    def time_draw(keys, table, n, mode, what):
-        def call():
-            return pk.row_weights(keys, *table, n)
-        k_ms = time_ms(call, 100)
-        d_ms = device_ms(call, 100, ("row_weights_kernel",), what=what)
-        p_ms = time_ms(lambda: pk.row_weights_plain(keys, *table, n), 5)
-        return (k_ms, d_ms, p_ms, *draw_bound_ms(call(), mode))
+            def weights(keys=keys):
+                return pk.fit_row_weights(keys, draws.modes, draws.rates,
+                                          draws.counts, n_pad)
 
-    keys = key_tensor([draw_key(42, 0)], device)
-    for mode, rate in DRAW_MODES:
-        table = pk.weight_table([mode], [rate], [80_000], device)
-        k_ms, d_ms, p_ms, b_ms, b_by = out[("row_weights", mode)] = \
-            time_draw(keys, table, 80_000, mode, f"row_weights {mode}")
-        print(f"time  row_weights  {mode} rate={rate} 80000 rows "
-              f"{pk.draw_plan(80_000)}: kernel {k_ms!r} ms (device "
-              f"{fmt_ms(d_ms)} ms), plain {p_ms!r} ms, bound {b_ms!r} ms "
-              f"({b_by}); card {card}")
-    # the ML 07 grid fused: 12 elements' Poisson(1) bootstraps a round
-    rngs = np.asarray([prng.prng_key(42)] * 12, np.uint32)
-    gkeys = torch.from_numpy(fit_keys(rngs, 1, 5)[0, 0]).to(device)
-    table = pk.weight_table(["poisson"] * 12, [1.0] * 12,
-                            [53_333, 53_333, 53_334] * 4, device)
-    k_ms, d_ms, p_ms, b_ms, b_by = out[("row_weights", "fused")] = \
-        time_draw(gkeys, table, 53_334, "poisson", "row_weights fused")
-    print(f"time  row_weights  ML 07 grid fused: 12 elements x 53334 rows, "
-          f"Poisson 1.0 {pk.draw_plan(53_334)}: kernel {k_ms!r} ms (device "
-          f"{fmt_ms(d_ms)} ms), plain {p_ms!r} ms, bound {b_ms!r} ms "
-          f"({b_by}); card {card}")
+            def plain(keys=keys):
+                return pk.fit_row_weights_plain(keys, draws.modes,
+                                                draws.rates, draws.counts,
+                                                n_pad)
+            bound = draw_bound_ms(weights(), case.counts, mode)
+            p_ms = once_ms(plain)
+            k_ms = time_ms(weights, 100)
+            d_ms = device_median_ms(weights, ("row_weights_kernel",),
+                                    f"row_weights {label}")
+            out[("row_weights", case.what, R)] = (k_ms, d_ms, p_ms, *bound,
+                                                  plan.rows)
+            issue = ""
+            if mode == "poisson":
+                issued, needed = poisson_hashes(weights(), case.counts, plan)
+                issue = (f"; the warps issue {issued} lane hashes where the "
+                         f"rows need {needed} ({issued / needed!r}x)")
+            print(f"time  row_weights  {label}, {mode} {rate}, {plan}: "
+                  f"kernel {k_ms!r} ms (device {fmt_ms(d_ms)} ms), plain "
+                  f"{p_ms!r} ms, bound {bound[0]!r} ms ({bound[1]}){issue}; "
+                  f"card {card}")
+            if case is RF_DRAWS and R > 1:
+                out["host_us"] = {"row_weights": host_us(weights)}
+            if not case.depth:
+                continue
+            mkeys = draws.keys[start:, 1:1 + case.depth]
+            nodes = R * E * (2 ** case.depth - 1)
 
-    def time_mask(mkeys, ks, width, what):
-        def mask():
-            return pk.feature_mask(mkeys, ks, width, N_FEAT)
-        k_ms = time_ms(mask, 100)
-        d_ms = device_ms(mask, 100, ("feature_mask_kernel",), what=what)
-        p_ms = time_ms(lambda: pk.feature_mask_plain(mkeys, ks, width,
-                                                     N_FEAT), 5)
-        return (k_ms, d_ms, p_ms,
-                *mask_bound_ms(width * ks.shape[0], N_FEAT)), mask
-
-    mkey = key_tensor([prng.fold_in(prng.fold_in(prng.prng_key(42), 0), 5)],
-                      device)
-    three = torch.tensor([3], dtype=torch.int32, device=device)
-    out["feature_mask"], mask = time_mask(mkey, three, 32,
-                                          "feature_mask W=32")
-    k_ms, d_ms, p_ms, b_ms, b_by = out["feature_mask"]
-    print(f"time  feature_mask  W=32 F={N_FEAT} k=3 {pk.mask_plan(N_FEAT)}: "
-          f"kernel {k_ms!r} ms (device {fmt_ms(d_ms)} ms), plain {p_ms!r} "
-          f"ms, bound {b_ms!r} ms ({b_by}); card {card}")
-    out[("feature_mask", "fused")], _ = time_mask(
-        torch.from_numpy(fit_keys(rngs, 1, 5)[0, 5]).to(device),
-        three.repeat(12), 16, "feature_mask fused")
-    k_ms, d_ms, p_ms, b_ms, b_by = out[("feature_mask", "fused")]
-    print(f"time  feature_mask  ML 07 grid fused: 12 elements x W=16 "
-          f"F={N_FEAT} k=3 {pk.mask_plan(N_FEAT)}: kernel {k_ms!r} ms "
-          f"(device {fmt_ms(d_ms)} ms), plain {p_ms!r} ms, bound {b_ms!r} "
-          f"ms ({b_by}); card {card}")
-    table = pk.weight_table(["poisson"], [1.0], [80_000], device)
-    out["host_us"] = {
-        "row_weights": host_us(lambda: pk.row_weights(keys, *table,
-                                                      80_000)),
-        "feature_mask": host_us(mask)}
+            def masks(mkeys=mkeys):
+                return pk.fit_feature_masks(mkeys, ks, case.n_feat)
+            k_ms = time_ms(masks, 100)
+            d_ms = device_median_ms(masks, ("feature_mask_kernel",),
+                                    f"feature_mask {label}")
+            p_ms = once_ms(lambda: pk.fit_feature_masks_plain(
+                mkeys, ks, case.n_feat))
+            b_ms, b_by = mask_bound_ms(nodes, case.n_feat,
+                                       R * case.depth * E)
+            out[("feature_mask", case.what, R)] = (k_ms, d_ms, p_ms, b_ms,
+                                                   b_by)
+            print(f"time  feature_mask  {case.what}: {R} rounds, {nodes} "
+                  f"nodes x F={case.n_feat} "
+                  f"{pk.mask_plan(nodes, case.n_feat)}: kernel {k_ms!r} ms "
+                  f"(device {fmt_ms(d_ms)} ms), plain {p_ms!r} ms, bound "
+                  f"{b_ms!r} ms ({b_by}); card {card}")
+            if case is RF_DRAWS and R > 1:
+                out["host_us"]["feature_mask"] = host_us(masks)
+    # the one-level shapes the earlier builds' mask kernel drew a launch
+    for what, nodes, n_keys in (("ML 07 last level, W=32", 32, 1),
+                                ("ML 07 grid fused last level, 12 x W=16",
+                                 192, 12)):
+        b_ms, b_by = mask_bound_ms(nodes, N_FEAT, n_keys)
+        print(f"time  feature_mask  bound of one level ({what}, F="
+              f"{N_FEAT}): {b_ms!r} ms ({b_by}); card {card}")
     print(f"time  wrapper host time per call (perf_counter median, no "
-          f"synchronise): row_weights poisson 80000 rows "
-          f"{out['host_us']['row_weights']!r} us, feature_mask W=32 "
+          f"synchronise): fit_row_weights {RF_DRAWS.what} "
+          f"{out['host_us']['row_weights']!r} us, fit_feature_masks "
           f"{out['host_us']['feature_mask']!r} us; card {card}")
     pk.LAUNCHES.update(saved)  # timing launches are not the main path's
     return out
@@ -1890,16 +2030,21 @@ def tune_folds(seed: int):
             [(X[p], price[p]) for p in parts], cats)
 
 
+#: the draw kernels: one launch each a sampled forest fit
+DRAW_KERNELS = ("feature_mask", "row_weights")
+
+
 def expected_launches(trials, chunks) -> dict:
-    """The fit kernels' launches of fits whose elements are `chunks`
-    (lists of grid indices, one fit each): T_max x D_max of each level
-    kernel and T_max of `row_weights` a fit."""
+    """The fit kernels' launches of forest fits whose elements are
+    `chunks` (lists of grid indices, one fit each): T_max x D_max of each
+    level kernel and one of each draw kernel a fit (every element a
+    bootstrap of several trees over a feature subspace)."""
     out = dict.fromkeys(FIT_KERNELS, 0)
     for chunk in chunks:
         T = max(trials[g]["n_trees"] for g in chunk)
         D = max(trials[g]["max_depth"] for g in chunk)
         for k in FIT_KERNELS:
-            out[k] += T if k == "row_weights" else T * D
+            out[k] += 1 if k in DRAW_KERNELS else T * D
     return out
 
 
@@ -3078,6 +3223,7 @@ def phase_chunked(seed: int, device, card: str, xgb=None,
             "ms": time_ms(run, 50),
             "device_ms": device_ms(run, 50, ("forest_traverse",),
                                    what="forest_traverse replay"),
+            "device_seen": seen_of("forest_traverse replay"),
             "plain_ms": time_ms(lambda: tk.forest_margin_plain(
                 Bd, *tabs, w, 6, init=part.base), 5),
             "bound_ms": b_ms, "bound_by": b_by,
@@ -3631,17 +3777,22 @@ def main(argv=None) -> int:
         "replay": chunked["replay"],
         "launches_by_rows": main_path["launches_by_rows"],
         "max_abs_err": err,
-        "ms": k_ms, "device_ms": d_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+        "ms": k_ms, "device_ms": d_ms,
+        "device_seen": seen_of("forest_traverse rows=100000"),
+        "plain_ms": p_ms, "bound_ms": b_ms,
         "bound_by": b_by, "library_ms": None,
         "shape": "ML 11: T=40 depth=6 F=10 uint8, 100000 rows",
         "by_rows": {str(n): dict(zip(("ms", "device_ms", "plain_ms",
-                                      "bound_ms", "bound_by"), times[n]))
+                                      "bound_ms", "bound_by"), times[n]),
+                                 device_seen=seen_of(
+                                     f"forest_traverse rows={n}"))
                     for n in TIME_ROWS}}]
     def numbers(t, keys=("ms", "device_ms", "plain_ms", "bound_ms",
                          "bound_by", "library_ms")) -> dict:
         return dict(zip(keys, t))
 
     ml11 = numbers(fit_times[("hist_accumulate", 16)])
+    ml11["device_seen"] = seen_of("hist_accumulate S=16")
     kernels.append(dict(
         name="hist_accumulate", route="cuda",
         device_windows=windows("hist_accumulate"),
@@ -3651,11 +3802,13 @@ def main(argv=None) -> int:
         launches_by_path=by_path("hist_accumulate"),
         max_abs_err=fit_err["hist_accumulate"],
         **numbers(fit_times[("hist_accumulate", "fused")]),
+        device_seen=seen_of("hist_accumulate fused S=96"),
         shape="ML 07 grid fused: 640008 rows F=10 B=40 uint8, S=96",
         ml11=dict(ml11, shape="ML 11: 80000 rows F=10 B=64 uint8, S=16"),
         deterministic=True,
         f32_acc_ms=fit_times[("hist_f32acc", 16)][0],
         f32_acc_device_ms=fit_times[("hist_f32acc", 16)][1],
+        f32_acc_device_seen=seen_of("hist_accumulate f32-accumulating S=16"),
         cells_off_cpu_f64=fit_times[("hist_f32acc", 16)][2],
         cells_off_cpu_f32=fit_times[("hist_f32acc", 16)][3],
         per_fit_device_ms=fit_times["per_fit"]["hist_accumulate"],
@@ -3669,14 +3822,25 @@ def main(argv=None) -> int:
         launches_by_path=by_path("split_scan"),
         max_abs_err=fit_err["split_scan"],
         **numbers(fit_times[("split_scan", "fused")]),
+        device_seen=seen_of(f"split_scan fused W={FUSED_NODES}"),
         shape="ML 07 grid fused: F=10 B=40 W=192 (12 x 16), per-node "
               "min_inst",
         ml11=dict(numbers(fit_times[("split_scan", 32)]),
+                  device_seen=seen_of("split_scan W=32"),
                   shape="ML 11: F=10 B=64 W=32"),
         per_fit_device_ms=fit_times["per_fit"]["split_scan"],
         host_us=fit_times["host_us"]["split_scan"]))
     draws = "jax.random (XLA) at sml_tpu/ml/tree_impl.py:551-553, :785-796"
-    five = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")
+
+    def draw(kernel: str, case: DrawCase, rounds: int) -> dict:
+        E = len(case.seeds)
+        got = numbers(draw_times[(kernel, case.what, rounds)],
+                      ("ms", "device_ms", "plain_ms", "bound_ms",
+                       "bound_by", "rows_per_thread"))
+        got["device_seen"] = seen_of(f"{kernel} {case.what}: {rounds} x "
+                                     f"{E} x {case.n_pad} rows")
+        return got
+
     kernels.append(dict(
         name="row_weights", route="cuda",
         device_windows=windows("row_weights"),
@@ -3684,13 +3848,17 @@ def main(argv=None) -> int:
         launches=sum(by_path("row_weights").values()),
         launches_by_path=by_path("row_weights"),
         max_abs_err=fit_err["row_weights"],
-        **numbers(draw_times[("row_weights", "fused")], five),
+        **draw("row_weights", FUSED_DRAWS, 20),
         library_ms=None,
-        shape="ML 07 grid fused: 12 elements x 53334 rows, Poisson rate 1",
-        poisson=dict(numbers(draw_times[("row_weights", "poisson")], five),
-                     shape="80000 rows, Poisson rate 1 (the ML 07 "
-                           "bootstrap)"),
-        bernoulli=numbers(draw_times[("row_weights", "bernoulli")], five),
+        shape="ML 07 grid fused: 20 rounds x 12 elements x 53334 rows, "
+              "Poisson rate 1, one launch a fit",
+        ml07=dict(draw("row_weights", RF_DRAWS, 20),
+                  shape="ML 07 RF: 20 rounds x 80000 rows, Poisson rate 1"),
+        ml11_subsample=dict(draw("row_weights", SUB_DRAWS, 40),
+                            shape="ML 11 subsample: 40 rounds x 80000 "
+                                  "rows, Bernoulli 0.8"),
+        one_round={c.what: draw("row_weights", c, 1)
+                   for c in (RF_DRAWS, SUB_DRAWS, FUSED_DRAWS)},
         host_us=draw_times["host_us"]["row_weights"]))
     kernels.append(dict(
         name="feature_mask", route="cuda",
@@ -3699,11 +3867,14 @@ def main(argv=None) -> int:
         launches=sum(by_path("feature_mask").values()),
         launches_by_path=by_path("feature_mask"),
         max_abs_err=fit_err["feature_mask"],
-        **numbers(draw_times[("feature_mask", "fused")], five),
+        **draw("feature_mask", FUSED_DRAWS, 20),
         library_ms=None,
-        shape="ML 07 grid fused: 12 elements x W=16, F=10 k=3",
-        ml07=dict(numbers(draw_times["feature_mask"], five),
-                  shape="ML 07: W=32 F=10 k=3"),
+        shape="ML 07 grid fused: 20 rounds x 12 elements x 31 nodes, "
+              "F=10 k=3, one launch a fit",
+        ml07=dict(draw("feature_mask", RF_DRAWS, 20),
+                  shape="ML 07 RF: 20 rounds x 63 nodes, F=10 k=3"),
+        one_round={c.what: draw("feature_mask", c, 1)
+                   for c in (RF_DRAWS, FUSED_DRAWS)},
         host_us=draw_times["host_us"]["feature_mask"]))
     print(json.dumps({"tuning": {
         "launches_fused": tuning["fused"],

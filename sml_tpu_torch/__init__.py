@@ -18,7 +18,8 @@ Ported so far:
   and `split_scan` (`native/hist_kernel.py`); sampled fits (bootstrap
   forests, per-node feature subspaces, `subsample < 1`) draw jax's
   Threefry streams (`utils/prng.py`) through the `row_weights` and
-  `feature_mask` kernels (`native/prng_kernel.py`);
+  `feature_mask` kernels (`native/prng_kernel.py`), one launch of each
+  a fit;
 - tuning's device half: the (grid point x fold) fits of a DT/RF
   cross-validation grid as fused fits whose elements share each level's
   kernel launches (`fit_ensembles_trials`, `fit_ensembles_folds` in

@@ -40,6 +40,7 @@ import numpy as np
 from ..frame.column import block_len
 from ..utils.prng import prng_key
 from . import tree_impl
+from .linalg import DenseVector
 from .base import (Estimator, Model, RegStatsHook, load_arrays,
                    save_arrays)
 from .tree_impl import (Binning, EnsembleSpec, FittedTree, TreeSpec,
@@ -214,8 +215,9 @@ class _TreeModelBase(_DeclaredParams, Model):
         return self._spec.n_features
 
     @property
-    def featureImportances(self) -> np.ndarray:
-        return feature_importances(self._spec.trees, self._spec.n_features)
+    def featureImportances(self) -> DenseVector:
+        return DenseVector(feature_importances(self._spec.trees,
+                                               self._spec.n_features))
 
     def getNumTrees(self) -> int:
         return len(self._spec.trees)
@@ -225,6 +227,24 @@ class _TreeModelBase(_DeclaredParams, Model):
         if self._spec.tree_weights is None:
             return [1.0] * len(self._spec.trees)
         return [float(w) for w in self._spec.tree_weights]
+
+    @property
+    def toDebugString(self) -> str:
+        """The model's class, tree count and depth, and the first 15
+        nodes of its first tree, as the JAX package prints them."""
+        lines = [f"{type(self).__name__} with {len(self._spec.trees)} trees, "
+                 f"depth {self._spec.depth}"]
+        t0 = self._spec.trees[0]
+        for node in range(min(len(t0.split_feature), 15)):
+            f = int(t0.split_feature[node])
+            if f >= 0:
+                lines.append(f"  node {node}: split feature {f} "
+                             f"@bin {int(t0.split_bin[node])} "
+                             f"gain {float(t0.gain[node]):.4f}")
+            else:
+                lines.append(f"  node {node}: leaf "
+                             f"value {float(t0.leaf_value[node]):.4f}")
+        return "\n".join(lines)
 
     def _margin(self, block, device) -> np.ndarray:
         from ._staging import features_of

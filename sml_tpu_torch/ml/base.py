@@ -176,6 +176,10 @@ class Saveable:
     def load(cls, path: str) -> Any:
         return load(path)
 
+    @staticmethod
+    def read():
+        raise NotImplementedError("use .load(path)")
+
 
 def save_arrays(path: str, **arrays) -> None:
     np.savez(os.path.join(path, "data.npz"), **arrays)

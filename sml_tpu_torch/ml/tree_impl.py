@@ -27,7 +27,8 @@ Counterpart of `sml_tpu/ml/tree_impl.py`.
   all features are candidates, and always in a fused tuning fit) come
   from the Threefry keys of `utils/prng.py`, all derived on the host
   and copied to the device once a fit (`fit_keys`), and are drawn there
-  by the kernels of `native/prng_kernel.py`.
+  by the kernels of `native/prng_kernel.py`, one launch of each a fit
+  (`round_weights`, `round_masks`); each round and level slices them.
 """
 
 from __future__ import annotations
@@ -274,7 +275,6 @@ class _Elements(NamedTuple):
     #                           [min_inst, min_gain (+inf at or past the
     #                           element's depth), 1 below its depth else 0]
     mask_k: torch.Tensor      # (E,) int32: features a node, per element
-    draw_masks: bool          # whether levels draw feature masks
     term_base: torch.Tensor   # (E*n_pad,) int64: first node of the row's
     #                           element's last level
     term_idx: torch.Tensor    # (E, n_nodes) int64: a node's slot in its
@@ -282,8 +282,7 @@ class _Elements(NamedTuple):
     term_mask: torch.Tensor   # (E, n_nodes) bool: the node is on it
 
 
-def _elements(spec: TreeSpec, dyn: TrialDyn, n_pad: int, dev,
-              draw_masks: bool) -> _Elements:
+def _elements(spec: TreeSpec, dyn: TrialDyn, n_pad: int, dev) -> _Elements:
     """The per-element gates of `dyn` laid out per level and node, and
     each element's last level, copied to `dev` once."""
     D = spec.max_depth
@@ -314,7 +313,6 @@ def _elements(spec: TreeSpec, dyn: TrialDyn, n_pad: int, dev,
     return _Elements(E=E, n_pad=n_pad, erow=erow,
                      levels=to(levels.astype(np.float32)),
                      mask_k=to(np.asarray(dyn.feature_k, np.int32)),
-                     draw_masks=draw_masks,
                      term_base=to(base)[erow], term_idx=to(term_idx),
                      term_mask=to(term_mask))
 
@@ -323,12 +321,13 @@ def _make_tree_builder(spec: TreeSpec):
     """One tree for each of E elements, grown level by level on the
     operands' device; a sequential fit is E = 1.
 
-    Returns `build(binned_c, binned, grad, hess, weight, mask_keys, el)
+    Returns `build(binned_c, binned, grad, hess, weight, masks, el)
     -> (pack, node)`. The E elements' rows lie end to end in blocks of
     `el.n_pad` (`_Elements`): `binned_c` is the compact (E*n_pad, F) bin
     matrix the histogram kernel reads, `binned` the same bins as int32
-    for row routing, `mask_keys` the (D, E, 2) uint32 device keys of the
-    levels' feature masks (`fold_in(feat_rng, level)` of each element).
+    for row routing, `masks` the round's (E*(2^D - 1), F) f32 feature
+    masks of every level (a round of `round_masks`; level L's rows from
+    E*(2^L - 1)), or None when every feature is a candidate.
     `pack` is the (E, 5, n_nodes) f32 stack [split_feature, split_bin,
     leaf_value, gain, cover] of each element's level-order heap (children
     of i at 2i+1, 2i+2), `node` each row's terminal node in its element's
@@ -339,9 +338,7 @@ def _make_tree_builder(spec: TreeSpec):
     `e * width + node` (below the root only the left children's rows,
     into `e * width/2 + node/2`: a right child is its parent minus its
     left sibling, zero under a parent that did not split, as under the
-    JAX package's default `sml.tree.histSubtraction`); `feature_mask`
-    draws the level's candidate features under each element's key (with
-    `el.draw_masks`; else all features are candidates); `split_scan`
+    JAX package's default `sml.tree.histSubtraction`); `split_scan`
     picks each of the E * width nodes' best split, each held to its
     element's least child weight. A node splits when it lies above its
     element's depth and its gain is finite and passes its element's
@@ -361,7 +358,7 @@ def _make_tree_builder(spec: TreeSpec):
     n_nodes = 2 ** (D + 1) - 1
     lam = float(spec.reg_lambda)
 
-    def build(binned_c, binned, grad, hess, weight, mask_keys, el):
+    def build(binned_c, binned, grad, hess, weight, masks, el):
         E, n_pad = el.E, el.n_pad
         n = binned.shape[0]
         dev = binned.device
@@ -400,9 +397,8 @@ def _make_tree_builder(spec: TreeSpec):
                     * split_prev.to(torch.float32)[None, None, :, None]
                 hist = torch.stack([left, parent - left], dim=3) \
                     .reshape(F, B, E * width, 3)
-            if el.draw_masks:
-                fmask = pk.feature_mask(mask_keys[level], el.mask_k, width,
-                                        F)
+            if masks is not None:
+                fmask = masks[E * base:E * (base + width)]
             else:
                 fmask = torch.ones((E * width, F), **f32)
             pack6 = hk.split_scan(hist, fmask, gates[0], reg_lambda=lam,
@@ -543,14 +539,75 @@ def fit_draws(rngs, n_trees: int, depth: int, modes, rates, counts,
                  sampled=sampled)
 
 
-def round_weights(draws: Draws, t: int, n_pad: int) -> torch.Tensor:
-    """Round t's (E * n_pad,) f32 row weights of every element: one
-    `row_weights` launch, or ones when nothing is sampled."""
+#: the most bytes of one launch's draws (a fit's row weights, or its
+#: feature masks): a fit whose rounds need more draws them in blocks of
+#: rounds, a launch a block
+DRAW_BLOCK_BYTES = 256 << 20
+
+
+def block_rounds(round_bytes: int, grid_rows: int = 1) -> int:
+    """Rounds of one draw launch whose rounds take `round_bytes` each: as
+    many as `DRAW_BLOCK_BYTES` holds, at least one, and no more than the
+    row-weights kernel's grid holds of `grid_rows` (round, element) rows
+    a round."""
+    return max(1, min(DRAW_BLOCK_BYTES // max(round_bytes, 1),
+                      pk.MAX_ROUND_ELEMENTS // grid_rows))
+
+
+class RoundDraws:
+    """Rounds t0 .. T-1 of one kind of a fit's draws, made by
+    `draw(t, stop)` for rounds t .. stop-1 in blocks of `per_block`
+    rounds: the first block here, before round t0, the next when a round
+    passes the one held. `self[t]` is round t's draws, a view of its
+    block."""
+
+    def __init__(self, draw, t0: int, n_trees: int, per_block: int):
+        self.draw, self.n_trees, self.per_block = draw, n_trees, per_block
+        self.start, self.block = t0, None
+        if t0 < n_trees:
+            self._draw(t0)
+
+    def _draw(self, t: int) -> None:
+        self.start = t
+        self.block = self.draw(t, min(self.n_trees, t + self.per_block))
+
+    def __getitem__(self, t: int) -> torch.Tensor:
+        if not self.start <= t < self.start + self.block.shape[0]:
+            self._draw(t)
+        return self.block[t - self.start]
+
+
+def round_weights(draws: Draws, t0: int, n_trees: int,
+                  n_pad: int) -> RoundDraws:
+    """The (E * n_pad,) f32 row weights of rounds t0 .. T-1 of a fit
+    (`fit_draws`): one `fit_row_weights` launch for all of them (a
+    launch a block of rounds past `DRAW_BLOCK_BYTES`), or, when nothing
+    is sampled, the same ones every round and nothing drawn."""
+    E = draws.counts.shape[0]
     if not draws.sampled:
-        return torch.ones(draws.counts.shape[0] * n_pad, dtype=torch.float32,
+        ones = torch.ones(E * n_pad, dtype=torch.float32,
                           device=draws.keys.device)
-    return pk.row_weights(draws.keys[t, 0], draws.modes, draws.rates,
-                          draws.counts, n_pad)
+        return RoundDraws(lambda t, stop: ones.expand(stop - t, -1), t0,
+                          n_trees, max(n_trees, 1))
+    return RoundDraws(
+        lambda t, stop: pk.fit_row_weights(draws.keys[t:stop, 0],
+                                           draws.modes, draws.rates,
+                                           draws.counts, n_pad),
+        t0, n_trees, block_rounds(4 * E * n_pad, E))
+
+
+def round_masks(draws: Draws, t0: int, n_trees: int, ks: torch.Tensor,
+                n_features: int) -> RoundDraws:
+    """Every feature mask of rounds t0 .. T-1 of a fit (`fit_draws`),
+    each element holding `ks[e]` features a node: one
+    `fit_feature_masks` launch for all of them (a launch a block of
+    rounds past `DRAW_BLOCK_BYTES`); round t's is its (E*(2^D - 1), F)
+    f32 masks of every level, level-major."""
+    E, D = draws.counts.shape[0], draws.keys.shape[1] - 1
+    return RoundDraws(
+        lambda t, stop: pk.fit_feature_masks(draws.keys[t:stop, 1:], ks,
+                                             n_features),
+        t0, n_trees, block_rounds(4 * E * (2 ** D - 1) * n_features))
 
 
 def _fit_elements(binned_c: torch.Tensor, y: torch.Tensor, n_pad: int,
@@ -569,13 +626,18 @@ def _fit_elements(binned_c: torch.Tensor, y: torch.Tensor, n_pad: int,
 
     Each round computes the gradients and Hessians (squared: margin - y
     and 1; logistic: sigmoid(margin) - y and p(1-p) floored at 1e-6;
-    without boosting -y and 1), draws its row weights (`round_weights`),
+    without boosting -y and 1), takes its row weights and feature masks,
     builds one tree of every element (one launch of each kernel a level,
     whatever E is), and with boosting adds `step_size * leaf` of each
     row's terminal node to its margin, each multiply and add rounded in
     f32. Keys and gates are copied to the device once, for all T rounds
     (`fit_keys`), so round t draws under the same key whether it is
-    fitted here from round 0 or appended to saved rounds.
+    fitted here from round 0 or appended to saved rounds. Before round
+    t0 one launch draws the row weights of rounds t0 .. T-1
+    (`round_weights`) and one their feature masks (`round_masks`, when
+    some element takes fewer than all features or `always_mask`), each a
+    launch a block of rounds past `DRAW_BLOCK_BYTES`; the rounds then
+    slice them.
 
     A warm start passes the saved rounds' count `t0`, their replayed
     `margin` ((E*n_pad,) f32) and the saved `base`; a fresh fit starts
@@ -592,8 +654,11 @@ def _fit_elements(binned_c: torch.Tensor, y: torch.Tensor, n_pad: int,
     D, F = es.tree.max_depth, es.tree.n_features
     T = es.n_trees
     draw_masks = always_mask or bool((np.asarray(dyn.feature_k) < F).any())
-    el = _elements(es.tree, dyn, n_pad, dev, draw_masks)
+    el = _elements(es.tree, dyn, n_pad, dev)
     draws = fit_draws(rngs, T, D, modes, rates, counts, n_pad, dev)
+    weights = round_weights(draws, t0, T, n_pad)
+    masks = round_masks(draws, t0, T, el.mask_k, F) \
+        if draw_masks and D > 0 else None
     build = _make_tree_builder(es.tree)
     binned = binned_c.to(torch.int32)
     if base is None:
@@ -618,9 +683,8 @@ def _fit_elements(binned_c: torch.Tensor, y: torch.Tensor, n_pad: int,
             hess = torch.clamp(p * (1 - p), min=1e-6)
         else:
             grad, hess = margin - y, ones
-        weight = round_weights(draws, t, n_pad)
-        pack, node_fin = build(binned_c, binned, grad, hess, weight,
-                               draws.keys[t, 1:], el)
+        pack, node_fin = build(binned_c, binned, grad, hess, weights[t],
+                               None if masks is None else masks[t], el)
         if es.boosting:
             margin = margin + es.step_size \
                 * pack[:, 2].reshape(-1)[row_node + node_fin]
@@ -873,13 +937,16 @@ def fit_tree(binned_dev: torch.Tensor, grad_dev: torch.Tensor,
         feat_key = prng.prng_key(rng)
     dev = binned_dev.device
     n = binned_dev.shape[0]
-    el = _elements(spec, _spec_dyn(spec, 1), n, dev,
-                   spec.feature_k < spec.n_features)
-    keys = prng.fold_in_keys(np.asarray([prng.as_key(feat_key)]),
-                             np.arange(spec.max_depth)[:, None])
+    el = _elements(spec, _spec_dyn(spec, 1), n, dev)
+    masks = None
+    if spec.feature_k < spec.n_features and spec.max_depth > 0:
+        keys = prng.fold_in_keys(np.asarray([prng.as_key(feat_key)]),
+                                 np.arange(spec.max_depth)[:, None])
+        masks = pk.fit_feature_masks(torch.from_numpy(keys[None]).to(dev),
+                                     el.mask_k, spec.n_features)[0]
     PROFILER.count("tree.fit_dispatch")
     pack, _ = build(binned_dev, binned_dev.to(torch.int32), grad_dev,
-                    hess_dev, weight_dev, torch.from_numpy(keys).to(dev), el)
+                    hess_dev, weight_dev, masks, el)
     tree = _unpack_trees(pack.cpu().numpy())[0]
     sf, lv, cov = tree.split_feature, tree.leaf_value, tree.cover
     for i in range(1, len(lv)):

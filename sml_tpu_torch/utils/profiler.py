@@ -1,10 +1,12 @@
 """Engine counters and op-level timing spans.
 
-Counterpart of `sml_tpu/utils/profiler.py`: `count`, `span` and `now`,
-without the flight-recorder, audit and watchdog hooks. Counters always
-count (the serving `serve.*` counters are the batcher's own record of
-requests, batches and sheds); spans are kept only while the profiler is
-enabled, so a long-running server does not grow a span list.
+Counterpart of `sml_tpu/utils/profiler.py`: `count`, `span`, `now` and
+`start_device_trace` (a `torch.profiler` trace where the reference takes
+`jax.profiler`'s), without the flight-recorder, audit and watchdog
+hooks. Counters always count (the serving `serve.*` counters are the
+batcher's own record of requests, batches and sheds); spans are kept
+only while the profiler is enabled, so a long-running server does not
+grow a span list.
 """
 
 from __future__ import annotations
@@ -70,3 +72,19 @@ class Profiler:
 
 
 PROFILER = Profiler()
+
+
+@contextlib.contextmanager
+def start_device_trace(logdir: str) -> Iterator[None]:
+    """A `torch.profiler` trace of the enclosed block (the host, and the
+    card where there is one), written under `logdir` in TensorBoard's
+    format (`*.pt.trace.json`)."""
+    import torch
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(logdir)):
+        yield

@@ -277,7 +277,7 @@ def test_estimator_params_map_like_the_jax_package(confs):
     d = ptm.DecisionTreeClassifier(maxDepth=3, maxBins=16).fit(
         X, (y > 0).astype(float), device="cpu")
     assert d.getNumTrees() == 1 and d._spec.mode == "binary"
-    assert d.featureImportances.sum() == pytest.approx(1.0)
+    assert d.featureImportances.toArray().sum() == pytest.approx(1.0)
     c = XgboostClassifier(n_estimators=2, max_depth=2).fit(
         X, (y > 0).astype(float), device="cpu")
     p = c.predict_probability(X[:50], device="cpu")

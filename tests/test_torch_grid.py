@@ -19,9 +19,10 @@ multiples of 1/8, so every histogram sum is exact in f32 in any order:
 
 Each fused element is also held against the port's sequential fit of its
 own parameters (`_fit_ensemble`): every field bit for bit. And a fused
-fit launches each kernel once a level and `row_weights` once a round,
-whatever its element count (counted through the wrappers here, where
-they run their plain versions).
+fit launches each level kernel once a level and each draw kernel
+(`fit_row_weights`, `fit_feature_masks`) once a fit, whatever its
+element count (counted through the wrappers here, where they run their
+plain versions).
 """
 
 import numpy as np
@@ -241,13 +242,15 @@ class _Calls:
     """Counts the calls of the fit's kernel wrappers (the plain versions
     run here; on the card each call is one launch)."""
 
-    NAMES = ((hk, "hist_accumulate"), (hk, "split_scan"),
-             (pk, "feature_mask"), (pk, "row_weights"))
+    NAMES = ((hk, "hist_accumulate", "hist_accumulate"),
+             (hk, "split_scan", "split_scan"),
+             (pk, "fit_feature_masks", "feature_mask"),
+             (pk, "fit_row_weights", "row_weights"))
 
     def __init__(self, monkeypatch):
-        self.counts = {name: 0 for _, name in self.NAMES}
-        for mod, name in self.NAMES:
-            def counted(*a, _fn=getattr(mod, name), _name=name, **kw):
+        self.counts = {kernel: 0 for _, _, kernel in self.NAMES}
+        for mod, name, kernel in self.NAMES:
+            def counted(*a, _fn=getattr(mod, name), _name=kernel, **kw):
                 self.counts[_name] += 1
                 return _fn(*a, **kw)
             monkeypatch.setattr(mod, name, counted)
@@ -261,10 +264,10 @@ COUNT_GRIDS = {"one point": [(3, 4)],
 
 @pytest.mark.parametrize("grid", sorted(COUNT_GRIDS))
 def test_a_fused_chunk_launches_each_kernel_once_a_level(monkeypatch, grid):
-    """Per chunk: T_max x D_max calls of each level kernel and T_max of
-    row_weights, whatever the element count (E = 3 and E = 12), against
-    the sum over elements of T x D (and of T) when each element fits on
-    its own."""
+    """Per chunk: T_max x D_max calls of each level kernel and one of
+    each draw kernel, whatever the element count (E = 3 and E = 12),
+    against the sum over elements of T x D (and one draw of each a fit)
+    when each element fits on its own."""
     n_folds = 3
     X, y = _data(n=900, seed=8)
     Xs, ys, _ = _folds(X, y, k=n_folds, seed=9)
@@ -277,7 +280,7 @@ def test_a_fused_chunk_launches_each_kernel_once_a_level(monkeypatch, grid):
     PROFILER.reset()
     ptm._fit_ensembles_grid(Xs, ys, CAT, trials, 16, device="cpu")
     assert calls.counts == {"hist_accumulate": T * D, "split_scan": T * D,
-                            "feature_mask": T * D, "row_weights": T}
+                            "feature_mask": 1, "row_weights": 1}
     assert PROFILER.counters()["tree.fit_dispatch"] == 1.0
     for k in calls.counts:
         calls.counts[k] = 0
@@ -290,9 +293,9 @@ def test_a_fused_chunk_launches_each_kernel_once_a_level(monkeypatch, grid):
                     "min_info_gain", "n_trees", "feature_k", "bootstrap",
                     "subsample", "seed")})
     levels = n_folds * sum(d * t for d, t in pairs)
+    fits = n_folds * len(pairs)
     assert calls.counts == {"hist_accumulate": levels, "split_scan": levels,
-                            "feature_mask": levels,
-                            "row_weights": n_folds * sum(t for _, t in pairs)}
+                            "feature_mask": fits, "row_weights": fits}
 
 
 @pytest.mark.parametrize("max_fused, fits", [(16, 1), (5, 3), (1, 4)])
