@@ -207,6 +207,29 @@ Phases:
    the card's name and power limit, and a `{"nontree": ...}` JSON line
    gives these numbers.
 
+15. main path, MLE 04's time series and the frame's remainder, on the
+   session's device: (a) MLE 04 at the course's shape (the 160-point
+   series of `tests/test_lessons.py:624-628`): `adfuller`,
+   `ARIMA(1,2,1).fit`, `forecast(10)`, `Prophet()` with
+   `make_future_dataframe(10)` and `predict`, and `Holt` plain, damped and
+   exponential and `SimpleExpSmoothing`; (b) Prophet (yearly, weekly and
+   holiday blocks) and ARIMA(1,1,1) at the length of Prophet's quick-start
+   series (2,905 days from 2007-12-10), made from the seed; (c) on
+   `make_airbnb_dataset(n=100_000, seed=42)`: ML 00b's `groupBy("room_type")
+   .count().orderBy(...)` and its `spark.sql` over a temp view, ML 01L's
+   neighbourhood counts, a join, a crossJoin, `selectExpr` and
+   `stat.corr`, each against numpy; (d) ML 00L: `make_dedup_dataset()`
+   written as a colon-separated CSV, read back with header, inferSchema
+   and sep=":", normalized and deduplicated, the count hashing to the
+   course's 972882115. Each of (a)-(d) runs again with the device set to
+   the CPU and must agree (ARIMA params within 1e-9 of the largest, Prophet
+   within 1e-9 of std(y), Holt, frames and the dedup exactly); each wall
+   is printed as first call / warm median of 3, with ARIMA's L-BFGS
+   evaluations, its milliseconds an evaluation (through the triangular
+   solve, and the step-by-step loss an overflowed evaluation takes) and
+   the card's busy share of the quick-start fits. TF32 must be off and no kernel of the port may launch; a
+   `{"timeseries": ...}` JSON line gives these numbers.
+
 The second-to-last line is a JSON object listing each kernel, with the
 launches the profiler saw in each window behind its device times
 ("device_windows"); the last is {"ok": true, "device": {...}}.
@@ -3705,6 +3728,359 @@ def phase_nontree(device, card: str, n: int = 100_000,
     return out
 
 
+# ------------------------------ phase 15: time series and the frame's rest
+#: Prophet's quick start: Peyton Manning's daily Wikipedia page views, 2,905
+#: days from 2007-12-10 (Prophet's documentation); the series is made from
+#: the seed with its shape (a random-walk level, weekly and yearly terms,
+#: holiday bumps, noise, on the log scale)
+TS_QUICKSTART = ("2007-12-10", 2905)
+#: the quick start's holidays: the Super Bowls in its documentation and
+#: the January play-off Sundays of each season
+TS_SUPERBOWLS = ("2010-02-07", "2014-02-02", "2016-02-07")
+#: ARIMA on the quick-start series: one difference (its level is a random
+#: walk), one AR and one MA term
+TS_QUICKSTART_ORDER = (1, 1, 1)
+#: card against CPU: ARIMA params within this share of the largest
+#: |param|; Prophet within this share of std(y). Both run the same float64
+#: ops; each device's BLAS sums Prophet's Gram in its own order, and
+#: FISTA's 500 steps carry that (the measured gap is printed)
+TS_PARAM_RTOL = 1e-9
+TS_PROPHET_TOL = 1e-9
+#: the course's ML 00L answer: abs(hash("100000")) ("02 Expected 100000
+#: Records", `Labs/ML 00L - Dedup Lab.py:89-90`)
+DEDUP_HASH = 972882115
+
+
+def ts_mle04():
+    """MLE 04's 160-point quadratic series (`tests/test_lessons.py:624-628`)
+    and its daily dates from 2020-01-01."""
+    t = np.arange(160, dtype=float)
+    y = 0.02 * t * t + 1.5 * t + 20 \
+        + np.random.default_rng(42).normal(scale=1.0, size=len(t))
+    ds = np.datetime64("2020-01-01", "us") \
+        + np.arange(160) * np.timedelta64(1, "D")
+    return ds, y
+
+
+def ts_quickstart(seed: int, days: int = TS_QUICKSTART[1]):
+    """(ds, y, holidays) shaped as Prophet's quick-start series."""
+    rng = np.random.default_rng(seed)
+    ds = np.datetime64(TS_QUICKSTART[0], "us") \
+        + np.arange(days) * np.timedelta64(1, "D")
+    day = ds.astype("datetime64[D]")
+    t = np.arange(days, dtype=float)
+    jan = (day.astype("datetime64[M]").astype(np.int64) % 12 == 0) & \
+        ((day.astype(np.int64) + 3) % 7 == 6)
+    hol = np.union1d(day[jan], np.array(TS_SUPERBOWLS,
+                                        dtype="datetime64[D]"))
+    y = (8.0 + np.cumsum(rng.normal(0, 0.03, days))
+         + 0.25 * np.sin(2 * np.pi * t / 7) + 0.1 * np.cos(4 * np.pi * t / 7)
+         + 0.6 * np.sin(2 * np.pi * t / 365.25)
+         + 0.3 * np.cos(2 * np.pi * t / 365.25)
+         + 1.2 * np.isin(day, hol) + rng.normal(0, 0.05, days))
+    return ds, y, {"ds": hol.astype("datetime64[us]")}
+
+
+def ts_arima(y, order, device):
+    """A fitted ARIMA: (results, L-BFGS evaluations, step-by-step ones)."""
+    from sml_tpu_torch.timeseries import ARIMA
+    model = ARIMA(y, order=order)
+    res = model.fit()
+    return res, model.evaluations, model.sequential_evaluations
+
+
+def ts_eval_ms(y, order, params, device) -> tuple:
+    """Median host ms at `params` of one evaluation through the triangular
+    solve (loss and gradient) and of the step-by-step loss an overflowed
+    evaluation takes again (forward only), each copied back."""
+    from sml_tpu_torch.timeseries import css_loss_fn, css_loss_sequential_fn
+    p, d, q = order
+    diffed = np.diff(y, n=d) if d else y
+    solve = css_loss_fn(diffed, p, q, device)
+    steps = css_loss_sequential_fn(diffed, p, q, device)
+
+    def through_solve():
+        th = torch.tensor(params, dtype=torch.float64, device=device,
+                          requires_grad=True)
+        f = solve(th)
+        (g,) = torch.autograd.grad(f, th)
+        return torch.cat([f.detach()[None], g]).cpu()
+
+    def step_by_step():
+        return float(steps(torch.tensor(params, dtype=torch.float64,
+                                        device=device)).cpu())
+    through_solve(), step_by_step()
+    return _median_ms(through_solve)[0], _median_ms(step_by_step)[0]
+
+
+def ts_check_arima(label: str, card, cpu, walls, card_line_: str,
+                   eval_ms: tuple) -> dict:
+    res, evals, seq = card
+    rel = float(np.max(np.abs(res.params - cpu[0].params))
+                / np.max(np.abs(cpu[0].params)))
+    per_eval = walls[2] / max(evals, 1)
+    print(f"timeseries {label}: params {res.params.tolist()} sigma2 "
+          f"{res.sigma2!r}; {evals} L-BFGS evaluations ({seq} step by "
+          f"step), {per_eval!r} ms an evaluation over the warm fit, one "
+          f"evaluation {eval_ms[0]!r} ms through the solve and its loss "
+          f"{eval_ms[1]!r} ms step by step; first {walls[1]!r} ms / warm "
+          f"median {walls[2]!r} ms; card against CPU params {rel!r} of the "
+          f"largest |param|; card {card_line_}")
+    if rel > TS_PARAM_RTOL or evals != cpu[1]:
+        raise AssertionError(f"{label}: card params {res.params} against "
+                             f"CPU {cpu[0].params} ({rel}), evaluations "
+                             f"{evals} against {cpu[1]}")
+    if not np.all(np.isfinite(res.params)) or not np.isfinite(res.aic):
+        raise AssertionError(f"{label}: not finite: {res.params}")
+    return {"params": res.params.tolist(), "evaluations": evals,
+            "sequential_evaluations": seq, "ms_per_evaluation": per_eval,
+            "solve_eval_ms": eval_ms[0], "sequential_eval_ms": eval_ms[1],
+            "first_ms": walls[1], "warm_ms": walls[2], "card_vs_cpu": rel}
+
+
+def ts_check_prophet(label: str, card, cpu, y, walls, card_line_: str
+                     ) -> dict:
+    a, b = card._whole(), cpu._whole()
+    scale = float(np.std(y))
+    gap = max(float(np.max(np.abs(a[c] - b[c]))) / scale
+              for c in a if c != "ds")
+    print(f"timeseries {label}: {len(a['yhat'])} rows, columns "
+          f"{list(a)}; first {walls[1]!r} ms / warm median {walls[2]!r} "
+          f"ms; card against CPU {gap!r} of std(y); card {card_line_}")
+    if not np.array_equal(a["ds"], b["ds"]) or gap > TS_PROPHET_TOL:
+        raise AssertionError(f"{label}: card against CPU {gap} of std(y)")
+    if not all(np.all(np.isfinite(a[c])) for c in a if c != "ds"):
+        raise AssertionError(f"{label}: a forecast is not finite")
+    return {"first_ms": walls[1], "warm_ms": walls[2], "card_vs_cpu": gap,
+            "rows": len(a["yhat"])}
+
+
+def ts_mle04_run():
+    """MLE 04 at the course's shape: (a)'s calls, results as numpy."""
+    from sml_tpu_torch.timeseries import (Holt, Prophet, SimpleExpSmoothing,
+                                          adfuller)
+    ds, y = ts_mle04()
+    adf = adfuller(y)
+    m = Prophet().fit({"ds": ds, "y": y})
+    fc = m.predict(m.make_future_dataframe(periods=10))
+    holt = {"plain": Holt(y).fit().forecast(10),
+            "damped": Holt(y, damped=True).fit().forecast(10),
+            "exponential": Holt(y, exponential=True).fit().forecast(10),
+            "ses": SimpleExpSmoothing(y).fit().forecast(10)}
+    return adf, fc, holt
+
+
+def ts_frames(n: int):
+    """(c) the course's frame flows on `make_airbnb_dataset(n, seed=42)`:
+    each result's rows, in order."""
+    from sml_tpu_torch import functions as F
+    from sml_tpu_torch.courseware import make_airbnb_dataset
+    from sml_tpu_torch.frame.session import get_session
+    spark = get_session()
+    raw = spark.createDataFrame(make_airbnb_dataset(n=n, seed=42))
+    df = raw.select("room_type", "bedrooms", "price").cache()
+    out = {"ml00b_counts": df.groupBy("room_type").count()
+           .orderBy(F.col("count").desc()).collect()}
+    df.createOrReplaceTempView("listings_view")
+    out["ml00b_sql"] = spark.sql(
+        "SELECT room_type, count(*) AS n FROM listings_view "
+        "GROUP BY room_type ORDER BY n DESC").collect()
+    out["ml01L_hoods"] = raw.groupBy("neighbourhood_cleansed").count() \
+        .orderBy(F.col("count").desc()).collect()
+    hood_price = raw.groupBy("neighbourhood_cleansed").agg(
+        F.avg("price").alias("hood_price"))
+    joined = raw.select("neighbourhood_cleansed", "price").join(
+        hood_price, "neighbourhood_cleansed")
+    out["join"] = joined.select(F.sum("price"), F.sum("hood_price"),
+                                F.count("*")).collect()
+    out["cross"] = df.select("room_type").distinct().crossJoin(
+        spark.createDataFrame({"k": np.arange(3)})).orderBy(
+        "room_type", "k").collect()
+    out["selectExpr"] = raw.selectExpr(
+        "price * 2 as p2", "log(price + 1) as lp",
+        "bedrooms").limit(5).collect()
+    out["corr"] = raw.stat.corr("price", "accommodates")
+    spark.catalog.dropTempView("listings_view")
+    return out
+
+
+def ts_check_frames(out: dict, n: int) -> None:
+    """The frame results against numpy on the same rows."""
+    from sml_tpu_torch.courseware import make_airbnb_dataset
+    cols = make_airbnb_dataset(n=n, seed=42)
+    for key, col in (("ml00b_counts", "room_type"),
+                     ("ml01L_hoods", "neighbourhood_cleansed")):
+        vals, counts = np.unique(cols[col].astype(str), return_counts=True)
+        want = dict(zip(vals.tolist(), counts.tolist()))
+        got = [(r[0], r["count"]) for r in out[key]]
+        if dict(got) != want or [c for _, c in got] != sorted(
+                counts.tolist(), reverse=True):
+            raise AssertionError(f"{key}: {got} against {want}")
+    if [tuple(r) for r in out["ml00b_sql"]] != \
+            [tuple(r) for r in out["ml00b_counts"]]:
+        raise AssertionError(f"SQL {out['ml00b_sql']} against groupBy "
+                             f"{out['ml00b_counts']}")
+    s_price, s_hood, rows = tuple(out["join"][0])
+    if rows != n or not np.isclose(s_price, s_hood, rtol=1e-9) or \
+            not np.isclose(s_price, float(np.nansum(cols["price"])),
+                           rtol=1e-12):
+        raise AssertionError(f"join: {out['join']}")
+    if len(out["cross"]) != 3 * len(np.unique(cols["room_type"].astype(
+            str))):
+        raise AssertionError(f"crossJoin: {out['cross']}")
+    want = np.corrcoef(cols["price"], cols["accommodates"])[0, 1]
+    if not np.isclose(out["corr"], want, rtol=1e-12):
+        raise AssertionError(f"corr {out['corr']} against {want}")
+
+
+def ts_dedup(path: str, n: int, n_unique: int):
+    """(d) ML 00L up to the parquet write: the people file written as a
+    colon-separated CSV, read back, normalized and deduplicated; (the
+    count, the deduplicated frame's columns)."""
+    import shutil
+    from sml_tpu_torch import functions as F
+    from sml_tpu_torch.courseware import make_dedup_dataset
+    from sml_tpu_torch.frame.session import get_session
+    spark = get_session()
+    shutil.rmtree(path, ignore_errors=True)
+    make_dedup_dataset(n=n, n_unique=n_unique).write.option(
+        "sep", ":").option("header", True).csv(path)
+    df = (spark.read.option("header", "true").option("inferSchema", "true")
+          .option("sep", ":").csv(path))
+    deduped = (df.select(F.col("*"),
+                         F.lower(F.col("firstName")).alias("lcFirstName"),
+                         F.lower(F.col("lastName")).alias("lcLastName"),
+                         F.lower(F.col("middleName")).alias("lcMiddleName"),
+                         F.translate(F.col("ssn"), "-", "").alias("ssnNums"))
+               .dropDuplicates(["lcFirstName", "lcMiddleName", "lcLastName",
+                                "ssnNums", "gender", "birthDate", "salary"])
+               .drop("lcFirstName", "lcMiddleName", "lcLastName",
+                     "ssnNums"))
+    return deduped.count(), deduped._whole()
+
+
+def same_columns(a: dict, b: dict) -> bool:
+    """Two blocks hold the same columns, dtypes and values (NaN equal)."""
+    return list(a) == list(b) and all(
+        a[c].dtype == b[c].dtype and (
+            np.array_equal(a[c], b[c], equal_nan=True)
+            if a[c].dtype.kind == "f" else bool(np.all(a[c] == b[c])))
+        for c in a)
+
+
+def phase_timeseries(seed: int, device, card: str, n: int = 100_000,
+                     days: int = TS_QUICKSTART[1],
+                     dedup=(103_000, 100_000)) -> dict:
+    """Phase 15: MLE 04 and the frame's pandas-free remainder on `device`
+    (the session's `sml.device`): (a) MLE 04 at the course's shape, (b)
+    Prophet and ARIMA at the quick start's length, (c) the frame flows
+    of ML 00b / ML 01L on `make_airbnb_dataset(n)`, (d) ML 00L's dedup;
+    each held against the same run with the device set to the CPU, and
+    timed first call / warm median. No kernel of the port launches and
+    no plain version runs on the card. Smaller `n`, `days` and `dedup`
+    rehearse it on the CPU."""
+    import tempfile
+    from sml_tpu_torch.conf import GLOBAL_CONF
+    from sml_tpu_torch.native.hashing import hash_scalar
+    from sml_tpu_torch.timeseries import Prophet
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on")
+    GLOBAL_CONF.set("sml.device", device.type)
+    _zero_launches()
+    t0 = time.perf_counter()
+    out = {"card": card}
+    with KernelWatch() as watch:
+        # (a) MLE 04 at the course's shape
+        _, y160 = ts_mle04()
+        arima = fit_walls(lambda: ts_arima(y160, (1, 2, 1), device), device)
+        cpu_arima = on_cpu(lambda: ts_arima(y160, (1, 2, 1), device))
+        out["mle04_arima"] = ts_check_arima(
+            "(a) MLE 04 ARIMA(1,2,1), 160 points", arima[0], cpu_arima,
+            arima, card, ts_eval_ms(y160, (1, 2, 1), arima[0][0].params,
+                                    device))
+        fc = arima[0][0].forecast(10)
+        if not (np.all(np.isfinite(fc)) and fc[-1] > y160[-1]):
+            raise AssertionError(f"(a) forecast {fc}")
+        mle04 = fit_walls(ts_mle04_run, device)
+        cpu_mle04 = on_cpu(ts_mle04_run)
+        adf, fc160, holt = mle04[0]
+        if not adf[1] > 0.05 or fc160.count() != 170:
+            raise AssertionError(f"(a) adf {adf[:2]}, {fc160.count()} rows")
+        for k, v in holt.items():
+            if not np.array_equal(v, cpu_mle04[2][k]):
+                raise AssertionError(f"(a) Holt {k} differs card / CPU")
+        out["mle04_prophet"] = ts_check_prophet(
+            "(a) MLE 04 adfuller + Prophet (160 days + 10) + Holt x4",
+            fc160, cpu_mle04[1], y160, mle04, card)
+        # (b) the quick start's length
+        ds, y, hol = ts_quickstart(seed, days)
+
+        def prophet_fit():
+            m = Prophet(holidays=hol).fit({"ds": ds, "y": y})
+            return m, m.predict(m.make_future_dataframe(periods=365))
+        prophet = fit_walls(prophet_fit, device)
+        cpu_prophet = on_cpu(prophet_fit)
+        if prophet[0][0]._block_names != ["yearly", "weekly", "holidays"]:
+            raise AssertionError(f"(b) blocks {prophet[0][0]._block_names}")
+        out["quickstart_prophet"] = ts_check_prophet(
+            f"(b) Prophet, {days} days + 365, yearly/weekly/holidays",
+            prophet[0][1], cpu_prophet[1], y, prophet, card)
+        out["quickstart_prophet"]["busy"] = nt_busy(
+            "Prophet quick start", prophet_fit, "program.prophet", card,
+            device)
+        arima_q = fit_walls(lambda: ts_arima(y, TS_QUICKSTART_ORDER, device),
+                           device)
+        cpu_arima_q = on_cpu(lambda: ts_arima(y, TS_QUICKSTART_ORDER,
+                                              device))
+        out["quickstart_arima"] = ts_check_arima(
+            f"(b) ARIMA{TS_QUICKSTART_ORDER}, {days} points", arima_q[0],
+            cpu_arima_q, arima_q, card,
+            ts_eval_ms(y, TS_QUICKSTART_ORDER, arima_q[0][0].params,
+                       device))
+        out["quickstart_arima"]["busy"] = nt_busy(
+            "ARIMA quick start", lambda: ts_arima(y, TS_QUICKSTART_ORDER,
+                                                  device),
+            "program.arima", card, device)
+        # (c) the frame flows
+        frames = fit_walls(lambda: ts_frames(n), device)
+        cpu_frames = on_cpu(lambda: ts_frames(n))
+        if frames[0] != cpu_frames:
+            raise AssertionError("(c) frame results differ card / CPU")
+        ts_check_frames(frames[0], n)
+        out["frames"] = {"first_ms": frames[1], "warm_ms": frames[2]}
+        print(f"timeseries (c) ML 00b / ML 01L frame flows, {n} rows "
+              f"(groupBy, SQL on a temp view, join, crossJoin, selectExpr, "
+              f"stat.corr): first {frames[1]!r} ms / warm median "
+              f"{frames[2]!r} ms; equal to numpy and to the CPU run; card "
+              f"{card}")
+        # (d) ML 00L's dedup
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "people-with-dups")
+            dd = fit_walls(lambda: ts_dedup(path, *dedup), device)
+            cpu_dd = on_cpu(lambda: ts_dedup(path, *dedup))
+        count = dd[0][0]
+        h = hash_scalar(str(count))
+        h = h if h == -(1 << 31) else abs(h)
+        if not same_columns(dd[0][1], cpu_dd[1]) or count != cpu_dd[0] \
+                or count != dedup[1] or (
+                dedup[1] == 100_000 and h != DEDUP_HASH):
+            raise AssertionError(f"(d) dedup count {count}, hash {h}")
+        out["dedup"] = {"count": count, "hash": h, "first_ms": dd[1],
+                        "warm_ms": dd[2]}
+        print(f"timeseries (d) ML 00L: {dedup[0]} rows written as a "
+              f"colon-separated CSV, read back, deduplicated to {count} "
+              f"(hash {h}, the course's {DEDUP_HASH}); first {dd[1]!r} ms "
+              f"/ warm median {dd[2]!r} ms; card {card}")
+    launches = _all_launches()
+    if any(launches.values()) or watch.plain_on_cuda:
+        raise AssertionError(f"phase 15 launched {launches}; plain "
+                             f"versions on the card {watch.plain_on_cuda}")
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"timeseries: every check passed in {out['phase_s']!r} s; no "
+          f"kernel of the port launched ({launches}); TF32 off")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3743,6 +4119,7 @@ def main(argv=None) -> int:
     selection = phase_selection(device, card)
     chunked = phase_chunked(args.seed, device, card, fit["xgb"])
     nontree = phase_nontree(device, card)
+    timeseries = phase_timeseries(args.seed, device, card)
 
     def by_path(kernel: str) -> dict:
         return {"fit": fit["launches"][kernel],
@@ -3884,6 +4261,7 @@ def main(argv=None) -> int:
     print(json.dumps({"chunked": {k: v for k, v in chunked.items()
                                   if k != "replay"}}))
     print(json.dumps({"nontree": nontree}))
+    print(json.dumps({"timeseries": timeseries}))
     print(json.dumps({"dataframe": {
         "launches_fit": frames["fit"], "launches_evaluate":
         frames["evaluate"], "rmse": frames["rmse"],

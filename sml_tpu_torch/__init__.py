@@ -41,12 +41,22 @@ Ported so far:
   Gram pass and IRLS (`ml/linear_impl.py`, `ml/regression.py`,
   `ml/classification.py`), KMeans (`ml/clustering.py`), ALS
   (`ml/recommendation.py`), the linear kind of `DeviceScorer`, and
-  `courseware.make_movielens_dataset`.
+  `courseware.make_movielens_dataset`;
+- MLE 04's time series (`timeseries.py`: Prophet's Gram and FISTA and
+  ARIMA's CSS loss and its autograd gradient as float64 torch ops on the
+  card; acf, pacf, adfuller and Holt on the host), the frame's
+  pandas-free remainder (`frame/grouped.py`: groupBy and agg;
+  `frame/sql.py`: `spark.sql`, temp views and the catalog on sqlite3;
+  `frame/io.py`: the CSV and JSON readers and writers; joins,
+  `selectExpr`, `stat` and the date functions), `courseware.
+  make_dedup_dataset`, `version.py`, and the course's import shims
+  (`compat.install_shims`).
 
 Entry points run on the CUDA card unless the caller passes
 device="cpu"; without a card they raise. The DataFrame entry points
-(an estimator's `fit(df)`, a model's `transform`, the evaluators) read
-the device from the session's `sml.device` key instead.
+(an estimator's `fit(df)`, a model's `transform`, the evaluators) and
+`Prophet.fit` / `ARIMA.fit` read the device from the session's
+`sml.device` key instead.
 """
 
 from .conf import GLOBAL_CONF

@@ -1,11 +1,11 @@
 """The course's synthetic datasets, as dicts of numpy columns.
 
-The port's copies of `make_airbnb_dataset` and `make_movielens_dataset`
-from `sml_tpu/courseware.py`: the same draws from the same generator in
-the same order (NaN sprinkle included), so `createDataFrame(...)` of
-either holds the JAX package's rows in its order. The rest of the
-courseware (the dataset installer, the answer harness, the other
-datasets) waits for its slice.
+The port's copies of `make_airbnb_dataset`, `make_movielens_dataset`
+and `make_dedup_dataset` from `sml_tpu/courseware.py`: the same draws
+from the same generator in the same order (NaN sprinkle included), so
+`createDataFrame(...)` of either holds the JAX package's rows in its
+order. The rest of the courseware (the dataset installer, the answer
+harness, the other datasets) waits for its slice.
 """
 
 from __future__ import annotations
@@ -105,3 +105,41 @@ def make_movielens_dataset(n_users: int = 1000, n_items: int = 400,
                          return_index=True)
     keep = np.sort(first)
     return {c: v[keep] for c, v in cols.items()}
+
+
+def make_dedup_dataset(n: int = 103000, n_unique: int = 100000,
+                       seed: int = 11):
+    """The people-with-dups table (`Labs/ML 00L:30-38`), as the port's
+    DataFrame: the lab file's colon-separated schema, n rows of which
+    n - n_unique duplicate others and differ only in name case and ssn
+    format (hyphens dropped). The rows are shuffled as pandas'
+    `sample(frac=1.0, random_state=seed)` shuffles them (a permutation
+    from `np.random.RandomState(seed)`), so they come in the JAX
+    package's order."""
+    from .frame.column import object_array
+    from .frame.session import get_session
+    rng = np.random.default_rng(seed)
+    idx = np.arange(n_unique)
+    cols = {
+        "firstName": [f"Person{i}" for i in idx],
+        "middleName": [f"M{i % 409}" for i in idx],
+        "lastName": [f"Family{i % 977}" for i in idx],
+        "gender": np.where(idx % 2 == 0, "F", "M").tolist(),
+        "birthDate": [f"{1950 + i % 50}-{1 + i % 12:02d}-{1 + i % 28:02d}"
+                      for i in idx],
+        "salary": (35000 + (idx * 7919) % 150000).astype(np.int64),
+        "ssn": [f"{900 + i // 10000:03d}-{(i // 100) % 100:02d}-"
+                f"{i % 10000:04d}" for i in idx],
+    }
+    dup = rng.choice(n_unique, n - n_unique, replace=False)
+    dups = {c: [v[i] for i in dup] for c, v in cols.items()}
+    dups["firstName"] = [v.upper() for v in dups["firstName"]]
+    dups["middleName"] = [v.lower() for v in dups["middleName"]]
+    dups["ssn"] = [v.replace("-", "") for v in dups["ssn"]]
+    order = np.random.RandomState(seed).permutation(n)
+    block = {}
+    for c, v in cols.items():
+        whole = np.concatenate([np.asarray(v), np.asarray(dups[c])]) \
+            if c == "salary" else object_array(list(v) + dups[c])
+        block[c] = whole[order]
+    return get_session().createDataFrame(block)

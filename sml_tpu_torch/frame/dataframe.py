@@ -17,10 +17,12 @@ materialization is kept (`cache()` semantics).
 - Columns: float64 (NULL is NaN), int64, bool, object (strings, None
   for NULL), and 2-D float64 blocks for vector columns.
 
-Not ported yet (they wait for their slices): `join`, `crossJoin`,
-`groupBy`/`agg` (`frame/grouped.py`), `selectExpr` and SQL
-(`frame/sql.py`), `write` (`frame/io.py`), `writeStream`, `mapInPandas`,
-`to_koalas`, `createOrReplaceTempView` and `rdd`.
+- Joins reproduce pandas' `merge` (which the JAX package runs): inner
+  and left joins in the left side's order, right joins in the right
+  side's, full joins by the sorted keys; NULL keys match each other.
+
+Not ported yet (they wait for their slices): `writeStream`,
+`mapInPandas`, `to_koalas` and `rdd`.
 """
 
 from __future__ import annotations
@@ -312,7 +314,7 @@ class DataFrame:
         agg_cols = [c for c in cols
                     if isinstance(c, Column) and c._agg is not None]
         if agg_cols and len(agg_cols) == len(cols):
-            return self._global_agg(agg_cols)
+            return self.groupBy().agg(*agg_cols)
 
         def fn(block: Block, ctx: EvalContext) -> Block:
             out: Block = {}
@@ -327,17 +329,9 @@ class DataFrame:
 
         return self._derive(fn, op="select")
 
-    def _global_agg(self, cols: List[Column]) -> "DataFrame":
-        """A select of aggregates only: one row, each aggregate over the
-        whole frame."""
-        parent = self
-
-        def compute() -> Partitions:
-            whole = parent._whole()
-            return [{c._name: infer_objects(object_array(
-                [c._agg(c._eval(whole, EvalContext()))])) for c in cols}]
-
-        return DataFrame(compute, session=self._session, op="agg")
+    def selectExpr(self, *exprs: str) -> "DataFrame":
+        from .sql import parse_simple_expr
+        return self.select(*[parse_simple_expr(e) for e in exprs])
 
     def withColumn(self, name: str, col: Column) -> "DataFrame":
         cc = ensure_column(col)
@@ -370,11 +364,10 @@ class DataFrame:
         return self._derive(lambda b, ctx: {c: v for c, v in b.items()
                                             if c not in names}, op="drop")
 
-    def filter(self, condition: Column) -> "DataFrame":
+    def filter(self, condition: Union[Column, str]) -> "DataFrame":
         if isinstance(condition, str):
-            raise NotImplementedError(
-                "SQL string conditions wait for the port's frame/sql.py; "
-                "pass a Column")
+            from .sql import parse_simple_expr
+            condition = parse_simple_expr(condition)
 
         def fn(block, ctx):
             from .column import truthy
@@ -460,6 +453,10 @@ class DataFrame:
     def na(self) -> "DataFrameNaFunctions":
         return DataFrameNaFunctions(self)
 
+    @property
+    def stat(self) -> "DataFrameStatFunctions":
+        return DataFrameStatFunctions(self)
+
     # -------------------------------------------------------- wide transforms
     def distinct(self) -> "DataFrame":
         return self.dropDuplicates()
@@ -525,6 +522,42 @@ class DataFrame:
                               GLOBAL_CONF.getInt("sml.shuffle.partitions"))
 
         return DataFrame(compute, session=self._session, op="unionByName")
+
+    def join(self, other: "DataFrame", on=None, how: str = "inner"
+             ) -> "DataFrame":
+        """pandas' `merge` of the two frames (the JAX package's join):
+        `on` names the key columns (None: the columns both have), a
+        right column whose name clashes gets the suffix "_r"; semi and
+        anti joins keep the left rows whose key tuple the right side has
+        (has not). The result is hash-partitioned by `on`."""
+        parent = self
+        keys = [on] if isinstance(on, str) \
+            else list(on) if on is not None else None
+
+        def compute() -> Partitions:
+            with PROFILER.span("shuffle.join"):
+                left, right = parent._whole(), other._whole()
+                out = _merge(left, right, keys, how)
+                nparts = GLOBAL_CONF.getInt("sml.shuffle.partitions")
+                if keys:
+                    return _hash_repartition(out, keys, nparts)
+                return split_rows(out, nparts)
+
+        return DataFrame(compute, session=self._session, op="join")
+
+    def crossJoin(self, other: "DataFrame") -> "DataFrame":
+        return self.join(other, on=None, how="cross")
+
+    def groupBy(self, *cols):
+        from .grouped import GroupedData
+        if len(cols) == 1 and isinstance(cols[0], (list, tuple)):
+            cols = tuple(cols[0])
+        return GroupedData(self, [ensure_column(c) for c in cols])
+
+    groupby = groupBy
+
+    def agg(self, *cols) -> "DataFrame":
+        return self.groupBy().agg(*cols)
 
     def orderBy(self, *cols, ascending=None) -> "DataFrame":
         """A stable sort by the columns, NULLs last (pandas'
@@ -728,6 +761,26 @@ class DataFrame:
         return DataFrame.from_block(out, session=self._session,
                                     num_partitions=1)
 
+    def corr(self, col1: str, col2: str) -> float:
+        """Pearson correlation of two columns, rows with a NULL in either
+        dropped (pandas' `Series.corr`)."""
+        from .functions import pair_corr
+        whole = self._whole()
+        return pair_corr(np.stack([to_numeric(whole[c]).astype(np.float64)
+                                   for c in (col1, col2)], axis=1))
+
+    # ------------------------------------------------------------ views / IO
+    def createOrReplaceTempView(self, name: str) -> None:
+        if self._session is None:
+            raise RuntimeError("DataFrame has no session; use "
+                               "TpuSession.createDataFrame")
+        self._session.catalog._register_view(name, self)
+
+    @property
+    def write(self):
+        from .io import DataFrameWriter
+        return DataFrameWriter(self)
+
     def approxQuantile(self, col: Union[str, List[str]],
                        probabilities: Sequence[float],
                        relativeError: float = 0.0) -> List:
@@ -760,6 +813,154 @@ class DataFrameNaFunctions:
     def fill(self, value, subset: Optional[Sequence[str]] = None
              ) -> DataFrame:
         return self._df.fillna(value, subset=subset)
+
+
+class DataFrameStatFunctions:
+    def __init__(self, df: DataFrame):
+        self._df = df
+
+    def corr(self, col1: str, col2: str) -> float:
+        return self._df.corr(col1, col2)
+
+    def approxQuantile(self, col, probabilities, relativeError=0.0):
+        return self._df.approxQuantile(col, probabilities, relativeError)
+
+
+# ------------------------------------------------------------------ joins
+_HOW = {"inner": "inner", "left": "left", "left_outer": "left",
+        "leftouter": "left", "right": "right", "right_outer": "right",
+        "rightouter": "right", "outer": "outer", "full": "outer",
+        "full_outer": "outer", "fullouter": "outer", "cross": "cross",
+        "left_semi": "semi", "leftsemi": "semi", "semi": "semi",
+        "left_anti": "anti", "leftanti": "anti", "anti": "anti"}
+
+
+def _key_tuples(block: Block, keys: List[str]) -> List[tuple]:
+    """Each row's key values, NULL (None or NaN) as one marker, so NULL
+    keys match each other as pandas' merge and `isin` match them."""
+    from .grouped import _NULL
+    cols = []
+    for k in keys:
+        v = block[k]
+        nulls = null_mask(v)
+        cols.append([_NULL if nulls[i] else x
+                     for i, x in enumerate(v.tolist())])
+    return list(zip(*cols)) if cols else []
+
+
+def _sort_token(key: tuple) -> tuple:
+    """A sort key putting NULL after every value, level by level."""
+    from .grouped import _NULL
+    return tuple((1, 0) if v is _NULL else (0, v) for v in key)
+
+
+def _merge_indexers(lk: List[tuple], rk: List[tuple], how: str):
+    """(left row, right row) pairs of pandas' merge, -1 where a side has
+    no row."""
+    right_rows: Dict[tuple, List[int]] = {}
+    for j, k in enumerate(rk):
+        right_rows.setdefault(k, []).append(j)
+    pairs: List[Tuple[int, int]] = []
+    if how in ("inner", "left"):
+        for i, k in enumerate(lk):
+            js = right_rows.get(k)
+            if js:
+                pairs.extend((i, j) for j in js)
+            elif how == "left":
+                pairs.append((i, -1))
+    elif how == "right":
+        left_rows: Dict[tuple, List[int]] = {}
+        for i, k in enumerate(lk):
+            left_rows.setdefault(k, []).append(i)
+        for j, k in enumerate(rk):
+            is_ = left_rows.get(k)
+            if is_:
+                pairs.extend((i, j) for i in is_)
+            else:
+                pairs.append((-1, j))
+    else:  # outer: key groups in sorted order, each left-major
+        left_rows = {}
+        for i, k in enumerate(lk):
+            left_rows.setdefault(k, []).append(i)
+        for k in sorted(set(left_rows) | set(right_rows), key=_sort_token):
+            is_, js = left_rows.get(k, [-1]), right_rows.get(k, [-1])
+            pairs.extend((i, j) for i in is_ for j in js)
+    if not pairs:
+        return np.zeros(0, np.intp), np.zeros(0, np.intp)
+    li, ri = (np.asarray(x, dtype=np.intp) for x in zip(*pairs))
+    return li, ri
+
+
+def _take_filled(v: np.ndarray, idx: np.ndarray) -> np.ndarray:
+    """`v[idx]` with NULL where idx is -1 (an integer column becomes
+    float64, a boolean one object, as pandas' take with fill)."""
+    miss = idx < 0
+    if not miss.any():
+        return v[idx]
+    safe = np.where(miss, 0, idx)
+    out = v[safe] if len(v) else np.zeros((len(idx),) + v.shape[1:],
+                                          dtype=v.dtype)
+    kind = v.dtype.kind
+    if kind in "iuf":
+        out = out.astype(np.float64)
+        out[miss] = np.nan
+    elif kind in "Mm":
+        out[miss] = np.datetime64("NaT") if kind == "M" \
+            else np.timedelta64("NaT")
+    else:
+        out = out.astype(object)
+        out[miss] = None
+    return out
+
+
+def _coalesce_key(lv: np.ndarray, rv: np.ndarray, li: np.ndarray,
+                  ri: np.ndarray) -> np.ndarray:
+    """A join key's column: the left row's value, or the right row's
+    where there is no left row (pandas' merge keeps one key column)."""
+    if not (li < 0).any():
+        return lv[li]
+    both_typed = lv.dtype.kind != "O" and rv.dtype.kind != "O"
+    dtype = np.result_type(lv, rv) if both_typed else object
+    out = np.empty(len(li), dtype=dtype)
+    has_left = li >= 0
+    out[has_left] = lv[li[has_left]]
+    out[~has_left] = rv[ri[~has_left]]
+    return out
+
+
+def _merge(left: Block, right: Block, keys: Optional[List[str]],
+           how: str) -> Block:
+    hw = _HOW.get(how)
+    if hw is None:
+        raise ValueError(f"unknown join type {how!r}")
+    if hw in ("semi", "anti"):
+        have = set(_key_tuples(right, keys))
+        mask = np.fromiter((k in have for k in _key_tuples(left, keys)),
+                           dtype=bool, count=block_len(left))
+        return take_rows(left, mask if hw == "semi" else ~mask)
+    if hw == "cross":
+        nl, nr = block_len(left), block_len(right)
+        li, ri = np.repeat(np.arange(nl), nr), np.tile(np.arange(nr), nl)
+        keys, suffixes = [], ("_x", "_y")
+    else:
+        if keys is None:
+            keys = [c for c in left if c in right]
+            if not keys:
+                raise ValueError("no common columns to join on")
+        li, ri = _merge_indexers(_key_tuples(left, keys),
+                                 _key_tuples(right, keys), hw)
+        suffixes = ("", "_r")
+    clash = {c for c in left if c in right and c not in keys}
+    out: Block = {}
+    for c, v in left.items():
+        if c in keys:
+            out[c] = _coalesce_key(v, right[c], li, ri)
+        else:
+            out[c + suffixes[0] if c in clash else c] = _take_filled(v, li)
+    for c, v in right.items():
+        if c not in keys:
+            out[c + suffixes[1] if c in clash else c] = _take_filled(v, ri)
+    return out
 
 
 def _hash_repartition(block: Block, keys: List[str], num: int) -> Partitions:

@@ -5,7 +5,12 @@ The port's copy of `sml_tpu/frame/functions.py`, without its pandas
 UDFs (`pandas_udf`, `udf`): they hand pandas objects to user code and
 wait for a pandas-capable slice. Partition-aware functions (`rand`,
 `monotonically_increasing_id`) follow the per-partition contract of
-`frame/dataframe.py`.
+`frame/dataframe.py`. The date functions parse text as pandas'
+`to_datetime(errors="coerce")` does for the formats in `DATE_FORMATS`:
+the first non-NULL value of a partition picks the format, and text
+that does not match it is NULL (NaT). `corr` is the Pearson correlation
+of the rows where neither column is NULL (the JAX package's aggregate
+gives NaN, `ROADMAP.md` §3).
 """
 
 from __future__ import annotations
@@ -304,9 +309,19 @@ def _aggregate(name: str, agg_fn):
     return wrapper
 
 
+def _nansum(a: np.ndarray):
+    """pandas' skipna sum: an integer or boolean column sums to an
+    integer; a float column sums with NULL as 0."""
+    v = to_numeric(a)
+    if v.dtype.kind in "iub":
+        return int(v.sum())
+    v = v.astype(np.float64)
+    return float(np.where(np.isnan(v), 0.0, v).sum())
+
+
 avg = _aggregate("avg", nanmean)
 mean = _aggregate("avg", nanmean)
-sum = _aggregate("sum", lambda a: float(_numeric_ok(a).sum()))  # noqa: A001
+sum = _aggregate("sum", _nansum)  # noqa: A001
 min = _aggregate("min", _min_max(builtins.min))  # noqa: A001
 max = _aggregate("max", _min_max(builtins.max))  # noqa: A001
 stddev = _aggregate("stddev", lambda a: float(np.sqrt(nanvar(a, 1))))
@@ -342,3 +357,118 @@ def percentile_approx(c: ColumnOrName, percentage: float,
     return Column(cc._eval_fn, f"percentile_approx({cc._name}, {percentage})",
                   agg=lambda a: float(np.percentile(_numeric_ok(a),
                                                     percentage * 100)))
+
+
+def corr(c1: ColumnOrName, c2: ColumnOrName) -> Column:
+    """Pearson correlation of two columns (pandas' `Series.corr`: rows
+    where either is NULL are dropped, `np.corrcoef` on the rest)."""
+    a, b = ensure_column(c1), ensure_column(c2)
+
+    def ev(block, ctx):
+        return np.stack([to_numeric(a._eval(block, ctx)).astype(np.float64),
+                         to_numeric(b._eval(block, ctx)).astype(np.float64)],
+                        axis=1)
+
+    return Column(ev, f"corr({a._name}, {b._name})", agg=pair_corr)
+
+
+def pair_corr(ab: np.ndarray) -> float:
+    """Pearson correlation of the two columns of an (n, 2) array."""
+    ok = ~np.isnan(ab).any(axis=1)
+    if not ok.any():
+        return float("nan")
+    with np.errstate(all="ignore"):
+        return float(np.corrcoef(ab[ok, 0], ab[ok, 1])[0, 1])
+
+
+# ---------------------------- datetime helpers ------------------------------
+#: the text formats `to_datetime` recognizes without an explicit one, in
+#: the order they are tried on a partition's first non-NULL value
+DATE_FORMATS = ("%Y-%m-%d", "%Y-%m-%d %H:%M:%S", "%Y-%m-%dT%H:%M:%S",
+                "%Y-%m-%d %H:%M:%S.%f", "%Y-%m-%dT%H:%M:%S.%f",
+                "%Y-%m-%d %H:%M", "%Y-%m-%dT%H:%M", "%Y/%m/%d",
+                "%m/%d/%Y")
+
+
+def _strptime(text: str, fmt: str):
+    import datetime
+    try:
+        return datetime.datetime.strptime(text, fmt)
+    except ValueError:
+        return None
+
+
+def to_datetime(values: np.ndarray, fmt: Optional[str] = None
+                ) -> np.ndarray:
+    """`pd.to_datetime(values, format=fmt, errors="coerce")` as
+    datetime64[us]: datetimes pass; text parses with `fmt`, or with the
+    first of `DATE_FORMATS` that the first non-NULL value matches, and
+    is NaT where it does not match. When no format fits the first value,
+    each value parses alone with the first of `DATE_FORMATS` it fits
+    (pandas then parses each with dateutil, which reads more
+    spellings)."""
+    if values.dtype.kind == "M":
+        return values.astype("datetime64[us]")
+    out = np.full(len(values), np.datetime64("NaT"), dtype="datetime64[us]")
+    nulls = null_mask(values)
+    texts = [None if nulls[i] else str(v) for i, v in enumerate(values)]
+    if fmt is None:
+        first = next((t for t in texts if t is not None), None)
+        fmt = next((f for f in DATE_FORMATS
+                    if first is not None and _strptime(first, f)), None)
+    formats = DATE_FORMATS if fmt is None else (fmt,)
+    for i, t in enumerate(texts):
+        if t is not None:
+            parsed = next((p for p in (_strptime(t, f) for f in formats)
+                           if p is not None), None)
+            if parsed is not None:
+                out[i] = np.datetime64(parsed, "us")
+    return out
+
+
+def _date_part(values: np.ndarray, part: str) -> np.ndarray:
+    """A calendar field as pandas' `.dt.<part>`: int32, or float64 with
+    NaN when a value is NaT."""
+    ts = to_datetime(values)
+    nat = np.isnat(ts)
+    if part == "year":
+        out = ts.astype("datetime64[Y]").astype(np.int64) + 1970
+    elif part == "month":
+        out = ts.astype("datetime64[M]").astype(np.int64) % 12 + 1
+    else:
+        out = (ts.astype("datetime64[D]") - ts.astype("datetime64[M]")
+               .astype("datetime64[D]")).astype(np.int64) + 1
+    if nat.any():
+        return np.where(nat, np.nan, out.astype(np.float64))
+    return out.astype(np.int32)
+
+
+def to_date(c: ColumnOrName, fmt: Optional[str] = None) -> Column:
+    cc = ensure_column(c)
+    return Column(lambda b, ctx: to_datetime(cc._eval(b, ctx), fmt)
+                  .astype("datetime64[D]").astype("datetime64[us]"),
+                  f"to_date({cc._name})")
+
+
+def to_timestamp(c: ColumnOrName, fmt: Optional[str] = None) -> Column:
+    cc = ensure_column(c)
+    return Column(lambda b, ctx: to_datetime(cc._eval(b, ctx), fmt),
+                  f"to_timestamp({cc._name})")
+
+
+def year(c: ColumnOrName) -> Column:
+    cc = ensure_column(c)
+    return Column(lambda b, ctx: _date_part(cc._eval(b, ctx), "year"),
+                  f"year({cc._name})")
+
+
+def month(c: ColumnOrName) -> Column:
+    cc = ensure_column(c)
+    return Column(lambda b, ctx: _date_part(cc._eval(b, ctx), "month"),
+                  f"month({cc._name})")
+
+
+def dayofmonth(c: ColumnOrName) -> Column:
+    cc = ensure_column(c)
+    return Column(lambda b, ctx: _date_part(cc._eval(b, ctx), "day"),
+                  f"dayofmonth({cc._name})")

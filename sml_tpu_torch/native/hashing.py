@@ -51,11 +51,14 @@ def _lib() -> dict:
 
 
 def null_mask(values: np.ndarray) -> np.ndarray:
-    """SQL NULL per row: NaN in a float column, None or NaN in an object
-    column; integer and boolean columns hold none."""
+    """SQL NULL per row: NaN in a float column, NaT in a datetime column,
+    None or NaN in an object column; integer and boolean columns hold
+    none."""
     kind = values.dtype.kind
     if kind == "f":
         return np.isnan(values)
+    if kind in "Mm":
+        return np.isnat(values)
     if kind == "O":
         # None, or a value unequal to itself (NaN), one C loop each
         return np.equal(values, None) | np.not_equal(values, values)

@@ -268,3 +268,29 @@ def test_models_saved_by_either_package_load_in_both(golden, tmp_path):
     np.testing.assert_allclose(
         from_jax.transform(pte)._whole()["prediction"],
         jm.transform(jte).toPandas()["prediction"].to_numpy(), rtol=1e-6)
+
+
+def test_nonnegative_als_matches_jax(spark, port_device):
+    """MLE 01's ALS with `nonnegative=True`: no negative factor in either
+    package, factors within the golden fit's tolerance, held-out rmse
+    within 1e-6 relative."""
+    import pandas as pd
+    from sml_tpu.ml.evaluation import RegressionEvaluator as JRE
+    from sml_tpu.ml.recommendation import ALS as JALS
+    cols = make_movielens_dataset(300, 120, 12_000, 9)
+    kw = dict(GOLDEN, nonnegative=True, rank=5, maxIter=6)
+    with _one_device():
+        jtr, jte = spark.createDataFrame(pd.DataFrame(cols)).randomSplit(
+            [0.8, 0.2], seed=42)
+        jm = JALS(**kw).fit(jtr)
+        jrmse = JRE(labelCol="rating").evaluate(jm.transform(jte))
+    ptr, pte = get_session().createDataFrame(cols).randomSplit([0.8, 0.2],
+                                                               seed=42)
+    pm = ALS(**kw).fit(ptr)
+    prmse = RegressionEvaluator(labelCol="rating").evaluate(
+        pm.transform(pte))
+    for f in (pm._uf, pm._if, np.asarray(jm._uf), np.asarray(jm._if)):
+        assert f.min() >= 0
+    np.testing.assert_allclose(pm._uf, jm._uf, rtol=0, atol=5e-5)
+    np.testing.assert_allclose(pm._if, jm._if, rtol=0, atol=5e-5)
+    assert prmse == pytest.approx(jrmse, rel=1e-6)

@@ -223,3 +223,27 @@ def test_bisecting_kmeans_trains_plain_kmeans(blob_frames):
     b = KMeans(k=3, seed=5, maxIter=7).fit(pdf)
     assert type(a) is KMeansModel
     np.testing.assert_array_equal(_centers(a), _centers(b))
+
+
+@pytest.mark.parametrize("kw", [dict(k=3, maxIter=20, initMode="random"),
+                                dict(k=4, maxIter=5),
+                                dict(k=4, maxIter=5, initMode="random")])
+def test_init_modes_and_few_iterations_match_jax(golden_frames, kw):
+    """KMeans with `initMode="random"` and at k=4 with maxIter=5 on MLE
+    02's features: centers within the golden fit's tolerance, no
+    assignment flipped, and the silhouette of each fit's own
+    assignments equal."""
+    from sml_tpu.ml.evaluation import ClusteringEvaluator as JCE
+    from sml_tpu_torch.ml.evaluation import ClusteringEvaluator
+    jdf, pdf = golden_frames
+    jm = _jax_kmeans(jdf, seed=221, **kw)
+    pm = KMeans(seed=221, **kw).fit(pdf)
+    assert pm.getOrDefault("initMode") == jm.getOrDefault("initMode")
+    want, got = _centers(jm), _centers(pm)
+    assert np.max(np.abs(got - want)) <= 5e-6 * np.max(np.abs(want))
+    jpred, ppred = jm.transform(jdf), pm.transform(pdf)
+    np.testing.assert_array_equal(
+        ppred._whole()["prediction"],
+        jpred.toPandas()["prediction"].to_numpy())
+    assert ClusteringEvaluator().evaluate(ppred) == pytest.approx(
+        JCE().evaluate(jpred), rel=1e-6)

@@ -1,11 +1,12 @@
 """The port stands alone: importing every module of `sml_tpu_torch`, and
-running a DataFrame pipeline, a CrossValidator and `fmin` with the
-session's device set to the CPU, loads neither JAX, the JAX package,
-pandas nor pyarrow; and without a CUDA device the entry points
-(scoring, fitting, a DataFrame fit, transform and evaluate, a
-CrossValidator's fit, `fmin`'s placed trials and the chunked fits)
-raise rather than carry on on the CPU (each check runs in a fresh interpreter with no CUDA
-device visible)."""
+running a DataFrame pipeline, a CrossValidator, `fmin`, the time-series
+models and the frame's SQL and CSV paths with the session's device set
+to the CPU, loads neither JAX, the JAX package, pandas nor pyarrow; and
+without a CUDA device the entry points (scoring, fitting, a DataFrame
+fit, transform and evaluate, a CrossValidator's fit, `fmin`'s placed
+trials, the chunked fits, `Prophet.fit` and `ARIMA.fit`) raise rather
+than carry on on the CPU (each check runs in a fresh interpreter with
+no CUDA device visible)."""
 
 import os
 import shutil
@@ -99,6 +100,74 @@ def test_the_nontree_modules_are_among_the_imported():
                  "ml.clustering", "ml.recommendation", "ml.inference",
                  "courseware"):
         assert f"sml_tpu_torch.{name}'" in proc.stdout
+
+
+def test_the_timeseries_and_frame_modules_are_among_the_imported():
+    proc = _run(IMPORT_ALL.replace("print(len(names), bad)",
+                                   "print(sorted(names))"))
+    assert proc.returncode == 0, proc.stderr
+    for name in ("version", "timeseries", "compat", "frame.grouped",
+                 "frame.sql", "frame.io"):
+        assert f"sml_tpu_torch.{name}'" in proc.stdout
+
+
+TIMESERIES = """
+import os, sys, tempfile
+import numpy as np
+from sml_tpu_torch import GLOBAL_CONF, functions as F, get_session
+from sml_tpu_torch.courseware import make_dedup_dataset
+from sml_tpu_torch.timeseries import ARIMA, Prophet, adfuller
+GLOBAL_CONF.set("sml.device", DEVICE)
+t = np.arange(60, dtype=float)
+y = 0.02 * t * t + 1.5 * t + np.random.default_rng(0).normal(size=60)
+ds = np.datetime64("2020-01-01") + np.arange(60) * np.timedelta64(1, "D")
+for what, call in (
+        ("prophet", lambda: Prophet().fit({"ds": ds, "y": y}).predict()
+         .count()),
+        ("arima", lambda: len(ARIMA(y, order=(1, 1, 1)).fit().forecast(3)))):
+    try:
+        out = call()
+    except RuntimeError as e:
+        print(what, "raised:", e)
+        GLOBAL_CONF.set("sml.device", "cpu")
+        out = call()
+        GLOBAL_CONF.set("sml.device", DEVICE)
+    print(what, out)
+print("adf", adfuller(y)[2])
+spark = get_session()
+people = make_dedup_dataset(n=300, n_unique=250)
+path = os.path.join(tempfile.mkdtemp(), "people")
+people.write.option("header", True).csv(path)
+back = spark.read.option("header", "true").option("inferSchema", "true") \
+    .csv(path)
+back.createOrReplaceTempView("people")
+n = spark.sql("SELECT gender, count(*) AS n FROM people GROUP BY gender")
+print("frame", back.count(), sorted(r["n"] for r in n.collect()),
+      back.groupBy("gender").agg(F.avg("salary")).count())
+bad = sorted(k for k in sys.modules
+             if k.split(".")[0] in ("jax", "jaxlib", "sml_tpu", "pandas",
+                                    "pyarrow"))
+print(bad)
+"""
+
+TIMESERIES_OUT = ["prophet 60", "arima 3", "adf 11", "frame 300 [148, 152] 2",
+                  "[]"]
+
+
+def test_timeseries_and_frame_on_the_cpu_load_no_pandas_jax_or_sml_tpu():
+    proc = _run(TIMESERIES.replace("DEVICE", repr("cpu")))
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines() == TIMESERIES_OUT
+
+
+def test_prophet_and_arima_fits_raise_without_a_card():
+    proc = _run(TIMESERIES.replace("DEVICE", repr("cuda")))
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.strip().splitlines()
+    raised = [ln for ln in lines if " raised: " in ln]
+    assert [ln.split(" ")[0] for ln in raised] == ["prophet", "arima"], lines
+    assert all("no CUDA device" in ln for ln in raised), lines
+    assert [ln for ln in lines if " raised: " not in ln] == TIMESERIES_OUT
 
 
 NONTREE = """

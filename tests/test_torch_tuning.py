@@ -352,3 +352,111 @@ def test_placed_trials_share_a_frame_under_threads():
         PCONF.unset("sml.device")
     assert computed == [1]
     assert out == [(j, 20.0) for j in jobs]
+
+
+def _binary_frames(spark, jax: bool):
+    """The assembled frame with a 0/1 label (the label above its median:
+    MLE 03's priceClass, ML 07L's classifiers)."""
+    pkg, df, feat = _frames(spark, jax)
+    cut = float(np.median(_cols()["label"]))
+    if jax:
+        from sml_tpu import functions as F
+    else:
+        from sml_tpu_torch import functions as F
+    lab = (F.col("label") > cut).cast("double")
+    return pkg, df.withColumn("cls", lab).cache(), \
+        feat.withColumn("cls", lab).cache()
+
+
+def _classification(jax: bool):
+    if jax:
+        from sml_tpu.ml import classification, evaluation
+    else:
+        from sml_tpu_torch.ml import classification, evaluation
+    return classification, evaluation
+
+
+def test_cv_over_logistic_regression_in_a_pipeline_equals_jax(confs, spark):
+    """MLE 03's shape: a CrossValidator over LogisticRegression's
+    regParam x elasticNetParam inside a pipeline, areaUnderROC."""
+    out = []
+    for jax in (True, False):
+        pkg, df, _ = _binary_frames(spark, jax)
+        cls, ev = _classification(jax)
+        lr = cls.LogisticRegression(labelCol="cls")
+        grid = (pkg.tun.ParamGridBuilder()
+                .addGrid(lr.getParam("regParam"), [0.0, 0.1])
+                .addGrid(lr.getParam("elasticNetParam"), [0.0, 0.5])
+                .build())
+        pipe = pkg.base.Pipeline(stages=_prep(pkg.feat) + [lr])
+        cv = pkg.tun.CrossValidator(
+            estimator=pipe, estimatorParamMaps=grid,
+            evaluator=ev.BinaryClassificationEvaluator(labelCol="cls"),
+            numFolds=3, parallelism=1, seed=11)
+        out.append(cv.fit(df))
+    jm, pm = out
+    np.testing.assert_allclose(pm.avgMetrics, jm.avgMetrics, rtol=1e-6)
+    assert int(np.argmax(pm.avgMetrics)) == int(np.argmax(jm.avgMetrics))
+
+
+def test_tvs_over_linear_regression_equals_jax(confs, spark):
+    out = []
+    for jax in (True, False):
+        pkg, _, feat = _frames(spark, jax)
+        lr = pkg.reg.LinearRegression(labelCol="label")
+        grid = (pkg.tun.ParamGridBuilder()
+                .addGrid(lr.getParam("regParam"), [0.0, 0.1, 1.0])
+                .addGrid(lr.getParam("elasticNetParam"), [0.0, 0.5])
+                .build())
+        tvs = pkg.tun.TrainValidationSplit(
+            estimator=lr, estimatorParamMaps=grid, evaluator=pkg.ev,
+            trainRatio=0.75, seed=5)
+        out.append(tvs.fit(feat))
+    jm, pm = out
+    np.testing.assert_allclose(pm.validationMetrics, jm.validationMetrics,
+                               rtol=1e-6)
+
+
+@pytest.mark.parametrize("kind", ["dt", "rf", "gbt"])
+def test_tree_classifiers_on_a_dataframe_equal_jax(confs, spark, kind):
+    """ML 07L's classifiers on an assembled frame: predictions equal,
+    `probability` and `rawPrediction` within 1e-6, and the binary and
+    multiclass metrics equal (rtol 1e-9)."""
+    from sml_tpu.parallel import mesh as meshlib
+    scored = []
+    for jax in (True, False):
+        _, _, feat = _binary_frames(spark, jax)
+        cls, ev = _classification(jax)
+        est = {"dt": lambda: cls.DecisionTreeClassifier(
+                   labelCol="cls", maxDepth=5, maxBins=16),
+               "rf": lambda: cls.RandomForestClassifier(
+                   labelCol="cls", numTrees=8, maxDepth=4, maxBins=16,
+                   seed=42),
+               "gbt": lambda: cls.GBTClassifier(
+                   labelCol="cls", maxIter=8, maxDepth=3, maxBins=16,
+                   seed=42)}[kind]()
+        train, test = feat.randomSplit([0.8, 0.2], seed=42)
+        if jax:
+            with meshlib.use_mesh(meshlib.build_mesh(1)):
+                pred = est.fit(train).transform(test).cache()
+                pred.toPandas()
+        else:
+            pred = est.fit(train).transform(test).cache()
+        metrics = [ev.BinaryClassificationEvaluator(
+            labelCol="cls", metricName=m).evaluate(pred)
+            for m in ("areaUnderROC", "areaUnderPR")]
+        metrics += [ev.MulticlassClassificationEvaluator(
+            labelCol="cls", metricName=m).evaluate(pred)
+            for m in ("f1", "accuracy", "weightedPrecision",
+                      "weightedRecall")]
+        cols = pred.toPandas() if jax else pred._whole()
+        scored.append((cols, metrics))
+    (jc, jmet), (pc, pmet) = scored
+    np.testing.assert_array_equal(pc["prediction"],
+                                  jc["prediction"].to_numpy())
+    for c in ("probability", "rawPrediction"):
+        want = np.stack([np.asarray(v.toArray() if hasattr(v, "toArray")
+                                    else v, dtype=np.float64)
+                         for v in jc[c]])
+        np.testing.assert_allclose(pc[c], want, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(pmet, jmet, rtol=1e-9)
