@@ -227,8 +227,38 @@ Phases:
    is printed as first call / warm median of 3, with ARIMA's L-BFGS
    evaluations, its milliseconds an evaluation (through the triangular
    solve, and the step-by-step loss an overflowed evaluation takes) and
-   the card's busy share of the quick-start fits. TF32 must be off and no kernel of the port may launch; a
-   `{"timeseries": ...}` JSON line gives these numbers.
+   the card's busy share of the quick-start fits. TF32 must be off and
+   no kernel of the port may launch; a `{"timeseries": ...}` JSON line
+   gives these numbers.
+
+16. main path, the fused featurizer, the compact linear fits and ML 12's
+   batch scoring, on the session's device: (a) phase 11's 100,000 rows
+   split 80/20: ML 03's one-hot `LinearRegression` pipeline (Imputer,
+   StringIndexer(skip), OneHotEncoder, VectorAssembler) and ML 07's
+   random-forest pipeline, each fused (`Pipeline.fit`'s whole-chain fit,
+   `PipelineModel.transform`'s one pass and its evaluator pushdown) and
+   stage by stage (`featurizer.stage_by_stage`), in turns: the first
+   fit from empty caches, the median of 3 warm fits and of 3 transform +
+   `RegressionEvaluator` rmse; the fits bit-equal, the rmse equal and
+   every kernel's launches equal; (b) `tests/test_compact_linear.py:
+   20-36`'s chain on `make_airbnb_dataset(n=4_194_304, seed=7)`: the
+   fused fit's prep at the default `sml.linear.compactBytes` (the compact
+   block: numeric slots and int32 codes, one-hots expanded on the card)
+   and at 1 << 40 (the materialized (n, 49) block), then
+   `LinearRegression` on price and `LogisticRegression(maxIter=12)` on
+   the binarized price from each: walls, host -> device bytes (the
+   compact route's at most a quarter) and peak device memory, the
+   coefficients within the CPU tests' tolerances; the compact Gram and
+   whole-fit IRLS at 65,536 rows on the card against the CPU, moments
+   and coefficients within 1e-9 of the largest, steps equal; (c) ML 12:
+   `DeviceScorer.score_batches` over the 100,000 raw rows in 10 batches
+   of 10,000 at depth 4, on the LR pipeline's factorized route, its block
+   route on the card and the RF pipeline (one `forest_traverse` a batch),
+   each concatenation against `score_block` of the whole (bit-equal, the
+   factorized within rtol 1e-5 / atol 1e-7), with rows/s and the
+   dispatch / drain order (batch i+1 dispatched before batch i drains).
+   No plain version may run on the card; every kernel on these paths
+   must launch. A `{"featurizer": ...}` JSON line gives these numbers.
 
 The second-to-last line is a JSON object listing each kernel, with the
 launches the profiler saw in each window behind its device times
@@ -4081,6 +4111,402 @@ def phase_timeseries(seed: int, device, card: str, n: int = 100_000,
     return out
 
 
+# -------------- phase 16: the fused featurizer, compact fits, ML 12 scoring
+#: (b) the compact chain's rows (`tests/test_compact_linear.py:20-36` at
+#: 4,194,304 rows: ~822 MB materialized, ~168 MB compact) and the rows of
+#: the compact programs' card-against-CPU check
+FZ_COMPACT_ROWS = 4_194_304
+FZ_CHECK_ROWS = 65_536
+#: card against CPU: the compact moments and coefficients within this
+#: share of the largest
+FZ_CARD_CPU_RTOL = 1e-9
+#: (c) ML 12: batches of (a)'s 100,000 rows, the lookahead, and the
+#: factorized scorer's tolerance against the block route
+FZ_BATCHES = 10
+FZ_DEPTH = 4
+FZ_RTOL, FZ_ATOL = 1e-5, 1e-7
+#: timed runs after each first one (their median is reported)
+FZ_REPS = 3
+#: every launch phase 16 makes, summed by kernel
+FZ_LAUNCHES: dict = {}
+#: the kernels on phase 16's paths: a forest fit's four and the traversal
+FZ_KERNELS = FIT_KERNELS + ("forest_traverse",)
+
+
+def fz_take() -> dict:
+    """The launches since the counts were last zeroed (added to
+    FZ_LAUNCHES), the counts zeroed again."""
+    got = _all_launches()
+    for k, v in got.items():
+        FZ_LAUNCHES[k] = FZ_LAUNCHES.get(k, 0) + v
+    _zero_launches()
+    return got
+
+
+def fz_ml03():
+    """ML 03's one-hot LinearRegression pipeline."""
+    from sml_tpu_torch.ml import LinearRegression
+    from sml_tpu_torch.ml.feature import VectorAssembler
+    return nt_prep() + [VectorAssembler(inputCols=NT_OHE + DF_IMP,
+                                        outputCol="features"),
+                        LinearRegression(labelCol="price")]
+
+
+def fz_ml07():
+    """ML 07's RandomForestRegressor pipeline (phase 11's)."""
+    return df_prep() + [df_estimator("rf")]
+
+
+def fz_same_fit(ta, tb) -> bool:
+    """Whether two fitted models are equal bit for bit."""
+    if hasattr(ta, "_coefficients"):
+        return bool(np.array_equal(ta._coefficients, tb._coefficients)
+                    and ta.intercept == tb.intercept)
+    return len(ta._spec.trees) == len(tb._spec.trees) and all(
+        np.array_equal(getattr(x, f), getattr(y, f))
+        for x, y in zip(ta._spec.trees, tb._spec.trees)
+        for f in ("split_feature", "split_bin", "leaf_value", "gain",
+                  "cover"))
+
+
+def fz_routes(train, test, device, card: str) -> tuple:
+    """(a) ML 03's LR and ML 07's RF pipelines fused and stage by stage
+    (`featurizer.stage_by_stage`), in turns: the first fit from empty
+    caches (after one untimed fit), the median of FZ_REPS warm fits, and
+    transform +
+    RegressionEvaluator rmse (median of FZ_REPS); the fits bit-equal,
+    the rmse equal and the launches equal. Returns (numbers, the fused
+    pipeline models)."""
+    from sml_tpu_torch.ml import Pipeline
+    from sml_tpu_torch.ml.evaluation import RegressionEvaluator
+    from sml_tpu_torch.ml.featurizer import stage_by_stage
+    ev = RegressionEvaluator(labelCol="price")
+    out, models = {}, {}
+    train._whole()  # the split's rows made before any timed fit
+    test._whole()
+
+    def in_route(route, fn):
+        if route == "fused":
+            return fn()
+        with stage_by_stage():
+            return fn()
+
+    for name, stages in (("ml03_lr", fz_ml03), ("ml07_rf", fz_ml07)):
+        fitted, rec = {}, {"fused": {}, "stage": {}}
+        launches = {"fused": {}, "stage": {}}
+        # one untimed fit pays the process's first calls (library set-up,
+        # kernel loads), which would land on whichever route went first
+        in_route("stage", lambda: Pipeline(stages=stages()).fit(train))
+        for route in ("fused", "stage"):
+            clear_fit_caches()
+            fz_take()
+            fitted[route], rec[route]["first_fit_ms"] = walled(
+                lambda: in_route(route, lambda: Pipeline(
+                    stages=stages()).fit(train)), device)
+            launches[route]["fit"] = fz_take()
+        warm = {"fused": [], "stage": []}
+        evals = {"fused": [], "stage": []}
+        rmse = {}
+        for rep in range(FZ_REPS + 1):
+            for route in ("fused", "stage"):
+                if rep:
+                    warm[route].append(walled(lambda: in_route(
+                        route, lambda: Pipeline(stages=stages()).fit(train)),
+                        device)[1])
+                    fz_take()
+                got, ms = walled(lambda: in_route(route, lambda: ev.evaluate(
+                    fitted[route].transform(test))), device)
+                if rep == 0:
+                    rmse[route] = got
+                    launches[route]["evaluate"] = fz_take()
+                else:
+                    evals[route].append(ms)
+                    fz_take()
+                    if got != rmse[route]:
+                        raise AssertionError(f"{name}: {route} rmse moved")
+        for route in ("fused", "stage"):
+            rec[route]["warm_fit_ms"] = float(np.median(warm[route]))
+            rec[route]["evaluate_ms"] = float(np.median(evals[route]))
+            rec[route]["rmse"] = rmse[route]
+            rec[route]["launches"] = launches[route]
+        same = fz_same_fit(fitted["fused"].stages[-1],
+                           fitted["stage"].stages[-1])
+        f, st = rec["fused"], rec["stage"]
+        print(f"featurizer (a) {name}: fit fused first "
+              f"{f['first_fit_ms']!r} ms / warm median {f['warm_fit_ms']!r} "
+              f"ms, stage by stage first {st['first_fit_ms']!r} / warm "
+              f"{st['warm_fit_ms']!r} ms; transform + evaluate fused "
+              f"{f['evaluate_ms']!r} ms, stage {st['evaluate_ms']!r} ms; "
+              f"rmse {rmse['fused']!r} / {rmse['stage']!r}; fits bit-equal "
+              f"{same}; launches fused {launches['fused']} stage "
+              f"{launches['stage']}; card {card}")
+        if not same or rmse["fused"] != rmse["stage"] or \
+                launches["fused"] != launches["stage"]:
+            raise AssertionError(f"{name}: the fused route differs from the "
+                                 f"stage path")
+        rec["fits_bit_equal"] = same
+        out[name] = rec
+        models[name] = fitted["fused"]
+    return out, models
+
+
+def fz_rel(a, b) -> float:
+    """max |a - b| over the largest |b|."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b)) / max(float(np.max(np.abs(b))),
+                                             1e-300))
+
+
+def fz_compact(device, card: str, n: int = FZ_COMPACT_ROWS,
+               check_rows: int = FZ_CHECK_ROWS,
+               gate: Optional[int] = None) -> dict:
+    """(b) the compact chain on `make_airbnb_dataset(n, seed=7)`: the
+    fused fit's prep (`try_fast_fit`) at the default gate (the compact
+    block) and with the gate at 1 << 40 (the materialized block), then
+    LinearRegression on price and LogisticRegression(maxIter=12) on the
+    binarized price from each: walls, host -> device bytes and peak
+    device memory; coefficients within the CPU tests' tolerances; and
+    the compact Gram and IRLS on the card against the CPU at
+    `check_rows` rows. `gate` replaces the default gate on the compact
+    side (a rehearsal's few rows stay below it)."""
+    from sml_tpu_torch.conf import GLOBAL_CONF
+    from sml_tpu_torch.courseware import make_airbnb_dataset
+    from sml_tpu_torch.frame.dataframe import DataFrame
+    from sml_tpu_torch.frame.session import get_session
+    from sml_tpu_torch.ml import LinearRegression, LogisticRegression
+    from sml_tpu_torch.ml import linear_impl
+    from sml_tpu_torch.ml._staging import extract_compact, extract_xy
+    from sml_tpu_torch.ml.featurizer import try_fast_fit
+    from sml_tpu_torch.utils.profiler import PROFILER
+    t0 = time.perf_counter()
+    cols = make_airbnb_dataset(n=n, seed=7)
+    cols["label"] = (cols["price"] > np.median(cols["price"])).astype(
+        np.float64)
+    raw = get_session().createDataFrame(cols)._whole()
+    del cols
+    out = {"rows": n, "made_ms": (time.perf_counter() - t0) * 1e3}
+    fits = {}
+    for route, at in (("compact", gate), ("materialized", 1 << 40)):
+        if at is None:
+            GLOBAL_CONF.unset("sml.linear.compactBytes")
+        else:
+            GLOBAL_CONF.set("sml.linear.compactBytes", at)
+        (_, shim), prep_ms = walled(lambda: try_fast_fit(
+            fz_ml03(), raw, lambda: DataFrame.from_partitions([raw])),
+            device)
+        if (getattr(shim, "_featurized_compact", None) is not None) != \
+                (route == "compact"):
+            raise AssertionError(f"{route}: the gate chose the other route")
+        rec = {"prep_ms": prep_ms}
+        for est_name, make in (
+                ("linear", lambda: LinearRegression(labelCol="price")),
+                ("logistic", lambda: LogisticRegression(labelCol="label",
+                                                        maxIter=12))):
+            if device.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(device)
+            before = PROFILER.counters().get("staging.h2d_bytes", 0.0)
+            model, ms = walled(lambda: make().fit(shim), device)
+            h2d = PROFILER.counters().get("staging.h2d_bytes", 0.0) - before
+            peak = torch.cuda.max_memory_allocated(device) \
+                if device.type == "cuda" else 0
+            fits[(route, est_name)] = model
+            rec[est_name] = {"fit_ms": ms, "h2d_bytes": h2d,
+                             "peak_device_bytes": peak,
+                             "iterations": getattr(model.summary,
+                                                   "totalIterations", None)}
+            print(f"featurizer (b) {route} {est_name} on {n} rows: prep "
+                  f"{prep_ms!r} ms, fit {ms!r} ms, host -> device "
+                  f"{h2d:.0f} bytes, peak device memory {peak} bytes; "
+                  f"card {card}")
+        # the device programs alone (the estimator's wall adds the host's
+        # label extraction and summary)
+        if route == "compact":
+            parts, y = extract_compact(shim, "features", "price")
+            _, yl = extract_compact(shim, "features", "label")
+            programs = (
+                lambda: linear_impl.fit_linear_compact(parts, y,
+                                                       device=device),
+                lambda: linear_impl.fit_logistic_compact(
+                    parts, yl, maxIter=12, tol=1e-6, device=device))
+        else:
+            parts = None
+            X, y, _ = extract_xy(shim, "features", "price")
+            _, yl, _ = extract_xy(shim, "features", "label")
+            programs = (
+                lambda: linear_impl.fit_linear(X, y, device=device),
+                lambda: linear_impl.fit_logistic(X, yl, maxIter=12,
+                                                 tol=1e-6, device=device))
+        for est_name, program in zip(("linear", "logistic"), programs):
+            rec[est_name]["program_ms"] = walled(program, device)[1]
+        print(f"featurizer (b) {route}: the programs alone, linear "
+              f"{rec['linear']['program_ms']!r} ms, logistic "
+              f"{rec['logistic']['program_ms']!r} ms; card {card}")
+        k = min(check_rows, parts.num.shape[0]) \
+            if route == "compact" else 0
+        if k:
+            sub = parts._replace(num=parts.num[:k], codes=parts.codes[:k],
+                                 keep=None)
+            moments = [linear_impl.gram_stats_compact(sub, y[:k], device=d)
+                       for d in (device, "cpu")]
+            lin = [linear_impl.fit_linear_compact(sub, y[:k], device=d)
+                   for d in (device, "cpu")]
+            logit = [linear_impl.fit_logistic_compact(
+                sub, yl[:k], maxIter=12, tol=1e-6, device=d)
+                for d in (device, "cpu")]
+            rel = {"gram_A": fz_rel(moments[0][0], moments[1][0]),
+                   "gram_b": fz_rel(moments[0][1], moments[1][1]),
+                   "gram_yy": fz_rel(moments[0][3], moments[1][3]),
+                   "linear_coefficients": fz_rel(
+                       np.append(lin[0].coefficients, lin[0].intercept),
+                       np.append(lin[1].coefficients, lin[1].intercept)),
+                   "logistic_coefficients": fz_rel(
+                       np.append(logit[0].coefficients, logit[0].intercept),
+                       np.append(logit[1].coefficients, logit[1].intercept))}
+            steps = (logit[0].iterations, logit[1].iterations)
+            print(f"featurizer (b) card against CPU at {k} rows: relative "
+                  f"differences {json.dumps(rel)}; IRLS steps {steps}")
+            if max(rel.values()) > FZ_CARD_CPU_RTOL or steps[0] != steps[1]:
+                raise AssertionError(f"compact card/CPU: {rel}, {steps}")
+            out["card_cpu"] = dict(rel, rows=k, irls_steps=list(steps))
+        out[route] = rec
+        del shim, programs
+    GLOBAL_CONF.unset("sml.linear.compactBytes")
+    c_lin, m_lin = fits[("compact", "linear")], fits[("materialized",
+                                                      "linear")]
+    c_log, m_log = fits[("compact", "logistic")], fits[("materialized",
+                                                        "logistic")]
+    lin_equal = fz_same_fit(c_lin, m_lin)
+    np.testing.assert_allclose(c_lin._coefficients, m_lin._coefficients,
+                               rtol=1e-5, atol=1e-5)
+    if abs(c_lin.intercept - m_lin.intercept) > 1e-5:
+        raise AssertionError("(b) linear intercepts differ")
+    np.testing.assert_allclose(c_log._coefficients, m_log._coefficients,
+                               atol=5e-4)
+    if abs(c_log.intercept - m_log.intercept) > 5e-4 or abs(
+            c_log.summary.accuracy - m_log.summary.accuracy) >= 5e-3 or abs(
+            c_log.summary.areaUnderROC - m_log.summary.areaUnderROC) >= 5e-3:
+        raise AssertionError("(b) logistic fits differ")
+    ratio = out["compact"]["linear"]["h2d_bytes"] / \
+        out["materialized"]["linear"]["h2d_bytes"]
+    out["linear_bit_equal"] = lin_equal
+    out["logistic_max_coef_diff"] = float(np.max(np.abs(
+        c_log._coefficients - m_log._coefficients)))
+    out["h2d_ratio"] = ratio
+    print(f"featurizer (b): compact against materialized: linear bit-equal "
+          f"{lin_equal}, logistic max |coef diff| "
+          f"{out['logistic_max_coef_diff']!r}, IRLS steps "
+          f"{c_log.summary.totalIterations} / "
+          f"{m_log.summary.totalIterations}; host -> device bytes compact / "
+          f"materialized {ratio!r}")
+    if ratio > 0.25:
+        raise AssertionError(f"(b) the compact route copied {ratio} of the "
+                             f"materialized route's bytes")
+    return out
+
+
+def fz_batches(models: dict, raw: dict, device, card: str) -> dict:
+    """(c) ML 12: `score_batches` over the 100,000 raw rows in
+    FZ_BATCHES batches at depth FZ_DEPTH, on the LR pipeline's factorized
+    route, its block route on the card and the RF pipeline (one
+    `forest_traverse` a batch); each concatenation against `score_block`
+    of the whole; rows/s (median of FZ_REPS runs after a first) and the
+    dispatch / drain order."""
+    from sml_tpu_torch.ml.inference import DeviceScorer
+    n = len(raw["price"])
+    size = n // FZ_BATCHES
+    batches = [{k: v[i:i + size] for k, v in raw.items()}
+               for i in range(0, n, size)]
+    lr_block = DeviceScorer(models["ml03_lr"], device=device)
+    lr_block._factorized = None
+    routes = {"lr_factorized": DeviceScorer(models["ml03_lr"],
+                                            device=device),
+              "lr_block": lr_block,
+              "rf_block": DeviceScorer(models["ml07_rf"], device=device)}
+    out = {}
+    for route, scorer in routes.items():
+        if (scorer._factorized is not None) != (route == "lr_factorized"):
+            raise AssertionError(f"{route}: the scorer's route is wrong")
+        whole = scorer.score_block(scorer._featurizer(raw))
+        fz_take()
+        order = []
+        (outs, first) = walled(lambda: list(scorer.score_batches(
+            batches, depth=FZ_DEPTH, order=order)), device)
+        launches = fz_take()
+        got = np.concatenate(outs)
+        if route == "lr_factorized":
+            ok = got.shape == whole.shape and np.allclose(
+                got, whole, rtol=FZ_RTOL, atol=FZ_ATOL)
+            err = float(np.max(np.abs(got - whole)))
+        else:
+            ok = np.array_equal(got, whole)
+            err = 0.0 if ok else float(np.max(np.abs(got - whole)))
+        walls = []
+        for _ in range(FZ_REPS):
+            walls.append(walled(lambda: list(scorer.score_batches(
+                batches, depth=FZ_DEPTH)), device)[1])
+            fz_take()
+        ms = float(np.median(walls))
+        ahead = all(order.index(("dispatch", i + 1))
+                    < order.index(("drain", i))
+                    for i in range(len(batches) - 1)) if order else None
+        out[route] = {"first_ms": first, "ms": ms, "rows_per_s": n / ms * 1e3,
+                      "max_abs_diff": err, "launches": launches,
+                      "next_dispatch_before_drain": ahead,
+                      "order": [f"{kind} {i}" for kind, i in order[:8]]}
+        print(f"featurizer (c) {route}: {FZ_BATCHES} batches of {size} "
+              f"rows at depth {FZ_DEPTH}: first {first!r} ms, median "
+              f"{ms!r} ms ({n / ms * 1e3:.0f} rows/s); against score_block "
+              f"of the whole: max |diff| {err!r}; launches {launches}; "
+              f"order {order[:8]}; card {card}")
+        if not ok or (order and not ahead):
+            raise AssertionError(f"{route}: batches {ok}, overlap {ahead}")
+        if route == "rf_block" and launches["forest_traverse"] != FZ_BATCHES:
+            raise AssertionError(f"rf_block: {launches['forest_traverse']} "
+                                 f"traversals for {FZ_BATCHES} batches")
+    return out
+
+
+def phase_featurizer(device, card: str, compact_rows: int = FZ_COMPACT_ROWS,
+                     n: int = 100_000, gate: Optional[int] = None) -> dict:
+    """Phase 16: (a) the fused pipeline fit and transform against the
+    stage path, (b) the compact linear fits, (c) ML 12's batch scoring,
+    on `device` (the session's `sml.device`). Smaller `compact_rows` and
+    `n`, with a `gate` below the compact block, rehearse it on the
+    CPU."""
+    from sml_tpu_torch.conf import GLOBAL_CONF
+    from sml_tpu_torch.courseware import make_airbnb_dataset
+    from sml_tpu_torch.frame.session import get_session
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on")
+    GLOBAL_CONF.set("sml.device", device.type)
+    FZ_LAUNCHES.clear()
+    _zero_launches()
+    t0 = time.perf_counter()
+    with KernelWatch() as watch:
+        train, test = df_splits(n)
+        routes, models = fz_routes(train, test, device, card)
+        raw = get_session().createDataFrame(
+            make_airbnb_dataset(n=n, seed=42))._whole()
+        batches = fz_batches(models, raw, device, card)
+        compact = fz_compact(device, card, compact_rows, gate=gate)
+        # the same chain below the default gate (the compact side forced)
+        compact["below_gate"] = fz_compact(device, card, n, check_rows=0,
+                                           gate=0)
+    fz_take()
+    if watch.plain_on_cuda:
+        raise AssertionError(f"plain versions ran {watch.plain_on_cuda} "
+                             f"times on CUDA tensors")
+    missing = [k for k in FZ_KERNELS if not FZ_LAUNCHES.get(k)]
+    if missing:
+        raise AssertionError(f"phase 16 never launched {missing}")
+    out = {"routes": routes, "batches": batches, "compact": compact,
+           "launches": dict(FZ_LAUNCHES),
+           "phase_s": time.perf_counter() - t0}
+    print(f"featurizer: every check passed in {out['phase_s']!r} s; "
+          f"launches {FZ_LAUNCHES}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4120,13 +4546,15 @@ def main(argv=None) -> int:
     chunked = phase_chunked(args.seed, device, card, fit["xgb"])
     nontree = phase_nontree(device, card)
     timeseries = phase_timeseries(args.seed, device, card)
+    featurizer = phase_featurizer(device, card)
 
     def by_path(kernel: str) -> dict:
         return {"fit": fit["launches"][kernel],
                 "tuning": tuning["fused"][kernel],
                 "dataframe": frames["fit"][kernel],
                 "selection": SEL_LAUNCHES[kernel],
-                "chunked": chunked["launches"][kernel]}
+                "chunked": chunked["launches"][kernel],
+                "featurizer": featurizer["launches"][kernel]}
 
     def windows(kernel: str) -> dict:
         return {what: seen for what, seen in DEVICE_WINDOWS.items()
@@ -4142,13 +4570,16 @@ def main(argv=None) -> int:
         + tuning["fused"]["forest_traverse"]
         + frames["evaluate"]["forest_traverse"]
         + SEL_LAUNCHES["forest_traverse"]
-        + chunked["launches"]["forest_traverse"],
+        + chunked["launches"]["forest_traverse"]
+        + featurizer["launches"]["forest_traverse"],
         "launches_by_path": {"serving": main_path["launches"],
                              "tuning": tuning["fused"]["forest_traverse"],
                              "dataframe": frames["evaluate"][
                                  "forest_traverse"],
                              "selection": SEL_LAUNCHES["forest_traverse"],
                              "chunked": chunked["launches"][
+                                 "forest_traverse"],
+                             "featurizer": featurizer["launches"][
                                  "forest_traverse"]},
         "replay_launches": chunked["b"]["launches"]["forest_traverse"],
         "replay": chunked["replay"],
@@ -4262,6 +4693,7 @@ def main(argv=None) -> int:
                                   if k != "replay"}}))
     print(json.dumps({"nontree": nontree}))
     print(json.dumps({"timeseries": timeseries}))
+    print(json.dumps({"featurizer": featurizer}))
     print(json.dumps({"dataframe": {
         "launches_fit": frames["fit"], "launches_evaluate":
         frames["evaluate"], "rmse": frames["rmse"],

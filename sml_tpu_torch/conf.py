@@ -125,6 +125,15 @@ _register("sml.tune.candidatesPerDispatch", 4, int,
           "ml.tuning.fused_param_scores pays one fused device fit per "
           "generation instead of one per trial; <= 1 keeps the "
           "sequential propose-score loop")
+_register("sml.linear.compactBytes", 1 << 28, int,
+          "Expanded-block size (n*d*4) above which linear/logistic fits "
+          "stage the compact numeric+code form and expand one-hot slots "
+          "on-chip instead of materializing the (n, d) matrix")
+_register("sml.infer.prefetchBatches", 4, int,
+          "DeviceScorer.score_batches lookahead: batches dispatched ahead "
+          "of the drain point so batch i+1's prep + H2D staging overlaps "
+          "batch i's compute and D2H (was a hard-coded 4). 1 = fully "
+          "synchronous")
 
 
 class TorchConf:

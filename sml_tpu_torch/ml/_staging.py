@@ -13,7 +13,9 @@ kernels run on the true rows and need no padding mask.
 
 `extract_features` and `extract_xy` hand a frame's feature block and
 label column to the fits and models, as the JAX package's do: the
-features as a C-contiguous f32 matrix, the labels as f32.
+features as a C-contiguous f32 matrix, the labels as f32; a fused block
+that the pipeline's fit attached (`featurizer.py`) is handed over as it
+is, and `extract_compact` hands over its compact form.
 """
 
 from __future__ import annotations
@@ -233,7 +235,12 @@ def bin_cache_stats() -> dict:
 
 def extract_features(df, featuresCol: str) -> np.ndarray:
     """The (n, d) f32 matrix of a frame's features column
-    (`features_of` over all its rows)."""
+    (`features_of` over all its rows). A frame carrying a fused block of
+    that column (`_featurized`, attached by the pipeline's fused fit)
+    hands it over without materializing its transform chain."""
+    feat = getattr(df, "_featurized", None)
+    if feat is not None and featuresCol in feat:
+        return feat[featuresCol][0]
     return features_of(df._whole(), featuresCol)
 
 
@@ -256,9 +263,44 @@ def extract_xy(df, featuresCol: str, labelCol: str,
                weightCol: Optional[str] = None
                ) -> Tuple[np.ndarray, np.ndarray, Optional[np.ndarray]]:
     """(features, labels, weights) of a frame: `extract_features`, and
-    the label (and weight) column as f32."""
-    whole = df._whole()
-    X = extract_features(df, featuresCol)
+    the label (and weight) column as f32. With a fused block
+    (`_featurized`) the labels come from the raw block it was built
+    from, under its row-keep mask."""
+    feat = getattr(df, "_featurized", None)
+    if feat is not None and featuresCol in feat:
+        X, keep, raw = feat[featuresCol]
+        whole = raw if keep is None else {
+            c: raw[c][keep] for c in (labelCol, weightCol) if c}
+    else:
+        whole = df._whole()
+        X = features_of(whole, featuresCol)
     y = np.asarray(whole[labelCol], dtype=np.float32)
     w = np.asarray(whole[weightCol], dtype=np.float32) if weightCol else None
     return X, y, w
+
+
+def extract_compact(df, featuresCol: str, labelCol: str):
+    """(CompactParts, labels) when the frame carries a compact block of
+    `featuresCol` (`_featurized_compact`, attached by the pipeline's
+    fused fit for a large linear or logistic fit), else None. The labels
+    come from the raw block under the parts' row-keep mask; a row whose
+    label is not finite leaves both sides, and `keep` goes on describing
+    the kept rows of the raw block."""
+    feat = getattr(df, "_featurized_compact", None)
+    if feat is None or featuresCol not in feat:
+        return None
+    parts, raw = feat[featuresCol]
+    y = np.asarray(raw[labelCol], dtype=np.float32)
+    if parts.keep is not None:
+        y = y[parts.keep]
+    ok = np.isfinite(y)
+    if not ok.all():
+        if parts.keep is not None:
+            keep = parts.keep.copy()
+            keep[keep] = ok
+        else:
+            keep = ok
+        parts = parts._replace(num=parts.num[ok], codes=parts.codes[ok],
+                               keep=keep)
+        y = y[ok]
+    return parts, y

@@ -13,11 +13,18 @@ name back to its own class through `_model_classes()`, a plain table, so a
 model saved by either package loads in both and loading never imports
 the JAX package (nor any module a file names).
 
-Not ported yet: the featurizer's fused fit and transform
-(`try_fast_fit`, `_attach_fused_features`, `_ScorerEvalHook`,
-`PipelineModel._fast_transform`; `ml/featurizer.py`), which the JAX
-package takes when the stage shapes allow and which give the
-stage-by-stage results; and run autologging (`autolog_fit`).
+Where the stages are the course's prep chain (Imputer, StringIndexer,
+OneHotEncoder, VectorAssembler) the pipeline takes the featurizer's
+fused routes (`ml/featurizer.py`), as the JAX package does, with the
+stage path's results: `Pipeline.fit` fits the prep stages from the raw
+block and hands the estimator a one-pass block (or, for a large linear
+fit, its compact form); `PipelineModel.transform` of such a chain ending
+in a regression model runs one pass at first materialization and gives
+the evaluator a pushdown (`_ScorerEvalHook`) that never assembles the
+output frame. Whether a route applies is decided from the stages and
+the frame before any work; the chosen route's errors propagate.
+
+Not ported yet: run autologging (`autolog_fit`).
 """
 
 from __future__ import annotations
@@ -290,20 +297,37 @@ class Pipeline(Estimator):
 
     def _fit(self, df) -> "PipelineModel":
         from ..frame.dataframe import DataFrame
+        from .featurizer import attach_fused_features, try_fast_fit
         stages = self.getStages()
         cur = df
+        raw = None
         if isinstance(df, DataFrame):
             # collapse to one partition first, as the JAX package does:
             # each stage's per-partition fn then runs once over the whole
             # frame; row-local transforms and global fits give the same
             # results in any layout
-            cur = DataFrame.from_partitions([df._whole()],
-                                            session=df._session)
-            cur._ml_attrs = dict(df._ml_attrs)
+            raw = df._whole()
+
+            def make_frame():
+                f = DataFrame.from_partitions([raw], session=df._session)
+                f._ml_attrs = dict(df._ml_attrs)
+                return f
+
+            # the whole-chain fused fit: the prep stages fit from the raw
+            # block and the estimator reads a one-pass block; its fit
+            # runs here, so its errors propagate
+            fast = try_fast_fit(stages, raw, make_frame, df._ml_attrs)
+            if fast is not None:
+                fitted_prep, shim = fast
+                return PipelineModel(fitted_prep + [stages[-1].fit(shim)])
+            cur = make_frame()
         fitted: List[Transformer] = []
         for i, stage in enumerate(stages):
             last = i == len(stages) - 1
             if isinstance(stage, Estimator):
+                if last and raw is not None:
+                    cur = attach_fused_features(cur, fitted, stage, raw,
+                                                df._ml_attrs)
                 model = stage.fit(cur)
                 fitted.append(model)
                 if not last:
@@ -349,10 +373,113 @@ class PipelineModel(Model):
         self.stages: List[Transformer] = stages or []
 
     def _transform(self, df):
+        plan = self._fast_plan(df)
+        if plan is not None:
+            return self._fast_transform(df, plan)
         cur = df
         for s in self.stages:
             cur = s.transform(cur)
         return cur
+
+    def _fast_plan(self, df):
+        """The fused transform's plan for `df`, or None (the stage path
+        runs): the compiled chain, memoized per stage list, and a check
+        of `df`'s columns (its first row, as VectorAssembler peeks)."""
+        from ..frame.dataframe import DataFrame
+        from .featurizer import routes_on
+        if not routes_on() or not isinstance(df, DataFrame) or \
+                df.isStreaming:
+            return None
+        token = tuple((id(s), type(s).__name__) for s in self.stages)
+        cached = self.__dict__.get("_fast_plan_cache")
+        if cached is None or cached[0] != token:
+            cached = (token, self._build_fast_plan())
+            self._fast_plan_cache = cached
+        plan = cached[1]
+        if plan is None:
+            return None
+        feat = plan[0]
+        if not feat.inputs_ok(df.limit(1)._whole(), df._ml_attrs):
+            return None
+        return plan
+
+    def _build_fast_plan(self):
+        """(featurizer, assembler, tail) of the fused transform, from the
+        stages alone; `tail` is None for a pure feature pipeline. None
+        when the stages are not the supported chain, when a regression
+        tail does not read the assembler's output, or when an interim
+        column could not come out of the one pass."""
+        from ._tree_models import _TreeRegressionModel
+        from .feature import VectorAssembler
+        from .featurizer import CompiledFeaturizer
+        from .regression import LinearRegressionModel
+        stages = self.stages
+        if not stages:
+            return None
+        tail = stages[-1]
+        prep = stages
+        if isinstance(tail, (LinearRegressionModel, _TreeRegressionModel)):
+            # regression tails append exactly predictionCol; classifiers
+            # (probability and rawPrediction columns) keep the stage path
+            prep = stages[:-1]
+        else:
+            tail = None
+        if not prep or not isinstance(prep[-1], VectorAssembler):
+            return None
+        assembler = prep[-1]
+        feat = CompiledFeaturizer.from_stages(prep[:-1], assembler)
+        if feat is None or not feat.columns_recoverable():
+            return None
+        if tail is not None and tail.getOrDefault("featuresCol") != \
+                assembler.getOrDefault("outputCol"):
+            return None
+        return feat, assembler, tail
+
+    def _fast_transform(self, df, plan):
+        """The whole-pipeline fused transform: the prep chain runs as one
+        columnar pass over the parent's block at first materialization,
+        giving the interim columns, the assembled column and their
+        `_ml_attrs` as the stage transforms give them, in the parent's
+        partitions (less the rows an indexer skips); a regression tail
+        then predicts from it through its own transform. The result
+        carries `_ScorerEvalHook`, so an evaluator that reads it first
+        needs no output frame at all."""
+        from ..frame.column import block_len
+        from ..frame.dataframe import DataFrame, take_rows
+        from ..utils.profiler import PROFILER
+        feat, assembler, tail = plan
+        out_col = assembler.getOrDefault("outputCol")
+        parent = df
+        n_stages = len(self.stages)
+
+        def compute():
+            with PROFILER.span("fused_transform", stages=n_stages):
+                parts = parent._materialize()
+                raw = parent._whole()
+                X, keep, cols = feat.transform_with_columns(raw)
+                block = dict(raw) if keep is None else take_rows(raw, keep)
+                block.update(cols)
+                block[out_col] = X
+                sizes = [block_len(p) for p in parts]
+                if keep is not None:
+                    edges = np.cumsum([0] + sizes)
+                    sizes = [int(keep[lo:hi].sum())
+                             for lo, hi in zip(edges[:-1], edges[1:])]
+                bounds = np.cumsum([0] + sizes)
+                return [take_rows(block, slice(lo, hi))
+                        for lo, hi in zip(bounds[:-1], bounds[1:])]
+
+        feats = DataFrame(compute, session=df._session, op="_fast_transform")
+        feats._ml_attrs = dict(df._ml_attrs)
+        feats._ml_attrs.update(feat.interim_attrs())
+        feats._ml_attrs[out_col] = feat.feature_attrs(df._ml_attrs)
+        if tail is None:
+            return feats
+        from ..device import session_device
+        res = tail.transform(feats)
+        res._fused_eval = _ScorerEvalHook(feat, tail, df, self.stages[:-1],
+                                          session_device())
+        return res
 
     def copy(self, extra=None) -> "PipelineModel":
         that = super().copy(extra)
@@ -428,3 +555,42 @@ class RegStatsHook:
         if stats is not None:
             self._stats_cache[(prediction_col, label_col)] = stats
         return stats
+
+
+class _ScorerEvalHook(RegStatsHook):
+    """Evaluator pushdown of a fused pipeline transform: one featurize
+    pass over the raw parent and the tail's predictions (for a tree tail
+    the fused traversal and reduction on the device,
+    `fused_reg_stats_from_matrix`), with no output frame (no interim or
+    vector columns, no prediction column). The features are the f32
+    block the stage path's model reads, and the labels the raw ones
+    under the featurizer's row-keep mask, so the statistics are the
+    stage path's."""
+
+    def __init__(self, feat, tail, parent, prep_stages, device):
+        super().__init__(tail, parent, device)
+        self._feat = feat
+        self._prep_stages = prep_stages
+
+    def _label_ok(self, label_col: str) -> bool:
+        # a prep stage that writes labelCol leaves raw labels that are
+        # pre-transform values: the materialize path reads the right ones
+        from .featurizer import produced_columns
+        return label_col not in produced_columns(self._prep_stages)
+
+    def _compute(self, raw, lab, label_col: str):
+        X, keep = self._feat.transform_with_mask(raw)
+        if keep is not None:
+            lab = lab[keep]
+        spec = getattr(self._tail, "_spec", None)
+        if spec is not None:
+            from ._tree_models import fused_reg_stats_from_matrix
+            return fused_reg_stats_from_matrix(spec, X, lab,
+                                               link=self._link,
+                                               device=self._device)
+        from .inference import DeviceScorer
+        pred = DeviceScorer(self._tail, device=self._device).score_block(X)
+        if self._link != "identity":
+            pred = getattr(np, self._link)(pred)
+        from .evaluation import host_reg_stats
+        return host_reg_stats(pred, lab)

@@ -3,9 +3,11 @@
 
 `LogisticRegression` (`SML/Solutions/ML Electives/MLE 03` answer path)
 fits by IRLS Newton steps on the session's device
-(`linear_impl.fit_logistic`); `transform` appends the `rawPrediction`
-and `probability` vector columns (2-D blocks) and the `prediction`
-column, as MLlib does. The tree learners come from `_tree_models`.
+(`linear_impl.fit_logistic`; an unpenalized fit of the pipeline's
+compact block runs all its steps on the device,
+`linear_impl.fit_logistic_compact`); `transform` appends the
+`rawPrediction` and `probability` vector columns (2-D blocks) and the
+`prediction` column, as MLlib does. The tree learners come from `_tree_models`.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import numpy as np
 
 from ..frame.column import block_len
 from . import linear_impl
-from ._staging import extract_xy, features_of
+from ._staging import extract_compact, extract_xy, features_of
 from ._tree_models import (DecisionTreeClassificationModel,
                            DecisionTreeClassifier, GBTClassificationModel,
                            GBTClassifier, RandomForestClassificationModel,
@@ -34,14 +36,25 @@ __all__ = ["BinaryLogisticRegressionSummary",
 class BinaryLogisticRegressionSummary:
     """Training summary: the accuracy and the area under the ROC curve
     of the training rows' margins, and the IRLS iterations the fit ran
-    (MLlib's `totalIterations`)."""
+    (MLlib's `totalIterations`). As in the JAX package, the accuracy is
+    computed at fit time and the AUROC, an O(n log n) sort, when first
+    read (`auc_fn`)."""
 
     def __init__(self, accuracy: float = None, areaUnderROC: float = None,
-                 numInstances: int = 0, totalIterations: int = 0):
+                 numInstances: int = 0, totalIterations: int = 0,
+                 auc_fn=None):
         self.accuracy = accuracy
-        self.areaUnderROC = areaUnderROC
+        self._auc = areaUnderROC
+        self._auc_fn = auc_fn
         self.numInstances = numInstances
         self.totalIterations = totalIterations
+
+    @property
+    def areaUnderROC(self) -> float:
+        if self._auc_fn is not None:
+            self._auc = self._auc_fn()
+            self._auc_fn = None  # drops the margins it held
+        return self._auc
 
 
 class LogisticRegression(Estimator):
@@ -82,25 +95,44 @@ class LogisticRegression(Estimator):
     def _fit(self, df) -> "LogisticRegressionModel":
         from ..device import session_device
         device = session_device()
-        X, y, _ = extract_xy(df, self.getOrDefault("featuresCol"),
-                             self.getOrDefault("labelCol"))
-        ok = np.isfinite(y)
-        X, y = X[ok], y[ok]
-        res = linear_impl.fit_logistic(
-            X, y, regParam=float(self.getOrDefault("regParam")),
-            elasticNetParam=float(self.getOrDefault("elasticNetParam")),
-            fitIntercept=bool(self.getOrDefault("fitIntercept")),
-            maxIter=int(self.getOrDefault("maxIter")),
-            tol=float(self.getOrDefault("tol")), device=device)
+        lam = float(self.getOrDefault("regParam"))
+        max_iter = int(self.getOrDefault("maxIter"))
+        tol = float(self.getOrDefault("tol"))
+        fit_int = bool(self.getOrDefault("fitIntercept"))
+        compact = extract_compact(df, self.getOrDefault("featuresCol"),
+                                  self.getOrDefault("labelCol"))
+        if compact is not None and lam == 0.0 and fit_int:
+            # the whole IRLS fit on the device, the one-hot slots
+            # expanded there (`linear_impl.fit_logistic_compact`)
+            parts, y = compact
+            res = linear_impl.fit_logistic_compact(
+                parts, y, maxIter=max_iter, tol=tol, device=device)
+            margin = parts.predict_affine(res.coefficients, res.intercept)
+        else:
+            if compact is not None:
+                # a penalized fit needs the materialized block (the
+                # proximal shrink acts on raw coefficients)
+                parts, y = compact
+                X = parts.expand_host()
+            else:
+                X, y, _ = extract_xy(df, self.getOrDefault("featuresCol"),
+                                     self.getOrDefault("labelCol"))
+                ok = np.isfinite(y)
+                X, y = X[ok], y[ok]
+            res = linear_impl.fit_logistic(
+                X, y, regParam=lam,
+                elasticNetParam=float(self.getOrDefault("elasticNetParam")),
+                fitIntercept=fit_int, maxIter=max_iter, tol=tol,
+                device=device)
+            margin = X @ res.coefficients + res.intercept
         model = LogisticRegressionModel(coefficients=res.coefficients,
                                         intercept=res.intercept)
         model._inherit_params(self)
-        margin = X @ res.coefficients + res.intercept
         pred = (margin > 0).astype(float)
         model._summary = BinaryLogisticRegressionSummary(
-            accuracy=float(np.mean(pred == y)),
-            areaUnderROC=_fast_auc(margin, y), numInstances=len(y),
-            totalIterations=res.iterations)
+            accuracy=float(np.mean(pred == y)), numInstances=len(y),
+            totalIterations=res.iterations,
+            auc_fn=lambda: _fast_auc(margin, y))
         return model
 
 

@@ -184,6 +184,26 @@ class StringIndexer(Estimator):
         return m
 
 
+def label_map(labels) -> Dict[str, float]:
+    """A fitted indexer's labels as label -> index."""
+    return {lab: float(i) for i, lab in enumerate(labels)}
+
+
+def index_codes(col: np.ndarray, mapping: Dict[str, float]) -> np.ndarray:
+    """The float index of each value of `col` under `mapping` (its text,
+    as `astype(str)` gives it), NaN for a NULL or an unseen label: the
+    lookup before handleInvalid, shared by the stage and the compiled
+    featurizer (`featurizer._IndexSource`) so that both give the same
+    codes."""
+    nulls = null_mask(col)
+    # one lookup per distinct value
+    uniq, inv = np.unique(col.astype(str), return_inverse=True)
+    idx = np.array([mapping.get(u, np.nan) for u in uniq],
+                   dtype=np.float64)[inv.reshape(-1)]
+    idx[nulls] = np.nan
+    return idx
+
+
 class StringIndexerModel(Model):
     def _init_params(self):
         StringIndexer._init_params(self)
@@ -199,20 +219,14 @@ class StringIndexerModel(Model):
     def _transform(self, df):
         in_cols, out_cols = StringIndexer._in_out(self)
         invalid = self.getOrDefault("handleInvalid")
-        maps = [{lab: float(i) for i, lab in enumerate(ls)}
-                for ls in self.labelsArray]
+        maps = [label_map(ls) for ls in self.labelsArray]
 
         def fn(block, ctx):
             out = dict(block)
             keep = np.ones(block_len(block), dtype=bool)
             for c, oc, mapping in zip(in_cols, out_cols, maps):
                 col = block[c]
-                nulls = null_mask(col)
-                # one lookup per distinct value
-                uniq, inv = np.unique(col.astype(str), return_inverse=True)
-                idx = np.array([mapping.get(u, np.nan) for u in uniq],
-                               dtype=np.float64)[inv.reshape(-1)]
-                idx[nulls] = np.nan
+                idx = index_codes(col, mapping)
                 missing = np.isnan(idx)
                 if missing.any():
                     if invalid == "error":
@@ -307,6 +321,20 @@ class OneHotEncoder(Estimator):
         return m
 
 
+def write_onehot(idx: np.ndarray, out: np.ndarray) -> None:
+    """The one-hot rows of float codes `idx` into `out` (n, width): a
+    code out of range, as a dropped last category, is a zero row and a
+    NaN code a NaN row. Shared by the stage and the compiled featurizer
+    (`featurizer._OneHotSource`)."""
+    width = out.shape[1]
+    na = ~np.isfinite(idx)
+    ok = ~na & (idx >= 0) & (idx < width)
+    out[:] = 0.0
+    out[np.nonzero(ok)[0], idx[ok].astype(np.intp)] = 1.0
+    if na.any():
+        out[na] = np.nan
+
+
 class OneHotEncoderModel(Model):
     def _init_params(self):
         OneHotEncoder._init_params(self)
@@ -325,12 +353,8 @@ class OneHotEncoderModel(Model):
             for c, oc, size in zip(in_cols, out_cols, sizes):
                 width = size - 1 if drop_last else size
                 idx = to_numeric(block[c]).astype(np.float64)
-                na = ~np.isfinite(idx)
-                onehot = np.zeros((len(idx), width))
-                # a dropped last category is an all-zero row
-                ok = ~na & (idx >= 0) & (idx < width)
-                onehot[np.nonzero(ok)[0], idx[ok].astype(np.intp)] = 1.0
-                onehot[na] = np.nan
+                onehot = np.empty((len(idx), width))
+                write_onehot(idx, onehot)
                 out[oc] = onehot
             return out
 

@@ -7,18 +7,28 @@ staged once per content (`_staging.stage_bins_cached`), and the stacked
 ensemble is traversed by `native.traverse_kernel.forest_traverse`, which
 launches the CUDA kernel for CUDA tensors and runs the plain PyTorch
 version for CPU tensors. A linear or logistic model scores `X @ w + b`
-(through the sigmoid for the logistic) as a float64 matmul on the
-device, always: there is no host route until the dispatcher is ported.
-`DeviceScorer` is the load-once, score-many object a server holds.
+(through the sigmoid for the logistic) in float64 on the device, each
+row's products summed in a fixed pairwise order (`_linear_forward`),
+always: there is no host route until the dispatcher is ported.
+`DeviceScorer` is the load-once, score-many object a server holds. On
+a pipeline it keeps the prep stages: `__call__` scores a raw batch (a
+port DataFrame or a block, a mapping of column name to numpy array)
+through the compiled featurizer's one pass (`featurizer.py`), and for a
+linear model over that chain through the factorized scorer (host float64:
+a numeric dot plus one weight-table lookup per one-hot column, with no
+(n, d) block). `score_batches` (ML 12's batch scoring) runs a stream of
+batches through `parallel.pipeline`: the factorized scorer through
+`prefetch_map`, the device route through `prefetch_pipeline`, prep
+(featurizing, binning) on worker threads while earlier batches run on
+the card, each result copied back into pinned memory behind an event.
 
-Not ported yet: the factorized linear scorer, which rides the JAX
-package's fused featurizer, `score_batches`, `score_block_host` and the
-pandas `__call__`.
+Not ported yet: `score_block_host` (the dispatcher's host route, ROADMAP
+item 5).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Callable, Iterable, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -62,8 +72,22 @@ def predict_forest_sharded(binned: np.ndarray, sf: np.ndarray,
 
 def _linear_forward(Xd: torch.Tensor, w: torch.Tensor, b: float
                     ) -> torch.Tensor:
-    """X @ w + b of device rows, in float64."""
-    return Xd.to(torch.float64) @ w + b
+    """X @ w + b of device rows, in float64: each row's products summed
+    pairwise in a fixed tree (the columns padded with zeros to a power of
+    two, then halves added until one is left) by elementwise ops, then
+    b. A row's score so depends on that row alone, not on the rows
+    batched with it, and is the same on the card and on the CPU (a
+    matrix-vector product picks its summation order by the batch's
+    shape)."""
+    terms = Xd.to(torch.float64) * w
+    d = terms.shape[1]
+    width = 1 << max(d - 1, 0).bit_length()
+    if width > d:
+        terms = torch.nn.functional.pad(terms, (0, width - d))
+    while terms.shape[1] > 1:
+        half = terms.shape[1] // 2
+        terms = terms[:, :half] + terms[:, half:]
+    return terms[:, 0] + b
 
 
 def _logistic_forward(Xd: torch.Tensor, w: torch.Tensor, b: float
@@ -122,19 +146,37 @@ class DeviceScorer:
     (any object with an `_EnsembleSpec` as `_spec`), a linear or logistic
     regression model (`_coefficients`, `intercept`), or a PipelineModel
     that ends in one, whose `score_block` takes the feature block its last
-    stage reads.
+    stage reads and whose `__call__` takes a raw batch.
 
     `device` defaults to the CUDA card and raises when there is none;
     pass device="cpu" to score with the plain PyTorch versions."""
 
     def __init__(self, model, device=None):
+        from .featurizer import CompiledFeaturizer, routes_on
         stages = getattr(model, "stages", None)
+        self._stages = list(stages[:-1]) if stages else []
         tail = stages[-1] if stages else model
+        self._model = tail
         self.device = resolve_device(device)
         self._spec = None
         self._kind, self._params = self._compile_target(tail, self.device)
         if self._kind == "forest":
             self._spec = tail._spec
+        # the feature chain as one columnar pass, when it is the
+        # supported Imputer / StringIndexer / OHE / VectorAssembler chain
+        self._featurizer = None
+        if self._stages and routes_on():
+            from .feature import VectorAssembler
+            last = self._stages[-1]
+            if isinstance(last, VectorAssembler) and \
+                    last.getOrDefault("outputCol") == self.featuresCol:
+                self._featurizer = CompiledFeaturizer.from_stages(
+                    self._stages[:-1], last)
+        # a linear model over one-hot slots is an embedding sum:
+        # w . onehot(i) == w[i], so no (n, d) block is needed
+        self._factorized = None
+        if self._featurizer is not None and self._kind == "linear":
+            self._factorized = self._build_factorized()
 
     @staticmethod
     def _compile_target(model, device: torch.device):
@@ -155,30 +197,46 @@ class DeviceScorer:
             f"no device inference path for {type(model).__name__}: the "
             f"port scores tree ensembles and linear models only")
 
+    @property
+    def featuresCol(self) -> str:
+        return self._model.getOrDefault("featuresCol")
+
     def _n_features(self) -> int:
         if self._kind == "linear":
             return int(self._params[0].shape[0])
         return self._spec.n_features
 
-    def _dispatch(self, X: np.ndarray) -> Tuple[torch.Tensor, int, Callable]:
-        """Stage and launch (binning a forest's rows first); returns
-        (device outputs, rows, finalize) without waiting for the
-        device."""
+    def _host_prep(self, X: np.ndarray):
+        """The host half of a launch: the checked f32 rows of a linear
+        model, or a forest's binned rows."""
         X = np.asarray(X)
         if X.ndim != 2 or X.shape[1] != self._n_features():
             raise ValueError(f"expected rows of {self._n_features()} "
                              f"features, got shape {X.shape}")
         if self._kind == "linear":
+            return np.ascontiguousarray(X, dtype=np.float32)
+        from .tree_impl import bin_with
+        return bin_with(np.asarray(X, dtype=np.float64), self._spec.binning)
+
+    def _launch(self, staged: np.ndarray
+                ) -> Tuple[torch.Tensor, int, Callable]:
+        """Stage `_host_prep`'s rows and launch; returns (device outputs,
+        rows, finalize) without waiting for the device."""
+        if self._kind == "linear":
             from ._staging import stage_rows
             w, b, logistic = self._params
             fwd = _logistic_forward if logistic else _linear_forward
-            out = fwd(stage_rows(X, self.device), w, b)
-            return out, X.shape[0], _identity
-        from .tree_impl import bin_with
-        binned = bin_with(np.asarray(X, dtype=np.float64), self._spec.binning)
-        Bd = stage_bins_cached(binned, self.device)
+            return fwd(stage_rows(staged, self.device), w, b), \
+                staged.shape[0], _identity
+        Bd = stage_bins_cached(staged, self.device)
         out = forest_traverse(Bd, *self._params, depth=self._spec.depth)
-        return out, binned.shape[0], self._finalize_forest
+        return out, staged.shape[0], self._finalize_forest
+
+    def _dispatch(self, X: np.ndarray) -> Tuple[torch.Tensor, int, Callable]:
+        """Stage and launch (binning a forest's rows first); returns
+        (device outputs, rows, finalize) without waiting for the
+        device."""
+        return self._launch(self._host_prep(X))
 
     def _finalize_forest(self, margin: np.ndarray) -> np.ndarray:
         """Margin -> prediction: boosted binary margins go through the
@@ -205,6 +263,162 @@ class DeviceScorer:
             else self._params
         return max(int(sum(t.numel() * t.element_size()
                            for t in tensors)), 64)
+
+    # ------------------------------------------------- raw batches
+    def _build_factorized(self):
+        """(scalar sources with their weights, one-hot sources with their
+        weight tables), aligned to the featurizer's slots; None when the
+        model's width is not the featurizer's."""
+        from .featurizer import _OneHotSource
+        featurizer = self._featurizer
+        w = np.asarray(self._model._coefficients, dtype=np.float64)
+        if w.ndim != 1 or w.shape[0] != featurizer.width:
+            return None
+        scalars, embeds = [], []
+        lo = 0
+        for s in featurizer.sources:
+            if isinstance(s, _OneHotSource):
+                embeds.append((s, w[lo:lo + s.width].copy()))
+            else:
+                scalars.append((s, float(w[lo])))
+            lo += s.width
+        return scalars, embeds
+
+    def _score_factorized(self, block) -> np.ndarray:
+        """The linear (or logistic) prediction of a raw block without the
+        one-hot block, in host float64: the numeric slots (f32-quantized,
+        as the block route stages them) dotted with their weights, plus
+        one weight-table lookup per one-hot column. The block route's
+        result up to the order of the sums, with its NaN rows (a NaN code
+        gives a NaN prediction) and its "skip" row drops."""
+        from ..frame.column import block_len
+        from .featurizer import (_IndexSource, _NumericSource,
+                                 extract_numeric_block)
+        # snapshot both compiled layers: score_batches calls this on
+        # worker threads
+        factorized, featurizer = self._factorized, self._featurizer
+        scalars, embeds = factorized
+        _, b, logistic = self._params
+        n = block_len(block)
+        drop = np.zeros(n, dtype=bool)
+        acc = np.full(n, float(b), dtype=np.float64)
+        num = [(s, wi) for s, wi in scalars if type(s) is _NumericSource]
+        if num:
+            fills = np.asarray([np.nan if s.fill is None else s.fill
+                                for s, _ in num])
+            vals = extract_numeric_block(block, [s.col for s, _ in num],
+                                         fills)
+            acc += vals.astype(np.float32).astype(np.float64) \
+                @ np.asarray([wi for _, wi in num])
+        for s, wi in scalars:
+            if isinstance(s, _IndexSource):
+                acc += wi * s.resolve(block, drop)
+        for src, table in embeds:
+            idx = src.codes(block, drop)
+            na = ~np.isfinite(idx)
+            ok = ~na & (idx >= 0) & (idx < len(table))
+            contrib = np.zeros(n, dtype=np.float64)
+            oki = np.nonzero(ok)[0]
+            contrib[oki] = table[idx[oki].astype(np.intp)]
+            contrib[na] = np.nan
+            acc += contrib
+        if featurizer.handle_invalid == "error" and \
+                not np.isfinite(acc[~drop]).all():
+            raise ValueError(
+                f"VectorAssembler found NaN/null in {featurizer.in_cols}; "
+                f"set handleInvalid='skip' or impute first")
+        if drop.any():
+            acc = acc[~drop]
+        if logistic:
+            acc = 1.0 / (1.0 + np.exp(-acc))
+        return acc
+
+    @staticmethod
+    def _block_of(batch) -> dict:
+        """A raw batch's columns: a port DataFrame's rows, or a mapping
+        of column name to values."""
+        from ..frame.dataframe import DataFrame
+        if isinstance(batch, DataFrame):
+            return batch._whole()
+        if isinstance(batch, Mapping):
+            return {k: np.asarray(v) for k, v in batch.items()}
+        raise TypeError(f"a batch is a DataFrame, a mapping of columns or "
+                        f"a feature block, not {type(batch).__name__}")
+
+    def _prep(self, batch) -> np.ndarray:
+        """The feature block of a batch: a numpy array as it is; a raw
+        batch through the compiled featurizer, or else the prep stages
+        one by one."""
+        if isinstance(batch, np.ndarray):
+            return batch
+        block = self._block_of(batch)
+        featurizer = self._featurizer
+        if featurizer is not None:
+            return featurizer(block)
+        from ._staging import extract_features, features_of
+        if not self._stages:
+            return features_of(block, self.featuresCol)
+        from ..frame.dataframe import DataFrame
+        df = DataFrame.from_partitions([block])
+        for s in self._stages:
+            df = s.transform(df)
+        return extract_features(df, self.featuresCol)
+
+    def __call__(self, batch) -> np.ndarray:
+        """Predict from a batch: a numpy array is a feature block
+        (`score_block`); a raw batch (a port DataFrame, or a mapping of
+        column name to numpy array) goes through the factorized scorer
+        where there is one, else its feature block (`_prep`) through
+        `score_block`. A batch missing a raw column raises KeyError
+        naming it; the next batch is scored as if it had not come."""
+        if isinstance(batch, np.ndarray):
+            return self.score_block(batch)
+        if self._factorized is not None:
+            return self._score_factorized(self._block_of(batch))
+        return self.score_block(self._prep(batch))
+
+    def score_batches(self, batches: Iterable, depth: Optional[int] = None,
+                      order: Optional[list] = None) -> Iterator[np.ndarray]:
+        """Score a stream of batches (as `__call__` takes them), results
+        in order. The factorized scorer is host work: `prefetch_map` runs
+        up to `depth` batches ahead on threads. Otherwise
+        `prefetch_pipeline` runs each batch's prep (featurizing, and a
+        forest's binning) on worker threads, dispatches up to `depth`
+        batches ahead of the drain (their launches and an asynchronous
+        copy back into pinned memory, behind an event) and drains in
+        order, waiting on each batch's event before its buffer is read.
+        `depth` defaults to `sml.infer.prefetchBatches`; `order`, a list,
+        receives the ("dispatch" | "drain", batch) order."""
+        from ..conf import GLOBAL_CONF
+        from ..parallel.pipeline import prefetch_map, prefetch_pipeline
+        if depth is None:
+            depth = max(GLOBAL_CONF.getInt("sml.infer.prefetchBatches"), 1)
+        if self._factorized is not None:
+            yield from prefetch_map(batches, self.__call__, depth=depth)
+            return
+
+        def prep(batch):
+            return self._host_prep(self._prep(batch))
+
+        def dispatch(_i, staged):
+            out, n, finalize = self._launch(staged)
+            if out.device.type != "cuda":
+                return out, None, n, finalize
+            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+            host.copy_(out, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(out.device))
+            return host, done, n, finalize
+
+        def drain(_i, handle):
+            host, done, n, finalize = handle
+            if done is not None:
+                done.synchronize()  # the pinned copy has landed
+            return finalize(host.numpy().astype(np.float64)[:n])
+
+        yield from prefetch_pipeline(batches, prep, dispatch, drain,
+                                     depth=depth, workers=4, family="infer",
+                                     order=order)
 
 
 def _identity(x: np.ndarray) -> np.ndarray:

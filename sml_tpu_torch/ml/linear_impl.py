@@ -19,9 +19,22 @@ products run as float64 matmuls: TF32 never enters. On integer data
 whose partial sums stay below 2^24 the moments are exact in both
 packages, so they are bit-equal.
 
-Not ported yet: the compact front ends (`gram_stats_compact`,
-`fit_linear_compact`, the fused compact IRLS), which only the JAX
-package's fused featurizer reaches.
+The compact front ends take a `featurizer.CompactParts` block (numeric
+slots plus int32 category codes), which the pipeline's fused fit hands
+over once the (n, d) block would reach `sml.linear.compactBytes`; the
+one-hot slots are `code == arange(width)` compares on the device
+(`_expand`), so the host copies n*(p+k) words, not n*d:
+
+- `gram_stats_compact` / `fit_linear_compact`: the same Gram pass and
+  the same `_solve_gram`, so every penalty runs on the Gram; on the same
+  rows the Gram is the materialized one bit for bit;
+- `fit_logistic_compact`: the whole unpenalized IRLS fit on the device,
+  as the JAX package's `lax.scan` runs it: all `maxIter` steps, each
+  `solve(H + 1e-8 I, g)`, the step damped to the midpoint when the
+  log-likelihood drops by more than 1e3, frozen once max|dw| < tol; no
+  copy back until the end. The solve is Gauss-Jordan elimination in
+  elementwise ops (`_solve_spd`), so the card and the CPU give the same
+  bits.
 """
 
 from __future__ import annotations
@@ -61,9 +74,37 @@ def _to_host_f32(*parts: torch.Tensor) -> np.ndarray:
     return packed.cpu().numpy().astype(np.float64)
 
 
+#: rows of one partial cross product: a (d+1)^2 product over millions of
+#: rows is one output tile, which keeps a few SMs busy; over chunks it is
+#: one batched matmul, its partials added in chunk order
+GRAM_CHUNK_ROWS = 1 << 16
+
+
+def _cross(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """A^T B of two row blocks: one matmul of each GRAM_CHUNK_ROWS rows
+    (a batched matmul, the rows past the last whole chunk a matmul of
+    their own), the partials then added in chunk order by elementwise
+    ops, so the card and the CPU add them alike. Up to GRAM_CHUNK_ROWS
+    rows it is the plain A.T @ B."""
+    n = A.shape[0]
+    c = n // GRAM_CHUNK_ROWS
+    full = c * GRAM_CHUNK_ROWS
+    parts = []
+    if c:
+        parts.extend(torch.bmm(
+            A[:full].reshape(c, GRAM_CHUNK_ROWS, -1).transpose(1, 2),
+            B[:full].reshape(c, GRAM_CHUNK_ROWS, -1)).unbind(0))
+    if full < n or not parts:
+        parts.append(A[full:].T @ B[full:])
+    acc = parts[0]
+    for p in parts[1:]:
+        acc = acc + p
+    return acc
+
+
 def _gram_pass(Xa: torch.Tensor, y: torch.Tensor):
     """A = Xa^T Xa, b = Xa^T y and y'y, summed in float64."""
-    return Xa.T @ Xa, Xa.T @ y, y @ y
+    return _cross(Xa, Xa), _cross(Xa, y[:, None])[:, 0], y @ y
 
 
 def gram_stats(X: np.ndarray, y: np.ndarray, device=None
@@ -177,14 +218,148 @@ def _solve_gram(A, b, n_f, yy, d, *, regParam, elasticNetParam,
     return LinearFit(w, intercept, maxIter, _fit_stats(A, b, n_f, yy, w_full))
 
 
+# --------------------------------------------- compact (expand on device)
+def _stage_compact(parts, y: np.ndarray, device: torch.device):
+    """The parts' numeric slots, codes and the labels on `device`,
+    complete before return; counts the copies in `staging.h2d_bytes`."""
+    from ._staging import stage_rows
+    num = np.ascontiguousarray(parts.num, dtype=np.float32)
+    codes = np.ascontiguousarray(parts.codes, dtype=np.int32)
+    num_d = torch.from_numpy(num).to(device, copy=True)
+    codes_d = torch.from_numpy(codes).to(device, copy=True)
+    PROFILER.count("staging.h2d_bytes", float(num.nbytes + codes.nbytes))
+    return num_d, codes_d, stage_rows(y, device)
+
+
+def _expand(num: torch.Tensor, codes: torch.Tensor, layout) -> torch.Tensor:
+    """[X 1] of a compact block as float64, in the assembler's slot
+    order: a numeric slot widened exactly, a one-hot piece the compare
+    `code == arange(width)` (an out-of-range code, "keep"'s extra index
+    past a dropped last category, gives a zero row)."""
+    pieces = []
+    for item in layout:
+        if item[0] == "num":
+            pieces.append(num[:, item[1]:item[1] + 1].to(torch.float64))
+        else:
+            _, j, width = item
+            iota = torch.arange(width, dtype=codes.dtype, device=codes.device)
+            pieces.append((codes[:, j:j + 1] == iota[None, :])
+                          .to(torch.float64))
+    pieces.append(torch.ones((num.shape[0], 1), dtype=torch.float64,
+                             device=num.device))
+    return torch.cat(pieces, dim=1)
+
+
+def gram_stats_compact(parts, y: np.ndarray, device=None
+                       ) -> Tuple[np.ndarray, np.ndarray, float, float]:
+    """`gram_stats` of a CompactParts block: one device pass over the
+    block expanded on the device."""
+    dev = resolve_device(device)
+    n_rows, d = parts.num.shape[0], parts.width
+    with PROFILER.span("program.gram_compact", rows=int(n_rows),
+                       route=dev.type):
+        num, codes, yd = _stage_compact(parts, y, dev)
+        A, b, yy = _gram_pass(_expand(num, codes, parts.layout),
+                              yd.to(torch.float64))
+        flat = _to_host_f32(A, b, yy)
+    k = (d + 1) * (d + 1)
+    return (flat[:k].reshape(d + 1, d + 1), flat[k:k + d + 1],
+            float(np.float32(n_rows)), float(flat[-1]))
+
+
+def fit_linear_compact(parts, y: np.ndarray, *, regParam: float = 0.0,
+                       elasticNetParam: float = 0.0,
+                       fitIntercept: bool = True,
+                       standardization: bool = True, maxIter: int = 100,
+                       tol: float = 1e-6, device=None) -> LinearFit:
+    """`fit_linear` of a CompactParts block: the Gram from the on-device
+    expansion, then the same host algebra (`_solve_gram`), every
+    penalty included."""
+    A, b, n_f, yy = gram_stats_compact(parts, y, device)
+    return _solve_gram(A, b, n_f, yy, parts.width, regParam=regParam,
+                       elasticNetParam=elasticNetParam,
+                       fitIntercept=fitIntercept,
+                       standardization=standardization,
+                       maxIter=maxIter, tol=tol)
+
+
+def _solve_spd(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """x with A x = b for a symmetric positive definite A, by
+    Gauss-Jordan elimination without pivoting, in elementwise ops only
+    (a reciprocal, products and differences; no reduction and no library
+    factorization): every operation rounds alike on the card and on the
+    CPU, so both give the same bits, and nothing reads back to the
+    host."""
+    d = A.shape[0]
+    M = torch.cat([A, b[:, None]], dim=1)
+    for k in range(d):
+        row = M[k] * torch.reciprocal(M[k, k])
+        f = M[:, k].clone()
+        f[k] = 0.0
+        M = M - f[:, None] * row[None, :]
+        M[k] = row
+    return M[:, d]
+
+
+def _irls_steps(Xa: torch.Tensor, y: torch.Tensor, max_iter: int,
+                tol: float):
+    """The whole-fit IRLS of the JAX package's `_compact_irls_fn`, on
+    the device: (w as f32, the steps that ran before the freeze), both
+    device tensors. The gradient, Hessian and log-likelihood are summed
+    in float64 and rounded once to f32 (`_newton_pass`), where the JAX
+    package holds them in f32; the solve runs in float64 on those f32
+    values and its step rounds to f32; `w` is carried in f32."""
+    f32 = torch.float32
+    dev = Xa.device
+    d1 = Xa.shape[1]
+    eye = 1e-8 * torch.eye(d1, dtype=torch.float64, device=dev)
+    w = torch.zeros(d1, dtype=f32, device=dev)
+    prev_ll = torch.tensor(float("-inf"), dtype=f32, device=dev)
+    done = torch.zeros((), dtype=torch.bool, device=dev)
+    iters = torch.zeros((), dtype=torch.int32, device=dev)
+    for _ in range(max_iter):
+        grad, hess, ll = _newton_pass(Xa, y, w.to(torch.float64))
+        grad = grad.to(f32).to(torch.float64)
+        hess = hess.to(f32).to(torch.float64)
+        ll = ll.to(f32)
+        w_new = w - _solve_spd(hess + eye, grad).to(f32)
+        conv = torch.max(torch.abs(w_new - w)) < tol
+        damp = ll < prev_ll - 1e3
+        w = torch.where(done, w, torch.where(damp, (w + w_new) / 2, w_new))
+        iters = iters + (~done).to(torch.int32)
+        prev_ll = torch.where(done, prev_ll, ll)
+        done = done | conv
+    return w, iters
+
+
+def fit_logistic_compact(parts, y: np.ndarray, *, maxIter: int = 100,
+                         tol: float = 1e-7, device=None) -> LinearFit:
+    """Unpenalized binomial logistic fit of a CompactParts block: every
+    IRLS step on the device over the resident expanded block, and one
+    copy back at the end (`_irls_steps`). A penalized fit needs the
+    materialized block (the proximal shrink acts on raw coefficients):
+    callers take `parts.expand_host()` and `fit_logistic`."""
+    dev = resolve_device(device)
+    n_rows, d = parts.num.shape[0], parts.width
+    with PROFILER.span("program.irls_compact", rows=int(n_rows),
+                       route=dev.type):
+        num, codes, yd = _stage_compact(parts, y, dev)
+        w, iters = _irls_steps(_expand(num, codes, parts.layout),
+                               yd.to(torch.float64), int(maxIter),
+                               float(tol))
+        out = torch.cat([w.to(torch.float64),
+                         iters.to(torch.float64)[None]]).cpu().numpy()
+    return LinearFit(out[:d].copy(), float(out[d]), int(out[d + 1]))
+
+
 def _newton_pass(Xa: torch.Tensor, y: torch.Tensor, w: torch.Tensor):
     """grad, hess and log-likelihood of the logistic loss at `w`, summed
     in float64."""
     eta = Xa @ w
     p = torch.sigmoid(eta)
     Wdiag = torch.clamp_min(p * (1 - p), 1e-6)
-    grad = Xa.T @ (p - y)
-    hess = (Xa * Wdiag[:, None]).T @ Xa
+    grad = _cross(Xa, (p - y)[:, None])[:, 0]
+    hess = _cross(Xa * Wdiag[:, None], Xa)
     ll = torch.sum(y * torch.nn.functional.logsigmoid(eta)
                    + (1 - y) * torch.nn.functional.logsigmoid(-eta))
     return grad, hess, ll

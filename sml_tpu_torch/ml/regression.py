@@ -2,10 +2,12 @@
 (`sml_tpu/ml/regression.py`).
 
 `LinearRegression` (`SML/ML 02 - Linear Regression I.py:84-123`) fits
-through the Gram pass of `linear_impl` on the session's device, and
-exposes `coefficients`, `intercept` and a training `summary` (rmse/r2
-from the same Gram moments; the MAE, which needs a residual pass, only
-when read). The tree learners come from `_tree_models`.
+through the Gram pass of `linear_impl` on the session's device (from
+the compact block when the pipeline's fused fit hands one over:
+`linear_impl.fit_linear_compact`), and exposes `coefficients`,
+`intercept` and a training `summary` (rmse/r2 from the same Gram
+moments; the MAE, which needs a residual pass, only when read). The
+tree learners come from `_tree_models`.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import numpy as np
 
 from ..frame.column import block_len
 from . import linear_impl
-from ._staging import extract_xy, features_of
+from ._staging import extract_compact, extract_xy, features_of
 from ._tree_models import (DecisionTreeRegressionModel, DecisionTreeRegressor,
                            GBTRegressionModel, GBTRegressor,
                            RandomForestRegressionModel, RandomForestRegressor)
@@ -106,11 +108,20 @@ class LinearRegression(Estimator, _PredictorParams):
             standardization=bool(self.getOrDefault("standardization")),
             maxIter=int(self.getOrDefault("maxIter")),
             tol=float(self.getOrDefault("tol")))
-        X, y, _ = extract_xy(df, self.getOrDefault("featuresCol"),
-                             self.getOrDefault("labelCol"))
-        ok = np.isfinite(y)
-        X, y = X[ok], y[ok]
-        res = linear_impl.fit_linear(X, y, device=device, **kw)
+        compact = extract_compact(df, self.getOrDefault("featuresCol"),
+                                  self.getOrDefault("labelCol"))
+        if compact is not None:
+            # the pipeline's compact block: the one-hot slots expand on
+            # the device, and the (n, d) matrix never exists on the host
+            parts, y = compact
+            res = linear_impl.fit_linear_compact(parts, y, device=device,
+                                                 **kw)
+        else:
+            X, y, _ = extract_xy(df, self.getOrDefault("featuresCol"),
+                                 self.getOrDefault("labelCol"))
+            ok = np.isfinite(y)
+            X, y = X[ok], y[ok]
+            res = linear_impl.fit_linear(X, y, device=device, **kw)
         model = LinearRegressionModel(coefficients=res.coefficients,
                                       intercept=res.intercept)
         model._inherit_params(self)
@@ -121,8 +132,11 @@ class LinearRegression(Estimator, _PredictorParams):
         mse = st.get("sse", 0.0) / n_f if n_f else 0.0
         var_y = st.get("var_y", 0.0)
 
-        def lazy_mae(X=X, y=y, w=res.coefficients, b=res.intercept):
-            pred = linear_impl.predict_linear(X, w, b, device)
+        def lazy_mae(y=y, w=res.coefficients, b=res.intercept):
+            if compact is not None:
+                pred = compact[0].predict_affine(w, b)
+            else:
+                pred = linear_impl.predict_linear(X, w, b, device)
             return float(np.mean(np.abs(y - pred)))
 
         model._summary = LinearRegressionSummary(

@@ -1,11 +1,14 @@
 """A double-buffered staging pipeline: prep on worker threads, serial
-dispatch, ordered drain.
+dispatch, ordered drain; and its pure-host half, a bounded-lookahead
+thread map.
 
-The port's copy of `prefetch_pipeline` from `sml_tpu/parallel/pipeline.py`,
-which the chunked ingest (`ml/_chunked.py`) runs: chunk i+1's prep (host
-quantization, C++ that releases the GIL) runs on a worker thread while
-chunk i's dispatch (an asynchronous copy to the card) is still in flight,
-and drain waits for each in order.
+The port's copy of `prefetch_pipeline` and `prefetch_map` from
+`sml_tpu/parallel/pipeline.py`. The chunked ingest (`ml/_chunked.py`)
+and `DeviceScorer.score_batches`' device route run the pipeline; the
+factorized linear scorer runs the map. In the ingest, chunk i+1's prep
+(host quantization, C++ that releases the GIL) runs on a worker thread
+while chunk i's dispatch (an asynchronous copy to the card) is still in
+flight, and drain waits for each in order.
 
 Every dispatch and drain counts `<family>.dispatch` / `<family>.drain`
 in the port's `PROFILER`, and appends `(kind, i)` to `order` when the
@@ -91,3 +94,29 @@ def prefetch_pipeline(items: Iterable, prep: Callable, dispatch: Callable,
                     drain(j, handle)
                 except Exception:
                     pass
+
+
+def prefetch_map(items: Iterable, fn: Callable, *, depth: int,
+                 workers: Optional[int] = None) -> Iterator:
+    """`fn` over `items` on worker threads, results in order, with at
+    most `depth` calls submitted ahead of the result being yielded, so
+    the source is never drained eagerly. `depth` <= 1 is synchronous."""
+    depth = max(int(depth), 1)
+    with ThreadPoolExecutor(max_workers=workers or min(depth, 4)) as ex:
+        it = iter(items)
+        window: deque = deque()
+
+        def pull() -> bool:
+            try:
+                item = next(it)
+            except StopIteration:
+                return False
+            window.append(ex.submit(fn, item))
+            return True
+
+        for _ in range(depth):
+            pull()
+        while window:
+            out = window.popleft().result()
+            pull()
+            yield out

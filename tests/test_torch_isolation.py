@@ -111,6 +111,14 @@ def test_the_timeseries_and_frame_modules_are_among_the_imported():
         assert f"sml_tpu_torch.{name}'" in proc.stdout
 
 
+def test_the_featurizer_modules_are_among_the_imported():
+    proc = _run(IMPORT_ALL.replace("print(len(names), bad)",
+                                   "print(sorted(names))"))
+    assert proc.returncode == 0, proc.stderr
+    for name in ("ml.featurizer", "ml.inference", "parallel.pipeline"):
+        assert f"sml_tpu_torch.{name}'" in proc.stdout
+
+
 TIMESERIES = """
 import os, sys, tempfile
 import numpy as np
