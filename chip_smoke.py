@@ -260,6 +260,35 @@ Phases:
    No plain version may run on the card; every kernel on these paths
    must launch. A `{"featurizer": ...}` JSON line gives these numbers.
 
+17. main path, the registry, the endpoint and AutoML, on the session's
+   device, in a temporary tracking directory: (a) ML 11's XGBoost
+   pipeline (40 trees, depth 6) and ML 07's random-forest pipeline fitted
+   on phase 11's 80% split (240 + 120 / 240 + 120 / 1 / 1 launches),
+   logged and registered with `mlflow.spark.log_model(...,
+   registered_model_name=...)` as versions 1 and 2; v1 promoted to
+   Production and served by `ServingEndpoint(name, "Production")`: phase
+   4's traffic (96 concurrent requests of 1-64 held-out assembled rows),
+   every response bit-equal to `DeviceScorer(v1).score_block` of its
+   rows; v2 promoted with `archive_existing_versions=True` while 3
+   clients score: every response one version's bits, none torn, one
+   `serve.hot_swap`, version 2 current and one cache entry; then v1 in
+   Staging and the canary at fractions 1.0 and 0.25 (the mirror scores
+   on the card on a stream of its own): mirrored exactly the requests
+   and a quarter of them, no errors, a mean |diff| above 0, and the
+   traversal's launches the primary's batches plus the mirrors; the
+   latency percentiles of the burst, of waves of 8 with the canary off
+   and at each fraction; no shed; the endpoint's traversal plan from
+   `health_report`. (b) `automl.regress` on `make_airbnb_dataset(n=
+   10_000, seed=42)`'s bedrooms, accommodates, room_type and price with 3
+   trials, on the card and on the CPU: the same families and
+   parameters, each val_rmse within max(1e-3, 1e-5·|rmse|) (1e-3·rmse
+   for a boosted family); the best trial's model loaded through
+   `runs:/` and scored on the card; then the card alone at 100,000
+   rows, timed. Every kernel of these paths must launch on each and no
+   plain version may run on the card; a `{"registry": ...}` JSON line
+   gives these numbers, and the kernels line's `launches_by_path` gains
+   "endpoint" and "automl".
+
 The second-to-last line is a JSON object listing each kernel, with the
 launches the profiler saw in each window behind its device times
 ("device_windows"); the last is {"ok": true, "device": {...}}.
@@ -4507,6 +4536,376 @@ def phase_featurizer(device, card: str, compact_rows: int = FZ_COMPACT_ROWS,
     return out
 
 
+#: phase 17: the registered model's name, the requests of each serving
+#: check (phase 4's: 1-64 held-out rows each), the clients, the canary
+#: fractions and the AutoML rows (checked card against CPU, then timed
+#: on the card alone) and trials
+REG_NAME = "airbnb-price"
+REG_REQUESTS = 96
+REG_CLIENTS = 8
+REG_CANARY = (1.0, 0.25)
+REG_AUTOML_ROWS = (10_000, 100_000)
+REG_AUTOML_TRIALS = 3
+REG_AUTOML_COLS = ("bedrooms", "accommodates", "room_type", "price")
+#: every launch phase 17 makes on its two paths, by kernel
+REG_LAUNCHES: dict = {"endpoint": {}, "automl": {}}
+REG_KERNELS = FIT_KERNELS + ("forest_traverse",)
+
+
+def reg_take(path: str) -> dict:
+    """The launches since the counts were last zeroed, added to
+    REG_LAUNCHES[path]; the counts zeroed again."""
+    got = _all_launches()
+    for k, v in got.items():
+        REG_LAUNCHES[path][k] = REG_LAUNCHES[path].get(k, 0) + v
+    _zero_launches()
+    return got
+
+
+def reg_requests(X: np.ndarray, seed: int = 17) -> list:
+    """Phase 4's traffic shape: REG_REQUESTS requests of 1-64 rows,
+    consecutive slices of the held-out rows."""
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(1, 65, size=REG_REQUESTS)
+    offs = np.concatenate([[0], np.cumsum(sizes)])
+    return [X[offs[i]:offs[i + 1]] for i in range(len(sizes))]
+
+
+def reg_refs(scorer, reqs: list) -> list:
+    """`score_block` of every request's rows (one launch over them all,
+    split back: a row's traversal does not depend on its batch mates)."""
+    out = scorer.score_block(np.concatenate(reqs, axis=0))
+    offs = np.cumsum([0] + [len(r) for r in reqs])
+    return [out[offs[i]:offs[i + 1]] for i in range(len(reqs))]
+
+
+def reg_serve(ep, reqs: list, refs: list, waves: bool) -> np.ndarray:
+    """Send `reqs` from REG_CLIENTS threads: all at once (phase 4's
+    burst), or with `waves`, REG_CLIENTS at a time with the canary's
+    mirrors drained between waves (so no mirror finds the shadow's
+    backlog full). Every response must equal its reference bit for bit;
+    returns each request's latency in ms (submit to result, host
+    clock)."""
+    lat = np.zeros(len(reqs))
+    got = [None] * len(reqs)
+
+    def one(i):
+        t0 = time.perf_counter()
+        got[i] = ep.submit(reqs[i]).result(60)
+        lat[i] = (time.perf_counter() - t0) * 1e3
+
+    def run(idx):
+        width = min(REG_CLIENTS, len(idx))
+        barrier = threading.Barrier(width)
+
+        def client(lo):
+            barrier.wait()
+            for i in idx[lo::width]:
+                one(i)
+        threads = [threading.Thread(target=client, args=(lo,))
+                   for lo in range(width)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        if any(t.is_alive() for t in threads):
+            raise AssertionError("a serving client did not finish")
+
+    if not waves:
+        run(list(range(len(reqs))))
+    else:
+        for lo in range(0, len(reqs), REG_CLIENTS):
+            run(list(range(lo, min(lo + REG_CLIENTS, len(reqs)))))
+            reg_drain(ep)
+    for i, (g, want) in enumerate(zip(got, refs)):
+        if not np.array_equal(g, want):
+            raise AssertionError(f"endpoint response {i} differs from "
+                                 f"score_block of its rows")
+    return lat
+
+
+def reg_drain(ep, timeout: float = 60.0) -> dict:
+    """The canary stats once every queued mirror has finished."""
+    end = time.perf_counter() + timeout
+    while ep._shadow_inflight and time.perf_counter() < end:
+        time.sleep(0.001)
+    if ep._shadow_inflight:
+        raise AssertionError("the canary's mirrors did not drain")
+    return ep.canary_stats()
+
+
+def reg_percentiles(lat: np.ndarray) -> dict:
+    return {"p50_ms": float(np.percentile(lat, 50)),
+            "p99_ms": float(np.percentile(lat, 99)),
+            "max_ms": float(lat.max())}
+
+
+def reg_endpoint(device, card: str, n: int) -> dict:
+    """(a) Two registered versions of a model served on `device`
+    through `ServingEndpoint`: the burst, the promote under load, and
+    the canary at REG_CANARY."""
+    from sml_tpu_torch import functions as F
+    from sml_tpu_torch import tracking as mlflow
+    from sml_tpu_torch.ml import Pipeline
+    from sml_tpu_torch.ml._staging import extract_features
+    from sml_tpu_torch.ml.inference import DeviceScorer
+    from sml_tpu_torch.native import traverse_kernel as tk
+    from sml_tpu_torch.serving import ModelCache, ServingEndpoint
+    from sml_tpu_torch.utils.profiler import PROFILER
+    from sml_tpu_torch.conf import GLOBAL_CONF
+
+    def counter(name):
+        return PROFILER.counters().get(name, 0.0)
+
+    out = {}
+    train, test = df_splits(n)
+    _zero_launches()
+    t0 = time.perf_counter()
+    v1 = Pipeline(stages=df_prep() + [df_estimator("xgb")]).fit(
+        train.withColumn("label", F.log(F.col("price"))))
+    v2 = Pipeline(stages=df_prep() + [df_estimator("rf")]).fit(train)
+    fits = reg_take("endpoint")
+    want = {k: FITS["xgb"][2][k] + FITS["rf"][2][k] for k in FITS["rf"][2]}
+    if {k: fits[k] for k in want} != want or fits["forest_traverse"]:
+        raise AssertionError(f"the two fits launched {fits}, not {want}")
+    out["fit_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    for model in (v1, v2):
+        with mlflow.start_run():
+            mlflow.spark.log_model(model, "model",
+                                   registered_model_name=REG_NAME)
+    client = mlflow.MlflowClient()
+    client.transition_model_version_stage(REG_NAME, 1, "Production")
+    out["log_register_ms"] = (time.perf_counter() - t0) * 1e3
+    X = extract_features(_prepped(v1, test), "features")
+    if not np.array_equal(X, extract_features(_prepped(v2, test),
+                                              "features")):
+        raise AssertionError("the two versions assemble other features")
+    reqs = reg_requests(X)
+    ref1 = reg_refs(DeviceScorer(v1, device=device), reqs)
+    ref2 = reg_refs(DeviceScorer(v2, device=device), reqs)
+    _zero_launches()  # the references' launches are not the path's
+
+    cache = ModelCache()
+    shed0, swaps0 = counter("serve.shed"), counter("serve.hot_swap")
+    t0 = time.perf_counter()
+    ep = ServingEndpoint(REG_NAME, "Production", model_cache=cache,
+                         max_batch_rows=4096, flush_micros=2000)
+    out["open_ms"] = (time.perf_counter() - t0) * 1e3
+    try:
+        if ep.device != device:
+            raise AssertionError(f"the endpoint serves on {ep.device}")
+        batches0 = counter("serve.batches")
+        lat = reg_serve(ep, reqs, ref1, waves=False)
+        out["burst"] = dict(reg_percentiles(lat), requests=len(reqs),
+                            batches=int(counter("serve.batches")
+                                        - batches0))
+        kernel = ep.health_report()["endpoint"]["kernel"]
+        if device.type == "cuda" and not (kernel and kernel.get("path")):
+            raise AssertionError(f"no traversal plan reported: {kernel}")
+        out["kernel"] = kernel
+
+        # promote v2 while three clients score; every response is one
+        # version's, and the endpoint swaps once
+        stop = threading.Event()
+        seen, torn = set(), []
+
+        def racer(k):
+            i = k
+            while not stop.is_set():
+                i = (i + 3) % len(reqs)
+                g = ep.score(reqs[i], timeout=60)
+                if np.array_equal(g, ref1[i]):
+                    seen.add(1)
+                elif np.array_equal(g, ref2[i]):
+                    seen.add(2)
+                else:
+                    torn.append(i)
+        threads = [threading.Thread(target=racer, args=(k,))
+                   for k in range(3)]
+        for t in threads:
+            t.start()
+        end = time.perf_counter() + 30
+        while 1 not in seen and time.perf_counter() < end:
+            time.sleep(0.001)
+        t0 = time.perf_counter()
+        client.transition_model_version_stage(
+            REG_NAME, 2, "Production", archive_existing_versions=True)
+        out["promote_ms"] = (time.perf_counter() - t0) * 1e3
+        while 2 not in seen and time.perf_counter() < end:
+            time.sleep(0.001)
+        stop.set()
+        for t in threads:
+            t.join(timeout=60)
+        if any(t.is_alive() for t in threads) or torn or seen != {1, 2}:
+            raise AssertionError(f"promote under load: seen {seen}, "
+                                 f"{len(torn)} torn responses")
+        swaps = counter("serve.hot_swap") - swaps0
+        if ep.current_version() != 2 or swaps != 1 or \
+                cache.stats()["entries"] != 1:
+            raise AssertionError(
+                f"after the promote: version {ep.current_version()}, "
+                f"{swaps} swaps, cache {cache.stats()}")
+        out["swap"] = {"hot_swaps": int(swaps), "cache": cache.stats()}
+
+        # the canary: off, then v1 in Staging at each fraction
+        lat = reg_serve(ep, reqs, ref2, waves=True)
+        out["canary_off"] = reg_percentiles(lat)
+        client.transition_model_version_stage(REG_NAME, 1, "Staging")
+        before = ep.canary_stats()
+        if before["staging_version"] != 1 or before["mirrored"]:
+            raise AssertionError(f"Staging not bound: {before}")
+        for frac in REG_CANARY:
+            GLOBAL_CONF.set("sml.serve.canaryFraction", frac)
+            l0, b0 = tk.LAUNCHES, counter("serve.batches")
+            lat = reg_serve(ep, reqs, ref2, waves=True)
+            stats = reg_drain(ep)
+            mirrored = stats["mirrored"] - before["mirrored"]
+            launches = tk.LAUNCHES - l0
+            batches = counter("serve.batches") - b0
+            if mirrored != round(frac * len(reqs)) or stats["errors"] \
+                    or not stats["mean_abs_diff"] > 0:
+                raise AssertionError(f"canary at {frac}: {stats}")
+            if launches != batches + mirrored:
+                raise AssertionError(
+                    f"canary at {frac}: {launches} traversals for "
+                    f"{batches} batches and {mirrored} mirrors")
+            out[f"canary_{frac}"] = dict(
+                reg_percentiles(lat), mirrored=mirrored,
+                primary_launches=int(batches), mirror_launches=mirrored,
+                mean_abs_diff=stats["mean_abs_diff"],
+                max_abs_diff=stats["max_abs_diff"],
+                errors=stats["errors"])
+            before = stats
+    finally:
+        GLOBAL_CONF.unset("sml.serve.canaryFraction")
+        ep.close()
+    reg_take("endpoint")
+    out["sheds"] = int(counter("serve.shed") - shed0)
+    if out["sheds"]:
+        raise AssertionError(f"{out['sheds']} requests shed")
+    out["health"] = {k: v for k, v in ep.health_report()["endpoint"].items()
+                     if k != "canary"}
+    for what in ("burst", "canary_off") + tuple(
+            f"canary_{f}" for f in REG_CANARY):
+        got = out[what]
+        print(f"registry endpoint {what}: p50 {got['p50_ms']!r} ms p99 "
+              f"{got['p99_ms']!r} ms max {got['max_ms']!r} ms"
+              + (f"; mirrored {got['mirrored']}, launches primary "
+                 f"{got['primary_launches']} + mirror "
+                 f"{got['mirror_launches']}, mean |diff| "
+                 f"{got['mean_abs_diff']!r}" if "mirrored" in got else "")
+              + f" [{card}]")
+    print(f"registry endpoint: promote {out['promote_ms']!r} ms, swaps 1, "
+          f"cache {cache.stats()}, sheds 0, plan {out['kernel']}")
+    return out
+
+
+def reg_automl_frame(n: int):
+    from sml_tpu_torch.courseware import make_airbnb_dataset
+    from sml_tpu_torch.frame.session import get_session
+    d = make_airbnb_dataset(n=n, seed=42)
+    return get_session().createDataFrame({c: d[c] for c in REG_AUTOML_COLS})
+
+
+def reg_automl(device, card: str, rows=REG_AUTOML_ROWS) -> dict:
+    """(b) `automl.regress` on the card and on the CPU at rows[0]: the
+    same families and parameters, val_rmse within the pipeline rules;
+    the best model loaded through `runs:/` and scored on the card; then
+    the card alone at rows[1]."""
+    from sml_tpu_torch import automl
+    from sml_tpu_torch import tracking as mlflow
+    from sml_tpu_torch.conf import GLOBAL_CONF
+    out = {}
+    frame = reg_automl_frame(rows[0])
+    _zero_launches()
+    runs = {}
+    for dev in (device.type, "cpu"):
+        GLOBAL_CONF.set("sml.device", dev)
+        t0 = time.perf_counter()
+        runs[dev] = automl.regress(frame, target_col="price",
+                                   max_trials=REG_AUTOML_TRIALS,
+                                   experiment_name=f"automl-{dev}")
+        out[f"wall_ms_{dev}"] = (time.perf_counter() - t0) * 1e3
+        if dev == device.type:
+            reg_take("automl")
+    GLOBAL_CONF.set("sml.device", device.type)
+    card_run, cpu_run = runs[device.type], runs["cpu"]
+    trials = []
+    for a, b in zip(card_run.trials, cpu_run.trials):
+        if a.model_description != b.model_description or \
+                a.params != b.params:
+            raise AssertionError(f"trials differ: {a.params} / {b.params}")
+        got, want = a.metrics["val_rmse"], b.metrics["val_rmse"]
+        tol = 1e-3 * want if a.model_description == "gbt" \
+            else max(1e-3, 1e-5 * abs(want))
+        if not abs(got - want) <= tol:
+            raise AssertionError(f"{a.model_description} val_rmse card "
+                                 f"{got!r} CPU {want!r}")
+        trials.append({"family": a.model_description,
+                       "depth": int(a.params["depth"]),
+                       "trees": int(a.params["trees"]),
+                       "val_rmse_card": got, "val_rmse_cpu": want})
+    if len(trials) != REG_AUTOML_TRIALS:
+        raise AssertionError(f"{len(trials)} trials")
+    out["trials"] = trials
+    best = card_run.best_trial.mlflow_run_id
+    pred = mlflow.pyfunc.load_model(f"runs:/{best}/model").predict(frame)
+    if pred.shape != (rows[0],) or not np.isfinite(pred).all():
+        raise AssertionError(f"the best model scored {pred.shape}")
+    reg_take("automl")
+    t0 = time.perf_counter()
+    big = automl.regress(reg_automl_frame(rows[1]), target_col="price",
+                         max_trials=REG_AUTOML_TRIALS,
+                         experiment_name="automl-timed")
+    out["timed_rows"] = rows[1]
+    out["timed_wall_ms"] = (time.perf_counter() - t0) * 1e3
+    out["timed_val_rmse"] = [t.metrics["val_rmse"] for t in big.trials]
+    reg_take("automl")
+    print(f"registry automl: {rows[0]} rows on {device.type} "
+          f"{out['wall_ms_' + device.type]!r} ms, CPU "
+          f"{out['wall_ms_cpu']!r} ms, trials {trials}; {rows[1]} rows on "
+          f"{device.type} {out['timed_wall_ms']!r} ms [{card}]")
+    return out
+
+
+def phase_registry(device, card: str, n: int = 100_000,
+                   automl_rows=REG_AUTOML_ROWS) -> dict:
+    """Phase 17: the registry, the endpoint and AutoML on `device` (the
+    session's `sml.device`), in a temporary tracking directory. Smaller
+    `n` and `automl_rows` rehearse it on the CPU."""
+    import shutil
+    import tempfile
+    from sml_tpu_torch import tracking as mlflow
+    from sml_tpu_torch.conf import GLOBAL_CONF
+    GLOBAL_CONF.set("sml.device", device.type)
+    for path in REG_LAUNCHES.values():
+        path.clear()
+    root = tempfile.mkdtemp(prefix="sml-registry-")
+    mlflow.set_tracking_uri(root)
+    t0 = time.perf_counter()
+    try:
+        with KernelWatch() as watch:
+            endpoint = reg_endpoint(device, card, n)
+            am = reg_automl(device, card, automl_rows)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if watch.plain_on_cuda:
+        raise AssertionError(f"plain versions ran {watch.plain_on_cuda} "
+                             f"times on CUDA tensors")
+    for path, counts in REG_LAUNCHES.items():
+        missing = [k for k in REG_KERNELS if not counts.get(k)]
+        if missing:
+            raise AssertionError(f"phase 17's {path} path never launched "
+                                 f"{missing}")
+    out = {"endpoint": endpoint, "automl": am,
+           "launches": {k: dict(v) for k, v in REG_LAUNCHES.items()},
+           "phase_s": time.perf_counter() - t0}
+    print(f"registry: every check passed in {out['phase_s']!r} s; "
+          f"launches {out['launches']}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4547,6 +4946,7 @@ def main(argv=None) -> int:
     nontree = phase_nontree(device, card)
     timeseries = phase_timeseries(args.seed, device, card)
     featurizer = phase_featurizer(device, card)
+    registry = phase_registry(device, card)
 
     def by_path(kernel: str) -> dict:
         return {"fit": fit["launches"][kernel],
@@ -4554,7 +4954,9 @@ def main(argv=None) -> int:
                 "dataframe": frames["fit"][kernel],
                 "selection": SEL_LAUNCHES[kernel],
                 "chunked": chunked["launches"][kernel],
-                "featurizer": featurizer["launches"][kernel]}
+                "featurizer": featurizer["launches"][kernel],
+                "endpoint": registry["launches"]["endpoint"][kernel],
+                "automl": registry["launches"]["automl"][kernel]}
 
     def windows(kernel: str) -> dict:
         return {what: seen for what, seen in DEVICE_WINDOWS.items()
@@ -4571,7 +4973,9 @@ def main(argv=None) -> int:
         + frames["evaluate"]["forest_traverse"]
         + SEL_LAUNCHES["forest_traverse"]
         + chunked["launches"]["forest_traverse"]
-        + featurizer["launches"]["forest_traverse"],
+        + featurizer["launches"]["forest_traverse"]
+        + registry["launches"]["endpoint"]["forest_traverse"]
+        + registry["launches"]["automl"]["forest_traverse"],
         "launches_by_path": {"serving": main_path["launches"],
                              "tuning": tuning["fused"]["forest_traverse"],
                              "dataframe": frames["evaluate"][
@@ -4580,6 +4984,10 @@ def main(argv=None) -> int:
                              "chunked": chunked["launches"][
                                  "forest_traverse"],
                              "featurizer": featurizer["launches"][
+                                 "forest_traverse"],
+                             "endpoint": registry["launches"]["endpoint"][
+                                 "forest_traverse"],
+                             "automl": registry["launches"]["automl"][
                                  "forest_traverse"]},
         "replay_launches": chunked["b"]["launches"]["forest_traverse"],
         "replay": chunked["replay"],
@@ -4694,6 +5102,7 @@ def main(argv=None) -> int:
     print(json.dumps({"nontree": nontree}))
     print(json.dumps({"timeseries": timeseries}))
     print(json.dumps({"featurizer": featurizer}))
+    print(json.dumps({"registry": registry}))
     print(json.dumps({"dataframe": {
         "launches_fit": frames["fit"], "launches_evaluate":
         frames["evaluate"], "rmse": frames["rmse"],

@@ -50,13 +50,18 @@ Ported so far:
   `frame/io.py`: the CSV and JSON readers and writers; joins,
   `selectExpr`, `stat` and the date functions), `courseware.
   make_dedup_dataset`, `version.py`, and the course's import shims
-  (`compat.install_shims`).
+  (`compat.install_shims`);
+- tracking and the model registry (`tracking/`: a file store either
+  package reads, the MLflow surface of ML 04 / ML 05), the
+  registry-backed `serving.ServingEndpoint` (stage aliases, hot-swap,
+  a canary mirrored to Staging) and ML 09's AutoML (`automl.py`).
 
 Entry points run on the CUDA card unless the caller passes
 device="cpu"; without a card they raise. The DataFrame entry points
 (an estimator's `fit(df)`, a model's `transform`, the evaluators) and
 `Prophet.fit` / `ARIMA.fit` read the device from the session's
-`sml.device` key instead.
+`sml.device` key instead, as do `ServingEndpoint` (unless given a
+`device`), `pyfunc` models and AutoML.
 """
 
 from .conf import GLOBAL_CONF

@@ -10,15 +10,18 @@ under the names the course imports —
                 clustering, recommendation, evaluation, tuning, linalg)
     hyperopt (fmin / tpe / hp / Trials / SparkTrials / STATUS_OK)
     sparkdl / sparkdl.xgboost (XgboostRegressor / XgboostClassifier)
+    mlflow (.tracking, .spark, .sklearn, .pyfunc, .models,
+            .models.signature, .tracking.client)
+    databricks / databricks.automl
 
 — so `from pyspark.ml.feature import StringIndexer` resolves to
-`sml_tpu_torch.ml.feature`. Only missing names are registered: a real
+`sml_tpu_torch.ml.feature` and `import mlflow` to
+`sml_tpu_torch.tracking`. Only missing names are registered: a real
 installation of a package, if present, always wins, and the first
 package to install a shim keeps it (`sys.modules.setdefault`). The
-mlflow, databricks.koalas, databricks.feature_store and
-databricks.automl names wait for ROADMAP items 4 (tracking, the feature
-store, automl) and 9 (koalas, which needs pandas); so does
-`pandas_udf`.
+databricks.feature_store and databricks.koalas names, and
+`pandas_udf`, wait for ROADMAP item 9 (the feature store keeps its
+tables as delta, whose data files are parquet; koalas needs pandas).
 """
 
 from __future__ import annotations
@@ -66,6 +69,8 @@ def _register(mods: Dict[str, types.ModuleType]) -> None:
 
 def install_shims() -> None:
     """Alias the port under the course's import names (idempotent)."""
+    from . import automl as automl_mod
+    from . import tracking
     from . import tune as hyperopt_mod
     from . import xgboost as xgb_mod
     from .frame import functions as F
@@ -106,5 +111,24 @@ def install_shims() -> None:
         # sparkdl xgboost surface (ML 11)
         "sparkdl": _module("sparkdl", xgboost=xgb_mod),
         "sparkdl.xgboost": xgb_mod,
+        # databricks namespaces (ML 09)
+        "databricks": _module("databricks", automl=automl_mod),
+        "databricks.automl": automl_mod,
     }
     _register(mods)
+    if _real_package("mlflow"):
+        return
+    tracking.install_mlflow_shim()
+    # mlflow.models.signature / mlflow.tracking.client spellings
+    sys.modules.setdefault(
+        "mlflow.models", _module("mlflow.models",
+                                 signature=_module(
+                                     "mlflow.models.signature",
+                                     infer_signature=tracking.infer_signature,
+                                     ModelSignature=tracking.ModelSignature)))
+    sys.modules.setdefault("mlflow.models.signature",
+                           sys.modules["mlflow.models"].signature)
+    sys.modules.setdefault(
+        "mlflow.tracking.client",
+        _module("mlflow.tracking.client",
+                MlflowClient=tracking.MlflowClient))

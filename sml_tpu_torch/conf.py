@@ -61,6 +61,12 @@ _register("sml.serve.requestTimeoutMillis", 250, int,
 _register("sml.serve.modelCacheBytes", 1 << 30, int,
           "Byte budget for the serving multi-model LRU cache of warm "
           "DeviceScorers (costed by DeviceScorer.resident_bytes)")
+_register("sml.serve.canaryFraction", 0.0, float,
+          "Fraction of endpoint traffic mirrored to the Staging version "
+          "(shadow/canary mode): mirrored requests score on the card (on "
+          "a stream of the shadow worker's own) off the request path and "
+          "feed prediction-divergence stats "
+          "(ServingEndpoint.canary_stats). 0 disables")
 _register("sml.predict.binCacheBytes", 1 << 30, int,
           "LRU byte bound for memoized predict-time binned matrices")
 _register("sml.tree.binCacheBytes", 2 << 30, int,

@@ -4,13 +4,15 @@ The port's copies of `make_airbnb_dataset`, `make_movielens_dataset`
 and `make_dedup_dataset` from `sml_tpu/courseware.py`: the same draws
 from the same generator in the same order (NaN sprinkle included), so
 `createDataFrame(...)` of either holds the JAX package's rows in its
-order. The rest of the courseware (the dataset installer, the answer
-harness, the other datasets) waits for its slice.
+order; and the registry-readiness poll `wait_for_model`. The rest of the
+courseware (the dataset installer, the answer harness, the other
+datasets) waits for its slice.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import time
+from typing import Dict, Optional
 
 import numpy as np
 
@@ -143,3 +145,24 @@ def make_dedup_dataset(n: int = 103000, n_unique: int = 100000,
             if c == "salary" else object_array(list(v) + dups[c])
         block[c] = whole[order]
     return get_session().createDataFrame(block)
+
+
+def wait_for_model(name: str, version: int, stage: Optional[str] = None,
+                   timeout_s: float = 60.0):
+    """Registry-readiness polling (`Labs/ML 05L:179-199`): the model
+    version once it is READY (and in `stage`, when given); TimeoutError
+    after `timeout_s`."""
+    from . import tracking
+    from .utils.profiler import wallclock
+    client = tracking.MlflowClient()
+    start = wallclock()
+    while wallclock() - start < timeout_s:
+        try:
+            mv = client.get_model_version(name, version)
+            if mv.status == "READY" and (stage is None or
+                                         mv.current_stage == stage):
+                return mv
+        except ValueError:
+            pass
+        time.sleep(0.2)
+    raise TimeoutError(f"model {name}/{version} not ready after {timeout_s}s")

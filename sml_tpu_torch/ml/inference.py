@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..native.traverse_kernel import forest_traverse
+from ..native.traverse_kernel import forest_traverse, traverse_plan
 from ._staging import stage_bins_cached
 
 #: prediction links of the fused predict+eval program
@@ -159,6 +159,7 @@ class DeviceScorer:
         self._model = tail
         self.device = resolve_device(device)
         self._spec = None
+        self._kernel_spec = None
         self._kind, self._params = self._compile_target(tail, self.device)
         if self._kind == "forest":
             self._spec = tail._spec
@@ -179,14 +180,33 @@ class DeviceScorer:
             self._factorized = self._build_factorized()
 
     @staticmethod
+    def _target_kind(model) -> Optional[str]:
+        """"forest" for a tree ensemble, "linear" for a linear or logistic
+        model, None for a model the scorer has no path for."""
+        spec = getattr(model, "_spec", None)
+        if spec is not None and hasattr(spec, "trees"):
+            return "forest"
+        if getattr(model, "_coefficients", None) is not None:
+            return "linear"
+        return None
+
+    @staticmethod
+    def supports(model) -> bool:
+        """Whether the scorer has a path for `model` (or for the last
+        stage of a PipelineModel), read from its type before any work."""
+        stages = getattr(model, "stages", None)
+        return DeviceScorer._target_kind(stages[-1] if stages else model) \
+            is not None
+
+    @staticmethod
     def _compile_target(model, device: torch.device):
         """("forest", the stacked tables on `device`) or ("linear", (w as
         float64 on `device`, b, whether logistic))."""
-        spec = getattr(model, "_spec", None)
-        if spec is not None and hasattr(spec, "trees"):
-            return "forest", _tables(*spec.stacked(), device)
-        coef = getattr(model, "_coefficients", None)
-        if coef is not None:
+        kind = DeviceScorer._target_kind(model)
+        if kind == "forest":
+            return "forest", _tables(*model._spec.stacked(), device)
+        if kind == "linear":
+            coef = model._coefficients
             w = torch.from_numpy(np.asarray(coef, np.float64)).to(
                 device, copy=True)
             if device.type == "cuda":
@@ -230,6 +250,11 @@ class DeviceScorer:
                 staged.shape[0], _identity
         Bd = stage_bins_cached(staged, self.device)
         out = forest_traverse(Bd, *self._params, depth=self._spec.depth)
+        if Bd.is_cuda and Bd.shape[0]:
+            sf = self._params[0]
+            self._kernel_spec = traverse_plan(
+                Bd.shape[0], Bd.shape[1], Bd.element_size(), sf.shape[0],
+                sf.shape[1], self._spec.depth)._asdict()
         return out, staged.shape[0], self._finalize_forest
 
     def _dispatch(self, X: np.ndarray) -> Tuple[torch.Tensor, int, Callable]:
@@ -254,6 +279,14 @@ class DeviceScorer:
         host waits for the launch on this thread's current stream."""
         out, n, finalize = self._dispatch(X)
         return finalize(out.cpu().numpy().astype(np.float64)[:n])
+
+    def kernel_spec(self) -> Optional[dict]:
+        """The `traverse_plan` (as a dict) that this scorer's most recent
+        launch of `forest_traverse` on the card resolved to, or None: a
+        linear model, a CPU scorer, or no launch yet. Read once: a
+        concurrent dispatch rebinds it."""
+        spec = self._kernel_spec
+        return None if spec is None else dict(spec)
 
     def resident_bytes(self) -> int:
         """Bytes a warm scorer pins on its device: the stacked tables or

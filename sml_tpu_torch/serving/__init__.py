@@ -1,14 +1,26 @@
-"""Online scoring: the micro-batching server over `DeviceScorer.score_block`
-(`_batcher`) and the byte-bounded cache of warm scorers (`_cache`).
+"""Online scoring: registry-backed endpoints over a micro-batching server.
 
-`ServingEndpoint` of the JAX package, which resolves models through the
-tracking registry, is not ported yet; a server is `MicroBatcher` over a
-`DeviceScorer`'s `score_block`, which is what that endpoint wires
-together.
+Counterpart of `sml_tpu/serving`. Three layers, composable separately:
+
+- `ModelCache` (`_cache`): byte-bounded multi-model LRU of warm
+  `DeviceScorer`s (`sml.serve.modelCacheBytes`), with the process-wide
+  `MODEL_CACHE` the endpoints share.
+- `MicroBatcher` (`_batcher`): concurrent requests coalesce into one
+  `score_block` call (`sml.serve.maxBatchRows` rows or the
+  `sml.serve.flushMicros` deadline, whichever first); a rows-bounded
+  admission queue sheds on overflow, and queued requests past
+  `sml.serve.requestTimeoutMillis` shed at flush time.
+- `ServingEndpoint` (`_endpoint`): resolves a model from the tracking
+  registry by name and stage alias ("Production"/"Staging"), serves it
+  through the cache and the batcher, hot-swaps on stage transitions
+  (the store fires `on_stage_transition`; nothing polls), and mirrors a
+  fraction of traffic (`sml.serve.canaryFraction`) to the Staging
+  version, keeping prediction-divergence stats.
 """
 
 from ._batcher import MicroBatcher, RequestShed, RequestTimeout, ScoreFuture
-from ._cache import ModelCache
+from ._cache import MODEL_CACHE, ModelCache
+from ._endpoint import ServingEndpoint
 
-__all__ = ["MicroBatcher", "ModelCache", "RequestShed",
-           "RequestTimeout", "ScoreFuture"]
+__all__ = ["MODEL_CACHE", "MicroBatcher", "ModelCache", "RequestShed",
+           "RequestTimeout", "ScoreFuture", "ServingEndpoint"]

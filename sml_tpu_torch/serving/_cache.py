@@ -70,3 +70,7 @@ class ModelCache:
     def stats(self) -> Dict[str, int]:
         with self._lock:
             return {"entries": len(self._entries), "bytes": self._bytes}
+
+
+#: process-wide default (endpoints share warm scorers unless given their own)
+MODEL_CACHE = ModelCache()

@@ -1,12 +1,12 @@
 """Engine counters and op-level timing spans.
 
-Counterpart of `sml_tpu/utils/profiler.py`: `count`, `span`, `now` and
-`start_device_trace` (a `torch.profiler` trace where the reference takes
-`jax.profiler`'s), without the flight-recorder, audit and watchdog
-hooks. Counters always count (the serving `serve.*` counters are the
-batcher's own record of requests, batches and sheds); spans are kept
-only while the profiler is enabled, so a long-running server does not
-grow a span list.
+Counterpart of `sml_tpu/utils/profiler.py`: `count`, `span`, `now`,
+`wallclock` and `start_device_trace` (a `torch.profiler` trace where
+the reference takes `jax.profiler`'s), without the flight-recorder,
+audit and watchdog hooks. Counters always count (the serving `serve.*`
+counters are the batcher's own record of requests, batches and sheds);
+spans are kept only while the profiler is enabled, so a long-running
+server does not grow a span list.
 """
 
 from __future__ import annotations
@@ -19,8 +19,15 @@ from typing import Dict, Iterator, List, Optional
 
 
 def now() -> float:
-    """The engine's monotonic clock, in seconds."""
+    """The engine's monotonic clock, in seconds: the one clock for
+    intervals."""
     return time.perf_counter()
+
+
+def wallclock() -> float:
+    """The engine's epoch clock (seconds since the Unix epoch), for
+    timestamps a store keeps (tracking runs, registry versions)."""
+    return time.time()
 
 
 @dataclass

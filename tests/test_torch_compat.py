@@ -4,11 +4,13 @@ package's shims when it is imported, and the first package to install a
 name keeps it (`sys.modules.setdefault`).
 
 The import census is `tests/test_compat.py`'s (the course's own import
-lines) without the names that wait for ROADMAP items 4 and 9 (mlflow,
-databricks.koalas / feature_store / automl, `pandas_udf`); every name
-must resolve to a module of `sml_tpu_torch`. Then an ML 02-shaped cell
-sequence written the course's way runs on the port (`sml.device=cpu`)
-and loads neither JAX nor the JAX package.
+lines) without the names that wait for ROADMAP item 9
+(databricks.koalas / feature_store, `pandas_udf`); every name must
+resolve to a module of `sml_tpu_torch`, mlflow's and databricks.automl's
+included. Then an ML 02-shaped cell sequence and an ML 04 / ML 05 / ML 09
+one (tracking, the registry's stage transitions, AutoML, `spark_udf`),
+written the course's way, run on the port (`sml.device=cpu`) and load
+neither JAX, the JAX package nor pandas.
 """
 
 import os
@@ -149,3 +151,99 @@ def test_an_ml02_shaped_flow_runs_on_the_port():
     proc = _run(ML02)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().splitlines() == ["True True 2000", "[]"]
+
+
+MLFLOW = """
+import sys
+from sml_tpu_torch.compat import install_shims
+install_shims()
+import mlflow
+import mlflow.spark
+import mlflow.pyfunc
+import mlflow.sklearn
+from mlflow.tracking import MlflowClient
+from mlflow.tracking.client import MlflowClient as Client2
+from mlflow.models.signature import infer_signature, ModelSignature
+from databricks import automl
+import databricks.automl
+objs = [mlflow, MlflowClient, Client2, infer_signature, ModelSignature,
+        automl, mlflow.tracking.MlflowClient, mlflow.spark.load_model,
+        mlflow.pyfunc.spark_udf, mlflow.sklearn.log_model]
+mods = sorted({getattr(o, "__module__", None) or o.__name__ for o in objs})
+print(mods)
+print(MlflowClient is Client2 is mlflow.MlflowClient,
+      databricks.automl is automl)
+for name in ("databricks.feature_store", "databricks.koalas"):
+    try:
+        __import__(name)
+        print(name, "imported")
+    except ImportError:
+        print(name, "absent")
+"""
+
+
+def test_mlflow_and_automl_names_resolve_to_the_port():
+    proc = _run(MLFLOW)
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.strip().splitlines()
+    assert lines[0] == ("['sml_tpu_torch.automl', "
+                        "'sml_tpu_torch.tracking']"), lines[0]
+    assert lines[1] == "True True"
+    assert lines[2:] == ["databricks.feature_store absent",
+                         "databricks.koalas absent"]
+
+
+ML05 = """
+import os, sys, tempfile
+import numpy as np
+from sml_tpu_torch.compat import install_shims
+install_shims()
+import mlflow
+from mlflow.tracking import MlflowClient
+from databricks import automl
+from pyspark.sql import SparkSession
+from pyspark.ml import Pipeline
+from pyspark.ml.feature import VectorAssembler
+from pyspark.ml.regression import LinearRegression
+from sml_tpu_torch.courseware import make_airbnb_dataset, wait_for_model
+mlflow.set_tracking_uri(os.path.join(tempfile.mkdtemp(), "mlruns"))
+spark = SparkSession.builder.getOrCreate()
+spark.conf.set("sml.device", "cpu")
+d = make_airbnb_dataset(n=600, seed=42)
+df = spark.createDataFrame({c: d[c] for c in (
+    "bedrooms", "accommodates", "room_type", "price")}).dropna()
+pipe = Pipeline(stages=[VectorAssembler(inputCols=["bedrooms"],
+                                        outputCol="features"),
+                        LinearRegression(labelCol="price")])
+with mlflow.start_run(run_name="LR-Single-Feature") as run:
+    model = pipe.fit(df)
+    mlflow.log_param("label", "price")
+    mlflow.log_metric("rmse", 1.0)
+    mlflow.spark.log_model(model, "model", registered_model_name="airbnb")
+client = MlflowClient()
+mv = wait_for_model("airbnb", 1)
+client.transition_model_version_stage("airbnb", 1, "Production")
+prod = mlflow.pyfunc.load_model("models:/airbnb/Production")
+udf = mlflow.pyfunc.spark_udf(spark, f"runs:/{run.info.run_id}/model")
+scored = df.withColumn("prediction", udf("bedrooms"))
+runs = mlflow.search_runs(run.info.experiment_id,
+                          order_by=["metrics.rmse DESC"])
+summary = automl.regress(df, target_col="price", max_trials=2)
+print(mv.status, client.get_model_version("airbnb", 1).current_stage,
+      len(prod.predict({"bedrooms": np.ones(3)})),
+      scored.count() == df.count(), runs.count(), runs.columns[:3],
+      len(summary.trials))
+bad = sorted(k for k in sys.modules
+             if k.split(".")[0] in ("jax", "jaxlib", "sml_tpu", "pandas",
+                                    "pyarrow"))
+print(bad)
+"""
+
+
+def test_an_ml04_ml05_ml09_shaped_flow_runs_on_the_port():
+    proc = _run(ML05)
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.strip().splitlines()
+    assert lines == ["READY Production 3 True 1 ['run_id', 'experiment_id', "
+                     "'status'] 2", "[]"], lines
+

@@ -1,12 +1,13 @@
 """The port stands alone: importing every module of `sml_tpu_torch`, and
 running a DataFrame pipeline, a CrossValidator, `fmin`, the time-series
-models and the frame's SQL and CSV paths with the session's device set
-to the CPU, loads neither JAX, the JAX package, pandas nor pyarrow; and
-without a CUDA device the entry points (scoring, fitting, a DataFrame
-fit, transform and evaluate, a CrossValidator's fit, `fmin`'s placed
-trials, the chunked fits, `Prophet.fit` and `ARIMA.fit`) raise rather
-than carry on on the CPU (each check runs in a fresh interpreter with
-no CUDA device visible)."""
+models, the frame's SQL and CSV paths, the registry, a `ServingEndpoint`
+and AutoML with the session's device set to the CPU, loads neither JAX,
+the JAX package, pandas nor pyarrow; and without a CUDA device the entry
+points (scoring, fitting, a DataFrame fit, transform and evaluate, a
+CrossValidator's fit, `fmin`'s placed trials, the chunked fits,
+`Prophet.fit`, `ARIMA.fit`, `ServingEndpoint` and `automl.regress`)
+raise rather than carry on on the CPU (each check runs in a fresh
+interpreter with no CUDA device visible)."""
 
 import os
 import shutil
@@ -117,6 +118,84 @@ def test_the_featurizer_modules_are_among_the_imported():
     assert proc.returncode == 0, proc.stderr
     for name in ("ml.featurizer", "ml.inference", "parallel.pipeline"):
         assert f"sml_tpu_torch.{name}'" in proc.stdout
+
+
+def test_the_registry_endpoint_and_automl_modules_are_among_the_imported():
+    proc = _run(IMPORT_ALL.replace("print(len(names), bad)",
+                                   "print(sorted(names))"))
+    assert proc.returncode == 0, proc.stderr
+    for name in ("tracking", "tracking._store", "serving._endpoint",
+                 "automl"):
+        assert f"sml_tpu_torch.{name}'" in proc.stdout
+
+
+REGISTRY = """
+import os, sys, tempfile
+import numpy as np
+from sml_tpu_torch import GLOBAL_CONF, automl, get_session
+from sml_tpu_torch import tracking as mlflow
+from sml_tpu_torch.courseware import make_airbnb_dataset
+from sml_tpu_torch.ml import Pipeline
+from sml_tpu_torch.ml.feature import VectorAssembler
+from sml_tpu_torch.ml.regression import DecisionTreeRegressor
+from sml_tpu_torch.serving import ServingEndpoint
+mlflow.set_tracking_uri(os.path.join(tempfile.mkdtemp(), "runs"))
+d = make_airbnb_dataset(n=300, seed=1)
+df = get_session().createDataFrame(
+    {c: d[c] for c in ("bedrooms", "accommodates", "room_type", "price")})
+GLOBAL_CONF.set("sml.device", "cpu")
+model = Pipeline(stages=[
+    VectorAssembler(inputCols=["bedrooms", "accommodates"],
+                    outputCol="features", handleInvalid="skip"),
+    DecisionTreeRegressor(labelCol="price", maxDepth=3)]).fit(df)
+with mlflow.start_run():
+    mlflow.spark.log_model(model, "model", registered_model_name="m")
+mlflow.MlflowClient().transition_model_version_stage("m", 1, "Production")
+GLOBAL_CONF.set("sml.device", DEVICE)
+
+
+def served(dev):
+    with ServingEndpoint("m", device=dev) as ep:
+        return ep.score(np.ones((2, 2)), timeout=30).shape
+
+
+for what, call in (
+        ("endpoint", lambda dev: served(dev)),
+        ("automl", lambda dev: len(automl.regress(
+            df, target_col="price", max_trials=2).trials))):
+    try:
+        out = call(None)
+    except RuntimeError as e:
+        print(what, "raised:", e)
+        GLOBAL_CONF.set("sml.device", "cpu")
+        out = call("cpu")
+        GLOBAL_CONF.set("sml.device", DEVICE)
+    print(what, out)
+print("runs", mlflow.search_runs(output_format="list")[-1].info.status)
+bad = sorted(k for k in sys.modules
+             if k.split(".")[0] in ("jax", "jaxlib", "sml_tpu", "pandas",
+                                    "pyarrow"))
+print(bad)
+"""
+
+REGISTRY_OUT = ["endpoint (2,)", "automl 2", "runs FINISHED", "[]"]
+
+
+def test_registry_endpoint_and_automl_on_the_cpu_load_no_pandas_or_jax():
+    proc = _run(REGISTRY.replace("DEVICE", repr("cpu")))
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines() == REGISTRY_OUT
+
+
+def test_endpoint_and_automl_raise_without_a_card():
+    proc = _run(REGISTRY.replace("DEVICE", repr("cuda")))
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.strip().splitlines()
+    raised = [ln for ln in lines if " raised: " in ln]
+    assert [ln.split(" ")[0] for ln in raised] == ["endpoint", "automl"], \
+        lines
+    assert all("no CUDA device" in ln for ln in raised), lines
+    assert [ln for ln in lines if " raised: " not in ln] == REGISTRY_OUT
 
 
 TIMESERIES = """
