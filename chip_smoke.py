@@ -272,10 +272,12 @@ Phases:
    rows; v2 promoted with `archive_existing_versions=True` while 3
    clients score: every response one version's bits, none torn, one
    `serve.hot_swap`, version 2 current and one cache entry; then v1 in
-   Staging and the canary at fractions 1.0 and 0.25 (the mirror scores
-   on the card on a stream of its own): mirrored exactly the requests
-   and a quarter of them, no errors, a mean |diff| above 0, and the
-   traversal's launches the primary's batches plus the mirrors; the
+   Staging and the canary at fractions 1.0 and 0.25: mirrored exactly
+   the requests and a quarter of them, no errors, a mean |diff| above 0;
+   the mirrors score on the Staging version's host route
+   (`score_block_host`, the C++ host traversal: each counted
+   `serve.canary_mirrored` and as a host traversal, none a launch), so
+   the traversal's launches are the primary's batches alone; the
    latency percentiles of the burst, of waves of 8 with the canary off
    and at each fraction; no shed; the endpoint's traversal plan from
    `health_report`. (b) `automl.regress` on `make_airbnb_dataset(n=
@@ -288,6 +290,32 @@ Phases:
    plain version may run on the card; a `{"registry": ...}` JSON line
    gives these numbers, and the kernels line's `launches_by_path` gains
    "endpoint" and "automl".
+
+18. main path, the dispatcher, the host routes and prewarm, on phase 4's
+   random ML 11 model (golden widths) and 100,000 of its rows: (a) the
+   dispatcher's calibration of the card (the least of 3 round trips of
+   a warmed 8x8 program, 16 MB pageable copies each way, best of 2;
+   taken twice), `preroute` "device" for reason
+   "local-chip", and every audited scoring and evaluation decision on
+   the card; (b) `sml.dispatch.mode=host`: `score_block` at 64, 4,096
+   and 100,000 rows through the C++ host traversal, bit-equal to the
+   card's, host ms beside card ms, one host traversal and no launch a
+   call; `RegressionEvaluator` on the host route within 1e-12 of the
+   card's; (c) phase 4's burst (96 requests of 1-64 rows from 8 clients)
+   against `sml.serve.queueRows` 256 with the host fallback asked for:
+   no shed, `serve.host_routed` > 0, every response bit-equal to
+   `score_block` of its rows, a launch a flushed batch; with it off (the
+   default), sheds; (d) phase 17's waves
+   of 8 with `sml.serve.flushAutoTune` off and on (the recorder on for
+   both): p50, p99 and the final `flush_micros`; (e) in fresh processes,
+   the first 64-row request's wall and the first ML 11 fit's wall (80,000
+   rows) with `sml.prewarm.enabled` off and on (that process replays
+   first the manifest that phases 1-17 and the first process recorded,
+   its rows bucketed); (f) phase 4's burst with the
+   recorder off and on: percentiles, events, each flush span naming its
+   requests' traces, no watchdog stall, and `obs.audit_report()`. A
+   `{"dispatch": ...}` line gives these numbers, and a `{"host_routes":
+   ...}` line the host traversal's calls and times.
 
 The second-to-last line is a JSON object listing each kernel, with the
 launches the profiler saw in each window behind its device times
@@ -4649,6 +4677,7 @@ def reg_endpoint(device, card: str, n: int) -> dict:
     from sml_tpu_torch.ml import Pipeline
     from sml_tpu_torch.ml._staging import extract_features
     from sml_tpu_torch.ml.inference import DeviceScorer
+    from sml_tpu_torch.native import host_traverse as ht
     from sml_tpu_torch.native import traverse_kernel as tk
     from sml_tpu_torch.serving import ModelCache, ServingEndpoint
     from sml_tpu_torch.utils.profiler import PROFILER
@@ -4758,21 +4787,29 @@ def reg_endpoint(device, card: str, n: int) -> dict:
         for frac in REG_CANARY:
             GLOBAL_CONF.set("sml.serve.canaryFraction", frac)
             l0, b0 = tk.LAUNCHES, counter("serve.batches")
+            m0, h0 = counter("serve.canary_mirrored"), ht.CALLS
             lat = reg_serve(ep, reqs, ref2, waves=True)
             stats = reg_drain(ep)
             mirrored = stats["mirrored"] - before["mirrored"]
             launches = tk.LAUNCHES - l0
             batches = counter("serve.batches") - b0
+            host_scored = counter("serve.canary_mirrored") - m0
             if mirrored != round(frac * len(reqs)) or stats["errors"] \
                     or not stats["mean_abs_diff"] > 0:
                 raise AssertionError(f"canary at {frac}: {stats}")
-            if launches != batches + mirrored:
+            # the mirrors take the Staging scorer's host route: every one
+            # a host traversal, none a launch on the card
+            if launches != batches or host_scored != mirrored \
+                    or ht.CALLS - h0 != mirrored:
                 raise AssertionError(
                     f"canary at {frac}: {launches} traversals for "
-                    f"{batches} batches and {mirrored} mirrors")
+                    f"{batches} batches; {mirrored} mirrors, "
+                    f"{host_scored} host-scored, "
+                    f"{ht.CALLS - h0} host traversals")
             out[f"canary_{frac}"] = dict(
                 reg_percentiles(lat), mirrored=mirrored,
-                primary_launches=int(batches), mirror_launches=mirrored,
+                primary_launches=int(batches), mirror_launches=0,
+                mirror_host_scored=int(host_scored),
                 mean_abs_diff=stats["mean_abs_diff"],
                 max_abs_diff=stats["max_abs_diff"],
                 errors=stats["errors"])
@@ -4791,8 +4828,8 @@ def reg_endpoint(device, card: str, n: int) -> dict:
         got = out[what]
         print(f"registry endpoint {what}: p50 {got['p50_ms']!r} ms p99 "
               f"{got['p99_ms']!r} ms max {got['max_ms']!r} ms"
-              + (f"; mirrored {got['mirrored']}, launches primary "
-                 f"{got['primary_launches']} + mirror "
+              + (f"; mirrored {got['mirrored']} on the host route, "
+                 f"launches primary {got['primary_launches']} + mirror "
                  f"{got['mirror_launches']}, mean |diff| "
                  f"{got['mean_abs_diff']!r}" if "mirrored" in got else "")
               + f" [{card}]")
@@ -4906,6 +4943,433 @@ def phase_registry(device, card: str, n: int = 100_000,
     return out
 
 
+#: phase 18: the rows of the host/card comparison, the saturation bound
+#: (rows queued or in flight toward the card), the waves of the
+#: auto-tuning comparison, and the prewarm child's fit and requests
+DSP_ROWS = (64, 4096, 100_000)
+DSP_QUEUE_ROWS = 256
+DSP_WAVES = 12
+DSP_REPS = 5
+#: every launch phase 18 makes (its (b)-(d) and (f)), by kernel
+DSP_LAUNCHES: dict = {}
+
+PREWARM_CHILD = r"""
+import json, sys, time
+t_start = time.perf_counter()
+import numpy as np
+import torch
+sys.path.insert(0, ROOT)
+import chip_smoke as cs
+from sml_tpu_torch.conf import GLOBAL_CONF
+from sml_tpu_torch.ml.inference import DeviceScorer
+from sml_tpu_torch.parallel import prewarm
+from sml_tpu_torch.serving import MicroBatcher
+GLOBAL_CONF.set("sml.prewarm.enabled", MODE == "on")
+dev = torch.device("cuda", 0)
+out = {"mode": MODE, "import_s": time.perf_counter() - t_start}
+model, cats = cs.ml11_model(SEED)
+X, _ = cs.ml11_rows(np.random.default_rng([SEED, 18]), 4096, cats)
+Xf, logy, fcats = cs.fit_rows(SEED)
+Xf, logy = Xf[:80_000], logy[:80_000]
+t0 = time.perf_counter()
+stats = prewarm.maybe_prewarm(block=True, device=dev)
+out["prewarm_ms"] = (time.perf_counter() - t0) * 1e3
+out["prewarm"] = stats
+t0 = time.perf_counter()
+scorer = DeviceScorer(model, device=dev)
+out["scorer_ms"] = (time.perf_counter() - t0) * 1e3
+walls = []
+with MicroBatcher(scorer.score_block, host_score=scorer.score_block_host,
+                  flush_micros=0) as b:
+    for i in range(1 + cs.DSP_REPS):
+        rows = X[64 * i:64 * (i + 1)]
+        t0 = time.perf_counter()
+        got = b.submit(rows).result(60)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        assert got.shape == (64,) and np.isfinite(got).all()
+out["first_request_ms"] = walls[0]
+out["warm_request_ms"] = float(np.median(walls[1:]))
+fits = []
+for _ in range(2):
+    t0 = time.perf_counter()
+    cs._fit_xgb(Xf, logy, fcats, dev)
+    torch.cuda.synchronize()
+    fits.append((time.perf_counter() - t0) * 1e3)
+out["first_fit_ms"], out["warm_fit_ms"] = fits
+out["recorded"] = len(prewarm.entries())
+print(json.dumps(out))
+"""
+
+
+def dsp_burst(submit, reqs: list, clients: int = REG_CLIENTS) -> tuple:
+    """Phase 4's burst: `clients` threads submit every request at once
+    (each its share, without waiting); returns (futures, latencies in ms,
+    submit to result)."""
+    futs, t_sub = [None] * len(reqs), [0.0] * len(reqs)
+    barrier = threading.Barrier(clients)
+
+    def client(lo):
+        barrier.wait()
+        for i in range(lo, len(reqs), clients):
+            t_sub[i] = time.perf_counter()
+            futs[i] = submit(reqs[i])
+    threads = [threading.Thread(target=client, args=(lo,))
+               for lo in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    lat = np.zeros(len(reqs))
+    for i, f in enumerate(futs):
+        try:
+            f.result(60)
+        except Exception:  # noqa: BLE001 — a shed is counted by the caller
+            pass
+        lat[i] = (time.perf_counter() - t_sub[i]) * 1e3
+    return futs, lat
+
+
+def dsp_waves(submit, reqs: list, clients: int = REG_CLIENTS) -> np.ndarray:
+    """Phase 17's waves: `clients` requests at a time, one a client, each
+    wave after the last has been answered; latencies in ms."""
+    lat = np.zeros(len(reqs))
+    for lo in range(0, len(reqs), clients):
+        idx = list(range(lo, min(lo + clients, len(reqs))))
+        barrier = threading.Barrier(len(idx))
+
+        def one(i):
+            barrier.wait()
+            t0 = time.perf_counter()
+            submit(reqs[i]).result(60)
+            lat[i] = (time.perf_counter() - t0) * 1e3
+        threads = [threading.Thread(target=one, args=(i,)) for i in idx]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    return lat
+
+
+def dsp_take() -> dict:
+    got = _all_launches()
+    for k, v in got.items():
+        DSP_LAUNCHES[k] = DSP_LAUNCHES.get(k, 0) + v
+    _zero_launches()
+    return got
+
+
+def dsp_calibration(device, card: str, scorer, X) -> dict:
+    """(a) The dispatcher's calibration of the card and its answer: every
+    audited scoring and evaluation decision on the card, "local-chip"."""
+    from sml_tpu_torch import obs
+    from sml_tpu_torch.conf import GLOBAL_CONF
+    from sml_tpu_torch.frame.session import get_session
+    from sml_tpu_torch.ml.evaluation import RegressionEvaluator
+    from sml_tpu_torch.parallel import dispatch as pd
+    used = pd.CALIBRATION.ensure(device).constants()
+    fresh = pd._Calibration()
+    fresh.ensure(device)
+    fresh = fresh.constants()
+    hint = scorer._hint(X[:64])
+    reason = pd.preroute_reason(hint, device)
+    if pd.preroute(hint, device) != "device" or reason != "local-chip":
+        raise AssertionError(f"preroute {pd.preroute(hint, device)} "
+                             f"({reason}), calibration {used}")
+    GLOBAL_CONF.set("sml.obs.enabled", True)
+    obs.reset()
+    try:
+        for n in DSP_ROWS:
+            scorer.score_block(X[:n])
+        pred = scorer.score_block(X[:20_000])
+        df = get_session().createDataFrame(
+            {"prediction": pred, "label": pred + 0.1})
+        for metric in ("rmse", "r2"):
+            RegressionEvaluator(metricName=metric).evaluate(df)
+        recs = obs.audit_records()
+        routes = sorted({(r.kind, r.route, r.reason) for r in recs})
+        if len(recs) != len(DSP_ROWS) + 3 or routes != [
+                ("blas", "device", "local-chip"),
+                ("traverse", "device", "local-chip")]:
+            raise AssertionError(f"audited decisions: {routes} "
+                                 f"({len(recs)})")
+    finally:
+        GLOBAL_CONF.unset("sml.obs.enabled")
+        obs.reset()
+    out = {"rt_fixed_us": used["rt_fixed_s"] * 1e6,
+           "rt_measured_us": used["rt_measured_s"] * 1e6,
+           "h2d_GBps": used["h2d_bytes_per_s"] / 1e9,
+           "d2h_GBps": used["d2h_bytes_per_s"] / 1e9,
+           "again_rt_measured_us": fresh["rt_measured_s"] * 1e6,
+           "again_h2d_GBps": fresh["h2d_bytes_per_s"] / 1e9,
+           "again_d2h_GBps": fresh["d2h_bytes_per_s"] / 1e9,
+           "preroute": "device", "reason": reason,
+           "audited_device": len(recs)}
+    print(f"dispatch (a) calibration: round trip {out['rt_measured_us']!r} "
+          f"us (rt_fixed {out['rt_fixed_us']!r} us, floored at 100), "
+          f"H2D {out['h2d_GBps']!r} GB/s, D2H {out['d2h_GBps']!r} GB/s "
+          f"(first taking); again: {out['again_rt_measured_us']!r}"
+          f" us, {out['again_h2d_GBps']!r} / {out['again_d2h_GBps']!r} "
+          f"GB/s; preroute device ({reason}), {len(recs)} audited "
+          f"decisions all on the card [{card}]")
+    return out
+
+
+def dsp_host_mode(device, card: str, scorer, X) -> dict:
+    """(b) `sml.dispatch.mode=host`: `score_block` through the C++ host
+    traversal, bit-equal to the card's, timed beside it; the regression
+    statistics on the host route against the card's."""
+    from sml_tpu_torch.conf import GLOBAL_CONF
+    from sml_tpu_torch.frame.session import get_session
+    from sml_tpu_torch.ml.evaluation import RegressionEvaluator
+    from sml_tpu_torch.native import host_traverse as ht
+    from sml_tpu_torch.native import traverse_kernel as tk
+    out = {}
+    for n in DSP_ROWS:
+        rows = X[:n]
+        card_ms, host_ms = [], []
+        on_card = scorer.score_block(rows)  # the binned rows are memoized
+        l0, h0 = tk.LAUNCHES, ht.CALLS
+        for _ in range(DSP_REPS):
+            t0 = time.perf_counter()
+            on_card = scorer.score_block(rows)
+            card_ms.append((time.perf_counter() - t0) * 1e3)
+        GLOBAL_CONF.set("sml.dispatch.mode", "host")
+        try:
+            for _ in range(DSP_REPS):
+                t0 = time.perf_counter()
+                host = scorer.score_block(rows)
+                host_ms.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            GLOBAL_CONF.unset("sml.dispatch.mode")
+        if tk.LAUNCHES - l0 != DSP_REPS or ht.CALLS - h0 != DSP_REPS:
+            raise AssertionError(f"{n} rows: {tk.LAUNCHES - l0} launches, "
+                                 f"{ht.CALLS - h0} host traversals")
+        np.testing.assert_array_equal(host, on_card)
+        np.testing.assert_array_equal(scorer.score_block_host(rows),
+                                      on_card)
+        out[n] = {"host_ms": float(np.median(host_ms)),
+                  "card_ms": float(np.median(card_ms))}
+        print(f"dispatch (b) mode=host score_block {n} rows: host "
+              f"{out[n]['host_ms']!r} ms, card {out[n]['card_ms']!r} ms "
+              f"(medians of {DSP_REPS}, binned rows memoized), bit-equal "
+              f"[{card}]")
+    pred = scorer.score_block(X)
+    df = get_session().createDataFrame(
+        {"prediction": pred, "label": pred + np.sin(np.arange(len(pred)))})
+    metrics = {}
+    for metric in ("rmse", "mae", "r2"):
+        ev = RegressionEvaluator(metricName=metric)
+        on_card = ev.evaluate(df)
+        GLOBAL_CONF.set("sml.dispatch.mode", "host")
+        try:
+            on_host = ev.evaluate(df)
+        finally:
+            GLOBAL_CONF.unset("sml.dispatch.mode")
+        if not abs(on_host - on_card) <= 1e-12 * abs(on_card):
+            raise AssertionError(f"{metric}: host {on_host!r} card "
+                                 f"{on_card!r}")
+        metrics[metric] = {"card": on_card, "host": on_host}
+    out["evaluator"] = metrics
+    print(f"dispatch (b) RegressionEvaluator host against card: {metrics}")
+    return out
+
+
+def dsp_saturation(device, card: str, scorer, X, reqs, refs) -> dict:
+    """(c) Phase 4's burst against a 256-row bound: the overflow on the
+    host route (no shed, the card's bits, a launch a flushed batch), then
+    with the fallback off (sheds)."""
+    from sml_tpu_torch.native import traverse_kernel as tk
+    from sml_tpu_torch.parallel.dispatch import DEVICE_QUEUE
+    from sml_tpu_torch.serving import MicroBatcher
+    from sml_tpu_torch.utils.profiler import PROFILER
+
+    def counter(name):
+        return PROFILER.counters().get(name, 0.0)
+    out = {}
+    for fallback in (True, False):
+        c0 = {k: counter(k) for k in ("serve.shed", "serve.host_routed",
+                                      "serve.batches")}
+        l0 = tk.LAUNCHES
+        with MicroBatcher(scorer.score_block,
+                          host_score=scorer.score_block_host,
+                          host_fallback=fallback, queue_rows=DSP_QUEUE_ROWS,
+                          max_batch_rows=4096, flush_micros=2000) as b:
+            futs, lat = dsp_burst(b.submit, reqs)
+        got = {k: counter(k) - v for k, v in c0.items()}
+        launches = tk.LAUNCHES - l0
+        if DEVICE_QUEUE.rows():
+            raise AssertionError(f"{DEVICE_QUEUE.rows()} rows left queued")
+        if launches != got["serve.batches"]:
+            raise AssertionError(f"{launches} launches for "
+                                 f"{got['serve.batches']} batches")
+        if fallback:
+            if got["serve.shed"] or not got["serve.host_routed"]:
+                raise AssertionError(f"with the fallback: {got}")
+            for i, (f, want) in enumerate(zip(futs, refs)):
+                if not np.array_equal(f.result(1), want):
+                    raise AssertionError(f"response {i} is not score_block's")
+        elif not got["serve.shed"] or got["serve.host_routed"]:
+            raise AssertionError(f"without the fallback: {got}")
+        key = "fallback_on" if fallback else "fallback_off"
+        out[key] = dict(reg_percentiles(lat), launches=int(launches),
+                        **{k.split(".")[1]: int(v) for k, v in got.items()})
+        print(f"dispatch (c) queueRows {DSP_QUEUE_ROWS}, hostFallback "
+              f"{fallback}: {out[key]} [{card}]")
+    return out
+
+
+def dsp_autotune(device, card: str, scorer, reqs) -> dict:
+    """(d) Phase 17's waves of 8 with `sml.serve.flushAutoTune` off and on
+    (the recorder on for both: the tuner reads its histograms)."""
+    from sml_tpu_torch import obs
+    from sml_tpu_torch.conf import GLOBAL_CONF
+    from sml_tpu_torch.serving import MicroBatcher
+    out = {}
+    GLOBAL_CONF.set("sml.obs.enabled", True)
+    try:
+        for auto in (False, True):
+            obs.reset()
+            with MicroBatcher(scorer.score_block,
+                              host_score=scorer.score_block_host,
+                              flush_auto=auto, max_batch_rows=4096,
+                              flush_micros=2000) as b:
+                lat = dsp_waves(b.submit, reqs[:DSP_WAVES * REG_CLIENTS])
+                flush = b.flush_micros
+            key = "auto" if auto else "fixed"
+            out[key] = dict(reg_percentiles(lat), final_flush_micros=flush)
+            print(f"dispatch (d) waves of {REG_CLIENTS}, flushAutoTune "
+                  f"{auto}: {out[key]} [{card}]")
+    finally:
+        GLOBAL_CONF.unset("sml.obs.enabled")
+        obs.reset()
+    return out
+
+
+def dsp_prewarm(seed: int, card: str) -> dict:
+    """(e) In fresh processes, the first 64-row request's wall and the
+    first ML 11 fit's wall with `sml.prewarm.enabled` off and on. Both
+    use the checkout's manifest (`native/build/`), as phases 1-17 left it
+    (written out first); the first process adds its own entries, and the
+    second replays them all before its first request."""
+    from sml_tpu_torch.parallel import prewarm
+    prewarm.flush()
+    left = len(prewarm.entries())
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = {"manifest_entries_before": left}
+    for mode in ("off", "on"):
+        code = (PREWARM_CHILD.replace("ROOT", repr(root))
+                .replace("MODE", repr(mode))
+                .replace("SEED", repr(seed)))
+        proc = subprocess.run([sys.executable, "-c", code], cwd=root,
+                              capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0:
+            raise AssertionError(f"prewarm child ({mode}) failed:\n"
+                                 f"{proc.stderr[-4000:]}")
+        got = json.loads(proc.stdout.strip().splitlines()[-1])
+        out[mode] = got
+        print(f"dispatch (e) prewarm {mode}: first request "
+              f"{got['first_request_ms']!r} ms (warm "
+              f"{got['warm_request_ms']!r}), first ML 11 fit "
+              f"{got['first_fit_ms']!r} ms (warm {got['warm_fit_ms']!r})"
+              f", prewarm {got['prewarm_ms']!r} ms {got['prewarm']}, "
+              f"{got['recorded']} manifest entries ({left} left by phases "
+              f"1-17) [{card}]")
+    if not out["on"]["prewarm"] or not out["on"]["prewarm"]["replayed"] \
+            or out["on"]["prewarm"]["failed"]:
+        raise AssertionError(f"the replay: {out['on']['prewarm']}")
+    return out
+
+
+def dsp_recorder(device, card: str, scorer, reqs, refs) -> dict:
+    """(f) Phase 4's burst with the recorder off and on: percentiles,
+    events recorded, each flush span naming its requests' traces, no
+    stall, and the dispatch audit's report."""
+    from sml_tpu_torch import obs
+    from sml_tpu_torch.conf import GLOBAL_CONF
+    from sml_tpu_torch.serving import MicroBatcher
+    out = {}
+    for on in (False, True):
+        if on:
+            GLOBAL_CONF.set("sml.obs.enabled", True)
+        obs.reset()
+        try:
+            with MicroBatcher(scorer.score_block,
+                              host_score=scorer.score_block_host,
+                              max_batch_rows=4096, flush_micros=2000) as b:
+                futs, lat = dsp_burst(b.submit, reqs)
+            for i, (f, want) in enumerate(zip(futs, refs)):
+                if not np.array_equal(f.result(1), want):
+                    raise AssertionError(f"response {i} is not score_block's")
+            events = obs.RECORDER.events()
+            key = "on" if on else "off"
+            out[key] = dict(reg_percentiles(lat), events=len(events))
+            if on:
+                batches = [e for e in events if e.name == "serve.batch"]
+                traced = sorted(t for e in batches
+                                for t in e.args["parent_traces"])
+                if traced != sorted(f.trace_id for f in futs):
+                    raise AssertionError("the flush spans do not name "
+                                         "their requests' traces")
+                stalls = [e for e in events if e.name.startswith("stall.")]
+                inflight = obs.WATCHDOG.report()
+                if stalls or inflight["flagged_total"] or inflight["open"]:
+                    raise AssertionError(f"watchdog: {inflight}, "
+                                         f"{len(stalls)} stall events")
+                report = obs.audit_report()
+                out["on"].update(batches=len(batches),
+                                 audited=len(obs.audit_records()),
+                                 dropped=obs.RECORDER.dropped)
+                print("dispatch (f) audit report (first lines):\n"
+                      + "\n".join(report.splitlines()[:4]))
+            elif events:
+                raise AssertionError(f"{len(events)} events with the "
+                                     f"recorder off")
+            print(f"dispatch (f) recorder {key}: {out[key]} [{card}]")
+        finally:
+            GLOBAL_CONF.unset("sml.obs.enabled")
+            obs.reset()
+    return out
+
+
+def phase_dispatch(seed: int, device, card: str, prewarm: bool = True
+                   ) -> dict:
+    """Phase 18: the dispatcher, the host routes, prewarm and the obs
+    core on phase 4's random ML 11 model at the golden widths."""
+    from sml_tpu_torch.ml.inference import DeviceScorer
+    from sml_tpu_torch.native import host_traverse as ht
+    DSP_LAUNCHES.clear()
+    t0 = time.perf_counter()
+    model, cats = ml11_model(seed)
+    X, _ = ml11_rows(np.random.default_rng([seed, 18]), 100_000, cats)
+    scorer = DeviceScorer(model, device=device)
+    reqs = reg_requests(X)
+    refs = reg_refs(scorer, reqs)
+    h0 = ht.CALLS
+    _zero_launches()
+    out = {"calibration": dsp_calibration(device, card, scorer, X)}
+    _zero_launches()  # (a)'s launches only price the routes
+    with KernelWatch() as watch:
+        out["host_mode"] = dsp_host_mode(device, card, scorer, X)
+        out["saturation"] = dsp_saturation(device, card, scorer, X, reqs,
+                                           refs)
+        out["autotune"] = dsp_autotune(device, card, scorer, reqs)
+        out["recorder"] = dsp_recorder(device, card, scorer, reqs, refs)
+    if watch.plain_on_cuda:
+        raise AssertionError(f"plain versions ran {watch.plain_on_cuda} "
+                             f"times on CUDA tensors")
+    out["launches"] = dsp_take()
+    out["host_traversals"] = ht.CALLS - h0
+    if not out["launches"]["forest_traverse"]:
+        raise AssertionError("phase 18 never launched forest_traverse")
+    if prewarm:
+        out["prewarm"] = dsp_prewarm(seed, card)
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"dispatch: every check passed in {out['phase_s']!r} s; "
+          f"launches {out['launches']}, host traversals "
+          f"{out['host_traversals']}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4947,6 +5411,7 @@ def main(argv=None) -> int:
     timeseries = phase_timeseries(args.seed, device, card)
     featurizer = phase_featurizer(device, card)
     registry = phase_registry(device, card)
+    dispatch = phase_dispatch(args.seed, device, card)
 
     def by_path(kernel: str) -> dict:
         return {"fit": fit["launches"][kernel],
@@ -4956,7 +5421,8 @@ def main(argv=None) -> int:
                 "chunked": chunked["launches"][kernel],
                 "featurizer": featurizer["launches"][kernel],
                 "endpoint": registry["launches"]["endpoint"][kernel],
-                "automl": registry["launches"]["automl"][kernel]}
+                "automl": registry["launches"]["automl"][kernel],
+                "dispatch": dispatch["launches"][kernel]}
 
     def windows(kernel: str) -> dict:
         return {what: seen for what, seen in DEVICE_WINDOWS.items()
@@ -4975,7 +5441,8 @@ def main(argv=None) -> int:
         + chunked["launches"]["forest_traverse"]
         + featurizer["launches"]["forest_traverse"]
         + registry["launches"]["endpoint"]["forest_traverse"]
-        + registry["launches"]["automl"]["forest_traverse"],
+        + registry["launches"]["automl"]["forest_traverse"]
+        + dispatch["launches"]["forest_traverse"],
         "launches_by_path": {"serving": main_path["launches"],
                              "tuning": tuning["fused"]["forest_traverse"],
                              "dataframe": frames["evaluate"][
@@ -4988,6 +5455,8 @@ def main(argv=None) -> int:
                              "endpoint": registry["launches"]["endpoint"][
                                  "forest_traverse"],
                              "automl": registry["launches"]["automl"][
+                                 "forest_traverse"],
+                             "dispatch": dispatch["launches"][
                                  "forest_traverse"]},
         "replay_launches": chunked["b"]["launches"]["forest_traverse"],
         "replay": chunked["replay"],
@@ -5103,10 +5572,28 @@ def main(argv=None) -> int:
     print(json.dumps({"timeseries": timeseries}))
     print(json.dumps({"featurizer": featurizer}))
     print(json.dumps({"registry": registry}))
+    print(json.dumps({"dispatch": dispatch}))
     print(json.dumps({"dataframe": {
         "launches_fit": frames["fit"], "launches_evaluate":
         frames["evaluate"], "rmse": frames["rmse"],
         "ml07_split_ms": frames["split_ms"]}}))
+    host = dispatch["host_mode"]
+    print(json.dumps({"host_routes": [{
+        "name": "forest_host", "route": "c++ (g++, host threads)",
+        "source": "sml_tpu_torch/csrc/forest_host.cc",
+        "replaces": "sml_tpu/ml/inference.py:600 (score_block_host: "
+                    "predict_forest, XLA on the host mesh)",
+        "calls": dispatch["host_traversals"]
+        + sum(registry["endpoint"][f"canary_{f}"]["mirror_host_scored"]
+              for f in REG_CANARY),
+        "calls_by_path": {
+            "dispatch": dispatch["host_traversals"],
+            "endpoint_canary": sum(
+                registry["endpoint"][f"canary_{f}"]["mirror_host_scored"]
+                for f in REG_CANARY)},
+        "bit_equal_to_card": True,
+        "by_rows": {str(n): host[n] for n in DSP_ROWS},
+        "card": card}]}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -52,9 +52,33 @@ _register("sml.serve.flushMicros", 2000, int,
           "Serving micro-batcher: microseconds a partial batch waits for "
           "more requests before flushing (deadline from the OLDEST queued "
           "request). 0 = flush as soon as the worker is free")
+_register("sml.serve.flushAutoTune", False, _to_bool,
+          "Serving micro-batcher deadline auto-tuning: adapt the flush "
+          "deadline each cycle between the measured drain time (median "
+          "serve.batch_ms, else dispatch.device_ms: the floor) and the SLO "
+          "budget (half sml.serve.sloMillis minus the drain: the ceiling), "
+          "targeting the time the measured arrival intensity needs to fill "
+          "one batch. It reads the metrics histograms, which fill only with "
+          "the recorder on (sml.obs.enabled). Off = flushMicros is static. "
+          "Under sparse arrivals the rule RAISES the deadline toward its "
+          "ceiling, the JAX package's behaviour")
 _register("sml.serve.queueRows", 32768, int,
           "Serving admission bound: rows queued or in flight toward the "
-          "device above which new requests shed instead of queueing")
+          "device (parallel.dispatch.DEVICE_QUEUE) above which new requests "
+          "degrade to the host route or shed instead of queueing")
+_register("sml.serve.hostFallback", False, _to_bool,
+          "Serving degradation ladder: score queue-overflow requests on the "
+          "host route in the submitting thread instead of shedding them. "
+          "Off by default (the JAX package's is on): the port's serving "
+          "runs on a card, and work moves off it only when the caller asks")
+_register("sml.serve.sloMillis", 250, int,
+          "Per-request latency SLO target (milliseconds, admission to "
+          "result): the serve.request_ms histogram counts breaches against "
+          "it (obs.slo_report), and the flush auto-tuner's ceiling is half "
+          "of it")
+_register("sml.serve.sloBudget", 0.01, float,
+          "Latency-SLO error budget: the fraction of requests allowed over "
+          "sml.serve.sloMillis. burn_rate = breach_fraction / budget")
 _register("sml.serve.requestTimeoutMillis", 250, int,
           "Serving deadline: a request still undispatched this long after "
           "admission is shed at flush time. 0 = no deadline")
@@ -63,9 +87,8 @@ _register("sml.serve.modelCacheBytes", 1 << 30, int,
           "DeviceScorers (costed by DeviceScorer.resident_bytes)")
 _register("sml.serve.canaryFraction", 0.0, float,
           "Fraction of endpoint traffic mirrored to the Staging version "
-          "(shadow/canary mode): mirrored requests score on the card (on "
-          "a stream of the shadow worker's own) off the request path and "
-          "feed prediction-divergence stats "
+          "(shadow/canary mode): mirrored requests score on the host "
+          "route off the request path and feed prediction-divergence stats "
           "(ServingEndpoint.canary_stats). 0 disables")
 _register("sml.predict.binCacheBytes", 1 << 30, int,
           "LRU byte bound for memoized predict-time binned matrices")
@@ -135,6 +158,31 @@ _register("sml.linear.compactBytes", 1 << 28, int,
           "Expanded-block size (n*d*4) above which linear/logistic fits "
           "stage the compact numeric+code form and expand one-hot slots "
           "on-chip instead of materializing the (n, d) matrix")
+_register("sml.compile.cacheDir", "", str,
+          "Directory of the prewarm manifest (parallel/prewarm.py): empty = "
+          "sml_tpu_torch/native/build/, beside the built kernel libraries")
+_register("sml.obs.enabled", False, _to_bool,
+          "Flight-recorder event bus (sml_tpu_torch.obs): record typed "
+          "engine events (spans, counters, dispatch decisions) into a "
+          "bounded ring for the dispatch audit, and fill the metrics "
+          "histograms. Disabled, every instrumentation site costs one "
+          "attribute load")
+_register("sml.obs.ringEvents", 65536, int,
+          "Capacity of the flight recorder's in-memory event ring; the "
+          "oldest events are dropped (and counted) once full. Resizing "
+          "keeps the newest events")
+_register("sml.obs.sinkPath", "", str,
+          "Optional JSONL sink: every recorded event is also appended to "
+          "this file as one JSON object per line (empty = ring only). "
+          "Applied when set")
+_register("sml.obs.sinkMaxBytes", 64 << 20, int,
+          "Byte bound for the JSONL sink file: past it the live file "
+          "rotates once to <sinkPath>.1 (replacing the previous roll) and "
+          "reopens fresh. 0 = unlimited")
+_register("sml.obs.metricsWindowSec", 300, int,
+          "Rolling-window span of the metrics registry (obs/_metrics.py): "
+          "windowed quantiles and rates cover the trailing this-many "
+          "seconds (8 ring slots); all-time histograms are kept regardless")
 _register("sml.infer.prefetchBatches", 4, int,
           "DeviceScorer.score_batches lookahead: batches dispatched ahead "
           "of the drain point so batch i+1's prep + H2D staging overlaps "
@@ -148,6 +196,13 @@ class TorchConf:
     def __init__(self) -> None:
         self._lock = threading.RLock()
         self._values: Dict[str, Any] = {}
+        self._on_set: Dict[str, Callable[[], None]] = {}
+
+    def on_set(self, key: str, fn: Callable[[], None]) -> None:
+        """Register a callback fired after `key` is set or unset (one per
+        key: the recorder re-reads its `sml.obs.*` keys through it)."""
+        with self._lock:
+            self._on_set[key] = fn
 
     def set(self, key: str, value: Any) -> None:
         with self._lock:
@@ -159,6 +214,9 @@ class TorchConf:
             alias = _ALIASES.get(key)
             if alias is not None:
                 self._values[alias] = value
+            hook = self._on_set.get(key)
+        if hook is not None:  # outside the lock: hooks may read conf
+            hook()
 
     def get(self, key: str, default: Optional[Any] = None) -> Any:
         with self._lock:
@@ -184,6 +242,9 @@ class TorchConf:
             alias = _ALIASES.get(key)
             if alias is not None:
                 self._values.pop(alias, None)
+            hook = self._on_set.get(key)
+        if hook is not None:
+            hook()
 
 
 _ALIASES = {

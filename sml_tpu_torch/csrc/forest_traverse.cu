@@ -90,6 +90,8 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace {
 
 constexpr int kWarp = 32;
@@ -540,18 +542,20 @@ struct Plan {
 
 // The opt-in above 48 KB of dynamic shared memory, made on each device
 // when a launch needs more than any before it there (one table per
-// kernel instantiation).
+// kernel instantiation), under a lock: launches from two threads must
+// not leave the attribute below what the larger one needs.
 template <typename BinT, bool kStageX>
 cudaError_t allow_smem(size_t bytes) {
   constexpr int kDevices = 64;
   static int set[kDevices] = {};
+  static std::mutex set_lock;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   const int want = static_cast<int>(bytes);
-  if (want <= 48 * 1024 || (dev < kDevices && want <= set[dev])) {
-    return cudaSuccess;
-  }
+  if (want <= 48 * 1024) return cudaSuccess;
+  std::lock_guard<std::mutex> guard(set_lock);
+  if (dev < kDevices && want <= set[dev]) return cudaSuccess;
   err = cudaFuncSetAttribute(forest_traverse_tiles<BinT, kStageX>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, want);
   if (err == cudaSuccess && dev < kDevices) set[dev] = want;

@@ -94,6 +94,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -535,18 +537,23 @@ cudaError_t launch(const void* binned, const void* lid, const void* grad,
                  p.stage_bins ? n_feat * static_cast<int>(sizeof(BinT)) : 0);
   auto kernel = hist_cluster_kernel<BinT, AccT>;
   // the opt-in above 48 KB, made on each device when a launch needs more
-  // than any before it there
+  // than any before it there; under a lock, so that launches from two
+  // threads cannot leave the attribute below what the larger one needs
   constexpr int kDevices = 64;
   static int smem_set[kDevices] = {};
+  static std::mutex smem_lock;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   const int want = static_cast<int>(L.total);
-  if (dev >= kDevices || want > smem_set[dev]) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, want);
-    if (err != cudaSuccess) return err;
-    if (dev < kDevices) smem_set[dev] = want;
+  {
+    std::lock_guard<std::mutex> guard(smem_lock);
+    if (dev >= kDevices || want > smem_set[dev]) {
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, want);
+      if (err != cudaSuccess) return err;
+      if (dev < kDevices) smem_set[dev] = want;
+    }
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(p.n_chunks, n_ftiles, n_btiles * n_stiles);

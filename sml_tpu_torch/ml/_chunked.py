@@ -181,7 +181,8 @@ def ingest_source(source: ChunkSource, max_bins: int,
     t2 = now()
     for _ in prefetch_pipeline(offsets(), prep, dispatch, drain,
                                depth=depth, workers=min(depth + 1, 4),
-                               family="ingest", order=order):
+                               family="ingest", index_key="chunk",
+                               order=order):
         pass
     matrix = asm.finish()
     pipeline_s = now() - t2

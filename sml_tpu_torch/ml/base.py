@@ -592,5 +592,6 @@ class _ScorerEvalHook(RegStatsHook):
         pred = DeviceScorer(self._tail, device=self._device).score_block(X)
         if self._link != "identity":
             pred = getattr(np, self._link)(pred)
-        from .evaluation import host_reg_stats
-        return host_reg_stats(pred, lab)
+        from .evaluation import reg_stats
+        ok = np.isfinite(pred) & np.isfinite(lab)
+        return reg_stats(pred[ok], lab[ok], self._device)

@@ -6,16 +6,70 @@ for the five regression sufficient statistics (n, Σd², Σ|d|, Σl, Σl²):
 for a tree model that is one fused traversal and reduction on the device
 (`_tree_models.fused_reg_stats_from_matrix`), and the prediction column
 is never materialized. Otherwise a materialized prediction column is
-reduced on the host (`host_reg_stats`), as the JAX package's router does
-for such work; the measured host/device router waits for the port's
-dispatcher. Ranking metrics sort on the host.
+reduced on the route the dispatcher picks (`dispatch.decide`): the host
+route sums in float64 numpy (`_reg_stats_host`), the device route in
+float64 torch reductions on the session's device (`_reg_stats_device`),
+each over the f32-rounded values, so the two agree to the last few
+bits. Accuracy counts the same way. Ranking metrics sort on the host.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from ..parallel import dispatch
+from ..parallel.dispatch import WorkHint
 from .base import Evaluator
+
+
+def _reg_stats_host(pred: np.ndarray, lab: np.ndarray):
+    """The five regression sufficient statistics (n, Σd², Σ|d|, Σl, Σl²)
+    of finite-filtered values, in float64 numpy over the f32-rounded
+    values."""
+    p = pred.astype(np.float32).astype(np.float64)
+    l64 = lab.astype(np.float32).astype(np.float64)
+    d = p - l64
+    return (float(len(p)), float(np.sum(d * d)), float(np.sum(np.abs(d))),
+            float(np.sum(l64)), float(np.sum(l64 * l64)))
+
+
+def _reg_stats_device(pred: np.ndarray, lab: np.ndarray, device):
+    """`_reg_stats_host`'s statistics as float64 torch reductions on
+    `device`."""
+    p = torch.from_numpy(pred.astype(np.float32)).to(device).double()
+    l64 = torch.from_numpy(lab.astype(np.float32)).to(device).double()
+    d = p - l64
+    stats = torch.stack([torch.sum(d * d), torch.sum(torch.abs(d)),
+                         torch.sum(l64), torch.sum(l64 * l64)]).cpu()
+    return (float(len(pred)),) + tuple(float(v) for v in stats)
+
+
+def reg_stats(pred: np.ndarray, lab: np.ndarray, device):
+    """The five regression statistics of finite-filtered values on the
+    route the dispatcher picks for them on `device`: the evaluator's, and
+    the linear pushdown's (`base._ScorerEvalHook`), so the two agree bit
+    for bit."""
+    hint = WorkHint(flops=10.0 * len(pred), kind="blas")
+    if dispatch.decide(hint, device) == "host":
+        return _reg_stats_host(pred, lab)
+    return _reg_stats_device(pred, lab, device)
+
+
+def _accuracy(pred: np.ndarray, lab: np.ndarray, device) -> float:
+    """The fraction of equal f32-rounded prediction and label, counted
+    on the route the dispatcher picks."""
+    n = len(pred)
+    if not n:
+        return float("nan")
+    hint = WorkHint(flops=4.0 * n, kind="blas")
+    if dispatch.decide(hint, device) == "host":
+        hits = int(np.sum(pred.astype(np.float32) == lab.astype(np.float32)))
+    else:
+        hits = int((torch.from_numpy(pred.astype(np.float32)).to(device)
+                    == torch.from_numpy(lab.astype(np.float32)).to(device))
+                   .sum().item())
+    return hits / n
 
 
 def host_reg_stats(pred: np.ndarray, lab: np.ndarray):
@@ -94,7 +148,8 @@ class RegressionEvaluator(Evaluator):
                 return _reg_metric(metric, *stats)
         pred, lab = _pred_label(df, self.getOrDefault("predictionCol"),
                                 self.getOrDefault("labelCol"))
-        return _reg_metric(metric, *host_reg_stats(pred, lab))
+        from ..device import session_device
+        return _reg_metric(metric, *reg_stats(pred, lab, session_device()))
 
 
 class BinaryClassificationEvaluator(Evaluator):
@@ -181,10 +236,8 @@ class MulticlassClassificationEvaluator(Evaluator):
                                 self.getOrDefault("labelCol"))
         metric = self.getOrDefault("metricName")
         if metric == "accuracy":
-            n = len(pred)
-            return float(np.sum(pred.astype(np.float32)
-                                == lab.astype(np.float32))) / n \
-                if n else float("nan")
+            from ..device import session_device
+            return _accuracy(pred, lab, session_device())
         stats = []
         for k in np.unique(np.concatenate([pred, lab])):
             tp = np.sum((pred == k) & (lab == k))

@@ -8,8 +8,18 @@ ensemble is traversed by `native.traverse_kernel.forest_traverse`, which
 launches the CUDA kernel for CUDA tensors and runs the plain PyTorch
 version for CPU tensors. A linear or logistic model scores `X @ w + b`
 (through the sigmoid for the logistic) in float64 on the device, each
-row's products summed in a fixed pairwise order (`_linear_forward`),
-always: there is no host route until the dispatcher is ported.
+row's products summed in a fixed pairwise order (`_linear_forward`).
+
+Each batch is routed by the dispatcher (`parallel/dispatch.decide`)
+with the JAX package's work hints: a forest `4·n·T·depth` of kind
+"traverse", a linear model `2·n·d` of kind "blas". On a card every batch
+stays on the card ("local-chip"); the host route runs when
+`sml.dispatch.mode=host` forces it, or when a caller asks for it
+(`score_block_host`: the serving queue's overflow under
+`sml.serve.hostFallback`, the canary's mirror). It gives the card's bits: a
+forest's binned rows through the C++ host traversal
+(`native/host_traverse.py`, the card's kernel's arithmetic), a linear
+model's products summed in `_linear_forward`'s order in float64 numpy.
 `DeviceScorer` is the load-once, score-many object a server holds. On
 a pipeline it keeps the prep stages: `__call__` scores a raw batch (a
 port DataFrame or a block, a mapping of column name to numpy array)
@@ -22,12 +32,13 @@ batches through `parallel.pipeline`: the factorized scorer through
 (featurizing, binning) on worker threads while earlier batches run on
 the card, each result copied back into pinned memory behind an event.
 
-Not ported yet: `score_block_host` (the dispatcher's host route, ROADMAP
-item 5).
+With the flight recorder on, a change of the traversal's launch plan
+lands an `infer.kernel.spec` event.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Callable, Iterable, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
@@ -35,6 +46,7 @@ import torch
 
 from ..device import resolve_device
 from ..native.traverse_kernel import forest_traverse, traverse_plan
+from ..parallel import dispatch as _dispatch
 from ._staging import stage_bins_cached
 
 #: prediction links of the fused predict+eval program
@@ -88,6 +100,38 @@ def _linear_forward(Xd: torch.Tensor, w: torch.Tensor, b: float
         half = terms.shape[1] // 2
         terms = terms[:, :half] + terms[:, half:]
     return terms[:, 0] + b
+
+
+def _linear_forward_host(X32: np.ndarray, w: np.ndarray, b: float
+                         ) -> np.ndarray:
+    """`_linear_forward` in float64 numpy: the same products summed in
+    the same pairwise tree, then b, so the host route gives the card's
+    bits (each f64 product and sum is rounded once on either side)."""
+    terms = np.asarray(X32, np.float32).astype(np.float64) * w
+    d = terms.shape[1]
+    width = 1 << max(d - 1, 0).bit_length()
+    if width > d:
+        terms = np.pad(terms, ((0, 0), (0, width - d)))
+    while terms.shape[1] > 1:
+        half = terms.shape[1] // 2
+        terms = terms[:, :half] + terms[:, half:]
+    return terms[:, 0] + b
+
+
+#: the traversal plan of the last launch on the card, process-wide
+_last_plan = [None]
+_plan_lock = threading.Lock()
+
+
+def _note_plan(plan: dict) -> None:
+    """Keep the last launch plan; a change lands `infer.kernel.spec`."""
+    with _plan_lock:
+        changed = _last_plan[0] != plan
+        _last_plan[0] = plan
+    if changed:
+        from ..obs._recorder import RECORDER
+        if RECORDER.enabled:
+            RECORDER.emit("infer", "infer.kernel.spec", args=dict(plan))
 
 
 def _logistic_forward(Xd: torch.Tensor, w: torch.Tensor, b: float
@@ -163,6 +207,15 @@ class DeviceScorer:
         self._kind, self._params = self._compile_target(tail, self.device)
         if self._kind == "forest":
             self._spec = tail._spec
+            # the host route's tables: the same stacked arrays, on the host
+            sf, sb, lv, w = self._spec.stacked()
+            self._host_params = (np.ascontiguousarray(sf, np.int32),
+                                 np.ascontiguousarray(sb, np.int32),
+                                 np.ascontiguousarray(lv, np.float32),
+                                 np.ascontiguousarray(w, np.float32))
+        else:
+            w, b, logistic = self._params
+            self._host_params = (w.cpu().numpy(), b, logistic)
         # the feature chain as one columnar pass, when it is the
         # supported Imputer / StringIndexer / OHE / VectorAssembler chain
         self._featurizer = None
@@ -238,16 +291,53 @@ class DeviceScorer:
         from .tree_impl import bin_with
         return bin_with(np.asarray(X, dtype=np.float64), self._spec.binning)
 
+    def _hint(self, staged: np.ndarray) -> "_dispatch.WorkHint":
+        """The JAX package's work estimate of scoring `staged`."""
+        n = staged.shape[0]
+        if self._kind == "linear":
+            return _dispatch.WorkHint(flops=2.0 * n * staged.shape[1],
+                                      kind="blas", out_bytes=4.0 * n)
+        return _dispatch.WorkHint(
+            flops=4.0 * n * len(self._spec.trees) * self._spec.depth,
+            kind="traverse", out_bytes=4.0 * n)
+
+    def _host_margin(self, staged: np.ndarray) -> np.ndarray:
+        """The host route's margin of `_host_prep`'s rows: a forest's
+        (n,) f32 through the C++ host traversal, a linear model's (n,)
+        f64; the card's bits either way. Feeds the router's observed
+        host rate."""
+        hint = self._hint(staged)
+        with _dispatch.observe_host(hint.kind, hint.flops):
+            if self._kind == "linear":
+                w, b, logistic = self._host_params
+                out = _linear_forward_host(staged, w, b)
+                if logistic:
+                    out = torch.sigmoid(torch.from_numpy(out)).numpy()
+                return out
+            from ..native.host_traverse import forest_margin_host
+            return forest_margin_host(staged, *self._host_params,
+                                      depth=self._spec.depth)
+
     def _launch(self, staged: np.ndarray
                 ) -> Tuple[torch.Tensor, int, Callable]:
-        """Stage `_host_prep`'s rows and launch; returns (device outputs,
-        rows, finalize) without waiting for the device."""
+        """Route `_host_prep`'s rows (`dispatch.decide`); on the host
+        route score them there (the output a CPU tensor), else stage and
+        launch. Returns (outputs, rows, finalize) without waiting for
+        the device."""
+        finalize = _identity if self._kind == "linear" \
+            else self._finalize_forest
+        if _dispatch.decide(self._hint(staged), self.device) == "host":
+            return torch.from_numpy(self._host_margin(staged)), \
+                staged.shape[0], finalize
+        if self.device.type == "cuda":
+            from ..parallel.prewarm import record_stage
+            record_stage(self.device, staged.shape, staged.dtype)
         if self._kind == "linear":
             from ._staging import stage_rows
             w, b, logistic = self._params
             fwd = _logistic_forward if logistic else _linear_forward
             return fwd(stage_rows(staged, self.device), w, b), \
-                staged.shape[0], _identity
+                staged.shape[0], finalize
         Bd = stage_bins_cached(staged, self.device)
         out = forest_traverse(Bd, *self._params, depth=self._spec.depth)
         if Bd.is_cuda and Bd.shape[0]:
@@ -255,12 +345,13 @@ class DeviceScorer:
             self._kernel_spec = traverse_plan(
                 Bd.shape[0], Bd.shape[1], Bd.element_size(), sf.shape[0],
                 sf.shape[1], self._spec.depth)._asdict()
-        return out, staged.shape[0], self._finalize_forest
+            _note_plan(self._kernel_spec)
+        return out, staged.shape[0], finalize
 
     def _dispatch(self, X: np.ndarray) -> Tuple[torch.Tensor, int, Callable]:
-        """Stage and launch (binning a forest's rows first); returns
-        (device outputs, rows, finalize) without waiting for the
-        device."""
+        """Prep (binning a forest's rows), route, and score on the host or
+        launch on the device; returns (outputs, rows, finalize) without
+        waiting for the device."""
         return self._launch(self._host_prep(X))
 
     def _finalize_forest(self, margin: np.ndarray) -> np.ndarray:
@@ -279,6 +370,18 @@ class DeviceScorer:
         host waits for the launch on this thread's current stream."""
         out, n, finalize = self._dispatch(X)
         return finalize(out.cpu().numpy().astype(np.float64)[:n])
+
+    def score_block_host(self, X: np.ndarray) -> np.ndarray:
+        """Predict a raw (n, d) feature block on the HOST route,
+        unconditionally: the serving path's overflow and the canary's
+        mirror. Never stages, never launches; gives `score_block`'s bits
+        (a forest: `bin_with`, the C++ host traversal, `_finalize_forest`;
+        a linear model: `_linear_forward_host`)."""
+        staged = self._host_prep(X)
+        margin = self._host_margin(staged)
+        if self._kind == "linear":
+            return margin
+        return self._finalize_forest(margin.astype(np.float64))
 
     def kernel_spec(self) -> Optional[dict]:
         """The `traverse_plan` (as a dict) that this scorer's most recent

@@ -4,7 +4,8 @@ Each `csrc/<name>.cu` is a CUDA kernel source with a plain C interface
 (every pointer and the stream a `void*`, sizes as `int`, a `cudaError_t`
 returned as `int`), so `nvcc` compiles it in seconds without PyTorch's
 headers. Each `csrc/<name>.cc` is C++ for the host (the binning), built
-with `g++`. The shared library goes to `sml_tpu_torch/native/build/` at
+with `g++` (`-ffp-contract=off`: the host traversal's f32 products and
+sums must round apart, as the card's do). The shared library goes to `sml_tpu_torch/native/build/` at
 first use, one per source, keyed by the source's content hash so an
 edited source rebuilds; it is written under a temporary name and renamed
 into place, so processes that build at once each load a whole library.
@@ -33,7 +34,8 @@ BUILD_DIR = os.path.join(_HERE, "build")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
-GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
+GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread",
+             "-ffp-contract=off")
 
 _libs: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -151,12 +153,20 @@ def host_sources() -> list:
     return sorted(f[:-3] for f in os.listdir(CSRC_DIR) if f.endswith(".cc"))
 
 
-def launch_on_stream(dev: torch.device, fn, *args) -> int:
+def launch_on_stream(dev: torch.device, fn, *args, record=None) -> int:
     """`fn(*args, stream)` on the current stream of `dev`, with `dev` the
     current device (the launch goes to the current one); switches device
-    only when it is not already current."""
+    only when it is not already current. `record`, the wrapper's
+    signature `(kernel, plan, tensor operands, keyword arguments)`, goes
+    into the prewarm manifest (`parallel/prewarm.record_launch`) once the
+    launch has returned 0."""
     stream = torch.cuda.current_stream(dev).cuda_stream
     if dev.index is None or dev.index == torch.cuda.current_device():
-        return fn(*args, stream)
-    with torch.cuda.device(dev):
-        return fn(*args, stream)
+        err = fn(*args, stream)
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*args, stream)
+    if record is not None and err == 0:
+        from ..parallel.prewarm import record_launch
+        record_launch(dev, *record)
+    return err

@@ -372,10 +372,12 @@ def check_aligned(*ts) -> None:
 
 
 def launch_hist(fn, plan: HistPlan, binned, lid, grad, hess, weight,
-                n_bins: int, n_slots: int, acc_dtype) -> torch.Tensor:
+                n_bins: int, n_slots: int, acc_dtype,
+                record: bool = False) -> torch.Tensor:
     """Launch a `hist_accumulate` entry point (`fn`) with `plan` on the
     current stream; allocates the output and, with more than one
-    cluster, the (clusters, F*B*S*3) `acc_dtype` scratch."""
+    cluster, the (clusters, F*B*S*3) `acc_dtype` scratch. `record` puts
+    the launch into the prewarm manifest (`hist_accumulate`'s own)."""
     n, n_feat = binned.shape
     dev = binned.device
     out = torch.empty((n_feat * n_bins, n_slots * 3), dtype=torch.float32,
@@ -389,7 +391,9 @@ def launch_hist(fn, plan: HistPlan, binned, lid, grad, hess, weight,
         None if scratch is None else scratch.data_ptr(), out.data_ptr(), n,
         n_feat, n_bins, n_slots, plan.chunk_rows, plan.n_chunks, plan.ft,
         plan.bt, plan.st, plan.groups, plan.cluster, plan.sub_rows,
-        plan.stage_bins, plan.threads)
+        plan.stage_bins, plan.threads,
+        record=("hist_accumulate", plan, [binned, lid, grad, hess, weight],
+                {"n_bins": n_bins, "n_slots": n_slots}) if record else None)
     if err != 0:
         raise RuntimeError(f"hist_accumulate launch failed: CUDA error {err} "
                            f"(n={n}, F={n_feat}, B={n_bins}, S={n_slots}, "
@@ -431,7 +435,7 @@ def hist_accumulate(binned: torch.Tensor, lid: torch.Tensor,
     check_aligned(binned, lid, grad, hess, weight)
     plan = hist_plan(n, n_feat, B, S, bin_bytes=_BIN_BYTES[binned.dtype])
     out = launch_hist(_kernel("hist_accumulate"), plan, binned, lid, grad,
-                      hess, weight, B, S, torch.float64)
+                      hess, weight, B, S, torch.float64, record=True)
     _count("hist_accumulate")
     return out
 
@@ -458,7 +462,9 @@ def split_scan(hist: torch.Tensor, feat_mask: torch.Tensor,
     err = build.launch_on_stream(
         dev, _kernel("split_scan"), hist.data_ptr(), feat_mask.data_ptr(),
         min_inst.data_ptr(), out.data_ptr(), n_feat, n_bins, width,
-        plan.warps, plan.seg, float(reg_lambda), float(gamma))
+        plan.warps, plan.seg, float(reg_lambda), float(gamma),
+        record=("split_scan", plan, [hist, feat_mask, min_inst],
+                {"reg_lambda": float(reg_lambda), "gamma": float(gamma)}))
     if err != 0:
         raise RuntimeError(f"split_scan launch failed: CUDA error {err} "
                            f"(F={n_feat}, B={n_bins}, W={width}, {plan})")

@@ -287,7 +287,8 @@ def fit_row_weights(keys: torch.Tensor, modes: torch.Tensor,
     if R == 0 or n_pad == 0:
         return out
     _launch_row_weights(out, keys, modes, rates, counts, n_pad,
-                        draw_plan(n_pad, R * E, _sm_count(dev)))
+                        draw_plan(n_pad, R * E, _sm_count(dev)),
+                        record=True)
     _count("row_weights")
     return out
 
@@ -305,16 +306,19 @@ def _sm_count(dev: torch.device) -> int:
 def _launch_row_weights(out: torch.Tensor, keys: torch.Tensor,
                         modes: torch.Tensor, rates: torch.Tensor,
                         counts: torch.Tensor, n_pad: int,
-                        plan: DrawPlan) -> None:
+                        plan: DrawPlan, record: bool = False) -> None:
     """One launch of the row-weights kernel under `plan` into `out`, on
     operands `fit_row_weights` has checked (a sweep over plans calls it
-    too: `scripts/torch_draw_rows_sweep.py`)."""
+    too: `scripts/torch_draw_rows_sweep.py`). `record` puts the launch
+    into the prewarm manifest (`fit_row_weights`' own)."""
     R, E = keys.shape[:2]
     err = build.launch_on_stream(
         out.device, _kernel("row_weights"), out.data_ptr(), keys.data_ptr(),
         _round_stride(keys), modes.data_ptr(), rates.data_ptr(),
         counts.data_ptr(), R, E, n_pad, plan.threads, plan.rows,
-        plan.blocks)
+        plan.blocks,
+        record=("row_weights", plan, [keys, modes, rates, counts],
+                {"n_pad": int(n_pad)}) if record else None)
     if err != 0:
         raise RuntimeError(f"row_weights launch failed: CUDA error {err} "
                            f"(R={R}, E={E}, n_pad={n_pad}, {plan})")
@@ -348,7 +352,9 @@ def fit_feature_masks(keys: torch.Tensor, ks: torch.Tensor,
     err = build.launch_on_stream(
         dev, _kernel("feature_mask"), out.data_ptr(), keys.data_ptr(),
         _round_stride(keys), ks.data_ptr(), R, E, D, n_features, plan.warps,
-        plan.blocks)
+        plan.blocks,
+        record=("feature_mask", plan, [keys, ks],
+                {"n_features": int(n_features)}))
     if err != 0:
         raise RuntimeError(f"feature_mask launch failed: CUDA error {err} "
                            f"(R={R}, E={E}, D={D}, F={n_features}, {plan})")

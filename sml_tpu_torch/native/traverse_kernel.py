@@ -284,7 +284,10 @@ def forest_traverse(binned: torch.Tensor, sf: torch.Tensor,
             p.groups, p.threads, p.chunk, p.grid, p.stage_x,
             init.data_ptr() if tensor_init else None,
             0.0 if tensor_init or init is None else float(init))
-    err = build.launch_on_stream(dev, fn, *args)
+    err = build.launch_on_stream(
+        dev, fn, *args, record=("forest_traverse", p,
+                                [binned, sf, sb, lv, weights],
+                                {"depth": int(depth), "init": init}))
     if err != 0:
         raise RuntimeError(f"forest_traverse launch failed: CUDA error "
                            f"{err} (n={n}, F={n_feat}, T={n_trees}, "

@@ -1,0 +1,210 @@
+"""Dispatch audit: every routing decision, its predictions, and what the
+program actually cost.
+
+The port's copy of `sml_tpu/obs/_audit.py`. `parallel.dispatch.decide`
+picks one program invocation's route and prices it on both sides
+(t_host from the observed or bootstrap rates, t_device from the
+measured calibration of the card). This module keeps the receipts: each
+decision is recorded with its `WorkHint`, both predicted times, the
+chosen route and its reason (conf mode, a CPU session, a card); when
+the routed program's profiler span completes, its measured
+wall attaches to the decision. `report()` then surfaces calibration
+drift (measured / predicted per kind and route) and would-have-been-
+faster misroutes.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from collections import deque
+from dataclasses import dataclass
+from typing import List, Optional
+
+from . import _context
+from ._metrics import METRICS
+from ._recorder import RECORDER
+
+_MAX_RECORDS = 4096   # bounded like the event ring: audits must not leak
+_MAX_PENDING = 64     # per-thread decisions awaiting a measured span
+
+# a measured time must beat the other route's prediction by this factor
+# before the decision is flagged: predictions are models, not clocks
+_MISROUTE_MARGIN = 1.2
+
+_records: deque = deque(maxlen=_MAX_RECORDS)
+_lock = threading.Lock()
+_tls = threading.local()
+
+
+@dataclass
+class DispatchRecord:
+    ts: float                 # seconds (perf_counter domain)
+    kind: str                 # WorkHint.kind
+    flops: float
+    in_bytes: Optional[float]
+    out_bytes: float
+    route: str                # "host" | "device"
+    forced: bool              # preroute short-circuit (mode / CPU / local)
+    reason: str               # "model" | "forced-mode" | "no-tunnel" | ...
+    t_host: float             # predicted host seconds
+    t_device: float           # predicted device seconds
+    calibrated: bool = True   # t_device priced from MEASURED card consts
+    measured: Optional[float] = None   # wall of the routed program span
+    span: Optional[str] = None         # the span that supplied `measured`
+
+    @property
+    def predicted(self) -> float:
+        return self.t_device if self.route == "device" else self.t_host
+
+    @property
+    def other_predicted(self) -> float:
+        return self.t_host if self.route == "device" else self.t_device
+
+    @property
+    def drift(self) -> Optional[float]:
+        """measured / predicted for the chosen route (None if unmeasured
+        or the prediction is degenerate)."""
+        if self.measured is None or self.predicted <= 0:
+            return None
+        return self.measured / self.predicted
+
+    @property
+    def misroute(self) -> bool:
+        """The OTHER route's prediction beats what this one measured (with
+        margin) — the decision cost wall time it didn't have to. Never
+        flagged for a CPU session (reason "no-tunnel": there the
+        "device" IS the host, no alternative route existed), and a
+        host-route record whose device prediction was never calibrated
+        can't be judged (the rate-only model has no round-trip term)."""
+        if self.measured is None or self.reason == "no-tunnel":
+            return False
+        if self.route == "host" and not self.calibrated:
+            return False
+        return self.other_predicted * _MISROUTE_MARGIN < self.measured
+
+
+def _pending() -> deque:
+    q = getattr(_tls, "q", None)
+    if q is None:
+        q = _tls.q = deque(maxlen=_MAX_PENDING)
+    return q
+
+
+def record(hint, route: str, t_host: float, t_device: float,
+           forced: bool, reason: str = "model",
+           calibrated: bool = True) -> None:
+    """Log one dispatch decision (called by parallel.dispatch with the
+    recorder enabled; the caller holds no locks)."""
+    rec = DispatchRecord(
+        ts=time.perf_counter(), kind=hint.kind, flops=float(hint.flops),
+        in_bytes=hint.in_bytes, out_bytes=float(hint.out_bytes),
+        route=route, forced=forced, reason=reason,
+        t_host=float(t_host), t_device=float(t_device),
+        calibrated=calibrated)
+    with _lock:
+        _records.append(rec)
+    _pending().append(rec)
+    # the riding trace context (obs/_context.py) tags the decision, so a
+    # request's causal chain includes WHY its work went where it went
+    RECORDER.emit("dispatch", f"dispatch.{route}", args=_context.trace_args({
+        "kind": rec.kind, "flops": rec.flops, "route": route,
+        "forced": forced, "reason": reason,
+        "t_host": round(t_host, 6), "t_device": round(t_device, 6)}))
+    RECORDER.counter(f"dispatch.route_{route}")
+
+
+def expected_wall(route: str) -> Optional[float]:
+    """The PREDICTED wall of this thread's most recent unmeasured
+    decision for `route` — the stall watchdog's per-ticket expectation
+    (a dispatch is only "stalled" once it has broken its own
+    prediction by sml.obs.stallFactor x)."""
+    q = getattr(_tls, "q", None)
+    if not q:
+        return None
+    for rec in reversed(q):
+        if rec.route == route and rec.measured is None:
+            return rec.predicted
+    return None
+
+
+def attach(route: str, span_name: str, wall_s: float) -> None:
+    """Attach a routed program span's measured wall time to this thread's
+    most recent unmeasured decision for that route (decisions and their
+    program spans share a thread by construction — dispatch resolves
+    before the program span opens)."""
+    # measured walls of routed programs also stream into the metrics
+    # core's per-route latency histograms (quantiles without raw
+    # samples); the riding trace id becomes the bucket's exemplar
+    ctx = _context.current()
+    METRICS.observe(f"dispatch.{route}_ms", float(wall_s) * 1e3,
+                    exemplar=None if ctx is None else ctx.trace_id)
+    q = getattr(_tls, "q", None)
+    if not q:
+        return
+    for rec in reversed(q):
+        if rec.route == route and rec.measured is None:
+            rec.measured = float(wall_s)
+            rec.span = span_name
+            try:
+                q.remove(rec)
+            except ValueError:
+                pass
+            return
+
+
+def records() -> List[DispatchRecord]:
+    with _lock:
+        return list(_records)
+
+
+def reset() -> None:
+    with _lock:
+        _records.clear()
+    # other threads' pending queues invalidate lazily: their stale entries
+    # are no longer in _records, so an attach to one changes nothing seen
+    _tls.q = deque(maxlen=_MAX_PENDING)
+
+
+def _fmt_s(v: Optional[float]) -> str:
+    return f"{v:>11.5f}" if v is not None else f"{'-':>11}"
+
+
+def report() -> str:
+    """Per-decision table + per-(kind, route) calibration-drift summary."""
+    recs = records()
+    measured = [r for r in recs if r.measured is not None]
+    misroutes = [r for r in measured if r.misroute]
+    lines = [f"dispatch audit — {len(recs)} decisions, "
+             f"{len(measured)} measured, {len(misroutes)} misroutes"]
+    lines.append(f"{'kind':<10}{'route':>8}{'forced':>8}{'flops':>11}"
+                 f"{'pred_host':>11}{'pred_dev':>11}{'measured':>11}"
+                 f"{'drift':>10}  flags")
+    for r in recs:
+        drift = f"{r.drift:.3g}" if r.drift is not None else "-"
+        flags = []
+        if r.misroute:
+            other = "host" if r.route == "device" else "device"
+            flags.append(f"MISROUTE({other} predicted "
+                         f"{r.other_predicted:.4f}s)")
+        if r.forced and r.measured is not None \
+                and r.other_predicted < r.predicted:
+            flags.append("predicted-inversion")
+        lines.append(
+            f"{r.kind:<10}{r.route:>8}{str(r.forced):>8}{r.flops:>11.3g}"
+            f"{_fmt_s(r.t_host)}{_fmt_s(r.t_device)}"
+            f"{_fmt_s(r.measured)}{drift:>10}  {' '.join(flags)}")
+    # calibration drift: mean measured/predicted per (kind, route) — the
+    # number that says "re-measure your rates" when it walks away from 1
+    agg: dict = {}
+    for r in measured:
+        if r.drift is not None:
+            agg.setdefault((r.kind, r.route), []).append(r.drift)
+    if agg:
+        lines.append("---- calibration drift (measured/predicted) ----")
+        for (kind, route), ds in sorted(agg.items()):
+            mean = sum(ds) / len(ds)
+            lines.append(f"{kind:<10}{route:>8}  n={len(ds):<4} "
+                         f"mean={mean:.3g}  min={min(ds):.3g}  "
+                         f"max={max(ds):.3g}")
+    return "\n".join(lines)

@@ -1,0 +1,328 @@
+"""Streaming metrics core: log-bucketed latency and size histograms.
+
+The port's copy of `sml_tpu/obs/_metrics.py`. Values land in geometric
+buckets (8 per octave, so one bucket spans a ~9% relative range); only
+counts are kept, so p50 / p99 / rates fall out of a merge: O(buckets)
+memory regardless of traffic, snapshots of two processes or windows
+merge by adding counts, and a rolling ring of slots answers "over the
+last window" without a timestamp per sample.
+
+Precision contract: a histogram quantile lands within ONE BUCKET WIDTH
+(a factor of 2**(1/8), ~9%) of the exact sorted-sample quantile at the
+same rank.
+
+Hot-path contract (tests/test_torch_obs.py): recording into a disabled
+registry is a no-op behind a single attribute load: no lock, no
+allocation, no bucket math.
+"""
+
+from __future__ import annotations
+
+import math
+import threading
+import time
+from typing import Dict, List, Optional
+
+from ..conf import GLOBAL_CONF
+from ._recorder import RECORDER
+
+#: buckets per octave: bucket i covers [2**(i/8), 2**((i+1)/8)) — ~9.05%
+#: relative width, i.e. quantiles are exact to within one such factor
+BUCKETS_PER_OCTAVE = 8
+#: one bucket's relative width (the parity test's tolerance)
+BUCKET_GROWTH = 2.0 ** (1.0 / BUCKETS_PER_OCTAVE)
+#: values at or below zero clamp into the bucket of this floor (latencies
+#: and byte sizes are positive; a 0 observation is "under the floor")
+VALUE_FLOOR = 1e-9
+
+_SLOTS = 8  # rolling-window ring granularity (window/8 per slot)
+
+
+def _bucket_of(value: float) -> int:
+    v = value if value > VALUE_FLOOR else VALUE_FLOOR
+    return int(math.floor(math.log2(v) * BUCKETS_PER_OCTAVE))
+
+
+def _bucket_mid(idx: int) -> float:
+    """Geometric midpoint of bucket `idx` — the value a quantile reports."""
+    return 2.0 ** ((idx + 0.5) / BUCKETS_PER_OCTAVE)
+
+
+class LogHistogram:
+    """One metric's log-bucketed distribution: all-time bucket counts plus
+    a ring of `_SLOTS` time slots covering the rolling window."""
+
+    def __init__(self, window_s: Optional[float] = None):
+        self._lock = threading.Lock()
+        self._window_s = float(
+            window_s if window_s is not None
+            else GLOBAL_CONF.getInt("sml.obs.metricsWindowSec"))
+        self._slot_w = max(self._window_s / _SLOTS, 1e-3)
+        self._buckets: Dict[int, int] = {}
+        self._slots: List[list] = []   # [slot_start, {bucket: count}, count]
+        #: per-bucket EXEMPLARS: the last trace id observed into
+        #: each bucket, so a histogram quantile can name a LITERAL
+        #: request to go look at in the trace — the OpenMetrics exemplar
+        #: idea, one id per bucket, O(buckets) memory like the counts
+        self._exemplars: Dict[int, int] = {}
+        self._max_exemplar: Optional[int] = None
+        self.count = 0
+        self.sum = 0.0
+        self.max = 0.0
+        self.min = float("inf")
+        self._t0 = time.perf_counter()
+
+    # ------------------------------------------------------------ recording
+    def observe(self, value: float, exemplar: Optional[int] = None) -> None:
+        v = float(value)
+        idx = _bucket_of(v)
+        now = time.perf_counter()
+        with self._lock:
+            self._buckets[idx] = self._buckets.get(idx, 0) + 1
+            self.count += 1
+            self.sum += v
+            if exemplar is not None:
+                self._exemplars[idx] = exemplar
+            if v > self.max:
+                # a new max REPLACES the exemplar even when this
+                # observation carries none: worst() must never pair the
+                # new max with a stale (smaller) observation's trace
+                self.max = v
+                self._max_exemplar = exemplar
+            elif v == self.max and exemplar is not None:
+                self._max_exemplar = exemplar
+            if v < self.min:
+                self.min = v
+            slot = self._slots[-1] if self._slots else None
+            if slot is None or now - slot[0] >= self._slot_w:
+                self._slots.append([now, {idx: 1}, 1])
+                if len(self._slots) > _SLOTS:
+                    del self._slots[0]
+            else:
+                slot[1][idx] = slot[1].get(idx, 0) + 1
+                slot[2] += 1
+
+    def merge(self, other: "LogHistogram") -> None:
+        """Fold another histogram's all-time counts into this one (the
+        mergeable-snapshot property: per-process histograms sum into one
+        view by bucket addition)."""
+        with other._lock:
+            buckets = dict(other._buckets)
+            exemplars = dict(other._exemplars)
+            count, total = other.count, other.sum
+            mx, mn = other.max, other.min
+            mx_ex = other._max_exemplar
+        with self._lock:
+            for idx, c in buckets.items():
+                self._buckets[idx] = self._buckets.get(idx, 0) + c
+            for idx, ex in exemplars.items():
+                self._exemplars.setdefault(idx, ex)
+            self.count += count
+            self.sum += total
+            if mx > self.max:
+                # the larger max brings ITS exemplar (possibly None) —
+                # never keep an exemplar from a smaller observation
+                self._max_exemplar = mx_ex
+            self.max = max(self.max, mx)
+            self.min = min(self.min, mn)
+
+    # -------------------------------------------------------------- reading
+    def _merged(self, window_s: Optional[float]) -> Dict[int, int]:
+        if window_s is None:
+            return dict(self._buckets)
+        cutoff = time.perf_counter() - float(window_s)
+        out: Dict[int, int] = {}
+        for start, buckets, _n in self._slots:
+            if start >= cutoff:
+                for idx, c in buckets.items():
+                    out[idx] = out.get(idx, 0) + c
+        return out
+
+    def quantile(self, q: float,
+                 window_s: Optional[float] = None) -> float:
+        """The value at rank ceil(q*n) (1-based), reported as its bucket's
+        geometric midpoint — within one bucket width of the exact sorted
+        sample at that rank. 0.0 when empty."""
+        with self._lock:
+            buckets = self._merged(window_s)
+        n = sum(buckets.values())
+        if n == 0:
+            return 0.0
+        rank = min(max(int(math.ceil(q * n)), 1), n)
+        cum = 0
+        for idx in sorted(buckets):
+            cum += buckets[idx]
+            if cum >= rank:
+                return _bucket_mid(idx)
+        return _bucket_mid(max(buckets))
+
+    def total_count(self, window_s: Optional[float] = None) -> int:
+        with self._lock:
+            return sum(self._merged(window_s).values())
+
+    def count_above(self, threshold: float,
+                    window_s: Optional[float] = None) -> int:
+        """Observations in buckets whose midpoint exceeds `threshold` —
+        exact to one bucket width, like the quantiles."""
+        with self._lock:
+            buckets = self._merged(window_s)
+        return sum(c for idx, c in buckets.items()
+                   if _bucket_mid(idx) > threshold)
+
+    def worst(self) -> tuple:
+        """(max observed value, its exemplar trace id or None) — the
+        literal worst request the histogram saw, for the canary stats and
+        the SLO report to name."""
+        with self._lock:
+            return (self.max, self._max_exemplar)
+
+    def rate_per_s(self, window_s: Optional[float] = None) -> float:
+        """Observations per second over the rolling window (or since the
+        histogram was created when `window_s` is None)."""
+        now = time.perf_counter()
+        with self._lock:
+            if window_s is None:
+                span = now - self._t0
+                n = self.count
+            else:
+                cutoff = now - float(window_s)
+                live = [s for s in self._slots if s[0] >= cutoff]
+                n = sum(s[2] for s in live)
+                span = (now - min(s[0] for s in live)) if live else 0.0
+        return n / span if span > 0 else 0.0
+
+    def snapshot(self, window_s: Optional[float] = None) -> Dict[str, object]:
+        """Flat, JSON-able summary (plus raw buckets, so two snapshots
+        merge by bucket addition — `merge_snapshots`). EVERY field
+        covers the same range: all-time (window_s=None; count/mean/
+        min/max are exact from true sums) or the rolling window (all
+        fields derive from the window's buckets, so mean/min/max are
+        bucket-approximate like the quantiles)."""
+        with self._lock:
+            merged = self._merged(window_s)
+            if window_s is None:
+                count, total = self.count, self.sum
+                mean = (total / count) if count else 0.0
+                mx = self.max
+                mn = self.min if self.min != float("inf") else 0.0
+            else:
+                count = sum(merged.values())
+                mean = (sum(_bucket_mid(i) * c for i, c in merged.items())
+                        / count) if count else 0.0
+                mx = _bucket_mid(max(merged)) if merged else 0.0
+                mn = _bucket_mid(min(merged)) if merged else 0.0
+        out = {
+            "count": count,
+            "mean": mean,
+            "p50": self.quantile(0.50, window_s),
+            "p90": self.quantile(0.90, window_s),
+            "p99": self.quantile(0.99, window_s),
+            "max": mx,
+            "min": mn,
+            "rate_per_s": round(self.rate_per_s(window_s), 3),
+            "buckets": {str(k): v for k, v in merged.items()},
+        }
+        # exemplars are all-time (per-bucket "go look at THIS trace"
+        # pointers, not windowed statistics) — attached only to the
+        # all-time snapshot so every windowed field keeps covering the
+        # same range
+        if window_s is None:
+            with self._lock:
+                if self._exemplars:
+                    out["exemplars"] = {str(k): v for k, v in
+                                        self._exemplars.items()}
+                if self._max_exemplar is not None:
+                    out["max_exemplar"] = self._max_exemplar
+        return out
+
+
+def merge_snapshots(a: Dict[str, object], b: Dict[str, object]) -> Dict[str, object]:
+    """Combine two `LogHistogram.snapshot()` dicts (different processes,
+    shards, or time ranges) into one: counts/sums add, buckets add, and
+    quantiles recompute from the merged buckets."""
+    buckets: Dict[int, int] = {}
+    for snap in (a, b):
+        for k, c in snap.get("buckets", {}).items():
+            buckets[int(k)] = buckets.get(int(k), 0) + int(c)
+    n = sum(buckets.values())
+
+    def q(frac: float) -> float:
+        if n == 0:
+            return 0.0
+        rank = min(max(int(math.ceil(frac * n)), 1), n)
+        cum = 0
+        for idx in sorted(buckets):
+            cum += buckets[idx]
+            if cum >= rank:
+                return _bucket_mid(idx)
+        return 0.0
+
+    count = a["count"] + b["count"]
+    total = a["mean"] * a["count"] + b["mean"] * b["count"]
+    mins = [s["min"] for s in (a, b) if s["count"]]
+    out = {
+        "count": count,
+        "mean": (total / count) if count else 0.0,
+        "p50": q(0.50), "p90": q(0.90), "p99": q(0.99),
+        "max": max(a["max"], b["max"]),
+        "min": min(mins) if mins else 0.0,
+        "rate_per_s": 0.0,  # rates do not merge across unknown spans
+        "buckets": {str(k): v for k, v in buckets.items()},
+    }
+    exemplars = {**a.get("exemplars", {}), **b.get("exemplars", {})}
+    if exemplars:
+        out["exemplars"] = exemplars
+    winner = a if a["max"] >= b["max"] else b
+    if "max_exemplar" in winner:
+        out["max_exemplar"] = winner["max_exemplar"]
+    return out
+
+
+class MetricsRegistry:
+    """Named histograms behind the recorder's enabled flag: `observe` is
+    the ONLY write path and early-outs on `RECORDER.enabled` before any
+    lock or allocation (the recorder's disabled-overhead contract
+    extends to metrics)."""
+
+    def __init__(self) -> None:
+        self._rec = RECORDER
+        self._lock = threading.Lock()
+        self._hists: Dict[str, LogHistogram] = {}
+
+    def observe(self, name: str, value: float,
+                exemplar: Optional[int] = None) -> None:
+        """`exemplar` is an optional trace id (obs/_context.py) attached
+        to the observation's bucket — quantiles stay aggregate, but the
+        worst bucket can name a literal request to go look at."""
+        if not self._rec.enabled:
+            return
+        h = self._hists.get(name)
+        if h is None:
+            with self._lock:
+                h = self._hists.setdefault(name, LogHistogram())
+        h.observe(value, exemplar)
+
+    def worst(self, name: str) -> tuple:
+        """(max value, exemplar trace id or None) for one metric — (0.0,
+        None) when the histogram does not exist."""
+        h = self._hists.get(name)
+        return h.worst() if h is not None else (0.0, None)
+
+    def histogram(self, name: str) -> Optional[LogHistogram]:
+        return self._hists.get(name)
+
+    def names(self) -> List[str]:
+        with self._lock:
+            return sorted(self._hists)
+
+    def snapshot(self, window_s: Optional[float] = None) -> Dict[str, Dict]:
+        with self._lock:
+            hists = dict(self._hists)
+        return {name: h.snapshot(window_s) for name, h in sorted(hists.items())}
+
+    def reset(self) -> None:
+        with self._lock:
+            self._hists.clear()
+
+
+METRICS = MetricsRegistry()

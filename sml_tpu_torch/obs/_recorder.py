@@ -1,0 +1,268 @@
+"""The flight recorder's event bus: a bounded ring of typed events.
+
+The port's copy of `sml_tpu/obs/_recorder.py`. Every instrumentation
+site of the port (profiler spans and counters, dispatch decisions,
+serving flushes, prewarm replays, pipeline stages) funnels through ONE
+recorder, so the dispatch audit and the tests read the same record. The
+Spark-UI analogue: the event-log JSON the UI is rendered from.
+
+The JSONL sink writes the JAX package's header and record format
+(`event_record`), so a tool reads either package's sink.
+
+Hot-path contract (tests/test_torch_obs.py): with the recorder
+disabled every emit site early-outs on a single attribute load
+(`RECORDER.enabled` is a plain bool, kept current by conf on_set
+hooks): no lock, no allocation, no conf lookup.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import threading
+import time
+from collections import deque
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
+
+from ..conf import GLOBAL_CONF
+
+
+@dataclass
+class Event:
+    """One typed engine event.
+
+    kind: "span" | "counter" | "dispatch" | "serve" | "stall" |
+          "prewarm" | "infer" | "ingest". Counter events carry the post-increment cumulative
+          total (gauges carry the current value) in args["total"], so the
+          trace exporter can render counter tracks without replaying.
+    ts:   seconds since the recorder epoch (reset() re-zeros it).
+    dur:  seconds, spans only.
+    tid:  small dense per-thread id (stable within a recorder lifetime).
+    """
+    ts: float
+    kind: str
+    name: str
+    dur: Optional[float] = None
+    tid: int = 0
+    args: Dict[str, object] = field(default_factory=dict)
+
+
+def event_record(ev: Event) -> Dict[str, object]:
+    """ONE line shape for serialized events: the JSONL sink writes
+    exactly this (the JAX package's record), so a field added to `Event`
+    changes every consumer in one place."""
+    rec: Dict[str, object] = {"ts": round(ev.ts, 6), "kind": ev.kind,
+                              "name": ev.name, "tid": ev.tid}
+    if ev.dur is not None:
+        rec["dur"] = round(ev.dur, 6)
+    if ev.args:
+        rec["args"] = ev.args
+    return rec
+
+
+#: bound on the thread-id -> dense-tid map: serving's short-lived client
+#: threads would otherwise grow it forever. Past the bound, slots of DEAD
+#: threads are reclaimed and reused (a reused lane shows a new thread's
+#: events after the old thread's death — acceptable for a trace, fatal
+#: for a leak). 512 concurrent LIVE threads still grow — correctness
+#: over the bound — but the dead-thread leak is closed.
+_MAX_TIDS = 512
+
+
+class Recorder:
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._ring: deque = deque(
+            maxlen=max(int(GLOBAL_CONF.getInt("sml.obs.ringEvents")), 16))
+        self._totals: Dict[str, float] = {}
+        self._tids: Dict[int, int] = {}
+        self._free_tids: List[int] = []
+        self._next_tid = 0
+        self._epoch = time.perf_counter()
+        self._sink = None
+        self._sink_path: Optional[str] = None
+        self._sink_bytes = 0
+        self._sink_max = max(int(GLOBAL_CONF.getInt("sml.obs.sinkMaxBytes")),
+                             0)
+        self.dropped = 0
+        # plain attribute, NOT a property: the disabled-path cost per event
+        self.enabled: bool = GLOBAL_CONF.getBool("sml.obs.enabled")
+
+    # ------------------------------------------------------------- config
+    def reconfigure(self) -> None:
+        """Re-read the sml.obs.* conf (fired by on_set hooks)."""
+        with self._lock:
+            size = max(int(GLOBAL_CONF.getInt("sml.obs.ringEvents")), 16)
+            if size != self._ring.maxlen:
+                self._ring = deque(self._ring, maxlen=size)
+            path = str(GLOBAL_CONF.get("sml.obs.sinkPath") or "").strip()
+            if path != (self._sink_path or ""):
+                if self._sink is not None:
+                    try:
+                        self._sink.close()
+                    except OSError:
+                        pass
+                self._sink = None
+                self._sink_path = path or None
+            self._sink_max = max(
+                int(GLOBAL_CONF.getInt("sml.obs.sinkMaxBytes")), 0)
+        self.enabled = GLOBAL_CONF.getBool("sml.obs.enabled")
+
+    # --------------------------------------------------------------- emit
+    def emit(self, kind: str, name: str, dur: Optional[float] = None,
+             ts: Optional[float] = None,
+             args: Optional[Dict[str, object]] = None) -> None:
+        """Record one event. `ts` is an absolute perf_counter stamp (span
+        starts); None stamps now. Cheap no-op when disabled."""
+        if not self.enabled:
+            return
+        at = (ts if ts is not None else time.perf_counter()) - self._epoch
+        ident = threading.get_ident()
+        with self._lock:
+            # tid assignment under the lock: two threads' first emits must
+            # not share a lane (a counter read outside it is not unique)
+            tid = self._tids.get(ident)
+            if tid is None:
+                tid = self._claim_tid_locked(ident)
+            ev = Event(ts=max(at, 0.0), kind=kind, name=name, dur=dur,
+                       tid=tid, args=args or {})
+            if len(self._ring) == self._ring.maxlen:
+                self.dropped += 1
+            self._ring.append(ev)
+            sink = self._ensure_sink()
+            if sink is not None:  # under the lock: lines must not interleave
+                self._write_sink(ev, sink)
+
+    def _claim_tid_locked(self, ident: int) -> int:
+        """Dense lane id for a newly-seen thread. At the _MAX_TIDS bound,
+        dead threads' slots are reclaimed first (the serving layer's
+        short-lived client threads must not grow the map forever)."""
+        if len(self._tids) >= _MAX_TIDS and not self._free_tids:
+            live = {t.ident for t in threading.enumerate()}
+            for dead in [i for i in self._tids if i not in live]:
+                self._free_tids.append(self._tids.pop(dead))
+        if self._free_tids:
+            tid = self._free_tids.pop()
+        else:
+            tid = self._next_tid
+            self._next_tid += 1
+        self._tids[ident] = tid
+        return tid
+
+    def epoch_unix(self) -> float:
+        """Wall-clock (Unix epoch) instant of ts=0 on this recorder's
+        timeline — the absolute anchor postmortems need to correlate
+        events with external logs. Derived on demand from the live
+        offset between the epoch clock and the perf_counter domain
+        (both advance together), stamped into sink headers."""
+        from ..utils.profiler import now, wallclock
+        return wallclock() - (now() - self._epoch)
+
+    def counter(self, name: str, inc: float = 1.0) -> None:
+        """Cumulative counter: bumps the running total and records a
+        counter event carrying the new total."""
+        if not self.enabled:
+            return
+        with self._lock:
+            total = self._totals.get(name, 0.0) + inc
+            self._totals[name] = total
+        self.emit("counter", name, args={"total": total, "inc": inc})
+
+    def gauge(self, name: str, value: float) -> None:
+        """Point-in-time gauge (queued rows, the flush deadline): the
+        recorded total IS the current value, not a sum."""
+        if not self.enabled:
+            return
+        with self._lock:
+            self._totals[name] = float(value)
+        self.emit("counter", name, args={"total": float(value),
+                                         "gauge": True})
+
+    def span(self, name: str, t0: float, dur: float, **meta) -> None:
+        """A completed span: `t0` is its absolute perf_counter start."""
+        if not self.enabled:
+            return
+        self.emit("span", name, dur=dur, ts=t0,
+                  args={k: v for k, v in meta.items() if v is not None})
+
+    # --------------------------------------------------------------- sink
+    def _sink_header_locked(self, sink) -> None:
+        """Anchor line stamped whenever the sink (re)opens: an
+        event-shaped record carrying the wall-clock epoch, so a
+        postmortem reader can place the relative timeline against
+        external logs. Event-shaped (kind "meta") so line-oriented
+        consumers need no special case."""
+        try:
+            hdr = {"ts": 0.0, "kind": "meta", "name": "obs.header",
+                   "args": {"version": 1,
+                            "epoch_unix": round(self.epoch_unix(), 6),
+                            "pid": os.getpid()}}
+            line = json.dumps(hdr) + "\n"
+            sink.write(line)
+            sink.flush()
+            self._sink_bytes += len(line)
+        except (OSError, ValueError):
+            pass  # a header failure must not take the sink down
+
+    def _ensure_sink(self):
+        if self._sink is None and self._sink_path:
+            try:
+                self._sink = open(self._sink_path, "a")
+                self._sink_bytes = os.path.getsize(self._sink_path)
+                self._sink_header_locked(self._sink)
+            except OSError:
+                self._sink_path = None
+        return self._sink
+
+    def _write_sink(self, ev: Event, sink) -> None:
+        try:
+            line = json.dumps(event_record(ev), default=str) + "\n"
+            sink.write(line)
+            sink.flush()
+            self._sink_bytes += len(line)
+            # single rotation (sml.obs.sinkMaxBytes): the live file rolls
+            # to <path>.1 (replacing the previous roll) and reopens fresh,
+            # so the sink holds at most ~2x the bound instead of growing
+            # without limit. Runs under the emit lock, after a COMPLETE
+            # line: rotation can never split a record.
+            if self._sink_max and self._sink_bytes >= self._sink_max:
+                sink.close()
+                self._sink = None
+                os.replace(self._sink_path, self._sink_path + ".1")
+                self._sink = open(self._sink_path, "a")
+                self._sink_bytes = 0
+                self._sink_header_locked(self._sink)
+        except (OSError, ValueError):
+            self._sink_path = None  # a dead sink must not take fits down
+            self._sink = None
+
+    # ------------------------------------------------------------ reading
+    def events(self) -> List[Event]:
+        with self._lock:
+            return list(self._ring)
+
+    def counters(self) -> Dict[str, float]:
+        with self._lock:
+            return dict(self._totals)
+
+    def reset(self) -> None:
+        """Drop all events/totals and re-zero the epoch (enabled state and
+        sink configuration survive). An OPEN sink gets a fresh header
+        line: its previous epoch_unix anchor no longer describes the
+        re-zeroed timeline, and a postmortem reader re-anchors at the
+        newest header above each line."""
+        with self._lock:
+            self._ring.clear()
+            self._totals.clear()
+            self.dropped = 0
+            self._epoch = time.perf_counter()
+            if self._sink is not None:
+                self._sink_header_locked(self._sink)
+
+
+RECORDER = Recorder()
+
+for _key in ("sml.obs.enabled", "sml.obs.ringEvents", "sml.obs.sinkPath",
+             "sml.obs.sinkMaxBytes"):
+    GLOBAL_CONF.on_set(_key, RECORDER.reconfigure)

@@ -1,0 +1,253 @@
+"""Stall watchdog: detect in-flight work that stopped making progress.
+
+The port's copy of `sml_tpu/obs/_watchdog.py`. The recorder and the
+audit describe operations that FINISHED; this module is the in-flight
+half:
+
+- every watched operation registers a TICKET (`open`/`close`, or the
+  `watch(...)` context manager): routed program spans (opened by
+  `utils.profiler.Profiler.span` for spans carrying a dispatch `route`,
+  with the dispatch audit's predicted wall as the expected time),
+  micro-batch flushes (`serving/_batcher.py`), pipeline stages
+  (`parallel/pipeline.py`) and prewarm replays (`parallel/prewarm.py`);
+- a daemon thread, started when the first ticket opens, flags any ticket
+  whose elapsed time exceeds `sml.obs.stallFactor x` its expected time,
+  floored at `sml.obs.stallMillis`: predicted-slow work is NOT a stall,
+  only work that broke its own prediction is;
+- a flagged ticket emits a `stall.detected` event carrying the ticket
+  (name, kind, elapsed, expected, trace id) and an ALL-THREAD stack
+  snapshot (`sys._current_frames`), taken while the hang is live;
+  `stall.resolved` closes the story if the operation completes;
+- `report()` gives the in-flight table, and `on_stall` hooks run on the
+  first flag of each ticket.
+
+Hot-path contract (tests/test_torch_obs.py): with the recorder disabled,
+`open()`/`watch()` are no-ops behind one attribute load: no lock, no
+ticket, no thread.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import itertools
+import sys
+import threading
+import time
+import traceback
+from typing import Callable, Dict, Iterator, List, Optional
+
+from ..conf import GLOBAL_CONF, _register
+from ._recorder import RECORDER
+
+_register("sml.obs.stallFactor", 8.0, float,
+          "Stall watchdog multiplier: an in-flight ticket (dispatch "
+          "launch, micro-batch flush, pipeline stage, prewarm replay) "
+          "is flagged once its elapsed time exceeds this factor times "
+          "its audit-predicted wall (floored at sml.obs.stallMillis), "
+          "so predicted-slow work never false-positives")
+_register("sml.obs.stallMillis", 5000, int,
+          "Stall watchdog floor (ms): no ticket is flagged before this "
+          "much elapsed time regardless of its prediction")
+
+#: stack-snapshot bound: frames per thread kept in a stall event (the
+#: ring and the sink both carry the args verbatim)
+_MAX_FRAMES = 24
+_MAX_STACK_THREADS = 32
+#: tickets listed in report() (the health surface is a glance, not a dump)
+_MAX_REPORT_TICKETS = 32
+
+_POLL_IDLE_S = 0.25
+_POLL_MIN_S = 0.01
+
+
+def all_thread_stacks(limit: int = _MAX_STACK_THREADS) -> Dict[str, List[str]]:
+    """Formatted stacks of every live thread, keyed by thread name —
+    for the stall events."""
+    names = {t.ident: t.name for t in threading.enumerate()}
+    out: Dict[str, List[str]] = {}
+    for ident, frame in list(sys._current_frames().items()):
+        if len(out) >= limit:
+            break
+        lines: List[str] = []
+        for ln in traceback.format_stack(frame)[-_MAX_FRAMES:]:
+            lines.extend(ln.rstrip().splitlines())
+        out[names.get(ident, f"thread-{ident}")] = lines
+    return out
+
+
+class Watchdog:
+    """In-flight ticket registry + the daemon flagger thread."""
+
+    def __init__(self) -> None:
+        self._rec = RECORDER
+        self._lock = threading.Lock()
+        self._tickets: Dict[int, dict] = {}
+        self._seq = itertools.count(1)
+        self._thread: Optional[threading.Thread] = None
+        self._wake = threading.Event()
+        self._on_stall: List[Callable[[dict], None]] = []
+        self._stop: Optional[threading.Event] = None
+        self.flagged_total = 0
+
+    # ------------------------------------------------------------- tickets
+    def open(self, kind: str, name: str, *,
+             expected_s: Optional[float] = None,
+             trace: Optional[object] = None,
+             thread: Optional[str] = None) -> Optional[int]:
+        """Register one in-flight operation; returns the ticket id (None
+        with the recorder disabled — the one-attribute-load path).
+        `expected_s` is the audit-predicted wall for this operation (None
+        = no prediction; only the stallMillis floor applies). `trace`
+        accepts a TraceContext or a raw trace id."""
+        if not self._rec.enabled:
+            return None
+        factor = max(float(GLOBAL_CONF.get("sml.obs.stallFactor")), 1.0)
+        floor = max(int(GLOBAL_CONF.getInt("sml.obs.stallMillis")), 1) / 1e3
+        threshold = max(factor * expected_s, floor) if expected_s \
+            else floor
+        trace_id = getattr(trace, "trace_id", trace)
+        ticket = {
+            "id": next(self._seq),
+            "kind": kind,
+            "name": name,
+            "t0": time.perf_counter(),
+            "expected_s": expected_s,
+            "threshold_s": threshold,
+            "trace": trace_id,
+            "thread": thread or threading.current_thread().name,
+            "flagged": False,
+        }
+        with self._lock:
+            self._tickets[ticket["id"]] = ticket
+            self._ensure_thread_locked()
+        # deliberately NO wake here: the idle poll (<= 0.25s) re-scans
+        # soon enough for thresholds floored at stallMillis, and a
+        # per-open cross-thread Event.set() would put a daemon wakeup +
+        # full ticket scan on every dispatch/flush of the enabled path
+        return ticket["id"]
+
+    def close(self, ticket_id: Optional[int]) -> None:
+        """Retire a ticket. A ticket that was flagged while in flight
+        lands a `stall.resolved` event with its final wall — a stall that
+        eventually finished is a latency bug, not a hang."""
+        if ticket_id is None:
+            return
+        with self._lock:
+            ticket = self._tickets.pop(ticket_id, None)
+        if ticket is not None and ticket["flagged"]:
+            self._rec.emit("stall", "stall.resolved", args={
+                "name": ticket["name"], "kind": ticket["kind"],
+                "wall_s": round(time.perf_counter() - ticket["t0"], 4),
+                "threshold_s": round(ticket["threshold_s"], 4),
+                "trace": ticket["trace"]})
+
+    @contextlib.contextmanager
+    def watch(self, kind: str, name: str, *,
+              expected_s: Optional[float] = None,
+              trace: Optional[object] = None) -> Iterator[Optional[int]]:
+        ticket = self.open(kind, name, expected_s=expected_s, trace=trace)
+        try:
+            yield ticket
+        finally:
+            self.close(ticket)
+
+    # ------------------------------------------------------------- flagger
+    def _ensure_thread_locked(self) -> None:
+        if self._thread is None or not self._thread.is_alive():
+            self._stop = threading.Event()
+            self._thread = threading.Thread(
+                target=self._loop, args=(self._stop,),
+                name="sml-obs-watchdog", daemon=True)
+            self._thread.start()
+
+    def _poll_s(self) -> float:
+        with self._lock:
+            if not self._tickets:
+                return _POLL_IDLE_S
+            head = min(t["threshold_s"] for t in self._tickets.values())
+        return min(max(head / 4.0, _POLL_MIN_S), _POLL_IDLE_S)
+
+    def _loop(self, stop: threading.Event) -> None:
+        while True:
+            self._wake.wait(self._poll_s())
+            self._wake.clear()
+            if stop.is_set():
+                return
+            now = time.perf_counter()
+            stalled: List[dict] = []
+            with self._lock:
+                for t in self._tickets.values():
+                    if not t["flagged"] \
+                            and now - t["t0"] > t["threshold_s"]:
+                        t["flagged"] = True
+                        self.flagged_total += 1
+                        stalled.append(dict(t))
+            for t in stalled:
+                # the snapshot is taken while the hang is LIVE — the
+                # whole point; outside the lock, stacks can be slow
+                self._rec.emit("stall", "stall.detected", args={
+                    "name": t["name"], "kind": t["kind"],
+                    "elapsed_s": round(now - t["t0"], 4),
+                    "expected_s": t["expected_s"],
+                    "threshold_s": round(t["threshold_s"], 4),
+                    "trace": t["trace"], "thread": t["thread"],
+                    "stacks": all_thread_stacks()})
+                self._rec.counter("stall.flagged")
+                for hook in list(self._on_stall):
+                    try:
+                        hook(t)
+                    except Exception:
+                        pass  # a broken hook must not kill the flagger
+
+    # ------------------------------------------------------------- surface
+    def on_stall(self, hook: Callable[[dict], None]) -> None:
+        """Register a callback fired (from the watchdog thread) the first
+        time each ticket is flagged."""
+        self._on_stall.append(hook)
+
+    def inflight(self) -> List[dict]:
+        """Current in-flight tickets with live elapsed times (sorted
+        oldest first)."""
+        now = time.perf_counter()
+        with self._lock:
+            tickets = [dict(t) for t in self._tickets.values()]
+        tickets.sort(key=lambda t: t["t0"])
+        for t in tickets:
+            t["elapsed_s"] = round(now - t.pop("t0"), 4)
+            t["expected_s"] = (round(t["expected_s"], 4)
+                               if t["expected_s"] else None)
+            t["threshold_s"] = round(t["threshold_s"], 4)
+        return tickets
+
+    def report(self) -> Dict[str, object]:
+        """The in-flight table: open and stalled tickets, the flagged
+        total, and the oldest tickets."""
+        tickets = self.inflight()
+        return {
+            "open": len(tickets),
+            "stalled": sum(1 for t in tickets if t["flagged"]),
+            "flagged_total": self.flagged_total,
+            "tickets": tickets[:_MAX_REPORT_TICKETS],
+        }
+
+    def shutdown(self, timeout: float = 5.0) -> None:
+        """Stop and join the flagger thread (the next `open` starts a new
+        one); open tickets stay registered."""
+        with self._lock:
+            thread, self._thread = self._thread, None
+            if self._stop is not None:
+                self._stop.set()
+        self._wake.set()
+        if thread is not None:
+            thread.join(timeout)
+
+    def reset(self) -> None:
+        """Drop the flagged-total statistic (open tickets are LIVE state
+        — they describe real in-flight work and are never dropped). The
+        flagger thread increments `flagged_total` under `_lock`; an
+        unguarded reset racing it would resurrect the dropped count."""
+        with self._lock:
+            self.flagged_total = 0
+
+
+WATCHDOG = Watchdog()

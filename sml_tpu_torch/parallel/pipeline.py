@@ -11,11 +11,13 @@ while chunk i's dispatch (an asynchronous copy to the card) is still in
 flight, and drain waits for each in order.
 
 Every dispatch and drain counts `<family>.dispatch` / `<family>.drain`
-in the port's `PROFILER`, and appends `(kind, i)` to `order` when the
-caller passes a list: the order in which chunk i+1 dispatches before
-chunk i drains is the overlap's proof. (The JAX package records these
-as flight-recorder events and holds a stall-watchdog ticket per item;
-both wait for the port's obs.)
+in the port's `PROFILER`, lands a `<family>.dispatch` /
+`<family>.drain` flight-recorder event (`obs.note_pipeline`, with the
+recorder on), and appends `(kind, i)` to `order` when the caller passes
+a list: the order in which chunk i+1 dispatches before chunk i drains
+is the overlap's proof. Every item in flight holds a stall-watchdog
+ticket (`obs._watchdog`) from its dispatch to its drain, so a wedged
+copy is flagged with stacks instead of hanging silently.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from typing import Callable, Iterable, Iterator, Optional
 
 def prefetch_pipeline(items: Iterable, prep: Callable, dispatch: Callable,
                       drain: Callable, *, depth: int, workers: int = 4,
-                      family: str = "infer",
+                      family: str = "infer", index_key: str = "batch",
                       order: Optional[list] = None) -> Iterator:
     """Run `items` through prep -> dispatch -> drain with `depth` items
     dispatched ahead of the drain point; yields the drains' results.
@@ -41,9 +43,14 @@ def prefetch_pipeline(items: Iterable, prep: Callable, dispatch: Callable,
     - `depth` <= 1 is synchronous: each item drains before the next
       dispatches.
 
+    Events and tickets use `family` (`<family>.dispatch` /
+    `<family>.drain` with args {index_key: i}).
+
     A caller that stops early, or a dispatch or drain that raises, still
     drains every item in flight (errors of those drains are dropped:
     they only release resources)."""
+    from ..obs import note_pipeline
+    from ..obs._watchdog import WATCHDOG
     from ..utils.profiler import PROFILER
 
     depth = max(int(depth), 1)
@@ -51,12 +58,16 @@ def prefetch_pipeline(items: Iterable, prep: Callable, dispatch: Callable,
 
     def note(kind: str, i: int) -> None:
         PROFILER.count(f"{family}.{kind}")
+        note_pipeline(family, kind, index_key, i)
         if order is not None:
             order.append((kind, i))
 
     def drain_one():
-        i, handle = pending.popleft()
-        out = drain(i, handle)
+        i, handle, ticket = pending.popleft()
+        try:
+            out = drain(i, handle)
+        finally:
+            WATCHDOG.close(ticket)
         note("drain", i)
         return out
 
@@ -79,9 +90,14 @@ def prefetch_pipeline(items: Iterable, prep: Callable, dispatch: Callable,
             while preps:
                 prepped = preps.popleft().result()
                 submit_next()
-                handle = dispatch(i, prepped)
+                ticket = WATCHDOG.open(family, f"{family}[{i}]")
+                try:
+                    handle = dispatch(i, prepped)
+                except BaseException:
+                    WATCHDOG.close(ticket)
+                    raise
                 note("dispatch", i)
-                pending.append((i, handle))
+                pending.append((i, handle, ticket))
                 i += 1
                 if len(pending) >= depth:
                     yield drain_one()
@@ -89,7 +105,8 @@ def prefetch_pipeline(items: Iterable, prep: Callable, dispatch: Callable,
                 yield drain_one()
         finally:
             while pending:
-                j, handle = pending.popleft()
+                j, handle, ticket = pending.popleft()
+                WATCHDOG.close(ticket)
                 try:
                     drain(j, handle)
                 except Exception:

@@ -9,19 +9,21 @@ in flight finish on the old version, the next batch scores on the new
 one, and nothing polls.
 
 Warm scorers come from the multi-model `ModelCache`; requests ride the
-`MicroBatcher` (coalescing and admission control; the port's batcher
-sheds on overflow). Canary mode (`sml.serve.canaryFraction` > 0)
-mirrors a paced fraction of traffic to the Staging version off the
-request path, on one shadow worker, and keeps prediction-divergence
-stats.
+`MicroBatcher` (coalescing, admission control, and the host route
+`_score_host` for the queue's overflow when `sml.serve.hostFallback` is
+on). Canary mode
+(`sml.serve.canaryFraction` > 0) mirrors a paced fraction of traffic to
+the Staging version off the request path, on one shadow worker, on the
+Staging scorer's HOST route (`score_block_host`: the shadow must not
+contend for the card's queue), and keeps prediction-divergence stats:
+running sums, and the `serve.canary_abs_diff` histogram with each
+request's trace id as its exemplar (filled with the recorder on).
 
-The one designed difference from the JAX package: its shadow scores on
-the Staging version's host route; the port has no host route (ROADMAP
-item 5), and its plain traversal never runs on the main path while a
-card is present. So the shadow calls the Staging scorer's `score_block`
-on the endpoint's device, under a CUDA stream of the shadow worker's own
-(the kernels launch on the current stream), so it queues behind no
-primary batch on the stream the batcher uses.
+With the recorder on, a hot swap or a pin lands a `serve.swap` event.
+At construction the endpoint starts the opt-in prewarm replay
+(`parallel.prewarm.maybe_prewarm`, `sml.prewarm.enabled`);
+`health_report()["prewarm"]` says how it went (a background replay that
+failed keeps its error there).
 """
 
 from __future__ import annotations
@@ -32,17 +34,19 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Optional
 
 import numpy as np
-import torch
 
 from ..conf import GLOBAL_CONF
 from ..device import resolve_device, session_device
+from ..obs import _context as _trace
+from ..obs._metrics import METRICS as _METRICS
+from ..obs._recorder import RECORDER as _OBS
 from ..tracking import _store
 from ..utils.profiler import PROFILER
 from ._batcher import MicroBatcher, ScoreFuture
 from ._cache import MODEL_CACHE, ModelCache
 
 
-def _load_scorer(name: str, version, device: torch.device):
+def _load_scorer(name: str, version, device):
     """DeviceScorer on `device` over a registry version's native
     (spark-flavor) model payload: the load the cache amortizes."""
     from ..ml.base import load
@@ -66,8 +70,9 @@ class ServingEndpoint:
 
     `score(X)` blocks for the prediction; `submit(X)` returns a
     `ScoreFuture`. Batcher knobs (`max_batch_rows`, `flush_micros`,
-    `queue_rows`, `timeout_millis`, `start`) pass through to
-    `MicroBatcher`; defaults come from the `sml.serve.*` conf keys.
+    `queue_rows`, `timeout_millis`, `host_fallback`, `flush_auto`,
+    `queue`, `start`) pass through to `MicroBatcher`; defaults come from
+    the `sml.serve.*` conf keys.
     `device` defaults to the session's `sml.device` (the card; without
     one the endpoint raises): pass device="cpu" to serve with the plain
     PyTorch versions."""
@@ -94,14 +99,19 @@ class ServingEndpoint:
         self._shadow_inflight = 0
         self._canary = _fresh_canary()
         self._shadow_pool: Optional[ThreadPoolExecutor] = None
-        # written and read by the one shadow worker only
-        self._shadow_stream = None
         self._closed = False
+        # opt-in manifest replay (sml.prewarm.enabled), once per process
+        # and card, in the background: the first requests find the
+        # kernels loaded and their first launches made
+        from ..parallel import prewarm as _prewarm
+        self.prewarm_thread = _prewarm.maybe_prewarm(device=self.device)
         self._refresh(initial=True)
         self._listener = self._on_transition if auto_update else None
         if self._listener is not None:
             _store.on_stage_transition(self._listener)
-        self._batcher = MicroBatcher(self._score_device, **batcher_kwargs)
+        self._batcher = MicroBatcher(self._score_device,
+                                     host_score=self._score_host,
+                                     **batcher_kwargs)
 
     # ----------------------------------------------------------- resolution
     def _cache_key(self, version) -> str:
@@ -129,9 +139,13 @@ class ServingEndpoint:
         with self._swap_lock:
             if self._pinned is None and version != self._version:
                 self._scorer = self._warm(version)
-                self._version = version
+                old, self._version = self._version, version
                 if not initial:
                     PROFILER.count("serve.hot_swap")
+                    if _OBS.enabled:
+                        _OBS.emit("serve", "serve.swap", args={
+                            "name": self._name, "stage": self._stage,
+                            "from": old, "to": version})
         if self._stage != "Staging":
             smeta = _store.resolve_stage(self._name, "Staging")
             with self._swap_lock:
@@ -173,8 +187,12 @@ class ServingEndpoint:
             self._pinned = version
             if version != self._version:
                 self._scorer = self._warm(version)
-                self._version = version
+                old, self._version = self._version, version
                 PROFILER.count("serve.hot_swap")
+                if _OBS.enabled:
+                    _OBS.emit("serve", "serve.swap", args={
+                        "name": self._name, "stage": self._stage,
+                        "from": old, "to": version, "pinned": True})
 
     def unpin(self) -> None:
         """Drop the pin and resolve the stage alias again."""
@@ -191,6 +209,9 @@ class ServingEndpoint:
     # -------------------------------------------------------------- scoring
     def _score_device(self, X: np.ndarray) -> np.ndarray:
         return self._scorer.score_block(X)
+
+    def _score_host(self, X: np.ndarray) -> np.ndarray:
+        return self._scorer.score_block_host(X)
 
     def submit(self, X: np.ndarray) -> ScoreFuture:
         fut = self._batcher.submit(X)
@@ -228,19 +249,12 @@ class ServingEndpoint:
             pool = self._shadow_pool
         pool.submit(self._mirror, X, fut)
 
-    def _score_shadow(self, scorer, X: np.ndarray) -> np.ndarray:
-        """The Staging scorer's `score_block` on its device; on the card
-        under the shadow worker's own stream."""
-        if scorer.device.type != "cuda":
-            return scorer.score_block(X)
-        if self._shadow_stream is None:
-            self._shadow_stream = torch.cuda.Stream(device=scorer.device)
-        with torch.cuda.stream(self._shadow_stream):
-            return scorer.score_block(X)
-
     def _mirror(self, X: np.ndarray, fut: ScoreFuture) -> None:
-        """Score the mirrored request on the Staging version and fold the
-        divergence into the canary stats. It never touches the primary's
+        """Score the mirrored request on the Staging version's HOST route
+        and fold the divergence into the canary stats: the running sums,
+        and the `serve.canary_abs_diff` histogram with the request's
+        trace id as the exemplar, so `canary_stats()` can name the
+        literal worst-diverging request. It never touches the primary's
         result and never raises into the serving path, but a failed
         mirror COUNTS (`serve.canary_error` and the stats' `errors`): a
         dead canary reporting zero divergence is the silent failure this
@@ -250,12 +264,15 @@ class ServingEndpoint:
             scorer = self._staging_scorer
             if scorer is None:
                 return
-            shadow = np.asarray(self._score_shadow(scorer, X),
+            shadow = np.asarray(scorer.score_block_host(X),
                                 dtype=np.float64)
             diff = np.abs(shadow - primary)
             # an empty request mirrors with nothing to differ
             worst = float(diff.max()) if diff.size else 0.0
             PROFILER.count("serve.canary_mirrored")
+            if diff.size:
+                _METRICS.observe("serve.canary_abs_diff", worst,
+                                 exemplar=fut.trace_id)
             with self._canary_lock:
                 self._canary["mirrored"] += 1
                 self._canary["rows"] += int(diff.size)
@@ -273,33 +290,51 @@ class ServingEndpoint:
     def canary_stats(self) -> Dict[str, float]:
         """The running divergence of the mirrored requests: mirrored,
         rows, sum / max / mean of |staging - primary|, errors, and the
-        Staging version."""
+        Staging version; with the `serve.canary_abs_diff` histogram
+        (filled while the recorder is on) also its windowed p50 and p99
+        of each request's largest |diff|, and the worst one with its
+        request's trace id."""
         with self._canary_lock:
             out = dict(self._canary)
         out["staging_version"] = self._staging_version
         out["mean_abs_diff"] = (out["sum_abs_diff"] / out["rows"]
                                 if out["rows"] else 0.0)
+        hist = _METRICS.histogram("serve.canary_abs_diff")
+        if hist is not None:
+            window = float(GLOBAL_CONF.getInt("sml.obs.metricsWindowSec"))
+            out["abs_diff_p50"] = hist.quantile(0.50, window)
+            out["abs_diff_p99"] = hist.quantile(0.99, window)
+            worst, tid = hist.worst()
+            out["worst_abs_diff"] = float(worst)
+            out["worst_trace"] = _trace.hex_id(tid)
         return out
 
     # ---------------------------------------------------------------- health
     def health_report(self) -> Dict[str, object]:
         """The endpoint's own live state: resolved version, pin, queue
-        depth (`queued_rows`: rows queued or in flight, the port batcher's
-        admission measure), canary divergence, and the traversal plan of
-        this replica's last launch on the card."""
+        depth (`queued_rows`: rows queued, not yet flushed), canary
+        divergence, and the traversal plan of this replica's last launch
+        on the card; once a prewarm replay has started in the process,
+        its state, stats and error (`prewarm.status()`) under
+        "prewarm"."""
         scorer = self._scorer
-        return {"endpoint": {
+        report = {"endpoint": {
             "name": self._name,
             "stage": self._stage,
             "version": self._version,
             "pinned": self._pinned,
             "staging_version": self._staging_version,
-            "queued_rows": self._batcher.open_rows(),
+            "queued_rows": self._batcher.queued_rows(),
             "max_batch_rows": self._batcher.max_batch_rows,
             "closed": self._closed,
             "canary": self.canary_stats(),
             "kernel": scorer.kernel_spec(),
         }}
+        from ..parallel import prewarm as _prewarm
+        replay = _prewarm.status()
+        if replay["state"] != "idle":
+            report["prewarm"] = replay
+        return report
 
     # ------------------------------------------------------------ lifecycle
     def close(self) -> None:

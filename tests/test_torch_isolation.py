@@ -1,7 +1,8 @@
 """The port stands alone: importing every module of `sml_tpu_torch`, and
 running a DataFrame pipeline, a CrossValidator, `fmin`, the time-series
 models, the frame's SQL and CSV paths, the registry, a `ServingEndpoint`
-and AutoML with the session's device set to the CPU, loads neither JAX,
+and AutoML, the host route, the batcher's host fallback, the dispatcher
+and prewarm with the session's device set to the CPU, loads neither JAX,
 the JAX package, pandas nor pyarrow; and without a CUDA device the entry
 points (scoring, fitting, a DataFrame fit, transform and evaluate, a
 CrossValidator's fit, `fmin`'s placed trials, the chunked fits,
@@ -127,6 +128,61 @@ def test_the_registry_endpoint_and_automl_modules_are_among_the_imported():
     for name in ("tracking", "tracking._store", "serving._endpoint",
                  "automl"):
         assert f"sml_tpu_torch.{name}'" in proc.stdout
+
+
+def test_the_dispatcher_obs_and_host_route_modules_are_among_the_imported():
+    proc = _run(IMPORT_ALL.replace("print(len(names), bad)",
+                                   "print(sorted(names))"))
+    assert proc.returncode == 0, proc.stderr
+    for name in ("obs", "obs._recorder", "obs._context", "obs._metrics",
+                 "obs._watchdog", "obs._audit", "parallel.dispatch",
+                 "parallel.prewarm", "native.host_traverse"):
+        assert f"sml_tpu_torch.{name}'" in proc.stdout
+
+
+HOST_ROUTE = """
+import os, sys, tempfile
+import numpy as np
+from sml_tpu_torch import GLOBAL_CONF, obs
+from sml_tpu_torch.ml.inference import DeviceScorer
+from sml_tpu_torch.ml.regression import DecisionTreeRegressor
+from sml_tpu_torch.parallel import dispatch, prewarm
+from sml_tpu_torch.serving import MicroBatcher
+GLOBAL_CONF.set("sml.compile.cacheDir", tempfile.mkdtemp())
+GLOBAL_CONF.set("sml.obs.enabled", True)
+rng = np.random.default_rng(0)
+X = rng.normal(size=(300, 3))
+model = DecisionTreeRegressor(maxDepth=3).fit(X, X[:, 0], device="cpu")
+scorer = DeviceScorer(model, device="cpu")
+print("host", np.array_equal(scorer.score_block_host(X),
+                             scorer.score_block(X)))
+with MicroBatcher(scorer.score_block, host_score=scorer.score_block_host,
+                  host_fallback=True, queue_rows=4, start=False) as b:
+    futs = [b.submit(X[i:i + 3]) for i in range(0, 12, 3)]
+    b.start()
+    print("served", all(np.array_equal(f.result(30),
+                                       scorer.score_block(X[i * 3:i * 3 + 3]))
+                        for i, f in enumerate(futs)))
+print("route", dispatch.decide(dispatch.WorkHint(1e9), device="cpu"))
+print("prewarm", prewarm.prewarm(device="cpu")["programs"])
+print("audit", len(obs.audit_records()) > 0)
+try:
+    DeviceScorer(model)
+except RuntimeError as e:
+    print("scorer raised:", str(e)[:14])
+bad = sorted(k for k in sys.modules
+             if k.split(".")[0] in ("jax", "jaxlib", "sml_tpu", "pandas",
+                                    "pyarrow"))
+print(bad)
+"""
+
+
+def test_host_route_batcher_fallback_and_prewarm_load_no_jax():
+    proc = _run(HOST_ROUTE)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines() == [
+        "host True", "served True", "route device",
+        "prewarm 0", "audit True", "scorer raised: no CUDA device", "[]"]
 
 
 REGISTRY = """

@@ -5,8 +5,9 @@ package's tests/test_serving.py).
 Concurrent requests coalesce into few batches whose results equal
 unbatched scoring exactly (each row's traversal is independent of its
 batch mates); a lone request is served at its flush deadline; an
-over-capacity burst sheds without deadlock; stale requests shed at
-flush; the model cache evicts by bytes.
+over-capacity burst with no host scorer sheds without deadlock, and the
+dispatcher's queue (`DEVICE_QUEUE`) is empty again after it; stale
+requests shed at flush; the model cache evicts by bytes.
 """
 
 import threading
@@ -18,6 +19,7 @@ import pytest
 
 from sml_tpu_torch.ml import _tree_models as ptm
 from sml_tpu_torch.ml.inference import DeviceScorer
+from sml_tpu_torch.parallel.dispatch import DEVICE_QUEUE
 from sml_tpu_torch.serving import (MicroBatcher, ModelCache, RequestShed,
                                    RequestTimeout)
 from sml_tpu_torch.utils.profiler import PROFILER
@@ -127,6 +129,9 @@ def test_over_capacity_burst_sheds_without_deadlock(scorers):
     X = _rows(1)
     shed0 = _counter("serve.shed")
     over0 = _counter("serve.shed.overflow")
+    # no host scorer: the overflow sheds whatever sml.serve.hostFallback
+    # says; the bound reads the dispatcher's queue, empty between tests
+    assert DEVICE_QUEUE.rows() == 0
     b = MicroBatcher(scorer.score_block, max_batch_rows=16, queue_rows=8,
                      start=False)
     futs = [b.submit(X) for _ in range(20)]
@@ -144,7 +149,7 @@ def test_over_capacity_burst_sheds_without_deadlock(scorers):
             np.testing.assert_array_equal(f.result(30),
                                           scorer.score_block(X))
     b.close()
-    assert b.open_rows() == 0
+    assert b.queued_rows() == 0 and DEVICE_QUEUE.rows() == 0
 
 
 def test_deadline_shed_of_stale_requests(scorers):
@@ -160,7 +165,7 @@ def test_deadline_shed_of_stale_requests(scorers):
             f.result(30)
     b.close()
     assert _counter("serve.expired") - expired0 == 4
-    assert b.open_rows() == 0
+    assert b.queued_rows() == 0 and DEVICE_QUEUE.rows() == 0
 
 
 def test_bounded_wait_times_out_and_future_stays_resolvable(scorers):
