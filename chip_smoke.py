@@ -317,6 +317,31 @@ Phases:
    `{"dispatch": ...}` line gives these numbers, and a `{"host_routes":
    ...}` line the host traversal's calls and times.
 
+19. main path, the course's data plane on the session's device, with no
+   pyarrow or pandas, in a temporary directory: (a)
+   `ClassroomSetup.install_datasets()` (the raw Airbnb CSV, the clean
+   table as parquet and as Delta, MovieLens's ratings as parquet, the
+   dedup lab's 103,000-row text), its wall and each table's rows and
+   bytes; (b) the clean table read through `read.format("delta")` and
+   `read.parquet`, each equal to the seeded frame value for value and
+   partition for partition, with the read walls; (c) ML 11's pipeline
+   (phase 11's prep, XGBoost on log price) fitted and evaluated from the
+   Delta read and from the seeded frame: rmse and predictions bit-equal,
+   240 / 240 launches a fit and one traversal an evaluate; (d) ML 05L:
+   an overwrite with `mergeSchema`, LinearRegression on `versionAsOf 0`
+   (bit-equal to the fit before the overwrite) and on the latest
+   version, `DESCRIBE HISTORY`; (e) ML 00L: the installed text read and
+   deduplicated, 8 parquet part files written and read, both answers
+   validated against the lab's hashes (1276280174, 972882115); (f) ML
+   10: a feature table from the Delta read, a training set, ML 07's
+   forest pipeline logged with it, and `score_batch` on the card equal to
+   `transform` bit for bit; (g) `read_parquet_chunks` of the clean
+   parquet (1,024-row chunks) into `RandomForestRegressor.fit_chunked`,
+   bit-equal to `fit` on the read matrix. Every kernel must launch and no
+   plain version may run on the card; a `{"dataplane": ...}` line gives
+   these numbers, and the kernels line's `launches_by_path` gains
+   "dataplane".
+
 The second-to-last line is a JSON object listing each kernel, with the
 launches the profiler saw in each window behind its device times
 ("device_windows"); the last is {"ok": true, "device": {...}}.
@@ -5370,6 +5395,394 @@ def phase_dispatch(seed: int, device, card: str, prewarm: bool = True
     return out
 
 
+# ------------------ phase 19: the data plane (parquet, Delta, feature store)
+#: ML 00L's first check (`Labs/ML 00L:89`): hash("8"), the 8 part files
+DP_PARTS_HASH = 1276280174
+#: rows a chunk of (g)'s parquet source
+DP_CHUNK_ROWS = 1024
+
+
+def dp_same_block(a: dict, b: dict, what: str) -> None:
+    """Two blocks equal value for value: the same columns, dtypes and
+    shapes, NULLs in the same rows, floats bit for bit."""
+    if list(a) != list(b):
+        raise AssertionError(f"{what}: columns {list(a)} vs {list(b)}")
+    for c in a:
+        x, y = a[c], b[c]
+        if x.dtype != y.dtype or x.shape != y.shape:
+            raise AssertionError(f"{what}: {c} {x.dtype}{x.shape} vs "
+                                 f"{y.dtype}{y.shape}")
+        if x.dtype.kind == "f":
+            bits = np.dtype(f"u{x.dtype.itemsize}")
+            nan = np.isnan(x)
+            same = np.array_equal(nan, np.isnan(y)) and np.array_equal(
+                x[~nan].view(bits), y[~nan].view(bits))
+        elif x.dtype.kind == "O":
+            same = x.tolist() == y.tolist()
+        else:
+            same = np.array_equal(x, y)
+        if not same:
+            raise AssertionError(f"{what}: column {c} differs")
+
+
+def dp_table(path: str) -> tuple:
+    """(bytes, rows) of a table the install wrote: a CSV or text file (a
+    header line), a parquet directory (its footers) or a Delta table
+    (its live files' `numRecords`)."""
+    from sml_tpu_torch.delta.table import _list_versions, _snapshot
+    from sml_tpu_torch.frame.parquet import ParquetFile
+    if os.path.isfile(path):
+        with open(path, "rb") as fh:
+            return os.path.getsize(path), sum(1 for _ in fh) - 1
+    nbytes = sum(os.path.getsize(os.path.join(r, f))
+                 for r, _, fs in os.walk(path) for f in fs)
+    versions = _list_versions(path)
+    if versions:
+        files = _snapshot(path, versions[-1])["files"]
+        return nbytes, sum(f["numRecords"] for f in files)
+    return nbytes, sum(ParquetFile(os.path.join(path, f)).num_rows
+                       for f in sorted(os.listdir(path))
+                       if f.endswith(".parquet"))
+
+
+def dp_ml11(frame, device) -> dict:
+    """ML 11's pipeline from `frame`: randomSplit([0.8, 0.2], seed=42),
+    the course's prep and XGBoost on log price, the fit's launches, the
+    held-out rmse through the evaluator's pushdown (its launches) and
+    the held-out predictions."""
+    from sml_tpu_torch import functions as F
+    from sml_tpu_torch.ml import Pipeline
+    from sml_tpu_torch.ml.evaluation import RegressionEvaluator
+    train, test = frame.randomSplit([0.8, 0.2], seed=42)
+    tr = train.withColumn("label", F.log(F.col("price"))).cache()
+    te = test.withColumn("label", F.log(F.col("price"))).cache()
+    _zero_launches()
+    model, fit_ms = walled(lambda: Pipeline(
+        stages=df_prep() + [df_estimator("xgb")]).fit(tr), device)
+    fit_l = _all_launches()
+    _zero_launches()
+    pred = model.transform(te).withColumn("prediction",
+                                          F.exp(F.col("prediction")))
+    rmse = RegressionEvaluator(labelCol="price").evaluate(pred)
+    eval_l = _all_launches()
+    _zero_launches()
+    preds = model.transform(te)._whole()["prediction"]
+    pred_l = _all_launches()
+    return {"rmse": rmse, "pred": preds, "fit": fit_l, "evaluate": eval_l,
+            "predict": pred_l, "fit_ms": fit_ms,
+            "rows": (tr.count(), te.count())}
+
+
+def dp_lr(frame, cols):
+    from sml_tpu_torch.ml.feature import VectorAssembler
+    from sml_tpu_torch.ml.regression import LinearRegression
+    fdf = VectorAssembler(inputCols=cols, outputCol="features") \
+        .transform(frame)
+    return LinearRegression(labelCol="price").fit(fdf)
+
+
+def phase_dataplane(device, card: str) -> dict:
+    """Phase 19: the course's data plane on `device` (the session's
+    `sml.device`), in a temporary directory, with no pyarrow or pandas:
+    (a) `ClassroomSetup.install_datasets`; (b) the clean table read back
+    as Delta and as parquet, equal to the seeded frame; (c) ML 11 from
+    the Delta read, bit-equal to the seeded frame's; (d) ML 05L's
+    versions; (e) ML 00L's lab; (f) ML 10's feature store; (g) parquet
+    chunks into `fit_chunked`."""
+    import shutil
+    import tempfile
+    from sml_tpu_torch import functions as F
+    from sml_tpu_torch import tracking as mlflow
+    from sml_tpu_torch.conf import GLOBAL_CONF
+    from sml_tpu_torch.courseware import (ClassroomSetup, TestResults,
+                                          make_airbnb_dataset)
+    from sml_tpu_torch.feature_store import FeatureLookup, FeatureStoreClient
+    from sml_tpu_torch.frame.column import block_len
+    from sml_tpu_torch.frame.io import read_parquet_chunks
+    from sml_tpu_torch.frame.session import get_session
+    from sml_tpu_torch.ml import Pipeline
+    from sml_tpu_torch.ml.feature import VectorAssembler
+    from sml_tpu_torch.ml.regression import RandomForestRegressor
+    GLOBAL_CONF.set("sml.device", device.type)
+    spark = get_session()
+    out = {"card": card}
+    tmp = tempfile.mkdtemp(prefix="sml-dataplane-")
+    prev_uri = mlflow.get_tracking_uri()
+    mlflow.set_tracking_uri(os.path.join(tmp, "mlruns"))
+    t_phase = time.perf_counter()
+    try:
+        with KernelWatch() as watch:
+            _zero_launches()
+            total = dict.fromkeys(_all_launches(), 0)
+
+            def add(counts):
+                for k, v in counts.items():
+                    total[k] += v
+
+            # (a) the install
+            setup = ClassroomSetup(base_dir=os.path.join(tmp, "classroom"))
+            root, install_ms = walled(setup.install_datasets, device)
+            sf = os.path.join(root, "airbnb", "sf-listings")
+            clean = os.path.join(sf, "sf-listings-2019-03-06-clean")
+            tables = {
+                "airbnb raw (csv)": os.path.join(
+                    sf, "sf-listings-2019-03-06.csv"),
+                "airbnb clean (parquet)": clean + ".parquet",
+                "airbnb clean (delta)": clean + ".delta",
+                "movielens ratings (parquet)": os.path.join(
+                    root, "movielens", "ratings.parquet"),
+                "dedup people (text)": os.path.join(
+                    root, "dedup", "people-with-dups.txt")}
+            out["a"] = {"install_ms": install_ms, "tables": {
+                name: dict(zip(("bytes", "rows"), dp_table(path)))
+                for name, path in tables.items()}}
+            print(f"dataplane (a) ClassroomSetup.install_datasets: "
+                  f"{install_ms!r} ms (host); card {card}")
+            for name, t in out["a"]["tables"].items():
+                print(f"dataplane (a)   {name}: {t['rows']} rows, "
+                      f"{t['bytes']} bytes")
+
+            # (b) the clean table read back, against the seeded frame
+            seeded = spark.createDataFrame(
+                spark.createDataFrame(make_airbnb_dataset()).dropna()
+                ._whole())
+            want = seeded._whole()
+            reads = {}
+            for fmt, path in (("delta", clean + ".delta"),
+                              ("parquet", clean + ".parquet")):
+                df, ms = walled(lambda fmt=fmt, path=path: spark.read.format(
+                    fmt).load(path).cache(), device)
+                _, mat_ms = walled(df._whole, device)
+                dp_same_block(df._whole(), want, f"(b) {fmt} read")
+                sizes = [block_len(p) for p in df._materialize()]
+                if sizes != [block_len(p) for p in seeded._materialize()]:
+                    raise AssertionError(f"(b) {fmt} partitions {sizes}")
+                reads[fmt] = df
+                out.setdefault("b", {})[fmt] = {"read_ms": ms + mat_ms,
+                                                "partitions": len(sizes)}
+            rows = block_len(want)
+            print(f"dataplane (b) read.format('delta') "
+                  f"{out['b']['delta']['read_ms']!r} ms, read.parquet "
+                  f"{out['b']['parquet']['read_ms']!r} ms: "
+                  f"{rows} rows x {len(want)} columns in "
+                  f"{out['b']['delta']['partitions']} partitions, equal "
+                  f"to the seeded frame value for value; card {card}")
+
+            # (c) ML 11 from the Delta read, against the seeded frame
+            ml11 = {what: dp_ml11(frame, device) for what, frame in
+                    (("seeded", seeded), ("delta", reads["delta"]))}
+            a, b = ml11["delta"], ml11["seeded"]
+            want_fit = dict(FITS["xgb"][2], forest_traverse=0)
+            want_eval = dict.fromkeys(want_fit, 0)
+            want_eval["forest_traverse"] = 1
+            if a["rmse"] != b["rmse"] or not np.array_equal(
+                    a["pred"].view(np.uint64), b["pred"].view(np.uint64)):
+                raise AssertionError(f"(c) rmse {a['rmse']!r} vs "
+                                     f"{b['rmse']!r}, predictions differ")
+            for r in (a, b):
+                if r["fit"] != want_fit or r["evaluate"] != want_eval \
+                        or r["predict"] != want_eval:
+                    raise AssertionError(f"(c) launches {r['fit']} / "
+                                         f"{r['evaluate']} / "
+                                         f"{r['predict']}")
+                add(r["fit"])
+                add(r["evaluate"])
+                add(r["predict"])
+            c_launches = {k: a["fit"][k] + a["evaluate"][k] +
+                          a["predict"][k]
+                          for k in ("hist_accumulate", "split_scan",
+                                    "forest_traverse")}
+            out["c"] = {"rmse": a["rmse"], "rows": a["rows"],
+                        "fit_ms": {"delta": a["fit_ms"],
+                                   "seeded": b["fit_ms"]},
+                        "launches": c_launches}
+            print(f"dataplane (c) ML 11 pipeline from the Delta read "
+                  f"(train/test {a['rows']}): rmse {a['rmse']!r}, "
+                  f"bit-equal to the seeded frame's, predictions bit-equal; "
+                  f"launches {c_launches}; fit {a['fit_ms']!r} ms (seeded "
+                  f"{b['fit_ms']!r} ms); card {card}")
+
+            # (d) ML 05L: versions, mergeSchema, fits, DESCRIBE HISTORY
+            lab = os.path.join(tmp, "delta-lab")
+            base = reads["delta"].select("bedrooms", "accommodates",
+                                         "price")
+            t0 = time.perf_counter()
+            base.write.format("delta").mode("overwrite").save(lab)
+            m1 = dp_lr(spark.read.format("delta").load(lab), ["bedrooms"])
+            base.withColumn("log_price", F.log(F.col("price"))) \
+                .write.format("delta").mode("overwrite") \
+                .option("mergeSchema", "true").save(lab)
+            v0 = spark.read.format("delta").option("versionAsOf", 0) \
+                .load(lab)
+            latest = spark.read.format("delta").load(lab)
+            m0 = dp_lr(v0, ["bedrooms"])
+            m2 = dp_lr(latest, ["bedrooms", "accommodates"])
+            hist = spark.sql(f"DESCRIBE HISTORY delta.`{lab}`").collect()
+            d_ms = (time.perf_counter() - t0) * 1e3
+            if "log_price" in v0.columns or "log_price" not in \
+                    latest.columns or [r["version"] for r in hist] != [1, 0]:
+                raise AssertionError(f"(d) v0 {v0.columns}, latest "
+                                     f"{latest.columns}, history {hist}")
+            if not (np.array_equal(m0.coefficients.toArray(),
+                                   m1.coefficients.toArray())
+                    and m0.intercept == m1.intercept):
+                raise AssertionError("(d) the v0 fit differs from the fit "
+                                     "before the overwrite")
+            out["d"] = {"ms": d_ms, "coef_v0": m0.coefficients.toArray()
+                        .tolist(), "coef_latest": m2.coefficients.toArray()
+                        .tolist(), "history": len(hist)}
+            print(f"dataplane (d) ML 05L: overwrite with mergeSchema "
+                  f"(log_price), LR on versionAsOf 0 (bit-equal to the fit "
+                  f"before it) and on the latest, DESCRIBE HISTORY "
+                  f"{[(r['version'], r['operationParameters']) for r in hist]}"
+                  f" in {d_ms!r} ms; card {card}")
+
+            # (e) ML 00L: dedup, the 8-part parquet write and read
+            people = tables["dedup people (text)"]
+            dest = os.path.join(tmp, "people.parquet")
+            old = GLOBAL_CONF.get("sml.shuffle.partitions")
+            GLOBAL_CONF.set("sml.shuffle.partitions", 8)
+            try:
+                t0 = time.perf_counter()
+                df = (spark.read.option("header", "true")
+                      .option("inferSchema", "true").option("sep", ":")
+                      .csv(people))
+                deduped = (df.select(
+                    F.col("*"),
+                    F.lower(F.col("firstName")).alias("lcFirstName"),
+                    F.lower(F.col("lastName")).alias("lcLastName"),
+                    F.lower(F.col("middleName")).alias("lcMiddleName"),
+                    F.translate(F.col("ssn"), "-", "").alias("ssnNums"))
+                    .dropDuplicates(["lcFirstName", "lcMiddleName",
+                                     "lcLastName", "ssnNums", "gender",
+                                     "birthDate", "salary"])
+                    .drop("lcFirstName", "lcMiddleName", "lcLastName",
+                          "ssnNums")).cache()
+                deduped.count()
+                dedup_ms = (time.perf_counter() - t0) * 1e3
+                t0 = time.perf_counter()
+                deduped.write.mode("overwrite").parquet(dest)
+                write_ms = (time.perf_counter() - t0) * 1e3
+            finally:
+                GLOBAL_CONF.set("sml.shuffle.partitions", old)
+            t0 = time.perf_counter()
+            final = spark.read.parquet(dest)
+            count = final.count()
+            read_ms = (time.perf_counter() - t0) * 1e3
+            parts = len([f for f in os.listdir(dest)
+                         if f.endswith(".parquet")])
+            results = TestResults()
+            ok = results.validate_your_answer(
+                "01 Parquet File Exists", DP_PARTS_HASH, parts) and \
+                results.validate_your_answer(
+                    "02 Expected 100000 Records", DEDUP_HASH, count)
+            if not ok:
+                raise AssertionError(f"(e) {parts} part files, {count} "
+                                     f"records: {results.results}")
+            dp_same_block(final._whole(), deduped._whole(),
+                          "(e) the parquet read")
+            out["e"] = {"rows_in": dp_table(people)[1], "count": count,
+                        "parts": parts, "read_dedup_ms": dedup_ms,
+                        "write_ms": write_ms, "read_ms": read_ms}
+            print(f"dataplane (e) ML 00L: {out['e']['rows_in']} rows read "
+                  f"(colon-separated) and deduplicated in {dedup_ms!r} ms, "
+                  f"{parts} parquet part files written in {write_ms!r} ms "
+                  f"and read in {read_ms!r} ms; {count} records, both "
+                  f"answers validate ({DP_PARTS_HASH}, {DEDUP_HASH}); "
+                  f"card {card}")
+
+            # (f) ML 10: the feature store through score_batch
+            fs = FeatureStoreClient(os.path.join(tmp, "feature_store"))
+            feats = ["bedrooms", "accommodates", "bathrooms", "beds",
+                     "minimum_nights", "number_of_reviews",
+                     "review_scores_rating"]
+            t0 = time.perf_counter()
+            listings = reads["delta"].coalesce(1).withColumn(
+                "listing_id", F.monotonically_increasing_id())
+            fs.create_table("dataplane.features", "listing_id",
+                            df=listings.select("listing_id", *feats))
+            labels = listings.select("listing_id", "price")
+            ts = fs.create_training_set(
+                labels, [FeatureLookup("dataplane.features", "listing_id")],
+                label="price")
+            tdf = ts.load_df().cache()
+            _zero_launches()
+            with mlflow.start_run() as run:
+                model = Pipeline(stages=[
+                    VectorAssembler(inputCols=feats, outputCol="features"),
+                    RandomForestRegressor(labelCol="price", numTrees=20,
+                                          maxDepth=6, maxBins=40,
+                                          seed=42)]).fit(tdf)
+                fs.log_model(model, "model", training_set=ts)
+            fit_l = _all_launches()
+            add(fit_l)
+            _zero_launches()
+            scored = fs.score_batch(f"runs:/{run.info.run_id}/model",
+                                    labels)
+            got = scored._whole()["prediction"]
+            score_l = _all_launches()
+            add(score_l)
+            _zero_launches()
+            direct = model.transform(tdf)._whole()["prediction"]
+            add(_all_launches())
+            f_ms = (time.perf_counter() - t0) * 1e3
+            if not np.array_equal(got, direct) or len(got) != rows or \
+                    score_l["forest_traverse"] != 1:
+                raise AssertionError(f"(f) score_batch: {len(got)} rows, "
+                                     f"launches {score_l}")
+            out["f"] = {"ms": f_ms, "fit_launches": fit_l,
+                        "score_launches": score_l}
+            print(f"dataplane (f) ML 10: feature table from the Delta read, "
+                  f"training set, ML 07's forest pipeline logged with it "
+                  f"(launches {fit_l}), score_batch of {len(got)} keys "
+                  f"equal to transform bit for bit (launches {score_l}); "
+                  f"{f_ms!r} ms; card {card}")
+
+            # (g) parquet chunks into fit_chunked
+            rf = RandomForestRegressor(numTrees=20, maxDepth=6, maxBins=40,
+                                       seed=42)
+            src = read_parquet_chunks(clean + ".parquet", feats, "price",
+                                      chunkRows=DP_CHUNK_ROWS)
+            _zero_launches()
+            m_chunk, g_ms = walled(lambda: rf.fit_chunked(src,
+                                                          device=device),
+                                   device)
+            chunk_l = _all_launches()
+            whole = reads["parquet"]._whole()
+            X = np.column_stack([whole[c] for c in feats])
+            _zero_launches()
+            m_mat = rf.fit(X, whole["price"], categorical={}, device=device)
+            mat_l = _all_launches()
+            same_spec(m_chunk._spec, m_mat._spec,
+                      "(g) parquet chunks vs the in-memory fit")
+            if chunk_l != mat_l:
+                raise AssertionError(f"(g) launches {chunk_l} vs {mat_l}")
+            add(chunk_l)
+            add(mat_l)
+            out["g"] = {"ms": g_ms, "chunks": -(-src.n_rows //
+                                               DP_CHUNK_ROWS),
+                        "launches": chunk_l}
+            print(f"dataplane (g) read_parquet_chunks ({DP_CHUNK_ROWS}-row "
+                  f"chunks of {src.n_rows} rows) -> RandomForestRegressor"
+                  f".fit_chunked: bit-equal to fit() on the read matrix, "
+                  f"launches {chunk_l} each; {g_ms!r} ms; card {card}")
+    finally:
+        mlflow.set_tracking_uri(prev_uri)
+        shutil.rmtree(tmp, ignore_errors=True)
+    if watch.plain_on_cuda:
+        raise AssertionError(f"(dataplane) plain versions ran "
+                             f"{watch.plain_on_cuda} times on the card")
+    missing = [k for k, v in total.items() if not v]
+    if missing:
+        raise AssertionError(f"(dataplane) kernels never launched: "
+                             f"{missing} ({total})")
+    out["launches"] = total
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"dataplane: every check passed in {out['phase_s']!r} s; launches "
+          f"{total}; card {card}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5412,6 +5825,7 @@ def main(argv=None) -> int:
     featurizer = phase_featurizer(device, card)
     registry = phase_registry(device, card)
     dispatch = phase_dispatch(args.seed, device, card)
+    dataplane = phase_dataplane(device, card)
 
     def by_path(kernel: str) -> dict:
         return {"fit": fit["launches"][kernel],
@@ -5422,7 +5836,8 @@ def main(argv=None) -> int:
                 "featurizer": featurizer["launches"][kernel],
                 "endpoint": registry["launches"]["endpoint"][kernel],
                 "automl": registry["launches"]["automl"][kernel],
-                "dispatch": dispatch["launches"][kernel]}
+                "dispatch": dispatch["launches"][kernel],
+                "dataplane": dataplane["launches"][kernel]}
 
     def windows(kernel: str) -> dict:
         return {what: seen for what, seen in DEVICE_WINDOWS.items()
@@ -5442,7 +5857,8 @@ def main(argv=None) -> int:
         + featurizer["launches"]["forest_traverse"]
         + registry["launches"]["endpoint"]["forest_traverse"]
         + registry["launches"]["automl"]["forest_traverse"]
-        + dispatch["launches"]["forest_traverse"],
+        + dispatch["launches"]["forest_traverse"]
+        + dataplane["launches"]["forest_traverse"],
         "launches_by_path": {"serving": main_path["launches"],
                              "tuning": tuning["fused"]["forest_traverse"],
                              "dataframe": frames["evaluate"][
@@ -5457,6 +5873,8 @@ def main(argv=None) -> int:
                              "automl": registry["launches"]["automl"][
                                  "forest_traverse"],
                              "dispatch": dispatch["launches"][
+                                 "forest_traverse"],
+                             "dataplane": dataplane["launches"][
                                  "forest_traverse"]},
         "replay_launches": chunked["b"]["launches"]["forest_traverse"],
         "replay": chunked["replay"],
@@ -5573,6 +5991,7 @@ def main(argv=None) -> int:
     print(json.dumps({"featurizer": featurizer}))
     print(json.dumps({"registry": registry}))
     print(json.dumps({"dispatch": dispatch}))
+    print(json.dumps({"dataplane": dataplane}))
     print(json.dumps({"dataframe": {
         "launches_fit": frames["fit"], "launches_evaluate":
         frames["evaluate"], "rmse": frames["rmse"],

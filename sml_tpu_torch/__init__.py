@@ -54,7 +54,15 @@ Ported so far:
 - tracking and the model registry (`tracking/`: a file store either
   package reads, the MLflow surface of ML 04 / ML 05), the
   registry-backed `serving.ServingEndpoint` (stage aliases, hot-swap,
-  a canary mirrored to Staging) and ML 09's AutoML (`automl.py`).
+  a canary mirrored to Staging) and ML 09's AutoML (`automl.py`);
+- the dispatcher, the host routes, prewarm and the obs core
+  (`parallel/dispatch.py`, `parallel/prewarm.py`, `native/
+  host_traverse.py`, `obs/`);
+- the data plane: parquet through the port's own codec
+  (`frame/parquet/`, with snappy in C++ `csrc/snappy.cc`), Delta tables
+  (`delta/`), the feature store (`feature_store.py`) and the courseware
+  harness (`courseware.py`: `ClassroomSetup` with its dataset install,
+  `TestResults`), with no pandas or pyarrow.
 
 Entry points run on the CUDA card unless the caller passes
 device="cpu"; without a card they raise. The DataFrame entry points

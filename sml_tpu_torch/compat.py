@@ -12,16 +12,15 @@ under the names the course imports —
     sparkdl / sparkdl.xgboost (XgboostRegressor / XgboostClassifier)
     mlflow (.tracking, .spark, .sklearn, .pyfunc, .models,
             .models.signature, .tracking.client)
-    databricks / databricks.automl
+    databricks / databricks.automl / databricks.feature_store
 
 — so `from pyspark.ml.feature import StringIndexer` resolves to
 `sml_tpu_torch.ml.feature` and `import mlflow` to
 `sml_tpu_torch.tracking`. Only missing names are registered: a real
 installation of a package, if present, always wins, and the first
 package to install a shim keeps it (`sys.modules.setdefault`). The
-databricks.feature_store and databricks.koalas names, and
-`pandas_udf`, wait for ROADMAP item 9 (the feature store keeps its
-tables as delta, whose data files are parquet; koalas needs pandas).
+databricks.koalas name and `pandas_udf` wait for ROADMAP item 9b (they
+hand pandas objects to user code).
 """
 
 from __future__ import annotations
@@ -70,6 +69,7 @@ def _register(mods: Dict[str, types.ModuleType]) -> None:
 def install_shims() -> None:
     """Alias the port under the course's import names (idempotent)."""
     from . import automl as automl_mod
+    from . import feature_store as fs_mod
     from . import tracking
     from . import tune as hyperopt_mod
     from . import xgboost as xgb_mod
@@ -112,8 +112,10 @@ def install_shims() -> None:
         "sparkdl": _module("sparkdl", xgboost=xgb_mod),
         "sparkdl.xgboost": xgb_mod,
         # databricks namespaces (ML 09)
-        "databricks": _module("databricks", automl=automl_mod),
+        "databricks": _module("databricks", automl=automl_mod,
+                              feature_store=fs_mod),
         "databricks.automl": automl_mod,
+        "databricks.feature_store": fs_mod,
     }
     _register(mods)
     if _real_package("mlflow"):

@@ -183,6 +183,15 @@ _register("sml.obs.metricsWindowSec", 300, int,
           "Rolling-window span of the metrics registry (obs/_metrics.py): "
           "windowed quantiles and rates cover the trailing this-many "
           "seconds (8 ring slots); all-time histograms are kept regardless")
+_register("sml.profiler.enabled", False, _to_bool,
+          "Keep op-level timing spans (utils/profiler.py: PROFILER.spans, "
+          "PROFILER.report); counters count either way")
+_register("sml.delta.retentionDurationCheck.enabled", True, _to_bool,
+          "Refuse DeltaTable.vacuum below the 168-hour default retention "
+          "unless disabled")
+_register("spark.databricks.delta.retentionDurationCheck.enabled", True,
+          _to_bool, "Alias of sml.delta.retentionDurationCheck.enabled, "
+          "the course's spelling")
 _register("sml.infer.prefetchBatches", 4, int,
           "DeviceScorer.score_batches lookahead: batches dispatched ahead "
           "of the drain point so batch i+1's prep + H2D staging overlaps "
@@ -250,6 +259,10 @@ class TorchConf:
 _ALIASES = {
     "spark.sql.shuffle.partitions": "sml.shuffle.partitions",
     "sml.shuffle.partitions": "spark.sql.shuffle.partitions",
+    "spark.databricks.delta.retentionDurationCheck.enabled":
+        "sml.delta.retentionDurationCheck.enabled",
+    "sml.delta.retentionDurationCheck.enabled":
+        "spark.databricks.delta.retentionDurationCheck.enabled",
 }
 
 GLOBAL_CONF = TorchConf()

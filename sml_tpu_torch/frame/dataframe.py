@@ -630,6 +630,16 @@ class DataFrame:
     def getNumPartitions(self) -> int:
         return len(self._materialize())
 
+    @property
+    def rdd(self) -> "_RDDShim":
+        return _RDDShim(self)
+
+    def checkpoint(self, eager: bool = True) -> "DataFrame":
+        """Materialize the frame and return it (the lineage is dropped
+        when it materializes)."""
+        self._materialize()
+        return self
+
     # -------------------------------------------------------------- sampling
     def randomSplit(self, weights: Sequence[float],
                     seed: Optional[int] = None) -> List["DataFrame"]:
@@ -800,6 +810,22 @@ class DataFrame:
         except Exception:  # noqa: BLE001 - a repr must not raise
             cols = "..."
         return f"DataFrame[{cols}]"
+
+
+class _RDDShim:
+    """`df.rdd`'s partition introspection (`ML 00b:84` and the
+    repartition demos)."""
+
+    def __init__(self, df: DataFrame):
+        self._df = df
+
+    def getNumPartitions(self) -> int:
+        return self._df.getNumPartitions()
+
+    def glom(self) -> List[List[Dict[str, Any]]]:
+        """Each partition's rows, as dicts of Python values."""
+        return [[r.asDict() for r in rows_of(p)]
+                for p in self._df._materialize()]
 
 
 class DataFrameNaFunctions:

@@ -185,15 +185,32 @@ def length(c: ColumnOrName) -> Column:
 
 
 def concat(*cols: ColumnOrName) -> Column:
-    return concat_ws("", *cols)
-
-
-def concat_ws(sep: str, *cols: ColumnOrName) -> Column:
+    """The inputs' text joined; NULL where any input is NULL (Spark's
+    and the JAX package's)."""
     ccs = [ensure_column(c) for c in cols]
 
     def ev(block, ctx):
         parts = [c._eval(block, ctx) for c in ccs]
-        return object_array(sep.join(str(p[i]) for p in parts)
+        nulls = np.zeros(block_len(block), dtype=bool)
+        for p in parts:
+            nulls |= null_mask(p)
+        return object_array(None if nulls[i] else
+                            "".join(str(p[i]) for p in parts)
+                            for i in range(block_len(block)))
+
+    return Column(ev, "concat(...)")
+
+
+def concat_ws(sep: str, *cols: ColumnOrName) -> Column:
+    """The inputs' text joined by `sep`, skipping NULL inputs (Spark's
+    rule; the JAX package gives NULL there, through pandas' NaN)."""
+    ccs = [ensure_column(c) for c in cols]
+
+    def ev(block, ctx):
+        parts = [c._eval(block, ctx) for c in ccs]
+        parts = [(p, null_mask(p)) for p in parts]
+        return object_array(sep.join(str(p[i]) for p, nulls in parts
+                                     if not nulls[i])
                             for i in range(block_len(block)))
 
     return Column(ev, f"concat_ws({sep}, ...)")

@@ -6,7 +6,7 @@ NULL keys forming a group of their own (pandas' `groupby(sort=False,
 dropna=False)`, which the JAX package runs); each aggregate reduces a
 group's rows in their order, and the result is hash-partitioned by the
 keys into `sml.shuffle.partitions` blocks, as in the JAX package. The
-per-group pandas functions (`applyInPandas`) wait for ROADMAP item 9.
+per-group pandas functions (`applyInPandas`) wait for ROADMAP item 9b.
 """
 
 from __future__ import annotations
@@ -139,7 +139,7 @@ class GroupedData:
     def applyInPandas(self, fn, schema):
         raise NotImplementedError(
             "applyInPandas hands pandas frames to user code: it waits for "
-            "ROADMAP item 9 (what needs pandas or pyarrow)")
+            "ROADMAP item 9b (what needs pandas or pyarrow)")
 
     def applyInPandasWithState(self, *a, **k):
         raise NotImplementedError(

@@ -17,9 +17,16 @@ The port's copy of `sml_tpu/frame/io.py` on the standard library's
   and `_SUCCESS`, formatting cells as pandas' `to_csv` and `to_json
   (orient="records", lines=True)` do. The CSV writer also honours the
   `sep` option (Spark's); the JAX package's ignores it.
-
-Parquet and delta (`read.parquet`, `write.parquet`, `format("delta")`,
-partitioned writes) wait for ROADMAP item 9.
+- Parquet through the port's own codec (`frame/parquet/`): every part
+  file of a path read sorted, each a partition; writes of
+  `part-%05d.snappy.parquet` a partition plus `_SUCCESS`, numbered on
+  from the files there under `append`; `partitionBy` writes `k=v`
+  directories of parquet whatever the format (the JAX package's rule),
+  NULL keys as `k=nan`. `format("delta")` reads and writes through
+  `delta/table.py`.
+- `ParquetChunkSource` / `read_parquet_chunks`: parquet files streamed
+  as `chunk_rows` blocks for the out-of-core fits, one row group read
+  at a time.
 """
 
 from __future__ import annotations
@@ -34,12 +41,11 @@ from typing import Any, Dict, List, Optional, Union
 import numpy as np
 
 from ..native.hashing import null_mask
+from . import parquet as _pq
+from ._chunks import ChunkSource
 from .column import Block, block_len, infer_objects, object_array
-from .dataframe import DataFrame, coerce_to_schema
+from .dataframe import DataFrame, _key_tuples, coerce_to_schema, take_rows
 from .types import StructType, parse_schema
-
-_NEEDS_PARQUET = ("parquet and delta files wait for ROADMAP item 9 (what "
-                  "needs pandas or pyarrow)")
 
 #: pandas' default NA strings (`pandas._libs.parsers.STR_NA_VALUES`)
 NA_VALUES = frozenset([
@@ -242,12 +248,15 @@ class DataFrameReader:
         return self
 
     def load(self, path: Optional[str] = None) -> DataFrame:
+        if self._format == "delta":
+            from ..delta.table import read_delta
+            return read_delta(path, self._session, self._options)
+        if self._format == "parquet":
+            return self.parquet(path)
         if self._format == "csv":
             return self.csv(path)
         if self._format == "json":
             return self.json(path)
-        if self._format in ("parquet", "delta"):
-            raise NotImplementedError(_NEEDS_PARQUET)
         raise ValueError(f"unknown format {self._format}")
 
     def csv(self, path: str, header: Optional[bool] = None,
@@ -277,16 +286,19 @@ class DataFrameReader:
                              for f in _expand(path, (".json",))])
 
     def parquet(self, path: str) -> DataFrame:
-        raise NotImplementedError(_NEEDS_PARQUET)
+        return self._spread([_pq.read_table(f)
+                             for f in _expand(path, (".parquet",))],
+                            split_single=False)
 
     def delta(self, path: str) -> DataFrame:
-        raise NotImplementedError(_NEEDS_PARQUET)
+        return self.format("delta").load(path)
 
     def table(self, name: str) -> DataFrame:
         return self._session.table(name)
 
-    def _spread(self, parts: List[Block]) -> DataFrame:
-        if len(parts) == 1:
+    def _spread(self, parts: List[Block],
+                split_single: bool = True) -> DataFrame:
+        if len(parts) == 1 and split_single:
             return DataFrame.from_block(parts[0], session=self._session)
         return DataFrame.from_partitions(parts or [{}],
                                          session=self._session)
@@ -321,6 +333,18 @@ def _csv_cells(v: np.ndarray) -> List[str]:
     else:
         text = [str(x) for x in v.tolist()]
     return ["" if nulls[i] else t for i, t in enumerate(text)]
+
+
+def write_csv_file(block: Block, path: str, sep: str = ",",
+                   header: bool = True) -> None:
+    """One block as one CSV file, as pandas' `to_csv(path, index=False,
+    sep=sep)` writes it."""
+    cols = [_csv_cells(v) for v in block.values()]
+    with open(path, "w", newline="", encoding="utf-8") as fh:
+        w = _csv.writer(fh, delimiter=sep, lineterminator="\n")
+        if header:
+            w.writerow(list(block))
+        w.writerows(zip(*cols))
 
 
 def _ujson_float(x: float) -> str:
@@ -404,9 +428,13 @@ class DataFrameWriter:
         return self
 
     def save(self, path: str) -> None:
-        if self._format in ("parquet", "delta") or self._partition_by:
-            raise NotImplementedError(_NEEDS_PARQUET)
-        if self._format not in ("csv", "json"):
+        if self._format == "delta":
+            from ..delta.table import write_delta
+            write_delta(self._df, path, mode=self._mode,
+                        options=self._options,
+                        partition_by=self._partition_by)
+            return
+        if self._format not in ("csv", "json", "parquet"):
             raise ValueError(f"unknown format {self._format}")
         if os.path.exists(path):
             if self._mode in ("error", "errorifexists"):
@@ -417,24 +445,40 @@ class DataFrameWriter:
                 import shutil
                 shutil.rmtree(path, ignore_errors=True)
         os.makedirs(path, exist_ok=True)
+        parts = self._df._materialize()
+        if self._partition_by:
+            self._save_partitioned(path, parts)
+            return
         existing = len(glob.glob(os.path.join(path, "part-*"))) \
             if self._mode == "append" else 0
-        for i, p in enumerate(self._df._materialize()):
+        for i, p in enumerate(parts):
             name = os.path.join(path, f"part-{existing + i:05d}")
             if self._format == "csv":
                 self._write_csv(p, name + ".csv")
-            else:
+            elif self._format == "json":
                 self._write_json(p, name + ".json")
+            else:
+                _pq.write_table(p, name + ".snappy.parquet")
+        open(os.path.join(path, "_SUCCESS"), "w").close()
+
+    def _save_partitioned(self, path: str, parts) -> None:
+        import uuid
+        from .dataframe import concat_blocks
+        for texts, body in partition_groups(concat_blocks(parts),
+                                            self._partition_by):
+            sub = os.path.join(path, *[f"{k}={t}" for k, t in
+                                       zip(self._partition_by, texts)])
+            os.makedirs(sub, exist_ok=True)
+            # a unique name, so that append never overwrites a part
+            _pq.write_table(body, os.path.join(
+                sub, f"part-{uuid.uuid4().hex[:12]}.snappy.parquet"))
         open(os.path.join(path, "_SUCCESS"), "w").close()
 
     def _write_csv(self, block: Block, path: str) -> None:
-        sep = self._options.get("sep", self._options.get("delimiter", ","))
-        cols = [_csv_cells(v) for v in block.values()]
-        with open(path, "w", newline="", encoding="utf-8") as fh:
-            w = _csv.writer(fh, delimiter=sep, lineterminator="\n")
-            if _to_bool(self._options.get("header", False)):
-                w.writerow(list(block))
-            w.writerows(zip(*cols))
+        write_csv_file(block, path,
+                       self._options.get("sep",
+                                         self._options.get("delimiter", ",")),
+                       _to_bool(self._options.get("header", False)))
 
     def _write_json(self, block: Block, path: str) -> None:
         names = [_json_cell(c) for c in block]
@@ -445,10 +489,12 @@ class DataFrameWriter:
             fh.write("\n".join(lines) + ("\n" if lines else ""))
 
     def parquet(self, path: str, mode: Optional[str] = None) -> None:
-        raise NotImplementedError(_NEEDS_PARQUET)
+        if mode:
+            self._mode = mode.lower()
+        self.format("parquet").save(path)
 
     def delta(self, path: str) -> None:
-        raise NotImplementedError(_NEEDS_PARQUET)
+        self.format("delta").save(path)
 
     def csv(self, path: str, mode: Optional[str] = None,
             header: bool = False) -> None:
@@ -469,6 +515,76 @@ class DataFrameWriter:
         path = session.catalog._table_path(name)
         self.save(path)
         session.catalog._register_table(name, path, self._format)
+
+
+def partition_text(v) -> str:
+    """A partition value as its `k=v` directory names it (pandas'
+    `str` of the group key: NULL is "nan")."""
+    if v is None or (isinstance(v, float) and v != v):
+        return "nan"
+    return str(v)
+
+
+def partition_groups(block: Block, keys: List[str]):
+    """[(the key texts, the group's rows without the key columns)], the
+    groups in order of first appearance (pandas' `groupby(sort=False,
+    dropna=False)`)."""
+    rows: Dict[tuple, List[int]] = {}
+    for i, key in enumerate(_key_tuples(block, keys)):
+        rows.setdefault(key, []).append(i)
+    rest = {c: v for c, v in block.items() if c not in keys}
+    out = []
+    for key, idx in rows.items():
+        first = idx[0]
+        texts = [partition_text(block[k][first]) for k in keys]
+        out.append((texts, take_rows(rest, np.asarray(idx, np.int64))))
+    return out
+
+
+class ParquetChunkSource(ChunkSource):
+    """A `ChunkSource` over parquet part files that never holds a whole
+    file: each file's row groups are read one at a time and cut into
+    `chunk_rows` blocks, each a (rows, F) float64 matrix of the feature
+    columns and the label column, if any. Files come in the order
+    `read.parquet` reads them, so the rows come in the materialized
+    frame's order."""
+
+    def __init__(self, path: str, feature_cols: List[str],
+                 label_col: Optional[str] = None,
+                 chunk_rows: Optional[int] = None):
+        self._files = _expand(path, (".parquet",))
+        self.feature_cols = list(feature_cols)
+        self.label_col = label_col
+        self._chunk_rows = int(chunk_rows) if chunk_rows else None
+        self.n_features = len(self.feature_cols)
+        self.n_rows: Optional[int] = None
+
+    def _iter_chunks(self):
+        cols = self.feature_cols + ([self.label_col] if self.label_col
+                                    else [])
+        for f in self._files:
+            for block in _pq.ParquetFile(f).iter_blocks(self.chunk_rows,
+                                                        cols):
+                X = np.column_stack([np.asarray(block[c], np.float64)
+                                     for c in self.feature_cols])
+                y = np.asarray(block[self.label_col], np.float64) \
+                    if self.label_col else None
+                yield X, y
+
+    def fingerprint(self):
+        sig = tuple((f, os.path.getmtime(f), os.path.getsize(f))
+                    for f in self._files)
+        return ("parquet", sig, tuple(self.feature_cols), self.label_col,
+                self.chunk_rows)
+
+
+def read_parquet_chunks(path: str, featureCols: List[str],
+                        labelCol: Optional[str] = None,
+                        chunkRows: Optional[int] = None
+                        ) -> ParquetChunkSource:
+    """A parquet file, directory or glob as a chunk source of the
+    out-of-core fits (`ml/_chunked.py`, `fit_chunked`)."""
+    return ParquetChunkSource(path, featureCols, labelCol, chunkRows)
 
 
 def _expand(path: str, exts) -> List[str]:

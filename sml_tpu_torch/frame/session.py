@@ -91,17 +91,20 @@ class Catalog:
         os.makedirs(os.path.join(self._warehouse, name + ".db"),
                     exist_ok=True)
 
-    def _invalidate_table(self, fq: str) -> None:
-        """Drop every name a table was loaded into the SQL store under."""
-        from .sql import invalidate_cached_relation
+    def _invalidate_table(self, fq: str, path: Optional[str]) -> None:
+        """Drop every name a table was loaded into the SQL store under,
+        and every snapshot loaded from its path."""
+        from .sql import invalidate_cached_path, invalidate_cached_relation
         for n in {fq, fq.replace(".", "_"), fq.split(".")[-1]}:
             invalidate_cached_relation(self._session, n)
+        if path:
+            invalidate_cached_path(self._session, path)
 
     def _drop_database(self, name: str) -> None:
         self._databases.discard(name)
         for fq in [k for k in self._tables_reg if k.startswith(name + ".")]:
-            self._tables_reg.pop(fq)
-            self._invalidate_table(fq)
+            path, _fmt = self._tables_reg.pop(fq)
+            self._invalidate_table(fq, path)
         shutil.rmtree(os.path.join(self._warehouse, name + ".db"),
                       ignore_errors=True)
 
@@ -128,7 +131,7 @@ class Catalog:
         fq = self._qualify(name)
         invalidate_cached_relation(self._session, name)  # as-typed alias
         info = self._tables_reg.pop(fq, None)
-        self._invalidate_table(fq)
+        self._invalidate_table(fq, info[0] if info else None)
         if info:
             shutil.rmtree(info[0], ignore_errors=True)
 

@@ -9,12 +9,19 @@ the port moves them from its numpy columns with `executemany` and back
 from the cursor, with pandas' rules: a column's declared type follows
 its dtype (an integer column holding a NULL is REAL), a result column of
 integers is int64, of integers and NULLs float64, of text object.
-`delta.`path`` references, time travel and DESCRIBE HISTORY wait for
-ROADMAP item 9.
+``delta.`path` `` references (with the `@vN` version shorthand), `VERSION
+AS OF` / `TIMESTAMP AS OF` on a path or a registered table, and
+`DESCRIBE HISTORY` read through `delta/table.py`. A Delta snapshot is
+loaded under the JAX package's token, (path, version) or (path, kind,
+value) for time travel, with the mtime of the table's newest commit
+file added, so that a table dropped and written again at the same path
+is loaded again; dropping a table also drops every relation loaded from
+its path (`invalidate_cached_path`).
 """
 
 from __future__ import annotations
 
+import os
 import re
 import sqlite3
 import threading
@@ -94,8 +101,6 @@ def _parenthesize_clauses(s: str) -> str:
 
 
 _DELTA_REF = re.compile(r"delta\.`([^`]+)`", re.I)
-_NEEDS_DELTA = ("delta tables (delta.`path`, time travel, DESCRIBE "
-                "HISTORY) wait for ROADMAP item 9 (parquet)")
 
 
 def _session_sql_state(session) -> dict:
@@ -119,6 +124,21 @@ def invalidate_cached_relation(session, name: str) -> None:
     with st["lock"]:
         st["tokens"].pop(name, None)
         st["con"].execute(f'DROP TABLE IF EXISTS "{name}"')
+
+
+def invalidate_cached_path(session, path: str) -> None:
+    """Drop every relation loaded from the table at `path` (its `_tt_*`
+    time travel and `_delta_*` snapshots): their tokens start with the
+    path."""
+    st = getattr(session, "_sql_state", None)
+    if st is None:
+        return
+    with st["lock"]:
+        stale = [n for n, tok in st["tokens"].items()
+                 if isinstance(tok, tuple) and tok and tok[0] == path]
+        for n in stale:
+            st["tokens"].pop(n, None)
+            st["con"].execute(f'DROP TABLE IF EXISTS "{n}"')
 
 
 def _materialize_cached(st, name: str, token, loader) -> None:
@@ -164,8 +184,14 @@ def run_sql(session: "TpuSession", query: str):
             "isTemporary": np.asarray([tmp for _, _, tmp in rows])}
         return DataFrame.from_block(block, session=session,
                                     num_partitions=1)
-    if re.match(r"describe\s+history\s", ql):
-        raise NotImplementedError(_NEEDS_DELTA)
+    m = re.match(r"describe\s+history\s+(.*)", q, re.I)
+    if m:
+        from ..delta.table import DeltaTable
+        target = m.group(1).strip()
+        dm = _DELTA_REF.match(target)
+        path = dm.group(1) if dm else \
+            session.catalog._table_path(target.strip("`"))
+        return DeltaTable.forPath(session, path).history()
     m = re.match(r"describe\s+(detail\s+)?(.*)", q, re.I)
     if m and not ql.startswith("describe select"):
         df = session.table(m.group(2).strip().strip("`"))
@@ -182,12 +208,56 @@ def run_sql(session: "TpuSession", query: str):
         return _run_select(session, st, q)
 
 
+def _log_stamp(path: str) -> tuple:
+    """(the latest version, its commit file's mtime in ns) of the Delta
+    table at `path`; (-1, 0) where there is none."""
+    from ..delta.table import _list_versions, _log_path
+    vs = _list_versions(path)
+    if not vs:
+        return -1, 0
+    return vs[-1], os.stat(_log_path(path, vs[-1])).st_mtime_ns
+
+
 def _run_select(session: "TpuSession", st: dict, q: str):
+    from ..delta.table import read_delta
     from .dataframe import DataFrame
-    if _DELTA_REF.search(q) or re.search(
-            r"\s(version|timestamp)\s+as\s+of\s", q, re.I):
-        raise NotImplementedError(_NEEDS_DELTA)
-    q2 = q
+
+    # time travel in SELECT (`ML 00c:184-209`): `delta.`p` VERSION AS OF
+    # n` / `TIMESTAMP AS OF 'ts'`, also on registered table names
+    def repl_travel(m_):
+        target, kind, value = m_.group(1), m_.group(2), m_.group(3)
+        dm = _DELTA_REF.match(target)
+        path = dm.group(1) if dm else \
+            session.catalog._table_path(target.strip("`"))
+        key = "versionAsOf" if kind.lower().startswith("version") \
+            else "timestampAsOf"
+        tbl = "_tt_" + re.sub(r"\W", "_", f"{path}_{kind[0]}_{value}")
+        _materialize_cached(
+            st, tbl, (path, kind.lower(), str(value), _log_stamp(path)),
+            lambda: read_delta(path, session,
+                               {key: value.strip("'\"")})._whole())
+        return tbl
+
+    q2 = re.sub(
+        r"(delta\.`[^`]+`|[\w.`]+)\s+(version|timestamp)\s+as\s+of\s+"
+        r"('[^']*'|\"[^\"]*\"|\d+)", repl_travel, q, flags=re.I)
+
+    # delta.`path` references, with the delta.`path@vN` shorthand
+    def repl(m_):
+        path = m_.group(1)
+        opts = {}
+        at = re.search(r"@v(\d+)$", path)
+        if at:
+            path = path[:at.start()]
+            opts["versionAsOf"] = int(at.group(1))
+        tbl = "_delta_" + re.sub(r"\W", "_", m_.group(1))
+        latest, stamp = _log_stamp(path)
+        _materialize_cached(
+            st, tbl, (path, opts.get("versionAsOf", latest), stamp),
+            lambda: read_delta(path, session, opts)._whole())
+        return tbl
+
+    q2 = _DELTA_REF.sub(repl, q2)
     for name, df in session.catalog._views().items():
         if re.search(rf"\b{re.escape(name)}\b", q2, re.I):
             _materialize_cached(st, name, df, df._whole)
@@ -196,8 +266,10 @@ def _run_select(session: "TpuSession", st: dict, q: str):
         for candidate in (fqname, short):
             if re.search(rf"\b{re.escape(candidate)}\b", q2, re.I):
                 tbl = candidate.replace(".", "_")
+                token = (path,) + _log_stamp(path) if fmt == "delta" \
+                    else (path, _path_mtime(path))
                 _materialize_cached(
-                    st, tbl, (path, _path_mtime(path)),
+                    st, tbl, token,
                     lambda fq=fqname: session.table(fq)._whole())
                 q2 = re.sub(rf"\b{re.escape(candidate)}\b", tbl, q2)
                 break
@@ -211,7 +283,6 @@ def _run_select(session: "TpuSession", st: dict, q: str):
 
 def _path_mtime(path: str) -> float:
     """The newest file mtime under `path` (0.0 for a missing path)."""
-    import os
     if not os.path.isdir(path):
         return os.path.getmtime(path) if os.path.exists(path) else 0.0
     newest = 0.0

@@ -4,13 +4,14 @@ package's shims when it is imported, and the first package to install a
 name keeps it (`sys.modules.setdefault`).
 
 The import census is `tests/test_compat.py`'s (the course's own import
-lines) without the names that wait for ROADMAP item 9
-(databricks.koalas / feature_store, `pandas_udf`); every name must
-resolve to a module of `sml_tpu_torch`, mlflow's and databricks.automl's
-included. Then an ML 02-shaped cell sequence and an ML 04 / ML 05 / ML 09
-one (tracking, the registry's stage transitions, AutoML, `spark_udf`),
-written the course's way, run on the port (`sml.device=cpu`) and load
-neither JAX, the JAX package nor pandas.
+lines) without the names that wait for ROADMAP item 9b
+(databricks.koalas, `pandas_udf`); every name must resolve to a module
+of `sml_tpu_torch`, mlflow's, databricks.automl's and
+databricks.feature_store's included. Then an ML 02-shaped cell
+sequence and an ML 04 / ML 05 / ML 09 one (tracking, the registry's
+stage transitions, AutoML, `spark_udf`), written the course's way, run
+on the port (`sml.device=cpu`) and load neither JAX, the JAX package
+nor pandas.
 """
 
 import os
@@ -179,6 +180,8 @@ for name in ("databricks.feature_store", "databricks.koalas"):
         print(name, "imported")
     except ImportError:
         print(name, "absent")
+from databricks.feature_store import FeatureLookup, FeatureStoreClient
+print(FeatureStoreClient.__module__, FeatureLookup.__module__)
 """
 
 
@@ -189,8 +192,10 @@ def test_mlflow_and_automl_names_resolve_to_the_port():
     assert lines[0] == ("['sml_tpu_torch.automl', "
                         "'sml_tpu_torch.tracking']"), lines[0]
     assert lines[1] == "True True"
-    assert lines[2:] == ["databricks.feature_store absent",
-                         "databricks.koalas absent"]
+    assert lines[2:] == ["databricks.feature_store imported",
+                         "databricks.koalas absent",
+                         "sml_tpu_torch.feature_store "
+                         "sml_tpu_torch.feature_store"]
 
 
 ML05 = """

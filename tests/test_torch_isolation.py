@@ -3,8 +3,11 @@ running a DataFrame pipeline, a CrossValidator, `fmin`, the time-series
 models, the frame's SQL and CSV paths, the registry, a `ServingEndpoint`
 and AutoML, the host route, the batcher's host fallback, the dispatcher
 and prewarm with the session's device set to the CPU, loads neither JAX,
-the JAX package, pandas nor pyarrow; and without a CUDA device the entry
-points (scoring, fitting, a DataFrame fit, transform and evaluate, a
+the JAX package, pandas nor pyarrow; the data plane (the parquet codec,
+Delta tables, the feature store and
+`ClassroomSetup().install_datasets()`) runs with those four blocked
+from importing at all; and without a CUDA device the entry points
+(scoring, fitting, a DataFrame fit, transform and evaluate, a
 CrossValidator's fit, `fmin`'s placed trials, the chunked fits,
 `Prophet.fit`, `ARIMA.fit`, `ServingEndpoint` and `automl.regress`)
 raise rather than carry on on the CPU (each check runs in a fresh
@@ -138,6 +141,89 @@ def test_the_dispatcher_obs_and_host_route_modules_are_among_the_imported():
                  "obs._watchdog", "obs._audit", "parallel.dispatch",
                  "parallel.prewarm", "native.host_traverse"):
         assert f"sml_tpu_torch.{name}'" in proc.stdout
+
+
+def test_the_data_plane_modules_are_among_the_imported():
+    proc = _run(IMPORT_ALL.replace("print(len(names), bad)",
+                                   "print(sorted(names))"))
+    assert proc.returncode == 0, proc.stderr
+    for name in ("frame.parquet", "frame.parquet._thrift",
+                 "frame.parquet._encoding", "frame.parquet._arrow",
+                 "native.snappy", "delta", "delta.table", "feature_store",
+                 "courseware"):
+        assert f"sml_tpu_torch.{name}'" in proc.stdout
+
+
+BLOCKED = """
+import importlib.abc, sys
+
+
+class Blocked(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "sml_tpu", "pandas",
+                                  "pyarrow"):
+            raise ImportError(f"blocked: {name}")
+        return None
+
+
+sys.meta_path.insert(0, Blocked())
+"""
+
+DATA_PLANE = BLOCKED + """
+import os, tempfile
+from sml_tpu_torch import GLOBAL_CONF, functions as F
+from sml_tpu_torch.courseware import ClassroomSetup, TestResults
+from sml_tpu_torch.delta import DeltaTable
+from sml_tpu_torch.feature_store import FeatureLookup, FeatureStoreClient
+from sml_tpu_torch.frame.io import read_parquet_chunks
+from sml_tpu_torch.frame.session import get_session
+GLOBAL_CONF.set("sml.device", "cpu")
+base = tempfile.mkdtemp()
+setup = ClassroomSetup(base_dir=base)
+root = setup.install_datasets()
+spark = get_session()
+clean = os.path.join(root, "airbnb", "sf-listings",
+                     "sf-listings-2019-03-06-clean")
+pq = spark.read.parquet(clean + ".parquet")
+dl = spark.read.format("delta").load(clean + ".delta")
+print("clean", pq.count(), dl.count(), pq.getNumPartitions(),
+      sorted(pq.columns) == sorted(dl.columns))
+dl.limit(3).write.format("delta").mode("append").save(clean + ".delta")
+print("history", len(DeltaTable.forPath(spark, clean + ".delta")
+                     .history().collect()))
+ratings = spark.read.parquet(os.path.join(root, "movielens",
+                                          "ratings.parquet"))
+src = read_parquet_chunks(clean + ".parquet", ["bedrooms"], "price",
+                          chunkRows=1000)
+print("chunks", sum(len(X) for X, _ in src.chunks()) == pq.count())
+people = spark.read.option("header", "true").option("sep", ":") \
+    .option("inferSchema", "true").csv(os.path.join(
+        root, "dedup", "people-with-dups.txt"))
+print("people", people.count(), TestResults.to_hash(100000),
+      ratings.count() > 0)
+fs = FeatureStoreClient(os.path.join(base, "fs"))
+feats = pq.coalesce(1).withColumn("id", F.monotonically_increasing_id())
+fs.create_table("f", "id", df=feats.select("id", "bedrooms"))
+print("fs", fs.create_training_set(feats.select("id", "price"),
+                                   [FeatureLookup("f", "id")],
+                                   label="price").load_df().count()
+      == pq.count())
+bad = sorted(k for k in sys.modules
+             if k.split(".")[0] in ("jax", "jaxlib", "sml_tpu", "pandas",
+                                    "pyarrow"))
+print(bad)
+"""
+
+
+def test_the_data_plane_runs_with_pandas_pyarrow_and_jax_blocked():
+    proc = _run(DATA_PLANE)
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.strip().splitlines()
+    assert lines[0].startswith("clean ") and lines[0].endswith(" 8 True")
+    n = int(lines[0].split()[1])
+    assert lines[0] == f"clean {n} {n} 8 True"
+    assert lines[1:] == ["history 2", "chunks True",
+                         "people 103000 972882115 True", "fs True", "[]"]
 
 
 HOST_ROUTE = """
