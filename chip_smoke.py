@@ -342,6 +342,32 @@ Phases:
    these numbers, and the kernels line's `launches_by_path` gains
    "dataplane".
 
+20. main path with its monitoring on (the recorder on only inside this
+   phase, reset after it), on phase 8's rows: (a) ML 11's XGBoost and
+   ML 07's forest (80,000 rows) fitted with the recorder off and on,
+   each inside a tracking run and from empty caches: the same launches
+   (240 / 240 and 120 / 120 / 1 / 1), bit-equal trees, the baseline's
+   capture time (host numpy, no launch), the run's `engine.*` deltas with
+   the ledger's `engine.hbm_peak_bytes` at most
+   `torch.cuda.max_memory_allocated()`, every decision "local-chip"; (b)
+   the ML 11 model logged with its `baseline.json`, registered, promoted
+   and served through `ServingEndpoint`: 12 waves of 8 requests of 64
+   training rows (p50 / p99 with the drift monitor fed and detached,
+   the observer's µs a batch) flag nothing; a fresh window of 12 shifted
+   waves (feature 9 moved 3 standard deviations) flags feature 9 alone,
+   and its exemplar's trace id is in the exported Chrome trace; every
+   response bit-equal to `score_block`, a traversal a batch; (c)
+   `health_report()`'s blocks, the drift key and the traversal plan; (d)
+   the training rows in 8 chunks, chunk 5 shifted, into ML 11's chunked
+   fit against the ML 11 baseline: chunk 5 flags feature 9 alone, no
+   other chunk flags, the ingest block names a slowest chunk, 240 / 240
+   launches; (e) `dump_blackbox`: its files and sizes, its events
+   rendered by the port's `_tracefmt.py` loaded by file path; (f)
+   `sml.dispatch.mode=host`: ML 11 (16,000 rows) and KMeans asked for
+   the card launch nothing and equal the CPU run. A `{"observed": ...}`
+   line gives these numbers, and the kernels line's `launches_by_path`
+   gains "observed".
+
 The second-to-last line is a JSON object listing each kernel, with the
 launches the profiler saw in each window behind its device times
 ("device_windows"); the last is {"ok": true, "device": {...}}.
@@ -2194,9 +2220,7 @@ def clear_fit_caches() -> None:
         ptm._bins_cache_bytes[0] = 0
     with tree_impl._predict_bin_lock:
         tree_impl._predict_bin_cache.clear()
-    with _staging._stage_lock:
-        _staging._bin_stage_cache.clear()
-        _staging._bin_stage_bytes[0] = 0
+    _staging.clear_bin_cache()
 
 
 def phase_tuning(seed: int, device, card: str) -> dict:
@@ -5783,6 +5807,457 @@ def phase_dataplane(device, card: str) -> dict:
     return out
 
 
+# ------------------------------------------------ phase 20: the observed path
+#: the feature phase 20 shifts (one no label depends on), by OBS_SHIFT of
+#: its standard deviations over the training rows
+OBS_FEATURE = 9
+OBS_SHIFT = 3.0
+#: (b)'s traffic: OBS_WAVES waves of OBS_WAVE requests of OBS_ROWS rows
+#: drawn from the training rows
+OBS_WAVES, OBS_WAVE, OBS_ROWS = 12, 8, 64
+#: (d)'s chunks of the training rows, and the one shifted
+OBS_CHUNKS, OBS_SHIFTED_CHUNK = 8, 5
+#: (f)'s rows (phase 8's card-against-CPU size)
+OBS_HOST_ROWS = 16_000
+OBS_NAME = "airbnb-observed"
+OBS_KEY = f"serve.{OBS_NAME}/Production"
+OBS_BLOCKS = {"metrics", "audit", "hbm", "engine", "slo", "skew", "ingest",
+              "inflight", "drift", "infer_kernel", "shed", "fleet", "load",
+              "endpoint"}
+
+
+def obs_recorder(on: bool) -> None:
+    """The recorder on or off, every obs record reset."""
+    from sml_tpu_torch import obs
+    from sml_tpu_torch.conf import GLOBAL_CONF
+    GLOBAL_CONF.set("sml.obs.enabled", on)
+    obs.reset()
+
+
+def obs_fits(Xtr, ytr, cats, device, card: str) -> dict:
+    """(a) ML 11's XGBoost and ML 07's forest, each fitted with the
+    recorder off and then on, inside a tracking run, from empty caches:
+    the same launches, bit-equal trees; the on-fit carries a baseline,
+    its run the engine.* deltas, and every decision it made is
+    "local-chip"."""
+    from sml_tpu_torch import obs
+    from sml_tpu_torch import tracking as mlflow
+    from sml_tpu_torch.obs import drift
+    out = {}
+    for name in ("xgb", "rf"):
+        fit, _, want = FITS[name]
+        runs = {}
+        for on in (False, True):
+            clear_fit_caches()
+            obs_recorder(on)
+            capture = []
+            orig = drift.capture_fit_baseline
+
+            def timed(*a, _orig=orig, **k):
+                t0 = time.perf_counter()
+                got = _orig(*a, **k)
+                capture.append((time.perf_counter() - t0) * 1e3)
+                return got
+            drift.capture_fit_baseline = timed
+            try:
+                _zero_launches()
+                with mlflow.start_run() as run:
+                    model, ms = walled(lambda: fit(Xtr, ytr, cats, device),
+                                       device)
+                launches = _all_launches()
+            finally:
+                drift.capture_fit_baseline = orig
+            metrics = mlflow.get_run(run.info.run_id).data.metrics
+            runs[on] = {"model": model, "ms": ms, "launches": launches,
+                        "capture_ms": sum(capture),
+                        "engine": {k: v for k, v in metrics.items()
+                                   if k.startswith("engine.")},
+                        "decisions": [(r.route, r.reason)
+                                      for r in obs.audit_records()]}
+        off, on = runs[False], runs[True]
+        expect = dict(want, forest_traverse=0)
+        if off["launches"] != expect or on["launches"] != expect:
+            raise AssertionError(f"(a) {name}: launches off {off['launches']}"
+                                 f", on {on['launches']}, not {expect}")
+        same_spec(off["model"]._spec, on["model"]._spec,
+                  f"(a) {name} recorder on against off")
+        if off["model"]._spec.baseline is not None \
+                or on["model"]._spec.baseline is None:
+            raise AssertionError(f"(a) {name}: a baseline only with the "
+                                 f"recorder on")
+        if off["engine"] or len(on["engine"]) != 10:
+            raise AssertionError(f"(a) {name}: engine metrics off "
+                                 f"{off['engine']}, on {on['engine']}")
+        peak = on["engine"]["engine.hbm_peak_bytes"]
+        card_peak = torch.cuda.max_memory_allocated() \
+            if device.type == "cuda" else float("inf")
+        if not 0 < peak <= card_peak:
+            raise AssertionError(f"(a) {name}: ledger peak {peak} against "
+                                 f"the card's {card_peak}")
+        reasons = {"local-chip"} if device.type == "cuda" else {"no-tunnel"}
+        if not on["decisions"] or {r for _, r in on["decisions"]} \
+                != reasons or {r for r, _ in on["decisions"]} != {"device"}:
+            raise AssertionError(f"(a) {name}: decisions {on['decisions']}")
+        out[name] = {"launches": on["launches"], "fit_ms_off": off["ms"],
+                     "fit_ms_on": on["ms"],
+                     "capture_ms": on["capture_ms"],
+                     "engine": on["engine"],
+                     "decisions": len(on["decisions"]),
+                     "model": on["model"]}
+        print(f"observed (a) {name} fit {len(Xtr)} rows: launches off "
+              f"{off['launches']} on {on['launches']}, trees bit-equal; "
+              f"wall off {off['ms']!r} ms on {on['ms']!r} ms, baseline "
+              f"capture {on['capture_ms']!r} ms (host); "
+              f"{len(on['decisions'])} decisions, all {sorted(reasons)}; "
+              f"run engine.* {on['engine']} [{card}]")
+    return out
+
+
+def obs_waves(ep, scorer, reqs, observer_s: list) -> dict:
+    """OBS_WAVES waves of OBS_WAVE requests on `ep` (a wave submitted,
+    then waited for): each response bit-equal to `score_block` of its
+    rows; a traversal a flushed batch; latencies (host clock)."""
+    from sml_tpu_torch.utils.profiler import PROFILER
+
+    def batches():
+        return PROFILER.counters().get("serve.batches", 0.0)
+    full = scorer.score_block(np.concatenate(reqs, axis=0))
+    offs = np.cumsum([0] + [len(r) for r in reqs])
+    refs = [full[offs[i]:offs[i + 1]] for i in range(len(reqs))]
+    _zero_launches()   # the references' launch is not the path's
+    b0, o0 = batches(), len(observer_s)
+    lat = []
+    for w in range(0, len(reqs), OBS_WAVE):
+        sent = [(time.perf_counter(), ep.submit(r), i)
+                for i, r in enumerate(reqs[w:w + OBS_WAVE], w)]
+        for t0, fut, i in sent:
+            got = fut.result(60)
+            lat.append((time.perf_counter() - t0) * 1e3)
+            if not np.array_equal(got, refs[i]):
+                raise AssertionError(f"(b) response {i} differs from "
+                                     f"score_block of its rows")
+    launches = _all_launches()
+    flushed = int(batches() - b0)
+    if launches != dict.fromkeys(launches, 0) | {"forest_traverse":
+                                                  flushed}:
+        raise AssertionError(f"(b) {launches} for {flushed} batches")
+    obs_us = [s * 1e6 for s in observer_s[o0:]]
+    return {"p50_ms": float(np.percentile(lat, 50)),
+            "p99_ms": float(np.percentile(lat, 99)),
+            "batches": flushed, "launches": launches,
+            "observer_us_per_batch": float(np.median(obs_us))
+            if obs_us else None}
+
+
+def obs_endpoint(model, Xtr, device, card: str, tmp: str) -> dict:
+    """(b) the ML 11 model (with its baseline) logged, registered,
+    promoted and served: iid waves flag nothing (drift on, then off for
+    the latency pair); the window reset, shifted waves flag OBS_FEATURE
+    alone, and its exemplar's trace id is in the exported trace. (c)
+    `health_report()`'s blocks."""
+    from sml_tpu_torch import obs
+    from sml_tpu_torch import tracking as mlflow
+    from sml_tpu_torch.ml.inference import DeviceScorer
+    from sml_tpu_torch.serving import ServingEndpoint
+    with mlflow.start_run():
+        mlflow.spark.log_model(model, "model",
+                               registered_model_name=OBS_NAME)
+    mlflow.MlflowClient().transition_model_version_stage(OBS_NAME, 1,
+                                                         "Production")
+    rng = np.random.default_rng(20)
+    sd = float(np.nanstd(Xtr[:, OBS_FEATURE]))
+
+    def traffic(shift: bool) -> list:
+        reqs = []
+        for _ in range(OBS_WAVES * OBS_WAVE):
+            rows = Xtr[rng.integers(0, len(Xtr), OBS_ROWS)].copy()
+            if shift:
+                rows[:, OBS_FEATURE] += OBS_SHIFT * sd
+            reqs.append(rows)
+        return reqs
+
+    scorer = DeviceScorer(model, device=device)
+    out = {}
+    name = f"f{OBS_FEATURE}"
+    ep = ServingEndpoint(OBS_NAME, "Production", flush_micros=2000,
+                         device=device)
+    try:
+        observer_s = []
+        inner = ep._observe_scores
+
+        def timed_observer(X, preds, traces):
+            t0 = time.perf_counter()
+            inner(X, preds, traces)
+            observer_s.append(time.perf_counter() - t0)
+        ep._batcher._observer = timed_observer
+        mon = ep._drift
+        if mon is None or obs.DRIFT.get(OBS_KEY) is not mon:
+            raise AssertionError("(b) the endpoint bound no drift monitor")
+
+        out["iid_drift_on"] = obs_waves(ep, scorer, traffic(False),
+                                        observer_s)
+        iid = obs.DRIFT.report()[OBS_KEY]
+        ep._drift = None            # the observer finds no monitor
+        out["iid_drift_off"] = obs_waves(ep, scorer, traffic(False),
+                                         observer_s)
+        ep._drift = mon
+        obs.DRIFT.reset()           # a fresh window for the shift
+        out["shift_drift_on"] = obs_waves(ep, scorer, traffic(True),
+                                          observer_s)
+        shifted = obs.DRIFT.report()[OBS_KEY]
+        health = ep.health_report()
+    finally:
+        ep.close()
+    if not iid["ready"] or iid["flagged"]:
+        raise AssertionError(f"(b) iid traffic flagged {iid['flagged']}")
+    feats = [f for f in shifted["flagged"] if f != "prediction"]
+    if feats != [name]:
+        raise AssertionError(f"(b) the shift flagged {shifted['flagged']}, "
+                             f"not {name} alone")
+    row = next(e for e in shifted["features"] if e["feature"] == name)
+    trace_path = obs.export_chrome_trace(os.path.join(tmp, "observed.json"))
+    with open(trace_path) as f:
+        doc = json.load(f)
+    tid = int(row["worst_trace"], 16)
+    hits = sum(1 for e in doc["traceEvents"]
+               if (e.get("args") or {}).get("trace") == tid
+               or tid in ((e.get("args") or {}).get("parent_traces") or ()))
+    if not hits:
+        raise AssertionError(f"(b) exemplar {row['worst_trace']} is not in "
+                             f"the exported trace")
+    # (c) the health surface
+    if set(health) != OBS_BLOCKS or OBS_KEY not in (health["drift"] or {}):
+        raise AssertionError(f"(c) health_report blocks {sorted(health)}, "
+                             f"drift {health['drift']}")
+    plan = health["infer_kernel"]["plan"]
+    if device.type == "cuda" and not plan:
+        raise AssertionError(f"(c) no traversal plan: "
+                             f"{health['infer_kernel']}")
+    out["iid"] = {"rows": iid["rows"], "max_severity": iid["max_severity"],
+                  "flagged": iid["flagged"]}
+    out["shift"] = {"rows": shifted["rows"], "flagged": shifted["flagged"],
+                    "severity": row["severity"], "psi": row["psi"],
+                    "threshold_psi": row["threshold_psi"],
+                    "worst_trace": row["worst_trace"],
+                    "trace_events_with_it": hits,
+                    "prediction": shifted.get("prediction")}
+    out["health"] = {"blocks": sorted(health), "infer_kernel":
+                     health["infer_kernel"],
+                     "hbm_total": health["hbm"]["_total"],
+                     "slo": health["slo"]}
+    for what in ("iid_drift_on", "iid_drift_off", "shift_drift_on"):
+        got = out[what]
+        print(f"observed (b) {what}: p50 {got['p50_ms']!r} ms p99 "
+              f"{got['p99_ms']!r} ms, {got['batches']} batches, launches "
+              f"{got['launches']}, observer "
+              f"{got['observer_us_per_batch']!r} us a batch [{card}]")
+    print(f"observed (b) iid: {iid['rows']} rows, nothing flagged (max "
+          f"severity {iid['max_severity']!r}); shifted {name} by "
+          f"{OBS_SHIFT} sd: flagged {shifted['flagged']}, exemplar "
+          f"{row['worst_trace']} in {hits} trace events")
+    print(f"observed (c) health_report: {sorted(health)}; plan {plan}")
+    return out
+
+
+def obs_chunked(base, Xtr, ytr, cats, device, card: str) -> dict:
+    """(d) the training rows in OBS_CHUNKS chunks, one shifted, into
+    ML 11's chunked fit judged against the ML 11 model's baseline: the
+    shifted chunk flags OBS_FEATURE alone, no other chunk flags; the
+    ingest block names a slowest chunk."""
+    from sml_tpu_torch import obs
+    from sml_tpu_torch.frame._chunks import ArrayChunkSource
+    from sml_tpu_torch.ml._chunked import fit_ensemble_chunked
+    n = len(Xtr)
+    c = -(-n // OBS_CHUNKS)
+    Xs = np.array(Xtr, copy=True)
+    lo = OBS_SHIFTED_CHUNK * c
+    Xs[lo:lo + c, OBS_FEATURE] += OBS_SHIFT * float(
+        np.nanstd(Xtr[:, OBS_FEATURE]))
+    obs.reset()
+    clear_fit_caches()
+    _zero_launches()
+    spec, ms = walled(lambda: fit_ensemble_chunked(
+        ArrayChunkSource(Xs, ytr, chunk_rows=c), categorical=cats,
+        max_depth=6, max_bins=64, n_trees=40, boosting=True,
+        step_size=0.15, reg_lambda=1.0, seed=42, device=device,
+        drift_baseline=base), device)
+    launches = _all_launches()
+    want = dict(FITS["xgb"][2], forest_traverse=0)
+    if launches != want:
+        raise AssertionError(f"(d) launches {launches}, not {want}")
+    health = obs.engine_health()
+    rep = health["drift"]["ingest"]
+    verdicts = {e["chunk"]: e["flagged"] for e in rep["chunks"]["recent"]}
+    expect = {i: ([f"f{OBS_FEATURE}"] if i == OBS_SHIFTED_CHUNK else [])
+              for i in range(OBS_CHUNKS)}
+    if rep["chunks"]["observed"] != OBS_CHUNKS or verdicts != expect:
+        raise AssertionError(f"(d) chunk verdicts {verdicts}")
+    ingest = health["ingest"]
+    if ingest is None or ingest["slowest_device"] not in range(OBS_CHUNKS):
+        raise AssertionError(f"(d) ingest block {ingest}")
+    if spec.baseline is None or spec.baseline.n_rows != n:
+        raise AssertionError("(d) the chunked fit carries no baseline")
+    out = {"ms": ms, "launches": launches, "verdicts": verdicts,
+           "max_severity": {e["chunk"]: e["max_severity"]
+                            for e in rep["chunks"]["recent"]},
+           "slowest_chunk": ingest["slowest_device"],
+           "skew_ratio": ingest["skew_ratio"]}
+    print(f"observed (d) {OBS_CHUNKS} chunks of {c} rows (chunk "
+          f"{OBS_SHIFTED_CHUNK} shifted) into fit_chunked with the ML 11 "
+          f"baseline: {ms!r} ms, launches {launches}; verdicts {verdicts}; "
+          f"slowest chunk {ingest['slowest_device']} (skew "
+          f"{ingest['skew_ratio']!r}) [{card}]")
+    return out
+
+
+def obs_blackbox(tmp: str, device, card: str) -> dict:
+    """(e) a bundle dumped, its files' sizes, and its events rendered by
+    the port's `_tracefmt.py` loaded by file path."""
+    import importlib.util
+    from sml_tpu_torch import obs
+    bundle, ms = walled(lambda: obs.dump_blackbox(
+        "phase 20", directory=os.path.join(tmp, "blackbox")), device)
+    files = {f: os.path.getsize(os.path.join(bundle, f))
+             for f in sorted(os.listdir(bundle))}
+    if set(files) != {"MANIFEST.json", "events.jsonl", "metrics.json",
+                      "audit.json", "ledger.json"}:
+        raise AssertionError(f"(e) bundle files {files}")
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "sml_tpu_torch", "obs", "_tracefmt.py")
+    spec = importlib.util.spec_from_file_location("_observed_tracefmt",
+                                                  path)
+    fmt = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fmt)
+    with open(os.path.join(bundle, "events.jsonl")) as f:
+        records = [json.loads(line) for line in f][1:]
+    doc = fmt.trace_doc(records)
+    host = next(e for e in doc["traceEvents"]
+                if e.get("name") == "process_name" and e["pid"] == 1)
+    if host["args"]["name"] != "sml_tpu_torch host" or not records:
+        raise AssertionError(f"(e) rendered {host}, {len(records)} events")
+    print(f"observed (e) dump_blackbox: {ms!r} ms, files {files}; "
+          f"{len(records)} events rendered to {len(doc['traceEvents'])} "
+          f"trace events by the port's _tracefmt [{card}]")
+    return {"ms": ms, "files": files, "events": len(records)}
+
+
+def obs_kmeans(X):
+    """KMeans (k=5) of X's continuous features on the session's device."""
+    from sml_tpu_torch.frame.session import get_session
+    from sml_tpu_torch.ml.clustering import KMeans
+    from sml_tpu_torch.ml.feature import VectorAssembler
+    cols = [f"c{j}" for j in (3, 4, 6, 7, 8)]
+    df = get_session().createDataFrame(
+        {c: np.nan_to_num(X[:, int(c[1:])]) for c in cols})
+    df = VectorAssembler(inputCols=cols, outputCol="features").transform(df)
+    return np.asarray(KMeans(k=5, seed=1, maxIter=20).fit(df)
+                      .clusterCenters())
+
+
+def obs_host_mode(X, y, cats, device, card: str) -> dict:
+    """(f) `sml.dispatch.mode=host`: ML 11's fit and a KMeans fit asked
+    for the card run on the CPU, launch nothing and equal the CPU run;
+    in the default mode KMeans decides "local-chip"."""
+    from sml_tpu_torch import obs
+    from sml_tpu_torch.conf import GLOBAL_CONF
+    Xh, yh = X[:OBS_HOST_ROWS], y[:OBS_HOST_ROWS]
+    GLOBAL_CONF.set("sml.device", device.type)
+    GLOBAL_CONF.set("sml.dispatch.mode", "host")
+    try:
+        with KernelWatch() as watch:
+            _zero_launches()
+            fit_host, fit_ms = walled(lambda: _fit_xgb(Xh, yh, cats, None),
+                                      device)
+            km_host = obs_kmeans(Xh)
+            launches = _all_launches()
+    finally:
+        GLOBAL_CONF.unset("sml.dispatch.mode")
+    GLOBAL_CONF.set("sml.device", "cpu")
+    try:
+        fit_cpu = _fit_xgb(Xh, yh, cats, "cpu")
+        km_cpu = obs_kmeans(Xh)
+    finally:
+        GLOBAL_CONF.set("sml.device", device.type)
+    if any(launches.values()) or watch.plain_on_cuda:
+        raise AssertionError(f"(f) host mode launched {launches}, plain "
+                             f"versions on the card {watch.plain_on_cuda}")
+    same_spec(fit_host._spec, fit_cpu._spec, "(f) host mode against CPU")
+    if not np.array_equal(km_host, km_cpu):
+        raise AssertionError("(f) KMeans on the host route differs from "
+                             "the CPU run")
+    obs_recorder(True)
+    obs_kmeans(Xh)
+    reasons = sorted({r.reason for r in obs.audit_records()})
+    want = ["local-chip"] if device.type == "cuda" else ["no-tunnel"]
+    if reasons != want:
+        raise AssertionError(f"(f) default-mode KMeans decided {reasons}")
+    print(f"observed (f) sml.dispatch.mode=host: ML 11 fit "
+          f"({OBS_HOST_ROWS} rows, {fit_ms!r} ms) and KMeans on the CPU, "
+          f"launches {launches}, equal to the CPU run bit for bit; "
+          f"default-mode KMeans decisions {reasons} [{card}]")
+    return {"launches": launches, "fit_ms": fit_ms,
+            "default_reasons": reasons}
+
+
+def phase_observed(seed: int, device, card: str,
+                   n_train: int = 80_000) -> dict:
+    """Phase 20: the main path with its monitoring on (the recorder on
+    only inside this phase, and reset after it): (a) fits with the
+    recorder off and on; (b) the endpoint under drift; (c) its health
+    surface; (d) the chunked ingest judged per chunk; (e) a black-box
+    bundle; (f) `sml.dispatch.mode=host` (on a card only). `n_train`
+    cuts the training rows for a rehearsal on the CPU."""
+    import shutil
+    import tempfile
+    from sml_tpu_torch import tracking as mlflow
+    X, logy, cats = fit_rows(seed)
+    Xtr, ytr = X[:n_train], logy[:n_train]
+    tmp = tempfile.mkdtemp(prefix="sml-observed-")
+    prev_uri = mlflow.get_tracking_uri()
+    mlflow.set_tracking_uri(os.path.join(tmp, "mlruns"))
+    t_phase = time.perf_counter()
+    out = {"card": card}
+    total: dict = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    try:
+        with KernelWatch() as watch:
+            fits = obs_fits(Xtr, ytr, cats, device, card)
+            for name, got in fits.items():
+                add({k: 2 * v for k, v in got["launches"].items()})
+            model = fits["xgb"].pop("model")
+            fits["rf"].pop("model")
+            out["a"] = fits
+            obs_recorder(True)
+            out["b"] = obs_endpoint(model, Xtr, device, card, tmp)
+            for what in ("iid_drift_on", "iid_drift_off", "shift_drift_on"):
+                add(out["b"][what]["launches"])
+            out["d"] = obs_chunked(model._spec.baseline, Xtr, ytr, cats,
+                                   device, card)
+            add(out["d"]["launches"])
+            out["e"] = obs_blackbox(tmp, device, card)
+        if watch.plain_on_cuda:
+            raise AssertionError(f"(observed) plain versions ran "
+                                 f"{watch.plain_on_cuda} times on the card")
+        if device.type == "cuda":
+            out["f"] = obs_host_mode(X, logy, cats, device, card)
+    finally:
+        obs_recorder(False)
+        mlflow.set_tracking_uri(prev_uri)
+        shutil.rmtree(tmp, ignore_errors=True)
+    missing = [k for k, v in total.items() if not v]
+    if missing:
+        raise AssertionError(f"(observed) kernels never launched: "
+                             f"{missing} ({total})")
+    out["launches"] = total
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"observed: every check passed in {out['phase_s']!r} s; launches "
+          f"{total}; card {card}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5826,6 +6301,7 @@ def main(argv=None) -> int:
     registry = phase_registry(device, card)
     dispatch = phase_dispatch(args.seed, device, card)
     dataplane = phase_dataplane(device, card)
+    observed = phase_observed(args.seed, device, card)
 
     def by_path(kernel: str) -> dict:
         return {"fit": fit["launches"][kernel],
@@ -5837,7 +6313,8 @@ def main(argv=None) -> int:
                 "endpoint": registry["launches"]["endpoint"][kernel],
                 "automl": registry["launches"]["automl"][kernel],
                 "dispatch": dispatch["launches"][kernel],
-                "dataplane": dataplane["launches"][kernel]}
+                "dataplane": dataplane["launches"][kernel],
+                "observed": observed["launches"][kernel]}
 
     def windows(kernel: str) -> dict:
         return {what: seen for what, seen in DEVICE_WINDOWS.items()
@@ -5858,7 +6335,8 @@ def main(argv=None) -> int:
         + registry["launches"]["endpoint"]["forest_traverse"]
         + registry["launches"]["automl"]["forest_traverse"]
         + dispatch["launches"]["forest_traverse"]
-        + dataplane["launches"]["forest_traverse"],
+        + dataplane["launches"]["forest_traverse"]
+        + observed["launches"]["forest_traverse"],
         "launches_by_path": {"serving": main_path["launches"],
                              "tuning": tuning["fused"]["forest_traverse"],
                              "dataframe": frames["evaluate"][
@@ -5875,6 +6353,8 @@ def main(argv=None) -> int:
                              "dispatch": dispatch["launches"][
                                  "forest_traverse"],
                              "dataplane": dataplane["launches"][
+                                 "forest_traverse"],
+                             "observed": observed["launches"][
                                  "forest_traverse"]},
         "replay_launches": chunked["b"]["launches"]["forest_traverse"],
         "replay": chunked["replay"],
@@ -5992,6 +6472,7 @@ def main(argv=None) -> int:
     print(json.dumps({"registry": registry}))
     print(json.dumps({"dispatch": dispatch}))
     print(json.dumps({"dataplane": dataplane}))
+    print(json.dumps({"observed": observed}))
     print(json.dumps({"dataframe": {
         "launches_fit": frames["fit"], "launches_evaluate":
         frames["evaluate"], "rmse": frames["rmse"],

@@ -183,6 +183,49 @@ _register("sml.obs.metricsWindowSec", 300, int,
           "Rolling-window span of the metrics registry (obs/_metrics.py): "
           "windowed quantiles and rates cover the trailing this-many "
           "seconds (8 ring slots); all-time histograms are kept regardless")
+_register("sml.obs.autoLogRunMetrics", True, _to_bool,
+          "With the recorder enabled, every outermost Estimator.fit under "
+          "an active tracking run logs engine.* metrics (h2d/d2h bytes, "
+          "cache hit rates, route mix, compile count, peak device ledger "
+          "bytes) to the run: the MLflow system-metrics equivalent")
+_register("sml.obs.driftBaselineRows", 32768, int,
+          "Fit-time drift-baseline capture (obs/drift.py): with the "
+          "recorder on (sml.obs.enabled; an obs-off fit pays one "
+          "attribute load, not a sketch pass), tree fits sketch up to "
+          "this many deterministically-strided training rows (features "
+          "+ label + the model's own predictions) into the fitted "
+          "model's DriftBaseline, persisted with the model and logged "
+          "through tracking.log_model; persisted sketches compress to "
+          "the sml.data.sketchBuckets centroid budget. 0 disables "
+          "capture. Also bounds the retained values per stream of "
+          "serving live-window sketches. The chunked-ingest path "
+          "reuses its full-data pass-1 sketch instead (no extra cost)")
+_register("sml.obs.driftBins", 10, int,
+          "PSI cell count for drift distances: live-vs-baseline "
+          "population stability is measured over this many "
+          "equal-probability cells cut at the BASELINE's quantiles")
+_register("sml.obs.driftMargin", 2.0, float,
+          "Drift flag threshold as a multiple of the noise floor (the "
+          "max self-distance of resampled-baseline iid windows): a "
+          "feature flags when its distance exceeds margin x floor. "
+          "Higher = less sensitive")
+_register("sml.obs.driftMinRows", 256, int,
+          "Minimum live rows in a drift window before it is judged: "
+          "tiny windows carry too much sampling noise to name a "
+          "drifting feature honestly")
+_register("sml.obs.driftResamples", 3, int,
+          "Bootstrap resamples of the baseline used to set each "
+          "feature's noise floor (deterministic seeds; floors cached "
+          "per rounded-down power-of-two live-row count)")
+_register("sml.obs.driftWindowSec", 300, int,
+          "Rolling-window span of serving drift monitors: live sketches "
+          "rotate in two half-window slots, so a drift report covers "
+          "between half and one full window of recent traffic")
+_register("sml.obs.blackboxDir", "blackbox", str,
+          "Directory black-box forensics bundles are written under "
+          "(obs.dump_blackbox, and unhandled exceptions and the first "
+          "hard stall once obs.install_blackbox() armed them). Each dump "
+          "creates one blackbox-<utc>-<pid> bundle inside it")
 _register("sml.profiler.enabled", False, _to_bool,
           "Keep op-level timing spans (utils/profiler.py: PROFILER.spans, "
           "PROFILER.report); counters count either way")
@@ -244,6 +287,14 @@ class TorchConf:
 
     def getBool(self, key: str) -> bool:
         return _to_bool(self.get(key))
+
+    def asDict(self) -> Dict[str, Any]:
+        """Every registered key's value (its default unless set) and
+        every key set: the black-box bundle's conf dump."""
+        with self._lock:
+            d = {k: e.default for k, e in _KNOWN.items()}
+            d.update(self._values)
+            return d
 
     def unset(self, key: str) -> None:
         with self._lock:

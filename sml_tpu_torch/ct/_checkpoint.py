@@ -176,7 +176,8 @@ def checkpointed_fit(source, checkpoint_dir: str, *, n_trees: int,
                      min_instances: int = 1, min_info_gain: float = 0.0,
                      reg_lambda: float = 0.0, gamma: float = 0.0,
                      rounds_per_dispatch: Optional[int] = None,
-                     sketch=None, on_checkpoint=None, device=None):
+                     drift_baseline=None, sketch=None, on_checkpoint=None,
+                     device=None):
     """A chunked boosting fit on `device` that survives interruption:
     every segment boundary (`rounds_per_dispatch` rounds apart; one
     segment has no boundary) checkpoints the partial ensemble, and a
@@ -186,7 +187,9 @@ def checkpointed_fit(source, checkpoint_dir: str, *, n_trees: int,
     Returns the finished `_EnsembleSpec`, bit for bit the uninterrupted
     fit's, and clears the checkpoints. `on_checkpoint(t_done)` fires
     after each checkpoint is committed (an exception it raises aborts
-    the fit, not the checkpoint)."""
+    the fit, not the checkpoint). A fresh fit's ingest judges each chunk
+    against `drift_baseline` (`ingest_source`), and its pass-1 sketch is
+    the model's baseline."""
     from ..ml._chunked import ingest_source, warm_start_ensemble_chunked
     from ..ml._tree_models import _fit_ensemble
 
@@ -234,7 +237,8 @@ def checkpointed_fit(source, checkpoint_dir: str, *, n_trees: int,
     mode = "binary" if loss == "logistic" else "regression"
     categorical = categorical or {}
     ing = ingest_source(source, max_bins, categorical, sketch=sketch,
-                        device=device)
+                        device=device, label="ct_fit",
+                        drift_baseline=drift_baseline)
     if ing.y is None:
         raise ValueError("checkpointed_fit needs a labeled ChunkSource")
 
@@ -252,7 +256,7 @@ def checkpointed_fit(source, checkpoint_dir: str, *, n_trees: int,
         bootstrap=False, subsample=subsample, seed=seed, loss=loss,
         step_size=step_size, reg_lambda=reg_lambda, gamma=gamma,
         boosting=True, rounds_per_dispatch=rounds_per_dispatch,
-        prebinned=(ing.binned, ing.binning), on_rounds=fresh_hook,
-        device=device)
+        prebinned=(ing.binned, ing.binning), baseline_sketch=ing.sketch,
+        on_rounds=fresh_hook, device=device)
     ck.clear()
     return spec

@@ -8,21 +8,52 @@ raises instead of carrying on somewhere else.
 `run_placed_trials` is the one-card form of the JAX package's placed
 trials: tuning's trials run `parallelism` worker threads wide, all on
 the session's device.
+
+`use_device_local(device)` binds a device as THIS thread's (the JAX
+package's `use_mesh_local`): inside it `resolve_device(None)` and
+`session_device()` answer the bound device. The dispatcher's `routed`
+binds its choice this way, so a fit routed to the host stages, launches
+and reads back on the CPU without the call sites below it passing a
+device; other threads keep theirs.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Callable, List, Optional, Sequence, Union
 
 import torch
 
+_tls = threading.local()
+
+
+@contextlib.contextmanager
+def use_device_local(device: Union[str, torch.device]):
+    """Bind `device` as this thread's device for the block (nested
+    bindings restore the outer one on exit)."""
+    prev = getattr(_tls, "device", None)
+    _tls.device = torch.device(device)
+    try:
+        yield _tls.device
+    finally:
+        _tls.device = prev
+
+
+def bound_device() -> Optional[torch.device]:
+    """This thread's bound device (`use_device_local`), else None."""
+    return getattr(_tls, "device", None)
+
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
                    ) -> torch.device:
-    """`device` as a `torch.device`; None means the CUDA card.
+    """`device` as a `torch.device`; None means this thread's bound
+    device (`use_device_local`), else the CUDA card.
 
     Raises RuntimeError when CUDA is asked for (explicitly or by default)
     and this process has no usable CUDA device."""
+    if device is None:
+        device = bound_device()
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -35,10 +66,13 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
 
 
 def session_device() -> torch.device:
-    """The device of the DataFrame entry points: the `sml.device` key,
-    through `resolve_device` (so a missing card raises)."""
+    """The device of the DataFrame entry points: this thread's bound
+    device (`use_device_local`), else the `sml.device` key, through
+    `resolve_device` (so a missing card raises)."""
     from .conf import GLOBAL_CONF
-    return resolve_device(GLOBAL_CONF.get("sml.device"))
+    bound = bound_device()
+    return resolve_device(bound if bound is not None
+                          else GLOBAL_CONF.get("sml.device"))
 
 
 def run_placed_trials(jobs: Sequence, fn: Callable, parallelism: int

@@ -14,12 +14,19 @@ host protocol (ChunkSource, the mergeable sketch, the split draws).
   stream (`_staging.ChunkAssembler`), chunk i+1 dispatched before chunk
   i drains. The assembled matrix is adopted into the bin cache
   (`insert_bins_cached`), so the device holds the compact matrix and
-  never the raw float rows. The JAX package pads rows to its mesh and
-  keeps ledger pools; one card has one layout, and the device memory
-  pass 2 adds is read from `torch.cuda.max_memory_allocated`.
+  never the raw float rows. The JAX package pads rows to its mesh; one
+  card has one layout. The assembling matrix is the memory ledger's
+  transient `chunk_stage` pool until the bin cache adopts it, and the
+  device memory pass 2 adds is also read from
+  `torch.cuda.max_memory_allocated`. Each chunk's host quantization wall
+  feeds `obs.INGEST_SKEW` (the `ingest` block of `engine_health()`
+  names the slowest chunk), and `drift_baseline=` judges every chunk's
+  pass-1 sketch against a model's training baseline (the "ingest"
+  drift monitor).
 - `fit_ensemble_chunked`: `_tree_models._fit_ensemble` with
   `prebinned=`, the same path as a fit on the materialized rows, which
-  it equals bit for bit while the sketch is exact.
+  it equals bit for bit while the sketch is exact; pass 1's sketch
+  doubles as the fitted model's drift baseline.
 - `warm_start_ensemble_chunked`: fresh chunks binned under a saved
   spec's binning, then `_resume_ensemble`.
 - `iter_predictions` / `predict_chunked` / `cross_validate_chunked`:
@@ -67,14 +74,17 @@ def _memo_key(source: ChunkSource, max_bins: int,
 
 
 def sketch_source(source: ChunkSource, max_bins: int,
-                  categorical: Optional[Dict[int, int]] = None
-                  ) -> DatasetSketch:
+                  categorical: Optional[Dict[int, int]] = None,
+                  monitor=None) -> DatasetSketch:
     """Ingest pass 1: a `DatasetSketch` of each chunk, merged into one
-    (the mergeable contract: summaries built apart, then unified)."""
+    (the mergeable contract: summaries built apart, then unified). A
+    drift `monitor` judges each chunk's sketch as it goes."""
     unified = DatasetSketch(source.n_features, categorical)
-    for X, y in source.chunks():
+    for i, (X, y) in enumerate(source.chunks()):
         chunk_sk = DatasetSketch(source.n_features, categorical)
         chunk_sk.update(X, y)
+        if monitor is not None:
+            monitor.observe_sketch(chunk_sk, i)
         unified.merge(chunk_sk)
     return unified
 
@@ -83,7 +93,8 @@ def ingest_source(source: ChunkSource, max_bins: int,
                   categorical: Optional[Dict[int, int]] = None,
                   binning: Optional[Binning] = None,
                   sketch: Optional[DatasetSketch] = None,
-                  device=None) -> IngestResult:
+                  device=None, label: str = "source",
+                  drift_baseline=None) -> IngestResult:
     """The two-pass streamed quantization of a ChunkSource (the module
     docstring gives its shape). Returns the host mirror and binning, with
     the assembled device copy already in the bin cache of `device`.
@@ -91,8 +102,17 @@ def ingest_source(source: ChunkSource, max_bins: int,
     `binning` pins the edges and category ranks to a saved model's (a
     warm start's appended rounds split on the bin ids the saved trees
     use); pass 1 still streams, for the row count and the sketch.
-    `sketch`, a caller's pass-1 sketch of the same rows, replaces pass 1.
-    Either skips the memo.
+    `sketch`, a caller's pass-1 sketch of the same rows, replaces pass 1
+    (unless a drift monitor must stream). Either skips the memo.
+
+    `drift_baseline` (an `obs.drift.DriftBaseline`, typically a
+    registered model's) arms the ingest drift monitor: every chunk's
+    pass-1 sketch is judged against it, flagged chunks count
+    `drift.chunk_flagged`, and the monitor registers as "ingest" in
+    `engine_health()["drift"]` (the last monitored ingest wins). A
+    monitored ingest always streams and never uses or fills the memo.
+    The chunks' host walls feed `obs.INGEST_SKEW` as program
+    `ingest.<label>`.
 
     `stats` holds: n_chunks, chunk_rows, prefetch_depth, sketch_exact,
     sketch_s / pipeline_s / prep_s / dispatch_s (host clock; prep summed
@@ -102,20 +122,27 @@ def ingest_source(source: ChunkSource, max_bins: int,
     `torch.cuda.reset_peak_memory_stats`; None on the CPU) and order
     (the pipeline's ("dispatch" | "drain", chunk) events in order)."""
     from ..device import resolve_device
+    from ..obs import INGEST_SKEW, LEDGER
     from ..parallel.pipeline import prefetch_pipeline
     from ._staging import ChunkAssembler, insert_bins_cached
     dev = resolve_device(device)
-    key = None if (binning is not None or sketch is not None) \
+    key = None if (binning is not None or sketch is not None
+                   or drift_baseline is not None) \
         else _memo_key(source, max_bins, categorical)
     hit = _ingest_memo.get(key) if key is not None else None
     if hit is not None:
         PROFILER.count("ingest.memo_hit")
         return hit
+    monitor = None
+    if drift_baseline is not None:
+        from ..obs import drift as _drift
+        monitor = _drift.DriftMonitor(drift_baseline, name="ingest")
+        _drift.DRIFT.register("ingest", monitor)
 
     # ---- pass 1: the sketch (counts rows, learns the edges)
     t0 = now()
-    if sketch is None:
-        sketch = sketch_source(source, max_bins, categorical)
+    if sketch is None or monitor is not None:
+        sketch = sketch_source(source, max_bins, categorical, monitor)
     if binning is not None:
         edge_list, out_dtype = binning_edges_and_dtype(binning)
     else:
@@ -141,6 +168,8 @@ def ingest_source(source: ChunkSource, max_bins: int,
         torch.cuda.reset_peak_memory_stats(dev)
         mem0 = torch.cuda.memory_allocated(dev)
     asm = ChunkAssembler(n, F, out_dtype, dev, depth)
+    stage_bytes = n * F * np.dtype(out_dtype).itemsize
+    LEDGER.alloc("chunk_stage", stage_bytes)
 
     def offsets():
         start = 0
@@ -179,12 +208,16 @@ def ingest_source(source: ChunkSource, max_bins: int,
             event.synchronize()
 
     t2 = now()
-    for _ in prefetch_pipeline(offsets(), prep, dispatch, drain,
-                               depth=depth, workers=min(depth + 1, 4),
-                               family="ingest", index_key="chunk",
-                               order=order):
-        pass
-    matrix = asm.finish()
+    try:
+        for _ in prefetch_pipeline(offsets(), prep, dispatch, drain,
+                                   depth=depth, workers=min(depth + 1, 4),
+                                   family="ingest", index_key="chunk",
+                                   order=order):
+            pass
+        matrix = asm.finish()
+    finally:
+        # the bin cache takes the matrix's bytes over from here
+        LEDGER.free("chunk_stage", stage_bytes)
     pipeline_s = now() - t2
     peak = None
     if cuda:
@@ -195,6 +228,9 @@ def ingest_source(source: ChunkSource, max_bins: int,
     PROFILER.count("ingest.chunks", float(n_chunks))
     PROFILER.count("ingest.rows", float(n))
     PROFILER.count("ingest.raw_bytes", float(raw_bytes[0]))
+    if n_chunks:
+        INGEST_SKEW.note(f"ingest.{label}", prep_walls,
+                         devices=list(range(n_chunks)), wall_s=pipeline_s)
     stats = {
         "n_chunks": n_chunks,
         "chunk_rows": int(source.chunk_rows),
@@ -228,14 +264,19 @@ def fit_ensemble_chunked(source: ChunkSource, *, categorical=None,
                          step_size: float = 0.1, reg_lambda: float = 0.0,
                          gamma: float = 0.0, boosting: bool = False,
                          rounds_per_dispatch: Optional[int] = None,
-                         on_rounds=None, sketch=None, device=None):
+                         drift_baseline=None, on_rounds=None, sketch=None,
+                         device=None):
     """A tree-ensemble fit from a ChunkSource on `device`: the streamed
     quantization, then the ordinary `_fit_ensemble` over the prebinned
-    compact matrix (its device copy already in the bin cache). Raises
+    compact matrix (its device copy already in the bin cache). Pass 1's
+    sketch doubles as the fitted model's drift baseline (the full rows,
+    no extra sketching); `drift_baseline` also arms the per-chunk ingest
+    monitor against a PRIOR model's baseline (`ingest_source`). Raises
     for a source without labels."""
     from ._tree_models import _fit_ensemble
     ing = ingest_source(source, max_bins, categorical, sketch=sketch,
-                        device=device)
+                        device=device, label="fit",
+                        drift_baseline=drift_baseline)
     if ing.y is None:
         raise ValueError("fit_ensemble_chunked needs a labeled ChunkSource "
                          "(chunks must yield (X, y) with y not None)")
@@ -246,21 +287,24 @@ def fit_ensemble_chunked(source: ChunkSource, *, categorical=None,
         bootstrap=bootstrap, subsample=subsample, seed=seed, loss=loss,
         step_size=step_size, reg_lambda=reg_lambda, gamma=gamma,
         boosting=boosting, rounds_per_dispatch=rounds_per_dispatch,
-        prebinned=(ing.binned, ing.binning), on_rounds=on_rounds,
-        device=device)
+        prebinned=(ing.binned, ing.binning), baseline_sketch=ing.sketch,
+        on_rounds=on_rounds, device=device)
 
 
 def warm_start_ensemble_chunked(spec, source: ChunkSource, *,
                                 n_new_trees: int, seed: int = 17,
-                                sketch=None, device=None, **resume_kwargs):
+                                drift_baseline=None, sketch=None,
+                                device=None, **resume_kwargs):
     """Append `n_new_trees` boosting rounds to a saved boosted spec from
     a ChunkSource: the chunks bin under the saved binning
     (`ingest_source(binning=)`), the saved rounds' margin is replayed in
     one `forest_traverse` launch, and the new rounds run under the keys
     of their round index, so k rounds and a warm start of N - k equal N
-    rounds bit for bit on the same rows and seed. `resume_kwargs` are
-    `_resume_ensemble`'s (subsample, step_size, feature_k,
-    rounds_per_dispatch, on_rounds, ...)."""
+    rounds bit for bit on the same rows and seed. Pass 1's sketch is the
+    refreshed model's baseline, and `drift_baseline` arms the per-chunk
+    ingest monitor. `resume_kwargs` are `_resume_ensemble`'s
+    (subsample, step_size, feature_k, rounds_per_dispatch, on_rounds,
+    ...)."""
     from ._tree_models import _resume_ensemble
     if spec.tree_weights is None:
         raise ValueError(
@@ -269,13 +313,15 @@ def warm_start_ensemble_chunked(spec, source: ChunkSource, *,
     categorical = {f: len(r) for f, r in spec.binning.cat_remap.items()}
     max_bins = spec.binning.edges.shape[1] + 1
     ing = ingest_source(source, max_bins, categorical, binning=spec.binning,
-                        sketch=sketch, device=device)
+                        sketch=sketch, device=device, label="warm_fit",
+                        drift_baseline=drift_baseline)
     if ing.y is None:
         raise ValueError("warm_start_ensemble_chunked needs a labeled "
                          "ChunkSource (chunks must yield (X, y) with y "
                          "not None)")
     return _resume_ensemble(spec, ing.binned, ing.y, n_new_trees=n_new_trees,
-                            seed=seed, device=device, **resume_kwargs)
+                            seed=seed, baseline_sketch=ing.sketch,
+                            device=device, **resume_kwargs)
 
 
 def iter_predictions(spec, source: ChunkSource, device=None):
@@ -298,20 +344,23 @@ def predict_chunked(spec_or_model, source: ChunkSource,
 
 def cross_validate_chunked(source: ChunkSource, k: int, split_seed: int, *,
                            categorical=None, device=None,
-                           **fit_params) -> dict:
+                           drift_baseline=None, **fit_params) -> dict:
     """k-fold CV from a ChunkSource: fold membership is the stateless
     per-row draw (`FoldChunkSource`), each fold's training view fits
     through the chunked path and its held fold's RMSE streams chunk by
     chunk; no fold is ever whole. `split_seed` seeds the folds, the
     estimator's `seed` rides in `fit_params`. The fold fits equal those
     of any other chunking bit for bit; the streamed RMSE sums per chunk,
-    so it agrees across chunkings to reduction order."""
+    so it agrees across chunkings to reduction order. `drift_baseline`
+    rides into every fold's ingest monitor."""
     fold_rmse = []
     for j in range(int(k)):
         train = FoldChunkSource(source, split_seed, k, j, invert=True)
         val = FoldChunkSource(source, split_seed, k, j, invert=False)
         spec = fit_ensemble_chunked(train, categorical=categorical,
-                                    device=device, **fit_params)
+                                    device=device,
+                                    drift_baseline=drift_baseline,
+                                    **fit_params)
         sse = 0.0
         cnt = 0
         for pred, y in iter_predictions(spec, val, device):

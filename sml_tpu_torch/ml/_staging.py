@@ -11,6 +11,17 @@ ingest assembles a bin matrix on the device chunk by chunk
 Rows are not padded: in eager PyTorch nothing compiles per shape, so
 kernels run on the true rows and need no padding mask.
 
+`routed_for(hint, *arrays)` and `route_for_arrays(hint, *arrays)` are
+the fit and predict sites' dispatch decisions (the JAX package's, over
+`parallel.dispatch.routed` / `device_for`): the arrays' bytes ride the
+hint as its host -> device bytes for the audit; a card is never priced,
+so the cache is not probed.
+
+Every device byte the caches hold is charged to the memory ledger
+(`obs/_ledger.py`): a bin matrix to the `bin_cache` pool, a fold or
+element stack to `stage_cache`, freed on eviction; the chunked ingest's
+matrix is `chunk_stage` while it assembles.
+
 `extract_features` and `extract_xy` hand a frame's feature block and
 label column to the fits and models, as the JAX package's do: the
 features as a C-contiguous f32 matrix, the labels as f32; a fused block
@@ -20,6 +31,7 @@ is, and `extract_compact` hands over its compact form.
 
 from __future__ import annotations
 
+import contextlib
 import threading
 from typing import Dict, Optional, Tuple
 
@@ -32,6 +44,7 @@ _SAMPLE_COUNT = 16
 _CKSUM_CHUNK = 1 << 20  # words per block (8MB) — bounds the arange temp
 
 _bin_stage_cache: Dict[tuple, torch.Tensor] = {}
+_bin_stage_pool: Dict[tuple, str] = {}   # key -> its ledger pool
 _bin_stage_bytes = [0]
 _stage_lock = threading.Lock()
 
@@ -85,8 +98,43 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
-def stage_bins_cached(binned: np.ndarray, device: torch.device) -> torch.Tensor:
-    """The device copy of a quantized bin matrix, through the bin cache.
+def _hint_with_bytes(hint, arrays):
+    from ..parallel.dispatch import WorkHint
+    if hint is None or hint.in_bytes is not None:
+        return hint
+    nbytes = float(sum(np.asarray(a).nbytes for a in arrays))
+    return WorkHint(hint.flops, hint.kind, hint.out_bytes, nbytes)
+
+
+@contextlib.contextmanager
+def routed_for(hint, *arrays, stacked: bool = False, device=None):
+    """Bind the dispatch decision for a fit over `arrays` as this
+    thread's device (`dispatch.routed`) and yield it: the CPU under
+    `sml.dispatch.mode=host`, else `device` (the thread's bound device
+    or the card). `stacked` marks fold- or element-stacked arrays (the
+    JAX package prices those in their sharded layout; one card has
+    one)."""
+    from ..parallel import dispatch
+    with dispatch.routed(_hint_with_bytes(hint, arrays), device) as dev:
+        yield dev
+
+
+def route_for_arrays(hint, *arrays, device=None
+                     ) -> Tuple[torch.device, str]:
+    """The one-shot decision of a predict site: (device, route), route
+    "host" (the CPU, under `sml.dispatch.mode=host`) or "device"."""
+    from ..device import resolve_device
+    from ..parallel import dispatch
+    dev = resolve_device(device)
+    if dispatch.decide(_hint_with_bytes(hint, arrays), dev) == "host":
+        return torch.device("cpu"), "host"
+    return dev, "device"
+
+
+def stage_bins_cached(binned: np.ndarray, device: torch.device,
+                      pool: str = "bin_cache") -> torch.Tensor:
+    """The device copy of a quantized bin matrix, through the bin cache;
+    a copy it makes is charged to the ledger's `pool`.
 
     A copy made here is complete before it is returned (the staging
     stream is synchronised), so a tensor cached by one thread can be
@@ -106,22 +154,40 @@ def stage_bins_cached(binned: np.ndarray, device: torch.device) -> torch.Tensor:
         torch.cuda.current_stream(dev.device).synchronize()
     PROFILER.count("staging.bin_cache_miss")
     PROFILER.count("staging.h2d_bytes", float(a.nbytes))
-    _bin_cache_store(key, dev)
+    _bin_cache_store(key, dev, pool)
     return dev
 
 
-def _bin_cache_store(key, dev: torch.Tensor) -> None:
+def _bin_cache_store(key, dev: torch.Tensor, pool: str = "bin_cache"
+                     ) -> None:
     """Keep `dev` under `key` (a first store wins), evicting the oldest
-    entries past `sml.tree.binCacheBytes` (the newest always stays)."""
+    entries past `sml.tree.binCacheBytes` (the newest always stays);
+    the ledger's pools follow every store and eviction."""
     from ..conf import GLOBAL_CONF
+    from ..obs import LEDGER, RECORDER
+    from ..utils.profiler import PROFILER
     budget = GLOBAL_CONF.getInt("sml.tree.binCacheBytes")
+    stored = 0
+    evicted: list = []
     with _stage_lock:
         if key not in _bin_stage_cache:
             _bin_stage_cache[key] = dev
-            _bin_stage_bytes[0] += _nbytes(dev)
+            _bin_stage_pool[key] = pool
+            stored = _nbytes(dev)
+            _bin_stage_bytes[0] += stored
             while _bin_stage_bytes[0] > budget and len(_bin_stage_cache) > 1:
                 old = next(iter(_bin_stage_cache))
-                _bin_stage_bytes[0] -= _nbytes(_bin_stage_cache.pop(old))
+                old_bytes = _nbytes(_bin_stage_cache.pop(old))
+                _bin_stage_bytes[0] -= old_bytes
+                evicted.append((_bin_stage_pool.pop(old), old_bytes))
+    if stored:
+        LEDGER.alloc(pool, stored)
+    for old_pool, old_bytes in evicted:
+        LEDGER.free(old_pool, old_bytes)
+        PROFILER.count("staging.bin_evict_bytes", float(old_bytes))
+        if RECORDER.enabled:
+            RECORDER.emit("cache", "cache.evict",
+                          args={"pool": old_pool, "bytes": old_bytes})
 
 
 def insert_bins_cached(binned_host: np.ndarray,
@@ -209,9 +275,10 @@ class ChunkAssembler:
 
 def stage_stacked_cached(a: np.ndarray, device: torch.device) -> torch.Tensor:
     """The device copy of a fold- or element-stacked array (elements,
-    rows, ...) through the same cache as `stage_bins_cached`: a tuning
-    grid stages its fold stacks once, not once per fit."""
-    return stage_bins_cached(a, device)
+    rows, ...) through the same cache as `stage_bins_cached`, charged to
+    the ledger's `stage_cache` pool: a tuning grid stages its fold
+    stacks once, not once per fit."""
+    return stage_bins_cached(a, device, pool="stage_cache")
 
 
 def stage_rows(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -224,6 +291,19 @@ def stage_rows(a: np.ndarray, device: torch.device) -> torch.Tensor:
         torch.cuda.current_stream(dev.device).synchronize()
     PROFILER.count("staging.h2d_bytes", float(a.nbytes))
     return dev
+
+
+def clear_bin_cache() -> None:
+    """Drop every cached device copy (bin matrices and stacks), freeing
+    their ledger bytes."""
+    from ..obs import LEDGER
+    with _stage_lock:
+        freed = [(_bin_stage_pool.pop(k), _nbytes(t))
+                 for k, t in _bin_stage_cache.items()]
+        _bin_stage_cache.clear()
+        _bin_stage_bytes[0] = 0
+    for pool, nbytes in freed:
+        LEDGER.free(pool, nbytes)
 
 
 def bin_cache_stats() -> dict:

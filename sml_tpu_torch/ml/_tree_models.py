@@ -21,7 +21,13 @@ frame's `_ml_attrs`; it fits on the session's device (`sml.device`).
 `fit(X, y, categorical=None, device=None)` takes a numpy feature matrix
 and label vector (`categorical` maps a feature slot to its cardinality)
 and fits on the card unless `device="cpu"`; a DataFrame and a matrix
-are told apart by type. `transform(df)` appends the prediction column;
+are told apart by type. Every fit and predict site routes through the
+dispatcher (`_staging.routed_for` / `route_for_arrays`): on a card it
+stays there unless `sml.dispatch.mode=host`, under which it runs on the
+CPU with the kernels' plain versions. With the recorder on, a fit
+stamps its training distribution into the spec (`spec.baseline`,
+`obs.drift.capture_fit_baseline`, host numpy: no launch), saved as
+`baseline.json` beside `data.npz`. `transform(df)` appends the prediction column;
 on a regressor's lazy transform a `RegressionEvaluator` takes the
 pushdown (`_TreeEvalHook`): one fused traversal and reduction on the
 device, and five scalars back. Random forests (a Poisson bootstrap and
@@ -38,6 +44,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from ..frame.column import block_len
+from ..parallel.dispatch import WorkHint
 from ..utils.prng import prng_key
 from . import tree_impl
 from .linalg import DenseVector
@@ -70,7 +77,9 @@ def _feature_k(strategy: str, F: int, is_classification: bool) -> int:
 
 
 class _EnsembleSpec:
-    """Host-side description of a fitted ensemble."""
+    """Host-side description of a fitted ensemble, with the training
+    distribution it was fitted on (`baseline`, an
+    `obs.drift.DriftBaseline`, or None)."""
 
     def __init__(self, trees: List[FittedTree], depth: int, binning: Binning,
                  tree_weights: Optional[np.ndarray], base: float,
@@ -82,6 +91,7 @@ class _EnsembleSpec:
         self.base = base
         self.n_features = n_features
         self.mode = mode  # "regression" | "binary"
+        self.baseline = None
 
     def stacked(self):
         """Stacked (T, n_nodes) tree tables + per-tree weights, cached.
@@ -98,21 +108,25 @@ class _EnsembleSpec:
 
     def predict_margin(self, X: np.ndarray, device=None) -> np.ndarray:
         """base + weighted tree sum for raw rows, on `device` (the card
-        by default)."""
-        from ..device import resolve_device
+        by default; the CPU under `sml.dispatch.mode=host`)."""
         from ..utils.profiler import PROFILER
+        from ._staging import route_for_arrays
         from .inference import predict_forest_sharded
-        dev = resolve_device(device)
         with PROFILER.span("binning.predict", rows=int(X.shape[0])):
             binned = bin_with(X, self.binning)
+        n = binned.shape[0]
+        hint = WorkHint(flops=4.0 * n * len(self.trees) * self.depth,
+                        kind="traverse", out_bytes=4.0 * n)
+        dev, route = route_for_arrays(hint, binned, device=device)
         sf, sb, lv, w = self.stacked()
-        with PROFILER.span("program.forest_predict", rows=binned.shape[0]):
+        with PROFILER.span("program.forest_predict", rows=n, route=route):
             return predict_forest_sharded(binned, sf, sb, lv, w, self.depth,
                                           base=self.base, device=dev)
 
     def save(self, path: str) -> None:
         """`<path>/data.npz` in the JAX package's keys
-        (`spec_from_arrays` reads them back)."""
+        (`spec_from_arrays` reads them back), and `<path>/baseline.json`
+        when the spec carries a baseline."""
         remap_keys = sorted(self.binning.cat_remap)
         save_arrays(
             path,
@@ -129,11 +143,25 @@ class _EnsembleSpec:
                                 len(remap_keys)], dtype=np.float64),
             remap_slots=np.asarray(remap_keys, dtype=np.int64),
             **{f"remap_{k}": self.binning.cat_remap[k] for k in remap_keys})
+        if self.baseline is not None:
+            import json
+            import os
+            with open(os.path.join(path, "baseline.json"), "w") as f:
+                json.dump(self.baseline.to_dict(), f)
 
     @classmethod
     def load(cls, path: str) -> "_EnsembleSpec":
-        """The spec of a model directory saved by either package."""
-        return spec_from_arrays(load_arrays(path))
+        """The spec of a model directory saved by either package, with
+        its `baseline.json` when there is one."""
+        import os
+        spec = spec_from_arrays(load_arrays(path))
+        bp = os.path.join(path, "baseline.json")
+        if os.path.exists(bp):
+            import json
+            from ..obs.drift import DriftBaseline
+            with open(bp) as f:
+                spec.baseline = DriftBaseline.from_dict(json.load(f))
+        return spec
 
 
 def spec_from_arrays(arrays: Dict[str, np.ndarray]) -> _EnsembleSpec:
@@ -388,7 +416,8 @@ def _fit_ensemble(X: Optional[np.ndarray], y: np.ndarray, *,
                   reg_lambda: float = 0.0, gamma: float = 0.0,
                   boosting: bool = False, missing: Optional[float] = None,
                   rounds_per_dispatch: Optional[int] = None, prebinned=None,
-                  on_rounds=None, device=None) -> _EnsembleSpec:
+                  baseline_sketch=None, on_rounds=None,
+                  device=None) -> _EnsembleSpec:
     """The one training path behind every tree learner: bin on the host,
     stage the compact bins and the labels on `device` (the card by
     default), and fit every round there
@@ -403,11 +432,15 @@ def _fit_ensemble(X: Optional[np.ndarray], y: np.ndarray, *,
     everything after binning is the same path. A boosted fit runs in
     segments of `rounds_per_dispatch` rounds, and `on_rounds(t_done,
     trees_so_far, base)` fires at each boundary but the last (the
-    round checkpoints of `ct/`); the trees do not depend on either."""
-    from ..device import resolve_device
+    round checkpoints of `ct/`); the trees do not depend on either.
+
+    The fit runs under the dispatcher's decision (`routed_for`): on
+    `device` unless `sml.dispatch.mode=host` sends it to the CPU. With
+    the recorder on, the spec's `baseline` is captured from X (or the
+    chunked path's `baseline_sketch`) on the host."""
+    from ..obs import drift as _drift
     from ..utils.profiler import PROFILER
-    from ._staging import stage_bins_cached, stage_rows
-    dev = resolve_device(device)
+    from ._staging import routed_for, stage_bins_cached, stage_rows
     y32 = np.asarray(y, np.float32)
     if prebinned is not None:
         binned, binning = prebinned
@@ -426,17 +459,26 @@ def _fit_ensemble(X: Optional[np.ndarray], y: np.ndarray, *,
                       boosting=boosting,
                       bootstrap=bool(bootstrap) and n_trees > 1,
                       subsample=float(subsample), step_size=float(step_size))
-    with PROFILER.span("staging.fit", rows=int(binned.shape[0])):
-        binned_dev = stage_bins_cached(binned, dev)
-        y_dev = stage_rows(y32, dev)
-    trees, base = fit_ensemble_on_device(binned_dev, y_dev, es, seed,
-                                         rounds_per_dispatch, on_rounds)
+    hint = WorkHint(flops=2.0 * n_trees * max_depth * binned.shape[0] * F
+                    * max_bins, kind="scatter")
+    with routed_for(hint, binned, device=device) as dev:
+        with PROFILER.span("staging.fit", rows=int(binned.shape[0])):
+            binned_dev = stage_bins_cached(binned, dev)
+            y_dev = stage_rows(y32, dev)
+        trees, base = fit_ensemble_on_device(binned_dev, y_dev, es, seed,
+                                             rounds_per_dispatch, on_rounds)
     mode = "binary" if loss == "logistic" else "regression"
     if boosting:
         weights = np.full(len(trees), step_size, dtype=np.float32)
-        return _EnsembleSpec(trees, max_depth, binning, weights, base, F,
-                             mode)
-    return _EnsembleSpec(trees, max_depth, binning, None, 0.0, F, mode)
+        out = _EnsembleSpec(trees, max_depth, binning, weights, base, F,
+                            mode)
+    else:
+        out = _EnsembleSpec(trees, max_depth, binning, None, 0.0, F, mode)
+    # the training distribution, host numpy only: capture launches no
+    # kernel and stages nothing
+    out.baseline = _drift.capture_fit_baseline(
+        X, y32, categorical, out, binned=binned, sketch=baseline_sketch)
+    return out
 
 
 def _resume_ensemble(spec: _EnsembleSpec, binned: np.ndarray,
@@ -448,6 +490,7 @@ def _resume_ensemble(spec: _EnsembleSpec, binned: np.ndarray,
                      step_size: Optional[float] = None,
                      loss: Optional[str] = None,
                      rounds_per_dispatch: Optional[int] = None,
+                     X: Optional[np.ndarray] = None, baseline_sketch=None,
                      on_rounds=None, device=None) -> _EnsembleSpec:
     """The warm start of `warm_start_ensemble` and
     `ml/_chunked.warm_start_ensemble_chunked`: stage the rows, already
@@ -459,9 +502,11 @@ def _resume_ensemble(spec: _EnsembleSpec, binned: np.ndarray,
     of N - k equal N rounds bit for bit on the same rows and seed. The
     base is the saved spec's. Raises for a spec that is not boosted, and
     for a `step_size` other than the saved one (it would rescale the
-    saved rounds' share of every prediction)."""
-    from ..device import resolve_device
-    from ._staging import stage_bins_cached, stage_rows
+    saved rounds' share of every prediction). Routed like
+    `_fit_ensemble`; with the recorder on the result carries a baseline
+    of the new rows (`X`, or the chunked path's `baseline_sketch`)."""
+    from ..obs import drift as _drift
+    from ._staging import routed_for, stage_bins_cached, stage_rows
     if spec.tree_weights is None:
         raise ValueError(
             "warm start needs a boosted spec (GBT/xgboost): forest/DT "
@@ -472,7 +517,6 @@ def _resume_ensemble(spec: _EnsembleSpec, binned: np.ndarray,
         raise ValueError(
             f"warm start cannot change step_size: the saved rounds were "
             f"fitted at {saved_step} (got {step}); refit full to move it")
-    dev = resolve_device(device)
     loss = loss or ("logistic" if spec.mode == "binary" else "squared")
     F = spec.n_features
     max_bins = spec.binning.edges.shape[1] + 1
@@ -484,13 +528,20 @@ def _resume_ensemble(spec: _EnsembleSpec, binned: np.ndarray,
     es = EnsembleSpec(tree=tspec, n_trees=n_total, loss=loss, boosting=True,
                       bootstrap=bool(bootstrap) and n_total > 1,
                       subsample=float(subsample), step_size=step)
-    new_trees, base = tree_impl.resume_ensemble_on_device(
-        stage_bins_cached(binned, dev), stage_rows(y32, dev), es, seed,
-        spec.trees, float(spec.base), rounds_per_dispatch, on_rounds)
+    hint = WorkHint(flops=2.0 * n_new_trees * spec.depth * binned.shape[0]
+                    * F * max_bins, kind="scatter")
+    with routed_for(hint, binned, device=device) as dev:
+        new_trees, base = tree_impl.resume_ensemble_on_device(
+            stage_bins_cached(binned, dev), stage_rows(y32, dev), es, seed,
+            spec.trees, float(spec.base), rounds_per_dispatch, on_rounds)
     trees = list(spec.trees) + list(new_trees)
     weights = np.full(len(trees), step, dtype=np.float32)
-    return _EnsembleSpec(trees, spec.depth, spec.binning, weights,
-                         float(base), F, spec.mode)
+    out = _EnsembleSpec(trees, spec.depth, spec.binning, weights,
+                        float(base), F, spec.mode)
+    categorical = {f: len(r) for f, r in spec.binning.cat_remap.items()}
+    out.baseline = _drift.capture_fit_baseline(
+        X, y32, categorical, out, binned=binned, sketch=baseline_sketch)
+    return out
 
 
 def warm_start_ensemble(spec: _EnsembleSpec, X: np.ndarray, y: np.ndarray,
@@ -503,9 +554,10 @@ def warm_start_ensemble(spec: _EnsembleSpec, X: np.ndarray, y: np.ndarray,
     rounds_per_dispatch, on_rounds, device, ...); step_size and loss
     default to the saved spec's. The out-of-core twin is
     `ml/_chunked.warm_start_ensemble_chunked`."""
-    binned = bin_with(np.asarray(X), spec.binning)
+    X = np.asarray(X)
+    binned = bin_with(X, spec.binning)
     return _resume_ensemble(spec, binned, np.asarray(y, np.float32),
-                            n_new_trees=n_new_trees, seed=seed,
+                            n_new_trees=n_new_trees, seed=seed, X=X,
                             **resume_kwargs)
 
 
@@ -521,6 +573,7 @@ def _fit_ensemble_folds(Xs, ys, cats, *, max_depth: int, max_bins: int,
     for all k. Each fold is binned on its own rows (`_cached_bins`), as
     its sequential fit bins it."""
     from ..utils.profiler import PROFILER
+    from ._staging import routed_for
     binned_list, binnings, y32s = [], [], []
     with PROFILER.span("binning.fit", rows=int(sum(len(y) for y in ys))):
         for X, y in zip(Xs, ys):
@@ -537,8 +590,12 @@ def _fit_ensemble_folds(Xs, ys, cats, *, max_depth: int, max_bins: int,
     es = EnsembleSpec(tree=spec, n_trees=n_trees, loss=loss, boosting=False,
                       bootstrap=bool(bootstrap) and n_trees > 1,
                       subsample=float(subsample), step_size=0.1)
-    results = tree_impl.fit_ensembles_folds(bst, yst, mst, es, seed,
-                                            device=device)
+    n_total = sum(b.shape[0] for b in binned_list)
+    hint = WorkHint(flops=2.0 * n_trees * max_depth * n_total * F * max_bins,
+                    kind="scatter")
+    with routed_for(hint, bst, yst, mst, stacked=True, device=device) as dev:
+        results = tree_impl.fit_ensembles_folds(bst, yst, mst, es, seed,
+                                                device=dev)
     mode = "binary" if loss == "logistic" else "regression"
     return [_EnsembleSpec(trees, max_depth, binnings[k], None, 0.0, F, mode)
             for k, (trees, _) in enumerate(results)]
@@ -550,8 +607,9 @@ def _fit_ensembles_grid(Xs, ys, cats, trials, max_fused: int,
     dict per grid point (max_depth, max_bins, min_instances,
     min_info_gain, n_trees, feature_k (None: every feature), bootstrap,
     subsample, seed); every (grid point, fold) pair becomes one element
-    of a fused fit (`tree_impl.fit_ensembles_trials`) on `device`, in
-    chunks of `max_fused` elements, so a G-point grid over k folds costs
+    of a fused fit (`tree_impl.fit_ensembles_trials`) on `device` (each
+    chunk routed: the CPU under `sml.dispatch.mode=host`), in chunks of
+    `max_fused` elements, so a G-point grid over k folds costs
     ceil(G*k / max_fused) fits.
 
     A chunk runs at its elements' maxima of depth, bins and trees (the
@@ -565,6 +623,7 @@ def _fit_ensembles_grid(Xs, ys, cats, trials, max_fused: int,
 
     Returns {(grid_index, fold_index): _EnsembleSpec}."""
     from ..utils.profiler import PROFILER
+    from ._staging import routed_for
     if any(t["min_instances"] < 1 for t in trials):
         raise ValueError("fused grid fits need min_instances >= 1")
     F, k = Xs[0].shape[1], len(Xs)
@@ -602,16 +661,21 @@ def _fit_ensembles_grid(Xs, ys, cats, trials, max_fused: int,
             bst[e, :b.shape[0]] = b
             yst[e, :len(y32s[fi])] = y32s[fi]
             mst[e, :len(y32s[fi])] = 1.0
-        packs, _ = tree_impl.fit_ensembles_trials(
-            bst, yst, mst, es,
-            rngs=[prng_key(int(t["seed"])) for t in ts],
-            depth=[t["max_depth"] for t in ts],
-            feature_k=[t["feature_k"] or F for t in ts],
-            min_inst=[t["min_instances"] for t in ts],
-            min_gain=[t["min_info_gain"] for t in ts],
-            bootstrap=[bool(t["bootstrap"]) and t["n_trees"] > 1
-                       for t in ts],
-            subsample=[t["subsample"] for t in ts], device=device)
+        hint = WorkHint(flops=2.0 * es.n_trees * es.tree.max_depth
+                        * sum(len(y32s[fi]) for _, fi in chunk) * F
+                        * es.tree.n_bins, kind="scatter")
+        with routed_for(hint, bst, yst, mst, stacked=True,
+                        device=device) as dev:
+            packs, _ = tree_impl.fit_ensembles_trials(
+                bst, yst, mst, es,
+                rngs=[prng_key(int(t["seed"])) for t in ts],
+                depth=[t["max_depth"] for t in ts],
+                feature_k=[t["feature_k"] or F for t in ts],
+                min_inst=[t["min_instances"] for t in ts],
+                min_gain=[t["min_info_gain"] for t in ts],
+                bootstrap=[bool(t["bootstrap"]) and t["n_trees"] > 1
+                           for t in ts],
+                subsample=[t["subsample"] for t in ts], device=dev)
         for e, (gi, fi) in enumerate(chunk):
             t = trials[gi]
             n_nodes = 2 ** (t["max_depth"] + 1) - 1
@@ -652,25 +716,28 @@ def fused_reg_stats_from_matrix(spec: _EnsembleSpec, X: np.ndarray,
     one fused traversal and reduction on `device`
     (`inference.forest_eval_fn`); rows whose label is not finite are
     left out. Returns None for a classification ensemble (its metrics
-    are not these)."""
-    from ..device import resolve_device
+    are not these). Under `sml.dispatch.mode=host` the traversal and
+    the reduction run on the CPU, with the plain traversal."""
     from ..utils.profiler import PROFILER
-    from ._staging import stage_bins_cached, stage_rows
+    from ._staging import routed_for, stage_bins_cached, stage_rows
     from .inference import _tables, forest_eval_fn
     if spec.mode != "regression":
         return None
-    dev = resolve_device(device)
     with PROFILER.span("binning.predict", rows=int(X.shape[0])):
         binned = bin_with(np.asarray(X, dtype=np.float64), spec.binning)
     lab = np.asarray(lab, np.float64)
-    if binned.shape[0] != len(lab):
-        raise ValueError(f"{binned.shape[0]} rows against {len(lab)} labels")
+    n = binned.shape[0]
+    if n != len(lab):
+        raise ValueError(f"{n} rows against {len(lab)} labels")
     finite = np.isfinite(lab)
-    stats = forest_eval_fn(spec.depth, link)(
-        stage_bins_cached(binned, dev),
-        stage_rows(np.where(finite, lab, 0.0), dev),
-        stage_rows(finite, dev), *_tables(*spec.stacked(), dev),
-        float(spec.base))
+    hint = WorkHint(flops=(4.0 * len(spec.trees) * spec.depth + 10.0) * n,
+                    kind="traverse", out_bytes=64.0)
+    with routed_for(hint, binned, lab, device=device) as dev:
+        stats = forest_eval_fn(spec.depth, link)(
+            stage_bins_cached(binned, dev),
+            stage_rows(np.where(finite, lab, 0.0), dev),
+            stage_rows(finite, dev), *_tables(*spec.stacked(), dev),
+            float(spec.base))
     return tuple(float(s) for s in stats)
 
 
@@ -696,6 +763,7 @@ class _Estimator(_DeclaredParams, Estimator):
         default. Rows whose label is not finite are dropped. Returns the
         model."""
         from ..frame.dataframe import DataFrame
+        from ..obs import autolog_fit
         if isinstance(dataset, DataFrame):
             return super().fit(dataset, y if y is not None else params)
         X = np.asarray(dataset)
@@ -703,9 +771,12 @@ class _Estimator(_DeclaredParams, Estimator):
             X = X.astype(np.float64)
         y = np.asarray(y, dtype=np.float64)
         ok = np.isfinite(y)
-        spec = _fit_ensemble(X[ok], y[ok],
-                             categorical=dict(categorical or {}),
-                             device=device, **self._fit_args(X.shape[1]))
+        # a matrix fit autologs like a DataFrame fit (the outermost only)
+        with autolog_fit(self):
+            spec = _fit_ensemble(X[ok], y[ok],
+                                 categorical=dict(categorical or {}),
+                                 device=device,
+                                 **self._fit_args(X.shape[1]))
         model = self._model_cls(spec)
         model._inherit_params(self)
         return model

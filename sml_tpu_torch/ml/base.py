@@ -237,7 +237,11 @@ class Estimator(Params, Saveable):
     def fit(self, df, params: Optional[dict] = None):
         if params:
             return self.copy(params).fit(df)
-        return self._fit(df)
+        # with the recorder on and a tracking run active, the OUTERMOST
+        # fit logs its engine.* deltas to the run (a no-op otherwise)
+        from ..obs import autolog_fit
+        with autolog_fit(self):
+            return self._fit(df)
 
     def _fit(self, df):
         raise NotImplementedError

@@ -105,14 +105,19 @@ class KMeans(Estimator):
 
     def _fit(self, df) -> "KMeansModel":
         from ..device import session_device
-        from ._staging import stage_rows
-        device = session_device()
+        from ..parallel.dispatch import WorkHint
+        from ._staging import routed_for, stage_rows
         X = extract_features(df, self.getOrDefault("featuresCol"))
-        init = kmeans_init(X, int(self.getOrDefault("k")),
-                           self.getOrDefault("seed"))
-        with PROFILER.span("program.lloyd", rows=len(X), route=device.type):
-            centers, cost = lloyd(stage_rows(X, device), init,
-                                  int(self.getOrDefault("maxIter")))
+        k = int(self.getOrDefault("k"))
+        max_iter = int(self.getOrDefault("maxIter"))
+        init = kmeans_init(X, k, self.getOrDefault("seed"))
+        # Lloyd's loop routed as one program (the CPU under
+        # sml.dispatch.mode=host)
+        hint = WorkHint(flops=3.0 * max_iter * X.size * k, kind="blas")
+        with routed_for(hint, X, device=session_device()) as device, \
+                PROFILER.span("program.lloyd", rows=len(X),
+                              route=device.type):
+            centers, cost = lloyd(stage_rows(X, device), init, max_iter)
         m = KMeansModel(centers=centers, trainingCost=cost)
         m._inherit_params(self)
         return m

@@ -33,7 +33,8 @@ batches through `parallel.pipeline`: the factorized scorer through
 the card, each result copied back into pinned memory behind an event.
 
 With the flight recorder on, a change of the traversal's launch plan
-lands an `infer.kernel.spec` event.
+lands an `infer.kernel.spec` event; `kernel_report()` (the `infer_kernel`
+block of `obs.engine_health()`) gives the last plan.
 """
 
 from __future__ import annotations
@@ -120,6 +121,7 @@ def _linear_forward_host(X32: np.ndarray, w: np.ndarray, b: float
 
 #: the traversal plan of the last launch on the card, process-wide
 _last_plan = [None]
+_plan_counts = {"launches": 0, "changes": 0}
 _plan_lock = threading.Lock()
 
 
@@ -128,10 +130,26 @@ def _note_plan(plan: dict) -> None:
     with _plan_lock:
         changed = _last_plan[0] != plan
         _last_plan[0] = plan
+        _plan_counts["launches"] += 1
+        _plan_counts["changes"] += int(changed)
     if changed:
         from ..obs._recorder import RECORDER
         if RECORDER.enabled:
             RECORDER.emit("infer", "infer.kernel.spec", args=dict(plan))
+
+
+def kernel_report() -> dict:
+    """The `infer_kernel` block of `obs.engine_health()`: the kernel the
+    scorers launch, the `traverse_plan` of the last launch on the card
+    (None before one), and how many scorer launches resolved a plan and
+    how many changed it. The JAX package's ladder, autotuner and their
+    fallback counts have no counterpart: the card has one traversal."""
+    with _plan_lock:
+        plan = None if _last_plan[0] is None else dict(_last_plan[0])
+        counts = dict(_plan_counts)
+    return {"kernel": "forest_traverse", "plan": plan,
+            "plan_launches": counts["launches"],
+            "plan_changes": counts["changes"]}
 
 
 def _logistic_forward(Xd: torch.Tensor, w: torch.Tensor, b: float

@@ -35,6 +35,10 @@ one-hot slots are `code == arange(width)` compares on the device
   copy back until the end. The solve is Gauss-Jordan elimination in
   elementwise ops (`_solve_spd`), so the card and the CPU give the same
   bits.
+
+Each fit and `predict_linear` routes through the dispatcher with the
+JAX package's work hints (`_staging.routed_for` / `route_for_arrays`):
+on a card it stays there unless `sml.dispatch.mode=host`.
 """
 
 from __future__ import annotations
@@ -44,8 +48,9 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..parallel.dispatch import WorkHint
 from ..utils.profiler import PROFILER
+from ._staging import route_for_arrays, routed_for
 
 
 class LinearFit(NamedTuple):
@@ -111,10 +116,11 @@ def gram_stats(X: np.ndarray, y: np.ndarray, device=None
                ) -> Tuple[np.ndarray, np.ndarray, float, float]:
     """One device pass: (A = [X 1]^T [X 1], b = [X 1]^T y, n, y^T y), as
     float64 host values of the f32 moments. `device` defaults to the
-    card."""
-    dev = resolve_device(device)
+    card (the CPU under `sml.dispatch.mode=host`)."""
     n_rows, d = X.shape
-    with PROFILER.span("program.gram", rows=int(n_rows), route=dev.type):
+    hint = WorkHint(flops=2.0 * n_rows * (d + 1) ** 2, kind="blas")
+    with routed_for(hint, X, y, device=device) as dev, \
+            PROFILER.span("program.gram", rows=int(n_rows), route=dev.type):
         A, b, yy = _gram_pass(*_stage_f64(X, y, dev))
         flat = _to_host_f32(A, b, yy)
     k = (d + 1) * (d + 1)
@@ -253,11 +259,12 @@ def _expand(num: torch.Tensor, codes: torch.Tensor, layout) -> torch.Tensor:
 def gram_stats_compact(parts, y: np.ndarray, device=None
                        ) -> Tuple[np.ndarray, np.ndarray, float, float]:
     """`gram_stats` of a CompactParts block: one device pass over the
-    block expanded on the device."""
-    dev = resolve_device(device)
+    block expanded on the device (routed like `gram_stats`)."""
     n_rows, d = parts.num.shape[0], parts.width
-    with PROFILER.span("program.gram_compact", rows=int(n_rows),
-                       route=dev.type):
+    hint = WorkHint(flops=2.0 * n_rows * (d + 1) ** 2, kind="blas")
+    with routed_for(hint, parts.num, parts.codes, y, device=device) as dev, \
+            PROFILER.span("program.gram_compact", rows=int(n_rows),
+                          route=dev.type):
         num, codes, yd = _stage_compact(parts, y, dev)
         A, b, yy = _gram_pass(_expand(num, codes, parts.layout),
                               yd.to(torch.float64))
@@ -338,11 +345,14 @@ def fit_logistic_compact(parts, y: np.ndarray, *, maxIter: int = 100,
     IRLS step on the device over the resident expanded block, and one
     copy back at the end (`_irls_steps`). A penalized fit needs the
     materialized block (the proximal shrink acts on raw coefficients):
-    callers take `parts.expand_host()` and `fit_logistic`."""
-    dev = resolve_device(device)
+    callers take `parts.expand_host()` and `fit_logistic`. Routed like
+    `gram_stats`."""
     n_rows, d = parts.num.shape[0], parts.width
-    with PROFILER.span("program.irls_compact", rows=int(n_rows),
-                       route=dev.type):
+    hint = WorkHint(flops=3.0 * maxIter * n_rows * (d + 1) ** 2,
+                    kind="blas")
+    with routed_for(hint, parts.num, parts.codes, y, device=device) as dev, \
+            PROFILER.span("program.irls_compact", rows=int(n_rows),
+                          route=dev.type):
         num, codes, yd = _stage_compact(parts, y, dev)
         w, iters = _irls_steps(_expand(num, codes, parts.layout),
                                yd.to(torch.float64), int(maxIter),
@@ -373,8 +383,9 @@ def fit_logistic(X: np.ndarray, y: np.ndarray, *, regParam: float = 0.0,
     is one device pass over the resident [X 1] (`_newton_pass`) and one
     copy back of the f32-rounded gradient, Hessian and log-likelihood.
     As with fit_linear, the default penalty applies to standardized
-    coefficients, i.e. a per-feature std² scale in raw space."""
-    dev = resolve_device(device)
+    coefficients, i.e. a per-feature std² scale in raw space. The whole
+    fit is routed once (the JAX package routes each Newton pass; the
+    port's decision cannot change between passes)."""
     n, d = X.shape
     lam = float(regParam)
     l2 = lam * (1 - float(elasticNetParam))
@@ -390,7 +401,9 @@ def fit_logistic(X: np.ndarray, y: np.ndarray, *, regParam: float = 0.0,
     prev_ll = -np.inf
     iters = 0
     k = (d + 1) * (d + 1)
-    with PROFILER.span("program.irls", rows=int(n), route=dev.type):
+    hint = WorkHint(flops=3.0 * n * (d + 1) ** 2, kind="blas")
+    with routed_for(hint, X, y, device=device) as dev, \
+            PROFILER.span("program.irls", rows=int(n), route=dev.type):
         Xa, yd = _stage_f64(X, y, dev)
         for it in range(maxIter):
             wd = torch.from_numpy(w).to(dev).to(torch.float64)
@@ -426,10 +439,13 @@ def fit_logistic(X: np.ndarray, y: np.ndarray, *, regParam: float = 0.0,
 
 def predict_linear(X: np.ndarray, coefficients: np.ndarray,
                    intercept: float, device=None) -> np.ndarray:
-    """X @ w + b on `device` (the card by default), in float64: always
-    `inference.predict_linear_sharded` (the JAX package's dispatcher may
-    take a batch to the host instead)."""
+    """X @ w + b on `device` (the card by default, the CPU under
+    `sml.dispatch.mode=host`), in float64, through
+    `inference.predict_linear_sharded`."""
     if X.size == 0:
         return np.zeros((X.shape[0],))
     from .inference import predict_linear_sharded
-    return predict_linear_sharded(X, coefficients, intercept, device=device)
+    n, d = X.shape
+    hint = WorkHint(flops=2.0 * n * d, kind="blas", out_bytes=4.0 * n)
+    dev, _ = route_for_arrays(hint, X, device=device)
+    return predict_linear_sharded(X, coefficients, intercept, device=dev)

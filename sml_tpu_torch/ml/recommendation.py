@@ -184,7 +184,8 @@ class ALS(Estimator):
 
     def _fit(self, df) -> "ALSModel":
         from ..device import session_device
-        device = session_device()
+        from ..parallel.dispatch import WorkHint
+        from ._staging import routed_for
         whole = df._whole()
         uc, ic, rc = (self.getOrDefault("userCol"),
                       self.getOrDefault("itemCol"),
@@ -202,11 +203,19 @@ class ALS(Estimator):
         prep = sort_als_triples(u_index.astype(np.int32),
                                 i_index.astype(np.int32), ratings)
         uf0, if0 = als_init(rng, U, I, rank)
-        with PROFILER.span("program.als_fit", rows=len(ratings),
-                           route=device.type):
+        max_iter = int(self.getOrDefault("maxIter"))
+        # the whole alternating fit routed as one program: nnz * rank^2
+        # a half-step plus (U + I) * rank^3 of solves
+        hint = WorkHint(flops=2.0 * max_iter * (len(ratings) * rank * rank
+                                                + (U + I) * rank ** 3),
+                        kind="segment")
+        with routed_for(hint, prep["ius"], prep["usi"], prep["rat_u"],
+                        prep["rat_i"], device=session_device()) as device, \
+                PROFILER.span("program.als_fit", rows=len(ratings),
+                              route=device.type):
             uf, itf = als_fit(prep, U, I, uf0, if0,
                               float(self.getOrDefault("regParam")),
-                              int(self.getOrDefault("maxIter")),
+                              max_iter,
                               bool(self.getOrDefault("nonnegative")), device)
         m = ALSModel(user_ids=u_ids, item_ids=i_ids, user_factors=uf,
                      item_factors=itf)

@@ -33,6 +33,7 @@ Counterpart of `sml_tpu/ml/tree_impl.py`.
 
 from __future__ import annotations
 
+import contextlib
 import threading
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
@@ -733,7 +734,8 @@ def fit_ensemble_on_device(binned_dev: torch.Tensor, y_dev: torch.Tensor,
         def hook(t_done, packs, bases):
             on_rounds(t_done, _unpack_trees(packs[0]), float(bases[0]))
     with PROFILER.span("program.tree_ensemble", rows=int(n),
-                       route=dev.type, trees=es.n_trees):
+                       route=dev.type, trees=es.n_trees), \
+            _margin_charge(es, n):
         packs, bases = _fit_elements(
             binned_dev, y_dev, n, es, np.asarray([prng.prng_key(seed)]),
             _spec_dyn(es.tree, 1),
@@ -741,6 +743,22 @@ def fit_ensemble_on_device(binned_dev: torch.Tensor, y_dev: torch.Tensor,
             [es.subsample], [n], always_mask=False,
             segment=_segment(es, rounds_per_dispatch), on_rounds=hook)
     return _unpack_trees(packs[0]), float(bases[0])
+
+
+@contextlib.contextmanager
+def _margin_charge(es: EnsembleSpec, n: int):
+    """A boosted fit's margin (n f32 on its device, one live at a time
+    across the rounds) charged to the memory ledger's `boost_margin`
+    pool for the fit's duration."""
+    if not es.boosting:
+        yield
+        return
+    from ..obs import LEDGER
+    LEDGER.alloc("boost_margin", 4 * int(n))
+    try:
+        yield
+    finally:
+        LEDGER.free("boost_margin", 4 * int(n))
 
 
 def resume_ensemble_on_device(binned_dev: torch.Tensor, y_dev: torch.Tensor,
@@ -772,7 +790,7 @@ def resume_ensemble_on_device(binned_dev: torch.Tensor, y_dev: torch.Tensor,
     dev = binned_dev.device
     D = es.tree.max_depth
     with PROFILER.span("program.tree_resume", rows=int(n), route=dev.type,
-                       trees=es.n_trees - t0):
+                       trees=es.n_trees - t0), _margin_charge(es, n):
         if t0:
             def table(name, dtype):
                 return torch.from_numpy(np.ascontiguousarray(np.stack(

@@ -101,6 +101,9 @@ def _compile(name: str, out: str, defines: Tuple[str, ...] = ()) -> None:
             f"{proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}"
             f"{proc.stderr}")
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    # a build is the port's program-cache miss: engine.compile_programs
+    from ..obs import note_compile
+    note_compile(name)
 
 
 def build(names: Iterable[str]) -> None:

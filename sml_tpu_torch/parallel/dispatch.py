@@ -25,6 +25,12 @@ host, and the JAX package's priced branch and its background promotion
 are not ported (ROADMAP.md section 3). `DEVICE_QUEUE` is the serving
 path's pressure signal (`serving/_batcher.py`).
 
+`device_for(hint, device)` turns the answer into the device a program
+runs on (the CPU for "host", the resolved card otherwise), and
+`routed(hint, device)` binds it as the thread's device
+(`device.use_device_local`) around a fit or a scoring body: the JAX
+package's `mesh_for` and `routed`.
+
 The JAX package's `ensure_compile_cache` and `bucket_rows` have no
 counterpart: eager torch compiles nothing per shape, and
 `native/build.py` caches each library by content hash.
@@ -332,3 +338,23 @@ def decide(hint: Optional[WorkHint], device=None) -> str:
                           reason=preroute_reason(hint, dev),
                           calibrated=CALIBRATION._done)
     return route
+
+
+def device_for(hint: Optional[WorkHint], device=None) -> torch.device:
+    """The device one program invocation runs on: the CPU when `decide`
+    answers "host", else `device` resolved (the thread's bound device or
+    the card; raises without one)."""
+    from ..device import resolve_device
+    dev = resolve_device(device)
+    return torch.device("cpu") if decide(hint, dev) == "host" else dev
+
+
+@contextlib.contextmanager
+def routed(hint: Optional[WorkHint], device=None):
+    """Bind `device_for(hint, device)` as this thread's device for the
+    block and yield it: every `resolve_device(None)` in the body
+    (staging, the kernels' operands, nested fits) resolves to the
+    chosen device."""
+    from ..device import use_device_local
+    with use_device_local(device_for(hint, device)) as dev:
+        yield dev

@@ -11,9 +11,9 @@ while chunk i's dispatch (an asynchronous copy to the card) is still in
 flight, and drain waits for each in order.
 
 Every dispatch and drain counts `<family>.dispatch` / `<family>.drain`
-in the port's `PROFILER`, lands a `<family>.dispatch` /
-`<family>.drain` flight-recorder event (`obs.note_pipeline`, with the
-recorder on), and appends `(kind, i)` to `order` when the caller passes
+in the port's `PROFILER` and lands a `<family>.dispatch` /
+`<family>.drain` flight-recorder event with the recorder on (both
+through `obs.note_pipeline`), and appends `(kind, i)` to `order` when the caller passes
 a list: the order in which chunk i+1 dispatches before chunk i drains
 is the overlap's proof. Every item in flight holds a stall-watchdog
 ticket (`obs._watchdog`) from its dispatch to its drain, so a wedged
@@ -51,13 +51,11 @@ def prefetch_pipeline(items: Iterable, prep: Callable, dispatch: Callable,
     they only release resources)."""
     from ..obs import note_pipeline
     from ..obs._watchdog import WATCHDOG
-    from ..utils.profiler import PROFILER
 
     depth = max(int(depth), 1)
     pending: deque = deque()
 
     def note(kind: str, i: int) -> None:
-        PROFILER.count(f"{family}.{kind}")
         note_pipeline(family, kind, index_key, i)
         if order is not None:
             order.append((kind, i))

@@ -236,7 +236,10 @@ def _add(entry: dict) -> None:
         if not full:
             entries[key] = entry
             _state["dirty"] = True
-    PROFILER.count("prewarm.manifest_full" if full else "prewarm.recorded")
+    if full:
+        PROFILER.count("prewarm.manifest_full")
+    else:
+        PROFILER.count("prewarm.recorded")
 
 
 def _bucketed(shape, rows: bool) -> tuple:
@@ -358,7 +361,10 @@ def _replay_one(entry: dict, device, stats: dict, stats_lock,
     with stats_lock:
         stats["replayed" if ok else "failed"] += 1
         stats["serial_s"] += dt
-    PROFILER.count("prewarm.replayed" if ok else "prewarm.failed")
+    if ok:
+        PROFILER.count("prewarm.replayed")
+    else:
+        PROFILER.count("prewarm.failed")
     if _OBS.enabled:
         args = {"kind": name, "ok": ok, "seconds": round(dt, 4)}
         if ctx is not None:

@@ -134,7 +134,15 @@ class MicroBatcher:
     `QueuePressure(parent=DEVICE_QUEUE)` gives one batcher's own rows).
 
     `start=False` leaves the flush worker paused (`start()` arms it), so
-    a test can stage a queue before the first flush."""
+    a test can stage a queue before the first flush.
+
+    `observer` (optional) is called after each delivered batch with
+    `(X, preds, traces)`: the batch's feature block, its predictions and
+    a per-row trace-id array (-1 = untraced). It feeds the drift
+    monitors (obs/drift.py) and runs ONLY with the recorder on (one
+    attribute load otherwise); the results are already delivered, so an
+    observer that raises is counted (`drift.observe_error`), never
+    served."""
 
     def __init__(self, score_block: Callable[[np.ndarray], np.ndarray], *,
                  host_score: Optional[Callable] = None,
@@ -144,10 +152,12 @@ class MicroBatcher:
                  timeout_millis: Optional[int] = None,
                  host_fallback: Optional[bool] = None,
                  flush_auto: Optional[bool] = None,
+                 observer: Optional[Callable] = None,
                  queue: Optional[dispatch.QueuePressure] = None,
                  start: bool = True):
         self._score_block = score_block
         self._host_score = host_score
+        self._observer = observer
         self._queue = dispatch.DEVICE_QUEUE if queue is None else queue
         conf = GLOBAL_CONF
         self.max_batch_rows = max(int(
@@ -438,6 +448,19 @@ class MicroBatcher:
                                  (done - p.t_enqueue) * 1e3,
                                  exemplar=None if p.ctx is None
                                  else p.ctx.trace_id)
+            # drift observation: the delivered block, its predictions and
+            # each row's trace id feed the endpoint's live window. The
+            # results are out already, so a failing observer is counted,
+            # never served as an error
+            if self._observer is not None and _OBS.enabled:
+                try:
+                    traces = np.concatenate([
+                        np.full(p.n,
+                                -1 if p.ctx is None else p.ctx.trace_id,
+                                dtype=np.int64) for p in live])
+                    self._observer(X, out, traces)
+                except Exception:  # noqa: BLE001 — counted, see above
+                    PROFILER.count("drift.observe_error")
         except Exception as e:  # noqa: BLE001 — the futures carry it
             for p in live:
                 p.future._set_error(e)

@@ -24,6 +24,15 @@ At construction the endpoint starts the opt-in prewarm replay
 (`parallel.prewarm.maybe_prewarm`, `sml.prewarm.enabled`);
 `health_report()["prewarm"]` says how it went (a background replay that
 failed keeps its error there).
+
+Drift: a tree model trained with the recorder on carries its training
+baseline (`baseline.json` in the registry version), and the endpoint
+binds a `DriftMonitor` to it under "serve.<name>/<stage>" in
+`obs.DRIFT` (`_install_drift`, under the swap lock, re-baselined on a
+hot-swap). The batcher's observer (`_observe_scores`) feeds every
+delivered batch into it while the recorder is on, and
+`health_report(window_s)` is `obs.engine_health(window_s)` (its
+`drift` block among the rest) plus the endpoint's own block.
 """
 
 from __future__ import annotations
@@ -38,6 +47,7 @@ import numpy as np
 from ..conf import GLOBAL_CONF
 from ..device import resolve_device, session_device
 from ..obs import _context as _trace
+from ..obs import drift as _drift
 from ..obs._metrics import METRICS as _METRICS
 from ..obs._recorder import RECORDER as _OBS
 from ..tracking import _store
@@ -100,6 +110,7 @@ class ServingEndpoint:
         self._canary = _fresh_canary()
         self._shadow_pool: Optional[ThreadPoolExecutor] = None
         self._closed = False
+        self._drift: Optional[_drift.DriftMonitor] = None
         # opt-in manifest replay (sml.prewarm.enabled), once per process
         # and card, in the background: the first requests find the
         # kernels loaded and their first launches made
@@ -111,6 +122,7 @@ class ServingEndpoint:
             _store.on_stage_transition(self._listener)
         self._batcher = MicroBatcher(self._score_device,
                                      host_score=self._score_host,
+                                     observer=self._observe_scores,
                                      **batcher_kwargs)
 
     # ----------------------------------------------------------- resolution
@@ -163,6 +175,52 @@ class ServingEndpoint:
                 # grows, so a past candidate's would poison later gates)
                 with self._canary_lock:
                     self._canary = _fresh_canary()
+        self._install_drift()
+
+    def _drift_key(self) -> str:
+        # the stage is part of the identity: a Production and a Staging
+        # endpoint of one model must not clobber each other's monitor
+        return f"serve.{self._name}/{self._stage}"
+
+    def _install_drift(self) -> None:
+        """(Re)bind the drift monitor to the CURRENT scorer's training
+        baseline: a registry version resolves WITH the distribution it
+        was trained on. A model without one (linear, or trained with the
+        recorder off) serves unmonitored."""
+        key = self._drift_key()
+        # the stage listener's thread (through _refresh) and close() both
+        # rebind `_drift`: every rebind holds _swap_lock, so a close
+        # racing a hot-swap cannot leave an ownerless monitor registered
+        with self._swap_lock:
+            if self._closed:
+                # close() set _closed before taking this lock and swept
+                # `_drift`: a straggling listener must not re-register
+                return
+            spec = getattr(getattr(self._scorer, "_model", None),
+                           "_spec", None)
+            baseline = getattr(spec, "baseline", None)
+            old = self._drift
+            if baseline is None:
+                self._drift = None
+                if old is not None:
+                    _drift.DRIFT.unregister(key, old)
+            elif old is not None and old.baseline is baseline:
+                # same version: re-assert the registration (it heals a
+                # same-keyed endpoint's close racing it away)
+                _drift.DRIFT.register(key, old)
+            else:
+                # a hot-swap re-baselines: the new version's training
+                # distribution is the comparison target from here on
+                mon = _drift.DriftMonitor(baseline, name=key)
+                self._drift = mon
+                _drift.DRIFT.register(key, mon)
+
+    def _observe_scores(self, X, preds, traces) -> None:
+        """The batcher's observer: the delivered block into the live
+        drift window (nothing without a baseline-carrying model)."""
+        mon = self._drift
+        if mon is not None:
+            mon.observe_block(X, preds, traces)
 
     def _on_transition(self, name, version, stage, archived) -> None:
         if name != self._name or self._closed:
@@ -193,6 +251,7 @@ class ServingEndpoint:
                     _OBS.emit("serve", "serve.swap", args={
                         "name": self._name, "stage": self._stage,
                         "from": old, "to": version, "pinned": True})
+        self._install_drift()
 
     def unpin(self) -> None:
         """Drop the pin and resolve the stage alias again."""
@@ -310,15 +369,22 @@ class ServingEndpoint:
         return out
 
     # ---------------------------------------------------------------- health
-    def health_report(self) -> Dict[str, object]:
-        """The endpoint's own live state: resolved version, pin, queue
-        depth (`queued_rows`: rows queued, not yet flushed), canary
-        divergence, and the traversal plan of this replica's last launch
-        on the card; once a prewarm replay has started in the process,
-        its state, stats and error (`prewarm.status()`) under
-        "prewarm"."""
+    def health_report(self, window_s: Optional[float] = None
+                      ) -> Dict[str, object]:
+        """The live health surface for THIS endpoint: the engine-wide
+        `obs.engine_health(window_s)` (metric quantiles, the audit, the
+        memory ledger, the SLO burn, skew, in-flight work, drift, the
+        traversal plan, sheds) plus the endpoint's own block: resolved
+        version, pin, queue depth (`queued_rows`: rows queued, not yet
+        flushed), canary divergence, and the traversal plan of this
+        replica's last launch on the card; once a prewarm replay has
+        started in the process, its state, stats and error
+        (`prewarm.status()`) under "prewarm". Everything reads bounded
+        in-memory state, so a liveness probe can poll it."""
+        from .. import obs
+        report = obs.engine_health(window_s)
         scorer = self._scorer
-        report = {"endpoint": {
+        report["endpoint"] = {
             "name": self._name,
             "stage": self._stage,
             "version": self._version,
@@ -329,7 +395,7 @@ class ServingEndpoint:
             "closed": self._closed,
             "canary": self.canary_stats(),
             "kernel": scorer.kernel_spec(),
-        }}
+        }
         from ..parallel import prewarm as _prewarm
         replay = _prewarm.status()
         if replay["state"] != "idle":
@@ -343,6 +409,12 @@ class ServingEndpoint:
             _store.remove_stage_listener(self._listener)
             self._listener = None
         self._batcher.close()
+        # take the monitor under the lock _install_drift rebinds it under;
+        # unregister outside it (the registry has its own)
+        with self._swap_lock:
+            mon, self._drift = self._drift, None
+        if mon is not None:
+            _drift.DRIFT.unregister(self._drift_key(), mon)
         with self._canary_lock:
             pool, self._shadow_pool = self._shadow_pool, None
         if pool is not None:

@@ -365,7 +365,11 @@ def test_health_report_endpoint_block(registered):
             ep.score(X[i:i + 2], timeout=30)
         health = ep.health_report()
     block = health["endpoint"]
-    assert set(health) == {"endpoint"}
+    # the engine-wide blocks of obs.engine_health() beside the endpoint's
+    assert set(health) == {"metrics", "audit", "hbm", "engine", "slo",
+                           "skew", "ingest", "inflight", "drift",
+                           "infer_kernel", "shed", "fleet", "load",
+                           "endpoint"}
     assert block == {"name": NAME, "stage": "Production", "version": 1,
                      "pinned": None, "staging_version": None,
                      "queued_rows": 0, "max_batch_rows": 512,

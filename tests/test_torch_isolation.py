@@ -729,3 +729,57 @@ def test_chip_smoke_fails_outside_the_repository(tmp_path):
                 args=[str(tmp_path / "chip_smoke.py")])
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_the_obs_modules_are_among_the_imported():
+    proc = _run(IMPORT_ALL.replace("print(len(names), bad)",
+                                   "print(sorted(names))"))
+    assert proc.returncode == 0, proc.stderr
+    for name in ("obs._ledger", "obs._skew", "obs._trace", "obs._tracefmt",
+                 "obs.drift", "obs.blackbox", "obs.taxonomy",
+                 "parallel.dispatch"):
+        assert f"sml_tpu_torch.{name}'" in proc.stdout
+
+
+OBSERVED = BLOCKED + """
+import os, tempfile
+import numpy as np
+from sml_tpu_torch import GLOBAL_CONF, obs, tracking
+from sml_tpu_torch.frame._chunks import ArrayChunkSource
+from sml_tpu_torch.ml._chunked import fit_ensemble_chunked
+from sml_tpu_torch.xgboost import XgboostRegressor
+base = tempfile.mkdtemp()
+tracking.set_tracking_uri(os.path.join(base, "runs"))
+GLOBAL_CONF.set("sml.obs.enabled", True)
+rng = np.random.default_rng(0)
+X = rng.normal(size=(2000, 4))
+y = X[:, 0] - X[:, 1]
+with tracking.start_run() as run:
+    m = XgboostRegressor(n_estimators=3, max_depth=3, max_bins=16).fit(
+        X, y, device="cpu")
+print("baseline", m._spec.baseline is not None)
+spec = fit_ensemble_chunked(ArrayChunkSource(X, y, chunk_rows=500),
+                            max_depth=3, max_bins=16, device="cpu",
+                            drift_baseline=m._spec.baseline)
+print("ingest", obs.engine_health()["drift"]["ingest"]["chunks"]["observed"])
+print("trace", os.path.exists(obs.export_chrome_trace(
+    os.path.join(base, "t.json"))))
+bundle = obs.dump_blackbox("isolation", directory=base)
+print("bundle", sorted(os.listdir(bundle)))
+print("blocks", len(obs.engine_health()))
+bad = sorted(k for k in sys.modules
+             if k.split(".")[0] in ("jax", "jaxlib", "sml_tpu", "pandas",
+                                    "pyarrow"))
+print(bad)
+"""
+
+
+def test_the_observed_path_runs_with_pandas_pyarrow_and_jax_blocked():
+    """Drift capture, the ingest monitor, the trace export and a bundle
+    with jax, sml_tpu, pandas and pyarrow blocked from importing."""
+    proc = _run(OBSERVED)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines() == [
+        "baseline True", "ingest 4", "trace True",
+        "bundle ['MANIFEST.json', 'audit.json', 'events.jsonl', "
+        "'ledger.json', 'metrics.json']", "blocks 13", "[]"]
