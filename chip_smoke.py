@@ -368,6 +368,37 @@ Phases:
    line gives these numbers, and the kernels line's `launches_by_path`
    gains "observed".
 
+21. fleet, stream and continuous training (the recorder on inside the
+   phase, reset after it): ML 11's XGBoost on phase 8's 80,000 rows,
+   registered as version 1 in Production; (a) a `ReplicaPool` of 3
+   replicas on the card (prewarm on: `prewarm.replica_skip` 2), every
+   replica's answer to the same 64 rows bit-equal to `score_block`; (b)
+   a `closed_loop_probe`'s sustained rate R, then an open-loop
+   `TraceSpec` through the `Router` (steady at 0.5 R, a burst averaging
+   2 R with burst factor 4, steady again; widths 1-64 rows, fat-tailed;
+   classes high / normal / low at 20 / 60 / 20): p50 / p99 / p99.9 by
+   phase and class, sheds by class, `load.timeout` (0) and
+   `load.overrun` (when it is not 0 the phase says that the harness was
+   at fault), the closed loop's p99 beside the open loop's, the recorder
+   off through (a)-(c); (c) the
+   replica holding most of a burst killed mid-replay: every future
+   resolves, `fleet.reroutes` > 0, its bundle written, and
+   `Autoscaler.step()` backfills to 3; (d) a `ContinuousTrainer(fleet=
+   pool)` over a `DeltaChunkSource` of held-out rows: under
+   `minRefitRows` -> accumulate, iid -> clean, feature 9 shifted 3
+   standard deviations -> a warm refit (hist / scan launches and one
+   `init` traversal) whose staged rollout promotes (every replica then
+   serves v2, bit-equal to its `score_block`), a window built to fail
+   the quality gate (its gate rows keep their labels, the rest are
+   permuted) -> rollback, v3 Archived, the failing replica evicted with
+   its bundle; (e) MLE 00: the installed clean airbnb table (9,169 rows)
+   as parquet parts of 1,000 rows through `readStream` (one file a
+   trigger), a VectorAssembler and the LR model into a memory sink:
+   `spark.sql` counts every row and the predictions equal the batch
+   transform bit for bit; a `StreamChunkSource` over the query into one
+   trainer `step()` (clean). A `{"fleet": ...}` line gives these numbers,
+   and the kernels line's `launches_by_path` gains "fleet".
+
 The second-to-last line is a JSON object listing each kernel, with the
 launches the profiler saw in each window behind its device times
 ("device_windows"); the last is {"ok": true, "device": {...}}.
@@ -6258,6 +6289,549 @@ def phase_observed(seed: int, device, card: str,
     return out
 
 
+# ------------------------------------- phase 21: fleet, stream and training
+FLT_NAME = "airbnb-fleet"
+FLT_REPLICAS = 3
+#: each replica's admission bound (rows): the class ladder's scale
+FLT_QUEUE_ROWS = 256
+#: the open-loop trace's request widths (fat-tailed over 1-64 rows) and
+#: classes, highest first
+FLT_WIDTHS = ((1, 0.40), (2, 0.20), (4, 0.15), (8, 0.10), (16, 0.07),
+              (32, 0.05), (64, 0.03))
+FLT_CLASSES = (("high", 0.2), ("normal", 0.6), ("low", 0.2))
+#: seconds of each load phase; the requests the closed-loop probe
+#: measures the sustained rate on
+FLT_PHASE_S = 2.5
+FLT_PROBE = 200
+#: the open-loop driver's pool: the burst's peak (4 x 2 x the probe's
+#: ~250-300 req/s) times a queued request's ~50 ms needs ~100 in flight
+#: (`scripts/torch_fleet_load.py` measures overruns at 32 and 128)
+FLT_WORKERS = 128
+#: (c): the replay's seconds and rate, and the requests submitted in one
+#: burst just before the kill
+FLT_KILL_S, FLT_KILL_RATE, FLT_KILL_BURST = 2.0, 200.0, 64
+#: (d)'s appends of held-out rows: under minRefitRows, iid, feature 9
+#: shifted (phase 20's OBS_SHIFT), and the gate-failing window (feature 9
+#: back, its first sml.ct.gateRows rows with their labels, the rest
+#: with labels permuted)
+CT_ROWS = (256, 4000, 4000, 8000)
+#: (e)'s parquet parts, and the numeric columns of its stream trainer
+STREAM_PART_ROWS = 1000
+STREAM_COLS = ("accommodates", "bathrooms", "bedrooms", "beds",
+               "minimum_nights", "number_of_reviews",
+               "review_scores_rating")
+
+
+def flt_register(model, name: str) -> None:
+    """Log `model`, register it as `name` v1 and move it to Production."""
+    from sml_tpu_torch import tracking as mlflow
+    with mlflow.start_run():
+        mlflow.spark.log_model(model, "model", registered_model_name=name)
+    mlflow.MlflowClient().transition_model_version_stage(name, 1,
+                                                         "Production")
+
+
+def flt_spec(rate: float, seed: int = 21):
+    """The three-phase trace: steady at half the sustained rate, a burst
+    (factor 4) averaging twice it, steady again."""
+    from sml_tpu_torch.loadgen import PhaseSpec, TraceSpec
+    return TraceSpec(
+        phases=(PhaseSpec("steady", FLT_PHASE_S, 0.5 * rate),
+                PhaseSpec("burst", FLT_PHASE_S, 2.0 * rate,
+                          arrival="bursty", burst_factor=4.0),
+                PhaseSpec("steady2", FLT_PHASE_S, 0.5 * rate)),
+        widths=FLT_WIDTHS, classes=FLT_CLASSES, seed=seed)
+
+
+def flt_version(name: str, version: int):
+    from sml_tpu_torch.ml.base import load
+    from sml_tpu_torch.tracking import _store
+    return load(os.path.join(_store.model_dir(name), "versions",
+                             str(version), "model", "native"))
+
+
+def flt_same_answers(pool, model, X, device, what: str) -> dict:
+    """Every replica's answer to X bit-equal to `score_block` of `model`;
+    returns the replicas' launches (the reference's is not counted)."""
+    from sml_tpu_torch.ml.inference import DeviceScorer
+    ref = DeviceScorer(model, device=device).score_block(X)
+    _zero_launches()
+    for r in pool.replicas():
+        if not np.array_equal(r.endpoint.score(X, timeout=60), ref):
+            raise AssertionError(f"{what}: replica {r.rid} differs from "
+                                 f"score_block")
+    return _all_launches()
+
+
+def flt_pool(Xte, device, card: str, tmp: str) -> tuple:
+    """(a) FLT_REPLICAS replicas of FLT_NAME v1 with prewarm on (the
+    first replays the manifest, the rest skip), and every replica's
+    answer to the same 64 rows against `score_block`."""
+    from sml_tpu_torch.conf import GLOBAL_CONF
+    from sml_tpu_torch.fleet import ReplicaPool
+    from sml_tpu_torch.parallel import prewarm
+    from sml_tpu_torch.utils.profiler import PROFILER
+    prewarm.reset()
+    GLOBAL_CONF.set("sml.prewarm.enabled", True)
+    skip0 = PROFILER.counters().get("prewarm.replica_skip", 0.0)
+    try:
+        pool, ms = walled(lambda: ReplicaPool(
+            FLT_NAME, replicas=FLT_REPLICAS, device=device,
+            queue_rows=FLT_QUEUE_ROWS, canary_fraction=1.0,
+            blackbox_dir=os.path.join(tmp, "blackbox")), device)
+    finally:
+        GLOBAL_CONF.unset("sml.prewarm.enabled")
+    skips = PROFILER.counters().get("prewarm.replica_skip", 0.0) - skip0
+    first = pool.replicas()[0].endpoint.prewarm_thread
+    if first is not None:
+        first.join()
+    replay = prewarm.status()
+    if skips != FLT_REPLICAS - 1 or replay["state"] != "done":
+        raise AssertionError(f"(a) prewarm.replica_skip {skips}, replay "
+                             f"{replay}")
+    X64 = Xte[np.random.default_rng(5).integers(0, len(Xte), 64)]
+    launches = flt_same_answers(pool, flt_version(FLT_NAME, 1), X64,
+                                device, "(a)")
+    print(f"fleet (a) {FLT_REPLICAS} replicas of {FLT_NAME} v1 started in "
+          f"{ms!r} ms; prewarm.replica_skip {skips:g}, the first replica's "
+          f"replay {replay['stats']}; every replica's answer to 64 rows "
+          f"bit-equal to score_block; launches {launches} [{card}]")
+    return pool, {"start_ms": ms, "replica_skip": skips,
+                  "replay": replay["stats"], "launches": launches}
+
+
+def flt_counters() -> dict:
+    from sml_tpu_torch.utils.profiler import PROFILER
+    c = PROFILER.counters()
+    return {k: c.get(k, 0.0) for k in
+            ("fleet.shed.high", "fleet.shed.normal", "fleet.shed.low",
+             "serve.shed.overflow", "serve.shed.deadline", "fleet.requests",
+             "fleet.reroutes", "load.overrun", "load.timeout")}
+
+
+def flt_load(pool, device, card: str) -> dict:
+    """(b) the closed-loop probe's sustained rate, then the open-loop
+    trace at 0.5x / 2x (bursty, factor 4) / 0.5x of it through the
+    router: outcomes, p50 / p99 / p99.9 by phase and class, sheds by
+    class, overruns and timeouts."""
+    from sml_tpu_torch.conf import GLOBAL_CONF
+    from sml_tpu_torch.fleet import Router
+    from sml_tpu_torch.loadgen import OpenLoopDriver, closed_loop_probe
+    router = Router(pool)
+    wait = float(GLOBAL_CONF.get("sml.load.resultTimeoutSec"))
+
+    def score(X, priority, model):
+        return router.score(X, priority, timeout=wait)
+    _zero_launches()
+    closed = closed_loop_probe(score, flt_spec(100.0).compile()[:FLT_PROBE],
+                               feature_dim=N_FEAT)
+    rate = len(closed) / (sum(closed) / 1e3)
+    c0 = flt_counters()
+    rep = OpenLoopDriver(score, flt_spec(rate).compile(),
+                         feature_dim=N_FEAT, workers=FLT_WORKERS).run()
+    launches = _all_launches()
+    delta = {k: v - c0[k] for k, v in flt_counters().items()}
+    closed_p99 = float(np.percentile(closed, 99))
+    print(f"fleet (b) closed-loop probe: {len(closed)} requests, sustained "
+          f"{rate!r} req/s, p50 {float(np.percentile(closed, 50))!r} p99 "
+          f"{closed_p99!r} ms; open loop at {0.5 * rate!r} / {2 * rate!r} "
+          f"(bursty x4) / {0.5 * rate!r} req/s: {rep['requests']} "
+          f"requests in {rep['wall_s']!r} s, served {rep['served']}, shed "
+          f"{rep['shed']}, timeout {rep['timeout']}, errors "
+          f"{rep['errors']}, overrun {rep['overrun']} [{card}]")
+    for name, ph in rep["phases"].items():
+        cls = {c: (v["p50_ms"], v["p99_ms"], v["p999_ms"], v["count"])
+               for c, v in ph["classes"].items()}
+        print(f"fleet (b) {name}: p50 {ph['p50_ms']!r} p99 {ph['p99_ms']!r}"
+              f" p99.9 {ph['p999_ms']!r} ms of {ph['requests']} requests, "
+              f"worst {ph['worst_ms']!r} ms (trace {ph['worst_trace']}); "
+              f"by class (p50, p99, p99.9 ms, n) {cls}")
+    print(f"fleet (b) sheds by class: high {delta['fleet.shed.high']:g} "
+          f"normal {delta['fleet.shed.normal']:g} low "
+          f"{delta['fleet.shed.low']:g}, serve.shed.overflow "
+          f"{delta['serve.shed.overflow']:g}; closed-loop p99 "
+          f"{closed_p99!r} ms against the open loop's "
+          f"{[ph['p99_ms'] for ph in rep['phases'].values()]}; "
+          f"launches {launches}")
+    if rep["overrun"]:
+        # the driver shares the interpreter with the replicas' flush
+        # threads: a fire it picks up late is the harness's fault, and
+        # its latency is still charged from the schedule
+        print(f"fleet (b) the HARNESS was at fault: {rep['overrun']} of "
+              f"{rep['requests']} fires left the driver's pool more than "
+              f"sml.load.overrunMicros after their scheduled instants")
+    if rep["timeout"] or rep["errors"] or delta["load.timeout"]:
+        raise AssertionError(f"(b) timeouts {rep['timeout']}, errors "
+                             f"{rep['errors']}")
+    # the router never sheds the top class: a high request that shed was
+    # its replica's overflow (hostFallback is off by default)
+    if delta["fleet.shed.high"] or not launches["forest_traverse"]:
+        raise AssertionError(f"(b) counters {delta}, launches {launches}")
+    return {"rate": rate, "closed_p50_ms": float(np.percentile(closed, 50)),
+            "closed_p99_ms": closed_p99, "report": rep, "counters": delta,
+            "launches": launches}
+
+
+def flt_kill(pool, device, card: str) -> dict:
+    """(c) a replica whose device call hangs while an open-loop replay
+    runs takes a burst of top-class requests (the router breaks ties
+    toward the lowest rid, so the hung replica is chosen as that) and is
+    killed: every future resolves (its result, a re-route or a typed
+    shed), every request it held is re-routed, the bundle is on disk;
+    the autoscaler backfills to the floor."""
+    from sml_tpu_torch.fleet import Autoscaler, Router
+    from sml_tpu_torch.loadgen import OpenLoopDriver, PhaseSpec, TraceSpec
+    from sml_tpu_torch.serving import RequestShed
+    router = Router(pool)
+    spec = TraceSpec(phases=(PhaseSpec("kill", FLT_KILL_S, FLT_KILL_RATE),),
+                     widths=FLT_WIDTHS, classes=FLT_CLASSES, seed=22)
+    result = {}
+
+    def replay():
+        result["rep"] = OpenLoopDriver(
+            lambda X, p, m: router.score(X, p, timeout=30.0),
+            spec.compile(), feature_dim=N_FEAT, workers=FLT_WORKERS).run()
+    victim = min(r.rid for r in pool.replicas())
+    hung = pool.get(victim)
+    batcher = hung.endpoint._batcher
+    score = batcher._score_block
+    entered = threading.Event()
+
+    def hang(X):
+        # the device call does not return while the replica lives, so
+        # its batch and the requests queued behind it are in flight at
+        # the kill however fast the card drains; the replica's poison
+        # check then raises ReplicaGone on them
+        entered.set()
+        while hung.alive:
+            time.sleep(1e-4)
+        return score(X)
+    c0 = flt_counters()
+    _zero_launches()
+    t = threading.Thread(target=replay, name="fleet-kill-replay")
+    t.start()
+    time.sleep(FLT_KILL_S / 3)
+    batcher._score_block = hang
+    # a batch that entered the card before the hang drains first: then
+    # either the hung call holds replay requests, or the victim stands
+    # empty and takes the burst's first request
+    while not entered.is_set() and hung.pressure():
+        time.sleep(1e-4)
+    X = np.zeros((8, N_FEAT), dtype=np.float32)
+    futs = [router.submit(X, "high") for _ in range(FLT_KILL_BURST)]
+    on_dead = [f.replica_id for f in futs].count(victim)
+    bundle, kill_ms = walled(lambda: pool.kill(victim), device)
+    outcomes = {"served": 0, "shed": 0}
+    for f in futs:
+        try:
+            f.result(30.0)
+            outcomes["served"] += 1
+        except RequestShed:
+            outcomes["shed"] += 1
+    t.join()
+    rep = result["rep"]
+    delta = {k: v - c0[k] for k, v in flt_counters().items()}
+    step = Autoscaler(pool, router, min_replicas=FLT_REPLICAS,
+                      max_replicas=FLT_REPLICAS + 1).step()
+    launches = _all_launches()
+    out = {"victim": victim, "on_dead": on_dead, "burst": outcomes,
+           "reroutes": delta["fleet.reroutes"], "kill_ms": kill_ms,
+           "replay": {k: rep[k] for k in ("requests", "served", "shed",
+                                          "timeout", "errors", "overrun")},
+           "bundle_files": sorted(os.listdir(bundle)) if bundle else None,
+           "autoscale": step, "size": pool.size(), "launches": launches}
+    print(f"fleet (c) replica {victim} hung and killed in {kill_ms!r} ms "
+          f"mid-replay with {on_dead} of {FLT_KILL_BURST} burst requests on "
+          f"it: burst "
+          f"{outcomes}, replay {out['replay']}, fleet.reroutes "
+          f"{delta['fleet.reroutes']:g}; bundle {out['bundle_files']}; "
+          f"autoscaler {step['action']} to {pool.size()} replicas; "
+          f"launches {launches} [{card}]")
+    if not out["bundle_files"] or "MANIFEST.json" not in out["bundle_files"]:
+        raise AssertionError(f"(c) no bundle for the killed replica")
+    if delta["fleet.reroutes"] < max(on_dead, 1) or rep["timeout"] \
+            or rep["errors"]:
+        raise AssertionError(f"(c) reroutes {delta['fleet.reroutes']}, "
+                             f"replay {out['replay']}")
+    if step["action"] != "backfill" or pool.size() != FLT_REPLICAS:
+        raise AssertionError(f"(c) autoscaler {step}, {pool.size()} live")
+    return out
+
+
+def flt_ct(pool, X, logy, device, card: str, tmp: str) -> dict:
+    """(d) a ContinuousTrainer promoting through the fleet over a Delta
+    table of held-out rows: under minRefitRows -> accumulate; iid ->
+    clean; feature 9 shifted -> a warm refit whose staged rollout
+    promotes (every replica then serves v2, bit-equal to its
+    `score_block`); a window built to fail the gate -> rollback, the
+    candidate Archived, the failing replica evicted with its bundle."""
+    from sml_tpu_torch.ct import CanaryGate, ContinuousTrainer, \
+        DeltaChunkSource
+    from sml_tpu_torch.conf import GLOBAL_CONF
+    from sml_tpu_torch.frame.session import get_session
+    from sml_tpu_torch.tracking import _store
+    cols = [f"c{j}" for j in range(N_FEAT)]
+    path = os.path.join(tmp, "ct.delta")
+    Xh, yh = X[80_000:], logy[80_000:]
+    sd = float(np.nanstd(X[:80_000, OBS_FEATURE]))
+    bounds = np.cumsum((0,) + CT_ROWS)
+    windows = []
+    for i, (lo, hi) in enumerate(zip(bounds[:-1], bounds[1:])):
+        Xw, yw = Xh[lo:hi].copy(), yh[lo:hi].copy()
+        if i == 2:
+            Xw[:, OBS_FEATURE] += OBS_SHIFT * sd
+        if i == 3:
+            keep = GLOBAL_CONF.getInt("sml.ct.gateRows")
+            yw[keep:] = np.random.default_rng(24).permutation(yw[keep:])
+        windows.append((Xw, yw))
+    trainer = ContinuousTrainer(
+        FLT_NAME, DeltaChunkSource(path, cols, "label"), fleet=pool,
+        gate=CanaryGate(min_mirrored=4), fit_params={"seed": 42},
+        full_severity=1e9, device=device)
+    cycles = []
+    want = ["accumulate", "clean", "promoted", "rolled_back"]
+    for i, (Xw, yw) in enumerate(windows):
+        block = {c: Xw[:, j] for j, c in enumerate(cols)}
+        block["label"] = yw
+        get_session().createDataFrame(block).write.format("delta") \
+            .mode("append" if i else "errorifexists").save(path)
+        _zero_launches()
+        rep, ms = walled(trainer.step, device)
+        launches = _all_launches()
+        gate = rep.get("gate") or {}
+        cyc = {"action": rep["action"], "rows": rep["rows"],
+               "severity": rep.get("severity"), "refit": rep.get("refit"),
+               "version": rep.get("version"), "ms": ms,
+               "passed": gate.get("passed"), "checks": gate.get("checks"),
+               "stages": [(s["rid"], s["passed"])
+                          for s in gate.get("stages", ())],
+               "rmse": (gate.get("rmse_candidate"),
+                        gate.get("rmse_incumbent")),
+               "evicted": gate.get("evicted"),
+               "bundle": bool(gate.get("blackbox")
+                              and os.path.isdir(gate["blackbox"])),
+               "launches": launches}
+        cycles.append(cyc)
+        print(f"fleet (d) cycle {i}: {cyc['action']} on {cyc['rows']} rows, "
+              f"severity {cyc['severity']!r}, refit {cyc['refit']}, "
+              f"{ms!r} ms; gate passed {cyc['passed']} checks "
+              f"{cyc['checks']} stages {cyc['stages']} rmse (candidate, "
+              f"incumbent) {cyc['rmse']}; evicted {cyc['evicted']}; "
+              f"launches {launches} [{card}]")
+        if cyc["action"] != want[i]:
+            raise AssertionError(f"(d) cycle {i}: {rep}")
+        if i == 2:
+            if rep["refit"] != "warm" or launches["forest_traverse"] < 1 \
+                    or not launches["hist_accumulate"]:
+                raise AssertionError(f"(d) the drifted cycle: {cyc}")
+            X64 = Xh[np.random.default_rng(6).integers(0, len(Xh), 64)]
+            cyc["answers"] = flt_same_answers(
+                pool, flt_version(FLT_NAME, 2), X64, device,
+                "(d) after the promotion")
+            if {r.endpoint.current_version() for r in pool.replicas()} \
+                    != {2}:
+                raise AssertionError("(d) a replica does not serve v2")
+    stages = {v["version"]: v["current_stage"]
+              for v in _store.list_model_versions(FLT_NAME)}
+    last = cycles[3]
+    if stages != {1: "Archived", 2: "Production", 3: "Archived"} \
+            or not last["bundle"] or last["checks"].get("quality") \
+            or pool.size() != FLT_REPLICAS - 1:
+        raise AssertionError(f"(d) stages {stages}, last cycle {last}, "
+                             f"{pool.size()} replicas")
+    print(f"fleet (d) registry {stages}; {pool.size()} replicas after the "
+          f"rollback's eviction")
+    total = {}
+    for c in cycles:
+        for counts in (c["launches"], c.get("answers", {})):
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+    return {"cycles": cycles, "stages": stages, "launches": total}
+
+
+def flt_stream(device, card: str, tmp: str) -> dict:
+    """(e) MLE 00: the installed clean airbnb table as parquet parts of
+    STREAM_PART_ROWS rows, `readStream` (maxFilesPerTrigger 1) ->
+    VectorAssembler -> the LR model's `transform` -> a memory sink ->
+    `spark.sql`; its predictions bit-equal to the batch transform; then
+    a `StreamChunkSource` over the query into one trainer step()."""
+    from sml_tpu_torch import tracking as mlflow
+    from sml_tpu_torch.ct import ContinuousTrainer, StreamChunkSource
+    from sml_tpu_torch.courseware import ClassroomSetup
+    from sml_tpu_torch.frame import parquet as ppq
+    from sml_tpu_torch.frame._chunks import ArrayChunkSource
+    from sml_tpu_torch.frame.session import get_session
+    from sml_tpu_torch.ml._chunked import fit_ensemble_chunked
+    from sml_tpu_torch.ml.feature import VectorAssembler
+    from sml_tpu_torch.ml.regression import (GBTRegressionModel,
+                                             LinearRegression)
+    spark = get_session()
+    root, install_ms = walled(ClassroomSetup(
+        base_dir=os.path.join(tmp, "classroom")).install_datasets, device)
+    clean = os.path.join(root, "airbnb", "sf-listings",
+                         "sf-listings-2019-03-06-clean.parquet")
+    df = spark.read.parquet(clean).cache()
+    whole = df._whole()
+    n = df.count()
+    src = os.path.join(tmp, "stream-src")
+    os.makedirs(src)
+    for i, lo in enumerate(range(0, n, STREAM_PART_ROWS)):
+        ppq.write_table({k: v[lo:lo + STREAM_PART_ROWS]
+                         for k, v in whole.items()},
+                        os.path.join(src, f"part-{i:03d}.parquet"))
+    vec = VectorAssembler(inputCols=["bedrooms", "accommodates"],
+                          outputCol="features")
+    lr = LinearRegression(labelCol="price").fit(vec.transform(df))
+    stream = spark.readStream.format("parquet") \
+        .option("maxFilesPerTrigger", 1).schema(df.schema).load(src)
+    q = lr.transform(vec.transform(stream)).writeStream.format("memory") \
+        .queryName("mle00_preds") \
+        .option("checkpointLocation", os.path.join(tmp, "ckpt")) \
+        .trigger(processingTime="0 seconds").start()
+    try:
+        _, stream_ms = walled(q.processAllAvailable, device)
+        count = spark.sql("SELECT count(*) AS n FROM mle00_preds") \
+            .collect()[0]["n"]
+        got = np.concatenate([b["prediction"] for b in q._mem_parts])
+        batch = lr.transform(vec.transform(df))._whole()["prediction"]
+        batches = len(q.recentProgress)
+        per_batch = [p["durationMs"] for p in q.recentProgress]
+        # a tree model of the table's numeric columns, trained with the
+        # recorder on (its drift baseline), and one trainer cycle over
+        # the stream's committed micro-batches
+        cols = list(STREAM_COLS)
+        Xs = np.column_stack([whole[c] for c in cols]).astype(np.float64)
+        _zero_launches()
+        spec = fit_ensemble_chunked(
+            ArrayChunkSource(Xs, whole["price"].astype(np.float64),
+                             chunk_rows=STREAM_PART_ROWS),
+            max_depth=4, max_bins=32, n_trees=10, boosting=True,
+            step_size=0.3, seed=42, device=device)
+        with mlflow.start_run():
+            mlflow.spark.log_model(GBTRegressionModel(spec), "model",
+                                   registered_model_name="airbnb-stream")
+        mlflow.MlflowClient().transition_model_version_stage(
+            "airbnb-stream", 1, "Production")
+        src_chunks = StreamChunkSource(q, cols, "price",
+                                       chunk_rows=STREAM_PART_ROWS)
+        rep, step_ms = walled(ContinuousTrainer(
+            "airbnb-stream", src_chunks, device=device).step, device)
+        launches = _all_launches()
+    finally:
+        q.stop()
+    out = {"rows": n, "files": len(os.listdir(src)), "count": count,
+           "micro_batches": batches, "stream_ms": stream_ms,
+           "micro_batch_ms": per_batch, "install_ms": install_ms,
+           "trainer": {"action": rep["action"], "rows": rep["rows"],
+                       "severity": rep.get("severity"), "ms": step_ms},
+           "launches": launches}
+    print(f"fleet (e) MLE 00: {n} clean rows in {out['files']} parquet "
+          f"parts, {batches} micro-batches in {stream_ms!r} ms (per batch "
+          f"{per_batch} ms), spark.sql count {count}, predictions "
+          f"bit-equal to the batch transform: "
+          f"{bool(np.array_equal(got, batch))}; StreamChunkSource -> "
+          f"trainer step(): {out['trainer']}; launches {launches} [{card}]")
+    if count != n or batches != out["files"] \
+            or not np.array_equal(got, batch) or rep["action"] != "clean" \
+            or rep["rows"] != n:
+        raise AssertionError(f"(e) {out}")
+    return out
+
+
+def phase_fleet(seed: int, device, card: str, n_train: int = 80_000
+                ) -> dict:
+    """Phase 21: the fleet, the load harness, continuous training and
+    streaming: ML 11's XGBoost (phase 8's rows, `n_train` of them; the
+    recorder on, for its drift baseline) registered as FLT_NAME v1 in
+    Production; with the recorder off, (a) the pool, (b) the open-loop
+    load, (c) the kill and the backfill; with it on (reset after), (d)
+    the trainer through the fleet and (e) MLE 00's stream and a trainer
+    step over it. `n_train` cuts the seed fit's rows for a rehearsal on
+    the CPU."""
+    import shutil
+    import tempfile
+    from sml_tpu_torch import loadgen
+    from sml_tpu_torch import obs
+    from sml_tpu_torch import tracking as mlflow
+    from sml_tpu_torch.conf import GLOBAL_CONF
+    X, logy, cats = fit_rows(seed)
+    tmp = tempfile.mkdtemp(prefix="sml-fleet-")
+    prev_uri = mlflow.get_tracking_uri()
+    mlflow.set_tracking_uri(os.path.join(tmp, "mlruns"))
+    GLOBAL_CONF.set("sml.device", device.type)
+    GLOBAL_CONF.set("sml.obs.blackboxDir", os.path.join(tmp, "blackbox"))
+    t_phase = time.perf_counter()
+    out = {"card": card}
+    total: dict = {}
+    pool = None
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    try:
+        obs_recorder(True)
+        with KernelWatch() as watch:
+            _zero_launches()
+            with mlflow.start_run():
+                model, fit_ms = walled(lambda: _fit_xgb(
+                    X[:n_train], logy[:n_train], cats, device), device)
+            add(_all_launches())
+            if model._spec.baseline is None:
+                raise AssertionError("(fleet) the seed fit has no baseline")
+            flt_register(model, FLT_NAME)
+            print(f"fleet: ML 11 fit on {n_train} rows with the recorder "
+                  f"on in {fit_ms!r} ms, registered {FLT_NAME} v1 "
+                  f"Production [{card}]")
+            # the load runs with the recorder off: it measures serving as
+            # deployed (phase 20 measured what monitoring adds; here the
+            # drift observer's ~1 ms a batch on three flush threads
+            # tripled the burst's p50)
+            obs_recorder(False)
+            pool, out["a"] = flt_pool(X[80_000:], device, card, tmp)
+            add(out["a"]["launches"])
+            out["b"] = flt_load(pool, device, card)
+            add(out["b"]["launches"])
+            out["c"] = flt_kill(pool, device, card)
+            add(out["c"]["launches"])
+            # the refits stamp their baselines only with the recorder on
+            obs_recorder(True)
+            out["d"] = flt_ct(pool, X, logy, device, card, tmp)
+            add(out["d"]["launches"])
+            health = obs.engine_health()
+            if health["fleet"] is None or health["load"] is None:
+                raise AssertionError("(fleet) engine_health's fleet or load "
+                                     "block is empty")
+            out["health"] = {"fleet": health["fleet"]["pools"][0]["size"],
+                             "load_requests": health["load"]["requests"]}
+            pool.close()
+            out["e"] = flt_stream(device, card, tmp)
+            add(out["e"]["launches"])
+        if watch.plain_on_cuda:
+            raise AssertionError(f"(fleet) plain versions ran "
+                                 f"{watch.plain_on_cuda} times on the card")
+    finally:
+        if pool is not None:
+            pool.close()
+        loadgen.reset()
+        obs_recorder(False)
+        GLOBAL_CONF.unset("sml.obs.blackboxDir")
+        mlflow.set_tracking_uri(prev_uri)
+        shutil.rmtree(tmp, ignore_errors=True)
+    from sml_tpu_torch import fleet
+    if fleet.fleet_report() is not None or obs.engine_health()["load"]:
+        raise AssertionError("(fleet) a pool or a replay outlived the phase")
+    missing = [k for k in ("forest_traverse", "hist_accumulate",
+                           "split_scan") if not total.get(k)]
+    if missing:
+        raise AssertionError(f"(fleet) kernels never launched: {missing} "
+                             f"({total})")
+    out["launches"] = total
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"fleet: every check passed in {out['phase_s']!r} s; launches "
+          f"{total}; card {card}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6302,6 +6876,7 @@ def main(argv=None) -> int:
     dispatch = phase_dispatch(args.seed, device, card)
     dataplane = phase_dataplane(device, card)
     observed = phase_observed(args.seed, device, card)
+    fleet = phase_fleet(args.seed, device, card)
 
     def by_path(kernel: str) -> dict:
         return {"fit": fit["launches"][kernel],
@@ -6314,7 +6889,8 @@ def main(argv=None) -> int:
                 "automl": registry["launches"]["automl"][kernel],
                 "dispatch": dispatch["launches"][kernel],
                 "dataplane": dataplane["launches"][kernel],
-                "observed": observed["launches"][kernel]}
+                "observed": observed["launches"][kernel],
+                "fleet": fleet["launches"][kernel]}
 
     def windows(kernel: str) -> dict:
         return {what: seen for what, seen in DEVICE_WINDOWS.items()
@@ -6336,7 +6912,8 @@ def main(argv=None) -> int:
         + registry["launches"]["automl"]["forest_traverse"]
         + dispatch["launches"]["forest_traverse"]
         + dataplane["launches"]["forest_traverse"]
-        + observed["launches"]["forest_traverse"],
+        + observed["launches"]["forest_traverse"]
+        + fleet["launches"]["forest_traverse"],
         "launches_by_path": {"serving": main_path["launches"],
                              "tuning": tuning["fused"]["forest_traverse"],
                              "dataframe": frames["evaluate"][
@@ -6355,6 +6932,8 @@ def main(argv=None) -> int:
                              "dataplane": dataplane["launches"][
                                  "forest_traverse"],
                              "observed": observed["launches"][
+                                 "forest_traverse"],
+                             "fleet": fleet["launches"][
                                  "forest_traverse"]},
         "replay_launches": chunked["b"]["launches"]["forest_traverse"],
         "replay": chunked["replay"],
@@ -6473,6 +7052,7 @@ def main(argv=None) -> int:
     print(json.dumps({"dispatch": dispatch}))
     print(json.dumps({"dataplane": dataplane}))
     print(json.dumps({"observed": observed}))
+    print(json.dumps({"fleet": fleet}))
     print(json.dumps({"dataframe": {
         "launches_fit": frames["fit"], "launches_evaluate":
         frames["evaluate"], "rmse": frames["rmse"],

@@ -21,8 +21,9 @@ materialization is kept (`cache()` semantics).
   and left joins in the left side's order, right joins in the right
   side's, full joins by the sorted keys; NULL keys match each other.
 
-Not ported yet (they wait for their slices): `writeStream`,
-`mapInPandas`, `to_koalas` and `rdd`.
+`writeStream` exists on a streaming frame (`streaming/stream.py`); on a
+static one it raises, as Spark does. Not ported yet (they wait for their
+slices): `mapInPandas` and `to_koalas`.
 """
 
 from __future__ import annotations
@@ -790,6 +791,11 @@ class DataFrame:
     def write(self):
         from .io import DataFrameWriter
         return DataFrameWriter(self)
+
+    @property
+    def writeStream(self):
+        from ..streaming.stream import DataStreamWriter
+        return DataStreamWriter(self)
 
     def approxQuantile(self, col: Union[str, List[str]],
                        probabilities: Sequence[float],

@@ -229,6 +229,16 @@ class TpuSession:
         from .io import DataFrameReader
         return DataFrameReader(self)
 
+    @property
+    def readStream(self):
+        from ..streaming.stream import DataStreamReader
+        return DataStreamReader(self)
+
+    @property
+    def streams(self):
+        from ..streaming.stream import StreamManager
+        return StreamManager()
+
     def table(self, name: str) -> DataFrame:
         views = self.catalog._views()
         if name in views:

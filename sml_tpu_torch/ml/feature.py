@@ -112,8 +112,9 @@ class VectorAssembler(Transformer):
                 slots[pos] = int(attrs["categorical"])
             elif attrs is not None and "numFeatures" in attrs:
                 width = int(attrs["numFeatures"])
-            else:
+            elif not getattr(df, "isStreaming", False):
                 # a vector input column has its own width: peek one row
+                # (a stream cannot peek; its numeric inputs are width 1)
                 if head is None:
                     head = df.limit(1)._whole()
                 v = head.get(c)

@@ -31,9 +31,11 @@ runs on (the CPU for "host", the resolved card otherwise), and
 (`device.use_device_local`) around a fit or a scoring body: the JAX
 package's `mesh_for` and `routed`.
 
-The JAX package's `ensure_compile_cache` and `bucket_rows` have no
-counterpart: eager torch compiles nothing per shape, and
-`native/build.py` caches each library by content hash.
+`bucket_rows` is the JAX package's `mesh.bucket_rows` (re-exported by
+its dispatch module): the load harness buckets a trace's declared widths
+with it (`loadgen.prewarm_widths`). The JAX package's
+`ensure_compile_cache` has no counterpart: eager torch compiles nothing
+per shape, and `native/build.py` caches each library by content hash.
 """
 
 from __future__ import annotations
@@ -159,6 +161,19 @@ class QueuePressure:
 
 #: process-wide card-queue pressure (one card per process)
 DEVICE_QUEUE = QueuePressure()
+
+
+def bucket_rows(n: int, multiple: int) -> int:
+    """Round a row count up to a coarse grid (8 to 16 steps per power of
+    two, at most 12.5% padding) that `multiple` also divides: near-size
+    requests land on one padded shape. The JAX package's
+    `mesh.bucket_rows`, integer for integer."""
+    n = max(int(n), 1)
+    multiple = max(int(multiple), 1)
+    target = max(n, multiple)
+    step = 1 << max(0, target.bit_length() - 4)
+    b = ((target + step - 1) // step) * step
+    return ((b + multiple - 1) // multiple) * multiple
 
 
 @contextlib.contextmanager

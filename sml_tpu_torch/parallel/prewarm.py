@@ -31,6 +31,10 @@ handle set-up.
   card, or under another device count, is skipped, as the JAX package
   skips a mesh that does not match.
 
+`speculative_prewarm(fn, shapes)` first-calls a scoring function on
+zero blocks of declared shapes (the load harness's width mix,
+`loadgen.prewarm_widths`) instead of the manifest.
+
 Each replay is its own trace and holds a watchdog ticket; `prewarm.*`
 counters and events go to the profiler and the flight recorder. A replay
 that fails is counted, and `prewarm()` raises the first failure once the
@@ -433,6 +437,68 @@ def prewarm(device=None, workers: Optional[int] = None) -> dict:
     stats["wall_s"] = _now() - t0
     if _OBS.enabled:
         _OBS.emit("prewarm", "prewarm.done", args=dict(stats))
+    if errors:
+        raise errors[0]
+    return stats
+
+
+def speculative_prewarm(fn: Callable, shapes: List[tuple],
+                        workers: Optional[int] = None) -> dict:
+    """Shape-bucket prewarm keyed off a DECLARED width mix instead of the
+    recorded manifest: call `fn` once on a zero f32 block of each
+    distinct (rows, features) shape, from a `workers`-wide thread pool
+    (`sml.prewarm.workers` by default), so a load trace's widths find
+    their first calls paid. Each call is its own trace and holds a
+    watchdog ticket. Returns {programs, warmed, failed, wall_s,
+    serial_s}, the JAX package's keys. A failed call is counted, and the
+    first failure is raised once the pool has finished, as `prewarm()`
+    raises (the JAX package counts it and returns)."""
+    todo = sorted({tuple(int(d) for d in s) for s in shapes})
+    stats = {"programs": len(todo), "warmed": 0, "failed": 0,
+             "wall_s": 0.0, "serial_s": 0.0}
+    if not todo:
+        return stats
+    if workers is None:
+        workers = GLOBAL_CONF.getInt("sml.prewarm.workers")
+    workers = max(1, int(workers))
+    PROFILER.count("prewarm.speculative", float(len(todo)))
+    stats_lock = threading.Lock()
+    errors: list = []
+
+    def _warm_one(shape: tuple) -> None:
+        t0 = _now()
+        ok = True
+        ctx = _trace.new_trace()
+        try:
+            with _trace.activate(ctx), \
+                    _WATCHDOG.watch("prewarm", "prewarm.speculative",
+                                    trace=ctx):
+                fn(np.zeros(shape, dtype=np.float32))
+        except Exception as e:  # noqa: BLE001 — counted, and raised below
+            ok = False
+            errors.append(e)
+        dt = _now() - t0
+        with stats_lock:
+            stats["warmed" if ok else "failed"] += 1
+            stats["serial_s"] += dt
+        if not ok:
+            PROFILER.count("prewarm.failed")
+        if _OBS.enabled:
+            args = {"shape": list(shape), "ok": ok,
+                    "seconds": round(dt, 4)}
+            if ctx is not None:
+                args["trace"] = ctx.trace_id
+            _OBS.emit("prewarm", "prewarm.speculative", args=args)
+
+    t0 = _now()
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(max_workers=workers,
+                            thread_name_prefix="sml-spec-prewarm") as pool:
+        for f in [pool.submit(_warm_one, s) for s in todo]:
+            f.result()
+    stats["wall_s"] = _now() - t0
+    if _OBS.enabled:
+        _OBS.emit("prewarm", "prewarm.speculative_done", args=dict(stats))
     if errors:
         raise errors[0]
     return stats

@@ -25,6 +25,11 @@ Degradation ladder (admission -> flush):
 4. at flush time, queued requests past `sml.serve.requestTimeoutMillis`
    shed: a deadline the caller already gave up on is not worth a launch.
 
+A flushed batch's rows leave the queue as soon as its `score_block`
+returns, before its futures resolve (the JAX package releases them after
+the futures and the drift observer), so a caller that submits again on
+its result never finds its own rows still counted against the bound.
+
 With the flight recorder on, each request's trace context is minted at
 admission and fanned in at flush (the `serve.batch` span carries its
 requests' `parent_traces` and `parent_spans`), each flush holds a
@@ -421,11 +426,17 @@ class MicroBatcher:
         ticket = _WATCHDOG.open("serve.flush", "serve.batch", trace=bctx)
         try:
             t_flush = now()
-            with _trace.activate(bctx):
-                with PROFILER.span("serve.batch", rows=total,
-                                   requests=len(live), **fan_meta):
-                    out = np.asarray(self._score_block(X),
-                                     dtype=np.float64)
+            try:
+                with _trace.activate(bctx):
+                    with PROFILER.span("serve.batch", rows=total,
+                                       requests=len(live), **fan_meta):
+                        out = np.asarray(self._score_block(X),
+                                         dtype=np.float64)
+            finally:
+                # the batch has left the queue: its rows are released
+                # before any caller hears its result, so a caller that
+                # submits again on it never finds its own rows standing
+                queue.sub(total)
             # one flush's launch + drain wall, measured at the flush site
             # whatever route score_block took: the drain floor
             # `_autotune` reads
@@ -466,4 +477,3 @@ class MicroBatcher:
                 p.future._set_error(e)
         finally:
             _WATCHDOG.close(ticket)
-            queue.sub(total)

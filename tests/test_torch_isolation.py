@@ -5,8 +5,10 @@ and AutoML, the host route, the batcher's host fallback, the dispatcher
 and prewarm with the session's device set to the CPU, loads neither JAX,
 the JAX package, pandas nor pyarrow; the data plane (the parquet codec,
 Delta tables, the feature store and
-`ClassroomSetup().install_datasets()`) runs with those four blocked
-from importing at all; and without a CUDA device the entry points
+`ClassroomSetup().install_datasets()`), the observed path, and the
+fleet, the load harness, a memory-sink stream and the continuous
+trainer run with those four blocked from importing at all; and without
+a CUDA device the entry points
 (scoring, fitting, a DataFrame fit, transform and evaluate, a
 CrossValidator's fit, `fmin`'s placed trials, the chunked fits,
 `Prophet.fit`, `ARIMA.fit`, `ServingEndpoint` and `automl.regress`)
@@ -783,3 +785,101 @@ def test_the_observed_path_runs_with_pandas_pyarrow_and_jax_blocked():
         "baseline True", "ingest 4", "trace True",
         "bundle ['MANIFEST.json', 'audit.json', 'events.jsonl', "
         "'ledger.json', 'metrics.json']", "blocks 13", "[]"]
+
+
+def test_the_fleet_loadgen_streaming_and_ct_modules_are_among_the_imported():
+    proc = _run(IMPORT_ALL.replace("print(len(names), bad)",
+                                   "print(sorted(names))"))
+    assert proc.returncode == 0, proc.stderr
+    for name in ("fleet", "fleet._replica", "fleet._router", "fleet._pool",
+                 "fleet._rollout", "loadgen", "loadgen._spec",
+                 "loadgen._driver", "streaming", "streaming.stream",
+                 "ct._sources", "ct._gate", "ct._trainer"):
+        assert f"sml_tpu_torch.{name}'" in proc.stdout
+
+
+FLEET_STREAM = BLOCKED + """
+import os, tempfile
+import numpy as np
+from sml_tpu_torch import GLOBAL_CONF, obs, tracking
+from sml_tpu_torch.ct import (CanaryGate, ContinuousTrainer,
+                              DeltaChunkSource, StreamChunkSource)
+from sml_tpu_torch.fleet import ReplicaPool, Router
+from sml_tpu_torch.frame import parquet
+from sml_tpu_torch.frame._chunks import ArrayChunkSource
+from sml_tpu_torch.frame.session import get_session
+from sml_tpu_torch.loadgen import OpenLoopDriver, PhaseSpec, TraceSpec
+from sml_tpu_torch.ml._chunked import fit_ensemble_chunked
+from sml_tpu_torch.ml.regression import GBTRegressionModel
+base = tempfile.mkdtemp()
+tracking.set_tracking_uri(os.path.join(base, "runs"))
+try:
+    ContinuousTrainer("m", None)
+except RuntimeError as e:
+    print("no card", "CUDA" in str(e))
+GLOBAL_CONF.set("sml.device", "cpu")
+GLOBAL_CONF.set("sml.obs.enabled", True)
+GLOBAL_CONF.set("sml.obs.blackboxDir", os.path.join(base, "bb"))
+rng = np.random.default_rng(0)
+cols = [f"f{i}" for i in range(4)]
+X = rng.normal(size=(2000, 4))
+y = (X[:, 0] - X[:, 1]).astype(np.float32)
+spec = fit_ensemble_chunked(ArrayChunkSource(X, y, chunk_rows=500),
+                            max_depth=3, max_bins=16, n_trees=4,
+                            boosting=True, step_size=0.3, device="cpu")
+with tracking.start_run():
+    tracking.spark.log_model(GBTRegressionModel(spec), "model",
+                             registered_model_name="m")
+tracking.MlflowClient().transition_model_version_stage("m", 1, "Production")
+spark = get_session()
+src = os.path.join(base, "src")
+os.makedirs(src)
+for i in range(2):
+    block = {c: X[i * 300:(i + 1) * 300, j] + (1.5 if j == 0 else 0.0)
+             for j, c in enumerate(cols)}
+    block["y"] = y[i * 300:(i + 1) * 300].astype(float)
+    parquet.write_table(block, os.path.join(src, f"part-{i}.parquet"))
+q = spark.readStream.option("maxFilesPerTrigger", 1).parquet(src) \\
+    .writeStream.format("memory").queryName("s").start()
+q.processAllAvailable()
+print("stream", spark.sql("SELECT count(*) AS n FROM s").collect()[0]["n"])
+with ReplicaPool("m", replicas=2, canary_fraction=1.0, flush_micros=500,
+                 device="cpu") as pool:
+    trainer = ContinuousTrainer(
+        "m", StreamChunkSource(q, cols, "y"), fleet=pool,
+        gate=CanaryGate(min_mirrored=2, quality_tol=10.0),
+        warm_rounds=2, min_rows=512, full_severity=1e9)
+    rep = trainer.step()
+    print("trainer", rep["action"], rep["refit"],
+          [r.endpoint.current_version() for r in pool.replicas()])
+    router = Router(pool)
+    spec_ = TraceSpec(phases=(PhaseSpec("p", 0.2, 50.0),),
+                      widths=((1, 0.5), (8, 0.5)), seed=1)
+    out = OpenLoopDriver(lambda X_, p, m: router.score(X_, p, timeout=30),
+                         spec_.compile(), feature_dim=4, workers=4).run()
+    print("load", out["requests"] == out["served"] > 0)
+    health = obs.engine_health()
+    print("health", health["fleet"] is not None, health["load"] is not None)
+q.stop()
+dpath = os.path.join(base, "delta")
+spark.createDataFrame({c: X[:600, j] for j, c in enumerate(cols)}) \\
+    .write.format("delta").save(dpath)
+print("delta", DeltaChunkSource(dpath, cols).snapshot())
+bad = sorted(k for k in sys.modules
+             if k.split(".")[0] in ("jax", "jaxlib", "sml_tpu", "pandas",
+                                    "pyarrow"))
+print(bad)
+"""
+
+
+def test_fleet_loadgen_streaming_and_trainer_run_with_pandas_pyarrow_and_jax_blocked():
+    """A memory-sink stream of parquet parts, a trainer over it promoting
+    through a two-replica fleet, an open-loop replay through the router,
+    the health blocks and a Delta chunk source, with jax, sml_tpu,
+    pandas and pyarrow blocked from importing; without a device the
+    trainer raises."""
+    proc = _run(FLEET_STREAM)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines() == [
+        "no card True", "stream 600", "trainer promoted warm [2, 2]",
+        "load True", "health True True", "delta 600", "[]"]
