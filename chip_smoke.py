@@ -41,7 +41,11 @@ Phases:
    odd row count, a few rows and rows too wide to stage their bins, with
    ~20% zero weights, and at the ML 07 grid's fused shape (640,008 rows,
    40 bins, 96 slots), each launched twice and required bit-identical;
-   `split_scan` against its plain version, exactly, on histograms of
+   its float64 output at phase 22's level-5 shapes (40,000 and 20,000
+   rows, 16 slots): rounded, bit-equal to its f32 output and to the
+   plain version's, unrounded within n * 2^-53 of the summed
+   |contributions| of the plain version's, and timed beside the f32
+   output; `split_scan` against its plain version, exactly, on histograms of
    dyadic values with ties, masked, all-masked and NaN nodes, and at the
    fused shape (W = 12 x 16) with a per-node least child weight of mixed
    1/2/5; the draw kernels against theirs (`DRAW_CASES`), each a whole
@@ -398,6 +402,24 @@ Phases:
    transform bit for bit; a `StreamChunkSource` over the query into one
    trainer `step()` (clean). A `{"fleet": ...}` line gives these numbers,
    and the kernels line's `launches_by_path` gains "fleet".
+22. multi-rank fit, a mesh of ranks (`sml_tpu_torch/parallel/`): phase
+   8's ML 11 XGBoost and ML 07 random forest on its 80,000 rows, each
+   rank a process of this script on cuda:0 (the libraries built above)
+   that stages and histograms its own block of the rows, the ranks'
+   float64 histograms, leaf statistics and base all-reduced before their
+   one rounding: (a) NCCL with one rank, every collective through it,
+   the trees bit-equal to phase 8's and 281 / 141 psums a fit; (b) gloo
+   with 2 and 4 ranks sharing the card, every rank's trees and held-out
+   scores bit-equal to phase 8's,
+   each rank's launches phase 8's (240 / 240; 120 / 120 / 1 / 1) and one
+   traversal of its held-out rows; (c) the 4 ranks as 2 host groups, the
+   same trees, the "dcn" hop's bytes half the "ici" hop's (gloo's
+   reduce-scatter and all-gather of a CUDA payload go through host
+   memory); each fit's wall beside the one-rank wall and the card (the
+   ranks share its time: information only). (d) is in phase 7: the
+   histogram's float64 output at the ranks' level-5 shapes against its
+   plain version. A `{"multirank": ...}` line gives these numbers, and
+   the kernels line's `launches_by_path` gains "multirank".
 
 The second-to-last line is a JSON object listing each kernel, with the
 launches the profiler saw in each window behind its device times
@@ -1169,6 +1191,7 @@ def phase_fit_kernels(seed: int, device) -> dict:
                   f"{differ}/{got.numel()}  deterministic  ok")
             worst["hist_accumulate"] = max(worst["hist_accumulate"],
                                            float(err.max()))
+    worst["hist_f64"] = phase_hist_f64(seed, device)
     for i, (name, n_bins, widths) in enumerate(SCAN_SHAPES):
         for width in widths:
             err = 0.0
@@ -1205,6 +1228,80 @@ def phase_fit_kernels(seed: int, device) -> dict:
           f"bins=40 W={FUSED_NODES} (12 x 16, min_inst 1/2/5) "
           f"max_abs_err={err:.3e} exact  ok")
     return worst
+
+
+#: the level-5 histograms of phase 22's ML 11 fit over 2 and 4 ranks: each
+#: rank's block of the 80,000 rows, 16 left-child slots, 64 bins, uint8
+F64_SHAPES = ((40_000, 16), (20_000, 16))
+
+
+def f64_bound(n: int, scale: torch.Tensor) -> torch.Tensor:
+    """The most two float64 sums of the same n-row cells may differ by
+    when they add in other orders: n float64 roundings of 2^-53 of the
+    summed |contributions| each (`scale`, a float64 histogram of |g*w|,
+    |h*w| and w)."""
+    return n * 2.0 ** -53 * scale
+
+
+def phase_hist_f64(seed: int, device) -> dict:
+    """(d) of phase 22: `hist_accumulate`'s float64 output at each rank's
+    level-5 shape (`F64_SHAPES`) against the f32 output of the same launch
+    (its rounding bit-equal: the same plan sums in the same order), and
+    against the plain version's float64 sums (within `f64_bound`, and
+    rounded to f32 bit-equal); both outputs timed by CUDA events."""
+    from sml_tpu_torch.native import hist_kernel as hk
+    out = {"max_abs_err": 0.0}
+    for n, n_slots in F64_SHAPES:
+        rng = np.random.default_rng([seed, 24, n, n_slots])
+        b, lid, g, h, w = hist_operands(rng, n, 64, np.uint8, n_slots, device)
+        got = hk.hist_accumulate(b, lid, g, h, w, n_bins=64, n_slots=n_slots,
+                                 out_dtype=torch.float64)
+        f32 = hk.hist_accumulate(b, lid, g, h, w, n_bins=64, n_slots=n_slots)
+        torch.cuda.synchronize()
+        if got.dtype != torch.float64 or not torch.equal(
+                got.to(torch.float32), f32):
+            raise AssertionError(f"hist_accumulate f64 output n={n} "
+                                 f"S={n_slots}: its rounding is not the f32 "
+                                 f"output")
+        want = hk.hist_accumulate_plain(b, lid, g, h, w, 64, n_slots,
+                                        torch.float64)
+        scale = hk.hist_accumulate_plain(b, lid, g.abs(), h.abs(), w, 64,
+                                         n_slots, torch.float64)
+        err = (got - want).abs()
+        if not bool((err <= f64_bound(n, scale)).all()):
+            raise AssertionError(f"hist_accumulate f64 output n={n} "
+                                 f"S={n_slots}: max abs err "
+                                 f"{float(err.max())} past the bound")
+        if not torch.equal(got.to(torch.float32), want.to(torch.float32)):
+            raise AssertionError(f"hist_accumulate f64 output n={n} "
+                                 f"S={n_slots}: rounded to f32, it differs "
+                                 f"from the plain version's")
+        ops = (b, lid, g, h, w)
+        t64 = time_hist(ops, 64, n_slots, f"hist_accumulate f64 out n={n} "
+                        f"S={n_slots}", out_dtype=torch.float64)
+        t32 = time_hist(ops, 64, n_slots, f"hist_accumulate f32 out n={n} "
+                        f"S={n_slots}")
+        plan = hk.hist_plan(n, N_FEAT, 64, n_slots)
+        keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")
+        out[f"{n}x{n_slots}"] = dict(
+            zip(keys, t64), max_abs_err=float(err.max()),
+            cells_differing_unrounded=int((err > 0).sum()),
+            f32_out=dict(zip(keys, t32)))
+        out["max_abs_err"] = max(out["max_abs_err"], float(err.max()))
+        print(f"kernel-vs-plain  hist_accumulate  f64 output rows={n} "
+              f"F={N_FEAT} bins=64 S={n_slots} {plan} max_abs_err="
+              f"{float(err.max()):.3e} (bound n*2^-53*sum|x|), "
+              f"cells_differing_unrounded={int((err > 0).sum())}/"
+              f"{got.numel()}, rounded bit-equal to its f32 output and to "
+              f"the plain version's  ok")
+        print(f"times  hist_accumulate f64 output rows={n} S={n_slots}: "
+              f"kernel {fmt_ms(t64[0])} ms, device {fmt_ms(t64[1])}, plain "
+              f"{fmt_ms(t64[2])}, bound {fmt_ms(t64[3])} ({t64[4]}), "
+              f"index_add_ (float64) {fmt_ms(t64[5])}; f32 output: kernel "
+              f"{fmt_ms(t32[0])}, device {fmt_ms(t32[1])}, bound "
+              f"{fmt_ms(t32[3])}, index_add_ {fmt_ms(t32[5])}")
+    return out
 
 
 #: the ML 07 grid's fused last level: 12 elements x 16 nodes, and a least
@@ -1638,18 +1735,21 @@ def phase_fit(seed: int, device) -> dict:
             raise AssertionError(f"{k}: card rmse {r_card[k]} vs cpu rmse "
                                  f"{r_host[k]}")
     return {"launches": {k: sum(launches[m][k] for m in FITS)
-                         for k in launches["xgb"]}, "xgb": models["xgb"]}
+                         for k in launches["xgb"]}, "xgb": models["xgb"],
+            "rf": models["rf"], "walls": walls}
 
 
-def hist_bound_ms(binned, weight, n_bins: int, n_slots: int):
+def hist_bound_ms(binned, weight, n_bins: int, n_slots: int,
+                  out_bytes: int = 4):
     """(ms, by): the bytes `hist_accumulate` must move (bins, slot ids
-    and three f32 per row read once; the (F*B, S*3) f32 histogram
-    written once) over HBM bandwidth, against its operations (per row
-    with w > 0: two products and 3 adds for each of its F cells) over
-    the f64 rate (`bound_of`): the sums run in float64."""
+    and three f32 per row read once; the (F*B, S*3) histogram of
+    `out_bytes` a cell written once) over HBM bandwidth, against its
+    operations (per row with w > 0: two products and 3 adds for each of
+    its F cells) over the f64 rate (`bound_of`): the sums run in
+    float64."""
     n, n_feat = binned.shape
     nbytes = n * (n_feat * binned.element_size() + 16) \
-        + n_feat * n_bins * n_slots * 12
+        + n_feat * n_bins * n_slots * 3 * out_bytes
     return bound_of(nbytes,
                     f64_ops=int((weight > 0).sum()) * (2 + 3 * n_feat))
 
@@ -1724,32 +1824,37 @@ def wrapper_host_us(device) -> dict:
     return out
 
 
-def time_hist(ops, n_bins: int, n_slots: int, what: str, reps: int = 50):
+def time_hist(ops, n_bins: int, n_slots: int, what: str, reps: int = 50,
+              out_dtype=torch.float32):
     """(kernel ms, device ms, plain ms, bound ms, bound by, index_add_ ms)
     of one `hist_accumulate` call on `ops` (binned, lid, grad, hess,
-    weight); the library yardstick is one `index_add_` of the (row,
-    feature) contributions on precomputed flat cell indices."""
+    weight) with an `out_dtype` output; the library yardstick is one
+    `index_add_` of the (row, feature) contributions on precomputed flat
+    cell indices into an `out_dtype` histogram."""
     from sml_tpu_torch.native import hist_kernel as hk
     b, lid, g, h, w = ops
     n = b.shape[0]
 
     def call():
         return hk.hist_accumulate(b, lid, g, h, w, n_bins=n_bins,
-                                  n_slots=n_slots)
+                                  n_slots=n_slots, out_dtype=out_dtype)
     k_ms = time_ms(call, reps)
     d_ms = device_ms(call, reps, HIST_KERNELS,
                      hist_launches(n, n_bins, n_slots), what)
     p_ms = time_ms(lambda: hk.hist_accumulate_plain(
-        b, lid, g, h, w, n_bins, n_slots), 5)
+        b, lid, g, h, w, n_bins, n_slots, out_dtype), 5)
     ok = (w > 0)[:, None].expand(-1, N_FEAT)
     cell = ((torch.arange(N_FEAT, device=b.device)[None, :] * n_bins
              + b.to(torch.int64)) * n_slots + lid.to(torch.int64)[:, None])
     src = torch.stack([g * w, h * w, w], 1)[:, None, :] \
-        .expand(-1, N_FEAT, 3)[ok].contiguous()
+        .expand(-1, N_FEAT, 3)[ok].to(out_dtype).contiguous()
     idx = cell[ok].contiguous()
-    acc = torch.zeros((N_FEAT * n_bins * n_slots, 3), device=b.device)
+    acc = torch.zeros((N_FEAT * n_bins * n_slots, 3), dtype=out_dtype,
+                      device=b.device)
     l_ms = time_ms(lambda: acc.index_add_(0, idx, src), reps)
-    return (k_ms, d_ms, p_ms, *hist_bound_ms(b, w, n_bins, n_slots), l_ms)
+    return (k_ms, d_ms, p_ms,
+            *hist_bound_ms(b, w, n_bins, n_slots,
+                           torch.finfo(out_dtype).bits // 8), l_ms)
 
 
 def time_scan(hist, mi, what: str):
@@ -6831,6 +6936,280 @@ def phase_fleet(seed: int, device, card: str, n_train: int = 80_000
           f"{total}; card {card}")
     return out
 
+# ------------------------------------------------------------ multi-rank
+#: the fits of phase 22 (phase 8's ML 11 XGBoost and ML 07 random forest)
+MR_FITS = ("xgb", "rf")
+#: the launches of ranks: (ranks, backend); 4 ranks fit flat, then as 2
+#: host groups
+MR_LAUNCHES = ((1, "nccl"), (2, "gloo"), (4, "gloo"))
+MR_HOST_GROUPS = 2
+#: seconds a launch of ranks may take
+MR_TIMEOUT = 300
+
+MR_CHILD = r"""
+import json, os, sys, time
+t_start = time.perf_counter()
+sys.path.insert(0, ROOT)
+import numpy as np
+import torch
+import torch.distributed as dist
+import chip_smoke as cs
+from sml_tpu_torch.conf import GLOBAL_CONF
+from sml_tpu_torch.ml.inference import DeviceScorer
+from sml_tpu_torch.native import traverse_kernel as tk
+from sml_tpu_torch.parallel import collectives as coll, mesh as M
+rank, n, backend, store, out_dir = (int(sys.argv[1]), int(sys.argv[2]),
+                                    sys.argv[3], sys.argv[4], sys.argv[5])
+# each rank's prewarm manifest in a directory of its own
+GLOBAL_CONF.set("sml.compile.cacheDir", os.path.join(out_dir, f"r{rank}"))
+dev = torch.device(DEVICE)
+if dev.type == "cuda":
+    torch.cuda.set_device(dev)
+else:    # a rehearsal on the CPU: the plain versions count as launches
+    cs.count_plain_as_launches()
+t0 = time.perf_counter()
+if n == 1:   # a default group of one rank: every collective through it
+    dist.init_process_group(backend, init_method="file://" + store,
+                            world_size=1, rank=0,
+                            device_id=dev if backend == "nccl" else None)
+    M.bind_rank_device(dev)
+else:
+    assert coll.initialize_multihost("file://" + store, n, rank,
+                                     backend=backend, device=dev,
+                                     timeout_s=120)
+out = {"rank": rank, "import_s": t0 - t_start,
+       "init_s": time.perf_counter() - t0, "backend": dist.get_backend()}
+X, logy, cats = cs.fit_rows(SEED)
+Xtr, ytr, Xte = X[:80_000], logy[:80_000], X[80_000:]
+layouts = ["flat"] + (["hosts"] if n == 4 else [])
+for layout in layouts:
+    if layout == "hosts":
+        GLOBAL_CONF.set("sml.mesh.hostGroups", HOSTS)
+        GLOBAL_CONF.set("sml.tree.hierarchicalAllreduce", "auto")
+        M.set_mesh(M.host_mesh())
+    for name in cs.MR_FITS:
+        fit = cs.FITS[name][0]
+        with cs.KernelWatch() as watch:
+            for counts in cs._launch_counts():
+                for k in counts:
+                    counts[k] = 0
+            tk.LAUNCHES = 0
+            coll.reset_counts()
+            dist.barrier()
+            t0 = time.perf_counter()
+            model = fit(Xtr, ytr, cats, None)
+            cs._sync(dev)
+            wall = time.perf_counter() - t0
+            launches = cs._fit_launches()
+            pred = DeviceScorer(model, device=dev).score_block(Xte)
+            cs._sync(dev)
+        launches["forest_traverse"] = tk.LAUNCHES
+        spec = model._spec
+        np.savez(os.path.join(out_dir, f"{layout}_{name}_{rank}.npz"),
+                 base=np.asarray([spec.base], np.float32), pred=pred,
+                 **{f: np.stack([getattr(t, f) for t in spec.trees])
+                    for f in ("split_feature", "split_bin", "leaf_value",
+                              "gain", "cover")})
+        out[layout + "_" + name] = {
+            "wall_ms": wall * 1e3, "launches": launches,
+            "plain_on_cuda": watch.plain_on_cuda,
+            "collectives": dict(coll.COUNTS),
+            "mesh": repr(M.get_mesh())}
+dist.destroy_process_group()
+print(json.dumps(out))
+"""
+
+
+def count_plain_as_launches() -> None:
+    """For a rehearsal of phase 22 on the CPU: each plain version of a
+    kernel adds one to its wrapper's launch count, as the kernel would on
+    the card."""
+    from sml_tpu_torch.native import hist_kernel as hk
+    from sml_tpu_torch.native import prng_kernel as pk
+    from sml_tpu_torch.native import traverse_kernel as tk
+
+    def counted(mod, name, kernel):
+        fn = getattr(mod, name)
+
+        def call(*args, **kw):
+            if kernel == "forest_traverse":
+                tk.LAUNCHES += 1
+            else:
+                mod.LAUNCHES[kernel] += 1
+            return fn(*args, **kw)
+        setattr(mod, name, call)
+    for mod, pairs in (("hist_kernel", FIT_WRAPPERS["hist_kernel"]),
+                       ("prng_kernel", FIT_WRAPPERS["prng_kernel"])):
+        for name, kernel in pairs:
+            counted(hk if mod == "hist_kernel" else pk, f"{name}_plain",
+                    kernel)
+    counted(tk, "forest_margin_plain", "forest_traverse")
+
+
+def mr_launch(n: int, backend: str, seed: int, tmp: str, device) -> list:
+    """Start `n` ranks of `MR_CHILD` on `device` (the parent has built
+    every library), each under one timeout; returns each rank's JSON
+    line."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    code = (MR_CHILD.replace("ROOT", repr(root))
+            .replace("SEED", repr(seed)).replace("DEVICE", repr(str(device)))
+            .replace("HOSTS", repr(MR_HOST_GROUPS)))
+    env = dict(os.environ, OMP_NUM_THREADS="1", NCCL_DEBUG="WARN")
+    env.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    store = os.path.join(tmp, f"store{n}")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code, str(r), str(n), backend, store, tmp],
+        cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for r in range(n)]
+    outs = []
+    try:
+        deadline = time.monotonic() + MR_TIMEOUT
+        for p in procs:
+            outs.append(p.communicate(
+                timeout=max(1.0, deadline - time.monotonic())))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    res = []
+    for r, (p, (so, se)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"rank {r} of {n} ({backend}) failed "
+                                 f"({p.returncode}):\n{se[-4000:]}")
+        res.append(json.loads(so.strip().splitlines()[-1]))
+    return res
+
+
+def mr_trees(tmp: str, layout: str, name: str, rank: int) -> dict:
+    return dict(np.load(os.path.join(tmp, f"{layout}_{name}_{rank}.npz")))
+
+
+def mr_compare(got: dict, ref, what: str) -> None:
+    """Hold a rank's trees to the one-card model `ref` bit for bit, as
+    `tests/test_torch_multirank.py` does on the CPU: an N-rank float64
+    sum adds in another order than the one-rank sum, which could show in
+    f32 only where it lies within its float64 error of an f32 rounding
+    boundary, and the fit's sums do not."""
+    for t, tree in enumerate(ref._spec.trees):
+        for f in ("split_feature", "split_bin", "leaf_value", "gain",
+                  "cover"):
+            np.testing.assert_array_equal(got[f][t], getattr(tree, f),
+                                          err_msg=f"{what} tree {t} {f}")
+    if got["base"][0] != np.float32(ref._spec.base):
+        raise AssertionError(f"{what}: base {got['base'][0]} != "
+                             f"{ref._spec.base}")
+
+
+def mr_payload(name: str) -> tuple:
+    """(histogram bytes, leaf bytes, psum calls) of one fit of `name`: the
+    float64 histograms of each level's left slots (1 at the root) x F x
+    B x 3, each tree's 2^D x 3 leaf statistics, and one psum a level, a
+    tree and the base."""
+    D, T, B = 6, {"xgb": 40, "rf": 20}[name], {"xgb": 64, "rf": 40}[name]
+    slots = [1] + [2 ** (L - 1) for L in range(1, D)]
+    return (T * sum(N_FEAT * B * s * 3 * 8 for s in slots),
+            T * 2 ** D * 3 * 8, T * (D + 1) + 1)
+
+
+def phase_multirank(seed: int, device, card: str, fit: dict) -> dict:
+    """22. multi-rank fit: phase 8's ML 11 XGBoost and ML 07 random forest
+    over a mesh of ranks, each rank a process on cuda:0 fitting its block
+    of the 80,000 rows. (a) NCCL, one rank: the trees bit-equal to phase
+    8's; (b) gloo, 2 and 4 ranks: every rank's trees identical to every
+    other rank's and to phase 8's, bit for bit (`mr_compare`); (c) the 4 ranks as 2 host groups: the same trees, and the
+    "dcn" hop's bytes half the "ici" hop's. Each rank's launches are phase
+    8's per fit, and one traversal scores its held-out rows, bit-equal
+    to phase 8's model's scores."""
+    import tempfile
+    from sml_tpu_torch.ml.inference import DeviceScorer
+    X, logy, cats = fit_rows(seed)
+    Xte = X[80_000:]
+    ref_pred = {name: DeviceScorer(fit[name], device=device).score_block(Xte)
+                for name in MR_FITS}
+    out = {"card": card, "launches": {k: 0 for k in
+                                      ("hist_accumulate", "split_scan",
+                                       "row_weights", "feature_mask",
+                                       "forest_traverse")}}
+    solo = {}   # the one-rank walls
+    with tempfile.TemporaryDirectory(prefix="sml-multirank-") as tmp:
+        for n, backend in MR_LAUNCHES:
+            if device.type == "cpu":    # a rehearsal: NCCL needs a card
+                backend = "gloo"
+            t0 = time.perf_counter()
+            ranks = mr_launch(n, backend, seed, tmp, device)
+            launch_s = time.perf_counter() - t0
+            for layout in ("flat", "hosts") if n == 4 else ("flat",):
+                cell = f"{n}x{backend}" + ("" if layout == "flat"
+                                           else f" {MR_HOST_GROUPS} groups")
+                for name in MR_FITS:
+                    key = f"{layout}_{name}"
+                    hist, leaf, calls = mr_payload(name)
+                    trees = [mr_trees(tmp, layout, name, r)
+                             for r in range(n)]
+                    mr_compare(trees[0], fit[name], f"{cell} {name}")
+                    for r in range(1, n):
+                        for f, v in trees[0].items():
+                            np.testing.assert_array_equal(
+                                trees[r][f], v,
+                                err_msg=f"{cell} {name}: rank {r} {f}")
+                    for r, t in enumerate(trees):
+                        np.testing.assert_array_equal(
+                            t["pred"], ref_pred[name],
+                            err_msg=f"{cell} {name}: rank {r}'s held-out "
+                                    f"predictions")
+                    for r, rk in enumerate(ranks):
+                        got = rk[key]
+                        want = dict(FITS[name][2], forest_traverse=1)
+                        if got["launches"] != want:
+                            raise AssertionError(
+                                f"{cell} {name} rank {r}: launches "
+                                f"{got['launches']}, not {want}")
+                        if got["plain_on_cuda"]:
+                            raise AssertionError(f"{cell} {name} rank {r}: "
+                                                 f"a plain version ran on "
+                                                 f"CUDA tensors")
+                        for k, v in got["launches"].items():
+                            out["launches"][k] += v
+                        c = got["collectives"]
+                        if layout == "flat":
+                            ok = (c.get("collective.psum") == calls
+                                  and c.get("collective.psum_bytes")
+                                  == hist + leaf + 16)
+                        else:
+                            ok = (c.get("collective.psum.ici") == calls - 1
+                                  and c.get("collective.psum_bytes.ici")
+                                  == hist + leaf
+                                  and c.get("collective.psum_bytes.dcn")
+                                  == (hist + leaf) / 2
+                                  and c.get("collective.psum_bytes") == 16)
+                        if not ok:
+                            raise AssertionError(f"{cell} {name} rank {r}: "
+                                                 f"collectives {c}")
+                    c = ranks[0][key]["collectives"]
+                    rank_walls = [rk[key]["wall_ms"] for rk in ranks]
+                    if n == 1:
+                        solo[name] = rank_walls[0]
+                    out[f"{cell} {name}"] = {
+                        "wall_ms": rank_walls, "collectives": c,
+                        "mesh": ranks[0][key]["mesh"]}
+                    print(f"multirank {cell:<18} {name}: every rank's "
+                          f"{len(fit[name]._spec.trees)} trees and held-out "
+                          f"predictions bit-equal to phase 8's; wall "
+                          f"{[round(w, 1) for w in rank_walls]} ms a rank "
+                          f"(1 rank {solo[name]:.1f} ms; phase 8 "
+                          f"first fit {fit['walls'][name] * 1e3:.1f} ms; "
+                          f"ranks share the card: information only); "
+                          f"collectives {c}  [{card}]")
+            out[f"launch_s {n}x{backend}"] = launch_s
+            print(f"multirank {n} rank(s) {backend}: launch {launch_s:.1f} s "
+                  f"(import {[round(r['import_s'], 1) for r in ranks]} s, "
+                  f"init {[round(r['init_s'], 2) for r in ranks]} s)")
+    print("multirank: gloo all-reduces CUDA payloads natively; the two "
+          "\"ici\" hops of (c) (reduce-scatter, all-gather) go through "
+          "host memory under gloo")
+    return out
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -6877,6 +7256,7 @@ def main(argv=None) -> int:
     dataplane = phase_dataplane(device, card)
     observed = phase_observed(args.seed, device, card)
     fleet = phase_fleet(args.seed, device, card)
+    multirank = phase_multirank(args.seed, device, card, fit)
 
     def by_path(kernel: str) -> dict:
         return {"fit": fit["launches"][kernel],
@@ -6890,7 +7270,8 @@ def main(argv=None) -> int:
                 "dispatch": dispatch["launches"][kernel],
                 "dataplane": dataplane["launches"][kernel],
                 "observed": observed["launches"][kernel],
-                "fleet": fleet["launches"][kernel]}
+                "fleet": fleet["launches"][kernel],
+                "multirank": multirank["launches"][kernel]}
 
     def windows(kernel: str) -> dict:
         return {what: seen for what, seen in DEVICE_WINDOWS.items()
@@ -6913,7 +7294,8 @@ def main(argv=None) -> int:
         + dispatch["launches"]["forest_traverse"]
         + dataplane["launches"]["forest_traverse"]
         + observed["launches"]["forest_traverse"]
-        + fleet["launches"]["forest_traverse"],
+        + fleet["launches"]["forest_traverse"]
+        + multirank["launches"]["forest_traverse"],
         "launches_by_path": {"serving": main_path["launches"],
                              "tuning": tuning["fused"]["forest_traverse"],
                              "dataframe": frames["evaluate"][
@@ -6934,6 +7316,8 @@ def main(argv=None) -> int:
                              "observed": observed["launches"][
                                  "forest_traverse"],
                              "fleet": fleet["launches"][
+                                 "forest_traverse"],
+                             "multirank": multirank["launches"][
                                  "forest_traverse"]},
         "replay_launches": chunked["b"]["launches"]["forest_traverse"],
         "replay": chunked["replay"],
@@ -6974,7 +7358,10 @@ def main(argv=None) -> int:
         cells_off_cpu_f64=fit_times[("hist_f32acc", 16)][2],
         cells_off_cpu_f32=fit_times[("hist_f32acc", 16)][3],
         per_fit_device_ms=fit_times["per_fit"]["hist_accumulate"],
-        host_us=fit_times["host_us"]["hist_accumulate"]))
+        host_us=fit_times["host_us"]["hist_accumulate"],
+        f64_out=dict(fit_err["hist_f64"],
+                     shape="phase 22's level 5: 40000 and 20000 rows "
+                           "F=10 B=64 uint8, S=16; float64 output")))
     kernels.append(dict(
         name="split_scan", route="cuda",
         device_windows=windows("split_scan"),
@@ -7053,6 +7440,7 @@ def main(argv=None) -> int:
     print(json.dumps({"dataplane": dataplane}))
     print(json.dumps({"observed": observed}))
     print(json.dumps({"fleet": fleet}))
+    print(json.dumps({"multirank": multirank}))
     print(json.dumps({"dataframe": {
         "launches_fit": frames["fit"], "launches_evaluate":
         frames["evaluate"], "rmse": frames["rmse"],

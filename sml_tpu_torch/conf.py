@@ -102,6 +102,22 @@ _register("sml.tree.roundsPerDispatch", 0, int,
           "round checkpoints of ct/) fires at each segment boundary but "
           "the last; 0 = the whole ensemble as one segment (default). "
           "The trees do not depend on it")
+_register("sml.tree.hierarchicalAllreduce", "auto", str,
+          "Two-level histogram allreduce on host-grouped meshes: "
+          "'auto' = intra-group reduce-scatter over the 'ici' hop + "
+          "inter-group allreduce over the 'dcn' hop + allgather back "
+          "whenever the active mesh declares a host axis "
+          "(mesh.host_mesh); 'true' = same, but error-prone on flat "
+          "meshes so it still requires the host axes; 'false' = always "
+          "the flat single-hop psum. Per-hop launches/bytes land in "
+          "collective.psum[_bytes].ici/.dcn")
+_register("sml.mesh.hostGroups", 0, int,
+          "Default host-group count for mesh.host_mesh() when called "
+          "without an explicit `hosts`: 0 = auto (the node count, "
+          "WORLD_SIZE / LOCAL_WORLD_SIZE, when torchrun started the "
+          "ranks on several nodes, else 1); N>0 = N virtual host groups "
+          "partitioning the ranks (the single-machine testing story for "
+          "the multi-host code path)")
 _register("sml.data.chunkRows", 65536, int,
           "Row-block size of the out-of-core data plane (frame/_chunks.py): "
           "ChunkSources yield chunks of at most this many rows, and the "

@@ -79,7 +79,9 @@
 // f32 sums in two orders would flip near-tied splits. The entry point
 // sml_hist_accumulate_f32acc is the same kernel with f32 sums; the
 // port does not call it, and chip_smoke.py times it beside this one to
-// price the float64 sums.
+// price the float64 sums. sml_hist_accumulate_f64out writes the float64
+// sums themselves, unrounded: a fit over a mesh of ranks all-reduces
+// them and rounds once, so that N ranks round where one rank does.
 //
 // Determinism. The fit needs bit-stable histograms from run to run (the
 // warm-start contract), so there are no float atomics: the order of every
@@ -115,10 +117,14 @@ __device__ __forceinline__ double add_rn(double a, double b) {
 __device__ __forceinline__ float add_rn(float a, float b) {
   return __fadd_rn(a, b);
 }
-__device__ __forceinline__ float to_f32(double a) {
-  return __double2float_rn(a);
+// a cell's sum into the output: rounded to f32 once, or kept in float64
+// (the f64 output, for a caller that adds the sums of several devices
+// before it rounds)
+__device__ __forceinline__ void store(float* p, double a) {
+  *p = __double2float_rn(a);
 }
-__device__ __forceinline__ float to_f32(float a) { return a; }
+__device__ __forceinline__ void store(float* p, float a) { *p = a; }
+__device__ __forceinline__ void store(double* p, double a) { *p = a; }
 
 __host__ __device__ constexpr size_t round16(size_t x) {
   return (x + 15) & ~static_cast<size_t>(15);
@@ -230,12 +236,13 @@ __device__ __forceinline__ void issue_rows(const Rows<BinT>& in,
 }
 
 // AccT is the type of the sums: double in the port, float in the
-// f32-accumulating build that is only timed. `partial` is null when the
-// grid holds one cluster per tile (the block then writes `out`).
-template <typename BinT, typename AccT>
+// f32-accumulating build that is only timed. OutT is the output's: f32,
+// or double for the unrounded sums. `partial` is null when the grid
+// holds one cluster per tile (the block then writes `out`).
+template <typename BinT, typename AccT, typename OutT>
 __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
 hist_cluster_kernel(Rows<BinT> in, AccT* __restrict__ partial,
-                    float* __restrict__ out, int n, int n_feat, int n_bins,
+                    OutT* __restrict__ out, int n, int n_feat, int n_bins,
                     int n_slots, int chunk_rows, int sub_rows, int ft,
                     int bt, int st, int groups, int n_stiles,
                     int stage_bins) {
@@ -483,7 +490,7 @@ hist_cluster_kernel(Rows<BinT> in, AccT* __restrict__ partial,
         if (dst != nullptr) {
           dst[at] = acc[u];
         } else {
-          out[at] = to_f32(acc[u]);
+          store(out + at, acc[u]);
         }
       }
     }
@@ -491,9 +498,9 @@ hist_cluster_kernel(Rows<BinT> in, AccT* __restrict__ partial,
   cluster.sync();  // no block leaves while a peer still reads its tile
 }
 
-template <typename AccT>
+template <typename AccT, typename OutT>
 __global__ void hist_reduce_kernel(const AccT* __restrict__ partial,
-                                   float* __restrict__ out, int64_t n_cells,
+                                   OutT* __restrict__ out, int64_t n_cells,
                                    int n_parts) {
   const int64_t i =
       static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -512,7 +519,7 @@ __global__ void hist_reduce_kernel(const AccT* __restrict__ partial,
   for (; c < n_parts; ++c) {
     acc = add_rn(acc, partial[static_cast<int64_t>(c) * n_cells + i]);
   }
-  out[i] = to_f32(acc);
+  store(out + i, acc);
 }
 
 struct Plan {
@@ -520,7 +527,7 @@ struct Plan {
       stage_bins, threads;
 };
 
-template <typename BinT, typename AccT>
+template <typename BinT, typename AccT, typename OutT>
 cudaError_t launch(const void* binned, const void* lid, const void* grad,
                    const void* hess, const void* weight, void* partial,
                    void* out, int n, int n_feat, int n_bins, int n_slots,
@@ -535,7 +542,7 @@ cudaError_t launch(const void* binned, const void* lid, const void* grad,
   if ((n_clusters > 1) != (partial != nullptr)) return cudaErrorInvalidValue;
   const Layout L(sizeof(AccT), p.ft, p.bt, p.st, p.groups, p.sub_rows,
                  p.stage_bins ? n_feat * static_cast<int>(sizeof(BinT)) : 0);
-  auto kernel = hist_cluster_kernel<BinT, AccT>;
+  auto kernel = hist_cluster_kernel<BinT, AccT, OutT>;
   // the opt-in above 48 KB, made on each device when a launch needs more
   // than any before it there; under a lock, so that launches from two
   // threads cannot leave the attribute below what the larger one needs
@@ -573,7 +580,7 @@ cudaError_t launch(const void* binned, const void* lid, const void* grad,
                         static_cast<const float*>(hess),
                         static_cast<const float*>(weight)};
   err = cudaLaunchKernelEx(&cfg, kernel, rows, static_cast<AccT*>(partial),
-                           static_cast<float*>(out), n, n_feat, n_bins,
+                           static_cast<OutT*>(out), n, n_feat, n_bins,
                            n_slots, p.chunk_rows, p.sub_rows, p.ft, p.bt,
                            p.st, p.groups, n_stiles, p.stage_bins);
   if (err != cudaSuccess) return err;
@@ -581,10 +588,10 @@ cudaError_t launch(const void* binned, const void* lid, const void* grad,
   if (err != cudaSuccess || n_clusters == 1) return err;
   const int64_t n_cells = static_cast<int64_t>(n_feat) * n_bins * n_slots * 3;
   const int64_t blocks = (n_cells + kReduceThreads - 1) / kReduceThreads;
-  hist_reduce_kernel<AccT><<<static_cast<unsigned>(blocks), kReduceThreads,
-                             0, stream>>>(static_cast<const AccT*>(partial),
-                                          static_cast<float*>(out), n_cells,
-                                          n_clusters);
+  hist_reduce_kernel<AccT, OutT>
+      <<<static_cast<unsigned>(blocks), kReduceThreads, 0, stream>>>(
+          static_cast<const AccT*>(partial), static_cast<OutT*>(out),
+          n_cells, n_clusters);
   return cudaGetLastError();
 }
 
@@ -592,7 +599,7 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
-template <typename AccT>
+template <typename AccT, typename OutT>
 int dispatch(int bin_bytes, const void* binned, const void* lid,
              const void* grad, const void* hess, const void* weight,
              void* partial, void* out, int n, int n_feat, int n_bins,
@@ -615,15 +622,15 @@ int dispatch(int bin_bytes, const void* binned, const void* lid,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (bin_bytes) {
     case 1:
-      return static_cast<int>(launch<uint8_t, AccT>(
+      return static_cast<int>(launch<uint8_t, AccT, OutT>(
           binned, lid, grad, hess, weight, partial, out, n, n_feat, n_bins,
           n_slots, p, s));
     case 2:
-      return static_cast<int>(launch<uint16_t, AccT>(
+      return static_cast<int>(launch<uint16_t, AccT, OutT>(
           binned, lid, grad, hess, weight, partial, out, n, n_feat, n_bins,
           n_slots, p, s));
     case 4:
-      return static_cast<int>(launch<int32_t, AccT>(
+      return static_cast<int>(launch<int32_t, AccT, OutT>(
           binned, lid, grad, hess, weight, partial, out, n, n_feat, n_bins,
           n_slots, p, s));
     default:
@@ -653,9 +660,26 @@ extern "C" int sml_hist_accumulate(int bin_bytes, const void* binned,
                                    void* stream) {
   const Plan p{chunk_rows, n_chunks, ft, bt, st, groups, cluster, sub_rows,
                stage_bins, threads};
-  return dispatch<double>(bin_bytes, binned, lid, grad, hess, weight,
-                          partial, out, n, n_feat, n_bins, n_slots, p,
-                          stream);
+  return dispatch<double, float>(bin_bytes, binned, lid, grad, hess,
+                                 weight, partial, out, n, n_feat, n_bins,
+                                 n_slots, p, stream);
+}
+
+// The same sums with a float64 `out` (n_feat*n_bins, n_slots*3), not
+// rounded: the cells of sml_hist_accumulate before their one rounding
+// to f32, bit for bit (the same plan sums in the same order). A mesh
+// of ranks adds its ranks' sums in float64 and rounds once after.
+extern "C" int sml_hist_accumulate_f64out(
+    int bin_bytes, const void* binned, const void* lid, const void* grad,
+    const void* hess, const void* weight, void* partial, void* out, int n,
+    int n_feat, int n_bins, int n_slots, int chunk_rows, int n_chunks,
+    int ft, int bt, int st, int groups, int cluster, int sub_rows,
+    int stage_bins, int threads, void* stream) {
+  const Plan p{chunk_rows, n_chunks, ft, bt, st, groups, cluster, sub_rows,
+               stage_bins, threads};
+  return dispatch<double, double>(bin_bytes, binned, lid, grad, hess,
+                                  weight, partial, out, n, n_feat, n_bins,
+                                  n_slots, p, stream);
 }
 
 // The same with f32 sums and an f32 `partial` scratch: a measurement
@@ -668,6 +692,7 @@ extern "C" int sml_hist_accumulate_f32acc(
     int stage_bins, int threads, void* stream) {
   const Plan p{chunk_rows, n_chunks, ft, bt, st, groups, cluster, sub_rows,
                stage_bins, threads};
-  return dispatch<float>(bin_bytes, binned, lid, grad, hess, weight, partial,
-                         out, n, n_feat, n_bins, n_slots, p, stream);
+  return dispatch<float, float>(bin_bytes, binned, lid, grad, hess, weight,
+                                partial, out, n, n_feat, n_bins, n_slots, p,
+                                stream);
 }

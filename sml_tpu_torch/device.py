@@ -1,9 +1,11 @@
-"""The one-card counterpart of `sml_tpu/parallel/mesh.py`.
+"""The device of the port's entry points.
 
-There is no mesh, no sharding and no collective on one card: a caller
-names a device, or gets the CUDA card. Entry points run on the card
-unless the caller asks for the CPU; asking for CUDA where there is none
-raises instead of carrying on somewhere else.
+On one card there is no sharding and no collective: a caller names a
+device, or gets the CUDA card. (A mesh of ranks, one device each, is
+`parallel/mesh.py`, the counterpart of `sml_tpu/parallel/mesh.py`.)
+Entry points run on the card unless the caller asks for the CPU; asking
+for CUDA where there is none raises instead of carrying on somewhere
+else.
 
 `run_placed_trials` is the one-card form of the JAX package's placed
 trials: tuning's trials run `parallelism` worker threads wide, all on
@@ -11,7 +13,9 @@ the session's device.
 
 `use_device_local(device)` binds a device as THIS thread's (the JAX
 package's `use_mesh_local`): inside it `resolve_device(None)` and
-`session_device()` answer the bound device. The dispatcher's `routed`
+`session_device()` answer the bound device. Under a mesh of ranks an
+unbound thread's device is the mesh's (this rank's), not
+`torch.cuda.current_device()`. The dispatcher's `routed`
 binds its choice this way, so a fit routed to the host stages, launches
 and reads back on the CPU without the call sites below it passing a
 device; other threads keep theirs.
@@ -48,12 +52,17 @@ def bound_device() -> Optional[torch.device]:
 def resolve_device(device: Optional[Union[str, torch.device]] = None
                    ) -> torch.device:
     """`device` as a `torch.device`; None means this thread's bound
-    device (`use_device_local`), else the CUDA card.
+    device (`use_device_local`), else the active mesh's device (this
+    rank's), else the CUDA card.
 
     Raises RuntimeError when CUDA is asked for (explicitly or by default)
     and this process has no usable CUDA device."""
     if device is None:
         device = bound_device()
+    if device is None:
+        from .parallel.mesh import get_mesh
+        mesh = get_mesh()
+        device = None if mesh is None else mesh.device
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -80,10 +89,20 @@ def run_placed_trials(jobs: Sequence, fn: Callable, parallelism: int
     """`fn(job)` for every job, `parallelism` worker threads wide, all on
     the session's device (one card has one layout; the JAX package gives
     each worker its own submesh). Results come back in job order. An
-    exception in a trial propagates."""
+    exception in a trial propagates. Under a mesh of several ranks,
+    trials in threads would interleave their fits' collectives, so
+    parallelism above 1 raises there (trials over ranks: ROADMAP item
+    10)."""
     jobs = list(jobs)
     session_device()  # no card: raise before any trial starts
     parallelism = max(1, int(parallelism))
+    if parallelism > 1 and len(jobs) > 1:
+        from .parallel.mesh import data_width
+        if data_width() > 1:
+            raise NotImplementedError(
+                "placed trials in threads under a mesh of several ranks "
+                "would interleave their collectives; run them with "
+                "parallelism 1 (trials over ranks: ROADMAP item 10)")
     if parallelism <= 1 or len(jobs) <= 1:
         return [fn(job) for job in jobs]
     from concurrent.futures import ThreadPoolExecutor

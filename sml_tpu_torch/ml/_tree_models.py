@@ -408,6 +408,31 @@ def _cached_bins(X, y32, max_bins, categorical):
     return hit
 
 
+def _same_on_every_rank(mesh, binning: Binning, y32: np.ndarray) -> None:
+    """Raise unless every rank of `mesh` holds the same fit inputs: one
+    MIN and one MAX all-reduce of [a hash of the bin edges, category
+    ranks and labels, the row count]. Ranks that binned different rows
+    would otherwise fit a wrong model without a word."""
+    import hashlib
+
+    import torch
+
+    from ..parallel import collectives as coll
+    h = hashlib.blake2b(digest_size=7)   # below 2^56: an int64
+    h.update(np.ascontiguousarray(binning.edges).tobytes())
+    for f, rank in sorted(binning.cat_remap.items()):
+        h.update(np.int64(f).tobytes() + np.ascontiguousarray(rank).tobytes())
+    h.update(y32.tobytes())
+    mine = torch.tensor([int.from_bytes(h.digest(), "little"), len(y32)],
+                        dtype=torch.int64, device=mesh.device)
+    lo, hi = coll.pmin(mine, mesh=mesh), coll.pmax(mine, mesh=mesh)
+    if not torch.equal(lo, hi):
+        raise ValueError(
+            f"the {mesh.size} ranks of the mesh hold different fit inputs "
+            f"(bin edges, category ranks and labels hashed, row counts "
+            f"{int(lo[1])}..{int(hi[1])}): every rank must fit the same rows")
+
+
 def _fit_ensemble(X: Optional[np.ndarray], y: np.ndarray, *,
                   categorical: Dict[int, int], max_depth: int, max_bins: int,
                   min_instances: int, min_info_gain: float, n_trees: int,
@@ -437,8 +462,16 @@ def _fit_ensemble(X: Optional[np.ndarray], y: np.ndarray, *,
     The fit runs under the dispatcher's decision (`routed_for`): on
     `device` unless `sml.dispatch.mode=host` sends it to the CPU. With
     the recorder on, the spec's `baseline` is captured from X (or the
-    chunked path's `baseline_sketch`) on the host."""
+    chunked path's `baseline_sketch`) on the host.
+
+    Over a mesh of ranks on that device (`dispatch.mesh_for`; every
+    rank calls the fit with the same rows) each rank bins all the rows,
+    checks that every rank holds the same inputs (`_same_on_every_rank`),
+    stages only its own block (`mesh.row_range`) and fits data-parallel
+    (`tree_impl.Shard`): every rank returns the one-rank fit's model."""
     from ..obs import drift as _drift
+    from ..parallel.dispatch import mesh_for
+    from ..parallel.mesh import row_range
     from ..utils.profiler import PROFILER
     from ._staging import routed_for, stage_bins_cached, stage_rows
     y32 = np.asarray(y, np.float32)
@@ -462,11 +495,19 @@ def _fit_ensemble(X: Optional[np.ndarray], y: np.ndarray, *,
     hint = WorkHint(flops=2.0 * n_trees * max_depth * binned.shape[0] * F
                     * max_bins, kind="scatter")
     with routed_for(hint, binned, device=device) as dev:
-        with PROFILER.span("staging.fit", rows=int(binned.shape[0])):
-            binned_dev = stage_bins_cached(binned, dev)
-            y_dev = stage_rows(y32, dev)
+        mesh = mesh_for(dev)
+        shard, rows = None, slice(None)
+        if mesh is not None:
+            n = binned.shape[0]
+            _same_on_every_rank(mesh, binning, y32)
+            start, stop = row_range(n, mesh)
+            shard, rows = tree_impl.Shard(mesh, start, n), slice(start, stop)
+        with PROFILER.span("staging.fit", rows=int(binned[rows].shape[0])):
+            binned_dev = stage_bins_cached(binned[rows], dev)
+            y_dev = stage_rows(y32[rows], dev)
         trees, base = fit_ensemble_on_device(binned_dev, y_dev, es, seed,
-                                             rounds_per_dispatch, on_rounds)
+                                             rounds_per_dispatch, on_rounds,
+                                             shard=shard)
     mode = "binary" if loss == "logistic" else "regression"
     if boosting:
         weights = np.full(len(trees), step_size, dtype=np.float32)

@@ -322,17 +322,19 @@ def _make_tree_builder(spec: TreeSpec):
     """One tree for each of E elements, grown level by level on the
     operands' device; a sequential fit is E = 1.
 
-    Returns `build(binned_c, binned, grad, hess, weight, masks, el)
-    -> (pack, node)`. The E elements' rows lie end to end in blocks of
-    `el.n_pad` (`_Elements`): `binned_c` is the compact (E*n_pad, F) bin
-    matrix the histogram kernel reads, `binned` the same bins as int32
-    for row routing, `masks` the round's (E*(2^D - 1), F) f32 feature
+    Returns `build(binned_c, binned, grad, hess, weight, masks, el,
+    merge=None) -> (pack, node)`. The E elements' rows lie end to end in
+    blocks of `el.n_pad` (`_Elements`): `binned_c` is the compact
+    (E*n_pad, F) bin matrix the histogram kernel reads, `binned` the
+    same bins as int32 for row routing, `masks` the round's (E*(2^D - 1), F) f32 feature
     masks of every level (a round of `round_masks`; level L's rows from
     E*(2^L - 1)), or None when every feature is a candidate.
     `pack` is the (E, 5, n_nodes) f32 stack [split_feature, split_bin,
     leaf_value, gain, cover] of each element's level-order heap (children
     of i at 2i+1, 2i+2), `node` each row's terminal node in its element's
-    tree.
+    tree. `merge`, given for a fit over a mesh of ranks (`_mesh_merge`),
+    all-reduces a float64 sum over the ranks, each of which holds a block
+    of the rows.
 
     Per level, whatever E is, one launch of each kernel: `hist_accumulate`
     histograms the rows of every element's level nodes into slot
@@ -354,12 +356,27 @@ def _make_tree_builder(spec: TreeSpec):
     histograms, deliberately above the JAX package's f32 sums, so that
     the card and the CPU fit the same trees (see `native/hist_kernel.py`).
     A node no row reached inherits its parent's value and becomes a
-    leaf."""
+    leaf.
+
+    Over a mesh, each histogram (level 0's, and every left child's) and
+    the last level's statistics are taken in float64 on each rank's
+    rows, all-reduced by `merge`, and only then rounded to f32: every
+    rank then scans, subtracts and splits on the same bits, which are
+    the one-rank fit's up to the order of the float64 adds. Row routing
+    and the rows' margins stay on their rank."""
     D, B, F = spec.max_depth, spec.n_bins, spec.n_features
     n_nodes = 2 ** (D + 1) - 1
     lam = float(spec.reg_lambda)
 
-    def build(binned_c, binned, grad, hess, weight, masks, el):
+    def histogram(merge, binned_c, slot, grad, hess, w, n_slots):
+        if merge is None:
+            return hk.hist_accumulate(binned_c, slot, grad, hess, w,
+                                      n_bins=B, n_slots=n_slots)
+        return merge(hk.hist_accumulate(
+            binned_c, slot, grad, hess, w, n_bins=B, n_slots=n_slots,
+            out_dtype=torch.float64)).to(torch.float32)
+
+    def build(binned_c, binned, grad, hess, weight, masks, el, merge=None):
         E, n_pad = el.E, el.n_pad
         n = binned.shape[0]
         dev = binned.device
@@ -384,16 +401,14 @@ def _make_tree_builder(spec: TreeSpec):
             lid_c = torch.where(in_level, lid, 0)
             wq = torch.where(in_level, weight, 0.0)
             if level == 0:
-                hist = hk.hist_accumulate(
-                    binned_c, el.erow.to(torch.int32), grad, hess, wq,
-                    n_bins=B, n_slots=E).reshape(F, B, E, 3)
+                hist = histogram(merge, binned_c, el.erow.to(torch.int32),
+                                 grad, hess, wq, E).reshape(F, B, E, 3)
             else:
                 half = width // 2
                 w_left = torch.where(lid_c % 2 == 0, wq, 0.0)
                 slot = (el.erow * half + lid_c // 2).to(torch.int32)
-                left = hk.hist_accumulate(
-                    binned_c, slot, grad, hess, w_left, n_bins=B,
-                    n_slots=E * half).reshape(F, B, E * half, 3)
+                left = histogram(merge, binned_c, slot, grad, hess, w_left,
+                                 E * half).reshape(F, B, E * half, 3)
                 parent = hist_prev \
                     * split_prev.to(torch.float32)[None, None, :, None]
                 hist = torch.stack([left, parent - left], dim=3) \
@@ -437,7 +452,10 @@ def _make_tree_builder(spec: TreeSpec):
         stats = torch.stack([grad * wq, hess * wq, wq], dim=1) \
             .to(torch.float64)
         lstats = torch.bmm(onehot.view(E, n_pad, width).transpose(1, 2),
-                           stats.view(E, n_pad, 3)).to(torch.float32)
+                           stats.view(E, n_pad, 3))
+        if merge is not None:
+            lstats = merge(lstats)
+        lstats = lstats.to(torch.float32)
         node_G = torch.where(el.term_mask,
                              lstats[..., 0].gather(1, el.term_idx), node_G)
         node_H = torch.where(el.term_mask,
@@ -471,16 +489,24 @@ class EnsembleSpec(NamedTuple):
     step_size: float
 
 
-def _base_margins(loss: str, y: torch.Tensor, counts: torch.Tensor):
+def _base_margins(loss: str, y: torch.Tensor, counts: torch.Tensor,
+                  mesh=None):
     """Each element's base margin: the mean of its labels (its first
     `counts[e]` of each n_pad block; the rest are 0), or its log-odds
     (clipped to [1e-6, 1 - 1e-6]) for the logistic loss. The mean is
     taken in float64 and rounded to f32 once (the JAX package sums in
     f32), so the base does not depend on the device's order of summation
-    and the card and the CPU start from the same bits."""
+    and the card and the CPU start from the same bits. Over a `mesh`
+    each rank holds a block of the rows: the label sums and row counts
+    are all-reduced in float64 (one `psum_scalars`) before the one
+    rounding."""
     E = counts.shape[0]
-    mean = (y.view(E, -1).to(torch.float64).sum(dim=1)
-            / counts.to(torch.float64)).to(torch.float32)
+    total = y.view(E, -1).to(torch.float64).sum(dim=1)
+    count = counts.to(torch.float64)
+    if mesh is not None:
+        from ..parallel import collectives as coll
+        total, count = coll.psum_scalars(total, count, mesh=mesh)
+    mean = (total / count).to(torch.float32)
     if loss == "logistic":
         p0 = torch.clamp(mean, 1e-6, 1 - 1e-6)
         return torch.log(p0 / (1 - p0))
@@ -578,22 +604,29 @@ class RoundDraws:
         return self.block[t - self.start]
 
 
-def round_weights(draws: Draws, t0: int, n_trees: int,
-                  n_pad: int) -> RoundDraws:
+def round_weights(draws: Draws, t0: int, n_trees: int, n_pad: int,
+                  rows: Optional[slice] = None) -> RoundDraws:
     """The (E * n_pad,) f32 row weights of rounds t0 .. T-1 of a fit
     (`fit_draws`): one `fit_row_weights` launch for all of them (a
     launch a block of rounds past `DRAW_BLOCK_BYTES`), or, when nothing
-    is sampled, the same ones every round and nothing drawn."""
+    is sampled, the same ones every round and nothing drawn.
+
+    `rows` keeps a slice of each round's weights: a rank of a mesh draws
+    the weights of all the fit's rows, under the same keys as every
+    other rank, and keeps its own block, so that every row weighs what
+    it weighs in the one-rank fit whatever the mesh (the JAX package's
+    `_sliced_draw`)."""
     E = draws.counts.shape[0]
+    cut = slice(None) if rows is None else rows
     if not draws.sampled:
         ones = torch.ones(E * n_pad, dtype=torch.float32,
-                          device=draws.keys.device)
+                          device=draws.keys.device)[cut]
         return RoundDraws(lambda t, stop: ones.expand(stop - t, -1), t0,
                           n_trees, max(n_trees, 1))
     return RoundDraws(
         lambda t, stop: pk.fit_row_weights(draws.keys[t:stop, 0],
                                            draws.modes, draws.rates,
-                                           draws.counts, n_pad),
+                                           draws.counts, n_pad)[:, cut],
         t0, n_trees, block_rounds(4 * E * n_pad, E))
 
 
@@ -611,12 +644,46 @@ def round_masks(draws: Draws, t0: int, n_trees: int, ks: torch.Tensor,
         t0, n_trees, block_rounds(4 * E * (2 ** D - 1) * n_features))
 
 
+class Shard(NamedTuple):
+    """A rank's block of a fit over a mesh of ranks: rows [start, start +
+    n) of the fit's `total` rows, on `mesh` (`parallel/mesh.py`)."""
+    mesh: object
+    start: int
+    total: int
+
+
+def _hier_ici(mesh) -> int:
+    """The "ici" hop's rank count of the two-level histogram allreduce:
+    the host group's size when the mesh declares host groups
+    (`mesh.host_mesh`) and `sml.tree.hierarchicalAllreduce` allows it,
+    else 0 (the flat allreduce)."""
+    from ..conf import GLOBAL_CONF
+    if not mesh.hierarchical:
+        return 0
+    mode = str(GLOBAL_CONF.get("sml.tree.hierarchicalAllreduce")
+               or "auto").strip().lower()
+    if mode in ("false", "0", "off", "no"):
+        return 0
+    return mesh.size // mesh.hosts
+
+
+def _mesh_merge(mesh):
+    """The allreduce of a fit's float64 partial sums over `mesh`'s
+    ranks: two-level (`psum_hierarchical`) when `_hier_ici` is above 1,
+    else the flat `psum` over the row axes."""
+    from ..parallel import collectives as coll
+    ici = _hier_ici(mesh)
+    if ici > 1:
+        return lambda x: coll.psum_hierarchical(x, ici_size=ici, mesh=mesh)
+    return lambda x: coll.psum(x, mesh=mesh)
+
+
 def _fit_elements(binned_c: torch.Tensor, y: torch.Tensor, n_pad: int,
                   es: EnsembleSpec, rngs, dyn: TrialDyn, modes, rates,
                   counts, always_mask: bool, *, t0: int = 0,
                   margin: Optional[torch.Tensor] = None,
                   base: Optional[float] = None, segment: int = 0,
-                  on_rounds=None):
+                  on_rounds=None, shard: Optional[Shard] = None):
     """Fit E elements whose rows lie end to end in blocks of n_pad
     (`binned_c` (E*n_pad, F) compact bins, `y` (E*n_pad,) f32 labels,
     0-padded past each element's `counts[e]` rows) on their device, each
@@ -648,7 +715,14 @@ def _fit_elements(binned_c: torch.Tensor, y: torch.Tensor, n_pad: int,
     packs, bases)` fires at every segment boundary but the last, with the
     host packs (E, t_done - t0, 5, n_nodes) of the rounds so far (each
     segment's packs copied to the host once) and the (E,) bases. Without
-    a hook the packs come back in one copy at the end."""
+    a hook the packs come back in one copy at the end.
+
+    With a `shard` (one element), `binned_c` and `y` are this rank's
+    block of the fit's rows and `counts` its row count: the round's
+    weights are drawn for all `shard.total` rows and sliced to the block
+    (`round_weights`), and the histograms, the leaf statistics and the
+    base are all-reduced over `shard.mesh` before their one rounding
+    (`_mesh_merge`), so every rank grows the one-rank fit's trees."""
     from ..utils.profiler import PROFILER
     dev = binned_c.device
     E = len(counts)
@@ -656,14 +730,25 @@ def _fit_elements(binned_c: torch.Tensor, y: torch.Tensor, n_pad: int,
     T = es.n_trees
     draw_masks = always_mask or bool((np.asarray(dyn.feature_k) < F).any())
     el = _elements(es.tree, dyn, n_pad, dev)
-    draws = fit_draws(rngs, T, D, modes, rates, counts, n_pad, dev)
-    weights = round_weights(draws, t0, T, n_pad)
+    if shard is None:
+        draws = fit_draws(rngs, T, D, modes, rates, counts, n_pad, dev)
+        weights = round_weights(draws, t0, T, n_pad)
+        merge = mesh = None
+    else:
+        mesh = shard.mesh
+        draws = fit_draws(rngs, T, D, modes, rates, [shard.total],
+                          shard.total, dev)
+        weights = round_weights(draws, t0, T, shard.total,
+                                slice(shard.start, shard.start + n_pad))
+        merge = _mesh_merge(mesh)
     masks = round_masks(draws, t0, T, el.mask_k, F) \
         if draw_masks and D > 0 else None
     build = _make_tree_builder(es.tree)
     binned = binned_c.to(torch.int32)
     if base is None:
-        bases = _base_margins(es.loss, y, draws.counts)
+        bases = _base_margins(
+            es.loss, y, draws.counts if shard is None else torch.tensor(
+                counts, dtype=torch.int32, device=dev), mesh)
     else:
         bases = torch.full((E,), float(base), dtype=torch.float32,
                            device=dev)
@@ -685,7 +770,8 @@ def _fit_elements(binned_c: torch.Tensor, y: torch.Tensor, n_pad: int,
         else:
             grad, hess = margin - y, ones
         pack, node_fin = build(binned_c, binned, grad, hess, weights[t],
-                               None if masks is None else masks[t], el)
+                               None if masks is None else masks[t], el,
+                               merge)
         if es.boosting:
             margin = margin + es.step_size \
                 * pack[:, 2].reshape(-1)[row_node + node_fin]
@@ -717,7 +803,7 @@ def _segment(es: EnsembleSpec, rounds_per_dispatch: Optional[int]) -> int:
 def fit_ensemble_on_device(binned_dev: torch.Tensor, y_dev: torch.Tensor,
                            es: EnsembleSpec, seed: int,
                            rounds_per_dispatch: Optional[int] = None,
-                           on_rounds=None
+                           on_rounds=None, shard: Optional[Shard] = None
                            ) -> Tuple[List[FittedTree], float]:
     """Fit the rounds of a DT, RF, GBT or XGBoost ensemble on the
     operands' device; returns (trees, base margin). One element of
@@ -725,7 +811,9 @@ def fit_ensemble_on_device(binned_dev: torch.Tensor, y_dev: torch.Tensor,
     segments of `rounds_per_dispatch` rounds (`_segment`), and
     `on_rounds(t_done, trees_so_far, base)`, the round checkpoints' hook,
     fires at each boundary but the last; the trees do not depend on
-    either."""
+    either. With a `shard` the operands are this rank's block of the
+    rows, and the fit is data-parallel over the shard's mesh: every rank
+    returns the same trees."""
     from ..utils.profiler import PROFILER
     n = binned_dev.shape[0]
     dev = binned_dev.device
@@ -741,7 +829,8 @@ def fit_ensemble_on_device(binned_dev: torch.Tensor, y_dev: torch.Tensor,
             _spec_dyn(es.tree, 1),
             [weight_mode(es.bootstrap, es.n_trees, es.subsample)],
             [es.subsample], [n], always_mask=False,
-            segment=_segment(es, rounds_per_dispatch), on_rounds=hook)
+            segment=_segment(es, rounds_per_dispatch), on_rounds=hook,
+            shard=shard)
     return _unpack_trees(packs[0]), float(bases[0])
 
 

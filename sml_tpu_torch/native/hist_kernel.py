@@ -15,7 +15,9 @@ deliberately above the Pallas body's f32 sums: the result then hardly
 depends on the order of the sums, so the kernel and its plain version
 give the same bits and a fit on the card grows the same trees as one on
 the CPU. `chip_smoke.py` prices that against an f32-accumulating build
-of the same kernel (`PERF.md`).
+of the same kernel (`PERF.md`). With `out_dtype=torch.float64` it
+returns the float64 sums unrounded, for a mesh of ranks to add before
+the one rounding.
 
 A CUDA tensor launches the kernel or raises. A CPU tensor runs the plain
 PyTorch version (`hist_accumulate_plain`, `split_scan_plain`). Nothing
@@ -38,6 +40,8 @@ LAUNCHES = {"hist_accumulate": 0, "split_scan": 0}
 _count_lock = threading.Lock()
 
 _BIN_BYTES = {torch.uint8: 1, torch.uint16: 2, torch.int32: 4}
+#: the histogram's output types, by the name the prewarm manifest keeps
+_OUT_DTYPES = {torch.float32: "float32", torch.float64: "float64"}
 _fns = {}
 
 #: the card the plans are sized for: an H100 SXM (the plan never asks the
@@ -223,15 +227,18 @@ def scan_plan(n_feat: int, n_bins: int) -> ScanPlan:
 def hist_accumulate_plain(binned: torch.Tensor, lid: torch.Tensor,
                           grad: torch.Tensor, hess: torch.Tensor,
                           weight: torch.Tensor, n_bins: int,
-                          n_slots: int) -> torch.Tensor:
+                          n_slots: int,
+                          out_dtype: torch.dtype = torch.float32
+                          ) -> torch.Tensor:
     """The kernel's function in plain PyTorch ops: (F*B, S*3) f32, cell
     ((f*B + b)*S + s)*3 + k. Each row with w > 0, a slot in [0, S) and
     bin b in [0, B) adds (g*w, h*w, w) to cell (f, b, lid) of every
     feature f; the products are f32, as in the kernel. The sums run in
     float64 (`index_add_`, in row order on the CPU) and are rounded to
-    f32 once, as in the kernel, which sums in another order. (The JAX
-    body's one-hot product spreads a non-finite product to every cell;
-    here, as in the kernel, a row adds only to its own cells.)"""
+    f32 once, as in the kernel, which sums in another order; with
+    `out_dtype=torch.float64` they come back unrounded. (The JAX body's
+    one-hot product spreads a non-finite product to every cell; here,
+    as in the kernel, a row adds only to its own cells.)"""
     n, n_feat = binned.shape
     B, S = int(n_bins), int(n_slots)
     dev = binned.device
@@ -245,7 +252,7 @@ def hist_accumulate_plain(binned: torch.Tensor, lid: torch.Tensor,
     src = stats[:, None, :].expand(n, n_feat, 3)[ok].to(torch.float64)
     out = torch.zeros((n_feat * B * S, 3), dtype=torch.float64, device=dev)
     out.index_add_(0, cell[ok], src)
-    return out.to(torch.float32).reshape(n_feat * B, S * 3)
+    return out.to(out_dtype).reshape(n_feat * B, S * 3)
 
 
 def split_scan_plain(hist: torch.Tensor, feat_mask: torch.Tensor,
@@ -349,14 +356,15 @@ _SCAN_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
     + [ctypes.c_float] * 2 + [ctypes.c_void_p]
 
 
-def _kernel(name: str):
-    fn = _fns.get(name)
+def _kernel(name: str, entry: str = ""):
+    """Entry point `sml_<name><entry>` of kernel library `name`."""
+    fn = _fns.get(name + entry)
     if fn is None:
-        fn = getattr(build.load(name), f"sml_{name}")
+        fn = getattr(build.load(name), f"sml_{name}{entry}")
         fn.argtypes = HIST_ARGTYPES if name == "hist_accumulate" \
             else _SCAN_ARGTYPES
         fn.restype = ctypes.c_int
-        _fns[name] = fn
+        _fns[name + entry] = fn
     return fn
 
 
@@ -373,15 +381,20 @@ def check_aligned(*ts) -> None:
 
 def launch_hist(fn, plan: HistPlan, binned, lid, grad, hess, weight,
                 n_bins: int, n_slots: int, acc_dtype,
-                record: bool = False) -> torch.Tensor:
+                record: bool = False,
+                out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Launch a `hist_accumulate` entry point (`fn`) with `plan` on the
-    current stream; allocates the output and, with more than one
-    cluster, the (clusters, F*B*S*3) `acc_dtype` scratch. `record` puts
-    the launch into the prewarm manifest (`hist_accumulate`'s own)."""
+    current stream; allocates the `out_dtype` output and, with more than
+    one cluster, the (clusters, F*B*S*3) `acc_dtype` scratch. `record`
+    puts the launch into the prewarm manifest (`hist_accumulate`'s
+    own)."""
     n, n_feat = binned.shape
     dev = binned.device
-    out = torch.empty((n_feat * n_bins, n_slots * 3), dtype=torch.float32,
+    out = torch.empty((n_feat * n_bins, n_slots * 3), dtype=out_dtype,
                       device=dev)
+    scalars = {"n_bins": n_bins, "n_slots": n_slots}
+    if out_dtype != torch.float32:
+        scalars["out_dtype"] = _OUT_DTYPES[out_dtype]
     parts = plan.n_chunks // plan.cluster
     scratch = None if parts == 1 else torch.empty(
         (parts, n_feat * n_bins * n_slots * 3), dtype=acc_dtype, device=dev)
@@ -393,7 +406,7 @@ def launch_hist(fn, plan: HistPlan, binned, lid, grad, hess, weight,
         plan.bt, plan.st, plan.groups, plan.cluster, plan.sub_rows,
         plan.stage_bins, plan.threads,
         record=("hist_accumulate", plan, [binned, lid, grad, hess, weight],
-                {"n_bins": n_bins, "n_slots": n_slots}) if record else None)
+                scalars) if record else None)
     if err != 0:
         raise RuntimeError(f"hist_accumulate launch failed: CUDA error {err} "
                            f"(n={n}, F={n_feat}, B={n_bins}, S={n_slots}, "
@@ -408,34 +421,44 @@ def _count(name: str) -> None:
 
 def hist_accumulate(binned: torch.Tensor, lid: torch.Tensor,
                     grad: torch.Tensor, hess: torch.Tensor,
-                    weight: torch.Tensor, *, n_bins: int,
-                    n_slots: int) -> torch.Tensor:
+                    weight: torch.Tensor, *, n_bins: int, n_slots: int,
+                    out_dtype=torch.float32) -> torch.Tensor:
     """Partial histogram of one tree level, (F*n_bins, n_slots*3) f32,
     on the operands' device (see `hist_accumulate_plain` for the cell
     layout). `binned` is the compact bin matrix, `lid` each row's slot,
-    `weight` its weight (0 leaves the row out).
+    `weight` its weight (0 leaves the row out). `out_dtype=torch.float64`
+    (or "float64") returns the float64 sums unrounded: their f32
+    rounding is the f32 output bit for bit (a mesh of ranks adds its
+    ranks' sums before it rounds).
 
     CUDA operands (16-byte aligned) launch the kernel on the current
     stream: blocks of row chunks sum their cells in float64, clusters of
     them add their tiles in rank order, and (with more than one cluster)
-    a second pass sums the clusters' partials in order, rounded to f32.
-    The result is bit-identical from run to run. CPU operands run
-    `hist_accumulate_plain`."""
+    a second pass sums the clusters' partials in order, rounded to f32
+    (or not). The result is bit-identical from run to run. CPU operands
+    run `hist_accumulate_plain`."""
     B, S = int(n_bins), int(n_slots)
+    if isinstance(out_dtype, str):
+        out_dtype = getattr(torch, out_dtype)
+    if out_dtype not in _OUT_DTYPES:
+        raise TypeError(f"out_dtype must be float32 or float64, got "
+                        f"{out_dtype}")
     _check_hist(binned, lid, grad, hess, weight, B, S)
     dev = binned.device
     if dev.type == "cpu":
-        return hist_accumulate_plain(binned, lid, grad, hess, weight, B, S)
+        return hist_accumulate_plain(binned, lid, grad, hess, weight, B, S,
+                                     out_dtype)
     if dev.type != "cuda":
         raise ValueError(f"hist_accumulate runs on cuda or cpu, not {dev}")
     n, n_feat = binned.shape
     if n == 0:
-        return torch.zeros((n_feat * B, S * 3), dtype=torch.float32,
-                           device=dev)
+        return torch.zeros((n_feat * B, S * 3), dtype=out_dtype, device=dev)
     check_aligned(binned, lid, grad, hess, weight)
     plan = hist_plan(n, n_feat, B, S, bin_bytes=_BIN_BYTES[binned.dtype])
-    out = launch_hist(_kernel("hist_accumulate"), plan, binned, lid, grad,
-                      hess, weight, B, S, torch.float64, record=True)
+    entry = "" if out_dtype == torch.float32 else "_f64out"
+    out = launch_hist(_kernel("hist_accumulate", entry), plan, binned, lid,
+                      grad, hess, weight, B, S, torch.float64, record=True,
+                      out_dtype=out_dtype)
     _count("hist_accumulate")
     return out
 

@@ -29,7 +29,11 @@ path's pressure signal (`serving/_batcher.py`).
 runs on (the CPU for "host", the resolved card otherwise), and
 `routed(hint, device)` binds it as the thread's device
 (`device.use_device_local`) around a fit or a scoring body: the JAX
-package's `mesh_for` and `routed`.
+package's `mesh_for` and `routed`. `mesh_for(dev)` is the mesh of ranks
+a program on `dev` runs over (`parallel/mesh.py`): the active mesh when
+`dev` is its device, else none. Under a mesh of several ranks a program
+stays on the ranks' devices: `sml.dispatch.mode=host` raises there (the
+host route over ranks is ROADMAP item 10).
 
 `bucket_rows` is the JAX package's `mesh.bucket_rows` (re-exported by
 its dispatch module): the load harness buckets a trace's declared widths
@@ -360,8 +364,25 @@ def device_for(hint: Optional[WorkHint], device=None) -> torch.device:
     answers "host", else `device` resolved (the thread's bound device or
     the card; raises without one)."""
     from ..device import resolve_device
+    from .mesh import data_width
     dev = resolve_device(device)
-    return torch.device("cpu") if decide(hint, dev) == "host" else dev
+    if decide(hint, dev) != "host":
+        return dev
+    if data_width() > 1:
+        raise NotImplementedError(
+            "sml.dispatch.mode=host under a mesh of several ranks: each "
+            "rank holds only its block of rows, and the host route over "
+            "ranks is ROADMAP item 10")
+    return torch.device("cpu")
+
+
+def mesh_for(dev: torch.device):
+    """The mesh of ranks a program on `dev` (from `device_for` or
+    `routed`) runs over: the active mesh when `dev` is its device, else
+    None (the program runs on this process's rows alone)."""
+    from .mesh import get_mesh
+    mesh = get_mesh()
+    return mesh if mesh is not None and mesh.device == dev else None
 
 
 @contextlib.contextmanager

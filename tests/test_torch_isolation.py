@@ -883,3 +883,41 @@ def test_fleet_loadgen_streaming_and_trainer_run_with_pandas_pyarrow_and_jax_blo
     assert proc.stdout.strip().splitlines() == [
         "no card True", "stream 600", "trainer promoted warm [2, 2]",
         "load True", "health True True", "delta 600", "[]"]
+
+
+MESH_IMPORTS = """
+import sys
+from sml_tpu_torch.parallel import collectives, mesh
+bad = sorted(k for k in sys.modules
+             if k.split(".")[0] in ("jax", "jaxlib", "sml_tpu", "pandas",
+                                    "pyarrow"))
+print(bad)
+"""
+
+
+def test_the_mesh_and_collectives_load_no_jax_pandas_or_pyarrow():
+    proc = _run(MESH_IMPORTS)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
+
+
+NCCL_WITHOUT_CARD = """
+import sys
+import torch.distributed as dist
+from sml_tpu_torch.parallel import collectives
+for kw in (dict(backend="nccl"), dict(backend="nccl", device="cuda:0"),
+           dict()):
+    try:
+        collectives.initialize_multihost("file://" + sys.argv[1], 2, 0,
+                                         timeout_s=5, **kw)
+        print("initialized", kw)
+    except collectives.MultihostInitError as e:
+        print("raised", e.backend, dist.is_initialized())
+"""
+
+
+def test_nccl_bring_up_without_a_card_raises_and_never_takes_gloo(tmp_path):
+    proc = _run(None, args=["-c", NCCL_WITHOUT_CARD,
+                            str(tmp_path / "store")])
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split("\n")[:3] == ["raised nccl False"] * 3
