@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--only 23]
 
 Run from the repository root. It needs a CUDA card, `nvcc` and `g++` (it
 builds every kernel under `sml_tpu_torch/csrc/` and the host binning at
@@ -420,6 +420,22 @@ Phases:
    histogram's float64 output at the ranks' level-5 shapes against its
    plain version. A `{"multirank": ...}` line gives these numbers, and
    the kernels line's `launches_by_path` gains "multirank".
+23. multi-rank tuning and warm start (`phase_multirank_tuning`): 1
+   (NCCL), 2 and 4 (gloo) ranks on cuda:0 at once: (a) the fused ML 07
+   grid with each element's rows split over the ranks and (b) in lanes
+   of 2 ranks and at the auto width (4 lanes of 1), every rank's 12
+   elements bit-equal to the tuning phase's fused fit; (c) the placed
+   CrossValidator (2 submeshes of 2 ranks) equal to model selection's
+   avgMetrics; (d) ML 11's chunked XGBoost, 20 rounds and 20
+   warm-started, each rank ingesting its host view, and (e) an elastic
+   fit that loses a host group, both bit-equal to the fit phase's
+   model. (f) is in phase 7: the float64 histogram at the grid's last
+   level on one of 4 ranks. A `{"multirank_tuning": ...}` line gives
+   these numbers, and `launches_by_path` gains "multirank_tuning".
+
+`--only 23` runs phase 7's float64 histogram check, the phases that
+phase 23 compares with (fit, tuning and model selection) and phase 23,
+and prints their lines but no kernels line and no result.
 
 The second-to-last line is a JSON object listing each kernel, with the
 launches the profiler saw in each window behind its device times
@@ -1230,9 +1246,13 @@ def phase_fit_kernels(seed: int, device) -> dict:
     return worst
 
 
-#: the level-5 histograms of phase 22's ML 11 fit over 2 and 4 ranks: each
-#: rank's block of the 80,000 rows, 16 left-child slots, 64 bins, uint8
-F64_SHAPES = ((40_000, 16), (20_000, 16))
+#: (rows, slots, bins) of the float64 histograms the fits over ranks
+#: all-reduce, uint8 bins: the level-5 histograms of phase 22's ML 11 fit
+#: over 2 and 4 ranks (each rank's block of the 80,000 rows, 16 left-child
+#: slots, 64 bins), and the last level of phase 23's fused ML 07 grid
+#: over 4 ranks (each rank's block of each of the 12 elements' 53,334
+#: rows, 12 x 13,334 rows, 12 x 8 left-child slots, 40 bins)
+F64_SHAPES = ((40_000, 16, 64), (20_000, 16, 64), (160_008, 96, 40))
 
 
 def f64_bound(n: int, scale: torch.Tensor) -> torch.Tensor:
@@ -1244,29 +1264,32 @@ def f64_bound(n: int, scale: torch.Tensor) -> torch.Tensor:
 
 
 def phase_hist_f64(seed: int, device) -> dict:
-    """(d) of phase 22: `hist_accumulate`'s float64 output at each rank's
-    level-5 shape (`F64_SHAPES`) against the f32 output of the same launch
+    """(d) of phase 22 and (f) of phase 23: `hist_accumulate`'s float64
+    output at each rank's shapes (`F64_SHAPES`) against the f32 output of
+    the same launch
     (its rounding bit-equal: the same plan sums in the same order), and
     against the plain version's float64 sums (within `f64_bound`, and
     rounded to f32 bit-equal); both outputs timed by CUDA events."""
     from sml_tpu_torch.native import hist_kernel as hk
     out = {"max_abs_err": 0.0}
-    for n, n_slots in F64_SHAPES:
+    for n, n_slots, n_bins in F64_SHAPES:
         rng = np.random.default_rng([seed, 24, n, n_slots])
-        b, lid, g, h, w = hist_operands(rng, n, 64, np.uint8, n_slots, device)
-        got = hk.hist_accumulate(b, lid, g, h, w, n_bins=64, n_slots=n_slots,
-                                 out_dtype=torch.float64)
-        f32 = hk.hist_accumulate(b, lid, g, h, w, n_bins=64, n_slots=n_slots)
+        b, lid, g, h, w = hist_operands(rng, n, n_bins, np.uint8, n_slots,
+                                        device)
+        got = hk.hist_accumulate(b, lid, g, h, w, n_bins=n_bins,
+                                 n_slots=n_slots, out_dtype=torch.float64)
+        f32 = hk.hist_accumulate(b, lid, g, h, w, n_bins=n_bins,
+                                 n_slots=n_slots)
         torch.cuda.synchronize()
         if got.dtype != torch.float64 or not torch.equal(
                 got.to(torch.float32), f32):
             raise AssertionError(f"hist_accumulate f64 output n={n} "
                                  f"S={n_slots}: its rounding is not the f32 "
                                  f"output")
-        want = hk.hist_accumulate_plain(b, lid, g, h, w, 64, n_slots,
+        want = hk.hist_accumulate_plain(b, lid, g, h, w, n_bins, n_slots,
                                         torch.float64)
-        scale = hk.hist_accumulate_plain(b, lid, g.abs(), h.abs(), w, 64,
-                                         n_slots, torch.float64)
+        scale = hk.hist_accumulate_plain(b, lid, g.abs(), h.abs(), w,
+                                         n_bins, n_slots, torch.float64)
         err = (got - want).abs()
         if not bool((err <= f64_bound(n, scale)).all()):
             raise AssertionError(f"hist_accumulate f64 output n={n} "
@@ -1277,11 +1300,11 @@ def phase_hist_f64(seed: int, device) -> dict:
                                  f"S={n_slots}: rounded to f32, it differs "
                                  f"from the plain version's")
         ops = (b, lid, g, h, w)
-        t64 = time_hist(ops, 64, n_slots, f"hist_accumulate f64 out n={n} "
-                        f"S={n_slots}", out_dtype=torch.float64)
-        t32 = time_hist(ops, 64, n_slots, f"hist_accumulate f32 out n={n} "
-                        f"S={n_slots}")
-        plan = hk.hist_plan(n, N_FEAT, 64, n_slots)
+        t64 = time_hist(ops, n_bins, n_slots, f"hist_accumulate f64 out "
+                        f"n={n} S={n_slots}", out_dtype=torch.float64)
+        t32 = time_hist(ops, n_bins, n_slots, f"hist_accumulate f32 out "
+                        f"n={n} S={n_slots}")
+        plan = hk.hist_plan(n, N_FEAT, n_bins, n_slots)
         keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")
         out[f"{n}x{n_slots}"] = dict(
@@ -1290,7 +1313,7 @@ def phase_hist_f64(seed: int, device) -> dict:
             f32_out=dict(zip(keys, t32)))
         out["max_abs_err"] = max(out["max_abs_err"], float(err.max()))
         print(f"kernel-vs-plain  hist_accumulate  f64 output rows={n} "
-              f"F={N_FEAT} bins=64 S={n_slots} {plan} max_abs_err="
+              f"F={N_FEAT} bins={n_bins} S={n_slots} {plan} max_abs_err="
               f"{float(err.max()):.3e} (bound n*2^-53*sum|x|), "
               f"cells_differing_unrounded={int((err > 0).sum())}/"
               f"{got.numel()}, rounded bit-equal to its f32 output and to "
@@ -2529,6 +2552,7 @@ def phase_tuning(seed: int, device, card: str) -> dict:
             counts[k] = 0
     tk.LAUNCHES = 0
     return {"fused": fz["launches"], "sequential": sq["launches"],
+            "models": fz["models"],
             "walls": {k: [{m: r[m] for m in ("fit_ms", "binning_ms",
                                               "loop_ms", "eval_ms")}
                           for r in rs]
@@ -7046,39 +7070,58 @@ def count_plain_as_launches() -> None:
     counted(tk, "forest_margin_plain", "forest_traverse")
 
 
-def mr_launch(n: int, backend: str, seed: int, tmp: str, device) -> list:
-    """Start `n` ranks of `MR_CHILD` on `device` (the parent has built
-    every library), each under one timeout; returns each rank's JSON
-    line."""
+def mr_start(child: str, n: int, backend: str, seed: int, tmp: str, device,
+             tag: str = ""):
+    """Start `n` ranks of the rank script `child` (`MR_CHILD`, `MT_CHILD`)
+    on `device` (the parent has built every library), on a store of
+    their own in `tmp`; returns (the processes, n, backend)."""
     root = os.path.dirname(os.path.abspath(__file__))
-    code = (MR_CHILD.replace("ROOT", repr(root))
+    code = (child.replace("ROOT", repr(root))
             .replace("SEED", repr(seed)).replace("DEVICE", repr(str(device)))
             .replace("HOSTS", repr(MR_HOST_GROUPS)))
     env = dict(os.environ, OMP_NUM_THREADS="1", NCCL_DEBUG="WARN")
     env.setdefault("NCCL_SOCKET_IFNAME", "lo")
-    store = os.path.join(tmp, f"store{n}")
+    store = os.path.join(tmp, f"store{tag}{n}")
     procs = [subprocess.Popen(
         [sys.executable, "-c", code, str(r), str(n), backend, store, tmp],
         cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         text=True) for r in range(n)]
+    return procs, n, backend
+
+
+def mr_finish(launches: list) -> list:
+    """Wait for the ranks of every launch (`mr_start`), all under one
+    timeout (`MR_TIMEOUT`), killing what is left on the way out; returns
+    each launch's ranks' JSON lines."""
     outs = []
     try:
         deadline = time.monotonic() + MR_TIMEOUT
-        for p in procs:
-            outs.append(p.communicate(
-                timeout=max(1.0, deadline - time.monotonic())))
+        for procs, _, _ in launches:
+            outs.append([p.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))
+                for p in procs])
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
+        for procs, _, _ in launches:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
     res = []
-    for r, (p, (so, se)) in enumerate(zip(procs, outs)):
-        if p.returncode != 0:
-            raise AssertionError(f"rank {r} of {n} ({backend}) failed "
-                                 f"({p.returncode}):\n{se[-4000:]}")
-        res.append(json.loads(so.strip().splitlines()[-1]))
+    for (procs, n, backend), got in zip(launches, outs):
+        ranks = []
+        for r, (p, (so, se)) in enumerate(zip(procs, got)):
+            if p.returncode != 0:
+                raise AssertionError(f"rank {r} of {n} ({backend}) failed "
+                                     f"({p.returncode}):\n{se[-4000:]}")
+            ranks.append(json.loads(so.strip().splitlines()[-1]))
+        res.append(ranks)
     return res
+
+
+def mr_launch(n: int, backend: str, seed: int, tmp: str, device) -> list:
+    """Start `n` ranks of `MR_CHILD` on `device`, each under one timeout;
+    returns each rank's JSON line."""
+    return mr_finish([mr_start(MR_CHILD, n, backend, seed, tmp, device)])[0]
 
 
 def mr_trees(tmp: str, layout: str, name: str, rank: int) -> dict:
@@ -7211,9 +7254,452 @@ def phase_multirank(seed: int, device, card: str, fit: dict) -> dict:
     return out
 
 
+# ------------------------------------- multi-rank tuning and warm start
+#: phase 23's launches of ranks, started together: (ranks, backend)
+MT_LAUNCHES = ((1, "nccl"), (2, "gloo"), (4, "gloo"))
+#: the fused grid's layouts (`sml.cv.trialAxisDevices`): rows split on
+#: every launch; on 4 ranks also 2 lanes of 2 ranks and the auto width
+MT_LAYOUTS = (("rows", 1), ("lanes2", 2), ("auto", 0))
+#: (c)'s placed trials: parallelism 2 on 4 ranks, 2 groups of 2 ranks
+MT_PLACED = 2
+#: (e)'s elastic fit: rounds a segment (a checkpoint each), the host
+#: group the chaos hook kills after the first checkpoint, and its rank
+MT_SEGMENT = 4
+MT_DEAD = 1
+#: the fit parameters `checkpointed_fit` takes, from `CHUNK_XGB`
+MT_ELASTIC_KEYS = ("n_trees", "max_depth", "max_bins", "seed", "loss",
+                   "step_size", "subsample", "min_instances",
+                   "min_info_gain", "reg_lambda", "gamma")
+
+MT_CHILD = r"""
+import inspect, json, os, sys, time
+t_start = time.perf_counter()
+sys.path.insert(0, ROOT)
+import torch
+import torch.distributed as dist
+import chip_smoke as cs
+from sml_tpu_torch.conf import GLOBAL_CONF
+from sml_tpu_torch.parallel import collectives as coll, mesh as M
+rank, n, backend, store, out_dir = (int(sys.argv[1]), int(sys.argv[2]),
+                                    sys.argv[3], sys.argv[4], sys.argv[5])
+# each rank's prewarm manifest in a directory of its own
+GLOBAL_CONF.set("sml.compile.cacheDir", os.path.join(out_dir, f"t{n}r{rank}"))
+dev = torch.device(DEVICE)
+if dev.type == "cuda":
+    torch.cuda.set_device(dev)
+else:    # a rehearsal on the CPU: the plain versions count as launches
+    cs.count_plain_as_launches()
+t0 = time.perf_counter()
+if n == 1:   # a default group of one rank: every collective through it
+    dist.init_process_group(backend, init_method="file://" + store,
+                            world_size=1, rank=0,
+                            device_id=dev if backend == "nccl" else None)
+    M.bind_rank_device(dev)
+else:
+    assert coll.initialize_multihost("file://" + store, n, rank,
+                                     backend=backend, device=dev,
+                                     timeout_s=120)
+out = {"rank": rank, "import_s": t0 - t_start,
+       "init_s": time.perf_counter() - t0, "backend": dist.get_backend(),
+       "torch": torch.__version__,
+       "local_sync": "use_local_synchronization"
+       in inspect.signature(dist.new_group).parameters}
+out.update(cs.mt_rank(n, rank, dev, SEED, out_dir))
+dist.destroy_process_group()
+print(json.dumps(out))
+"""
+
+
+def mt_measured(fn, dev):
+    """(fn(), launches, host-clock ms, collective counts) of one call from
+    zeroed counts, every rank of the default group starting it at once."""
+    import torch.distributed as dist
+
+    from sml_tpu_torch.parallel import collectives as coll
+    _zero_launches()
+    coll.reset_counts()
+    dist.barrier()
+    t0 = time.perf_counter()
+    got = fn()
+    _sync(dev)
+    return (got, _all_launches(), (time.perf_counter() - t0) * 1e3,
+            dict(coll.COUNTS))
+
+
+FIELDS_OF_TREES = ("split_feature", "split_bin", "leaf_value", "gain",
+                   "cover")
+
+
+def mt_save(path: str, specs: dict) -> None:
+    """Every table of every tree and the base of each spec of `specs`
+    ({name: _EnsembleSpec}) to one .npz."""
+    arrays = {}
+    for name, spec in specs.items():
+        for fld in FIELDS_OF_TREES:
+            arrays[f"{name}/{fld}"] = np.stack([getattr(t, fld)
+                                                for t in spec.trees])
+        arrays[f"{name}/base"] = np.asarray([spec.base], np.float32)
+    np.savez(path, **arrays)
+
+
+def mt_same(path: str, specs: dict, what: str) -> None:
+    """Hold the trees saved at `path` (`mt_save`) to `specs` bit for bit."""
+    got = dict(np.load(path))
+    for name, spec in specs.items():
+        for fld in FIELDS_OF_TREES:
+            np.testing.assert_array_equal(
+                got[f"{name}/{fld}"],
+                np.stack([getattr(t, fld) for t in spec.trees]),
+                err_msg=f"{what} {name} {fld}")
+        if got[f"{name}/base"][0] != np.float32(spec.base):
+            raise AssertionError(f"{what} {name}: base {got[name + '/base']}"
+                                 f" != {spec.base}")
+
+
+def mt_rank(n: int, rank: int, dev, seed: int, out_dir: str) -> dict:
+    """Phase 23 on one rank of `n`, every rank with the same inputs:
+    (a)-(b) the ML 07 grid fused over the ranks in each layout of
+    `MT_LAYOUTS` (rows split; on 4 ranks lanes of 2 and the auto width);
+    (c) on 4 ranks the ML 07 CrossValidator as placed trials on 2 groups
+    of 2 ranks; (d) on 2 and 4 ranks phase 13's ML 11 chunked XGBoost, 20
+    rounds then 20 warm-started, each rank ingesting its host view; (e)
+    on 4 ranks `elastic_fit` of the same XGBoost in 4 host groups, group
+    `MT_DEAD` killed after its first checkpoint. Trees go to .npz files
+    in `out_dir`; returns the launches, walls and collective counts."""
+    from sml_tpu_torch import obs
+    from sml_tpu_torch.conf import GLOBAL_CONF
+    from sml_tpu_torch.ct import HostPreempted, elastic_fit
+    from sml_tpu_torch.frame._chunks import ArrayChunkSource
+    from sml_tpu_torch.ml import Pipeline
+    from sml_tpu_torch.ml import _chunked as pch
+    from sml_tpu_torch.ml import _tree_models as ptm
+    from sml_tpu_torch.ml import tree_impl
+    from sml_tpu_torch.parallel import mesh as M
+    arg = "cpu" if dev.type == "cpu" else None
+    GLOBAL_CONF.set("sml.device", dev.type)
+    out = {}
+    with KernelWatch() as watch:
+        # (a), (b): the fused grid in each layout
+        Xs, ys, _, cats = tune_folds(seed)
+        trials = tune_grid()
+        GLOBAL_CONF.set("sml.cv.maxFusedTrials", 16)
+        for layout, knob in MT_LAYOUTS if n == 4 else MT_LAYOUTS[:1]:
+            GLOBAL_CONF.set("sml.cv.trialAxisDevices", knob)
+            clear_fit_caches()
+            models, launches, ms, c = mt_measured(
+                lambda: ptm.fit_cv_grid(Xs, ys, cats, trials, device=arg),
+                dev)
+            mt_save(os.path.join(out_dir, f"grid_{layout}_{n}_{rank}.npz"),
+                    {f"{g}_{f}": sp for (g, f), sp in models.items()})
+            out[f"grid {layout}"] = {
+                "wall_ms": ms, "launches": launches, "collectives": c,
+                "width": tree_impl._trial_axis_width(
+                    len(models), max(len(y) for y in ys))}
+        GLOBAL_CONF.unset("sml.cv.trialAxisDevices")
+        GLOBAL_CONF.unset("sml.cv.maxFusedTrials")
+        if n == 4:
+            # (c) the ML 07 CrossValidator as placed trials over ranks
+            train, _ = sel_frames(100_000)
+            feat = Pipeline(stages=sel_prep()).fit(train).transform(train)
+            feat.cache()
+            rf = sel_rf()
+            GLOBAL_CONF.set("sml.cv.batchFolds", False)
+            mark = len(M.PLACEMENT_LOG)
+            clear_fit_caches()
+            cvm, launches, ms, c = mt_measured(
+                lambda: sel_cv(rf, sel_grid(rf), MT_PLACED).fit(feat), dev)
+            GLOBAL_CONF.unset("sml.cv.batchFolds")
+            out["placed"] = {
+                "avgMetrics": [float(m) for m in cvm.avgMetrics],
+                "log": [[i, list(r)] for i, r in M.PLACEMENT_LOG[mark:]],
+                "wall_ms": ms, "launches": launches, "collectives": c}
+    out["plain_on_cuda"] = watch.plain_on_cuda
+    if n < 2:
+        return out
+    with KernelWatch() as watch:
+        # (d) 20 rounds, then 20 warm-started, each rank its host view
+        X, logy, cats = fit_rows(seed)
+        Xtr, ytr = X[:80_000], logy[:80_000]
+
+        def src():
+            return ArrayChunkSource(Xtr, ytr, chunk_rows=CHUNK_ROWS)
+        xgb_kw = dict(CHUNK_XGB, categorical=cats)
+        _clear_chunk_caches()
+        part, l_part, ms_part, _ = mt_measured(
+            lambda: pch.fit_ensemble_chunked(
+                src(), device=arg, **dict(xgb_kw, n_trees=20)), dev)
+        warm, launches, ms, c = mt_measured(
+            lambda: pch.warm_start_ensemble_chunked(
+                part, src(), n_new_trees=20, seed=42, step_size=0.15,
+                reg_lambda=1.0, rounds_per_dispatch=5, device=arg), dev)
+        mt_save(os.path.join(out_dir, f"warm_{n}_{rank}.npz"),
+                {"xgb": warm})
+        ing = pch.ingest_source(src(), CHUNK_XGB["max_bins"], cats,
+                                device=arg)   # the fresh fit's, memoized
+        out["warm"] = {"part_ms": ms_part, "part_launches": l_part,
+                       "wall_ms": ms, "launches": launches,
+                       "collectives": c, "block": ing.block,
+                       "rows": int(ing.binned.shape[0])}
+        if n == 4:
+            # (e) elastic: group MT_DEAD's notice after the first checkpoint
+            GLOBAL_CONF.set("sml.obs.enabled", True)
+            obs.reset()
+            fired = []
+
+            def chaos(t_done):
+                if rank == MT_DEAD and not fired:
+                    fired.append(t_done)
+                    raise HostPreempted(group=MT_DEAD)
+            d = os.path.join(out_dir, "elastic")
+
+            def fit():
+                try:
+                    return elastic_fit(
+                        src(), d, hosts=4, on_checkpoint=chaos, device=arg,
+                        rounds_per_dispatch=MT_SEGMENT, categorical=cats,
+                        **{k: CHUNK_XGB[k] for k in MT_ELASTIC_KEYS})
+                except HostPreempted as e:
+                    return e
+            got, launches, ms, c = mt_measured(fit, dev)
+            counters = obs.RECORDER.counters()
+            GLOBAL_CONF.set("sml.obs.enabled", False)
+            if isinstance(got, HostPreempted):
+                outcome = f"preempted {got.group}"
+            else:
+                outcome = "model"
+                mt_save(os.path.join(out_dir, f"elastic_{rank}.npz"),
+                        {"xgb": got})
+            out["elastic"] = {
+                "outcome": outcome, "fired_after": fired, "wall_ms": ms,
+                "launches": launches, "collectives": c,
+                "resume": counters.get("elastic.resume", 0),
+                "repartition": counters.get("elastic.repartition", 0)}
+    out["plain_on_cuda"] += watch.plain_on_cuda
+    return out
+
+
+def mt_payload(width: int, n: int) -> dict:
+    """The collectives of one rank's fused fit of the ML 07 grid (20
+    rounds of depth 5 at the maxima, F=10, B=40) over `n` ranks in
+    `width` lanes: the rank's lane fits 12 / width elements over n /
+    width ranks, with a float64 histogram psum a level (the left slots,
+    one an element at the root), a leaf-statistics psum a round and the
+    bases' one, and none on a lane of one rank beside other lanes; lanes
+    then share their packs and bases in one all-gather (one rank's
+    operand: E x (20 x 5 x 63 + 1) f32)."""
+    T, D, B, nodes = 20, 5, 40, 2 ** 6 - 1
+    E, lane = 12 // width, n // width
+    slots = E * (1 + sum(2 ** (L - 1) for L in range(1, D)))
+    merged = width == 1 or lane > 1
+    return {"psum": T * (D + 1) + 1 if merged else 0,
+            "psum_bytes": T * N_FEAT * B * slots * 3 * 8
+            + T * E * 2 ** D * 3 * 8 + 2 * E * 8 if merged else 0,
+            "all_gather_bytes": E * (T * 5 * nodes + 1) * 4
+            if width > 1 else 0}
+
+
+def phase_multirank_tuning(seed: int, device, card: str, tuning: dict,
+                           selection: dict, fit: dict) -> dict:
+    """23. multi-rank tuning and warm start: `mt_rank` on 1 (NCCL), 2 and
+    4 (gloo) ranks on `device`, each rank a process, the three launches
+    at once. Checks: (a) every rank's 12 grid elements bit-equal to phase
+    9's fused fit (split tables, leaves, gains, covers, bases), with phase
+    9's fused launches and the predicted psum calls and bytes; (b) the
+    same trees in lanes of 2 ranks and at the auto width (4 lanes of 1
+    rank: no psum, one all-gather of the packs); (c) the placed CV's
+    avgMetrics equal to phase 12's bit for bit, both submeshes in
+    `PLACEMENT_LOG`, each rank its group's launches; (d) the 20 + 20
+    warm start bit-equal to phase 8's ML 11 fit, one replay traversal a
+    rank, each rank ingesting its own host view; (e) the elastic fit's 3
+    survivors bit-equal to phase 8's fit, `elastic.resume` counted once,
+    the dead rank raising `HostPreempted`, the checkpoints cleared."""
+    import tempfile
+    from sml_tpu_torch.parallel.mesh import host_partition
+    out = {"card": card, "launches": dict.fromkeys(CHUNK_KERNELS, 0)}
+    trials = tune_grid()
+    G = len(trials)
+    grid_ref = {f"{g}_{f}": sp for (g, f), sp in tuning["models"].items()}
+    fit_want = dict(expected_launches(trials, [list(range(G))]),
+                    forest_traverse=0)
+    xgb = {"xgb": fit["xgb"]._spec}
+    with tempfile.TemporaryDirectory(prefix="sml-multirank-tuning-") as tmp:
+        t0 = time.perf_counter()
+        launches = [mr_start(MT_CHILD, n, "gloo" if device.type == "cpu"
+                             else backend, seed, tmp, device, tag="mt")
+                    for n, backend in MT_LAUNCHES]
+        results = mr_finish(launches)
+        out["launch_s"] = time.perf_counter() - t0
+        for (_, n, backend), ranks in zip(launches, results):
+            cell = f"{n}x{backend}"
+            for r, rk in enumerate(ranks):
+                if rk["plain_on_cuda"]:
+                    raise AssertionError(f"{cell} rank {r}: a plain version "
+                                         f"ran on CUDA tensors")
+                for part in [k for k in rk if isinstance(rk[k], dict)
+                             and "launches" in rk[k]]:
+                    for k, v in rk[part]["launches"].items():
+                        out["launches"][k] += v
+                    if part == "warm":
+                        for k, v in rk[part]["part_launches"].items():
+                            out["launches"][k] += v
+            # (a), (b): the grid
+            for layout, _ in MT_LAYOUTS if n == 4 else MT_LAYOUTS[:1]:
+                key = f"grid {layout}"
+                width = ranks[0][key]["width"]
+                want_width = {"rows": 1, "lanes2": 2, "auto": 4}[layout]
+                if width != want_width:
+                    raise AssertionError(f"{cell} {layout}: width {width}")
+                lane = n // width
+                pay = mt_payload(width, n)
+                for r, rk in enumerate(ranks):
+                    mt_same(os.path.join(tmp, f"grid_{layout}_{n}_{r}.npz"),
+                            grid_ref, f"{cell} {layout} rank {r}")
+                    if rk[key]["launches"] != fit_want:
+                        raise AssertionError(
+                            f"{cell} {layout} rank {r}: launches "
+                            f"{rk[key]['launches']}, not {fit_want}")
+                    c = rk[key]["collectives"]
+                    got = {k: c.get("collective." + k, 0.0) for k in pay}
+                    if got != pay:
+                        raise AssertionError(f"{cell} {layout} rank {r}: "
+                                             f"collectives {got}, not {pay}")
+                walls = [rk[key]["wall_ms"] for rk in ranks]
+                out[f"{cell} grid {layout}"] = {
+                    "width": width, "wall_ms": walls, **pay}
+                print(f"multirank_tuning {cell:<8} grid {layout:<6} "
+                      f"(width {width}, {12 // width} elements a lane of "
+                      f"{lane}): every rank's 12 elements bit-equal to "
+                      f"phase 9's fused fit; launches {fit_want} a rank; "
+                      f"psum {pay['psum']} calls {pay['psum_bytes']} bytes, "
+                      f"all-gather {pay['all_gather_bytes']} bytes a rank; "
+                      f"wall {[round(w, 1) for w in walls]} ms (ranks share "
+                      f"the card: information only)  [{card}]")
+            if n == 4:
+                # (c) the placed CV
+                avg = selection["a"]["avgMetrics"]
+                for r, rk in enumerate(ranks):
+                    pl = rk["placed"]
+                    if pl["avgMetrics"] != avg:
+                        raise AssertionError(f"(c) rank {r}: avgMetrics "
+                                             f"{pl['avgMetrics']} != {avg}")
+                    groups = {tuple(g) for _, g in pl["log"]}
+                    if groups != {(0, 1), (2, 3)}:
+                        raise AssertionError(f"(c) rank {r}: placements "
+                                             f"{pl['log']}")
+                    group = r // 2
+                    rf = sel_rf()
+                    grid = sel_grid(rf)
+                    points = [sel_point(rf, pm) for pm in grid]
+                    jobs = [i for i in range(len(points) * SEL_FOLDS)
+                            if i % MT_PLACED == group]
+                    best = int(np.argmin(avg))
+                    want = add_launches(
+                        fits_launches([points[i % len(points)]
+                                       for i in jobs], False),
+                        fits_launches([points[best]], False),
+                        {"forest_traverse": len(jobs)})
+                    if pl["launches"] != want:
+                        raise AssertionError(f"(c) rank {r}: launches "
+                                             f"{pl['launches']}, not {want}")
+                out["4 placed"] = {"avgMetrics": avg,
+                                   "wall_ms": [rk["placed"]["wall_ms"]
+                                               for rk in ranks]}
+                print(f"multirank_tuning 4xgloo (c) ML 07 CrossValidator, "
+                      f"placed trials at parallelism {MT_PLACED} "
+                      f"(batchFolds off): avgMetrics {avg} equal to phase "
+                      f"12's on every rank, trials on {sorted(groups)}, "
+                      f"each rank its group's launches; walls "
+                      f"{[round(w, 1) for w in out['4 placed']['wall_ms']]}"
+                      f" ms  [{card}]")
+            if n >= 2:
+                # (d) the warm start over ranks
+                for r, rk in enumerate(ranks):
+                    w = rk["warm"]
+                    start, stop = host_partition(80_000, n)[r]
+                    if w["block"] != [start, 80_000] \
+                            or w["rows"] != stop - start:
+                        raise AssertionError(f"(d) {cell} rank {r}: block "
+                                             f"{w['block']}, {w['rows']} "
+                                             f"rows")
+                    mt_same(os.path.join(tmp, f"warm_{n}_{r}.npz"), xgb,
+                            f"(d) {cell} rank {r}")
+                    want = {"hist_accumulate": 120, "split_scan": 120,
+                            "feature_mask": 0, "row_weights": 0,
+                            "forest_traverse": 1}
+                    if w["launches"] != want:
+                        raise AssertionError(f"(d) {cell} rank {r}: launches "
+                                             f"{w['launches']}, not {want}")
+                out[f"{cell} warm"] = {
+                    "wall_ms": [rk["warm"]["wall_ms"] for rk in ranks],
+                    "psum_bytes": ranks[0]["warm"]["collectives"].get(
+                        "collective.psum_bytes")}
+                print(f"multirank_tuning {cell:<8} (d) ML 11 chunked "
+                      f"XGBoost, 20 rounds + 20 warm-started: every rank's "
+                      f"40 trees bit-equal to phase 8's fit, each rank "
+                      f"ingesting its host view "
+                      f"{[rk['warm']['block'][0] for rk in ranks]}.. of "
+                      f"80000 rows, one replay traversal a rank; warm walls "
+                      f"{[round(v, 1) for v in out[cell + ' warm']['wall_ms']]}"
+                      f" ms  [{card}]")
+            if n == 4:
+                # (e) elastic
+                # a level kernel a level of each round a rank fitted: the
+                # first segment on every rank, the rest on the survivors
+                # after one replay of the checkpoint's rounds
+                levels = CHUNK_XGB["max_depth"]
+                for r, rk in enumerate(ranks):
+                    e = rk["elastic"]
+                    rounds = MT_SEGMENT if r == MT_DEAD \
+                        else CHUNK_XGB["n_trees"]
+                    want = {"hist_accumulate": rounds * levels,
+                            "split_scan": rounds * levels,
+                            "feature_mask": 0, "row_weights": 0,
+                            "forest_traverse": int(r != MT_DEAD)}
+                    if e["launches"] != want:
+                        raise AssertionError(f"(e) rank {r}: launches "
+                                             f"{e['launches']}, not {want}")
+                    if r == MT_DEAD:
+                        if e["outcome"] != f"preempted {MT_DEAD}":
+                            raise AssertionError(f"(e) dead rank: {e}")
+                        continue
+                    if e["outcome"] != "model" or e["resume"] != 1 \
+                            or e["repartition"] != 1:
+                        raise AssertionError(f"(e) rank {r}: {e}")
+                    mt_same(os.path.join(tmp, f"elastic_{r}.npz"), xgb,
+                            f"(e) rank {r}")
+                if os.path.exists(os.path.join(tmp, "elastic")):
+                    raise AssertionError("(e) the checkpoints were not "
+                                         "cleared")
+                out["4 elastic"] = {
+                    "fired_after": ranks[MT_DEAD]["elastic"]["fired_after"],
+                    "wall_ms": [rk["elastic"]["wall_ms"] for rk in ranks],
+                    "launches": [rk["elastic"]["launches"] for rk in ranks]}
+                print(f"multirank_tuning 4xgloo (e) elastic_fit in 4 host "
+                      f"groups, group {MT_DEAD} preempted after round "
+                      f"{out['4 elastic']['fired_after']}: the 3 survivors' "
+                      f"40 trees bit-equal to phase 8's fit, elastic.resume "
+                      f"1, the dead rank raised HostPreempted, checkpoints "
+                      f"cleared, each rank a level kernel a level of its "
+                      f"rounds and one replay a survivor; walls "
+                      f"{[round(v, 1) for v in out['4 elastic']['wall_ms']]}"
+                      f" ms, launches {out['4 elastic']['launches']}  "
+                      f"[{card}]")
+            out[f"{cell} ranks"] = [
+                {k: rk[k] for k in ("import_s", "init_s", "backend", "torch",
+                                    "local_sync")} for rk in ranks]
+    print(f"multirank_tuning: the three launches together took "
+          f"{out['launch_s']:.1f} s; torch {results[0][0]['torch']}, "
+          f"new_group(use_local_synchronization=) "
+          f"{results[0][0]['local_sync']}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only", choices=["23"], default=None,
+                    help="run phase 23 and what it compares with; no "
+                         "result line")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -7230,6 +7716,15 @@ def main(argv=None) -> int:
     print(f"build: {build.kernel_sources()} (nvcc) and "
           f"{build.host_sources()} (g++) in {time.perf_counter() - t0:.1f} s")
 
+    if args.only == "23":
+        print(json.dumps({"hist_f64": phase_hist_f64(args.seed, device)}))
+        fit = phase_fit(args.seed, device)
+        tuning = phase_tuning(args.seed, device, card)
+        selection = phase_selection(device, card)
+        print(json.dumps({"multirank_tuning": phase_multirank_tuning(
+            args.seed, device, card, tuning, selection, fit)}))
+        print(card)
+        return 0
     err = phase_kernels(args.seed, device)
     main_path = phase_main_path(args.seed, device)
     times = phase_times(args.seed, device, card)
@@ -7257,6 +7752,8 @@ def main(argv=None) -> int:
     observed = phase_observed(args.seed, device, card)
     fleet = phase_fleet(args.seed, device, card)
     multirank = phase_multirank(args.seed, device, card, fit)
+    multirank_tuning = phase_multirank_tuning(args.seed, device, card, tuning,
+                                              selection, fit)
 
     def by_path(kernel: str) -> dict:
         return {"fit": fit["launches"][kernel],
@@ -7271,7 +7768,8 @@ def main(argv=None) -> int:
                 "dataplane": dataplane["launches"][kernel],
                 "observed": observed["launches"][kernel],
                 "fleet": fleet["launches"][kernel],
-                "multirank": multirank["launches"][kernel]}
+                "multirank": multirank["launches"][kernel],
+                "multirank_tuning": multirank_tuning["launches"][kernel]}
 
     def windows(kernel: str) -> dict:
         return {what: seen for what, seen in DEVICE_WINDOWS.items()
@@ -7295,7 +7793,8 @@ def main(argv=None) -> int:
         + dataplane["launches"]["forest_traverse"]
         + observed["launches"]["forest_traverse"]
         + fleet["launches"]["forest_traverse"]
-        + multirank["launches"]["forest_traverse"],
+        + multirank["launches"]["forest_traverse"]
+        + multirank_tuning["launches"]["forest_traverse"],
         "launches_by_path": {"serving": main_path["launches"],
                              "tuning": tuning["fused"]["forest_traverse"],
                              "dataframe": frames["evaluate"][
@@ -7318,7 +7817,9 @@ def main(argv=None) -> int:
                              "fleet": fleet["launches"][
                                  "forest_traverse"],
                              "multirank": multirank["launches"][
-                                 "forest_traverse"]},
+                                 "forest_traverse"],
+                             "multirank_tuning": multirank_tuning[
+                                 "launches"]["forest_traverse"]},
         "replay_launches": chunked["b"]["launches"]["forest_traverse"],
         "replay": chunked["replay"],
         "launches_by_rows": main_path["launches_by_rows"],
@@ -7361,7 +7862,9 @@ def main(argv=None) -> int:
         host_us=fit_times["host_us"]["hist_accumulate"],
         f64_out=dict(fit_err["hist_f64"],
                      shape="phase 22's level 5: 40000 and 20000 rows "
-                           "F=10 B=64 uint8, S=16; float64 output")))
+                           "F=10 B=64 uint8, S=16; phase 23's fused grid "
+                           "last level on one of 4 ranks: 160008 rows F=10 "
+                           "B=40 uint8, S=96; float64 output")))
     kernels.append(dict(
         name="split_scan", route="cuda",
         device_windows=windows("split_scan"),
@@ -7441,6 +7944,8 @@ def main(argv=None) -> int:
     print(json.dumps({"observed": observed}))
     print(json.dumps({"fleet": fleet}))
     print(json.dumps({"multirank": multirank}))
+    print(json.dumps({"multirank_tuning": {
+        k: v for k, v in multirank_tuning.items()}}))
     print(json.dumps({"dataframe": {
         "launches_fit": frames["fit"], "launches_evaluate":
         frames["evaluate"], "rmse": frames["rmse"],

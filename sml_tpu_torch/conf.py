@@ -12,8 +12,7 @@ process-wide platform choice (`jax.config.update("jax_platforms",
 `sml.tree.kernelBlockRows` are not ported: on the card there is one
 path (the kernel, or raise), and block sizes come from the shapes, in
 each kernel's wrapper. Nor is `sml.tree.histSubtraction`: the port
-always builds with subtraction, its default. Nor is
-`sml.cv.trialAxisDevices`: one card has one layout.
+always builds with subtraction, its default.
 """
 
 from __future__ import annotations
@@ -163,6 +162,19 @@ _register("sml.cv.batchFolds", True, _to_bool,
           "grid over k folds costs ceil(G*k/maxFusedTrials) tree-fit "
           "dispatches; every element is its sequential fit bit for bit. "
           "false forces placed trials")
+_register("sml.cv.trialAxisDevices", 0, int,
+          "Ranks spanned by the fused-trial ELEMENT axis: grid-fused "
+          "(grid point x fold) trials spread over lanes of ranks (a "
+          "'trial' axis) while each trial lane keeps splitting rows over "
+          "its own ranks, so E trials progress on disjoint ranks with an "
+          "n/t-wide (often allreduce-free) data axis apiece, instead of "
+          "every trial spanning all ranks. 0 = auto (spread trials "
+          "whenever one trial's padded rows fit a single rank "
+          "comfortably: the small-rows regime where the per-level "
+          "allreduce latency dominates the per-rank histogram); 1 = "
+          "rows-only sharding; k > 1 clamps to the largest mesh divisor "
+          "<= k (the element axis pads by repeating element 0). Every "
+          "layout fits the one-rank trees bit for bit")
 _register("sml.tune.candidatesPerDispatch", 4, int,
           "TPE candidates proposed AND scored per generation for "
           "batch-capable fmin objectives (fn.score_batch): a "

@@ -23,14 +23,15 @@ The port's copy of `sml_tpu/ct`:
   finite divergence, and its RMSE on the window clears
   `sml.ct.gateQualityTol`; a failed gate archives it and dumps a
   black-box bundle.
-
-`ct/_elastic.py` (the multi-host fits, with its `sml.ct.elasticResume`
-and `sml.ct.elasticMaxRestarts` keys) waits for the multi-GPU slice.
+- **Elastic fits** (`_elastic`): `elastic_fit`, a `checkpointed_fit` on
+  a host mesh of ranks that resumes on the surviving host groups after
+  a `HostPreempted` (`sml.ct.elasticResume`,
+  `sml.ct.elasticMaxRestarts`).
 """
 
 from __future__ import annotations
 
-from ..conf import _register
+from ..conf import _register, _to_bool
 
 _register("sml.ct.warmSeverity", 1.0, float,
           "Drift severity (the largest live-against-baseline distance as "
@@ -65,16 +66,29 @@ _register("sml.ct.gateTimeoutSec", 20.0, float,
 _register("sml.ct.gateQualityTol", 1.1, float,
           "Promotion quality bar: the candidate's RMSE on the gate window "
           "must be at most the incumbent's times this tolerance")
+_register("sml.ct.elasticResume", True, _to_bool,
+          "Elastic multi-host fits: when a host group is preempted "
+          "mid-fit (ct.elastic_fit catches HostPreempted), rebuild the "
+          "host mesh over the surviving groups, re-partition the chunk "
+          "ranges, and resume from the newest round-level checkpoint. "
+          "Off = the preemption propagates to the orchestrator (every "
+          "resume still counts elastic.resume / elastic.repartition)")
+_register("sml.ct.elasticMaxRestarts", 3, int,
+          "Resume budget of one elastic_fit call: preemptions beyond "
+          "this many mesh rebuilds propagate instead of resuming (a "
+          "fleet losing hosts faster than it fits should fail loudly, "
+          "not shrink to a single group)")
 _register("sml.ct.gateRows", 2048, int,
           "Rows of the fresh window replayed through the endpoint as gate "
           "traffic (and the quality check's sample)")
 
 from ._checkpoint import (BoostCheckpoint, checkpointed_fit,  # noqa: E402
                           checkpointed_warm_start)
+from ._elastic import HostPreempted, elastic_fit  # noqa: E402
 from ._gate import CanaryGate  # noqa: E402
 from ._sources import DeltaChunkSource, StreamChunkSource  # noqa: E402
 from ._trainer import ContinuousTrainer  # noqa: E402
 
 __all__ = ["StreamChunkSource", "DeltaChunkSource", "BoostCheckpoint",
            "checkpointed_fit", "checkpointed_warm_start", "CanaryGate",
-           "ContinuousTrainer"]
+           "ContinuousTrainer", "HostPreempted", "elastic_fit"]

@@ -18,6 +18,12 @@ previous checkpoint whole):
 
 The partial spec is saved in the JAX package's format, so a checkpoint
 written by either package loads in the other.
+
+Under a mesh of ranks (`parallel.mesh.get_mesh()`) every rank fits, and
+every rank calls `save` and `clear` at the same points; the ranks share
+one filesystem, so only the mesh's lowest rank writes, prunes and
+removes, and every rank then waits for it (one MAX all-reduce of its
+failure flag, `_writer`) before any of them reads the directory again.
 """
 
 from __future__ import annotations
@@ -47,11 +53,42 @@ def _meta_match(saved: dict, want: dict, keys) -> bool:
     return all(saved.get(k) == want.get(k) for k in keys)
 
 
+def _writer(body) -> None:
+    """Run `body` on the mesh's lowest rank only (on this process when
+    there is no mesh of several ranks), then hold every rank of the mesh
+    until it is done: one MAX all-reduce of its failure flag, which
+    doubles as the barrier, so that when the writer raises, whatever it
+    raises, every rank raises: the writer its own exception, the others
+    an OSError naming it."""
+    import torch
+
+    from ..parallel import collectives as coll
+    from ..parallel.mesh import get_mesh
+    mesh = get_mesh()
+    if mesh is None or mesh.size <= 1:
+        body()
+        return
+    error = None
+    if mesh.rank == 0:
+        try:
+            body()
+        except Exception as e:  # noqa: BLE001 — re-raised below, once
+            error = e           # every rank has joined the flag's pmax
+    failed = coll.pmax(torch.tensor([int(error is not None)],
+                                    device=mesh.device), mesh=mesh)
+    if error is not None:
+        raise error
+    if int(failed[0]):
+        raise OSError(f"rank {mesh.ranks[0]} of the mesh failed to write "
+                      f"the checkpoint")
+
+
 class BoostCheckpoint:
     """One fit's checkpoint directory. `save()` runs on the fit's thread
     at segment boundaries; `load()` and `clear()` on the caller's. A save
     writes a temporary directory and renames it, then swings the
-    LATEST pointer the same way."""
+    LATEST pointer the same way. Under a mesh of ranks only the lowest
+    rank writes (`_writer`)."""
 
     def __init__(self, directory: str, keep: int = 2):
         self._dir = directory
@@ -66,23 +103,26 @@ class BoostCheckpoint:
         """Persist the partial ensemble after round `t_done` with `meta`
         (the target, the seed and `_RESUME_PARAMS`)."""
         with self._lock:
-            os.makedirs(self._dir, exist_ok=True)
-            rel = f"rounds-{int(t_done)}"
-            tmp = os.path.join(self._dir, rel + ".tmp")
-            final = os.path.join(self._dir, rel)
-            shutil.rmtree(tmp, ignore_errors=True)
-            os.makedirs(tmp, exist_ok=True)
-            partial_spec.save(tmp)
-            shutil.rmtree(final, ignore_errors=True)
-            os.replace(tmp, final)
-            pointer = dict(meta)
-            pointer.update({"t": int(t_done), "path": rel})
-            ptmp = os.path.join(self._dir, _LATEST + ".tmp")
-            with open(ptmp, "w") as fh:
-                json.dump(pointer, fh)
-            os.replace(ptmp, os.path.join(self._dir, _LATEST))
+            _writer(lambda: self._write(partial_spec, t_done, meta))
             PROFILER.count("ct.checkpoints")
-            self._prune(keep_rel=rel)
+
+    def _write(self, partial_spec, t_done: int, meta: dict) -> None:
+        os.makedirs(self._dir, exist_ok=True)
+        rel = f"rounds-{int(t_done)}"
+        tmp = os.path.join(self._dir, rel + ".tmp")
+        final = os.path.join(self._dir, rel)
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp, exist_ok=True)
+        partial_spec.save(tmp)
+        shutil.rmtree(final, ignore_errors=True)
+        os.replace(tmp, final)
+        pointer = dict(meta)
+        pointer.update({"t": int(t_done), "path": rel})
+        ptmp = os.path.join(self._dir, _LATEST + ".tmp")
+        with open(ptmp, "w") as fh:
+            json.dump(pointer, fh)
+        os.replace(ptmp, os.path.join(self._dir, _LATEST))
+        self._prune(keep_rel=rel)
 
     def _prune(self, keep_rel: str) -> None:
         rounds = sorted(
@@ -111,7 +151,7 @@ class BoostCheckpoint:
 
     def clear(self) -> None:
         with self._lock:
-            shutil.rmtree(self._dir, ignore_errors=True)
+            _writer(lambda: shutil.rmtree(self._dir, ignore_errors=True))
 
 
 def _snapshot_spec(trees, step_size: float, depth: int, binning, base,
@@ -257,6 +297,6 @@ def checkpointed_fit(source, checkpoint_dir: str, *, n_trees: int,
         step_size=step_size, reg_lambda=reg_lambda, gamma=gamma,
         boosting=True, rounds_per_dispatch=rounds_per_dispatch,
         prebinned=(ing.binned, ing.binning), baseline_sketch=ing.sketch,
-        on_rounds=fresh_hook, device=device)
+        on_rounds=fresh_hook, block=ing.block, device=device)
     ck.clear()
     return spec

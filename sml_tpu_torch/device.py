@@ -7,9 +7,10 @@ Entry points run on the card unless the caller asks for the CPU; asking
 for CUDA where there is none raises instead of carrying on somewhere
 else.
 
-`run_placed_trials` is the one-card form of the JAX package's placed
-trials: tuning's trials run `parallelism` worker threads wide, all on
-the session's device.
+`run_placed_trials` is the JAX package's placed trials: on one card
+tuning's trials run `parallelism` worker threads wide, all on the
+session's device; under a mesh of several ranks they run on disjoint
+groups of ranks (`parallel.mesh.run_placed_trials`).
 
 `use_device_local(device)` binds a device as THIS thread's (the JAX
 package's `use_mesh_local`): inside it `resolve_device(None)` and
@@ -86,23 +87,21 @@ def session_device() -> torch.device:
 
 def run_placed_trials(jobs: Sequence, fn: Callable, parallelism: int
                       ) -> List:
-    """`fn(job)` for every job, `parallelism` worker threads wide, all on
-    the session's device (one card has one layout; the JAX package gives
-    each worker its own submesh). Results come back in job order. An
-    exception in a trial propagates. Under a mesh of several ranks,
-    trials in threads would interleave their fits' collectives, so
-    parallelism above 1 raises there (trials over ranks: ROADMAP item
-    10)."""
+    """`fn(job)` for every job, results in job order. On one card the
+    jobs run `parallelism` worker threads wide, all on the session's
+    device (one card has one layout; the JAX package gives each worker
+    its own submesh), and an exception in a trial propagates. Under a
+    mesh of several ranks they run over the ranks
+    (`parallel.mesh.run_placed_trials`): trials in threads would
+    interleave their fits' collectives, so each disjoint group of ranks
+    runs its own trials one after another, and every rank returns every
+    result."""
     jobs = list(jobs)
     session_device()  # no card: raise before any trial starts
     parallelism = max(1, int(parallelism))
-    if parallelism > 1 and len(jobs) > 1:
-        from .parallel.mesh import data_width
-        if data_width() > 1:
-            raise NotImplementedError(
-                "placed trials in threads under a mesh of several ranks "
-                "would interleave their collectives; run them with "
-                "parallelism 1 (trials over ranks: ROADMAP item 10)")
+    from .parallel import mesh as meshlib
+    if meshlib.data_width() > 1:
+        return meshlib.run_placed_trials(jobs, fn, parallelism)
     if parallelism <= 1 or len(jobs) <= 1:
         return [fn(job) for job in jobs]
     from concurrent.futures import ThreadPoolExecutor

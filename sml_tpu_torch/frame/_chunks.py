@@ -1,8 +1,7 @@
 """The out-of-core data plane's host half: chunk sources, split draws
 and the mergeable quantile sketch.
 
-The port's copy of `sml_tpu/frame/_chunks.py` (all but `HostChunkView`,
-which waits for the multi-GPU slice):
+The port's copy of `sml_tpu/frame/_chunks.py`:
 
 - `ChunkSource`: a re-iterable source of row-block chunks (`chunks()`
   returns a fresh iterator each call: the streamed quantization reads
@@ -16,6 +15,10 @@ which waits for the multi-GPU slice):
   (`sampling.row_uniforms`), so splits and folds are the same rows for
   any chunking; a filtered source numbers its rows by their position in
   the filtered stream, so nested splits are chunk-invariant too.
+- `HostChunkView` (`ChunkSource.host_view`): one host group's (under a
+  mesh of ranks, one rank's) contiguous range of a counted source's
+  rows, `parallel.mesh.host_partition`'s split, so each rank ingests
+  only its own rows.
 - `FeatureSketch` / `DatasetSketch`: a mergeable quantile sketch. Up to
   `_EXACT_CAP` finite values a feature it keeps the raw values and its
   quantiles are the same `np.quantile` call `tree_impl.make_bins` runs,
@@ -80,6 +83,15 @@ class ChunkSource:
     def randomSplit(self, weights: Sequence[float],
                     seed: int) -> List["FilteredChunkSource"]:
         return chunk_random_split(self, weights, seed)
+
+    def host_view(self, host: int, n_hosts: int) -> "HostChunkView":
+        """This host group's slice of the chunk stream: the contiguous
+        global row range `mesh.host_partition(n_rows, n_hosts)[host]`.
+        Host-major row sharding places exactly that range on group
+        `host`'s devices, so each group ingests only its own rows -- the
+        per-host data plane of a multi-host fit. Requires a known
+        `n_rows` (the two-pass ingest counts it in the sketch pass)."""
+        return HostChunkView(self, host, n_hosts)
 
     def sample(self, fraction: float, seed: int) -> "FilteredChunkSource":
         """A row-wise Bernoulli sample by the same stateless draw as
@@ -213,6 +225,57 @@ class FoldChunkSource(ChunkSource):
         if pf is None:
             return None
         return ("fold", pf, self._seed, self._k, self._fold, self._invert)
+
+
+class HostChunkView(ChunkSource):
+    """One host group's contiguous row range of a parent source: rows
+    [start, stop) where the bounds come from `mesh.host_partition` -- the
+    SAME global row order, restricted, never reshuffled. Because every
+    row keeps its parent GLOBAL index for sampling purposes downstream
+    (the staged rows land at their global positions), an H-host ingest
+    assembles exactly the matrix the 1-host ingest does, row for row --
+    layout-invariant sampling then makes the fits match too. Parent
+    chunks are sliced, not re-buffered: a chunk straddling the boundary
+    yields only its in-range rows."""
+
+    def __init__(self, parent: ChunkSource, host: int, n_hosts: int):
+        if parent.n_rows is None:
+            raise ValueError("host_view needs a counted source "
+                             "(parent.n_rows is None -- run the sketch "
+                             "pass first)")
+        from ..parallel import mesh as _meshlib
+        self._parent = parent
+        self._host = int(host)
+        self._n_hosts = int(n_hosts)
+        if not 0 <= self._host < self._n_hosts:
+            raise ValueError(f"host {host} outside 0..{n_hosts - 1}")
+        self.start, self.stop = _meshlib.host_partition(
+            parent.n_rows, self._n_hosts)[self._host]
+        self.n_features = parent.n_features
+        self.n_rows = self.stop - self.start
+
+    @property
+    def chunk_rows(self) -> int:
+        return self._parent.chunk_rows
+
+    def _iter_chunks(self):
+        pos = 0
+        for X, y in self._parent.chunks():
+            rows = int(np.shape(X)[0])
+            lo = max(self.start - pos, 0)
+            hi = min(self.stop - pos, rows)
+            pos += rows
+            if lo < hi:
+                yield (np.asarray(X)[lo:hi],
+                       None if y is None else np.asarray(y)[lo:hi])
+            if pos >= self.stop:
+                break
+
+    def fingerprint(self) -> Optional[tuple]:
+        pf = self._parent.fingerprint()
+        if pf is None:
+            return None
+        return ("host", pf, self._host, self._n_hosts)
 
 
 def chunk_random_split(source: ChunkSource, weights: Sequence[float],

@@ -22,7 +22,10 @@ host protocol (ChunkSource, the mergeable sketch, the split draws).
   feeds `obs.INGEST_SKEW` (the `ingest` block of `engine_health()`
   names the slowest chunk), and `drift_baseline=` judges every chunk's
   pass-1 sketch against a model's training baseline (the "ingest"
-  drift monitor).
+  drift monitor). Under a mesh of ranks pass 1 still reads every row, so
+  every rank finalizes the same edges, and pass 2 reads only the rank's
+  `host_view`: the host mirror and the device matrix hold its block of
+  the rows (`IngestResult.block`), which the fits then split no further.
 - `fit_ensemble_chunked`: `_tree_models._fit_ensemble` with
   `prebinned=`, the same path as a fit on the materialized rows, which
   it equals bit for bit while the sketch is exact; pass 1's sketch
@@ -38,7 +41,7 @@ The entry points run on `device`, the card unless the caller passes
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -56,6 +59,9 @@ class IngestResult(NamedTuple):
     n_rows: int
     stats: dict                 # the ingest's walls, bytes and event order
     sketch: Optional[DatasetSketch] = None   # pass 1's whole-data sketch
+    #: under a mesh of ranks, (start, n_rows): `binned` and `y` are this
+    #: rank's rows [start, start + len(y)) of the n_rows; None: all rows
+    block: Optional[Tuple[int, int]] = None
 
 
 #: completed ingests by source fingerprint: a refit on the same source
@@ -65,12 +71,14 @@ _INGEST_MEMO_ENTRIES = 2
 
 
 def _memo_key(source: ChunkSource, max_bins: int,
-              categorical: Optional[Dict[int, int]]) -> Optional[tuple]:
+              categorical: Optional[Dict[int, int]],
+              mesh=None) -> Optional[tuple]:
     fp = source.fingerprint()
     if fp is None:
         return None
     return (fp, int(max_bins), tuple(sorted((categorical or {}).items())),
-            int(source.chunk_rows))
+            int(source.chunk_rows),
+            None if mesh is None else (mesh.ranks, mesh.rank))
 
 
 def sketch_source(source: ChunkSource, max_bins: int,
@@ -114,6 +122,11 @@ def ingest_source(source: ChunkSource, max_bins: int,
     The chunks' host walls feed `obs.INGEST_SKEW` as program
     `ingest.<label>`.
 
+    Under a mesh of ranks on `device` (`dispatch.mesh_for`) pass 2 reads
+    only this rank's `source.host_view(rank, size)`: the result holds its
+    block of the rows, and `block` says which (`n_rows` stays the
+    source's).
+
     `stats` holds: n_chunks, chunk_rows, prefetch_depth, sketch_exact,
     sketch_s / pipeline_s / prep_s / dispatch_s (host clock; prep summed
     over the worker threads), raw_bytes, compact_bytes,
@@ -123,12 +136,14 @@ def ingest_source(source: ChunkSource, max_bins: int,
     (the pipeline's ("dispatch" | "drain", chunk) events in order)."""
     from ..device import resolve_device
     from ..obs import INGEST_SKEW, LEDGER
+    from ..parallel.dispatch import mesh_for
     from ..parallel.pipeline import prefetch_pipeline
     from ._staging import ChunkAssembler, insert_bins_cached
     dev = resolve_device(device)
+    mesh = mesh_for(dev)
     key = None if (binning is not None or sketch is not None
                    or drift_baseline is not None) \
-        else _memo_key(source, max_bins, categorical)
+        else _memo_key(source, max_bins, categorical, mesh)
     hit = _ingest_memo.get(key) if key is not None else None
     if hit is not None:
         PROFILER.count("ingest.memo_hit")
@@ -154,8 +169,13 @@ def ingest_source(source: ChunkSource, max_bins: int,
 
     # ---- pass 2: bin each chunk, copy it into the resident matrix
     F = source.n_features
-    host = np.zeros((n, F), dtype=out_dtype)
-    y_host = np.zeros(n, dtype=np.float32)
+    block, rows_of = None, source
+    if mesh is not None:
+        rows_of = source.host_view(mesh.rank, mesh.size)
+        block = (rows_of.start, n)
+    n_mine = rows_of.n_rows
+    host = np.zeros((n_mine, F), dtype=out_dtype)
+    y_host = np.zeros(n_mine, dtype=np.float32)
     labeled = [False]
     prep_walls: list = []
     dispatch_walls: list = []
@@ -167,13 +187,13 @@ def ingest_source(source: ChunkSource, max_bins: int,
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
         mem0 = torch.cuda.memory_allocated(dev)
-    asm = ChunkAssembler(n, F, out_dtype, dev, depth)
-    stage_bytes = n * F * np.dtype(out_dtype).itemsize
+    asm = ChunkAssembler(n_mine, F, out_dtype, dev, depth)
+    stage_bytes = n_mine * F * np.dtype(out_dtype).itemsize
     LEDGER.alloc("chunk_stage", stage_bytes)
 
     def offsets():
         start = 0
-        for X, y in source.chunks():
+        for X, y in rows_of.chunks():
             rows = int(np.shape(X)[0])
             yield start, X, y
             start += rows
@@ -226,7 +246,7 @@ def ingest_source(source: ChunkSource, max_bins: int,
 
     n_chunks = len(prep_walls)
     PROFILER.count("ingest.chunks", float(n_chunks))
-    PROFILER.count("ingest.rows", float(n))
+    PROFILER.count("ingest.rows", float(n_mine))
     PROFILER.count("ingest.raw_bytes", float(raw_bytes[0]))
     if n_chunks:
         INGEST_SKEW.note(f"ingest.{label}", prep_walls,
@@ -246,7 +266,8 @@ def ingest_source(source: ChunkSource, max_bins: int,
         "order": order,
     }
     out = IngestResult(binned=host, y=y_host if labeled[0] else None,
-                       binning=binning, n_rows=n, stats=stats, sketch=sketch)
+                       binning=binning, n_rows=n, stats=stats, sketch=sketch,
+                       block=block)
     if key is not None:
         while len(_ingest_memo) >= _INGEST_MEMO_ENTRIES:
             _ingest_memo.pop(next(iter(_ingest_memo)))
@@ -288,7 +309,7 @@ def fit_ensemble_chunked(source: ChunkSource, *, categorical=None,
         step_size=step_size, reg_lambda=reg_lambda, gamma=gamma,
         boosting=boosting, rounds_per_dispatch=rounds_per_dispatch,
         prebinned=(ing.binned, ing.binning), baseline_sketch=ing.sketch,
-        on_rounds=on_rounds, device=device)
+        on_rounds=on_rounds, block=ing.block, device=device)
 
 
 def warm_start_ensemble_chunked(spec, source: ChunkSource, *,
@@ -321,7 +342,7 @@ def warm_start_ensemble_chunked(spec, source: ChunkSource, *,
                          "not None)")
     return _resume_ensemble(spec, ing.binned, ing.y, n_new_trees=n_new_trees,
                             seed=seed, baseline_sketch=ing.sketch,
-                            device=device, **resume_kwargs)
+                            block=ing.block, device=device, **resume_kwargs)
 
 
 def iter_predictions(spec, source: ChunkSource, device=None):

@@ -408,29 +408,68 @@ def _cached_bins(X, y32, max_bins, categorical):
     return hit
 
 
-def _same_on_every_rank(mesh, binning: Binning, y32: np.ndarray) -> None:
+def _same_on_every_rank(mesh, binnings, ys, grid=None,
+                        rows: Optional[int] = None) -> None:
     """Raise unless every rank of `mesh` holds the same fit inputs: one
-    MIN and one MAX all-reduce of [a hash of the bin edges, category
-    ranks and labels, the row count]. Ranks that binned different rows
-    would otherwise fit a wrong model without a word."""
+    MIN and one MAX all-reduce of [a hash of the bin edges and category
+    ranks of each of `binnings`, the labels `ys` and the `grid` (a fused
+    fit's hyperparameters), the row count]. The row count is `rows`, or
+    the labels' when None. Ranks that binned different rows would
+    otherwise fit a wrong model without a word."""
     import hashlib
 
     import torch
 
     from ..parallel import collectives as coll
     h = hashlib.blake2b(digest_size=7)   # below 2^56: an int64
-    h.update(np.ascontiguousarray(binning.edges).tobytes())
-    for f, rank in sorted(binning.cat_remap.items()):
-        h.update(np.int64(f).tobytes() + np.ascontiguousarray(rank).tobytes())
-    h.update(y32.tobytes())
-    mine = torch.tensor([int.from_bytes(h.digest(), "little"), len(y32)],
+    for binning in binnings:
+        h.update(np.ascontiguousarray(binning.edges).tobytes())
+        for f, rank in sorted(binning.cat_remap.items()):
+            h.update(np.int64(f).tobytes()
+                     + np.ascontiguousarray(rank).tobytes())
+    for y in ys:
+        h.update(np.ascontiguousarray(y, np.float32).tobytes())
+    if grid is not None:
+        h.update(repr(grid).encode())
+    n = sum(len(y) for y in ys) if rows is None else int(rows)
+    mine = torch.tensor([int.from_bytes(h.digest(), "little"), n],
                         dtype=torch.int64, device=mesh.device)
     lo, hi = coll.pmin(mine, mesh=mesh), coll.pmax(mine, mesh=mesh)
     if not torch.equal(lo, hi):
         raise ValueError(
             f"the {mesh.size} ranks of the mesh hold different fit inputs "
-            f"(bin edges, category ranks and labels hashed, row counts "
-            f"{int(lo[1])}..{int(hi[1])}): every rank must fit the same rows")
+            f"(bin edges, category ranks, labels and grid hashed, row "
+            f"counts {int(lo[1])}..{int(hi[1])}): every rank must fit the "
+            f"same rows")
+
+
+def _rank_block(dev, binning, y32: np.ndarray, block):
+    """(Shard, rows of the given arrays) of a fit on `dev`: (None, all)
+    outside a mesh (`dispatch.mesh_for`), else this rank's block after
+    the input check. `block` None means every rank holds all the rows
+    (checked equal, then cut to `mesh.row_range`); (start, total) says
+    the arrays already are this rank's block of `total` rows (a chunked
+    ingest's host view; the binning and the total are checked)."""
+    from ..parallel.dispatch import mesh_for
+    from ..parallel.mesh import row_range
+    mesh = mesh_for(dev)
+    if mesh is None:
+        if block is not None:
+            raise ValueError(f"a rank's block of rows ({block}) fitted "
+                             f"outside its mesh, on {dev}")
+        return None, slice(None)
+    if block is None:
+        n = len(y32)
+        _same_on_every_rank(mesh, [binning], [y32])
+        start, stop = row_range(n, mesh)
+        return tree_impl.Shard(mesh, (start,), (n,)), slice(start, stop)
+    start, total = (int(v) for v in block)
+    _same_on_every_rank(mesh, [binning], [], rows=total)
+    if (start, start + len(y32)) != row_range(total, mesh):
+        raise ValueError(f"rows [{start}, {start + len(y32)}) of {total} "
+                         f"are not rank {mesh.rank}'s block "
+                         f"{row_range(total, mesh)} of the mesh")
+    return tree_impl.Shard(mesh, (start,), (total,)), slice(None)
 
 
 def _fit_ensemble(X: Optional[np.ndarray], y: np.ndarray, *,
@@ -442,7 +481,7 @@ def _fit_ensemble(X: Optional[np.ndarray], y: np.ndarray, *,
                   boosting: bool = False, missing: Optional[float] = None,
                   rounds_per_dispatch: Optional[int] = None, prebinned=None,
                   baseline_sketch=None, on_rounds=None,
-                  device=None) -> _EnsembleSpec:
+                  block=None, device=None) -> _EnsembleSpec:
     """The one training path behind every tree learner: bin on the host,
     stage the compact bins and the labels on `device` (the card by
     default), and fit every round there
@@ -468,10 +507,11 @@ def _fit_ensemble(X: Optional[np.ndarray], y: np.ndarray, *,
     rank calls the fit with the same rows) each rank bins all the rows,
     checks that every rank holds the same inputs (`_same_on_every_rank`),
     stages only its own block (`mesh.row_range`) and fits data-parallel
-    (`tree_impl.Shard`): every rank returns the one-rank fit's model."""
+    (`tree_impl.Shard`): every rank returns the one-rank fit's model.
+    `block=(start, total)` says that `prebinned` and y are already this
+    rank's block of `total` rows (`ml/_chunked.ingest_source` under a
+    mesh; `_rank_block`)."""
     from ..obs import drift as _drift
-    from ..parallel.dispatch import mesh_for
-    from ..parallel.mesh import row_range
     from ..utils.profiler import PROFILER
     from ._staging import routed_for, stage_bins_cached, stage_rows
     y32 = np.asarray(y, np.float32)
@@ -495,13 +535,7 @@ def _fit_ensemble(X: Optional[np.ndarray], y: np.ndarray, *,
     hint = WorkHint(flops=2.0 * n_trees * max_depth * binned.shape[0] * F
                     * max_bins, kind="scatter")
     with routed_for(hint, binned, device=device) as dev:
-        mesh = mesh_for(dev)
-        shard, rows = None, slice(None)
-        if mesh is not None:
-            n = binned.shape[0]
-            _same_on_every_rank(mesh, binning, y32)
-            start, stop = row_range(n, mesh)
-            shard, rows = tree_impl.Shard(mesh, start, n), slice(start, stop)
+        shard, rows = _rank_block(dev, binning, y32, block)
         with PROFILER.span("staging.fit", rows=int(binned[rows].shape[0])):
             binned_dev = stage_bins_cached(binned[rows], dev)
             y_dev = stage_rows(y32[rows], dev)
@@ -532,7 +566,8 @@ def _resume_ensemble(spec: _EnsembleSpec, binned: np.ndarray,
                      loss: Optional[str] = None,
                      rounds_per_dispatch: Optional[int] = None,
                      X: Optional[np.ndarray] = None, baseline_sketch=None,
-                     on_rounds=None, device=None) -> _EnsembleSpec:
+                     on_rounds=None, block=None,
+                     device=None) -> _EnsembleSpec:
     """The warm start of `warm_start_ensemble` and
     `ml/_chunked.warm_start_ensemble_chunked`: stage the rows, already
     binned under the saved spec's binning (the appended rounds split on
@@ -544,8 +579,10 @@ def _resume_ensemble(spec: _EnsembleSpec, binned: np.ndarray,
     base is the saved spec's. Raises for a spec that is not boosted, and
     for a `step_size` other than the saved one (it would rescale the
     saved rounds' share of every prediction). Routed like
-    `_fit_ensemble`; with the recorder on the result carries a baseline
-    of the new rows (`X`, or the chunked path's `baseline_sketch`)."""
+    `_fit_ensemble`, and over a mesh of ranks split like it (`block` as
+    there): each rank replays and fits its own block of the rows. With
+    the recorder on the result carries a baseline of the new rows (`X`,
+    or the chunked path's `baseline_sketch`)."""
     from ..obs import drift as _drift
     from ._staging import routed_for, stage_bins_cached, stage_rows
     if spec.tree_weights is None:
@@ -572,9 +609,11 @@ def _resume_ensemble(spec: _EnsembleSpec, binned: np.ndarray,
     hint = WorkHint(flops=2.0 * n_new_trees * spec.depth * binned.shape[0]
                     * F * max_bins, kind="scatter")
     with routed_for(hint, binned, device=device) as dev:
+        shard, rows = _rank_block(dev, spec.binning, y32, block)
         new_trees, base = tree_impl.resume_ensemble_on_device(
-            stage_bins_cached(binned, dev), stage_rows(y32, dev), es, seed,
-            spec.trees, float(spec.base), rounds_per_dispatch, on_rounds)
+            stage_bins_cached(binned[rows], dev), stage_rows(y32[rows], dev),
+            es, seed, spec.trees, float(spec.base), rounds_per_dispatch,
+            on_rounds, shard=shard)
     trees = list(spec.trees) + list(new_trees)
     weights = np.full(len(trees), step, dtype=np.float32)
     out = _EnsembleSpec(trees, spec.depth, spec.binning, weights,
@@ -612,7 +651,11 @@ def _fit_ensemble_folds(Xs, ys, cats, *, max_depth: int, max_bins: int,
     matrices and labels) as one fused fit on `device`
     (`tree_impl.fit_ensembles_folds`): one launch of each kernel a level
     for all k. Each fold is binned on its own rows (`_cached_bins`), as
-    its sequential fit bins it."""
+    its sequential fit bins it. Over a mesh of ranks every rank bins
+    every fold, checks that every rank holds the same folds
+    (`_same_on_every_rank`) and stages only its block of each fold's
+    rows (`tree_impl.fit_ensembles_folds`)."""
+    from ..parallel.dispatch import mesh_for
     from ..utils.profiler import PROFILER
     from ._staging import routed_for
     binned_list, binnings, y32s = [], [], []
@@ -635,6 +678,9 @@ def _fit_ensemble_folds(Xs, ys, cats, *, max_depth: int, max_bins: int,
     hint = WorkHint(flops=2.0 * n_trees * max_depth * n_total * F * max_bins,
                     kind="scatter")
     with routed_for(hint, bst, yst, mst, stacked=True, device=device) as dev:
+        mesh = mesh_for(dev)
+        if mesh is not None:
+            _same_on_every_rank(mesh, binnings, y32s, grid=(es, seed))
         results = tree_impl.fit_ensembles_folds(bst, yst, mst, es, seed,
                                                 device=dev)
     mode = "binary" if loss == "logistic" else "regression"
@@ -662,7 +708,15 @@ def _fit_ensembles_grid(Xs, ys, cats, trials, max_fused: int,
     own bins leaves an empty right child). Binning is per (fold,
     maxBins), through `_cached_bins`.
 
+    Over a mesh of ranks every rank bins every fold and checks, before
+    the first fit, that every rank holds the same folds and grid
+    (`_same_on_every_rank`); each chunk then splits its elements' rows
+    over the ranks, or spreads its elements over lanes of ranks
+    (`tree_impl.fit_ensembles_trials`), and every rank returns every
+    model.
+
     Returns {(grid_index, fold_index): _EnsembleSpec}."""
+    from ..parallel.dispatch import mesh_for
     from ..utils.profiler import PROFILER
     from ._staging import routed_for
     if any(t["min_instances"] < 1 for t in trials):
@@ -707,6 +761,11 @@ def _fit_ensembles_grid(Xs, ys, cats, trials, max_fused: int,
                         * es.tree.n_bins, kind="scatter")
         with routed_for(hint, bst, yst, mst, stacked=True,
                         device=device) as dev:
+            mesh = mesh_for(dev)
+            if mesh is not None and lo == 0:
+                _same_on_every_rank(
+                    mesh, [binnings[key] for key in sorted(binnings)], y32s,
+                    grid=(trials, max_fused, loss))
             packs, _ = tree_impl.fit_ensembles_trials(
                 bst, yst, mst, es,
                 rngs=[prng_key(int(t["seed"])) for t in ts],

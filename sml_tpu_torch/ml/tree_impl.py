@@ -605,28 +605,39 @@ class RoundDraws:
 
 
 def round_weights(draws: Draws, t0: int, n_trees: int, n_pad: int,
-                  rows: Optional[slice] = None) -> RoundDraws:
+                  rows=None) -> RoundDraws:
     """The (E * n_pad,) f32 row weights of rounds t0 .. T-1 of a fit
     (`fit_draws`): one `fit_row_weights` launch for all of them (a
     launch a block of rounds past `DRAW_BLOCK_BYTES`), or, when nothing
     is sampled, the same ones every round and nothing drawn.
 
-    `rows` keeps a slice of each round's weights: a rank of a mesh draws
-    the weights of all the fit's rows, under the same keys as every
-    other rank, and keeps its own block, so that every row weighs what
-    it weighs in the one-rank fit whatever the mesh (the JAX package's
-    `_sliced_draw`)."""
+    `rows` keeps some of each round's weights: a slice, or an int64
+    index tensor whose entries of -1 weigh 0 (`_block_index`). A rank of
+    a mesh draws the weights of all the fit's rows, under the same keys
+    as every other rank, and keeps its own block of each element, so
+    that every row weighs what it weighs in the one-rank fit whatever
+    the mesh (the JAX package's `_sliced_draw`)."""
     E = draws.counts.shape[0]
-    cut = slice(None) if rows is None else rows
+    dev = draws.keys.device
+    if rows is None or isinstance(rows, slice):
+        cut = slice(None) if rows is None else rows
+
+        def take(w):
+            return w[:, cut]
+    else:
+        valid, idx = rows >= 0, rows.clamp(min=0)
+
+        def take(w):
+            return torch.where(valid, w[:, idx], 0.0)
     if not draws.sampled:
-        ones = torch.ones(E * n_pad, dtype=torch.float32,
-                          device=draws.keys.device)[cut]
+        ones = take(torch.ones((1, E * n_pad), dtype=torch.float32,
+                               device=dev))[0]
         return RoundDraws(lambda t, stop: ones.expand(stop - t, -1), t0,
                           n_trees, max(n_trees, 1))
     return RoundDraws(
-        lambda t, stop: pk.fit_row_weights(draws.keys[t:stop, 0],
-                                           draws.modes, draws.rates,
-                                           draws.counts, n_pad)[:, cut],
+        lambda t, stop: take(pk.fit_row_weights(draws.keys[t:stop, 0],
+                                                draws.modes, draws.rates,
+                                                draws.counts, n_pad)),
         t0, n_trees, block_rounds(4 * E * n_pad, E))
 
 
@@ -645,11 +656,25 @@ def round_masks(draws: Draws, t0: int, n_trees: int, ks: torch.Tensor,
 
 
 class Shard(NamedTuple):
-    """A rank's block of a fit over a mesh of ranks: rows [start, start +
-    n) of the fit's `total` rows, on `mesh` (`parallel/mesh.py`)."""
+    """A rank's block of a fit of E elements over a mesh of ranks
+    (`parallel/mesh.py`): element e's rows [starts[e], starts[e] +
+    counts[e]) of its `totals[e]` rows, where `counts` are the fit's own
+    (the rank's row count of each element; 0 is allowed)."""
     mesh: object
-    start: int
-    total: int
+    starts: Tuple[int, ...]
+    totals: Tuple[int, ...]
+
+
+def _block_index(starts, counts, n_pad: int, n_all: int, dev) -> torch.Tensor:
+    """The (E * n_pad,) int64 index of a rank's block of each element's
+    rows in a draw of every element's `n_all` rows: element e's local row
+    j is global row starts[e] + j, and its padding past counts[e] is -1
+    (weight 0)."""
+    idx = np.full(len(counts) * n_pad, -1, np.int64)
+    for e, (start, count) in enumerate(zip(starts, counts)):
+        idx[e * n_pad:e * n_pad + count] = \
+            e * n_all + start + np.arange(count)
+    return torch.from_numpy(idx).to(dev)
 
 
 def _hier_ici(mesh) -> int:
@@ -717,15 +742,24 @@ def _fit_elements(binned_c: torch.Tensor, y: torch.Tensor, n_pad: int,
     segment's packs copied to the host once) and the (E,) bases. Without
     a hook the packs come back in one copy at the end.
 
-    With a `shard` (one element), `binned_c` and `y` are this rank's
-    block of the fit's rows and `counts` its row count: the round's
-    weights are drawn for all `shard.total` rows and sliced to the block
-    (`round_weights`), and the histograms, the leaf statistics and the
-    base are all-reduced over `shard.mesh` before their one rounding
-    (`_mesh_merge`), so every rank grows the one-rank fit's trees."""
+    With a `shard`, `binned_c` and `y` hold this rank's block of each
+    element's rows, end to end in blocks of n_pad, and `counts` the
+    rank's row counts: each round's weights are drawn for every
+    element's `shard.totals[e]` rows and each element's block taken
+    from them (`round_weights`, `_block_index`), and the histograms, the
+    leaf statistics and the bases are all-reduced over `shard.mesh`
+    before their one rounding (`_mesh_merge`), so every rank grows the
+    one-rank fit's trees. A rank holding no row of any element (n_pad
+    0) fits one row of weight 0 an element."""
     from ..utils.profiler import PROFILER
     dev = binned_c.device
     E = len(counts)
+    if n_pad == 0:
+        n_pad = 1
+        binned_c = binned_c.new_zeros((E, binned_c.shape[1]))
+        y = y.new_zeros(E)
+        if margin is not None:
+            margin = margin.new_zeros(E)
     D, F = es.tree.max_depth, es.tree.n_features
     T = es.n_trees
     draw_masks = always_mask or bool((np.asarray(dyn.feature_k) < F).any())
@@ -736,10 +770,11 @@ def _fit_elements(binned_c: torch.Tensor, y: torch.Tensor, n_pad: int,
         merge = mesh = None
     else:
         mesh = shard.mesh
-        draws = fit_draws(rngs, T, D, modes, rates, [shard.total],
-                          shard.total, dev)
-        weights = round_weights(draws, t0, T, shard.total,
-                                slice(shard.start, shard.start + n_pad))
+        n_all = max(shard.totals)
+        draws = fit_draws(rngs, T, D, modes, rates, shard.totals, n_all,
+                          dev)
+        weights = round_weights(draws, t0, T, n_all, _block_index(
+            shard.starts, counts, n_pad, n_all, dev))
         merge = _mesh_merge(mesh)
     masks = round_masks(draws, t0, T, el.mask_k, F) \
         if draw_masks and D > 0 else None
@@ -854,7 +889,7 @@ def resume_ensemble_on_device(binned_dev: torch.Tensor, y_dev: torch.Tensor,
                               es: EnsembleSpec, seed: int, init_trees,
                               base: float,
                               rounds_per_dispatch: Optional[int] = None,
-                              on_rounds=None
+                              on_rounds=None, shard: Optional[Shard] = None
                               ) -> Tuple[List[FittedTree], float]:
     """Warm-start boosting: append rounds len(init_trees) .. es.n_trees
     - 1 to saved rounds, on the operands' device. The saved rounds'
@@ -865,8 +900,11 @@ def resume_ensemble_on_device(binned_dev: torch.Tensor, y_dev: torch.Tensor,
     rounds and a warm start of N - k equal N rounds bit for bit on the
     same rows. The base is the saved one, never recomputed from the new
     labels. `on_rounds(t_done, new_trees, base)` fires at each segment
-    boundary but the last with the appended rounds so far. Returns
-    (appended trees, base)."""
+    boundary but the last with the appended rounds so far. With a
+    `shard` the operands are this rank's block of the rows: the replay
+    runs on the block, and the appended rounds are data-parallel over
+    the shard's mesh, as a fresh fit's (`fit_ensemble_on_device`).
+    Returns (appended trees, base)."""
     from ..native.traverse_kernel import forest_traverse
     from ..utils.profiler import PROFILER
     if not es.boosting:
@@ -880,7 +918,7 @@ def resume_ensemble_on_device(binned_dev: torch.Tensor, y_dev: torch.Tensor,
     D = es.tree.max_depth
     with PROFILER.span("program.tree_resume", rows=int(n), route=dev.type,
                        trees=es.n_trees - t0), _margin_charge(es, n):
-        if t0:
+        if t0 and n:
             def table(name, dtype):
                 return torch.from_numpy(np.ascontiguousarray(np.stack(
                     [getattr(t, name) for t in init_trees]), dtype)).to(dev)
@@ -903,7 +941,7 @@ def resume_ensemble_on_device(binned_dev: torch.Tensor, y_dev: torch.Tensor,
             [weight_mode(es.bootstrap, es.n_trees, es.subsample)],
             [es.subsample], [n], always_mask=False, t0=t0, margin=margin,
             base=float(base), segment=_segment(es, rounds_per_dispatch),
-            on_rounds=hook)
+            on_rounds=hook, shard=shard)
     return _unpack_trees(packs[0]), float(base)
 
 
@@ -970,25 +1008,193 @@ def _stage_stacks(bst, yst, device):
     return b, y
 
 
+#: auto trial-axis threshold: one trial's padded rows below this fit a
+#: single rank comfortably (the small-rows regime, where the per-level
+#: allreduce's fixed latency rivals the per-rank histogram it merges)
+_TRIAL_SHARD_MAX_ROWS = 1 << 18
+
+
+def _trial_axis_width(E: int, n_pad: int, mesh=None) -> int:
+    """Ranks the fused-trial ELEMENT axis spans; the rest keep splitting
+    rows (`trial_mesh`). `sml.cv.trialAxisDevices`: 0 = auto, 1 =
+    rows-only, k > 1 = the largest mesh divisor <= k (honored even when
+    E % k != 0 -- the element axis pads by repeating element 0,
+    `_pad_elems`). Auto: small per-trial row counts gain nothing from
+    splitting rows across every rank but pay D-levels x n_trees of
+    allreduce latency per trial, so trials spread across ranks instead --
+    each lane's data axis shrinks (to 1 at full width: allreduce-free
+    trials). Auto never pads: among the divisors of E it picks the
+    largest (wall-clock per dispatch scales with ceil(E/t)*t, so padded
+    elements are pure waste absent an explicit user choice). The JAX
+    package's rule, on the ranks of `mesh` (the active mesh): only a
+    flat mesh over the whole default group spreads its trials; a host
+    mesh, a lane and a placed submesh keep the row layout."""
+    from ..conf import GLOBAL_CONF
+    from ..parallel import mesh as meshlib
+    mesh = mesh if mesh is not None else meshlib.get_mesh()
+    if mesh is None or mesh.hierarchical or mesh.trials is not None \
+            or not mesh.spans_world:
+        return 1
+    n_dev = int(mesh.size)
+    if n_dev <= 1 or E <= 1:
+        return 1
+    conf = GLOBAL_CONF.getInt("sml.cv.trialAxisDevices")
+    if conf == 1:
+        return 1
+    if conf <= 0 and n_pad > _TRIAL_SHARD_MAX_ROWS:
+        return 1  # big rows: per-rank row blocks already feed the card
+    cap = n_dev if conf <= 0 else min(conf, n_dev)
+    divisors = [d for d in range(2, cap + 1) if n_dev % d == 0]
+    if conf > 1:
+        return max(divisors, default=1)
+    best, best_pad = 1, E
+    for d in divisors:
+        if d > E:
+            continue
+        pad = -(-E // d) * d
+        if pad < best_pad or (pad == best_pad and d > best):
+            best, best_pad = d, pad
+    return best
+
+
+def _pad_elems(a: np.ndarray, e_pad: int) -> np.ndarray:
+    """Pad the element axis by REPEATING element 0 (real rows, real
+    hyperparameters -- never an all-masked element whose base margin would
+    divide by a zero row count); the caller slices the duplicates away."""
+    a = np.asarray(a)
+    if a.shape[0] == e_pad:
+        return a
+    reps = np.repeat(a[:1], e_pad - a.shape[0], axis=0)
+    return np.concatenate([a, reps], axis=0)
+
+
+class _Stacked(NamedTuple):
+    """The element-wise inputs of a stacked fit (host arrays, one entry
+    an element), as `_fit_elements` takes them."""
+    bst: np.ndarray           # (E, n_pad, F) compact bins
+    yst: np.ndarray           # (E, n_pad) f32 labels
+    counts: np.ndarray        # (E,) rows of each element
+    rngs: np.ndarray          # (E, 2) uint32 keys
+    dyn: TrialDyn
+    modes: np.ndarray         # (E,) str
+    rates: np.ndarray         # (E,) f32
+
+    def take(self, pick) -> "_Stacked":
+        return _Stacked(*(np.asarray(a)[pick] for a in self[:4]),
+                        TrialDyn(*(np.asarray(v)[pick] for v in self.dyn)),
+                        self.modes[pick], self.rates[pick])
+
+
+def _fit_local(st: _Stacked, es: EnsembleSpec, always_mask: bool, dev):
+    """`_fit_elements` of every row of the elements of `st` on `dev`."""
+    b_dev, y_dev = _stage_stacks(st.bst, st.yst, dev)
+    return _fit_elements(b_dev, y_dev, st.bst.shape[1], es, st.rngs,
+                         st.dyn, [str(m) for m in st.modes],
+                         [float(r) for r in st.rates],
+                         [int(c) for c in st.counts], always_mask)
+
+
+def _fit_shard(st: _Stacked, es: EnsembleSpec, always_mask: bool, mesh,
+               dev):
+    """`_fit_elements` data-parallel over `mesh`: this rank stages its
+    block of each element's rows (`mesh.host_partition` of the
+    element's row count, the sequential fit's split), end to end in
+    blocks of the longest, and every rank returns every element's
+    trees."""
+    from ..parallel.mesh import host_partition
+    parts = [host_partition(int(c), mesh.size)[mesh.rank]
+             for c in st.counts]
+    local = [stop - start for start, stop in parts]
+    E, F = st.bst.shape[0], st.bst.shape[2]
+    n_loc = max(local)
+    bl = np.zeros((E, n_loc, F), dtype=st.bst.dtype)
+    yl = np.zeros((E, n_loc), dtype=np.float32)
+    for e, (start, stop) in enumerate(parts):
+        bl[e, :stop - start] = st.bst[e, start:stop]
+        yl[e, :stop - start] = st.yst[e, start:stop]
+    b_dev, y_dev = _stage_stacks(bl, yl, dev)
+    return _fit_elements(
+        b_dev, y_dev, n_loc, es, st.rngs, st.dyn,
+        [str(m) for m in st.modes], [float(r) for r in st.rates], local,
+        always_mask,
+        shard=Shard(mesh, tuple(start for start, _ in parts),
+                    tuple(int(c) for c in st.counts)))
+
+
+def _fit_lanes(st: _Stacked, es: EnsembleSpec, always_mask: bool, tdim: int,
+               mesh, dev):
+    """The elements spread over `tdim` lanes of ranks (`trial_mesh`):
+    the element axis padded to a multiple of `tdim` by repeats of
+    element 0 (`_pad_elems`), lane l fits elements [l*E_pad/tdim,
+    (l+1)*E_pad/tdim), data-parallel over its ranks (with no allreduce
+    on a lane of one rank), and one all-gather over the "trial" axis
+    shares each lane's packs and bases, so every rank returns all E."""
+    from ..parallel import collectives as coll
+    from ..parallel.mesh import TRIAL_AXIS, trial_mesh
+    E = st.bst.shape[0]
+    e_pad = -(-E // tdim) * tdim
+    per = e_pad // tdim
+    tmesh = trial_mesh(tdim, mesh)
+    pick = _pad_elems(np.arange(E), e_pad)[tmesh.lane * per:
+                                           (tmesh.lane + 1) * per]
+    lane = st.take(pick)
+    if tmesh.size == 1:
+        packs, bases = _fit_local(lane, es, always_mask, dev)
+    else:
+        packs, bases = _fit_shard(lane, es, always_mask, tmesh, dev)
+    flat = np.concatenate([packs.reshape(per, -1), bases.reshape(per, 1)],
+                          axis=1)
+    every = coll.all_gather(torch.from_numpy(flat).to(dev), TRIAL_AXIS,
+                            tiled=True, mesh=tmesh).cpu().numpy()
+    return (every[:E, :-1].reshape((E,) + packs.shape[1:]),
+            np.ascontiguousarray(every[:E, -1]))
+
+
+def _fit_stacked(st: _Stacked, es: EnsembleSpec, always_mask: bool, dev,
+                 lanes: bool):
+    """A stacked fit on `dev`: whole on this process outside a mesh,
+    else over the mesh's ranks (`dispatch.mesh_for`), rows split
+    (`_fit_shard`) or, where `lanes` and `_trial_axis_width` allow it,
+    elements spread over lanes of ranks (`_fit_lanes`). Every layout
+    gives every rank the one-device fit's packs and bases."""
+    from ..parallel.dispatch import mesh_for
+    mesh = mesh_for(dev)
+    if mesh is None:
+        return _fit_local(st, es, always_mask, dev)
+    tdim = _trial_axis_width(st.bst.shape[0], st.bst.shape[1], mesh) \
+        if lanes else 1
+    if tdim > 1:
+        return _fit_lanes(st, es, always_mask, tdim, mesh, dev)
+    return _fit_shard(st, es, always_mask, mesh, dev)
+
+
+def _span_args(st: _Stacked, es: EnsembleSpec, dev) -> dict:
+    """The profiler span arguments of a stacked fit on `dev`."""
+    E, n_pad = st.bst.shape[0], st.bst.shape[1]
+    return dict(rows=int(E * n_pad), route=dev.type, trees=es.n_trees * E)
+
+
 def fit_ensembles_folds(bst, yst, mst, es: EnsembleSpec, seed: int = 0,
                         device=None):
     """Fit the same EnsembleSpec on k stacked fold datasets (`bst` (k,
     n_pad, F), `yst` and `mst` (k, n_pad), from `build_fold_stacks`) as
     one fused fit on `device` (the card by default): one launch of each
     kernel a level for all k folds. Every fold draws under
-    `prng_key(seed)`, as each of its sequential fits would. Returns
-    [(trees, base)] per fold."""
+    `prng_key(seed)`, as each of its sequential fits would. Over a mesh
+    of ranks each fold's rows split over the ranks (the JAX package's
+    fold program shards rows only). Returns [(trees, base)] per fold."""
+    from ..device import resolve_device
     from ..utils.profiler import PROFILER
-    fo, n_pad = bst.shape[0], bst.shape[1]
-    counts = _row_counts(mst)
-    b_dev, y_dev = _stage_stacks(bst, yst, device)
-    with PROFILER.span("program.tree_ensemble_folds", rows=int(fo * n_pad),
-                       route=b_dev.device.type, trees=es.n_trees * fo):
-        packs, bases = _fit_elements(
-            b_dev, y_dev, n_pad, es,
-            np.asarray([prng.prng_key(seed)] * fo), _spec_dyn(es.tree, fo),
-            [weight_mode(es.bootstrap, es.n_trees, es.subsample)] * fo,
-            [es.subsample] * fo, counts, always_mask=False)
+    fo = bst.shape[0]
+    mode = weight_mode(es.bootstrap, es.n_trees, es.subsample)
+    st = _Stacked(bst, yst, np.asarray(_row_counts(mst)),
+                  np.asarray([prng.prng_key(seed)] * fo, np.uint32),
+                  _spec_dyn(es.tree, fo), np.asarray([mode] * fo),
+                  np.full(fo, es.subsample, np.float32))
+    dev = resolve_device(device)
+    with PROFILER.span("program.tree_ensemble_folds",
+                       **_span_args(st, es, dev)):
+        packs, bases = _fit_stacked(st, es, False, dev, lanes=False)
     return [(_unpack_trees(packs[k]), float(bases[k])) for k in range(fo)]
 
 
@@ -1006,28 +1212,32 @@ def fit_ensembles_trials(bst, yst, mst, es: EnsembleSpec, rngs, depth,
     G-point grid over k folds costs ceil(G*k / sml.cv.maxFusedTrials)
     fits, not G*k.
 
+    Over a mesh of ranks the elements' rows split over the ranks, or
+    (`sml.cv.trialAxisDevices`, `_trial_axis_width`) the elements spread
+    over lanes of ranks, each lane splitting its elements' rows over its
+    own ranks; either way each rank still launches each kernel once a
+    level and returns every element.
+
     Returns the (E, n_trees, 5, n_nodes) packs at the grid maxima and
     the (E,) bases; the caller cuts each element to its own trees."""
+    from ..device import resolve_device
     from ..utils.profiler import PROFILER
     if es.boosting:
         raise ValueError("fused trials fit DT and RF elements, not boosting")
-    E, n_pad = bst.shape[0], bst.shape[1]
-    counts = _row_counts(mst)
-    dyn = TrialDyn(depth=np.asarray(depth, np.int64),
-                   feature_k=np.asarray(feature_k, np.int32),
-                   min_instances=np.asarray(min_inst, np.float32),
-                   min_info_gain=np.asarray(min_gain, np.float32))
     sub = np.asarray(subsample, np.float32)
     # `bootstrap` already holds only for elements of several trees
     modes = ["poisson" if b else "bernoulli" if s < 1.0 else "ones"
              for b, s in zip(np.asarray(bootstrap, bool), sub)]
-    b_dev, y_dev = _stage_stacks(bst, yst, device)
-    with PROFILER.span("program.tree_ensemble_trials", rows=int(E * n_pad),
-                       route=b_dev.device.type, trees=es.n_trees * E):
-        packs, bases = _fit_elements(
-            b_dev, y_dev, n_pad, es, np.asarray(rngs, np.uint32), dyn,
-            modes, [float(s) for s in sub], counts, always_mask=True)
-    return packs, bases
+    dyn = TrialDyn(depth=np.asarray(depth, np.int64),
+                   feature_k=np.asarray(feature_k, np.int32),
+                   min_instances=np.asarray(min_inst, np.float32),
+                   min_info_gain=np.asarray(min_gain, np.float32))
+    st = _Stacked(bst, yst, np.asarray(_row_counts(mst)),
+                  np.asarray(rngs, np.uint32), dyn, np.asarray(modes), sub)
+    dev = resolve_device(device)
+    with PROFILER.span("program.tree_ensemble_trials",
+                       **_span_args(st, es, dev)):
+        return _fit_stacked(st, es, True, dev, lanes=True)
 
 
 def fit_tree(binned_dev: torch.Tensor, grad_dev: torch.Tensor,

@@ -21,6 +21,15 @@ Two ways to run a grid, chosen from its shapes before any work starts
   (`device.run_placed_trials`). One card has one layout, so parallelism
   does not change a result.
 
+Under a mesh of ranks (every rank runs the same CV on the same frame)
+the fused fits split their rows over the ranks or spread their
+elements over lanes of ranks (`tree_impl.fit_ensembles_trials`), and
+placed trials run on disjoint groups of ranks
+(`parallel.mesh.run_placed_trials`), each trial's fits data-parallel
+inside its group. Either way every rank fits the one-rank models, so
+`avgMetrics` do not depend on the mesh. The validation folds are
+evaluated whole on every rank.
+
 Once the fused way is chosen its errors propagate: there is no fallback
 to placed trials.
 """

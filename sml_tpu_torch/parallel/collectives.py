@@ -4,9 +4,11 @@ The port's counterpart of `sml_tpu/parallel/collectives.py`: estimator
 code never spells a raw `torch.distributed` call. Where the JAX package
 runs a named collective inside a traced program over a mesh axis, the
 port calls one on the process group of that axis (`mesh.py`): "data"
-(or the ("dcn", "ici") pair) is the whole mesh, "ici" this rank's host
-group and "dcn" the ranks at its position in every group. Each wrapper
-returns a new tensor and leaves its operand as it was.
+(or the ("dcn", "ici") pair) is the whole mesh (on a lane of a trial
+mesh, the lane), "ici" this rank's host group, "dcn" the ranks at its
+position in every group and "trial" the ranks at its position in every
+lane. Each wrapper returns a new tensor and leaves its operand as it
+was.
 
 - `psum` / `pmax` / `pmin`: `all_reduce` (SUM / MAX / MIN); `pmean` the
   sum over the rank count; `psum_scalars` one `all_reduce` of a stacked
@@ -20,6 +22,7 @@ returns a new tensor and leaves its operand as it was.
   chunk on "dcn", `all_gather` on "ici", the payload zero-padded to a
   multiple of the group size.
 - `axis_index`: this rank's index on an axis.
+- `all_gather_object`: every rank's picklable object, in rank order.
 - `initialize_multihost`: `init_process_group` with the caller's backend,
   typed failures (`MultihostInitError`), under the watchdog.
 
@@ -50,7 +53,7 @@ from ..obs import _context as _trace
 from ..obs._recorder import RECORDER as _OBS
 from ..obs._watchdog import WATCHDOG as _WATCHDOG
 from . import mesh as _mesh
-from .mesh import DATA_AXIS, DCN_AXIS, ICI_AXIS
+from .mesh import DATA_AXIS, DCN_AXIS, ICI_AXIS, TRIAL_AXIS
 
 #: collective.<op>[.<hop>] calls and collective.<op>_bytes[.<hop>] payload
 #: bytes of this process, counted whether the recorder is on or not
@@ -91,7 +94,8 @@ def _note(op: str, x: Optional[torch.Tensor] = None,
 def _resolve(axis, mesh) -> Tuple[object, int, int, str]:
     """(process group, ranks, this rank's index, backend) of `axis` on
     `mesh` (the active mesh by default). "data", and the ("dcn", "ici")
-    pair, are the whole mesh; "ici" and "dcn" need a host mesh."""
+    pair, are the whole mesh; "ici" and "dcn" need a host mesh, "trial"
+    a lane of a trial mesh."""
     mesh = mesh or _mesh.get_mesh()
     if mesh is None:
         raise RuntimeError("no mesh: a collective needs an initialized "
@@ -107,6 +111,11 @@ def _resolve(axis, mesh) -> Tuple[object, int, int, str]:
             raise ValueError(f"axis {axis!r} needs a host mesh "
                              f"(mesh.host_mesh)")
         group = mesh.ici_group if axis == ICI_AXIS else mesh.dcn_group
+    elif axis == TRIAL_AXIS:
+        if mesh.trials is None:
+            raise ValueError(f"axis {axis!r} needs a trial mesh "
+                             f"(mesh.trial_mesh)")
+        group = mesh.trial_group
     else:
         raise ValueError(f"unknown axis {axis!r}")
     return (group, dist.get_world_size(group), dist.get_rank(group),
@@ -317,6 +326,16 @@ def masked_count(mask: torch.Tensor, axis=DATA_AXIS,
                  mesh=None) -> torch.Tensor:
     """Global true-row count given each rank's 0/1 row mask."""
     return psum(mask.sum(), axis, mesh)
+
+
+def all_gather_object(obj, axis=DATA_AXIS, mesh=None) -> list:
+    """Every rank's picklable `obj` on the axis, in rank order (pickled
+    through the mesh's backend)."""
+    _note("all_gather_object")
+    group, size, _, _ = _resolve(axis, mesh)
+    out: list = [None] * size
+    dist.all_gather_object(out, obj, group=group)
+    return out
 
 
 class MultihostInitError(RuntimeError):

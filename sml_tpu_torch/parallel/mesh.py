@@ -18,21 +18,33 @@ own device and its own contiguous block of rows:
   (one node, or one of `sml.mesh.hostGroups` virtual groups of
   contiguous ranks), "dcn" the ranks at the same position in each
   group.
+- `trial_mesh(t)`: the same ranks as t lanes of contiguous ranks, the
+  JAX package's ("trial", "data") mesh. A rank's mesh is its lane: its
+  "data" group is the lane's ranks, its "trial" group the ranks at its
+  position in every lane. Fused tuning fits spread their elements over
+  the lanes (`tree_impl.fit_ensembles_trials`).
+- `submeshes(k)`: min(k, ranks) disjoint groups of contiguous ranks,
+  cycled to k; `run_placed_trials` runs tuning's trials on them, each
+  group its own trials, data-parallel inside the group, and records
+  each trial's ranks in `PLACEMENT_LOG`.
 - Rows: `host_partition` is the JAX package's split, the remainder to
   the leading blocks (`np.array_split`'s); `row_range` and `shard_rows`
   give a rank its block. No row is padded: in eager PyTorch nothing
   compiles per shape.
 
-`new_group` is collective over the default group: every rank must call
-`build_mesh` and `host_mesh` with the same arguments, in the same order.
-A rank outside `build_mesh(width)`'s ranks gets None.
+`new_group` is collective: every rank of a mesh must call `build_mesh`,
+`host_mesh`, `trial_mesh` and `submeshes` with the same arguments, in the
+same order. Each group is made once (`_group`, memoized by its ranks),
+by every rank of the default group when the mesh spans it, else by the
+group's own members (`use_local_synchronization`). A rank outside
+`build_mesh(width)`'s ranks gets None; a submesh this rank is not in has
+`rank` None.
 
 Each rank's device is the one `bind_rank_device` (or
 `collectives.initialize_multihost`) bound, else `cuda:LOCAL_RANK`; the
 port's `resolve_device(None)` answers it under a mesh. Not ported (ROADMAP
-item 10): `submeshes`, `trial_mesh`, `run_placed_trials` over ranks,
-`addressable_row_blocks` and `host_row_blocks`, and the JAX sharding
-helpers (`data_sharding`, `replicated`, `pad_rows`, `row_mask`,
+item 10): `addressable_row_blocks` and `host_row_blocks`, and the JAX
+sharding helpers (`data_sharding`, `replicated`, `pad_rows`, `row_mask`,
 `bucket_rows`; the last is `dispatch.bucket_rows`).
 """
 
@@ -50,6 +62,7 @@ import torch.distributed as dist
 DATA_AXIS = "data"    # row parallelism: ranks of a flat mesh
 DCN_AXIS = "dcn"      # inter-host hop of a hierarchical (host-grouped) mesh
 ICI_AXIS = "ici"      # intra-host hop of a hierarchical (host-grouped) mesh
+TRIAL_AXIS = "trial"  # fused trial elements over lanes (trial_mesh)
 
 _lock = threading.RLock()
 _active_mesh: Optional["Mesh"] = None
@@ -59,29 +72,41 @@ _rank_device: Optional[torch.device] = None
 _default: list = [None, None]
 #: memoized meshes: new_group is collective, so a repeated call must find
 #: the groups every rank made, not make new ones on some ranks only
-_built: Dict[tuple, "Mesh"] = {}
+_built: Dict[tuple, object] = {}
+#: memoized process groups by (default group, ranks) (`_group`)
+_groups: Dict[tuple, object] = {}
 
 
 class Mesh:
     """Ranks of a process group as one mesh: `group` (the ranks' process
     group), `ranks` (their global ranks, in mesh order), this process's
-    `rank` in it and its `device`. A host mesh (`host_mesh`) also holds
-    this rank's two hops: `ici_group` (its host group's ranks) and
-    `dcn_group` (the ranks at its position in every host group), and
-    `hosts` groups of `size // hosts` ranks."""
+    `rank` in it (None for a submesh this process is not in) and its
+    `device`. A host mesh (`host_mesh`) also holds this rank's two hops:
+    `ici_group` (its host group's ranks) and `dcn_group` (the ranks at
+    its position in every host group), and `hosts` groups of
+    `size // hosts` ranks. A lane of a trial mesh (`trial_mesh`) holds
+    `trials` lanes, its index `lane` and `trial_group` (the ranks at its
+    position in every lane); its `group` is the lane's ranks."""
 
     def __init__(self, group, ranks: Sequence[int], device: torch.device,
                  hosts: Optional[int] = None, ici_group=None,
-                 dcn_group=None):
+                 dcn_group=None, trials: Optional[int] = None,
+                 trial_group=None, lane: Optional[int] = None):
         self.group = group
         self.ranks = tuple(int(r) for r in ranks)
         self.size = len(self.ranks)
-        self.rank = self.ranks.index(dist.get_rank())
+        me = dist.get_rank()
+        self.rank = self.ranks.index(me) if me in self.ranks else None
         self.device = torch.device(device)
-        self.backend = str(dist.get_backend(group))
+        self.backend = str(dist.get_backend(
+            group if group is not None else dist.group.WORLD))
+        self.spans_world = self.size == dist.get_world_size()
         self.hosts = hosts
         self.ici_group = ici_group
         self.dcn_group = dcn_group
+        self.trials = trials
+        self.trial_group = trial_group
+        self.lane = lane
 
     @property
     def hierarchical(self) -> bool:
@@ -92,6 +117,8 @@ class Mesh:
         """Axis sizes, as the JAX package's `mesh.shape`."""
         if self.hierarchical:
             return {DCN_AXIS: self.hosts, ICI_AXIS: self.size // self.hosts}
+        if self.trials is not None:
+            return {TRIAL_AXIS: self.trials, DATA_AXIS: self.size}
         return {DATA_AXIS: self.size}
 
     def __repr__(self) -> str:
@@ -117,6 +144,29 @@ def rank_device() -> torch.device:
 
 def _initialized() -> bool:
     return dist.is_available() and dist.is_initialized()
+
+
+def _group(ranks: Sequence[int], local: bool = False):
+    """The process group of `ranks` (global ranks), made once per
+    default group and memoized by its ranks: the default group itself
+    when they are all of its ranks, else `dist.new_group`, which every
+    rank of the default group must call in the same order, or with
+    `local` only the members (`use_local_synchronization`; a non-member
+    returns at once). A non-member gets None."""
+    ranks = tuple(int(r) for r in ranks)
+    world = dist.group.WORLD
+    if ranks == tuple(range(dist.get_world_size())):
+        return world
+    key = (id(world), ranks)
+    member = dist.get_rank() in ranks
+    with _lock:
+        if key not in _groups:
+            group = None
+            if member or not local:
+                group = dist.new_group(ranks=list(ranks),
+                                       use_local_synchronization=local)
+            _groups[key] = group if member else None
+        return _groups[key]
 
 
 def _world_mesh() -> Optional[Mesh]:
@@ -147,9 +197,26 @@ def build_mesh(n_devices: Optional[int] = None) -> Optional[Mesh]:
     key = ("flat", id(dist.group.WORLD), n)
     with _lock:
         if key not in _built:
-            group = dist.new_group(ranks=list(range(n)))
+            group = _group(range(n))
             _built[key] = None if dist.get_rank() >= n \
                 else Mesh(group, range(n), rank_device())
+        return _built[key]
+
+
+def mesh_over(ranks: Sequence[int], parent: Mesh) -> Optional[Mesh]:
+    """A flat mesh over `ranks`, global ranks of `parent`, on this
+    rank's device, its group made by its members alone (`_group` with
+    `local`: ranks outside it, which may have left, take no part); None
+    on a rank outside them."""
+    ranks = tuple(int(r) for r in ranks)
+    if not set(ranks) <= set(parent.ranks):
+        raise ValueError(f"ranks {ranks} are not all in {parent!r}")
+    key = ("over", id(dist.group.WORLD), ranks)
+    with _lock:
+        if key not in _built:
+            group = _group(ranks, local=True)
+            _built[key] = None if group is None \
+                else Mesh(group, ranks, parent.device)
         return _built[key]
 
 
@@ -215,7 +282,9 @@ def host_mesh(hosts: Optional[int] = None,
     ("dcn"). `hosts` defaults to `sml.mesh.hostGroups`, else the node
     count (`_node_count`), clamped to [1, ranks]. The row blocks stay
     the flat mesh's, rank for rank. Every rank of `mesh` must call it
-    with the same arguments; memoized per (ranks, hosts)."""
+    with the same arguments; its groups are made by every rank of the
+    default group, or, when `mesh` does not span the default group, by
+    their members alone (`_group`); memoized per (ranks, hosts)."""
     base = mesh if mesh is not None else _world_mesh()
     if base is None:
         raise RuntimeError("host_mesh needs an initialized default process "
@@ -230,6 +299,7 @@ def host_mesh(hosts: Optional[int] = None,
     if n % hosts:
         raise ValueError(f"{hosts} host groups do not divide the {n}-rank "
                          f"mesh")
+    local = not base.spans_world
     per = n // hosts
     key = ("host", id(base.group), base.ranks, hosts)
     with _lock:
@@ -237,21 +307,176 @@ def host_mesh(hosts: Optional[int] = None,
         if hit is not None:
             return hit
         ici = dcn = None
-        me = base.ranks[base.rank]
         for g in range(hosts):
-            ranks = list(base.ranks[g * per:(g + 1) * per])
-            group = dist.new_group(ranks=ranks)
-            if me in ranks:
+            group = _group(base.ranks[g * per:(g + 1) * per], local)
+            if base.rank is not None and base.rank // per == g:
                 ici = group
         for i in range(per):
-            ranks = list(base.ranks[i::per])
-            group = dist.new_group(ranks=ranks)
-            if me in ranks:
+            group = _group(base.ranks[i::per], local)
+            if base.rank is not None and base.rank % per == i:
                 dcn = group
         out = Mesh(base.group, base.ranks, base.device, hosts=hosts,
                    ici_group=ici, dcn_group=dcn)
         _built[key] = out
         return out
+
+
+def trial_mesh(trial_dim: int, mesh: Optional[Mesh] = None) -> Mesh:
+    """The ranks of `mesh` (the active mesh by default) as `trial_dim`
+    lanes of `size // trial_dim` contiguous ranks, the JAX package's 2-D
+    ("trial", "data") mesh: this rank's mesh is its lane (`group`, and
+    the "data" axis of the collectives), with `trial_group` the ranks at
+    its position in every lane (the "trial" axis). `trial_dim` must
+    divide the rank count. Every rank of `mesh` must call it; memoized
+    per (ranks, trial_dim)."""
+    mesh = mesh or get_mesh()
+    if mesh is None or mesh.rank is None:
+        raise RuntimeError("trial_mesh needs a mesh this rank is in")
+    n = mesh.size
+    t = max(1, int(trial_dim))
+    if n % t:
+        raise ValueError(f"trial axis {t} does not divide the {n}-rank "
+                         f"mesh")
+    key = ("trial", id(mesh.group), mesh.ranks, t)
+    with _lock:
+        hit = _built.get(key)
+        if hit is not None:
+            return hit
+        per = n // t
+        local = not mesh.spans_world
+        lanes = [_group(mesh.ranks[lane * per:(lane + 1) * per], local)
+                 for lane in range(t)]
+        trials = [_group(mesh.ranks[i::per], local) for i in range(per)]
+        lane = mesh.rank // per
+        out = Mesh(lanes[lane], mesh.ranks[lane * per:(lane + 1) * per],
+                   mesh.device, trials=t, trial_group=trials[mesh.rank % per],
+                   lane=lane)
+        _built[key] = out
+        return out
+
+
+def submeshes(k: int, mesh: Optional[Mesh] = None) -> list:
+    """The ranks of `mesh` (the active mesh by default) in min(k, ranks)
+    disjoint groups of contiguous ranks, the leading groups one rank
+    larger where they do not divide evenly, cycled to length k. A group
+    spanning the whole (flat) parent is the parent. A submesh this rank
+    is not in has `rank` None. Every rank of `mesh` must call it;
+    memoized per (ranks, groups)."""
+    mesh = mesh or get_mesh()
+    if mesh is None:
+        raise RuntimeError("submeshes needs a mesh (an initialized default "
+                           "process group)")
+    n = mesh.size
+    k = max(1, int(k))
+    groups = min(k, n)
+    key = ("sub", id(mesh.group), mesh.ranks, groups)
+    with _lock:
+        if key not in _built:
+            per, extra = divmod(n, groups)
+            local = not mesh.spans_world
+            out, start = [], 0
+            for g in range(groups):
+                size = per + (1 if g < extra else 0)
+                ranks = mesh.ranks[start:start + size]
+                if size == n and not mesh.hierarchical \
+                        and mesh.trials is None:
+                    out.append(mesh)
+                else:
+                    out.append(Mesh(_group(ranks, local), ranks,
+                                    mesh.device))
+                start += size
+            _built[key] = out
+        cached = _built[key]
+    return [cached[i % groups] for i in range(k)]
+
+
+#: (trial index, the ranks it ran on) of every placed trial
+PLACEMENT_LOG: list = []
+_PLACEMENT_LOG_MAX = 4096
+
+
+def _log_placement(idx: int, mesh: Mesh) -> None:
+    with _lock:
+        if len(PLACEMENT_LOG) >= _PLACEMENT_LOG_MAX:
+            del PLACEMENT_LOG[: _PLACEMENT_LOG_MAX // 2]
+        PLACEMENT_LOG.append((int(idx), tuple(mesh.ranks)))
+
+
+def run_placed_trials(jobs: Sequence, fn, parallelism: int,
+                      mesh: Optional[Mesh] = None) -> list:
+    """`fn(job)` for every job over the ranks of `mesh` (the active mesh
+    by default), results in job order on every rank: the JAX package's
+    placed trials, each on a disjoint submesh, with ranks in the place
+    of its worker threads (`SML/ML 07:120-130`, `SML/Labs/ML
+    08L:89-107`).
+
+    With `parallelism` above 1 job i runs on submesh i % groups
+    (`submeshes`; the JAX package hands jobs to whichever submesh's
+    thread is free): each rank runs its group's jobs in job order, with
+    the submesh bound to the thread (`use_mesh_local`), so a trial's
+    fits are data-parallel inside its group. One `all_gather_object`
+    over `mesh` carries each group's first rank's values and every
+    rank's exceptions, so a trial that raises, on all of its group or
+    on one rank of it, leaves no group waiting and counts as failed;
+    every rank then raises the first failure in job order, else returns
+    the values. With `parallelism` 1 every rank
+    runs every job on the whole mesh. Every trial's ranks are recorded
+    in `PLACEMENT_LOG`, on every rank. Every rank of `mesh` must call it
+    with the same jobs."""
+    import pickle
+
+    from . import collectives as coll
+    jobs = list(jobs)
+    mesh = mesh or get_mesh()
+    if mesh is None or mesh.rank is None:
+        raise RuntimeError("run_placed_trials over ranks needs a mesh this "
+                           "rank is in")
+    parallelism = max(1, int(parallelism))
+    if parallelism <= 1 or len(jobs) <= 1:
+        out = []
+        with use_mesh_local(mesh):
+            for i, job in enumerate(jobs):
+                _log_placement(i, mesh)
+                out.append(fn(job))
+        return out
+    meshes = submeshes(parallelism, mesh)
+    groups = min(parallelism, mesh.size)
+    placed = [meshes[i % groups] for i in range(len(jobs))]
+    for i, sub in enumerate(placed):
+        _log_placement(i, sub)
+    mine: dict = {}
+    for i, (job, sub) in enumerate(zip(jobs, placed)):
+        if sub.rank is None:
+            continue
+        with use_mesh_local(sub):
+            try:
+                mine[i] = (True, fn(job))
+            except Exception as e:   # re-raised on every rank, below
+                mine[i] = (False, e)
+    lead = next(m for m in meshes[:groups] if m.rank is not None).rank == 0
+    sent = {}
+    for i, (ok, value) in mine.items():
+        if not ok:
+            try:
+                pickle.dumps(value)
+            except (pickle.PicklingError, TypeError, AttributeError):
+                value = RuntimeError(f"trial {i} raised {value!r}")
+            sent[i] = (False, value)
+        elif lead:
+            sent[i] = (True, value)
+    merged: dict = {}
+    for part in coll.all_gather_object(sent, mesh=mesh):
+        for i, (ok, value) in part.items():
+            if i not in merged or (merged[i][0] and not ok):
+                merged[i] = (ok, value)
+    for i, (ok, value) in mine.items():
+        if ok == merged[i][0]:   # this rank's own, unpickled
+            merged[i] = (ok, value)
+    for i in range(len(jobs)):
+        ok, value = merged[i]
+        if not ok:
+            raise value
+    return [merged[i][1] for i in range(len(jobs))]
 
 
 def is_hierarchical(mesh: Optional[Mesh] = None) -> bool:
@@ -263,7 +488,7 @@ def is_hierarchical(mesh: Optional[Mesh] = None) -> bool:
 
 def row_axes(mesh: Optional[Mesh] = None) -> Tuple[str, ...]:
     """The axes rows shard over: ("dcn", "ici") on a host mesh, ("data",)
-    everywhere else."""
+    everywhere else (on a lane of a trial mesh, the lane's ranks)."""
     if is_hierarchical(mesh):
         return (DCN_AXIS, ICI_AXIS)
     return (DATA_AXIS,)

@@ -8,7 +8,10 @@ course's (`SML/ML 08 - Hyperopt.py:17-23`):
 - `TpuTrials(parallelism=k)` (alias `SparkTrials`): objectives run
   k at a time in worker threads on the session's device
   (`device.run_placed_trials`), the `SparkTrials(parallelism=2)` pattern
-  of `Labs/ML 08L:89-107`; the TPE proposer stays on the host.
+  of `Labs/ML 08L:89-107`; the TPE proposer stays on the host. Under a
+  mesh of several ranks a generation's trials run on disjoint groups of
+  ranks instead: every rank proposes the same points from the same
+  `rstate` (checked: `_same_proposals`) and records every result.
 
 The TPE is the JAX package's: split completed trials at the
 γ-quantile of loss, model each group with a per-dimension KDE in unit
@@ -199,6 +202,30 @@ def _normalize_result(res) -> Dict[str, Any]:
     return {"loss": float(res), "status": STATUS_OK}
 
 
+def _same_proposals(proposals: List[Dict[str, Any]]) -> None:
+    """Under a mesh of several ranks, raise unless every rank proposed
+    the same generation: one MIN and one MAX all-reduce of a hash of the
+    proposals. Ranks proposing apart would run different trials on one
+    group and hang or record a wrong history."""
+    from ..parallel.mesh import get_mesh
+    mesh = get_mesh()
+    if mesh is None or mesh.size <= 1:
+        return
+    import hashlib
+
+    import torch
+
+    from ..parallel import collectives as coll
+    h = hashlib.blake2b(repr(proposals).encode(), digest_size=7)
+    mine = torch.tensor([int.from_bytes(h.digest(), "little")],
+                        dtype=torch.int64, device=mesh.device)
+    if not torch.equal(coll.pmin(mine, mesh=mesh), coll.pmax(mine,
+                                                             mesh=mesh)):
+        raise ValueError(f"the {mesh.size} ranks of the mesh proposed "
+                         f"different trials: give fmin the same rstate on "
+                         f"every rank")
+
+
 def fmin(fn: Callable, space: Dict[str, Dimension], algo=None,
          max_evals: int = 10, trials: Optional[Trials] = None,
          rstate: Optional[np.random.RandomState] = None,
@@ -247,6 +274,7 @@ def fmin(fn: Callable, space: Dict[str, Dimension], algo=None,
             # a generation's proposals draw from one posterior; the rng
             # advances per proposal, so the generation is diverse
             proposals = [suggest(space, trials, rstate) for _ in range(batch)]
+            _same_proposals(proposals)
             results = None
             if callable(score_batch) and batch > 1:
                 results = score_batch([space_eval(space, p)

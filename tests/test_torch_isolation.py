@@ -921,3 +921,20 @@ def test_nccl_bring_up_without_a_card_raises_and_never_takes_gloo(tmp_path):
                             str(tmp_path / "store")])
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.split("\n")[:3] == ["raised nccl False"] * 3
+
+
+ELASTIC_IMPORTS = """
+import sys
+from sml_tpu_torch.ct import _elastic
+from sml_tpu_torch.frame import _chunks
+bad = sorted(k for k in sys.modules
+             if k.split(".")[0] in ("jax", "jaxlib", "sml_tpu", "pandas",
+                                    "pyarrow"))
+print(_elastic.HostPreempted.__name__, _chunks.HostChunkView.__name__, bad)
+"""
+
+
+def test_the_elastic_fits_and_host_views_load_no_jax_pandas_or_pyarrow():
+    proc = _run(ELASTIC_IMPORTS)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "HostPreempted HostChunkView []"

@@ -33,8 +33,9 @@ seed 11) and writes its trees to an .npz.
   16; on the host mesh the same payload goes to the "ici" hop and half
   of it to the "dcn" hop.
 - Ranks given different X raise on every rank; `sml.dispatch.mode=host`
-  (asked for a stub card) and placed trials in threads raise under a
-  mesh of several ranks.
+  (asked for a stub card) raises under a mesh of several ranks, and
+  placed trials run over the ranks there, every rank returning every
+  result.
 """
 
 import os
@@ -161,7 +162,7 @@ if n == 2:   # ranks given different rows raise, every one of them
     except ValueError as e:
         assert "different fit inputs" in str(e), e
         res["mismatch_raised"] = np.asarray([1])
-    # the host route and placed trials in threads raise under the mesh
+    # the host route raises under the mesh; placed trials run over it
     from sml_tpu_torch import device as pdev
     from sml_tpu_torch.parallel import dispatch
     raised = []
@@ -175,11 +176,9 @@ if n == 2:   # ranks given different rows raise, every one of them
     torch.cuda.is_available = real
     GLOBAL_CONF.set("sml.dispatch.mode", "auto")
     GLOBAL_CONF.set("sml.device", "cpu")
-    try:
-        pdev.run_placed_trials([1, 2], lambda j: j, 2)
-    except NotImplementedError as e:
-        raised.append("ROADMAP item 10" in str(e))
     res["guards_raised"] = np.asarray(raised)
+    res["placed"] = np.asarray(pdev.run_placed_trials([1, 2], lambda j: j,
+                                                      2))
 np.savez(out, **res)
 print("rank", rank, "ok")
 """
@@ -326,8 +325,10 @@ def test_ranks_given_different_rows_raise(runs):
     assert [int(r["mismatch_raised"][0]) for r in runs[2]] == [1, 1]
 
 
-def test_host_route_and_placed_trials_raise_under_a_mesh(runs):
-    """`sml.dispatch.mode=host` asked for a card, and placed trials in
-    threads, raise under a mesh of 2 ranks, naming ROADMAP item 10."""
+def test_host_route_raises_and_placed_trials_run_under_a_mesh(runs):
+    """`sml.dispatch.mode=host` asked for a card raises under a mesh of 2
+    ranks, naming ROADMAP item 10; placed trials at parallelism 2 run
+    over the ranks and return every result on every rank."""
     for r in runs[2]:
-        assert list(r["guards_raised"]) == [True, True]
+        assert list(r["guards_raised"]) == [True]
+        assert r["placed"].tolist() == [1, 2]
