@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py [--seed N] [--only 23]
+    python3 chip_smoke.py [--seed N] [--only 23|24]
 
 Run from the repository root. It needs a CUDA card, `nvcc` and `g++` (it
 builds every kernel under `sml_tpu_torch/csrc/` and the host binning at
@@ -432,10 +432,28 @@ Phases:
    model. (f) is in phase 7: the float64 histogram at the grid's last
    level on one of 4 ranks. A `{"multirank_tuning": ...}` line gives
    these numbers, and `launches_by_path` gains "multirank_tuning".
+24. multi-rank non-tree programs and evaluation
+   (`phase_multirank_nontree`): 1 (NCCL), 2 and 4 (gloo) ranks on
+   cuda:0 at once, 4 also as 2 host groups, each rank staging its block
+   of the rows and all-reducing its float64 partial sums: (a) ML 02, ML
+   03, ridge and elastic net on phase 14's 80,000 training rows, and the
+   compact Gram and IRLS at 4,194,304 rows; (b) MLE 03's logistic
+   regression; (c) MLE 02's KMeans at k 3 and 8; (d) MLE 01's ALS at the
+   golden shape (and the MovieLens 1M shape on 1 and 4 ranks), every
+   fit bit-equal to phase 14's card result (ALS within 2e-5 and its rmse
+   within 1e-6), with no launch and each all-reduce its payload; (e) the
+   ML 07 CrossValidator with each validation fold evaluated over the
+   ranks (the ordered block reduction), avgMetrics bit-equal to phase
+   12's, each rank's traversals over its blocks; (f) on 2 ranks an ML 03
+   fit under `sml.dispatch.mode=host`, the CPU's fit with no collective.
+   A `{"multirank_nontree": ...}` line gives the psum calls and bytes
+   and the walls (information only), and `launches_by_path` gains
+   "multirank_nontree".
 
 `--only 23` runs phase 7's float64 histogram check, the phases that
-phase 23 compares with (fit, tuning and model selection) and phase 23,
-and prints their lines but no kernels line and no result.
+phase 23 compares with (fit, tuning and model selection) and phase 23;
+`--only 24` runs model selection, the non-tree phase and phase 24. Each
+prints its phases' lines but no kernels line and no result.
 
 The second-to-last line is a JSON object listing each kernel, with the
 launches the profiler saw in each window behind its device times
@@ -451,6 +469,7 @@ import subprocess
 import sys
 import threading
 import time
+import types
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -3666,10 +3685,19 @@ def mean_baseline(train_col: np.ndarray, test_col: np.ndarray) -> float:
                                   - mean) ** 2)))
 
 
-def nt_linear(train, test, device, card: str) -> tuple:
+def _coefs(model) -> np.ndarray:
+    """A linear model's coefficients with its intercept last."""
+    return np.append(np.asarray(model._coefficients, np.float64),
+                     model.intercept)
+
+
+def nt_linear(train, test, device, card: str, refs: dict) -> tuple:
     """(a) ML 02 / ML 03 and the penalized fits; (b) MLE 03's logistic
-    regression. Returns (numbers, the ML 03 pipeline model)."""
+    regression. Returns (numbers, the ML 03 pipeline model); `refs` gets
+    each fit's rows and the card's (and ML 03's CPU) coefficients, which
+    phase 24 holds its ranks to."""
     from sml_tpu_torch import functions as F
+    from sml_tpu_torch.ml._staging import extract_xy
     from sml_tpu_torch.ml import (LinearRegression, LogisticRegression,
                                   Pipeline)
     from sml_tpu_torch.ml.evaluation import (BinaryClassificationEvaluator,
@@ -3690,6 +3718,9 @@ def nt_linear(train, test, device, card: str) -> tuple:
                         through(pipes[name].stages[:-1], test))
         out[f"{name}_pipeline_fit_ms"] = ms
     width = frames["ml03"][0]._whole()["features"].shape[1]
+    for name in ("ml02", "ml03"):
+        refs[f"{name}_X"], refs[f"{name}_y"], _ = extract_xy(
+            frames[name][0], "features", "price")
     base = mean_baseline(train._whole()["price"], test._whole()["price"])
     for name, kw in NT_LINEAR.items():
         tr, te = frames["ml02" if name == "ml02" else "ml03"]
@@ -3718,6 +3749,9 @@ def nt_linear(train, test, device, card: str) -> tuple:
         if err > NT_PRED_TOL * float(np.max(np.abs(pred_cpu))):
             raise AssertionError(f"{name}: card predictions differ from "
                                  f"the CPU's by {err}")
+        refs[f"coef_{name}"] = _coefs(model)
+        if name == "ml03":
+            refs["coef_ml03_cpu"] = _coefs(cpu)
         out[name] = {"fit_ms": ms, "fit_ms_warm": warm, "rmse": rmse,
                      "card_cpu_max_diff": err,
                      "coefficients_bit_equal": same,
@@ -3752,6 +3786,8 @@ def nt_linear(train, test, device, card: str) -> tuple:
     if iters[0] != iters[1] or abs(auc - auc_cpu) > NT_AUC_ATOL:
         raise AssertionError(f"logistic: card {iters[0]} iterations, AUROC "
                              f"{auc}; CPU {iters[1]}, {auc_cpu}")
+    refs["logit_y"] = extract_xy(tr_l, "features", "label")[1]
+    refs["coef_logistic"] = np.append(_coefs(model), iters[0])
     out["logistic"] = {"fit_ms": ms, "fit_ms_warm": warm,
                        "iterations": iters[0], "auroc": auc,
                        "auroc_cpu": auc_cpu,
@@ -3760,15 +3796,18 @@ def nt_linear(train, test, device, card: str) -> tuple:
     return out, pipes["ml03"]
 
 
-def nt_kmeans(train, device, card: str) -> dict:
+def nt_kmeans(train, device, card: str, refs: dict) -> dict:
     """(c) MLE 02: KMeans k=3 and k=8 (20 iterations, seed 221) over the
-    7 imputed numerics of the training rows."""
+    7 imputed numerics of the training rows; `refs` gets the rows and the
+    card's centers and cost."""
     from sml_tpu_torch.ml import KMeans, Pipeline
+    from sml_tpu_torch.ml._staging import extract_features
     from sml_tpu_torch.ml.feature import Imputer, VectorAssembler
     feats = Pipeline(stages=[
         Imputer(strategy="median", inputCols=DF_NUM, outputCols=DF_IMP),
         VectorAssembler(inputCols=DF_IMP, outputCol="features")]).fit(train)
     km = through([feats], train)
+    refs["km_X"] = extract_features(km, "features")
     out = {}
     for k in (3, 8):
         def fit():
@@ -3791,6 +3830,7 @@ def nt_kmeans(train, device, card: str) -> dict:
                 NT_RTOL * abs(cost_cpu):
             raise AssertionError(f"kmeans k={k}: {flips} flips, centers "
                                  f"{c_err}, cost {cost} vs {cost_cpu}")
+        refs[f"km_k{k}"] = np.append(a.ravel(), cost)
         out[f"k{k}"] = {"fit_ms": ms, "fit_ms_warm": warm, "cost": cost,
                         "center_rel_diff": c_err,
                         "busy": nt_busy(f"KMeans k={k}", fit, "program.lloyd",
@@ -3798,11 +3838,17 @@ def nt_kmeans(train, device, card: str) -> dict:
     return out
 
 
-def nt_als(device, card: str, golden=NT_GOLDEN_RATINGS,
+def _ratings_of(frame) -> dict:
+    whole = frame._whole()
+    return {c: np.asarray(whole[c]) for c in ("userId", "movieId", "rating")}
+
+
+def nt_als(device, card: str, refs: dict, golden=NT_GOLDEN_RATINGS,
            ml1m=NT_ML1M) -> dict:
     """(d) MLE 01: ALS at the golden suite's shape on the card and the
     CPU, MLE 01's CV over rank {4, 12} as placed trials, and ALS at the
-    MovieLens 1M shape on the card alone."""
+    MovieLens 1M shape on the card alone; `refs` gets each shape's
+    ratings and the card's factors and test rmse."""
     from sml_tpu_torch.courseware import make_movielens_dataset
     from sml_tpu_torch.frame.session import get_session
     from sml_tpu_torch.ml import ALS, CrossValidator, ParamGridBuilder
@@ -3836,6 +3882,9 @@ def nt_als(device, card: str, golden=NT_GOLDEN_RATINGS,
     base = mean_baseline(tr._whole()["rating"], kept)
     f_err = float(max(np.max(np.abs(model._uf - cpu._uf)),
                       np.max(np.abs(model._if - cpu._if))))
+    refs["als_golden"] = dict(train=_ratings_of(tr), test=_ratings_of(te),
+                              factors=np.append(model._uf, model._if),
+                              rmse=rmse)
     print(f"nontree (d)(i) ALS rank 8 on {tr.count()} ratings "
           f"({len(model._user_ids)} users x {len(model._item_ids)} items): "
           f"fit {ms!r} ms (warm {warm!r}), test rmse {rmse!r} (CPU "
@@ -3887,6 +3936,9 @@ def nt_als(device, card: str, golden=NT_GOLDEN_RATINGS,
                             for _ in range(NT_REPS)]))
     rmse, kept = scored(model, te)
     base = mean_baseline(tr._whole()["rating"], kept)
+    refs["als_ml1m"] = dict(train=_ratings_of(tr), test=_ratings_of(te),
+                            factors=np.append(model._uf, model._if),
+                            rmse=rmse)
     print(f"nontree (d)(iii) ALS rank 12 at the MovieLens 1M shape: "
           f"{tr.count()} training ratings ({len(model._user_ids)} users x "
           f"{len(model._item_ids)} items; made and split in {gen_ms!r} ms): "
@@ -3998,20 +4050,22 @@ def phase_nontree(device, card: str, n: int = 100_000,
     against the CPU's. None of them launches a kernel of the port (their
     work is torch matmuls, cumsums and batched solves), and the plain
     versions never run on the card. Smaller `n`, `golden` and `ml1m`
-    rehearse it on the CPU."""
+    rehearse it on the CPU. The result's "refs" holds the fits' rows and
+    results, which phase 24 holds its ranks to (not printed)."""
     from sml_tpu_torch.conf import GLOBAL_CONF
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("TF32 matmuls are on")
     GLOBAL_CONF.set("sml.device", device.type)
     _zero_launches()
     t0 = time.perf_counter()
+    refs = {}
     with KernelWatch() as watch:
         train, test = df_splits(n)
-        linear, ml03 = nt_linear(train, test, device, card)
+        linear, ml03 = nt_linear(train, test, device, card, refs)
         out = {"card": card, "tf32": bool(
             torch.backends.cuda.matmul.allow_tf32), "linear": linear,
-            "kmeans": nt_kmeans(train, device, card),
-            "als": nt_als(device, card, golden, ml1m),
+            "kmeans": nt_kmeans(train, device, card, refs),
+            "als": nt_als(device, card, refs, golden, ml1m),
             "serving": nt_serving(ml03, n, device, card)}
     launches = _all_launches()
     if any(launches.values()) or watch.plain_on_cuda:
@@ -4021,6 +4075,7 @@ def phase_nontree(device, card: str, n: int = 100_000,
     out["phase_s"] = time.perf_counter() - t0
     print(f"nontree: every check passed in {out['phase_s']!r} s; no "
           f"kernel of the port launched ({launches}); TF32 off")
+    out["refs"] = refs
     return out
 
 
@@ -7089,13 +7144,13 @@ def mr_start(child: str, n: int, backend: str, seed: int, tmp: str, device,
     return procs, n, backend
 
 
-def mr_finish(launches: list) -> list:
+def mr_finish(launches: list, timeout: float = MR_TIMEOUT) -> list:
     """Wait for the ranks of every launch (`mr_start`), all under one
-    timeout (`MR_TIMEOUT`), killing what is left on the way out; returns
-    each launch's ranks' JSON lines."""
+    `timeout`, killing what is left on the way out; returns each
+    launch's ranks' JSON lines."""
     outs = []
     try:
-        deadline = time.monotonic() + MR_TIMEOUT
+        deadline = time.monotonic() + timeout
         for procs, _, _ in launches:
             outs.append([p.communicate(
                 timeout=max(1.0, deadline - time.monotonic()))
@@ -7694,12 +7749,439 @@ def phase_multirank_tuning(seed: int, device, card: str, tuning: dict,
     return out
 
 
+# ------------------------------- phase 24: the non-tree programs over ranks
+#: phase 24's launches of ranks, started together: (ranks, backend); 4
+#: ranks run flat, then as MR_HOST_GROUPS host groups
+NR_LAUNCHES = ((1, "nccl"), (2, "gloo"), (4, "gloo"))
+#: the ranks that fit ALS at the MovieLens 1M shape (flat only)
+NR_ML1M_RANKS = (1, 4)
+#: the ranks that fit under `sml.dispatch.mode=host` (f)
+NR_HOST_RANKS = 2
+#: seconds phase 24's three launches may take together
+NR_TIMEOUT = 600
+#: (a)'s compact programs: IRLS steps and tol, as phase 16's
+NR_IRLS = dict(maxIter=12, tol=1e-6)
+#: the programs of (a)-(d) in the order a rank runs them
+NR_LINEAR = tuple(NT_LINEAR) + ("compact_gram", "compact_irls",
+                                "logistic")
+NR_KMEANS = ("km_k3", "km_k8")
+
+NR_CHILD = MT_CHILD.replace("cs.mt_rank(", "cs.nr_rank(").replace(
+    'f"t{n}r{rank}"', 'f"n{n}r{rank}"')
+
+
+def nr_inputs(refs: dict, tmp: str, device, compact_rows: int) -> dict:
+    """Write phase 24's inputs to `tmp` (phase 14's rows, and the ML 03
+    compact block of `make_airbnb_dataset(compact_rows, seed=7)` as
+    phase 16 builds it) and fit the compact programs once on `device`
+    outside any mesh, the one-card results (a)'s compact ranks are held
+    to; returns those."""
+    from sml_tpu_torch.conf import GLOBAL_CONF
+    from sml_tpu_torch.courseware import make_airbnb_dataset
+    from sml_tpu_torch.frame.dataframe import DataFrame
+    from sml_tpu_torch.frame.session import get_session
+    from sml_tpu_torch.ml import linear_impl
+    from sml_tpu_torch.ml._staging import extract_compact
+    from sml_tpu_torch.ml.featurizer import try_fast_fit
+    arrays = {k: refs[k] for k in ("ml02_X", "ml02_y", "ml03_X", "ml03_y",
+                                   "logit_y", "km_X")}
+    for shape in ("golden", "ml1m"):
+        for part in ("train", "test"):
+            for c, v in refs[f"als_{shape}"][part].items():
+                arrays[f"{shape}_{part}_{c}"] = v
+    np.savez(os.path.join(tmp, "nr_inputs.npz"), **arrays)
+    cols = make_airbnb_dataset(n=compact_rows, seed=7)
+    cols["label"] = (cols["price"] > np.median(cols["price"])).astype(
+        np.float64)
+    raw = get_session().createDataFrame(cols)._whole()
+    del cols
+    GLOBAL_CONF.unset("sml.linear.compactBytes")
+    if compact_rows < FZ_COMPACT_ROWS:     # a rehearsal's few rows
+        GLOBAL_CONF.set("sml.linear.compactBytes", 1)
+    try:
+        _, shim = try_fast_fit(fz_ml03(), raw,
+                               lambda: DataFrame.from_partitions([raw]))
+    finally:
+        GLOBAL_CONF.unset("sml.linear.compactBytes")
+    parts, y = extract_compact(shim, "features", "price")
+    _, yl = extract_compact(shim, "features", "label")
+    for k, v in (("num", parts.num), ("codes", parts.codes), ("y", y),
+                 ("yl", yl)):
+        np.save(os.path.join(tmp, f"nr_compact_{k}.npy"), v)
+    with open(os.path.join(tmp, "nr_compact.json"), "w") as f:
+        json.dump({"layout": parts.layout, "width": parts.width}, f)
+    A, b, n, yy = linear_impl.gram_stats_compact(parts, y, device=device)
+    fit = linear_impl.fit_logistic_compact(parts, yl, device=device,
+                                           **NR_IRLS)
+    return {"compact_gram": np.concatenate([A.ravel(), b, [n, yy]]),
+            "compact_irls": np.append(fit.coefficients,
+                                      [fit.intercept, fit.iterations]),
+            "width": parts.width, "rows": len(y)}
+
+
+def nr_compact_parts(out_dir: str):
+    """(CompactParts, y, binary y) from `nr_inputs`' files, memory-mapped."""
+    from sml_tpu_torch.ml.featurizer import CompactParts
+    with open(os.path.join(out_dir, "nr_compact.json")) as f:
+        meta = json.load(f)
+    arr = {k: np.load(os.path.join(out_dir, f"nr_compact_{k}.npy"),
+                      mmap_mode="r") for k in ("num", "codes", "y", "yl")}
+    layout = tuple(tuple(item) for item in meta["layout"])
+    return (CompactParts(arr["num"], arr["codes"], layout, meta["width"],
+                         None), arr["y"], arr["yl"])
+
+
+def nr_rank(n: int, rank: int, dev, seed: int, out_dir: str) -> dict:
+    """Phase 24 on one rank of `n`, every rank with the same inputs
+    (`nr_inputs`): in each layout (flat; on 4 ranks also
+    `MR_HOST_GROUPS` host groups) (a) ML 02, ML 03, ridge and elastic net
+    and the compact Gram and IRLS, (b) MLE 03's logistic regression, (c)
+    MLE 02's KMeans at k 3 and 8, (d) MLE 01's ALS at the golden shape
+    (flat on `NR_ML1M_RANKS` ranks also the MovieLens 1M shape), each
+    from zeroed counts, and (e) phase 12's ML 07 CrossValidator (fused)
+    with its validation folds evaluated over the ranks, the rows of
+    every traversal recorded; on `NR_HOST_RANKS` ranks (f) ML 03 under
+    `sml.dispatch.mode=host`. Results go to .npz files in `out_dir`;
+    returns the launches, walls and collective counts."""
+    from sml_tpu_torch.conf import GLOBAL_CONF
+    from sml_tpu_torch.frame.session import get_session
+    from sml_tpu_torch.ml import (ALS, KMeans, LinearRegression,
+                                  LogisticRegression, Pipeline)
+    from sml_tpu_torch.ml import inference, linear_impl
+    from sml_tpu_torch.ml.evaluation import RegressionEvaluator
+    from sml_tpu_torch.parallel import mesh as M
+    GLOBAL_CONF.set("sml.device", dev.type)
+    inp = dict(np.load(os.path.join(out_dir, "nr_inputs.npz")))
+    parts, y_c, yl_c = nr_compact_parts(out_dir)
+
+    def frame(**cols):
+        return get_session().createDataFrame(cols)
+
+    lin = {"ml02": frame(features=inp["ml02_X"], price=inp["ml02_y"]),
+           "ml03": frame(features=inp["ml03_X"], price=inp["ml03_y"])}
+    logit = frame(features=inp["ml03_X"], label=inp["logit_y"])
+    km = frame(features=inp["km_X"])
+    ratings = {shape: {part: frame(**{c: inp[f"{shape}_{part}_{c}"]
+                                      for c in ("userId", "movieId",
+                                                "rating")})
+                       for part in ("train", "test")}
+               for shape in ("golden", "ml1m")}
+    als_kw = dict(userCol="userId", itemCol="movieId", ratingCol="rating",
+                  maxIter=10, regParam=0.1, seed=42, coldStartStrategy="drop")
+    ev = RegressionEvaluator(labelCol="rating")
+    programs = {
+        **{name: (lambda kw=kw, name=name: _coefs(LinearRegression(
+            labelCol="price", **kw).fit(
+                lin["ml02" if name == "ml02" else "ml03"])))
+           for name, kw in NT_LINEAR.items()},
+        "compact_gram": lambda: np.concatenate([
+            np.ravel(m) if np.ndim(m) else [m]
+            for m in linear_impl.gram_stats_compact(parts, y_c)]),
+        "compact_irls": lambda: (lambda f: np.append(
+            f.coefficients, [f.intercept, f.iterations]))(
+            linear_impl.fit_logistic_compact(parts, yl_c, **NR_IRLS)),
+        "logistic": lambda: (lambda m: np.append(
+            _coefs(m), m.summary.totalIterations))(
+            LogisticRegression(labelCol="label").fit(logit)),
+        **{f"km_k{k}": (lambda k=k: (lambda m: np.append(
+            np.stack(m.clusterCenters()).ravel(), m.summary.trainingCost))(
+            KMeans(k=k, maxIter=20, seed=221).fit(km))) for k in (3, 8)},
+    }
+    als_rank = {"golden": 8, "ml1m": 12}
+    out = {}
+    layouts = ["flat"] + (["hosts"] if n == 4 else [])
+    for layout in layouts:
+        if layout == "hosts":
+            GLOBAL_CONF.set("sml.mesh.hostGroups", MR_HOST_GROUPS)
+            GLOBAL_CONF.set("sml.tree.hierarchicalAllreduce", "auto")
+            M.set_mesh(M.host_mesh())
+        saved = {}
+        with KernelWatch() as watch:
+            for name, fn in programs.items():
+                got, launches, ms, c = mt_measured(fn, dev)
+                saved[name] = got
+                out[f"{layout} {name}"] = {"wall_ms": ms,
+                                           "launches": launches,
+                                           "collectives": c}
+            shapes = ["golden"] + (["ml1m"] if layout == "flat"
+                                   and n in NR_ML1M_RANKS else [])
+            for shape in shapes:
+                model, launches, ms, c = mt_measured(
+                    lambda: ALS(rank=als_rank[shape], **als_kw).fit(
+                        ratings[shape]["train"]), dev)
+                saved[f"als_{shape}"] = np.append(model._uf, model._if)
+                rmse = ev.evaluate(model.transform(ratings[shape]["test"]))
+                out[f"{layout} als_{shape}"] = {
+                    "wall_ms": ms, "launches": launches, "collectives": c,
+                    "rmse": rmse, "users": len(model._user_ids),
+                    "items": len(model._item_ids)}
+            # (e) the fused CV, each validation fold over the ranks
+            train, _ = sel_frames(100_000)
+            feat = Pipeline(stages=sel_prep()).fit(train).transform(train)
+            feat.cache()
+            rf = sel_rf()
+            rows = []
+            traverse = inference.forest_traverse
+
+            def counted(binned, *a, **k):
+                rows.append(int(binned.shape[0]))
+                return traverse(binned, *a, **k)
+            inference.forest_traverse = counted
+            clear_fit_caches()
+            try:
+                cvm, launches, ms, c = mt_measured(
+                    lambda: sel_cv(rf, sel_grid(rf), 4).fit(feat), dev)
+            finally:
+                inference.forest_traverse = traverse
+            out[f"{layout} cv"] = {
+                "avgMetrics": [float(m) for m in cvm.avgMetrics],
+                "traverse_rows": rows, "wall_ms": ms, "launches": launches,
+                "collectives": c}
+        out[f"{layout} plain_on_cuda"] = watch.plain_on_cuda
+        np.savez(os.path.join(out_dir, f"nr_{layout}_{n}_{rank}.npz"),
+                 **saved)
+    if n == NR_HOST_RANKS and dev.type == "cuda":
+        # (f) the host route under the mesh: the plain CPU fit, all rows
+        # (on the CPU, a rehearsal, the host route is the device route)
+        GLOBAL_CONF.set("sml.dispatch.mode", "host")
+        try:
+            got, launches, ms, c = mt_measured(programs["ml03"], dev)
+        finally:
+            GLOBAL_CONF.unset("sml.dispatch.mode")
+        np.save(os.path.join(out_dir, f"nr_host_{rank}.npy"), got)
+        out["host ml03"] = {"wall_ms": ms, "launches": launches,
+                            "collectives": c}
+    return out
+
+
+def nr_payload(name: str, refs: dict, compact: dict, users_items=None
+               ) -> list:
+    """The float64 values of each all-reduce of one program of phase 24
+    (the table of `ml/linear_impl.py`, `clustering.py` and
+    `recommendation.py`): the Gram (d+1)^2 + (d+1) + 2; an IRLS step
+    (d+1) + (d+1)^2 + 1; a Lloyd iteration k*(d+1), then the cost; an
+    ALS half-step n_out * (r^2 + r + 1)."""
+    if name in NT_LINEAR:
+        d1 = refs["ml02_X" if name == "ml02" else "ml03_X"].shape[1] + 1
+        return [d1 * d1 + d1 + 2]
+    if name == "compact_gram":
+        w1 = compact["width"] + 1
+        return [w1 * w1 + w1 + 2]
+    if name == "compact_irls":
+        w1 = compact["width"] + 1
+        return [w1 + w1 * w1 + 1] * NR_IRLS["maxIter"]
+    if name == "logistic":
+        d1 = refs["ml03_X"].shape[1] + 1
+        return [d1 + d1 * d1 + 1] * int(refs["coef_logistic"][-1])
+    if name.startswith("km_k"):
+        k, d = int(name[4:]), refs["km_X"].shape[1]
+        return [k * (d + 1)] * 20 + [1]
+    r = {"als_golden": 8, "als_ml1m": 12}[name]
+    per = r * r + r + 1
+    U, I = users_items
+    return [U * per, I * per] * 10
+
+
+def nr_collectives_ok(c: dict, values: list, layout: str) -> bool:
+    """Whether a program's collective counts are one MIN / MAX pair (the
+    input check) and the all-reduces of `values` (flat: `psum`; host
+    groups: the payload, padded to the group size, on the "ici" hop and
+    half of it on the "dcn" hop)."""
+    if c.get("collective.pmin") != 1 or c.get("collective.pmax") != 1:
+        return False
+    if layout == "flat":
+        return (c.get("collective.psum") == len(values)
+                and c.get("collective.psum_bytes") == 8 * sum(values))
+    per = MR_HOST_GROUPS
+    padded = [v + (-v) % per for v in values]
+    return (c.get("collective.psum.ici") == len(values)
+            and c.get("collective.psum_bytes.ici") == 8 * sum(padded)
+            and c.get("collective.psum_bytes.dcn") == 8 * sum(padded) / per
+            and "collective.psum_bytes" not in c)
+
+
+def phase_multirank_nontree(device, card: str, nontree: dict,
+                            selection: dict,
+                            compact_rows: int = FZ_COMPACT_ROWS) -> dict:
+    """24. the non-tree programs over ranks: `nr_rank` on 1 (NCCL), 2 and
+    4 (gloo) ranks on `device`, each rank a process, the three launches
+    at once, at phase 14's widths. Checks, on every rank of every
+    layout: (a)-(c) the linear fits' coefficients, the compact Gram's
+    moments and IRLS fit (`compact_rows` rows), the logistic fit, and
+    KMeans' centers and cost bit-equal to phase 14's one-card results
+    (the compact ones to the same programs fitted once here on the card
+    outside any mesh), as the CPU tests found them; (d) ALS's factors
+    within 2e-5 and its test rmse within `NT_RTOL` of phase 14's; (e) the
+    CV's avgMetrics bit-equal to phase 12's (and so to phase 23's), its
+    launches phase 12's, each traversal over the rank's blocks of its
+    fold; (f) the host route's ML 03 fit bit-equal to phase 14's CPU fit
+    with no launch and no collective. The non-tree fits launch no kernel,
+    no plain version runs on the card, and each program's all-reduces
+    carry its payload (`nr_payload`)."""
+    import tempfile
+    from sml_tpu_torch.ml.evaluation import eval_blocks
+    refs = nontree["refs"]
+    out = {"card": card, "launches": dict.fromkeys(CHUNK_KERNELS, 0)}
+    rf = sel_rf()
+    grid = sel_grid(rf)
+    points = [sel_point(rf, pm) for pm in grid]
+    elements = [p for p in points for _ in range(SEL_FOLDS)]
+    avg = selection["a"]["avgMetrics"]
+    cv_want = add_launches(fits_launches(elements, True),
+                           fits_launches([points[int(np.argmin(avg))]],
+                                         False),
+                           {"forest_traverse": len(elements)})
+    zero = dict.fromkeys(CHUNK_KERNELS, 0)
+    with tempfile.TemporaryDirectory(prefix="sml-multirank-nontree-") as tmp:
+        t0 = time.perf_counter()
+        compact = nr_inputs(refs, tmp, device, compact_rows)
+        out["inputs_s"] = time.perf_counter() - t0
+        want = {name: refs[f"coef_{name}"] for name in NT_LINEAR}
+        want.update(compact_gram=compact["compact_gram"],
+                    compact_irls=compact["compact_irls"],
+                    logistic=refs["coef_logistic"],
+                    km_k3=refs["km_k3"], km_k8=refs["km_k8"])
+        t0 = time.perf_counter()
+        launches = [mr_start(NR_CHILD, n, "gloo" if device.type == "cpu"
+                             else backend, 0, tmp, device, tag="nr")
+                    for n, backend in NR_LAUNCHES]
+        results = mr_finish(launches, NR_TIMEOUT)
+        out["launch_s"] = time.perf_counter() - t0
+        for (_, n, backend), ranks in zip(launches, results):
+            cell = f"{n}x{backend}"
+            for layout in ("flat", "hosts") if n == 4 else ("flat",):
+                lc = cell + ("" if layout == "flat"
+                             else f" {MR_HOST_GROUPS} groups")
+                for r, rk in enumerate(ranks):
+                    if rk[f"{layout} plain_on_cuda"]:
+                        raise AssertionError(f"{lc} rank {r}: a plain "
+                                             f"version ran on the card")
+                    got = dict(np.load(os.path.join(
+                        tmp, f"nr_{layout}_{n}_{r}.npz")))
+                    for name, ref in want.items():
+                        np.testing.assert_array_equal(
+                            got[name], ref,
+                            err_msg=f"{lc} rank {r} {name}")
+                    shapes = [s for s in ("golden", "ml1m")
+                              if f"als_{s}" in got]
+                    for shape in shapes:
+                        ref = refs[f"als_{shape}"]
+                        diff = float(np.max(np.abs(got[f"als_{shape}"]
+                                                   - ref["factors"])))
+                        rmse = rk[f"{layout} als_{shape}"]["rmse"]
+                        rk[f"{layout} als_{shape}"]["factor_max_diff"] = diff
+                        if diff > 2e-5 or abs(rmse - ref["rmse"]) > \
+                                NT_RTOL * ref["rmse"]:
+                            raise AssertionError(
+                                f"{lc} rank {r} ALS {shape}: factors "
+                                f"{diff}, rmse {rmse} vs {ref['rmse']}")
+                    for name in tuple(want) + tuple(f"als_{s}"
+                                                    for s in shapes):
+                        rec = rk[f"{layout} {name}"]
+                        if rec["launches"] != zero:
+                            raise AssertionError(f"{lc} rank {r} {name}: "
+                                                 f"launches "
+                                                 f"{rec['launches']}")
+                        ui = (rec["users"], rec["items"]) \
+                            if name.startswith("als") else None
+                        values = nr_payload(name, refs, compact, ui)
+                        if not nr_collectives_ok(rec["collectives"], values,
+                                                 layout):
+                            raise AssertionError(
+                                f"{lc} rank {r} {name}: collectives "
+                                f"{rec['collectives']}, payload {values}")
+                    cv = rk[f"{layout} cv"]
+                    if cv["avgMetrics"] != avg:
+                        raise AssertionError(f"{lc} rank {r} (e): avgMetrics"
+                                             f" {cv['avgMetrics']} != {avg}")
+                    if cv["launches"] != cv_want:
+                        raise AssertionError(f"{lc} rank {r} (e): launches "
+                                             f"{cv['launches']}, not "
+                                             f"{cv_want}")
+                    for k, v in cv["launches"].items():
+                        out["launches"][k] += v
+                # (e) each traversal over the rank's whole blocks of its fold
+                folds = [sum(rk[f"{layout} cv"]["traverse_rows"][i]
+                             for rk in ranks)
+                         for i in range(len(elements))]
+
+                for r, rk in enumerate(ranks):
+                    place = types.SimpleNamespace(size=n, rank=r)
+                    mine = [eval_blocks(total, place)[2] for total in folds]
+                    if rk[f"{layout} cv"]["traverse_rows"] != \
+                            [s.stop - s.start for s in mine]:
+                        raise AssertionError(
+                            f"{lc} rank {r} (e): traversal rows "
+                            f"{rk[f'{layout} cv']['traverse_rows']} of "
+                            f"folds {folds}")
+                rows0 = ranks[0][f"{layout} cv"]["traverse_rows"]
+                walls = [round(rk[f"{layout} cv"]["wall_ms"], 1)
+                         for rk in ranks]
+                print(f"multirank_nontree {lc:<18} (e) ML 07 CrossValidator "
+                      f"(fused): avgMetrics equal to phase 12's on every "
+                      f"rank; launches {cv_want} a rank, each of the "
+                      f"{len(rows0)} traversals over the rank's blocks "
+                      f"(rank 0: {rows0} of folds {folds} rows); walls "
+                      f"{walls} ms  [{card}]")
+                for name in tuple(want) + ("als_golden", "als_ml1m"):
+                    key = f"{layout} {name}"
+                    if key not in ranks[0]:
+                        continue
+                    rec = ranks[0][key]
+                    c = rec["collectives"]
+                    calls = c.get("collective.psum",
+                                  c.get("collective.psum.ici", 0))
+                    nbytes = c.get("collective.psum_bytes",
+                                   c.get("collective.psum_bytes.ici", 0))
+                    extra = ""
+                    if name.startswith("als"):
+                        worst = max(rk[key]["factor_max_diff"]
+                                    for rk in ranks)
+                        extra = (f", factors max |diff| {worst!r}, rmse "
+                                 f"{rec['rmse']!r}")
+                    walls = [rk[key]["wall_ms"] for rk in ranks]
+                    out[f"{lc} {name}"] = {
+                        "psum_calls": calls, "psum_bytes": nbytes,
+                        "dcn_bytes": c.get("collective.psum_bytes.dcn"),
+                        "wall_ms": walls}
+                    exact = "within tolerance" if name.startswith("als") \
+                        else "bit-equal"
+                    print(f"multirank_nontree {lc:<18} {name}: {exact} on "
+                          f"every rank{extra}; no launch; psum {calls} calls "
+                          f"{nbytes:.0f} bytes a rank (= the payload)"
+                          + (f", dcn {c['collective.psum_bytes.dcn']:.0f}"
+                             if layout == "hosts" else "")
+                          + f"; wall {[round(v, 1) for v in walls]}"
+                          f" ms (ranks share the card: information only)  "
+                          f"[{card}]")
+            if n == NR_HOST_RANKS and device.type == "cuda":
+                for r, rk in enumerate(ranks):
+                    got = np.load(os.path.join(tmp, f"nr_host_{r}.npy"))
+                    np.testing.assert_array_equal(
+                        got, refs["coef_ml03_cpu"],
+                        err_msg=f"(f) rank {r}")
+                    rec = rk["host ml03"]
+                    if rec["launches"] != zero or rec["collectives"]:
+                        raise AssertionError(f"(f) rank {r}: {rec}")
+                print(f"multirank_nontree {cell:<18} (f) ML 03 under "
+                      f"sml.dispatch.mode=host: the plain CPU fit over all "
+                      f"rows on every rank, bit-equal to phase 14's CPU fit,"
+                      f" no launch, no collective  [{card}]")
+            out[f"{cell} ranks"] = [
+                {k: rk[k] for k in ("import_s", "init_s", "backend")}
+                for rk in ranks]
+    print(f"multirank_nontree: inputs {out['inputs_s']:.1f} s, the three "
+          f"launches together {out['launch_s']:.1f} s; forest_traverse "
+          f"{out['launches']['forest_traverse']} launches in (e)")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=["23"], default=None,
-                    help="run phase 23 and what it compares with; no "
-                         "result line")
+    ap.add_argument("--only", choices=["23", "24"], default=None,
+                    help="run phase 23 or 24 and what it compares with; "
+                         "no result line")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -7723,6 +8205,13 @@ def main(argv=None) -> int:
         selection = phase_selection(device, card)
         print(json.dumps({"multirank_tuning": phase_multirank_tuning(
             args.seed, device, card, tuning, selection, fit)}))
+        print(card)
+        return 0
+    if args.only == "24":
+        selection = phase_selection(device, card)
+        nontree = phase_nontree(device, card)
+        print(json.dumps({"multirank_nontree": phase_multirank_nontree(
+            device, card, nontree, selection)}))
         print(card)
         return 0
     err = phase_kernels(args.seed, device)
@@ -7754,6 +8243,8 @@ def main(argv=None) -> int:
     multirank = phase_multirank(args.seed, device, card, fit)
     multirank_tuning = phase_multirank_tuning(args.seed, device, card, tuning,
                                               selection, fit)
+    multirank_nontree = phase_multirank_nontree(device, card, nontree,
+                                                selection)
 
     def by_path(kernel: str) -> dict:
         return {"fit": fit["launches"][kernel],
@@ -7769,7 +8260,8 @@ def main(argv=None) -> int:
                 "observed": observed["launches"][kernel],
                 "fleet": fleet["launches"][kernel],
                 "multirank": multirank["launches"][kernel],
-                "multirank_tuning": multirank_tuning["launches"][kernel]}
+                "multirank_tuning": multirank_tuning["launches"][kernel],
+                "multirank_nontree": multirank_nontree["launches"][kernel]}
 
     def windows(kernel: str) -> dict:
         return {what: seen for what, seen in DEVICE_WINDOWS.items()
@@ -7794,7 +8286,8 @@ def main(argv=None) -> int:
         + observed["launches"]["forest_traverse"]
         + fleet["launches"]["forest_traverse"]
         + multirank["launches"]["forest_traverse"]
-        + multirank_tuning["launches"]["forest_traverse"],
+        + multirank_tuning["launches"]["forest_traverse"]
+        + multirank_nontree["launches"]["forest_traverse"],
         "launches_by_path": {"serving": main_path["launches"],
                              "tuning": tuning["fused"]["forest_traverse"],
                              "dataframe": frames["evaluate"][
@@ -7819,6 +8312,8 @@ def main(argv=None) -> int:
                              "multirank": multirank["launches"][
                                  "forest_traverse"],
                              "multirank_tuning": multirank_tuning[
+                                 "launches"]["forest_traverse"],
+                             "multirank_nontree": multirank_nontree[
                                  "launches"]["forest_traverse"]},
         "replay_launches": chunked["b"]["launches"]["forest_traverse"],
         "replay": chunked["replay"],
@@ -7935,7 +8430,8 @@ def main(argv=None) -> int:
         "binning_ms_cpp_numpy": binning, "selection": selection}}))
     print(json.dumps({"chunked": {k: v for k, v in chunked.items()
                                   if k != "replay"}}))
-    print(json.dumps({"nontree": nontree}))
+    print(json.dumps({"nontree": {k: v for k, v in nontree.items()
+                                  if k != "refs"}}))
     print(json.dumps({"timeseries": timeseries}))
     print(json.dumps({"featurizer": featurizer}))
     print(json.dumps({"registry": registry}))
@@ -7946,6 +8442,7 @@ def main(argv=None) -> int:
     print(json.dumps({"multirank": multirank}))
     print(json.dumps({"multirank_tuning": {
         k: v for k, v in multirank_tuning.items()}}))
+    print(json.dumps({"multirank_nontree": multirank_nontree}))
     print(json.dumps({"dataframe": {
         "launches_fit": frames["fit"], "launches_evaluate":
         frames["evaluate"], "rmse": frames["rmse"],

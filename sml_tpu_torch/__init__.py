@@ -74,6 +74,15 @@ device="cpu"; without a card they raise. The DataFrame entry points
 
 from .conf import GLOBAL_CONF
 from .frame import DataFrame, Row, TpuSession, functions, get_session
+from .version import __version__
 
-__all__ = ["DataFrame", "GLOBAL_CONF", "Row", "TpuSession", "functions",
-           "get_session"]
+
+def install_shims() -> None:
+    """Register the pyspark/mlflow/hyperopt/databricks import shims so
+    the course's code runs unchanged on the port (`compat.py`)."""
+    from .compat import install_shims as _install
+    _install()
+
+
+__all__ = ["TpuSession", "DataFrame", "Row", "functions", "get_session",
+           "GLOBAL_CONF", "install_shims", "__version__"]

@@ -125,7 +125,10 @@ def ingest_source(source: ChunkSource, max_bins: int,
     Under a mesh of ranks on `device` (`dispatch.mesh_for`) pass 2 reads
     only this rank's `source.host_view(rank, size)`: the result holds its
     block of the rows, and `block` says which (`n_rows` stays the
-    source's).
+    source's). Such blocks cannot take the host route, which runs a
+    program on all of its rows: under `sml.dispatch.mode=host` and a
+    mesh of several ranks the ingest raises
+    (`dispatch.refuse_host_route_for_blocks`).
 
     `stats` holds: n_chunks, chunk_rows, prefetch_depth, sketch_exact,
     sketch_s / pipeline_s / prep_s / dispatch_s (host clock; prep summed
@@ -136,11 +139,13 @@ def ingest_source(source: ChunkSource, max_bins: int,
     (the pipeline's ("dispatch" | "drain", chunk) events in order)."""
     from ..device import resolve_device
     from ..obs import INGEST_SKEW, LEDGER
-    from ..parallel.dispatch import mesh_for
+    from ..parallel.dispatch import mesh_for, refuse_host_route_for_blocks
     from ..parallel.pipeline import prefetch_pipeline
     from ._staging import ChunkAssembler, insert_bins_cached
     dev = resolve_device(device)
     mesh = mesh_for(dev)
+    if mesh is not None:
+        refuse_host_route_for_blocks()
     key = None if (binning is not None or sketch is not None
                    or drift_baseline is not None) \
         else _memo_key(source, max_bins, categorical, mesh)

@@ -22,6 +22,12 @@ Every device byte the caches hold is charged to the memory ledger
 element stack to `stage_cache`, freed on eviction; the chunked ingest's
 matrix is `chunk_stage` while it assembles.
 
+Under a mesh of ranks every rank calls a fit with the same rows:
+`same_on_every_rank` checks that they do (one MIN and one MAX
+all-reduce of a hash of the inputs), and `mesh_rows` gives a non-tree
+program its mesh and this rank's block of the rows (`take_rows` cuts a
+numpy array or a `CompactParts` block to it).
+
 `extract_features` and `extract_xy` hand a frame's feature block and
 label column to the fits and models, as the JAX package's do: the
 features as a C-contiguous f32 matrix, the labels as f32; a fused block
@@ -384,3 +390,67 @@ def extract_compact(df, featuresCol: str, labelCol: str):
                                keep=keep)
         y = y[ok]
     return parts, y
+
+
+def same_on_every_rank(mesh, binnings=(), ys=(), grid=None,
+                       rows: Optional[int] = None, arrays=()) -> None:
+    """Raise unless every rank of `mesh` holds the same fit inputs: one
+    MIN and one MAX all-reduce of [a hash of the bin edges and category
+    ranks of each of `binnings`, the labels `ys`, the raw bytes (with
+    shape and dtype) of `arrays` and the `grid` (a fit's
+    hyperparameters), the row count]. The row count is `rows`, or the
+    labels' when None. Ranks that hold different rows would otherwise
+    fit a wrong model without a word."""
+    import hashlib
+
+    from ..parallel import collectives as coll
+    h = hashlib.blake2b(digest_size=7)   # below 2^56: an int64
+    for binning in binnings:
+        h.update(np.ascontiguousarray(binning.edges).tobytes())
+        for f, rank in sorted(binning.cat_remap.items()):
+            h.update(np.int64(f).tobytes()
+                     + np.ascontiguousarray(rank).tobytes())
+    for y in ys:
+        h.update(np.ascontiguousarray(y, np.float32).tobytes())
+    for a in arrays:
+        a = _normalize(a)
+        h.update(repr((a.shape, str(a.dtype))).encode())
+        h.update(a.reshape(-1).view(np.uint8).data)
+    if grid is not None:
+        h.update(repr(grid).encode())
+    n = sum(len(y) for y in ys) if rows is None else int(rows)
+    mine = torch.tensor([int.from_bytes(h.digest(), "little"), n],
+                        dtype=torch.int64, device=mesh.device)
+    lo, hi = coll.pmin(mine, mesh=mesh), coll.pmax(mine, mesh=mesh)
+    if not torch.equal(lo, hi):
+        raise ValueError(
+            f"the {mesh.size} ranks of the mesh hold different fit inputs "
+            f"(bin edges, category ranks, labels, arrays and grid hashed, "
+            f"row counts {int(lo[1])}..{int(hi[1])}): every rank must fit "
+            f"the same rows")
+
+
+def mesh_rows(dev: torch.device, n_rows: int, arrays=(), grid=None):
+    """(mesh, rows) of a non-tree program over `n_rows` rows on `dev`:
+    (None, slice(None)) outside a mesh (`dispatch.mesh_for`); under one,
+    after `same_on_every_rank` over `arrays` and `grid`, the mesh and
+    this rank's block (`mesh.row_range`). Every rank holds all the
+    rows; the program stages only its block and all-reduces its
+    partial sums."""
+    from ..parallel.dispatch import mesh_for
+    from ..parallel.mesh import row_range
+    mesh = mesh_for(dev)
+    if mesh is None:
+        return None, slice(None)
+    same_on_every_rank(mesh, arrays=arrays, grid=grid, rows=n_rows)
+    start, stop = row_range(n_rows, mesh)
+    return mesh, slice(start, stop)
+
+
+def take_rows(a, rows: slice):
+    """Rows `rows` of a numpy array, or of a `featurizer.CompactParts`
+    block (its numeric slots and codes; `keep` describes the raw block
+    and stays as it is)."""
+    if hasattr(a, "codes") and hasattr(a, "layout"):
+        return a._replace(num=a.num[rows], codes=a.codes[rows])
+    return a[rows]

@@ -47,6 +47,7 @@ from ..frame.column import block_len
 from ..parallel.dispatch import WorkHint
 from ..utils.prng import prng_key
 from . import tree_impl
+from ._staging import same_on_every_rank
 from .linalg import DenseVector
 from .base import (Estimator, Model, RegStatsHook, load_arrays,
                    save_arrays)
@@ -408,41 +409,6 @@ def _cached_bins(X, y32, max_bins, categorical):
     return hit
 
 
-def _same_on_every_rank(mesh, binnings, ys, grid=None,
-                        rows: Optional[int] = None) -> None:
-    """Raise unless every rank of `mesh` holds the same fit inputs: one
-    MIN and one MAX all-reduce of [a hash of the bin edges and category
-    ranks of each of `binnings`, the labels `ys` and the `grid` (a fused
-    fit's hyperparameters), the row count]. The row count is `rows`, or
-    the labels' when None. Ranks that binned different rows would
-    otherwise fit a wrong model without a word."""
-    import hashlib
-
-    import torch
-
-    from ..parallel import collectives as coll
-    h = hashlib.blake2b(digest_size=7)   # below 2^56: an int64
-    for binning in binnings:
-        h.update(np.ascontiguousarray(binning.edges).tobytes())
-        for f, rank in sorted(binning.cat_remap.items()):
-            h.update(np.int64(f).tobytes()
-                     + np.ascontiguousarray(rank).tobytes())
-    for y in ys:
-        h.update(np.ascontiguousarray(y, np.float32).tobytes())
-    if grid is not None:
-        h.update(repr(grid).encode())
-    n = sum(len(y) for y in ys) if rows is None else int(rows)
-    mine = torch.tensor([int.from_bytes(h.digest(), "little"), n],
-                        dtype=torch.int64, device=mesh.device)
-    lo, hi = coll.pmin(mine, mesh=mesh), coll.pmax(mine, mesh=mesh)
-    if not torch.equal(lo, hi):
-        raise ValueError(
-            f"the {mesh.size} ranks of the mesh hold different fit inputs "
-            f"(bin edges, category ranks, labels and grid hashed, row "
-            f"counts {int(lo[1])}..{int(hi[1])}): every rank must fit the "
-            f"same rows")
-
-
 def _rank_block(dev, binning, y32: np.ndarray, block):
     """(Shard, rows of the given arrays) of a fit on `dev`: (None, all)
     outside a mesh (`dispatch.mesh_for`), else this rank's block after
@@ -460,11 +426,11 @@ def _rank_block(dev, binning, y32: np.ndarray, block):
         return None, slice(None)
     if block is None:
         n = len(y32)
-        _same_on_every_rank(mesh, [binning], [y32])
+        same_on_every_rank(mesh, [binning], [y32])
         start, stop = row_range(n, mesh)
         return tree_impl.Shard(mesh, (start,), (n,)), slice(start, stop)
     start, total = (int(v) for v in block)
-    _same_on_every_rank(mesh, [binning], [], rows=total)
+    same_on_every_rank(mesh, [binning], [], rows=total)
     if (start, start + len(y32)) != row_range(total, mesh):
         raise ValueError(f"rows [{start}, {start + len(y32)}) of {total} "
                          f"are not rank {mesh.rank}'s block "
@@ -505,8 +471,9 @@ def _fit_ensemble(X: Optional[np.ndarray], y: np.ndarray, *,
 
     Over a mesh of ranks on that device (`dispatch.mesh_for`; every
     rank calls the fit with the same rows) each rank bins all the rows,
-    checks that every rank holds the same inputs (`_same_on_every_rank`),
-    stages only its own block (`mesh.row_range`) and fits data-parallel
+    checks that every rank holds the same inputs
+    (`_staging.same_on_every_rank`), stages only its own block
+    (`mesh.row_range`) and fits data-parallel
     (`tree_impl.Shard`): every rank returns the one-rank fit's model.
     `block=(start, total)` says that `prebinned` and y are already this
     rank's block of `total` rows (`ml/_chunked.ingest_source` under a
@@ -653,7 +620,7 @@ def _fit_ensemble_folds(Xs, ys, cats, *, max_depth: int, max_bins: int,
     for all k. Each fold is binned on its own rows (`_cached_bins`), as
     its sequential fit bins it. Over a mesh of ranks every rank bins
     every fold, checks that every rank holds the same folds
-    (`_same_on_every_rank`) and stages only its block of each fold's
+    (`_staging.same_on_every_rank`) and stages only its block of each fold's
     rows (`tree_impl.fit_ensembles_folds`)."""
     from ..parallel.dispatch import mesh_for
     from ..utils.profiler import PROFILER
@@ -680,7 +647,7 @@ def _fit_ensemble_folds(Xs, ys, cats, *, max_depth: int, max_bins: int,
     with routed_for(hint, bst, yst, mst, stacked=True, device=device) as dev:
         mesh = mesh_for(dev)
         if mesh is not None:
-            _same_on_every_rank(mesh, binnings, y32s, grid=(es, seed))
+            same_on_every_rank(mesh, binnings, y32s, grid=(es, seed))
         results = tree_impl.fit_ensembles_folds(bst, yst, mst, es, seed,
                                                 device=dev)
     mode = "binary" if loss == "logistic" else "regression"
@@ -710,8 +677,8 @@ def _fit_ensembles_grid(Xs, ys, cats, trials, max_fused: int,
 
     Over a mesh of ranks every rank bins every fold and checks, before
     the first fit, that every rank holds the same folds and grid
-    (`_same_on_every_rank`); each chunk then splits its elements' rows
-    over the ranks, or spreads its elements over lanes of ranks
+    (`_staging.same_on_every_rank`); each chunk then splits its elements'
+    rows over the ranks, or spreads its elements over lanes of ranks
     (`tree_impl.fit_ensembles_trials`), and every rank returns every
     model.
 
@@ -763,7 +730,7 @@ def _fit_ensembles_grid(Xs, ys, cats, trials, max_fused: int,
                         device=device) as dev:
             mesh = mesh_for(dev)
             if mesh is not None and lo == 0:
-                _same_on_every_rank(
+                same_on_every_rank(
                     mesh, [binnings[key] for key in sorted(binnings)], y32s,
                     grid=(trials, max_fused, loss))
             packs, _ = tree_impl.fit_ensembles_trials(
@@ -817,27 +784,39 @@ def fused_reg_stats_from_matrix(spec: _EnsembleSpec, X: np.ndarray,
     (`inference.forest_eval_fn`); rows whose label is not finite are
     left out. Returns None for a classification ensemble (its metrics
     are not these). Under `sml.dispatch.mode=host` the traversal and
-    the reduction run on the CPU, with the plain traversal."""
+    the reduction run on the CPU, with the plain traversal.
+
+    Over a mesh of ranks on `device` (`dispatch.mesh_for`; every rank
+    evaluates the same rows) each rank bins, traverses and reduces only
+    its whole blocks of the rows (`evaluation.eval_blocks`), and the
+    block partials are merged (`evaluation.reduce_blocks`): every rank
+    returns the one-device statistics bit for bit."""
+    from ..parallel.dispatch import mesh_for
     from ..utils.profiler import PROFILER
     from ._staging import routed_for, stage_bins_cached, stage_rows
+    from .evaluation import eval_blocks
     from .inference import _tables, forest_eval_fn
     if spec.mode != "regression":
         return None
-    with PROFILER.span("binning.predict", rows=int(X.shape[0])):
-        binned = bin_with(np.asarray(X, dtype=np.float64), spec.binning)
     lab = np.asarray(lab, np.float64)
-    n = binned.shape[0]
+    n = X.shape[0]
     if n != len(lab):
         raise ValueError(f"{n} rows against {len(lab)} labels")
-    finite = np.isfinite(lab)
     hint = WorkHint(flops=(4.0 * len(spec.trees) * spec.depth + 10.0) * n,
                     kind="traverse", out_bytes=64.0)
-    with routed_for(hint, binned, lab, device=device) as dev:
+    with routed_for(hint, X, lab, device=device) as dev:
+        mesh = mesh_for(dev)
+        first, total, rows = eval_blocks(n, mesh)
+        with PROFILER.span("binning.predict", rows=rows.stop - rows.start):
+            binned = bin_with(np.asarray(X[rows], dtype=np.float64),
+                              spec.binning)
+        lab = lab[rows]
+        finite = np.isfinite(lab)
         stats = forest_eval_fn(spec.depth, link)(
             stage_bins_cached(binned, dev),
             stage_rows(np.where(finite, lab, 0.0), dev),
             stage_rows(finite, dev), *_tables(*spec.stacked(), dev),
-            float(spec.base))
+            float(spec.base), blocks=(first, total, mesh))
     return tuple(float(s) for s in stats)
 
 

@@ -1,4 +1,4 @@
-"""KMeans: Lloyd's assign / recompute loop on one device.
+"""KMeans: Lloyd's assign / recompute loop on one device or over ranks.
 
 The port's copy of `sml_tpu/ml/clustering.py` (MLE 02,
 `SML/ML Electives/MLE 02 - K-Means.py:183-204`). The initial centers
@@ -12,6 +12,12 @@ float64 and each iteration's centers are rounded to f32 (the JAX
 package's center dtype), so the card and the CPU assign every point
 alike; the final centers and cost come back in one copy.
 `BisectingKMeans` trains plain KMeans, as in the JAX package.
+
+Over a mesh of ranks on the fit's device every rank draws the same
+initial centers from all the rows, stages only its block
+(`_staging.mesh_rows`), and all-reduces each iteration's sums and
+counts in one call of k*d + k float64 values, and the cost once at the
+end (`tree_impl.mesh_merge`), as the JAX package psums them.
 """
 
 from __future__ import annotations
@@ -35,10 +41,16 @@ def _sq_dists(X: torch.Tensor, x2: torch.Tensor,
                                                   dim=1)[None, :]
 
 
-def lloyd(X: torch.Tensor, init_centers: np.ndarray, max_iter: int):
+def lloyd(X: torch.Tensor, init_centers: np.ndarray, max_iter: int,
+          mesh=None):
     """`max_iter` Lloyd iterations of the device rows `X` (n, d) from
     `init_centers` (k, d); returns (centers (k, d) f32, cost) on the
-    host after one copy."""
+    host after one copy. Over a `mesh` `X` is this rank's block and the
+    sums, counts and cost are all-reduced over its ranks."""
+    merge = None
+    if mesh is not None:
+        from .tree_impl import mesh_merge
+        merge = mesh_merge(mesh)
     k = init_centers.shape[0]
     X = X.to(torch.float64)
     x2 = torch.sum(X * X, dim=1, keepdim=True)
@@ -50,10 +62,15 @@ def lloyd(X: torch.Tensor, init_centers: np.ndarray, max_iter: int):
         onehot = (assign[:, None] == ks[None, :]).to(torch.float64)
         sums = onehot.T @ X
         counts = torch.sum(onehot, dim=0)
+        if merge is not None:
+            flat = merge(torch.cat([sums.reshape(-1), counts]))
+            sums, counts = flat[:-k].reshape(sums.shape), flat[-k:]
         new = (sums / counts.clamp_min(1.0)[:, None]).to(
             torch.float32).to(torch.float64)
         centers = torch.where(counts[:, None] > 0, new, centers)
     cost = torch.sum(torch.min(_sq_dists(X, x2, centers), dim=1).values)
+    if merge is not None:
+        cost = merge(cost.reshape(1))[0]
     flat = torch.cat([centers.reshape(-1), cost.reshape(1)]).to(
         torch.float32).cpu().numpy()
     return flat[:-1].reshape(k, -1), float(flat[-1])
@@ -106,18 +123,21 @@ class KMeans(Estimator):
     def _fit(self, df) -> "KMeansModel":
         from ..device import session_device
         from ..parallel.dispatch import WorkHint
-        from ._staging import routed_for, stage_rows
+        from ._staging import mesh_rows, routed_for, stage_rows
         X = extract_features(df, self.getOrDefault("featuresCol"))
         k = int(self.getOrDefault("k"))
         max_iter = int(self.getOrDefault("maxIter"))
         init = kmeans_init(X, k, self.getOrDefault("seed"))
         # Lloyd's loop routed as one program (the CPU under
-        # sml.dispatch.mode=host)
+        # sml.dispatch.mode=host), over a mesh each rank's block
         hint = WorkHint(flops=3.0 * max_iter * X.size * k, kind="blas")
         with routed_for(hint, X, device=session_device()) as device, \
                 PROFILER.span("program.lloyd", rows=len(X),
                               route=device.type):
-            centers, cost = lloyd(stage_rows(X, device), init, max_iter)
+            mesh, rows = mesh_rows(device, len(X), (X, init),
+                                   grid=("lloyd", max_iter))
+            centers, cost = lloyd(stage_rows(X[rows], device), init,
+                                  max_iter, mesh)
         m = KMeansModel(centers=centers, trainingCost=cost)
         m._inherit_params(self)
         return m

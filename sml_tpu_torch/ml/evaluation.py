@@ -11,6 +11,18 @@ route sums in float64 numpy (`_reg_stats_host`), the device route in
 float64 torch reductions on the session's device (`_reg_stats_device`),
 each over the f32-rounded values, so the two agree to the last few
 bits. Accuracy counts the same way. Ranking metrics sort on the host.
+
+The device route, and the fused predict+eval, reduce in an order that
+does not depend on the layout of the rows (`block_partials`,
+`reduce_blocks`): the rows fall in fixed blocks of `EVAL_BLOCK_ROWS`,
+each block's statistics are summed in a fixed order (float64, two
+sequential scans), and the block sums are added in block order. Over a
+mesh of ranks (`dispatch.mesh_for`; every rank evaluates the same rows)
+each rank takes whole blocks (`eval_blocks`: `mesh.host_partition` over
+blocks), sums only those, and one all-reduce of the (blocks, s)
+partials, zero outside each rank's own blocks, carries them to every
+rank. Adding zeros is exact, so 1, 2 or 4 ranks give the one-device
+bits. Only the block partials cross the ranks, never a row.
 """
 
 from __future__ import annotations
@@ -21,6 +33,61 @@ import torch
 from ..parallel import dispatch
 from ..parallel.dispatch import WorkHint
 from .base import Evaluator
+
+#: rows of one block of the ordered reduction: _SCAN x _SCAN rows, each
+#: block summed by two sequential scans of _SCAN adds
+_SCAN = 64
+EVAL_BLOCK_ROWS = _SCAN * _SCAN
+
+
+def eval_blocks(n_rows: int, mesh=None):
+    """(first block, blocks in all, rows) of this rank's share of
+    `n_rows` rows in blocks of `EVAL_BLOCK_ROWS`: whole blocks, the
+    remainder to the leading ranks (`mesh.host_partition` over blocks);
+    every block outside a mesh."""
+    total = -(-int(n_rows) // EVAL_BLOCK_ROWS)
+    if mesh is None:
+        return 0, total, slice(0, int(n_rows))
+    from ..parallel.mesh import host_partition
+    b0, b1 = host_partition(total, mesh.size)[mesh.rank]
+    return b0, total, slice(min(b0 * EVAL_BLOCK_ROWS, int(n_rows)),
+                            min(b1 * EVAL_BLOCK_ROWS, int(n_rows)))
+
+
+def block_partials(cols: torch.Tensor) -> torch.Tensor:
+    """(blocks, s) float64 sums of each `EVAL_BLOCK_ROWS`-row block of
+    the (n, s) `cols`, the last block zero-padded. A block sums its runs
+    of `_SCAN` rows, each in row order, and then the run sums in run
+    order: a scan along a dim that is not the innermost runs each
+    column's adds one after another, on the card as on the CPU, so a
+    block's sum depends only on its rows."""
+    n, s = cols.shape
+    cols = cols.to(torch.float64)
+    blocks = -(-n // EVAL_BLOCK_ROWS)
+    pad = blocks * EVAL_BLOCK_ROWS - n
+    if pad:
+        cols = torch.cat([cols, cols.new_zeros((pad, s))])
+    x = cols.reshape(blocks, _SCAN, _SCAN, s)
+    inner = torch.cumsum(x, dim=2)[:, :, -1, :]
+    return torch.cumsum(inner, dim=1)[:, -1, :]
+
+
+def reduce_blocks(partials: torch.Tensor, first: int, total: int,
+                  mesh=None) -> torch.Tensor:
+    """The (s,) float64 sums of `total` blocks whose partials this rank
+    holds from block `first` on (`eval_blocks`): over a mesh the
+    (total, s) partials, zero outside this rank's blocks, are
+    all-reduced (`tree_impl.mesh_merge`; one call, exact); then the
+    blocks are added in block order."""
+    s = partials.shape[1]
+    if mesh is not None:
+        from .tree_impl import mesh_merge
+        full = partials.new_zeros((total, s))
+        full[first:first + partials.shape[0]] = partials
+        partials = mesh_merge(mesh)(full)
+    if not total:
+        return partials.new_zeros(s)
+    return torch.cumsum(partials, dim=0)[-1]
 
 
 def _reg_stats_host(pred: np.ndarray, lab: np.ndarray):
@@ -34,15 +101,26 @@ def _reg_stats_host(pred: np.ndarray, lab: np.ndarray):
             float(np.sum(l64)), float(np.sum(l64 * l64)))
 
 
+def _stage_block(a: np.ndarray, rows: slice, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(
+        a[rows], dtype=np.float32)).to(device).double()
+
+
 def _reg_stats_device(pred: np.ndarray, lab: np.ndarray, device):
     """`_reg_stats_host`'s statistics as float64 torch reductions on
-    `device`."""
-    p = torch.from_numpy(pred.astype(np.float32)).to(device).double()
-    l64 = torch.from_numpy(lab.astype(np.float32)).to(device).double()
+    `device`, in the ordered block reduction (over a mesh of ranks on
+    `device`, each rank's blocks, merged); n comes from the
+    reduction."""
+    device = torch.device(device)
+    mesh = dispatch.mesh_for(device)
+    first, total, rows = eval_blocks(len(pred), mesh)
+    p = _stage_block(pred, rows, device)
+    l64 = _stage_block(lab, rows, device)
     d = p - l64
-    stats = torch.stack([torch.sum(d * d), torch.sum(torch.abs(d)),
-                         torch.sum(l64), torch.sum(l64 * l64)]).cpu()
-    return (float(len(pred)),) + tuple(float(v) for v in stats)
+    cols = torch.stack([torch.ones_like(d), d * d, torch.abs(d), l64,
+                        l64 * l64], dim=1)
+    stats = reduce_blocks(block_partials(cols), first, total, mesh).cpu()
+    return tuple(float(v) for v in stats)
 
 
 def reg_stats(pred: np.ndarray, lab: np.ndarray, device):
@@ -66,9 +144,13 @@ def _accuracy(pred: np.ndarray, lab: np.ndarray, device) -> float:
     if dispatch.decide(hint, device) == "host":
         hits = int(np.sum(pred.astype(np.float32) == lab.astype(np.float32)))
     else:
-        hits = int((torch.from_numpy(pred.astype(np.float32)).to(device)
-                    == torch.from_numpy(lab.astype(np.float32)).to(device))
-                   .sum().item())
+        device = torch.device(device)
+        mesh = dispatch.mesh_for(device)
+        first, total, rows = eval_blocks(n, mesh)
+        eq = _stage_block(pred, rows, device) == \
+            _stage_block(lab, rows, device)
+        hits = int(reduce_blocks(block_partials(eq[:, None]), first, total,
+                                 mesh)[0].item())
     return hits / n
 
 

@@ -182,23 +182,38 @@ def forest_eval_fn(depth: int, link: str = "identity") -> Callable:
     applies to the predictions before the metric (the ML 11 shape: fit
     on log(label), evaluate exp(prediction)); a prediction the link
     makes non-finite drops out of every statistic, as on the host
-    paths. The sums are plain torch ops outside the kernel."""
+    paths. The sums are plain torch ops outside the kernel: each row's
+    f32 statistics, summed in float64 in the evaluators' ordered block
+    reduction (`evaluation.block_partials` / `reduce_blocks`). Its
+    keyword `blocks=(first, total, mesh)` says that the rows are this
+    rank's blocks of a mesh's evaluation (`evaluation.eval_blocks`);
+    by default they are every block. A rank with no rows launches no
+    traversal."""
     if link not in LINKS:
         raise ValueError(f"unknown link {link!r}; one of {sorted(LINKS)}")
     link_fn = LINKS[link]
 
-    def forest_eval(binned, l, lmask, sf, sb, lv, weights, base):
-        pred = base + forest_traverse(binned, sf, sb, lv, weights,
-                                      depth=depth)
+    def forest_eval(binned, l, lmask, sf, sb, lv, weights, base, *,
+                    blocks=None):
+        from .evaluation import (EVAL_BLOCK_ROWS, block_partials,
+                                 reduce_blocks)
         m = lmask
+        if binned.shape[0]:
+            pred = base + forest_traverse(binned, sf, sb, lv, weights,
+                                          depth=depth)
+        else:
+            pred = torch.zeros_like(l)
         if link_fn is not None:
             pred = link_fn(pred)
             ok = torch.isfinite(pred)
             m = m * ok.to(torch.float32)
             pred = torch.where(ok, pred, 0.0)
         d = (pred - l) * m
-        return (torch.sum(m), torch.sum(d * d), torch.sum(torch.abs(d)),
-                torch.sum(m * l), torch.sum(m * l * l))
+        cols = torch.stack([m, d * d, torch.abs(d), m * l, m * l * l], dim=1)
+        first, total, mesh = blocks if blocks is not None else \
+            (0, -(-l.shape[0] // EVAL_BLOCK_ROWS), None)
+        return tuple(reduce_blocks(block_partials(cols), first, total,
+                                   mesh).unbind(0))
 
     return forest_eval
 

@@ -1,4 +1,4 @@
-"""Linear-model solvers on one device.
+"""Linear-model solvers on one device or over a mesh of ranks.
 
 The port's copy of the materialized half of `sml_tpu/ml/linear_impl.py`:
 
@@ -39,6 +39,18 @@ one-hot slots are `code == arange(width)` compares on the device
 Each fit and `predict_linear` routes through the dispatcher with the
 JAX package's work hints (`_staging.routed_for` / `route_for_arrays`):
 on a card it stays there unless `sml.dispatch.mode=host`.
+
+Over a mesh of ranks on the fit's device (`dispatch.mesh_for`; every
+rank calls the fit with the same rows) each rank checks that the ranks
+hold the same inputs, stages only its block of the rows
+(`_staging.mesh_rows`), and all-reduces its float64 partial sums before
+their one rounding to f32 (`_moments`, through `tree_impl.mesh_merge`),
+as the JAX package psums them over its data axis: the Gram pass's A, b,
+n and y'y in one all-reduce of (d+1)^2 + (d+1) + 2 values, and each
+IRLS step's gradient, Hessian and log-likelihood in one of
+(d+1) + (d+1)^2 + 1. The row count comes from the reduction. Every
+branch of IRLS reads reduced values, so every rank takes the same
+steps and returns the same model.
 """
 
 from __future__ import annotations
@@ -50,7 +62,7 @@ import torch
 
 from ..parallel.dispatch import WorkHint
 from ..utils.profiler import PROFILER
-from ._staging import route_for_arrays, routed_for
+from ._staging import mesh_rows, route_for_arrays, routed_for, take_rows
 
 
 class LinearFit(NamedTuple):
@@ -77,6 +89,23 @@ def _to_host_f32(*parts: torch.Tensor) -> np.ndarray:
     copied back in one transfer, as float64 on the host."""
     packed = torch.cat([p.reshape(-1) for p in parts]).to(torch.float32)
     return packed.cpu().numpy().astype(np.float64)
+
+
+def _moments(mesh, *parts: torch.Tensor) -> torch.Tensor:
+    """The float64 parts flattened into one vector, all-reduced over
+    `mesh`'s ranks when there is one (`tree_impl.mesh_merge`: one call,
+    two-level on a host mesh)."""
+    flat = torch.cat([p.reshape(-1) for p in parts])
+    if mesh is None:
+        return flat
+    from .tree_impl import mesh_merge
+    return mesh_merge(mesh)(flat)
+
+
+def _row_count(t: torch.Tensor) -> torch.Tensor:
+    """This rank's row count of `t` as a float64 partial sum."""
+    return torch.full((1,), float(t.shape[0]), dtype=torch.float64,
+                      device=t.device)
 
 
 #: rows of one partial cross product: a (d+1)^2 product over millions of
@@ -112,20 +141,29 @@ def _gram_pass(Xa: torch.Tensor, y: torch.Tensor):
     return _cross(Xa, Xa), _cross(Xa, y[:, None])[:, 0], y @ y
 
 
+def _unpack_gram(flat: np.ndarray, d: int):
+    """(A, b, n, y'y) of a host vector packed as [A, b, n, y'y]."""
+    k = (d + 1) * (d + 1)
+    return (flat[:k].reshape(d + 1, d + 1), flat[k:k + d + 1],
+            float(flat[-2]), float(flat[-1]))
+
+
 def gram_stats(X: np.ndarray, y: np.ndarray, device=None
                ) -> Tuple[np.ndarray, np.ndarray, float, float]:
     """One device pass: (A = [X 1]^T [X 1], b = [X 1]^T y, n, y^T y), as
     float64 host values of the f32 moments. `device` defaults to the
-    card (the CPU under `sml.dispatch.mode=host`)."""
+    card (the CPU under `sml.dispatch.mode=host`). Under a mesh of ranks
+    each rank passes over its block and the moments are all-reduced
+    before the rounding."""
     n_rows, d = X.shape
     hint = WorkHint(flops=2.0 * n_rows * (d + 1) ** 2, kind="blas")
     with routed_for(hint, X, y, device=device) as dev, \
             PROFILER.span("program.gram", rows=int(n_rows), route=dev.type):
-        A, b, yy = _gram_pass(*_stage_f64(X, y, dev))
-        flat = _to_host_f32(A, b, yy)
-    k = (d + 1) * (d + 1)
-    return (flat[:k].reshape(d + 1, d + 1), flat[k:k + d + 1],
-            float(np.float32(n_rows)), float(flat[-1]))
+        mesh, rows = mesh_rows(dev, n_rows, (X, y), grid="gram")
+        Xa, yd = _stage_f64(X[rows], y[rows], dev)
+        A, b, yy = _gram_pass(Xa, yd)
+        flat = _to_host_f32(_moments(mesh, A, b, _row_count(Xa), yy))
+    return _unpack_gram(flat, d)
 
 
 def _fit_stats(A, b, n_f, yy, w_full):
@@ -259,19 +297,21 @@ def _expand(num: torch.Tensor, codes: torch.Tensor, layout) -> torch.Tensor:
 def gram_stats_compact(parts, y: np.ndarray, device=None
                        ) -> Tuple[np.ndarray, np.ndarray, float, float]:
     """`gram_stats` of a CompactParts block: one device pass over the
-    block expanded on the device (routed like `gram_stats`)."""
+    block expanded on the device (routed, and split over a mesh of
+    ranks, like `gram_stats`)."""
     n_rows, d = parts.num.shape[0], parts.width
     hint = WorkHint(flops=2.0 * n_rows * (d + 1) ** 2, kind="blas")
     with routed_for(hint, parts.num, parts.codes, y, device=device) as dev, \
             PROFILER.span("program.gram_compact", rows=int(n_rows),
                           route=dev.type):
-        num, codes, yd = _stage_compact(parts, y, dev)
-        A, b, yy = _gram_pass(_expand(num, codes, parts.layout),
-                              yd.to(torch.float64))
-        flat = _to_host_f32(A, b, yy)
-    k = (d + 1) * (d + 1)
-    return (flat[:k].reshape(d + 1, d + 1), flat[k:k + d + 1],
-            float(np.float32(n_rows)), float(flat[-1]))
+        mesh, rows = mesh_rows(dev, n_rows, (parts.num, parts.codes, y),
+                               grid=("gram", parts.layout, parts.width))
+        num, codes, yd = _stage_compact(take_rows(parts, rows), y[rows],
+                                        dev)
+        Xa = _expand(num, codes, parts.layout)
+        A, b, yy = _gram_pass(Xa, yd.to(torch.float64))
+        flat = _to_host_f32(_moments(mesh, A, b, _row_count(Xa), yy))
+    return _unpack_gram(flat, d)
 
 
 def fit_linear_compact(parts, y: np.ndarray, *, regParam: float = 0.0,
@@ -309,13 +349,16 @@ def _solve_spd(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _irls_steps(Xa: torch.Tensor, y: torch.Tensor, max_iter: int,
-                tol: float):
+                tol: float, mesh=None):
     """The whole-fit IRLS of the JAX package's `_compact_irls_fn`, on
     the device: (w as f32, the steps that ran before the freeze), both
     device tensors. The gradient, Hessian and log-likelihood are summed
     in float64 and rounded once to f32 (`_newton_pass`), where the JAX
     package holds them in f32; the solve runs in float64 on those f32
-    values and its step rounds to f32; `w` is carried in f32."""
+    values and its step rounds to f32; `w` is carried in f32. Over a
+    `mesh` `Xa` and `y` are this rank's block, and each step all-reduces
+    its sums before the rounding (`_newton_moments`): the damping and
+    the freeze read reduced values, so every rank steps alike."""
     f32 = torch.float32
     dev = Xa.device
     d1 = Xa.shape[1]
@@ -325,7 +368,7 @@ def _irls_steps(Xa: torch.Tensor, y: torch.Tensor, max_iter: int,
     done = torch.zeros((), dtype=torch.bool, device=dev)
     iters = torch.zeros((), dtype=torch.int32, device=dev)
     for _ in range(max_iter):
-        grad, hess, ll = _newton_pass(Xa, y, w.to(torch.float64))
+        grad, hess, ll = _newton_moments(Xa, y, w.to(torch.float64), mesh)
         grad = grad.to(f32).to(torch.float64)
         hess = hess.to(f32).to(torch.float64)
         ll = ll.to(f32)
@@ -346,17 +389,21 @@ def fit_logistic_compact(parts, y: np.ndarray, *, maxIter: int = 100,
     copy back at the end (`_irls_steps`). A penalized fit needs the
     materialized block (the proximal shrink acts on raw coefficients):
     callers take `parts.expand_host()` and `fit_logistic`. Routed like
-    `gram_stats`."""
+    `gram_stats` (over a mesh of ranks, one all-reduce a step)."""
     n_rows, d = parts.num.shape[0], parts.width
     hint = WorkHint(flops=3.0 * maxIter * n_rows * (d + 1) ** 2,
                     kind="blas")
     with routed_for(hint, parts.num, parts.codes, y, device=device) as dev, \
             PROFILER.span("program.irls_compact", rows=int(n_rows),
                           route=dev.type):
-        num, codes, yd = _stage_compact(parts, y, dev)
+        mesh, rows = mesh_rows(dev, n_rows, (parts.num, parts.codes, y),
+                               grid=("irls", parts.layout, parts.width,
+                                     int(maxIter), float(tol)))
+        num, codes, yd = _stage_compact(take_rows(parts, rows), y[rows],
+                                        dev)
         w, iters = _irls_steps(_expand(num, codes, parts.layout),
                                yd.to(torch.float64), int(maxIter),
-                               float(tol))
+                               float(tol), mesh)
         out = torch.cat([w.to(torch.float64),
                          iters.to(torch.float64)[None]]).cpu().numpy()
     return LinearFit(out[:d].copy(), float(out[d]), int(out[d + 1]))
@@ -375,6 +422,18 @@ def _newton_pass(Xa: torch.Tensor, y: torch.Tensor, w: torch.Tensor):
     return grad, hess, ll
 
 
+def _newton_moments(Xa: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
+                    mesh):
+    """`_newton_pass` of this rank's rows, all-reduced over `mesh` (one
+    call of (d+1) + (d+1)^2 + 1 float64 values) when there is one."""
+    grad, hess, ll = _newton_pass(Xa, y, w)
+    if mesh is None:
+        return grad, hess, ll
+    d1 = grad.shape[0]
+    flat = _moments(mesh, grad, hess, ll)
+    return flat[:d1], flat[d1:d1 + d1 * d1].reshape(d1, d1), flat[-1]
+
+
 def fit_logistic(X: np.ndarray, y: np.ndarray, *, regParam: float = 0.0,
                  elasticNetParam: float = 0.0, fitIntercept: bool = True,
                  standardization: bool = True, maxIter: int = 100,
@@ -385,7 +444,9 @@ def fit_logistic(X: np.ndarray, y: np.ndarray, *, regParam: float = 0.0,
     As with fit_linear, the default penalty applies to standardized
     coefficients, i.e. a per-feature std² scale in raw space. The whole
     fit is routed once (the JAX package routes each Newton pass; the
-    port's decision cannot change between passes)."""
+    port's decision cannot change between passes). Over a mesh of ranks
+    each pass runs over this rank's block and all-reduces its sums
+    (`_newton_moments`); the steps and the stop read reduced values."""
     n, d = X.shape
     lam = float(regParam)
     l2 = lam * (1 - float(elasticNetParam))
@@ -404,10 +465,14 @@ def fit_logistic(X: np.ndarray, y: np.ndarray, *, regParam: float = 0.0,
     hint = WorkHint(flops=3.0 * n * (d + 1) ** 2, kind="blas")
     with routed_for(hint, X, y, device=device) as dev, \
             PROFILER.span("program.irls", rows=int(n), route=dev.type):
-        Xa, yd = _stage_f64(X, y, dev)
+        mesh, rows = mesh_rows(
+            dev, n, (X, y), grid=("irls", lam, float(elasticNetParam),
+                                  bool(fitIntercept), bool(standardization),
+                                  int(maxIter), float(tol)))
+        Xa, yd = _stage_f64(X[rows], y[rows], dev)
         for it in range(maxIter):
             wd = torch.from_numpy(w).to(dev).to(torch.float64)
-            flat = _to_host_f32(*_newton_pass(Xa, yd, wd))
+            flat = _to_host_f32(*_newton_moments(Xa, yd, wd, mesh))
             grad = flat[:d + 1].copy()
             hess = flat[d + 1:d + 1 + k].reshape(d + 1, d + 1).copy()
             ll = flat[-1]

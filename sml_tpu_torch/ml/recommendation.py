@@ -1,4 +1,4 @@
-"""ALS: alternating least squares on one device.
+"""ALS: alternating least squares on one device or over ranks.
 
 The port's copy of `sml_tpu/ml/recommendation.py` (MLE 01,
 `SML/ML Electives/MLE 01 - Collaborative Filtering Lab.py:159-201`). The
@@ -20,6 +20,17 @@ float64 and rounds each factor matrix to f32, the JAX package's factor
 dtype. A float `index_add_` would be shorter, but its atomics add in a
 different order from run to run. The whole fit stays on the device and
 the two factor matrices come back in one copy each at the end.
+
+Over a mesh of ranks on the fit's device every rank sorts all the
+triples and draws the same inits, then holds only its contiguous slice
+of the user-sorted and of the item-sorted triples (`mesh.row_range`,
+the JAX package's `host_partition` blocks), with each entity's bounds
+clipped to the slice (`slice_bounds`, the JAX package's `bounds_for`):
+an entity whose run crosses a slice edge gets a partial sum on both
+ranks, one with no rating there an empty run. Each half-step
+all-reduces the (n_out, r^2 + r) segment sums with the (n_out,) counts
+in one call (`tree_impl.mesh_merge`) before the solve, as the JAX
+package psums them.
 
 The fit reads its columns from the frame's numpy blocks (the JAX
 package calls `toPandas()`). `implicitPrefs` is declared and ignored, as
@@ -57,6 +68,13 @@ def segment_bounds(ids_sorted: np.ndarray, n_out: int) -> np.ndarray:
                      np.searchsorted(ids_sorted, ents + 1)]).astype(np.int64)
 
 
+def slice_bounds(bounds: np.ndarray, start: int, stop: int) -> np.ndarray:
+    """Global (2, n_out) run bounds clipped to the rows [start, stop) of
+    a slice and made local to it: a run the slice cuts keeps its part,
+    a run outside it becomes empty (start == end)."""
+    return np.clip(bounds, start, stop) - start
+
+
 #: rows a block of the two-level prefix sum covers
 PREFIX_BLOCK = 1024
 
@@ -82,11 +100,13 @@ def segment_prefix(stats: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def als_half(other: torch.Tensor, rat: torch.Tensor, bounds: torch.Tensor,
-             reg: float, nonneg: bool) -> torch.Tensor:
+             reg: float, nonneg: bool, merge=None) -> torch.Tensor:
     """One half-step: each entity's factor from the other side's factors
     `other` (rows in this side's sorted order, float64), the ratings
     `rat` in the same order and the (2, n_out) `bounds`. Returns the
-    (n_out, rank) factors as float64 values of f32."""
+    (n_out, rank) factors as float64 values of f32. With `merge` (a
+    mesh's all-reduce) the rows are this rank's slice and the segment
+    sums and counts are merged over the ranks before the solve."""
     n, rank = other.shape
     rr = rank * rank
     n_pad = -(-n // PREFIX_BLOCK) * PREFIX_BLOCK
@@ -101,6 +121,9 @@ def als_half(other: torch.Tensor, rat: torch.Tensor, bounds: torch.Tensor,
     seg = prefix[ends] - prefix[starts]
     del prefix
     cnt = (ends - starts).to(torch.float64)
+    if merge is not None:
+        flat = merge(torch.cat([seg, cnt[:, None]], dim=1))
+        seg, cnt = flat[:, :-1], flat[:, -1]
     lam = reg * torch.clamp_min(cnt, 1.0)
     A = seg[:, :rr].reshape(-1, rank, rank) + lam[:, None, None] * \
         torch.eye(rank, dtype=seg.dtype, device=seg.device)[None]
@@ -113,21 +136,34 @@ def als_half(other: torch.Tensor, rat: torch.Tensor, bounds: torch.Tensor,
 
 def als_fit(prep: dict, n_users: int, n_items: int, uf0: np.ndarray,
             if0: np.ndarray, reg: float, max_iter: int, nonneg: bool,
-            device: torch.device):
+            device: torch.device, mesh=None):
     """`max_iter` alternations on `device` from the f32 inits; returns
-    the (user, item) factor matrices as f32 host arrays."""
+    the (user, item) factor matrices as f32 host arrays. Over a `mesh`
+    this rank holds only its slice of each sorted order, and every
+    half-step merges its segment sums over the ranks."""
+    from ..parallel.mesh import row_range
+
     def put(a, dtype):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device).to(dtype)
 
-    ius, usi = put(prep["ius"], torch.int64), put(prep["usi"], torch.int64)
-    rat_u = put(prep["rat_u"], torch.float64)
-    rat_i = put(prep["rat_i"], torch.float64)
-    ub = put(segment_bounds(prep["u_sorted"], n_users), torch.int64)
-    ib = put(segment_bounds(prep["i_sorted"], n_items), torch.int64)
+    start, stop, merge = 0, len(prep["rat_u"]), None
+    if mesh is not None:
+        from .tree_impl import mesh_merge
+        start, stop = row_range(stop, mesh)
+        merge = mesh_merge(mesh)
+    rows = slice(start, stop)
+    ius = put(prep["ius"][rows], torch.int64)
+    usi = put(prep["usi"][rows], torch.int64)
+    rat_u = put(prep["rat_u"][rows], torch.float64)
+    rat_i = put(prep["rat_i"][rows], torch.float64)
+    ub = put(slice_bounds(segment_bounds(prep["u_sorted"], n_users), start,
+                          stop), torch.int64)
+    ib = put(slice_bounds(segment_bounds(prep["i_sorted"], n_items), start,
+                          stop), torch.int64)
     uf, itf = put(uf0, torch.float64), put(if0, torch.float64)
     for _ in range(max_iter):
-        uf = als_half(itf[ius], rat_u, ub, reg, nonneg)
-        itf = als_half(uf[usi], rat_i, ib, reg, nonneg)
+        uf = als_half(itf[ius], rat_u, ub, reg, nonneg, merge)
+        itf = als_half(uf[usi], rat_i, ib, reg, nonneg, merge)
     return (uf.to(torch.float32).cpu().numpy(),
             itf.to(torch.float32).cpu().numpy())
 
@@ -185,7 +221,7 @@ class ALS(Estimator):
     def _fit(self, df) -> "ALSModel":
         from ..device import session_device
         from ..parallel.dispatch import WorkHint
-        from ._staging import routed_for
+        from ._staging import mesh_rows, routed_for
         whole = df._whole()
         uc, ic, rc = (self.getOrDefault("userCol"),
                       self.getOrDefault("itemCol"),
@@ -213,10 +249,14 @@ class ALS(Estimator):
                         prep["rat_i"], device=session_device()) as device, \
                 PROFILER.span("program.als_fit", rows=len(ratings),
                               route=device.type):
-            uf, itf = als_fit(prep, U, I, uf0, if0,
-                              float(self.getOrDefault("regParam")),
-                              max_iter,
-                              bool(self.getOrDefault("nonnegative")), device)
+            reg = float(self.getOrDefault("regParam"))
+            nonneg = bool(self.getOrDefault("nonnegative"))
+            mesh, _ = mesh_rows(
+                device, len(ratings),
+                (prep["ius"], prep["usi"], prep["rat_u"], prep["rat_i"],
+                 uf0, if0), grid=("als", U, I, reg, max_iter, nonneg))
+            uf, itf = als_fit(prep, U, I, uf0, if0, reg, max_iter, nonneg,
+                              device, mesh)
         m = ALSModel(user_ids=u_ids, item_ids=i_ids, user_factors=uf,
                      item_factors=itf)
         m._inherit_params(self)

@@ -332,7 +332,7 @@ def _make_tree_builder(spec: TreeSpec):
     `pack` is the (E, 5, n_nodes) f32 stack [split_feature, split_bin,
     leaf_value, gain, cover] of each element's level-order heap (children
     of i at 2i+1, 2i+2), `node` each row's terminal node in its element's
-    tree. `merge`, given for a fit over a mesh of ranks (`_mesh_merge`),
+    tree. `merge`, given for a fit over a mesh of ranks (`mesh_merge`),
     all-reduces a float64 sum over the ranks, each of which holds a block
     of the rows.
 
@@ -692,10 +692,12 @@ def _hier_ici(mesh) -> int:
     return mesh.size // mesh.hosts
 
 
-def _mesh_merge(mesh):
+def mesh_merge(mesh):
     """The allreduce of a fit's float64 partial sums over `mesh`'s
     ranks: two-level (`psum_hierarchical`) when `_hier_ici` is above 1,
-    else the flat `psum` over the row axes."""
+    else the flat `psum` over the row axes. The non-tree programs
+    (`linear_impl`, `clustering`, `recommendation`) and the evaluators'
+    block partials (`evaluation.reduce_blocks`) merge through it too."""
     from ..parallel import collectives as coll
     ici = _hier_ici(mesh)
     if ici > 1:
@@ -748,7 +750,7 @@ def _fit_elements(binned_c: torch.Tensor, y: torch.Tensor, n_pad: int,
     element's `shard.totals[e]` rows and each element's block taken
     from them (`round_weights`, `_block_index`), and the histograms, the
     leaf statistics and the bases are all-reduced over `shard.mesh`
-    before their one rounding (`_mesh_merge`), so every rank grows the
+    before their one rounding (`mesh_merge`), so every rank grows the
     one-rank fit's trees. A rank holding no row of any element (n_pad
     0) fits one row of weight 0 an element."""
     from ..utils.profiler import PROFILER
@@ -775,7 +777,7 @@ def _fit_elements(binned_c: torch.Tensor, y: torch.Tensor, n_pad: int,
                           dev)
         weights = round_weights(draws, t0, T, n_all, _block_index(
             shard.starts, counts, n_pad, n_all, dev))
-        merge = _mesh_merge(mesh)
+        merge = mesh_merge(mesh)
     masks = round_masks(draws, t0, T, el.mask_k, F) \
         if draw_masks and D > 0 else None
     build = _make_tree_builder(es.tree)

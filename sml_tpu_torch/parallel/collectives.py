@@ -24,7 +24,10 @@ was.
 - `axis_index`: this rank's index on an axis.
 - `all_gather_object`: every rank's picklable object, in rank order.
 - `initialize_multihost`: `init_process_group` with the caller's backend,
-  typed failures (`MultihostInitError`), under the watchdog.
+  typed failures (`MultihostInitError`), under the watchdog, and an exit
+  hook that waits for every rank and then takes the group down
+  (`_shutdown`), as the JAX package's `jax.distributed` client waits for
+  its peers when it terminates.
 
 gloo reduces CUDA tensors natively only in `all_reduce` and `broadcast`
 (PyTorch's backend table). Under gloo, `reduce_scatter`, `all_gather`,
@@ -42,6 +45,8 @@ once per traced program; the port counts each call.
 
 from __future__ import annotations
 
+import atexit
+import sys
 import threading
 from datetime import timedelta
 from typing import Dict, Optional, Sequence, Tuple
@@ -359,6 +364,40 @@ def _env_int(name: str) -> Optional[int]:
     return None if v in (None, "") else int(v)
 
 
+#: the default group `initialize_multihost` made, until the exit hook
+#: takes it down (a list, so that the hook holds no reference of its own)
+_OWNED: list = []
+_hooked = [False]
+
+
+def _shutdown() -> None:
+    """The exit hook of `initialize_multihost`: while the default group
+    it made is still the default group, a barrier over its ranks
+    (bounded by the group's timeout) and `destroy_process_group()`;
+    then `mesh.release()` drops the meshes that still hold a group, so
+    that the group is freed and its threads joined now. A group that a
+    cached mesh held was freed at interpreter teardown instead, where it
+    could abort ("terminate called without an active exception"). A
+    group already destroyed, or replaced, is not destroyed here; an exit
+    on an uncaught exception skips the hook (its peers may be inside
+    another collective, which the barrier would wait out); a barrier
+    that fails (a peer gone first) is reported and the group destroyed
+    all the same."""
+    owned = _OWNED.pop() if _OWNED else None
+    if getattr(sys, "last_value", None) is not None:
+        return
+    if dist.is_available() and dist.is_initialized() \
+            and owned is not None and dist.group.WORLD is owned:
+        del owned
+        try:
+            dist.barrier()
+        except RuntimeError as e:   # at exit: report, then tear down
+            print(f"sml_tpu_torch: exit barrier failed: {e}",
+                  file=sys.stderr)
+        dist.destroy_process_group()
+    _mesh.release()
+
+
 def initialize_multihost(coordinator: Optional[str] = None,
                          num_processes: Optional[int] = None,
                          process_id: Optional[int] = None, *,
@@ -370,7 +409,8 @@ def initialize_multihost(coordinator: Optional[str] = None,
     (`mesh.bind_rank_device`). Without arguments it reads torchrun's
     variables (WORLD_SIZE, RANK, LOCAL_RANK, and MASTER_ADDR /
     MASTER_PORT through "env://"). With one process (or none) it
-    returns False and touches nothing; else True.
+    returns False and touches nothing; else True. At interpreter exit
+    the group it made is taken down once (`_shutdown`).
 
     `coordinator` is "host:port" (tcp) or a full init URL ("tcp://...",
     "file://..."). The device is `device`, else `cuda:LOCAL_RANK` (the
@@ -418,4 +458,8 @@ def initialize_multihost(coordinator: Optional[str] = None,
                 coordinator=coordinator, num_processes=num_processes,
                 process_id=process_id, backend=chosen) from e
     _mesh.bind_rank_device(dev)
+    _OWNED[:] = [dist.group.WORLD]
+    if not _hooked[0]:
+        atexit.register(_shutdown)
+        _hooked[0] = True
     return True

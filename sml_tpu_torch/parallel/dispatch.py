@@ -31,9 +31,13 @@ runs on (the CPU for "host", the resolved card otherwise), and
 (`device.use_device_local`) around a fit or a scoring body: the JAX
 package's `mesh_for` and `routed`. `mesh_for(dev)` is the mesh of ranks
 a program on `dev` runs over (`parallel/mesh.py`): the active mesh when
-`dev` is its device, else none. Under a mesh of several ranks a program
-stays on the ranks' devices: `sml.dispatch.mode=host` raises there (the
-host route over ranks is ROADMAP item 10).
+`dev` is its device, else none, so the CPU of the host route has no
+mesh on a card's ranks. Under `sml.dispatch.mode=host` with a mesh of
+several ranks an in-memory fit or evaluation therefore runs the plain
+CPU program on all of its rows, on every rank, with no collective: every
+rank holds all the rows, and this is the JAX package's one-device host
+mesh. A chunked ingest's ranks hold only their `host_view` of the rows,
+so there the host route raises (`refuse_host_route_for_blocks`).
 
 `bucket_rows` is the JAX package's `mesh.bucket_rows` (re-exported by
 its dispatch module): the load harness buckets a trace's declared widths
@@ -362,24 +366,35 @@ def decide(hint: Optional[WorkHint], device=None) -> str:
 def device_for(hint: Optional[WorkHint], device=None) -> torch.device:
     """The device one program invocation runs on: the CPU when `decide`
     answers "host", else `device` resolved (the thread's bound device or
-    the card; raises without one)."""
+    the card; raises without one). Under a mesh of ranks on a card the
+    CPU has no mesh (`mesh_for`): the program runs on all its rows."""
     from ..device import resolve_device
-    from .mesh import data_width
     dev = resolve_device(device)
     if decide(hint, dev) != "host":
         return dev
-    if data_width() > 1:
-        raise NotImplementedError(
-            "sml.dispatch.mode=host under a mesh of several ranks: each "
-            "rank holds only its block of rows, and the host route over "
-            "ranks is ROADMAP item 10")
     return torch.device("cpu")
+
+
+def refuse_host_route_for_blocks() -> None:
+    """Raise when a program whose ranks hold only their block of the rows
+    (a chunked ingest's `host_view`) would take the host route under a
+    mesh of several ranks: the host route runs a program on all of its
+    rows, which no rank holds."""
+    from .mesh import get_mesh
+    mesh = get_mesh()
+    if mesh is not None and mesh.size > 1 \
+            and preroute(None, mesh.device) == "host":
+        raise NotImplementedError(
+            "sml.dispatch.mode=host with a chunked ingest under a mesh of "
+            f"{mesh.size} ranks: each rank holds only its host_view of the "
+            "rows, and the host route runs a program on all of its rows")
 
 
 def mesh_for(dev: torch.device):
     """The mesh of ranks a program on `dev` (from `device_for` or
     `routed`) runs over: the active mesh when `dev` is its device, else
-    None (the program runs on this process's rows alone)."""
+    None (the program runs on this process's rows alone: the CPU of the
+    host route on a card's ranks)."""
     from .mesh import get_mesh
     mesh = get_mesh()
     return mesh if mesh is not None and mesh.device == dev else None

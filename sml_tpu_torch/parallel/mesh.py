@@ -29,8 +29,10 @@ own device and its own contiguous block of rows:
   each trial's ranks in `PLACEMENT_LOG`.
 - Rows: `host_partition` is the JAX package's split, the remainder to
   the leading blocks (`np.array_split`'s); `row_range` and `shard_rows`
-  give a rank its block. No row is padded: in eager PyTorch nothing
-  compiles per shape.
+  give a rank its block, and `addressable_row_blocks` /
+  `host_row_blocks` the (device, block) view a skew probe walks: a rank
+  addresses its own block only. No row is padded: in eager PyTorch
+  nothing compiles per shape.
 
 `new_group` is collective: every rank of a mesh must call `build_mesh`,
 `host_mesh`, `trial_mesh` and `submeshes` with the same arguments, in the
@@ -42,10 +44,10 @@ group's own members (`use_local_synchronization`). A rank outside
 
 Each rank's device is the one `bind_rank_device` (or
 `collectives.initialize_multihost`) bound, else `cuda:LOCAL_RANK`; the
-port's `resolve_device(None)` answers it under a mesh. Not ported (ROADMAP
-item 10): `addressable_row_blocks` and `host_row_blocks`, and the JAX
-sharding helpers (`data_sharding`, `replicated`, `pad_rows`, `row_mask`,
-`bucket_rows`; the last is `dispatch.bucket_rows`).
+port's `resolve_device(None)` answers it under a mesh. Left out on
+purpose: the JAX sharding helpers (`data_sharding`, `replicated`,
+`pad_rows`, `row_mask`; a rank holds its block unpadded) and
+`bucket_rows` (it is `dispatch.bucket_rows`).
 """
 
 from __future__ import annotations
@@ -231,6 +233,20 @@ def get_mesh() -> Optional[Mesh]:
         if _active_mesh is not None:
             return _active_mesh
     return _world_mesh()
+
+
+def release() -> None:
+    """Drop every mesh and process group this module holds (the flat
+    mesh over the default group, the memoized meshes and groups, the
+    process-wide mesh), so that a destroyed default group's objects are
+    freed now rather than at interpreter teardown
+    (`collectives.initialize_multihost`'s exit hook)."""
+    global _active_mesh
+    with _lock:
+        _default[:] = [None, None]
+        _built.clear()
+        _groups.clear()
+        _active_mesh = None
 
 
 def set_mesh(mesh: Optional[Mesh]) -> None:
@@ -542,3 +558,31 @@ def shard_rows(x: np.ndarray, mesh: Optional[Mesh] = None) -> np.ndarray:
     """This rank's block of the rows of `x` (a view)."""
     start, stop = row_range(len(x), mesh)
     return x[start:stop]
+
+
+def addressable_row_blocks(arr, mesh: Optional[Mesh] = None) -> list:
+    """The (device, block) pairs of the row blocks of `arr` (an array or
+    tensor of all the rows, as every rank holds them) that this rank
+    addresses, in row order: under a mesh its own block alone
+    (`shard_rows`) on its device, the JAX package's per-chip view of a
+    row-sharded array for the one chip a rank drives; without a mesh
+    one pair of the whole array (its device for a tensor, else the
+    CPU)."""
+    mesh = mesh or get_mesh()
+    if mesh is None or mesh.rank is None:
+        dev = arr.device if isinstance(arr, torch.Tensor) \
+            else torch.device("cpu")
+        return [(dev, arr)]
+    return [(mesh.device, shard_rows(arr, mesh))]
+
+
+def host_row_blocks(arr, mesh: Optional[Mesh] = None) -> list:
+    """Per-host-group view of `addressable_row_blocks`: one (group index,
+    [(device, block), ...]) pair per host group this rank addresses
+    blocks in (`host_group_of`; its own group alone under a mesh, group
+    0 without one), the walk a multi-host skew probe makes."""
+    mesh = mesh or get_mesh()
+    blocks = addressable_row_blocks(arr, mesh)
+    if mesh is None or mesh.rank is None:
+        return [(0, blocks)]
+    return [(host_group_of(mesh)[mesh.ranks[mesh.rank]], blocks)]

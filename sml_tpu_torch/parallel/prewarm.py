@@ -16,8 +16,9 @@ handle set-up.
   (`replay_rows`): rounded up to a power of two and capped at
   `REPLAY_ROWS`, so a server's many batch sizes make a handful of
   entries and no entry replays a large fit's operands. An
-  entry is keyed by the card's name and the device count, where the JAX
-  package keys it by its mesh. Recording is a set lookup in memory; the
+  entry is keyed by the card's name, the device count and the mesh of
+  ranks it ran over (its data width and host groups; [1, 1] without
+  one), as the JAX package keys it by its mesh. Recording is a set lookup in memory; the
   manifest is written at exit and on `flush()`, never from a launch, and
   a write MERGES with the file on disk under a file lock, so processes
   sharing a manifest add to it rather than overwrite each other.
@@ -28,8 +29,8 @@ handle set-up.
   calibration of the card), and makes each recorded launch once on zero
   operands of the recorded shapes (each staging once), from a
   `sml.prewarm.workers`-wide thread pool. An entry recorded on another
-  card, or under another device count, is skipped, as the JAX package
-  skips a mesh that does not match.
+  card, under another device count or over another mesh, is skipped, as
+  the JAX package skips a mesh that does not match.
 
 `speculative_prewarm(fn, shapes)` first-calls a scoring function on
 zero blocks of declared shapes (the load harness's width mix,
@@ -131,16 +132,27 @@ def replay_rows(n: int) -> int:
     return min(1 << max(n - 1, 0).bit_length(), REPLAY_ROWS) if n else 0
 
 
+def _mesh_signature(device) -> list:
+    """[data width, host groups] of the mesh of ranks a program on
+    `device` runs over (`dispatch.mesh_for`); [1, 1] without one."""
+    from .dispatch import mesh_for
+    mesh = mesh_for(torch.device(device))
+    if mesh is None:
+        return [1, 1]
+    return [mesh.size, mesh.hosts or 1]
+
+
 def device_signature(device) -> list:
-    """[card name, device count] of a CUDA device; ["cpu", 1] for the
-    CPU: what must match for a recorded entry to replay."""
+    """[card name, device count, mesh data width, mesh host groups] of a
+    CUDA device; ["cpu", 1, width, groups] for the CPU: what must match
+    for a recorded entry to replay."""
     dev = torch.device(device)
     if dev.type == "cuda":
         index = dev.index if dev.index is not None \
             else torch.cuda.current_device()
         return [torch.cuda.get_device_name(index),
-                torch.cuda.device_count()]
-    return [dev.type, 1]
+                torch.cuda.device_count()] + _mesh_signature(dev)
+    return [dev.type, 1] + _mesh_signature(dev)
 
 
 def manifest_path() -> str:
@@ -262,7 +274,8 @@ def record_launch(device, kernel: str, plan, tensors: List[torch.Tensor],
     if getattr(_tls, "replaying", False):
         return  # a replay must not re-record its own entries
     scalars = scalars or {}
-    raw = (kernel, device, tuple([t.shape for t in tensors]),
+    mesh = tuple(_mesh_signature(device))
+    raw = (kernel, device, mesh, tuple([t.shape for t in tensors]),
            tuple([t.dtype for t in tensors]),
            tuple([(k, (v.shape, v.dtype) if isinstance(v, torch.Tensor)
                    else v) for k, v in scalars.items()]))
@@ -283,7 +296,7 @@ def record_launch(device, kernel: str, plan, tensors: List[torch.Tensor],
             args.append((k, replay_rows(v)))  # such as traversal's init
         else:
             args.append((k, v))
-    fast = (kernel, device, operands, tuple(args))
+    fast = (kernel, device, mesh, operands, tuple(args))
     with _lock:
         if fast in _seen:
             return
@@ -302,7 +315,7 @@ def record_stage(device, shape, dtype) -> None:
     if getattr(_tls, "replaying", False):
         return
     shape = _bucketed(shape, True)
-    fast = ("stage", device, shape, dtype)
+    fast = ("stage", device, tuple(_mesh_signature(device)), shape, dtype)
     with _lock:
         if fast in _seen:
             return

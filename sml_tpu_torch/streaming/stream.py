@@ -343,16 +343,18 @@ class StreamingQuery:
         for op in self._sdf._ops:
             df = op(df)
         rows = self._write_batch(df)
+        # the progress entry goes in before the files count as processed,
+        # so `processAllAvailable` never returns with it missing
+        self.recentProgress.append({
+            "id": self.id, "name": self.name, "numInputRows": rows,
+            "files": batch_files, "timestamp": wallclock(),
+            "durationMs": (wallclock() - t0) * 1e3})
         # the write landed: from here the checkpoint must record the
         # batch even if a stop or an error comes before the save
         self._processed.update(batch_files)
         self._ckpt_dirty = True
         self._save_checkpoint()
         self._ckpt_dirty = False
-        self.recentProgress.append({
-            "id": self.id, "name": self.name, "numInputRows": rows,
-            "files": batch_files, "timestamp": wallclock(),
-            "durationMs": (wallclock() - t0) * 1e3})
         return True
 
     def _write_batch(self, df: DataFrame) -> int:

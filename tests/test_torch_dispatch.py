@@ -264,7 +264,7 @@ def test_manifest_round_trip_and_replay_on_the_cpu(manifest, monkeypatch):
                      ("launch", "split_scan"), ("stage", "")]
     ft = next(e for e in doc["entries"].values()
               if e["kernel"] == "forest_traverse")
-    assert ft["device"] == ["cpu", 1]
+    assert ft["device"] == ["cpu", 1, 1, 1]  # no mesh: width 1, 1 group
     # 37 rows replay as 64 (the next power of two), the init too
     assert ft["meta"]["operands"][0] == [[64, 10], "uint8"]
     assert ft["meta"]["scalars"]["init"] == {"tensor": [[64], "float32"]}

@@ -33,9 +33,11 @@ seed 11) and writes its trees to an .npz.
   16; on the host mesh the same payload goes to the "ici" hop and half
   of it to the "dcn" hop.
 - Ranks given different X raise on every rank; `sml.dispatch.mode=host`
-  (asked for a stub card) raises under a mesh of several ranks, and
-  placed trials run over the ranks there, every rank returning every
-  result.
+  (asked for a stub card, under a mesh of the 2 ranks on that card)
+  sends an in-memory fit to the CPU, where it fits all the rows with no
+  collective and gives the one-device trees, while a chunked ingest,
+  whose ranks hold only their `host_view`, raises; placed trials run
+  over the ranks there, every rank returning every result.
 """
 
 import os
@@ -162,18 +164,37 @@ if n == 2:   # ranks given different rows raise, every one of them
     except ValueError as e:
         assert "different fit inputs" in str(e), e
         res["mismatch_raised"] = np.asarray([1])
-    # the host route raises under the mesh; placed trials run over it
+    # the host route under a card's mesh: an in-memory fit runs on the
+    # CPU over all the rows, a chunked ingest raises; placed trials run
+    # over the ranks
     from sml_tpu_torch import device as pdev
+    from sml_tpu_torch.frame._chunks import ArrayChunkSource
+    from sml_tpu_torch.ml._chunked import ingest_source
     from sml_tpu_torch.parallel import dispatch
+    card = torch.device("cuda", 0)
     raised = []
     GLOBAL_CONF.set("sml.dispatch.mode", "host")
     real = torch.cuda.is_available
     torch.cuda.is_available = lambda: True      # a stub card: routes only
     try:
-        dispatch.device_for(None, torch.device("cuda", 0))
-    except NotImplementedError as e:
-        raised.append("ROADMAP item 10" in str(e))
-    torch.cuda.is_available = real
+        with M.use_mesh(M.Mesh(M.get_mesh().group, M.get_mesh().ranks,
+                               card)):
+            coll.reset_counts()
+            routed = dispatch.device_for(None, card)
+            spec = _estimator("dt").fit(X, y, device=card)._spec
+            res["host_route"] = np.asarray(
+                [routed.type == "cpu", dispatch.mesh_for(routed) is None,
+                 sum(coll.COUNTS.values()) == 0])
+            for f in FIELDS:
+                res["host_dt_" + f] = np.stack([getattr(t, f)
+                                                for t in spec.trees])
+            try:
+                ingest_source(ArrayChunkSource(X, y, chunk_rows=512), 16,
+                              device=card)
+            except NotImplementedError as e:
+                raised.append("host_view" in str(e))
+    finally:
+        torch.cuda.is_available = real
     GLOBAL_CONF.set("sml.dispatch.mode", "auto")
     GLOBAL_CONF.set("sml.device", "cpu")
     res["guards_raised"] = np.asarray(raised)
@@ -325,10 +346,20 @@ def test_ranks_given_different_rows_raise(runs):
     assert [int(r["mismatch_raised"][0]) for r in runs[2]] == [1, 1]
 
 
-def test_host_route_raises_and_placed_trials_run_under_a_mesh(runs):
-    """`sml.dispatch.mode=host` asked for a card raises under a mesh of 2
-    ranks, naming ROADMAP item 10; placed trials at parallelism 2 run
-    over the ranks and return every result on every rank."""
+def test_host_route_raises_and_placed_trials_run_under_a_mesh(runs,
+                                                               reference):
+    """`sml.dispatch.mode=host` asked for a card under a mesh of 2 ranks
+    on it routes to the CPU, which has no mesh: the decision tree fits
+    all the rows there with no collective and gives the one-device
+    trees; a chunked ingest raises, naming its ranks' `host_view`;
+    placed trials at parallelism 2 run over the ranks and return every
+    result on every rank."""
+    spec = reference["dt"][2]
     for r in runs[2]:
+        assert r["host_route"].tolist() == [True, True, True]
+        for f in FIELDS:
+            np.testing.assert_array_equal(
+                r["host_dt_" + f], np.stack([getattr(t, f)
+                                             for t in spec.trees]))
         assert list(r["guards_raised"]) == [True]
         assert r["placed"].tolist() == [1, 2]

@@ -154,9 +154,9 @@ def test_checkpoint_resume_skips_processed_files(spark, tmp_path):
             else:
                 q = _jax_flow(spark, src, ckpt, name=f"j{run}")
             q.processAllAvailable()
+            q.stop()
             runs.append((len(q.recentProgress),
                          sum(p["numInputRows"] for p in q.recentProgress)))
-            q.stop()
             if run == 0:
                 _write_parts(src, table, parts=1, start=2)
         counts[pkg] = runs
