@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py [--seed N] [--only 23|24]
+    python3 chip_smoke.py [--seed N] [--only 23|24|25]
 
 Run from the repository root. It needs a CUDA card, `nvcc` and `g++` (it
 builds every kernel under `sml_tpu_torch/csrc/` and the host binning at
@@ -450,10 +450,18 @@ Phases:
    and the walls (information only), and `launches_by_path` gains
    "multirank_nontree".
 
+25. lint (`sml_tpu_torch/lint/`): `python3 scripts/torch_lint.py --json`
+   in a fresh interpreter under `-X importtime`, on this machine's
+   Python. It must exit 0, and none of torch, jax, sml_tpu or
+   sml_tpu_torch may be imported. A `{"lint": ...}` line gives the rule
+   count, the findings suppressed by pragma and by baseline, and the
+   wall, beside the card. A failed lint fails the script.
+
 `--only 23` runs phase 7's float64 histogram check, the phases that
 phase 23 compares with (fit, tuning and model selection) and phase 23;
-`--only 24` runs model selection, the non-tree phase and phase 24. Each
-prints its phases' lines but no kernels line and no result.
+`--only 24` runs model selection, the non-tree phase and phase 24;
+`--only 25` runs phase 25. Each prints its phases' lines but no kernels
+line and no result.
 
 The second-to-last line is a JSON object listing each kernel, with the
 launches the profiler saw in each window behind its device times
@@ -474,6 +482,9 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+
+# torchlint: disable-file=no-wallclock-in-engine -- the chip check's walls are its output: it times whole calls from outside the port, so the profiler's own cost never lands inside a timed window
+# torchlint: disable-file=kernel-launch-outside-native -- the chip check calls each kernel's wrapper directly, to hold it against its plain version at the main path's shapes, and loads one library to time its raw entry point
 
 #: H100 SXM published peaks (NVIDIA data sheet, at a 700 W limit): HBM
 #: bytes a second, and f32 floating-point operations a second outside the
@@ -3659,7 +3670,7 @@ def through(stages, frame):
     return frame
 
 
-def on_cpu(fn):
+def run_on_cpu(fn):
     """fn() with the session's device set to the CPU."""
     from sml_tpu_torch.conf import GLOBAL_CONF
     prev = GLOBAL_CONF.get("sml.device")
@@ -3732,8 +3743,9 @@ def nt_linear(train, test, device, card: str, refs: dict) -> tuple:
         scored = model.transform(te)
         pred = scored._whole()["prediction"]
         rmse = ev.evaluate(scored)
-        cpu = on_cpu(fit)
-        pred_cpu = on_cpu(lambda: cpu.transform(te)._whole()["prediction"])
+        cpu = run_on_cpu(fit)
+        pred_cpu = run_on_cpu(
+            lambda: cpu.transform(te)._whole()["prediction"])
         err = float(np.max(np.abs(pred - pred_cpu)))
         same = bool(np.array_equal(model._coefficients, cpu._coefficients)
                     and model.intercept == cpu.intercept)
@@ -3775,8 +3787,8 @@ def nt_linear(train, test, device, card: str, refs: dict) -> tuple:
 
     model, ms, warm = fit_walls(logit, device)
     auc = bev.evaluate(model.transform(te_l))
-    cpu = on_cpu(logit)
-    auc_cpu = on_cpu(lambda: bev.evaluate(cpu.transform(te_l)))
+    cpu = run_on_cpu(logit)
+    auc_cpu = run_on_cpu(lambda: bev.evaluate(cpu.transform(te_l)))
     iters = (model.summary.totalIterations, cpu.summary.totalIterations)
     print(f"nontree (b) LogisticRegression on priceClass (median "
           f"{median!r}): fit {ms!r} ms (warm {warm!r}), {iters[0]} IRLS "
@@ -3814,12 +3826,12 @@ def nt_kmeans(train, device, card: str, refs: dict) -> dict:
             return KMeans(k=k, maxIter=20, seed=221).fit(km)
 
         model, ms, warm = fit_walls(fit, device)
-        cpu = on_cpu(fit)
+        cpu = run_on_cpu(fit)
         a, b = np.stack(model.clusterCenters()), np.stack(cpu.clusterCenters())
         c_err = float(np.max(np.abs(a - b)) / np.max(np.abs(b)))
         cost, cost_cpu = model.summary.trainingCost, cpu.summary.trainingCost
         flips = int(np.sum(model.transform(km)._whole()["prediction"]
-                           != on_cpu(lambda: cpu.transform(km)._whole()[
+                           != run_on_cpu(lambda: cpu.transform(km)._whole()[
                                "prediction"])))
         print(f"nontree (c) KMeans k={k} on {km.count()} rows x 7: fit "
               f"{ms!r} ms (warm {warm!r}), cost {cost!r} (CPU "
@@ -3877,8 +3889,8 @@ def nt_als(device, card: str, refs: dict, golden=NT_GOLDEN_RATINGS,
 
     model, ms, warm = fit_walls(fit, device)
     rmse, kept = scored(model, te)
-    cpu = on_cpu(fit)
-    rmse_cpu = on_cpu(lambda: scored(cpu, te)[0])
+    cpu = run_on_cpu(fit)
+    rmse_cpu = run_on_cpu(lambda: scored(cpu, te)[0])
     base = mean_baseline(tr._whole()["rating"], kept)
     f_err = float(max(np.max(np.abs(model._uf - cpu._uf)),
                       np.max(np.abs(model._if - cpu._if))))
@@ -4344,7 +4356,7 @@ def phase_timeseries(seed: int, device, card: str, n: int = 100_000,
         # (a) MLE 04 at the course's shape
         _, y160 = ts_mle04()
         arima = fit_walls(lambda: ts_arima(y160, (1, 2, 1), device), device)
-        cpu_arima = on_cpu(lambda: ts_arima(y160, (1, 2, 1), device))
+        cpu_arima = run_on_cpu(lambda: ts_arima(y160, (1, 2, 1), device))
         out["mle04_arima"] = ts_check_arima(
             "(a) MLE 04 ARIMA(1,2,1), 160 points", arima[0], cpu_arima,
             arima, card, ts_eval_ms(y160, (1, 2, 1), arima[0][0].params,
@@ -4353,7 +4365,7 @@ def phase_timeseries(seed: int, device, card: str, n: int = 100_000,
         if not (np.all(np.isfinite(fc)) and fc[-1] > y160[-1]):
             raise AssertionError(f"(a) forecast {fc}")
         mle04 = fit_walls(ts_mle04_run, device)
-        cpu_mle04 = on_cpu(ts_mle04_run)
+        cpu_mle04 = run_on_cpu(ts_mle04_run)
         adf, fc160, holt = mle04[0]
         if not adf[1] > 0.05 or fc160.count() != 170:
             raise AssertionError(f"(a) adf {adf[:2]}, {fc160.count()} rows")
@@ -4370,7 +4382,7 @@ def phase_timeseries(seed: int, device, card: str, n: int = 100_000,
             m = Prophet(holidays=hol).fit({"ds": ds, "y": y})
             return m, m.predict(m.make_future_dataframe(periods=365))
         prophet = fit_walls(prophet_fit, device)
-        cpu_prophet = on_cpu(prophet_fit)
+        cpu_prophet = run_on_cpu(prophet_fit)
         if prophet[0][0]._block_names != ["yearly", "weekly", "holidays"]:
             raise AssertionError(f"(b) blocks {prophet[0][0]._block_names}")
         out["quickstart_prophet"] = ts_check_prophet(
@@ -4381,8 +4393,8 @@ def phase_timeseries(seed: int, device, card: str, n: int = 100_000,
             device)
         arima_q = fit_walls(lambda: ts_arima(y, TS_QUICKSTART_ORDER, device),
                            device)
-        cpu_arima_q = on_cpu(lambda: ts_arima(y, TS_QUICKSTART_ORDER,
-                                              device))
+        cpu_arima_q = run_on_cpu(lambda: ts_arima(y, TS_QUICKSTART_ORDER,
+                                                  device))
         out["quickstart_arima"] = ts_check_arima(
             f"(b) ARIMA{TS_QUICKSTART_ORDER}, {days} points", arima_q[0],
             cpu_arima_q, arima_q, card,
@@ -4394,7 +4406,7 @@ def phase_timeseries(seed: int, device, card: str, n: int = 100_000,
             "program.arima", card, device)
         # (c) the frame flows
         frames = fit_walls(lambda: ts_frames(n), device)
-        cpu_frames = on_cpu(lambda: ts_frames(n))
+        cpu_frames = run_on_cpu(lambda: ts_frames(n))
         if frames[0] != cpu_frames:
             raise AssertionError("(c) frame results differ card / CPU")
         ts_check_frames(frames[0], n)
@@ -4408,7 +4420,7 @@ def phase_timeseries(seed: int, device, card: str, n: int = 100_000,
         with tempfile.TemporaryDirectory() as tmp:
             path = os.path.join(tmp, "people-with-dups")
             dd = fit_walls(lambda: ts_dedup(path, *dedup), device)
-            cpu_dd = on_cpu(lambda: ts_dedup(path, *dedup))
+            cpu_dd = run_on_cpu(lambda: ts_dedup(path, *dedup))
         count = dd[0][0]
         h = hash_scalar(str(count))
         h = h if h == -(1 << 31) else abs(h)
@@ -8176,12 +8188,57 @@ def phase_multirank_nontree(device, card: str, nontree: dict,
     return out
 
 
+#: modules a lint run must not import
+LINT_FORBIDDEN = ("torch", "jax", "sml_tpu", "sml_tpu_torch")
+
+
+def phase_lint(card: str) -> dict:
+    """Phase 25: the port's lint on this machine's Python, in a fresh
+    interpreter: `scripts/torch_lint.py --json` must exit 0, and `-X
+    importtime`'s record of every import must hold none of
+    LINT_FORBIDDEN. Returns the rule count, the suppressions and the
+    wall (seconds, the whole subprocess)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-X", "importtime",
+         os.path.join(root, "scripts", "torch_lint.py"), "--json"],
+        cwd=root, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(
+            f"lint exited {proc.returncode}:\n{proc.stdout[-4000:]}\n"
+            f"{proc.stderr[-2000:]}")
+    imported = {line.rsplit("|", 1)[-1].strip()
+                for line in proc.stderr.splitlines()
+                if line.startswith("import time:")}
+    bad = sorted(m for m in imported
+                 if m.split(".")[0] in LINT_FORBIDDEN)
+    if bad:
+        raise AssertionError(f"the lint imported {bad}")
+    report = json.loads(proc.stdout)
+    if not report["clean"] or report["violations"]:
+        raise AssertionError(f"lint not clean: {report['violations']}")
+    out = {"rules": len(report["rules"]), "files": report["files"],
+           "suppressed_pragma": report["suppressed"]["pragma"],
+           "suppressed_baseline": report["suppressed"]["baseline"],
+           "rules_s": sum(report["rule_times"].values()),
+           "wall_s": wall, "modules_imported": len(imported),
+           "python": sys.version.split()[0], "card": card}
+    print(f"lint: {out['rules']} rules over {out['files']} files clean "
+          f"({out['suppressed_pragma']} suppressed by pragma, "
+          f"{out['suppressed_baseline']} by baseline), none of "
+          f"{', '.join(LINT_FORBIDDEN)} imported, wall {wall!r} s "
+          f"(rules {out['rules_s']!r} s); {card}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=["23", "24"], default=None,
-                    help="run phase 23 or 24 and what it compares with; "
-                         "no result line")
+    ap.add_argument("--only", choices=["23", "24", "25"], default=None,
+                    help="run phase 23, 24 or 25 and what it compares "
+                         "with; no result line")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -8205,6 +8262,10 @@ def main(argv=None) -> int:
         selection = phase_selection(device, card)
         print(json.dumps({"multirank_tuning": phase_multirank_tuning(
             args.seed, device, card, tuning, selection, fit)}))
+        print(card)
+        return 0
+    if args.only == "25":
+        print(json.dumps({"lint": phase_lint(card)}))
         print(card)
         return 0
     if args.only == "24":
@@ -8245,6 +8306,7 @@ def main(argv=None) -> int:
                                               selection, fit)
     multirank_nontree = phase_multirank_nontree(device, card, nontree,
                                                 selection)
+    lint = phase_lint(card)
 
     def by_path(kernel: str) -> dict:
         return {"fit": fit["launches"][kernel],
@@ -8443,6 +8505,7 @@ def main(argv=None) -> int:
     print(json.dumps({"multirank_tuning": {
         k: v for k, v in multirank_tuning.items()}}))
     print(json.dumps({"multirank_nontree": multirank_nontree}))
+    print(json.dumps({"lint": lint}))
     print(json.dumps({"dataframe": {
         "launches_fit": frames["fit"], "launches_evaluate":
         frames["evaluate"], "rmse": frames["rmse"],

@@ -14,6 +14,8 @@ name and power limit. Every build's bins equal NumPy's.
 
 from __future__ import annotations
 
+# torchlint: disable-file=kernel-launch-outside-native -- a measurement script: it builds the host binning library under several thread grains (-D defines) and times each build's entry point directly
+
 import argparse
 import ctypes
 import os

@@ -18,6 +18,8 @@ limit and its most SM clock are printed beside the numbers.
 
 from __future__ import annotations
 
+# torchlint: disable-file=kernel-launch-outside-native -- a measurement script: it builds the traversal kernel with its phase stamps (-D SML_TRAVERSE_STAMPS) and reads them from a direct launch
+
 import argparse
 import ctypes
 import importlib.util

@@ -12,7 +12,11 @@ process-wide platform choice (`jax.config.update("jax_platforms",
 `sml.tree.kernelBlockRows` are not ported: on the card there is one
 path (the kernel, or raise), and block sizes come from the shapes, in
 each kernel's wrapper. Nor is `sml.tree.histSubtraction`: the port
-always builds with subtraction, its default.
+always builds with subtraction, its default. ROADMAP.md section 1 lists
+every key the JAX package registers and the port does not, each with
+its reason; `registered_keys()` and `describe()` dump the registry, and
+the lint (`sml_tpu_torch/lint/`) holds every conf literal of the port
+against it.
 """
 
 from __future__ import annotations
@@ -263,6 +267,11 @@ _register("sml.delta.retentionDurationCheck.enabled", True, _to_bool,
 _register("spark.databricks.delta.retentionDurationCheck.enabled", True,
           _to_bool, "Alias of sml.delta.retentionDurationCheck.enabled, "
           "the course's spelling")
+_register("sml.training.module-name", "", str,
+          "Course module name stamped by the Classroom-Setup shim "
+          "(courseware.CourseConfig)")
+_register("sml.training.username", "", str,
+          "Course username stamped by the Classroom-Setup shim")
 _register("sml.infer.prefetchBatches", 4, int,
           "DeviceScorer.score_batches lookahead: batches dispatched ahead "
           "of the drain point so batch i+1's prep + H2D staging overlaps "
@@ -333,6 +342,23 @@ class TorchConf:
             hook = self._on_set.get(key)
         if hook is not None:
             hook()
+
+
+def registered_keys() -> tuple:
+    """Every registered key, sorted: the programmatic registry dump the
+    lint's conf-key-registry rule cross-checks call sites against
+    (conf.py loads by path with no dependency beyond the standard
+    library for exactly this reason)."""
+    return tuple(sorted(_KNOWN))
+
+
+def describe() -> Dict[str, Dict[str, Any]]:
+    """key -> {default, type, doc} for the full registry (the late
+    registrars' keys, such as parallel.dispatch's, appear once their
+    module has been imported)."""
+    return {k: {"default": e.default, "type": type(e.default).__name__,
+                "doc": e.doc}
+            for k, e in sorted(_KNOWN.items())}
 
 
 _ALIASES = {

@@ -157,7 +157,8 @@ class DataFrame:
         # tuning's trials share frames across threads: one computes, the
         # others wait for its partitions
         with self._lock:
-            if self._parts is None:
+            parts = self._parts
+            if parts is None:
                 with PROFILER.span(f"materialize.{self._op}"):
                     parts = self._compute() or [{}]
                 offs, acc = [], 0
@@ -172,7 +173,7 @@ class DataFrame:
                 # materialized: drop it so it stops pinning the parent
                 if self.__dict__.get("_fused_eval") is not None:
                     self.__dict__["_fused_eval"] = None
-        return self._parts
+            return parts
 
     def _contexts(self) -> List[EvalContext]:
         parts = self._materialize()
@@ -219,10 +220,16 @@ class DataFrame:
     def _whole(self) -> Block:
         """Every partition's rows as one block, memoized per frame (the
         port's counterpart of the JAX frame's memoized `toPandas`). The
-        arrays are shared: callers must not write to them."""
-        if self._whole_cache is None:
-            self._whole_cache = concat_blocks(self._materialize())
-        return self._whole_cache
+        arrays are shared: callers must not write to them. Under the
+        frame's lock, and returned from a local: trials on other threads
+        share frames, and an `unpersist` between the store and the
+        return would hand back None."""
+        with self._lock:
+            whole = self._whole_cache
+            if whole is None:
+                whole = concat_blocks(self._materialize())
+                self._whole_cache = whole
+            return whole
 
     # ------------------------------------------------------------ metadata
     @property
@@ -720,10 +727,11 @@ class DataFrame:
     def unpersist(self) -> "DataFrame":
         # materializing releases the recipe, so data is dropped only
         # where it can still be recomputed
-        if self._compute is not None:
-            self._parts = None
-            self._offsets = None
-        self._whole_cache = None
+        with self._lock:
+            if self._compute is not None:
+                self._parts = None
+                self._offsets = None
+            self._whole_cache = None
         return self
 
     # ------------------------------------------------------------- stats

@@ -21,8 +21,8 @@ index, so split and fold membership do not depend on how a source is
 chunked.
 
 `partition_uniforms` draws the stream in the C++ library
-`csrc/xorshift.cc`, built with g++ at first use; a build that fails
-raises. `XORShiftRandom` is its pure-Python reference, for the tests.
+`csrc/xorshift.cc` (`native/xorshift.py`), built with g++ at first use;
+a build that fails raises. `XORShiftRandom` is its pure-Python reference, for the tests.
 
 Frames store SQL NULL as NaN (float columns) or None (object columns),
 and the pre-split sort places them first, as the JAX package's pandas
@@ -32,14 +32,12 @@ columns sort by code point, which is Spark's UTF-8 binary order.
 
 from __future__ import annotations
 
-import ctypes
-import threading
 from typing import Dict
 
 import numpy as np
 
-from ..native import build
 from ..native.hashing import null_mask
+from ..native.xorshift import fill_doubles
 
 # scala.util.hashing.MurmurHash3.bytesHash over the buffer Spark builds in
 # XORShiftRandom.hashSeed. Words are read little-endian (scala bytesHash);
@@ -103,37 +101,15 @@ class XORShiftRandom:
         return ((self._next(26) << 27) + self._next(27)) * (2.0 ** -53)
 
 
-_fill: list = []
-_lock = threading.Lock()
-
-
-def _fill_doubles():
-    with _lock:
-        if not _fill:
-            fn = build.load("xorshift").xorshift_fill_doubles
-            fn.argtypes = [ctypes.c_longlong, ctypes.c_longlong,
-                           ctypes.POINTER(ctypes.c_double)]
-            fn.restype = None
-            _fill.append(fn)
-        return _fill[0]
-
-
 def partition_uniforms(seed: int, partition_index: int, n: int) -> np.ndarray:
     """The n sequential nextDouble draws Spark's sampler makes for one
     partition: XORShiftRandom(seed + partitionIndex). Every weight cell
     of one randomSplit re-draws this same sequence (Spark seeds each
     cell's sampler identically), which makes the splits disjoint and
     exhaustive."""
-    out = np.empty(n, dtype=np.float64)
     if n == 0:
-        return out
-    hashed = hash_seed(seed + partition_index)
-    _fill_doubles()(
-        ctypes.c_longlong(hashed - (1 << 64) if hashed >= (1 << 63)
-                          else hashed),
-        ctypes.c_longlong(n),
-        out.ctypes.data_as(ctypes.POINTER(ctypes.c_double)))
-    return out
+        return np.empty(0, dtype=np.float64)
+    return fill_doubles(hash_seed(seed + partition_index), n)
 
 
 def partition_uniforms_plain(seed: int, partition_index: int,

@@ -125,6 +125,21 @@ def routed_for(hint, *arrays, stacked: bool = False, device=None):
         yield dev
 
 
+def device_get(*tensors: torch.Tensor) -> Tuple[np.ndarray, ...]:
+    """The blessed device-to-host transfer of the port's programs: every
+    tensor's host copy as a numpy array, in order, counting the card's
+    bytes as `staging.d2h_bytes`. The first copy waits for the card's
+    queue and the rest find it drained, so a program that fetches all
+    its outputs here pays one wait. The lint's host-sync rule flags any
+    other sync on a dispatch-hot path."""
+    from ..utils.profiler import PROFILER
+    out = tuple(t.cpu().numpy() for t in tensors)
+    nbytes = sum(a.nbytes for a, t in zip(out, tensors) if t.is_cuda)
+    if nbytes:
+        PROFILER.count("staging.d2h_bytes", float(nbytes))
+    return out
+
+
 def route_for_arrays(hint, *arrays, device=None
                      ) -> Tuple[torch.device, str]:
     """The one-shot decision of a predict site: (device, route), route

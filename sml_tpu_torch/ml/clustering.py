@@ -29,7 +29,7 @@ import torch
 
 from ..frame.column import block_len
 from ..utils.profiler import PROFILER
-from ._staging import extract_features, features_of
+from ._staging import device_get, extract_features, features_of
 from .base import Estimator, Model, load_arrays, save_arrays
 
 
@@ -71,8 +71,8 @@ def lloyd(X: torch.Tensor, init_centers: np.ndarray, max_iter: int,
     cost = torch.sum(torch.min(_sq_dists(X, x2, centers), dim=1).values)
     if merge is not None:
         cost = merge(cost.reshape(1))[0]
-    flat = torch.cat([centers.reshape(-1), cost.reshape(1)]).to(
-        torch.float32).cpu().numpy()
+    flat, = device_get(torch.cat([centers.reshape(-1),
+                                  cost.reshape(1)]).to(torch.float32))
     return flat[:-1].reshape(k, -1), float(flat[-1])
 
 

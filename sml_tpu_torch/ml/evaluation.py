@@ -32,6 +32,7 @@ import torch
 
 from ..parallel import dispatch
 from ..parallel.dispatch import WorkHint
+from ._staging import device_get
 from .base import Evaluator
 
 #: rows of one block of the ordered reduction: _SCAN x _SCAN rows, each
@@ -119,7 +120,8 @@ def _reg_stats_device(pred: np.ndarray, lab: np.ndarray, device):
     d = p - l64
     cols = torch.stack([torch.ones_like(d), d * d, torch.abs(d), l64,
                         l64 * l64], dim=1)
-    stats = reduce_blocks(block_partials(cols), first, total, mesh).cpu()
+    stats, = device_get(reduce_blocks(block_partials(cols), first, total,
+                                      mesh))
     return tuple(float(v) for v in stats)
 
 
@@ -149,8 +151,9 @@ def _accuracy(pred: np.ndarray, lab: np.ndarray, device) -> float:
         first, total, rows = eval_blocks(n, mesh)
         eq = _stage_block(pred, rows, device) == \
             _stage_block(lab, rows, device)
-        hits = int(reduce_blocks(block_partials(eq[:, None]), first, total,
-                                 mesh)[0].item())
+        counts, = device_get(reduce_blocks(block_partials(eq[:, None]),
+                                           first, total, mesh))
+        hits = int(counts[0])
     return hits / n
 
 

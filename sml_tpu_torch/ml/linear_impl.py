@@ -62,7 +62,8 @@ import torch
 
 from ..parallel.dispatch import WorkHint
 from ..utils.profiler import PROFILER
-from ._staging import mesh_rows, route_for_arrays, routed_for, take_rows
+from ._staging import (device_get, mesh_rows, route_for_arrays, routed_for,
+                       take_rows)
 
 
 class LinearFit(NamedTuple):
@@ -88,7 +89,7 @@ def _to_host_f32(*parts: torch.Tensor) -> np.ndarray:
     """The parts flattened into one vector, rounded once to f32 and
     copied back in one transfer, as float64 on the host."""
     packed = torch.cat([p.reshape(-1) for p in parts]).to(torch.float32)
-    return packed.cpu().numpy().astype(np.float64)
+    return device_get(packed)[0].astype(np.float64)
 
 
 def _moments(mesh, *parts: torch.Tensor) -> torch.Tensor:
@@ -404,8 +405,8 @@ def fit_logistic_compact(parts, y: np.ndarray, *, maxIter: int = 100,
         w, iters = _irls_steps(_expand(num, codes, parts.layout),
                                yd.to(torch.float64), int(maxIter),
                                float(tol), mesh)
-        out = torch.cat([w.to(torch.float64),
-                         iters.to(torch.float64)[None]]).cpu().numpy()
+        out, = device_get(torch.cat([w.to(torch.float64),
+                                     iters.to(torch.float64)[None]]))
     return LinearFit(out[:d].copy(), float(out[d]), int(out[d + 1]))
 
 

@@ -164,8 +164,8 @@ def als_fit(prep: dict, n_users: int, n_items: int, uf0: np.ndarray,
     for _ in range(max_iter):
         uf = als_half(itf[ius], rat_u, ub, reg, nonneg, merge)
         itf = als_half(uf[usi], rat_i, ib, reg, nonneg, merge)
-    return (uf.to(torch.float32).cpu().numpy(),
-            itf.to(torch.float32).cpu().numpy())
+    from ._staging import device_get
+    return device_get(uf.to(torch.float32), itf.to(torch.float32))
 
 
 def als_init(rng: np.random.Generator, n_users: int, n_items: int,

@@ -43,6 +43,7 @@ import torch
 from ..native import hist_kernel as hk
 from ..native import prng_kernel as pk
 from ..utils import prng
+from ._staging import device_get
 
 
 class TreeSpec(NamedTuple):
@@ -816,15 +817,16 @@ def _fit_elements(binned_c: torch.Tensor, y: torch.Tensor, n_pad: int,
         done = t + 1
         if on_rounds is not None and done < T \
                 and (done - t0) % segment == 0:
-            host.append(torch.stack(packs, dim=1).cpu().numpy())
+            seg, host_bases = device_get(torch.stack(packs, dim=1), bases)
+            host.append(seg)
             packs = []
-            on_rounds(done, np.concatenate(host, axis=1),
-                      bases.cpu().numpy())
-    if packs:
-        host.append(torch.stack(packs, dim=1).cpu().numpy())
+            on_rounds(done, np.concatenate(host, axis=1), host_bases)
+    tail = (torch.stack(packs, dim=1),) if packs else ()
+    *seg, host_bases = device_get(*tail, bases)
+    host.extend(seg)
     out = np.concatenate(host, axis=1) if host \
         else np.zeros((E, 0, 5, 2 ** (D + 1) - 1), np.float32)
-    return out, bases.cpu().numpy()
+    return out, host_bases
 
 
 def _segment(es: EnsembleSpec, rounds_per_dispatch: Optional[int]) -> int:
@@ -1146,8 +1148,8 @@ def _fit_lanes(st: _Stacked, es: EnsembleSpec, always_mask: bool, tdim: int,
         packs, bases = _fit_shard(lane, es, always_mask, tmesh, dev)
     flat = np.concatenate([packs.reshape(per, -1), bases.reshape(per, 1)],
                           axis=1)
-    every = coll.all_gather(torch.from_numpy(flat).to(dev), TRIAL_AXIS,
-                            tiled=True, mesh=tmesh).cpu().numpy()
+    every, = device_get(coll.all_gather(torch.from_numpy(flat).to(dev),
+                                        TRIAL_AXIS, tiled=True, mesh=tmesh))
     return (every[:E, :-1].reshape((E,) + packs.shape[1:]),
             np.ascontiguousarray(every[:E, -1]))
 

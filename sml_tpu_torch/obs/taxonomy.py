@@ -8,8 +8,9 @@ autologger all key off these names; a call site inventing
 `staging.h2dBytes` next to `staging.h2d_bytes` silently splits a metric
 in two. Every `PROFILER.span`/`PROFILER.count` and
 `RECORDER.emit/counter/gauge` and `METRICS.observe` call site under
-`sml_tpu_torch/` is AST-checked against this registry by
-tests/test_torch_taxonomy.py.
+`sml_tpu_torch/` is AST-checked against this registry by the port's
+lint (rule `obs-taxonomy`, `sml_tpu_torch/lint/rules/taxonomy.py`), and
+so are the kernel wrappers' launch counters (`KERNEL_LAUNCHES`).
 
 Entries are exact names or `prefix.*` wildcards (wildcards cover the
 f-string sites whose suffix is runtime data: the op behind a

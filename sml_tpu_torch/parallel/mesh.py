@@ -165,6 +165,7 @@ def _group(ranks: Sequence[int], local: bool = False):
         if key not in _groups:
             group = None
             if member or not local:
+                # torchlint: disable=divergent-collective -- with use_local_synchronization only the members make the group, so a non-member skips new_group on purpose; without it (local False) every rank calls
                 group = dist.new_group(ranks=list(ranks),
                                        use_local_synchronization=local)
             _groups[key] = group if member else None

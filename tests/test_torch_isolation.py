@@ -938,3 +938,57 @@ def test_the_elastic_fits_and_host_views_load_no_jax_pandas_or_pyarrow():
     proc = _run(ELASTIC_IMPORTS)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "HostPreempted HostChunkView []"
+
+
+LINT_BLOCKED = """
+import importlib.abc, sys
+
+
+class Blocked(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("torch", "jax", "jaxlib", "sml_tpu",
+                                  "sml_tpu_torch", "numpy"):
+            raise ImportError(f"blocked: {name}")
+        return None
+
+
+sys.meta_path.insert(0, Blocked())
+sys.argv = ["torch_lint.py"]
+import runpy
+try:
+    runpy.run_path("scripts/torch_lint.py", run_name="__main__")
+except SystemExit as e:
+    print("exit", e.code)
+"""
+
+
+def test_the_lint_runs_with_torch_jax_and_both_packages_blocked():
+    """scripts/torch_lint.py loads sml_tpu_torch/lint/ by path as its own
+    package, and nothing in it imports torch, jax, numpy, the JAX package
+    or the port (a blocked import would raise, not report clean)."""
+    proc = _run(LINT_BLOCKED)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "exit 0", proc.stdout
+
+
+def test_the_lint_package_imports_only_itself_and_the_standard_library():
+    """Every import under sml_tpu_torch/lint/ is relative (inside the
+    package) or of the standard library."""
+    import ast
+    root = os.path.join(REPO, "sml_tpu_torch", "lint")
+    absolute = set()
+    n_files = 0
+    for dirpath, _dirs, files in os.walk(root):
+        for f in files:
+            if not f.endswith(".py"):
+                continue
+            n_files += 1
+            tree = ast.parse(open(os.path.join(dirpath, f),
+                                  encoding="utf-8").read())
+            for node in ast.walk(tree):
+                if isinstance(node, ast.Import):
+                    absolute.update(a.name.split(".")[0] for a in node.names)
+                elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                    absolute.add(node.module.split(".")[0])
+    assert n_files >= 19
+    assert absolute - {"__future__"} <= set(sys.stdlib_module_names), absolute
