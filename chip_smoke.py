@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py [--seed N] [--only 23|24|25]
+    python3 chip_smoke.py [--seed N] [--only 23|24|25|26]
 
 Run from the repository root. It needs a CUDA card, `nvcc` and `g++` (it
 builds every kernel under `sml_tpu_torch/csrc/` and the host binning at
@@ -456,11 +456,38 @@ Phases:
    sml_tpu_torch may be imported. A `{"lint": ...}` line gives the rule
    count, the findings suppressed by pragma and by baseline, and the
    wall, beside the card. A failed lint fails the script.
+26. pandas (`phase_pandas`): the pandas function API and the Koalas
+   layer on this machine's Python. (a) In a fresh interpreter,
+   `install_shims()`, `import databricks.koalas`, `pyspark.sql.functions.
+   pandas_udf` and `sml_tpu_torch.pandas_api`, and a `mapInPandas`, a
+   `groupBy().applyInPandas`, a `pandas_udf` column and a Koalas frame
+   built (not run) over the course's Airbnb frame load none of pandas,
+   pyarrow, jax or sml_tpu; (b) the four conf keys read their defaults
+   and the course's alias moves `sml.arrow.maxRecordsPerBatch`; then the
+   course's Delta table (`ClassroomSetup`'s install) is read on the card
+   and ML 12's pipeline fitted on its 80% split. (c) Where this Python
+   has no pandas, each action that hands a pandas
+   object out (`mapInPandas(...).count()`, `applyInPandas(...).count()`,
+   a `pandas_udf` in `select(...).collect()`, `toPandas()`,
+   `kdf["room_type"].value_counts()`) must raise the bridge's
+   ImportError naming it; with pandas, ML 12's `mapInPandas` and
+   scalar-iterator `pandas_udf` with a `DeviceScorer` inside run on the
+   card, each bit-equal to `score_block` with one traversal a batch, and
+   ML 13's `applyInPandas` (a least squares fit a room type) and ML 14's
+   `value_counts` run and are checked. (d) ML 14's Koalas operations that return port
+   frames (`ks.read_delta` -> `filter(items=)`, `ks.sql("select
+   distinct(room_type) from {kdf}")`, `len(kdf)`, `kdf.shape`) equal the
+   frame's own results. (e) The way back: a batch with pandas' column
+   interface through `DeviceScorer` and the pyfunc model's `predict`,
+   bit-equal to `score_block`. A `{"pandas": ...}` line gives these
+   results, the versions of pandas, pyarrow, scikit-learn and
+   matplotlib found, the wall and the card; `launches_by_path` gains
+   "pandas".
 
 `--only 23` runs phase 7's float64 histogram check, the phases that
 phase 23 compares with (fit, tuning and model selection) and phase 23;
 `--only 24` runs model selection, the non-tree phase and phase 24;
-`--only 25` runs phase 25. Each prints its phases' lines but no kernels
+`--only 25` runs phase 25; `--only 26` runs phase 26. Each prints its phases' lines but no kernels
 line and no result.
 
 The second-to-last line is a JSON object listing each kernel, with the
@@ -478,7 +505,7 @@ import sys
 import threading
 import time
 import types
-from typing import NamedTuple, Optional
+from typing import Iterator, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -8233,11 +8260,353 @@ def phase_lint(card: str) -> dict:
     return out
 
 
+#: what phase 26 must find unloaded after the pandas-free imports
+PD_FORBIDDEN = ("pandas", "pyarrow", "jax", "jaxlib", "sml_tpu")
+#: the four conf keys of the pandas function API, with their defaults
+PD_KEYS = {"sml.arrow.maxRecordsPerBatch": 10000,
+           "spark.sql.execution.arrow.maxRecordsPerBatch": 10000,
+           "sml.applyInPandas.parallelism": 8,
+           "sml.shuffle.reuseBytes": 1 << 30}
+#: rows a `mapInPandas` batch in ML 12's flow
+PD_BATCH_ROWS = 100
+PD_IMPORTS = r"""
+import json, sys
+from sml_tpu_torch import install_shims
+install_shims()
+import databricks.koalas as ks
+from pyspark.sql.functions import pandas_udf
+import sml_tpu_torch.pandas_api
+from sml_tpu_torch.courseware import make_airbnb_dataset
+from sml_tpu_torch.frame.session import get_session
+df = get_session().createDataFrame(make_airbnb_dataset())
+double = pandas_udf("double")(lambda s: s * 2.0)
+built = [df.mapInPandas(lambda batches: batches, "price double"),
+         df.groupBy("room_type").applyInPandas(lambda g: g,
+                                               "room_type string"),
+         df.select(double("price")), ks.DataFrame(df)]
+bad = sorted(k for k in sys.modules if k.split(".")[0] in FORBIDDEN)
+print(json.dumps({"built": len(built), "loaded": bad,
+                  "koalas_is_port": ks is sml_tpu_torch.pandas_api}))
+"""
+
+
+def pd_available() -> bool:
+    """Whether this Python can import pandas (False also where a caller
+    blocked it with `sys.modules["pandas"] = None`)."""
+    import importlib.util
+    try:
+        return importlib.util.find_spec("pandas") is not None
+    except ValueError:
+        return False
+
+
+def pd_versions() -> dict:
+    """The version of each module of pandas' stack this Python can import
+    (None where it cannot), read from its installed metadata."""
+    from importlib import metadata
+    out = {}
+    for name in ("pandas", "pyarrow", "scikit-learn", "matplotlib"):
+        try:
+            out[name] = metadata.version(name)
+        except metadata.PackageNotFoundError:
+            out[name] = None
+    return out
+
+
+def pd_imports() -> dict:
+    """Phase 26 (a): in a fresh interpreter, `install_shims()`, the
+    Koalas and `pandas_udf` imports, and a `mapInPandas`, an
+    `applyInPandas`, a `pandas_udf` column and a Koalas frame built (not
+    run) over the course's Airbnb frame load none of PD_FORBIDDEN."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         PD_IMPORTS.replace("FORBIDDEN", repr(PD_FORBIDDEN))],
+        cwd=root, capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"the pandas-free imports failed:\n"
+                             f"{proc.stderr[-3000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    if out["loaded"] or not out["koalas_is_port"]:
+        raise AssertionError(f"pandas-free imports: {out}")
+    out["wall_s"] = wall
+    return out
+
+
+def pd_conf() -> dict:
+    """Phase 26 (b): the four keys read their defaults, and setting the
+    course's alias moves `sml.arrow.maxRecordsPerBatch`."""
+    from sml_tpu_torch.conf import GLOBAL_CONF
+    got = {k: GLOBAL_CONF.get(k) for k in PD_KEYS}
+    if got != PD_KEYS:
+        raise AssertionError(f"conf defaults {got} vs {PD_KEYS}")
+    alias = "spark.sql.execution.arrow.maxRecordsPerBatch"
+    GLOBAL_CONF.set(alias, 123)
+    try:
+        moved = GLOBAL_CONF.getInt("sml.arrow.maxRecordsPerBatch")
+    finally:
+        GLOBAL_CONF.unset(alias)
+    if moved != 123 or GLOBAL_CONF.getInt("sml.arrow.maxRecordsPerBatch") \
+            != PD_KEYS["sml.arrow.maxRecordsPerBatch"]:
+        raise AssertionError(f"the alias moved the key to {moved}")
+    return {"defaults": got, "alias_moves_key": True}
+
+
+def pd_handouts(df, kdf) -> dict:
+    """Phase 26 (c) without pandas: each action that hands a pandas
+    object to user code raises the bridge's ImportError naming its API,
+    chained from the import's own error. Anything else fails."""
+    from sml_tpu_torch.frame.functions import pandas_udf
+    double = pandas_udf("double")(lambda s: s * 2.0)
+    actions = {
+        "mapInPandas": lambda: df.mapInPandas(
+            lambda batches: batches, "price double").count(),
+        "applyInPandas": lambda: df.groupBy("room_type").applyInPandas(
+            lambda g: g, "room_type string").count(),
+        "pandas_udf": lambda: df.select(double("price")).collect(),
+        "toPandas": df.toPandas,
+        "Series.value_counts": lambda: kdf["room_type"].value_counts()}
+    out = {}
+    for api, action in actions.items():
+        try:
+            action()
+        except ImportError as e:
+            if not str(e).startswith(f"{api} hands pandas objects to user "
+                                     f"code") \
+                    or not isinstance(e.__cause__, ImportError):
+                raise AssertionError(f"{api}: not the bridge's error: "
+                                     f"{e!r}") from e
+            out[api] = type(e.__cause__).__name__
+            continue
+        raise AssertionError(f"{api} ran with no pandas")
+    return out
+
+
+def pd_flows(scorer, test_df, df, device) -> dict:
+    """Phase 26 (c) with pandas: ML 12's `mapInPandas` with a
+    `DeviceScorer` inside (`tests/test_lessons.py:460-485`) and its
+    scalar-iterator `pandas_udf` over every column (`ML 12:101-112`), in
+    batches of PD_BATCH_ROWS, each bit-equal to `score_block` on the same
+    rows with one traversal a batch; ML 13's `applyInPandas`, a least
+    squares fit a room type (numpy: the card's machine has no sklearn),
+    each group's result bit-equal to the same body on the group's rows
+    filtered out of the frame; ML 14's `value_counts` summing to the
+    rows."""
+    import pandas as pd
+    from sml_tpu_torch import functions as F
+    from sml_tpu_torch.conf import GLOBAL_CONF
+    from sml_tpu_torch.frame.column import block_len
+    from sml_tpu_torch.pandas_api import DataFrame as KDataFrame
+
+    def predict_map(batches):
+        for features in batches:
+            yield pd.DataFrame({"prediction": scorer(features)})
+
+    @F.pandas_udf("double")
+    def predict_udf(batches: Iterator[tuple]) -> Iterator[pd.Series]:
+        for features in batches:
+            yield pd.Series(scorer(pd.concat(features, axis=1)))
+
+    runs = {"mapInPandas": lambda: test_df.mapInPandas(
+                predict_map, "prediction double")._whole()["prediction"],
+            "pandas_udf": lambda: test_df.select(predict_udf(
+                *test_df.columns).alias("p"))._whole()["p"]}
+    want = scorer.score_block(scorer._prep(test_df))
+    n_batches = sum(-(-block_len(p) // PD_BATCH_ROWS)
+                    for p in test_df._materialize())
+    out = {"rows": int(len(want)), "batches": n_batches}
+    launches = dict.fromkeys(_all_launches(), 0)
+    GLOBAL_CONF.set("sml.arrow.maxRecordsPerBatch", PD_BATCH_ROWS)
+    try:
+        for what, run in runs.items():
+            _zero_launches()
+            got, ms = walled(run, device)
+            counts = _all_launches()
+            dp_same_block({"prediction": got}, {"prediction": want},
+                          f"ML 12 {what}")
+            if counts["forest_traverse"] != n_batches:
+                raise AssertionError(f"ML 12 {what}: "
+                                     f"{counts['forest_traverse']} "
+                                     f"traversals for {n_batches} batches")
+            out[what] = {"ms": ms, "launches": counts["forest_traverse"]}
+            for k, v in counts.items():
+                launches[k] += v
+    finally:
+        GLOBAL_CONF.unset("sml.arrow.maxRecordsPerBatch")
+
+    def train(pdf):
+        X = np.column_stack([np.ones(len(pdf)), pdf["bedrooms"].to_numpy(),
+                             pdf["accommodates"].to_numpy()])
+        y = pdf["price"].to_numpy()
+        coef = np.linalg.lstsq(X, y, rcond=None)[0]
+        return pd.DataFrame({"room_type": [pdf["room_type"].iloc[0]],
+                             "n_used": [len(pdf)],
+                             "mse": [float(np.mean((X @ coef - y) ** 2))]})
+
+    fits, ms = walled(lambda: df.groupby("room_type").applyInPandas(
+        train, "room_type string, n_used bigint, mse double")._whole(),
+        device)
+    for i, rt in enumerate(fits["room_type"].tolist()):
+        alone = train(df.filter(F.col("room_type") == rt).toPandas())
+        if alone["mse"][0] != fits["mse"][i] \
+                or alone["n_used"][0] != fits["n_used"][i]:
+            raise AssertionError(f"ML 13: {rt} differs from its group alone")
+    if int(fits["n_used"].sum()) != df.count():
+        raise AssertionError("ML 13: the groups do not cover the frame")
+    out["applyInPandas"] = {"groups": len(fits["room_type"]), "ms": ms}
+    counts = KDataFrame(df)["room_type"].value_counts()
+    if int(counts.sum()) != df.count():
+        raise AssertionError("ML 14: value_counts misses rows")
+    out["value_counts"] = {str(k): int(v) for k, v in counts.items()}
+    out["launches"] = launches
+    return out
+
+
+class PdColumns:
+    """pandas' column interface, which the bridge reads
+    (`frame/_pandas.block_from_pandas`): `.columns`, and `frame[c]`
+    with `.to_numpy()`. (e) hands it to the port's entry points in a
+    pandas frame's place, so that the return path runs with or without
+    pandas."""
+
+    def __init__(self, block: dict):
+        self._block = block
+        self.columns = list(block)
+
+    def __getitem__(self, c):
+        return types.SimpleNamespace(to_numpy=lambda: self._block[c])
+
+
+def pd_return_path(model, scorer, test_df, device, tmp: str) -> dict:
+    """Phase 26 (e): the way back from user code. ML 12's UDF body hands
+    `DeviceScorer` a pandas batch, and the pyfunc model's `predict` takes
+    one; both read it through the bridge with no pandas, and score it on
+    the card, bit-equal to `score_block`."""
+    from sml_tpu_torch import tracking as mlflow
+    frame = PdColumns(test_df._whole())
+    want = scorer.score_block(scorer._prep(test_df))
+    prev_uri = mlflow.get_tracking_uri()
+    mlflow.set_tracking_uri(os.path.join(tmp, "mlruns"))
+    try:
+        with mlflow.start_run() as run:
+            mlflow.spark.log_model(model, "model")
+        pyfunc = mlflow.pyfunc.load_model(f"runs:/{run.info.run_id}/model")
+        _zero_launches()
+        got = {"scorer": walled(lambda: scorer(frame), device),
+               "pyfunc": walled(lambda: pyfunc.predict(frame), device)}
+        launches = _all_launches()
+    finally:
+        mlflow.set_tracking_uri(prev_uri)
+    for what, (pred, _) in got.items():
+        dp_same_block({"prediction": np.asarray(pred)},
+                      {"prediction": want}, f"(e) {what}")
+    if launches["forest_traverse"] != len(got):
+        raise AssertionError(f"(e): {launches['forest_traverse']} "
+                             f"traversals for {len(got)} calls")
+    return {"rows": int(len(want)), "launches": launches,
+            "ms": {what: ms for what, (_, ms) in got.items()}}
+
+
+def pd_koalas(path: str, df) -> dict:
+    """Phase 26 (d): ML 14's operations that return port frames, over
+    the course's Delta table, each equal to the port's direct frame
+    result."""
+    import sml_tpu_torch.pandas_api as ks
+    kdf = ks.read_delta(path)
+    cols = [c for c in df.columns if c in ("bedrooms", "price")]
+    dp_same_block(kdf.filter(items=["bedrooms", "price"]).to_spark()
+                  ._whole(), df.select(*cols)._whole(), "ks filter(items)")
+    distinct = ks.sql("select distinct(room_type) from {kdf}") \
+        .to_spark().count()
+    want = {"distinct_room_types": df.select("room_type").distinct().count(),
+            "len": df.count(), "shape": [df.count(), len(df.columns)]}
+    got = {"distinct_room_types": distinct, "len": len(kdf),
+           "shape": list(kdf.shape)}
+    if got != want:
+        raise AssertionError(f"koalas {got} vs the frame's {want}")
+    return got
+
+
+def phase_pandas(seed: int, device, card: str) -> dict:
+    """Phase 26: the pandas function API and the Koalas layer on this
+    machine's Python. (a) `pd_imports`; (b) `pd_conf`; the course's
+    Delta table (`ClassroomSetup`'s install) read on `device` and ML 12's
+    pipeline fitted on its 80% split; (c) `pd_handouts` where this
+    Python has no pandas, else `pd_flows`; (d) `pd_koalas`; (e)
+    `pd_return_path`. The launch counts are zeroed after the fit and
+    read after (c) and (e): the "pandas" path."""
+    import shutil
+    import tempfile
+    import sml_tpu_torch.pandas_api as ks
+    from sml_tpu_torch.conf import GLOBAL_CONF
+    from sml_tpu_torch.courseware import ClassroomSetup
+    from sml_tpu_torch.frame.session import get_session
+    from sml_tpu_torch.ml import DeviceScorer, Pipeline
+    from sml_tpu_torch.ml.feature import StringIndexer, VectorAssembler
+    from sml_tpu_torch.ml.regression import RandomForestRegressor
+    t_phase = time.perf_counter()
+    out = {"pandas": pd_available(), "versions": pd_versions(),
+           "a": pd_imports(), "b": pd_conf()}
+    print(f"pandas: versions {out['versions']}")
+    print(f"pandas (a) pandas-free imports: {out['a']}")
+    print(f"pandas (b) conf keys: {out['b']}")
+    GLOBAL_CONF.set("sml.device", device.type)
+    tmp = tempfile.mkdtemp(prefix="sml-pandas-")
+    try:
+        with KernelWatch() as watch:
+            root = ClassroomSetup(base_dir=os.path.join(
+                tmp, "classroom")).install_datasets()
+            path = os.path.join(root, "airbnb", "sf-listings",
+                                "sf-listings-2019-03-06-clean.delta")
+            df = get_session().read.format("delta").load(path)
+            train_df, test_df = df.randomSplit([.8, .2], seed=42)
+            model = Pipeline(stages=[
+                StringIndexer(inputCols=["room_type"],
+                              outputCols=["room_typeIndex"],
+                              handleInvalid="skip"),
+                VectorAssembler(inputCols=["room_typeIndex", "bedrooms",
+                                           "accommodates"],
+                                outputCol="features"),
+                RandomForestRegressor(labelCol="price", numTrees=5,
+                                      maxDepth=4, seed=seed + 42)]
+            ).fit(train_df)
+            scorer = DeviceScorer(model, device=device)
+            test_df.cache()
+            launches = dict.fromkeys(_all_launches(), 0)
+            if out["pandas"]:
+                out["c"] = pd_flows(scorer, test_df, df, device)
+                for k, v in out["c"]["launches"].items():
+                    launches[k] += v
+            else:
+                out["c"] = pd_handouts(df, ks.DataFrame(df))
+            out["d"] = pd_koalas(path, df)
+            out["e"] = pd_return_path(model, scorer, test_df, device, tmp)
+            for k, v in out["e"]["launches"].items():
+                launches[k] += v
+        if watch.plain_on_cuda:
+            raise AssertionError(f"a plain version ran {watch.plain_on_cuda} "
+                                 f"times on the card")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["launches"] = launches
+    out["wall_s"] = time.perf_counter() - t_phase
+    out["card"] = card
+    print(f"pandas (c) {'ML 12-14 flows' if out['pandas'] else 'hand-outs'}"
+          f": {out['c']}")
+    print(f"pandas (d) koalas: {out['d']}")
+    print(f"pandas (e) return path: {out['e']}")
+    print(f"pandas: wall {out['wall_s']!r} s, launches {launches}; {card}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=["23", "24", "25"], default=None,
-                    help="run phase 23, 24 or 25 and what it compares "
+    ap.add_argument("--only", choices=["23", "24", "25", "26"],
+                    default=None,
+                    help="run phase 23, 24, 25 or 26 and what it compares "
                          "with; no result line")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -8266,6 +8635,10 @@ def main(argv=None) -> int:
         return 0
     if args.only == "25":
         print(json.dumps({"lint": phase_lint(card)}))
+        print(card)
+        return 0
+    if args.only == "26":
+        print(json.dumps({"pandas": phase_pandas(args.seed, device, card)}))
         print(card)
         return 0
     if args.only == "24":
@@ -8307,6 +8680,7 @@ def main(argv=None) -> int:
     multirank_nontree = phase_multirank_nontree(device, card, nontree,
                                                 selection)
     lint = phase_lint(card)
+    pandas_ = phase_pandas(args.seed, device, card)
 
     def by_path(kernel: str) -> dict:
         return {"fit": fit["launches"][kernel],
@@ -8323,7 +8697,8 @@ def main(argv=None) -> int:
                 "fleet": fleet["launches"][kernel],
                 "multirank": multirank["launches"][kernel],
                 "multirank_tuning": multirank_tuning["launches"][kernel],
-                "multirank_nontree": multirank_nontree["launches"][kernel]}
+                "multirank_nontree": multirank_nontree["launches"][kernel],
+                "pandas": pandas_["launches"][kernel]}
 
     def windows(kernel: str) -> dict:
         return {what: seen for what, seen in DEVICE_WINDOWS.items()
@@ -8349,7 +8724,8 @@ def main(argv=None) -> int:
         + fleet["launches"]["forest_traverse"]
         + multirank["launches"]["forest_traverse"]
         + multirank_tuning["launches"]["forest_traverse"]
-        + multirank_nontree["launches"]["forest_traverse"],
+        + multirank_nontree["launches"]["forest_traverse"]
+        + pandas_["launches"]["forest_traverse"],
         "launches_by_path": {"serving": main_path["launches"],
                              "tuning": tuning["fused"]["forest_traverse"],
                              "dataframe": frames["evaluate"][
@@ -8376,7 +8752,9 @@ def main(argv=None) -> int:
                              "multirank_tuning": multirank_tuning[
                                  "launches"]["forest_traverse"],
                              "multirank_nontree": multirank_nontree[
-                                 "launches"]["forest_traverse"]},
+                                 "launches"]["forest_traverse"],
+                             "pandas": pandas_["launches"][
+                                 "forest_traverse"]},
         "replay_launches": chunked["b"]["launches"]["forest_traverse"],
         "replay": chunked["replay"],
         "launches_by_rows": main_path["launches_by_rows"],
@@ -8506,6 +8884,7 @@ def main(argv=None) -> int:
         k: v for k, v in multirank_tuning.items()}}))
     print(json.dumps({"multirank_nontree": multirank_nontree}))
     print(json.dumps({"lint": lint}))
+    print(json.dumps({"pandas": pandas_}))
     print(json.dumps({"dataframe": {
         "launches_fit": frames["fit"], "launches_evaluate":
         frames["evaluate"], "rmse": frames["rmse"],

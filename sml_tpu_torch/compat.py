@@ -12,15 +12,16 @@ under the names the course imports —
     sparkdl / sparkdl.xgboost (XgboostRegressor / XgboostClassifier)
     mlflow (.tracking, .spark, .sklearn, .pyfunc, .models,
             .models.signature, .tracking.client)
-    databricks / databricks.automl / databricks.feature_store
+    databricks / databricks.automl / databricks.feature_store /
+        databricks.koalas
 
 — so `from pyspark.ml.feature import StringIndexer` resolves to
 `sml_tpu_torch.ml.feature` and `import mlflow` to
 `sml_tpu_torch.tracking`. Only missing names are registered: a real
 installation of a package, if present, always wins, and the first
-package to install a shim keeps it (`sys.modules.setdefault`). The
-databricks.koalas name and `pandas_udf` wait for ROADMAP item 9b (they
-hand pandas objects to user code).
+package to install a shim keeps it (`sys.modules.setdefault`).
+Installing loads no pandas: `databricks.koalas` (`pandas_api`) and
+`pyspark.sql.functions.pandas_udf` import it when called.
 """
 
 from __future__ import annotations
@@ -70,6 +71,7 @@ def install_shims() -> None:
     """Alias the port under the course's import names (idempotent)."""
     from . import automl as automl_mod
     from . import feature_store as fs_mod
+    from . import pandas_api
     from . import tracking
     from . import tune as hyperopt_mod
     from . import xgboost as xgb_mod
@@ -111,11 +113,12 @@ def install_shims() -> None:
         # sparkdl xgboost surface (ML 11)
         "sparkdl": _module("sparkdl", xgboost=xgb_mod),
         "sparkdl.xgboost": xgb_mod,
-        # databricks namespaces (ML 09)
+        # databricks namespaces (ML 09 / 10 / 14)
         "databricks": _module("databricks", automl=automl_mod,
-                              feature_store=fs_mod),
+                              feature_store=fs_mod, koalas=pandas_api),
         "databricks.automl": automl_mod,
         "databricks.feature_store": fs_mod,
+        "databricks.koalas": pandas_api,
     }
     _register(mods)
     if _real_package("mlflow"):

@@ -152,6 +152,16 @@ _register("sml.shuffle.partitions", 8, int,
           "Partition count after shuffles (spark.sql.shuffle.partitions)")
 _register("spark.sql.shuffle.partitions", 8, int,
           "Alias kept for course compatibility")
+_register("sml.arrow.maxRecordsPerBatch", 10000, int,
+          "Arrow record-batch size for pandas-fn fan-out")
+_register("spark.sql.execution.arrow.maxRecordsPerBatch", 10000, int,
+          "Alias kept for course compatibility")
+_register("sml.applyInPandas.parallelism", 8, int,
+          "Concurrent per-group fn threads in applyInPandas; 1 = sequential "
+          "(needed only by fns that mutate shared closure state)")
+_register("sml.shuffle.reuseBytes", 1 << 30, int,
+          "Byte bound for the shuffle-reuse cache (memoized applyInPandas "
+          "group splits of cached frames); 0 disables reuse")
 _register("sml.split.sampler", "spark", str,
           "randomSplit sampler: 'spark' = draw-for-draw Spark parity "
           "(per-partition determinism sort + XORShiftRandom Bernoulli "
@@ -364,6 +374,10 @@ def describe() -> Dict[str, Dict[str, Any]]:
 _ALIASES = {
     "spark.sql.shuffle.partitions": "sml.shuffle.partitions",
     "sml.shuffle.partitions": "spark.sql.shuffle.partitions",
+    "spark.sql.execution.arrow.maxRecordsPerBatch":
+        "sml.arrow.maxRecordsPerBatch",
+    "sml.arrow.maxRecordsPerBatch":
+        "spark.sql.execution.arrow.maxRecordsPerBatch",
     "spark.databricks.delta.retentionDurationCheck.enabled":
         "sml.delta.retentionDurationCheck.enabled",
     "sml.delta.retentionDurationCheck.enabled":

@@ -22,12 +22,14 @@ materialization is kept (`cache()` semantics).
   side's, full joins by the sorted keys; NULL keys match each other.
 
 `writeStream` exists on a streaming frame (`streaming/stream.py`); on a
-static one it raises, as Spark does. Not ported yet (they wait for their
-slices): `mapInPandas` and `to_koalas`.
+static one it raises, as Spark does. The pandas function API
+(`mapInPandas`, `toPandas`) imports pandas inside the call, through
+`frame/_pandas.py`; `to_koalas` lifts a frame into `pandas_api`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
@@ -40,7 +42,7 @@ from .column import (Block, Column, EvalContext, NamedColumn,
                      block_len, ensure_column, infer_objects, object_array,
                      to_numeric)
 from .functions import nanmean, nanvar
-from .types import Row, StructType, infer_schema
+from .types import Row, StructType, infer_schema, parse_schema
 
 Partitions = List[Block]
 
@@ -93,10 +95,13 @@ def rows_of(block: Block) -> List[Row]:
             for i in range(block_len(block))]
 
 
-def coerce_to_schema(block: Block, schema: StructType) -> Block:
-    """Project and cast a block to a StructType."""
+def coerce_to_schema(block: Block, schema: StructType,
+                     n_rows: Optional[int] = None) -> Block:
+    """Project and cast a block to a StructType; a column the block
+    lacks is NULL in each of its rows (`n_rows`, the block's by
+    default)."""
     from .column import cast_values
-    n = block_len(block)
+    n = block_len(block) if n_rows is None else n_rows
     out = {}
     for f in schema.fields:
         s = block[f.name] if f.name in block else object_array([None] * n)
@@ -146,6 +151,16 @@ class DataFrame:
         n = min(num_partitions, max(1, block_len(block)))
         return cls(lambda: split_rows(block, n), session=session,
                    schema=schema, op="createDataFrame")
+
+    @classmethod
+    def from_pandas(cls, pdf, session=None,
+                    num_partitions: Optional[int] = None,
+                    schema: Optional[StructType] = None) -> "DataFrame":
+        """A frame of a pandas frame's rows (`from_block` of its columns,
+        read without importing pandas)."""
+        from ._pandas import block_from_pandas
+        return cls.from_block(block_from_pandas(pdf), session=session,
+                              num_partitions=num_partitions, schema=schema)
 
     @classmethod
     def from_partitions(cls, parts: Partitions, session=None,
@@ -273,11 +288,9 @@ class DataFrame:
         """A pandas DataFrame of every row (vector columns as lists of
         DenseVector). Imports pandas inside the call: the port itself
         needs none, and raises ImportError where it is absent."""
-        import pandas as pd
-        whole = self._whole()
-        return pd.DataFrame({
-            c: (object_array(_py(r) for r in v) if v.ndim == 2 else v.copy())
-            for c, v in whole.items()})
+        from ._pandas import block_to_pandas, pandas
+        pandas("toPandas")
+        return block_to_pandas(self._whole())
 
     def collect(self) -> List[Row]:
         return rows_of(self._whole())
@@ -725,6 +738,11 @@ class DataFrame:
         return self.cache()
 
     def unpersist(self) -> "DataFrame":
+        with self._lock:
+            whole = self._whole_cache
+        if whole is not None:  # and the groups applyInPandas split it into
+            from .grouped import drop_split_cache_for
+            drop_split_cache_for(whole)
         # materializing releases the recipe, so data is dropped only
         # where it can still be recomputed
         with self._lock:
@@ -804,6 +822,61 @@ class DataFrame:
     def writeStream(self):
         from ..streaming.stream import DataStreamWriter
         return DataStreamWriter(self)
+
+    # ------------------------------------------------------------- pandas fn
+    def mapInPandas(self, fn: Callable, schema: Union[str, StructType]
+                    ) -> "DataFrame":
+        """Iterator-of-batches map (`ML 12:125-143`): `fn` is called once,
+        with an iterator over every non-empty partition's rows in
+        batches of `sml.arrow.maxRecordsPerBatch` (pandas frames, in
+        partition order), and each frame it yields is cast to `schema`.
+
+        The whole call is routed once (`parallel.dispatch.decide`, the
+        JAX package's per-cell WorkHint): on "host" the CPU is bound as
+        the thread's device for the UDF's duration, so a `DeviceScorer`
+        resolving its device inside it scores on the CPU; otherwise the
+        binding is left as it is."""
+        sch = parse_schema(schema)
+        parent = self
+
+        def compute() -> Partitions:
+            from ..device import session_device, use_device_local
+            from ..parallel import dispatch
+            from ._pandas import (block_to_pandas, coerce_pandas_to_schema,
+                                  pandas)
+            pd = pandas("mapInPandas")
+            parts = parent._materialize()
+            bs = GLOBAL_CONF.getInt("sml.arrow.maxRecordsPerBatch")
+
+            def batches():
+                for p in parts:
+                    for lo in range(0, block_len(p), bs):
+                        yield block_to_pandas(take_rows(p, slice(lo, lo + bs)),
+                                              "mapInPandas")
+
+            n_rows = sum(block_len(p) for p in parts)
+            n_cols = max((len(p) for p in parts), default=1)
+            hint = dispatch.WorkHint(flops=2.0 * n_rows * max(n_cols, 1),
+                                     kind="blas", out_bytes=8.0 * n_rows)
+            route = dispatch.decide(hint, session_device())
+            with (use_device_local("cpu") if route == "host"
+                  else contextlib.nullcontext()):
+                outs = [coerce_pandas_to_schema(b, sch)
+                        for b in fn(batches())]
+            return outs or [coerce_pandas_to_schema(pd.DataFrame(), sch)]
+
+        out = DataFrame(compute, session=self._session, schema=sch,
+                        op="mapInPandas")
+        out._ml_attrs = dict(self._ml_attrs)
+        return out
+
+    def to_koalas(self, index_col: Optional[str] = None):
+        """Lift into the pandas-API layer (`ML 14:134-152`)."""
+        from ..pandas_api import DataFrame as KDataFrame
+        return KDataFrame(self, index_col=index_col)
+
+    to_pandas_on_spark = to_koalas
+    pandas_api = to_koalas
 
     def approxQuantile(self, col: Union[str, List[str]],
                        probabilities: Sequence[float],

@@ -5,13 +5,25 @@ and `agg(...)` (SURVEY L1). Groups come in order of first appearance,
 NULL keys forming a group of their own (pandas' `groupby(sort=False,
 dropna=False)`, which the JAX package runs); each aggregate reduces a
 group's rows in their order, and the result is hash-partitioned by the
-keys into `sml.shuffle.partitions` blocks, as in the JAX package. The
-per-group pandas functions (`applyInPandas`) wait for ROADMAP item 9b.
+keys into `sml.shuffle.partitions` blocks, as in the JAX package.
+
+`applyInPandas` (`ML 13:119-161`) hands each group, key columns
+included, to a user function as a pandas frame (pandas imported inside
+the call, `frame/_pandas.py`), on `sml.applyInPandas.parallelism`
+worker threads; the outputs, cast to the schema, are concatenated and
+hash-partitioned by the keys. The split of a frame into groups is the
+shuffle's output: for a frame's memoized block (`DataFrame._whole`) it
+is kept in a byte-bounded LRU (`sml.shuffle.reuseBytes`), keyed by that
+block's identity and the keys, and `DataFrame.unpersist` drops its
+entries. A function gets a fresh pandas copy of its group, so writing
+to it reaches neither the cached split nor the source.
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+import sys
+import threading
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -22,6 +34,50 @@ from .column import (Block, Column, EvalContext, block_len, infer_objects,
 
 #: one NULL group, whatever NULL looks like in the column (None, NaN)
 _NULL = object()
+
+#: (id of a frame's memoized block, keys) -> (that block, its groups,
+#: their bytes); the block is held so that its id cannot be reused
+_split_cache: Dict[tuple, tuple] = {}
+_split_lock = threading.Lock()
+
+
+def block_bytes(block: Block) -> int:
+    """A block's bytes: its arrays', and each Python object an object
+    column holds (a split's cost is mostly its text)."""
+    total = 0
+    for v in block.values():
+        total += v.nbytes
+        if v.dtype.kind == "O":
+            total += sum(sys.getsizeof(x) for x in v.tolist())
+    return total
+
+
+def _split_cache_get(ckey, token) -> Optional[list]:
+    with _split_lock:
+        hit = _split_cache.get(ckey)
+    # `is`: an entry holds its block, so its id is not reused, but a
+    # block memoized again for the same frame must miss
+    return hit[1] if hit is not None and hit[0] is token else None
+
+
+def _split_cache_put(ckey, token, groups: List[Block]) -> None:
+    nbytes = sum(block_bytes(g) for g in groups) + block_bytes(token)
+    max_bytes = GLOBAL_CONF.getInt("sml.shuffle.reuseBytes")
+    if nbytes > max_bytes:
+        return
+    with _split_lock:
+        _split_cache[ckey] = (token, groups, nbytes)
+        total = sum(e[2] for e in _split_cache.values())
+        while len(_split_cache) > 1 and total > max_bytes:
+            total -= _split_cache.pop(next(iter(_split_cache)))[2]
+
+
+def drop_split_cache_for(token) -> None:
+    """Drop the cached splits of a frame's memoized block
+    (`DataFrame.unpersist`)."""
+    with _split_lock:
+        for k in [k for k, v in _split_cache.items() if v[0] is token]:
+            _split_cache.pop(k)
 
 
 def factorize(values: np.ndarray) -> np.ndarray:
@@ -79,12 +135,17 @@ class GroupedData:
         self._df = df
         self._keys = keys
 
-    def _grouped(self) -> Tuple[Block, List[str]]:
-        block = dict(self._df._whole())
+    def _grouped(self) -> Tuple[Block, List[str], Optional[Block]]:
+        """(the frame's rows with every key column, the key names, the
+        frame's memoized block where the keys are its columns, else
+        None)."""
+        token = self._df._whole()
+        block = dict(token)
         for k in self._keys:
             if k._name not in block:
                 block[k._name] = k._eval(block, EvalContext())
-        return block, [k._name for k in self._keys]
+                token = None  # a computed key: beyond the memoized block
+        return block, [k._name for k in self._keys], token
 
     def agg(self, *exprs):
         from .dataframe import DataFrame, _hash_repartition
@@ -97,7 +158,7 @@ class GroupedData:
         parent = self
 
         def compute():
-            block, key_names = parent._grouped()
+            block, key_names, _ = parent._grouped()
             out = aggregate(block, key_names, list(exprs))
             if key_names:
                 return _hash_repartition(
@@ -136,10 +197,58 @@ class GroupedData:
     def max(self, *cols):  # noqa: A003
         return self._simple("max", cols)
 
-    def applyInPandas(self, fn, schema):
-        raise NotImplementedError(
-            "applyInPandas hands pandas frames to user code: it waits for "
-            "ROADMAP item 9b (what needs pandas or pyarrow)")
+    def applyInPandas(self, fn: Callable, schema):
+        """`fn` once a group, groups in order of first appearance (NULL
+        keys a group of their own), each a pandas frame of the group's
+        rows with the key columns; the outputs cast to `schema`,
+        concatenated and hash-partitioned by the keys into
+        min(groups, `sml.shuffle.partitions`) blocks (`ML 13:119-127`).
+        The functions run on `sml.applyInPandas.parallelism` threads of
+        this interpreter: a function that writes shared state needs 1."""
+        from .dataframe import (DataFrame, _hash_repartition, concat_blocks,
+                                take_rows)
+        from .types import parse_schema
+        sch = parse_schema(schema)
+        parent = self
+
+        def compute():
+            from ._pandas import (block_to_pandas, coerce_pandas_to_schema,
+                                  pandas)
+            pd = pandas("applyInPandas")
+            block, key_names, token = parent._grouped()
+            if block_len(block) == 0:
+                return [coerce_pandas_to_schema(pd.DataFrame(), sch)]
+            ckey = (id(token), tuple(key_names)) if token is not None \
+                else None
+            groups = _split_cache_get(ckey, token) if ckey else None
+            if groups is None:
+                groups = [take_rows(block, r)
+                          for r in group_rows(block, key_names)[1]]
+                if ckey is not None:
+                    _split_cache_put(ckey, token, groups)
+
+            def run(g: Block) -> Block:
+                return coerce_pandas_to_schema(
+                    fn(block_to_pandas(g, "applyInPandas")), sch)
+
+            par = GLOBAL_CONF.getInt("sml.applyInPandas.parallelism")
+            if len(groups) > 1 and par > 1:
+                from concurrent.futures import ThreadPoolExecutor
+                with ThreadPoolExecutor(
+                        max_workers=min(par, len(groups))) as pool:
+                    outs = list(pool.map(run, groups))
+            else:
+                outs = [run(g) for g in groups]
+            full = concat_blocks(outs)
+            nparts = max(1, min(len(outs),
+                                GLOBAL_CONF.getInt("sml.shuffle.partitions")))
+            avail = [k for k in key_names if k in full]
+            if avail:
+                return _hash_repartition(full, avail, nparts)
+            return [full]
+
+        return DataFrame(compute, session=self._df._session, schema=sch,
+                         op="applyInPandas")
 
     def applyInPandasWithState(self, *a, **k):
         raise NotImplementedError(

@@ -199,8 +199,8 @@ class TpuSession:
         if isinstance(data, dict):
             block = {str(c): column_array(v) for c, v in data.items()}
         elif hasattr(data, "columns") and not isinstance(data, DataFrame):
-            block = {str(c): column_array(data[c].to_numpy())
-                     for c in data.columns}
+            from ._pandas import block_from_pandas
+            block = block_from_pandas(data)
         else:
             rows = list(data)
             if rows and isinstance(rows[0], Row):

@@ -2,7 +2,12 @@
 
 The port's copy of `sml_tpu/frame/types.py`, over numpy dtypes instead
 of pyarrow and pandas ones: a float64 column is `double`, int64 `bigint`,
-an object or str column `string`, a 2-D float block a `vector`.
+an object or str column `string`, a 2-D float block a `vector`. Each
+type also names its Arrow type (`to_arrow`, importing pyarrow inside
+the call) and its pandas dtype (`to_pandas_dtype`, a numpy type or
+dtype name); `arrow_to_sml` reads an Arrow type back, and
+`infer_schema_from_pandas` types a pandas frame's columns from their
+dtypes, without importing pandas.
 """
 
 from __future__ import annotations
@@ -28,37 +33,99 @@ class DataType:
     def __hash__(self) -> int:
         return hash(type(self).__name__)
 
+    def to_arrow(self):
+        raise NotImplementedError
+
+    def to_pandas_dtype(self):
+        raise NotImplementedError
+
 
 class StringType(DataType):
     _name = "string"
+
+    def to_arrow(self):
+        import pyarrow as pa
+        return pa.string()
+
+    def to_pandas_dtype(self):
+        return object
 
 
 class DoubleType(DataType):
     _name = "double"
 
+    def to_arrow(self):
+        import pyarrow as pa
+        return pa.float64()
+
+    def to_pandas_dtype(self):
+        return np.float64
+
 
 class FloatType(DataType):
     _name = "float"
+
+    def to_arrow(self):
+        import pyarrow as pa
+        return pa.float32()
+
+    def to_pandas_dtype(self):
+        return np.float32
 
 
 class IntegerType(DataType):
     _name = "int"
 
+    def to_arrow(self):
+        import pyarrow as pa
+        return pa.int32()
+
+    def to_pandas_dtype(self):
+        return np.int32
+
 
 class LongType(DataType):
     _name = "bigint"
+
+    def to_arrow(self):
+        import pyarrow as pa
+        return pa.int64()
+
+    def to_pandas_dtype(self):
+        return np.int64
 
 
 class BooleanType(DataType):
     _name = "boolean"
 
+    def to_arrow(self):
+        import pyarrow as pa
+        return pa.bool_()
+
+    def to_pandas_dtype(self):
+        return np.bool_
+
 
 class TimestampType(DataType):
     _name = "timestamp"
 
+    def to_arrow(self):
+        import pyarrow as pa
+        return pa.timestamp("us")
+
+    def to_pandas_dtype(self):
+        return "datetime64[us]"
+
 
 class DateType(DataType):
     _name = "date"
+
+    def to_arrow(self):
+        import pyarrow as pa
+        return pa.date32()
+
+    def to_pandas_dtype(self):
+        return "datetime64[s]"
 
 
 class VectorType(DataType):
@@ -74,6 +141,16 @@ class VectorType(DataType):
 
     def __hash__(self):
         return hash("VectorType")
+
+    def to_arrow(self):
+        """A list of float32 (the JAX package's storage type; the port
+        holds a vector column as float64)."""
+        import pyarrow as pa
+        return pa.list_(pa.float32()) if self.size < 0 \
+            else pa.list_(pa.float32(), self.size)
+
+    def to_pandas_dtype(self):
+        return object
 
 
 @dataclass
@@ -143,6 +220,11 @@ class StructType(DataType):
                          f"(nullable = {str(f.nullable).lower()})")
         return "\n".join(lines) + "\n"
 
+    def to_arrow(self):
+        import pyarrow as pa
+        return pa.schema([(f.name, f.dataType.to_arrow())
+                          for f in self.fields])
+
 
 _SIMPLE_NAMES = {
     "string": StringType, "str": StringType,
@@ -197,6 +279,61 @@ def infer_schema(block: Dict[str, np.ndarray]) -> StructType:
     """The schema of a block of numpy columns (`type_of` per column)."""
     return StructType([StructField(str(name), type_of(v))
                        for name, v in block.items()])
+
+
+def arrow_to_sml(t) -> DataType:
+    """The schema type of an Arrow type (text and anything unknown as
+    `string`, a list as `vector`)."""
+    import pyarrow as pa
+    if pa.types.is_string(t) or pa.types.is_large_string(t):
+        return StringType()
+    if pa.types.is_float64(t):
+        return DoubleType()
+    if pa.types.is_float32(t):
+        return FloatType()
+    if pa.types.is_int64(t):
+        return LongType()
+    if pa.types.is_integer(t):
+        return IntegerType()
+    if pa.types.is_boolean(t):
+        return BooleanType()
+    if pa.types.is_timestamp(t):
+        return TimestampType()
+    if pa.types.is_date(t):
+        return DateType()
+    if pa.types.is_list(t) or pa.types.is_fixed_size_list(t):
+        return VectorType()
+    return StringType()
+
+
+def infer_schema_from_pandas(pdf) -> StructType:
+    """The schema of a pandas frame from its columns' dtypes (read
+    through `pdf[c].dtype` and `.to_numpy()`, with no pandas import): a
+    column whose every value is a list or an array is a `vector`, other
+    object columns `string`."""
+    st = StructType()
+    for name in pdf.columns:
+        s = pdf[name]
+        if getattr(s.dtype, "name", "") == "vector":  # columnar VectorArray
+            st.add(str(name), VectorType())
+            continue
+        kind = s.dtype.kind
+        if kind == "f":
+            t: DataType = DoubleType() if s.dtype.itemsize > 4 \
+                else FloatType()
+        elif kind in "iu":
+            t = LongType() if s.dtype.itemsize > 4 else IntegerType()
+        elif kind == "b":
+            t = BooleanType()
+        elif kind == "M":
+            t = TimestampType()
+        else:
+            vals = s.to_numpy()
+            t = VectorType() if len(vals) and all(
+                isinstance(v, (list, np.ndarray)) for v in vals) \
+                else StringType()
+        st.add(str(name), t)
+    return st
 
 
 class Row:

@@ -504,15 +504,21 @@ class DeviceScorer:
 
     @staticmethod
     def _block_of(batch) -> dict:
-        """A raw batch's columns: a port DataFrame's rows, or a mapping
-        of column name to values."""
+        """A raw batch's columns: a port DataFrame's rows, a mapping of
+        column name to values, or a pandas frame (ML 12's UDF batches,
+        read through `.columns` and `to_numpy()` with no pandas
+        import)."""
         from ..frame.dataframe import DataFrame
         if isinstance(batch, DataFrame):
             return batch._whole()
         if isinstance(batch, Mapping):
             return {k: np.asarray(v) for k, v in batch.items()}
-        raise TypeError(f"a batch is a DataFrame, a mapping of columns or "
-                        f"a feature block, not {type(batch).__name__}")
+        if hasattr(batch, "columns"):
+            from ..frame._pandas import block_from_pandas
+            return block_from_pandas(batch)
+        raise TypeError(f"a batch is a DataFrame, a pandas frame, a mapping "
+                        f"of columns or a feature block, not "
+                        f"{type(batch).__name__}")
 
     def _prep(self, batch) -> np.ndarray:
         """The feature block of a batch: a numpy array as it is; a raw
@@ -535,8 +541,8 @@ class DeviceScorer:
 
     def __call__(self, batch) -> np.ndarray:
         """Predict from a batch: a numpy array is a feature block
-        (`score_block`); a raw batch (a port DataFrame, or a mapping of
-        column name to numpy array) goes through the factorized scorer
+        (`score_block`); a raw batch (a port DataFrame, a pandas frame,
+        or a mapping of column name to numpy array) goes through the factorized scorer
         where there is one, else its feature block (`_prep`) through
         `score_block`. A batch missing a raw column raises KeyError
         naming it; the next batch is scored as if it had not come."""

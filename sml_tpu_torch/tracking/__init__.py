@@ -285,8 +285,8 @@ def _resolve_model_uri(model_uri: str) -> str:
 
 def _columns_of(data) -> tuple:
     """(column names, {name: column array}) of a port DataFrame, a
-    mapping of columns or a 1-D / 2-D array (columns 0..k-1, as pandas
-    names an array's)."""
+    mapping of columns, a pandas frame (read with no pandas import) or
+    a 1-D / 2-D array (columns 0..k-1, as pandas names an array's)."""
     from ..frame.dataframe import DataFrame
     from ..frame.session import column_array
     if isinstance(data, DataFrame):
@@ -294,6 +294,10 @@ def _columns_of(data) -> tuple:
         return data.columns, block
     if isinstance(data, Mapping):
         block = {str(c): column_array(v) for c, v in data.items()}
+        return list(block), block
+    if hasattr(data, "columns"):
+        from ..frame._pandas import block_from_pandas
+        block = block_from_pandas(data)
         return list(block), block
     arr = np.asarray(data)
     if arr.ndim == 1:
@@ -402,7 +406,7 @@ class _SklearnFlavor:
 
 class PyFuncModel:
     """Uniform `predict` over any logged flavor. It takes a port
-    DataFrame or a mapping of column name to values.
+    DataFrame, a pandas frame or a mapping of column name to values.
 
     A native model whose last stage is a tree ensemble or a linear model
     scores through `DeviceScorer.__call__` on the session's device
@@ -443,7 +447,8 @@ class PyFuncModel:
         from ..frame.dataframe import DataFrame
         from ..frame.session import get_session
         df = data if isinstance(data, DataFrame) \
-            else get_session().createDataFrame(dict(data))
+            else get_session().createDataFrame(
+                data if hasattr(data, "columns") else dict(data))
         out = self._native.transform(df)
         col = "prediction" if "prediction" in out.columns else out.columns[-1]
         return out.select(col)._whole()[col]

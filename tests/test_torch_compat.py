@@ -4,10 +4,10 @@ package's shims when it is imported, and the first package to install a
 name keeps it (`sys.modules.setdefault`).
 
 The import census is `tests/test_compat.py`'s (the course's own import
-lines) without the names that wait for ROADMAP item 9b
-(databricks.koalas, `pandas_udf`); every name must resolve to a module
-of `sml_tpu_torch`, mlflow's, databricks.automl's and
-databricks.feature_store's included. Then an ML 02-shaped cell
+lines); every name must resolve to a module of `sml_tpu_torch`,
+mlflow's, databricks.automl's, databricks.feature_store's,
+databricks.koalas' and `pandas_udf`'s included, and installing the
+shims and importing them loads no pandas. Then an ML 02-shaped cell
 sequence and an ML 04 / ML 05 / ML 09 one (tracking, the registry's
 stage transitions, AutoML, `spark_udf`), written the course's way, run
 on the port (`sml.device=cpu`) and load neither JAX, the JAX package
@@ -36,6 +36,8 @@ install_shims()  # idempotent
 from pyspark.sql import SparkSession, DataFrame, Row  # noqa
 from pyspark.sql.functions import col, lit, log, exp, when, translate  # noqa
 from pyspark.sql.functions import monotonically_increasing_id, rand  # noqa
+from pyspark.sql.functions import pandas_udf, udf  # noqa
+import databricks.koalas as ks
 from pyspark.sql.types import (DoubleType, IntegerType, StringType,  # noqa
                                StructType, Row)
 import pyspark.sql.functions as F
@@ -60,7 +62,7 @@ import sparkdl
 objs = [SparkSession, DataFrame, Row, col, F, Pipeline, Imputer,
         DecisionTreeRegressor, LogisticRegression, KMeans, ALS,
         RegressionEvaluator, CrossValidator, Vectors, fmin, Trials,
-        XgboostRegressor, sparkdl.xgboost, DF2, P2]
+        XgboostRegressor, sparkdl.xgboost, DF2, P2, pandas_udf, udf, ks]
 mods = sorted({getattr(o, "__module__", None) or o.__name__ for o in objs})
 print(all(m.startswith("sml_tpu_torch") for m in mods), mods)
 print(sys.modules["pyspark.ml.feature"].__name__,
@@ -86,8 +88,9 @@ def test_course_import_census_resolves_to_the_port():
     assert lines[0].startswith("True "), lines[0]
     assert lines[1] == ("sml_tpu_torch.ml.feature sml_tpu_torch.tune "
                         "sml_tpu_torch.frame.functions")
-    for line in lines[2:5]:
-        assert line.endswith("absent") or "imported" in line
+    assert lines[2:5] == ["mlflow imported", "databricks imported",
+                          "databricks.koalas imported"]
+    assert "'sml_tpu_torch.pandas_api'" in lines[0]
     assert lines[5] == "[]"
 
 
@@ -193,7 +196,7 @@ def test_mlflow_and_automl_names_resolve_to_the_port():
                         "'sml_tpu_torch.tracking']"), lines[0]
     assert lines[1] == "True True"
     assert lines[2:] == ["databricks.feature_store imported",
-                         "databricks.koalas absent",
+                         "databricks.koalas imported",
                          "sml_tpu_torch.feature_store "
                          "sml_tpu_torch.feature_store"]
 

@@ -163,11 +163,6 @@ def test_corr_aggregate_is_the_frames_corr(frames):
         assert value == jdf.filter(JF.col("k2") == k2).corr("x", "y")
 
 
-def test_apply_in_pandas_names_its_roadmap_item(frames):
-    with pytest.raises(NotImplementedError, match="item 9"):
-        frames[1].groupBy("k").applyInPandas(lambda g: g, "k string")
-
-
 # ----------------------------------------------------------------- joins
 def _join_frames(spark, psession):
     rng = np.random.default_rng(5)

@@ -13,8 +13,12 @@ a CUDA device the entry points
 CrossValidator's fit, `fmin`'s placed trials, the chunked fits,
 `Prophet.fit`, `ARIMA.fit`, `ServingEndpoint` and `automl.regress`)
 raise rather than carry on on the CPU (each check runs in a fresh
-interpreter with no CUDA device visible)."""
+interpreter with no CUDA device visible). With pandas and pyarrow
+unimportable, each call that hands a pandas object to user code raises
+the pandas bridge's ImportError naming itself, and the rest of
+`chip_smoke.py`'s phase 26 runs."""
 
+import json
 import os
 import shutil
 import subprocess
@@ -733,6 +737,14 @@ def test_chip_smoke_fails_outside_the_repository(tmp_path):
     assert '"ok"' not in proc.stdout
 
 
+def test_the_pandas_bridge_and_koalas_modules_are_among_the_imported():
+    proc = _run(IMPORT_ALL.replace("print(len(names), bad)",
+                                   "print(sorted(names))"))
+    assert proc.returncode == 0, proc.stderr
+    for name in ("frame._pandas", "pandas_api"):
+        assert f"sml_tpu_torch.{name}'" in proc.stdout
+
+
 def test_the_obs_modules_are_among_the_imported():
     proc = _run(IMPORT_ALL.replace("print(len(names), bad)",
                                    "print(sorted(names))"))
@@ -992,3 +1004,46 @@ def test_the_lint_package_imports_only_itself_and_the_standard_library():
                     absolute.add(node.module.split(".")[0])
     assert n_files >= 19
     assert absolute - {"__future__"} <= set(sys.stdlib_module_names), absolute
+
+
+# `import pandas` finds None in sys.modules and raises ModuleNotFoundError
+# before any finder is asked
+PANDAS_BLOCKED = BLOCKED + """
+sys.modules["pandas"] = None
+sys.modules["pyarrow"] = None
+import json
+import torch
+import chip_smoke as cs
+from sml_tpu_torch import GLOBAL_CONF
+from sml_tpu_torch.native import traverse_kernel as tk
+plain = tk.forest_margin_plain
+
+
+def counted(*a, **k):
+    tk.LAUNCHES += 1
+    return plain(*a, **k)
+
+
+tk.forest_margin_plain = counted
+GLOBAL_CONF.set("sml.device", "cpu")
+out = cs.phase_pandas(0, torch.device("cpu"), "cpu")
+print(json.dumps({k: out[k] for k in ("pandas", "a", "c", "d", "launches")}))
+"""
+
+
+def test_the_pandas_hand_outs_raise_the_bridges_error_without_pandas():
+    """`chip_smoke.py`'s phase 26 as a machine without pandas runs it, with
+    pandas and pyarrow made unimportable (`sys.modules[...] = None`) and
+    jax and the JAX package blocked: the pandas-free imports, the conf
+    keys, each hand-out raising the bridge's ImportError chained from
+    the import's own error, ML 14's port-frame operations and the
+    return path through `DeviceScorer` and `PyFuncModel.predict`."""
+    proc = _run(PANDAS_BLOCKED)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["pandas"] is False and out["a"]["loaded"] == []
+    assert out["c"] == {api: "ModuleNotFoundError" for api in (
+        "mapInPandas", "applyInPandas", "pandas_udf", "toPandas",
+        "Series.value_counts")}
+    assert out["d"]["distinct_room_types"] == 3
+    assert out["launches"]["forest_traverse"] == 2

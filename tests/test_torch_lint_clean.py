@@ -8,7 +8,8 @@ contract, and the conf registry the lint holds the port against.
   clean; the exit codes are 0 clean, 1 violations, 2 usage or internal
   error (a crashing rule included); `--changed-only` filters the report
   and `--update-baseline` keeps the reviewed reasons. `chip_smoke.py`'s
-  phase 25 (the lint under `-X importtime`) runs here as on the card.
+  phase 25 (the lint under `-X importtime`) runs here as on the card,
+  and its phase 26 (the pandas function API) with pandas installed.
 - `sml_tpu_torch/conf.py`: `registered_keys()` and `describe()` have the
   reference's shapes, the registries differ by exactly the keys
   ROADMAP.md section 1 lists, and a fresh conf reads the course keys as
@@ -98,6 +99,39 @@ def test_phase_25_rehearsed_on_the_cpu():
     assert out["rules"] == len(RULES)
     assert out["suppressed_pragma"] > 0 and out["suppressed_baseline"] > 0
     assert out["wall_s"] > 0 and out["modules_imported"] > 0
+
+
+def test_phase_26_rehearsed_on_the_cpu(monkeypatch):
+    """chip_smoke.py's phase 26 with pandas installed: the
+    pandas-free imports, the conf keys, ML 12's `mapInPandas` and
+    `pandas_udf` with a `DeviceScorer` inside (one traversal a batch,
+    bit-equal to `score_block`), ML 13's `applyInPandas`, ML 14's
+    operations and the return path, on the CPU (the traversal's plain
+    version counted as its launch)."""
+    import torch
+    import chip_smoke
+    from sml_tpu_torch import GLOBAL_CONF
+    from sml_tpu_torch.native import traverse_kernel as tk
+    plain = tk.forest_margin_plain
+
+    def counted(*a, **k):
+        tk.LAUNCHES += 1
+        return plain(*a, **k)
+
+    monkeypatch.setattr(tk, "forest_margin_plain", counted)
+    GLOBAL_CONF.set("sml.device", "cpu")
+    try:
+        out = chip_smoke.phase_pandas(0, torch.device("cpu"), "cpu")
+    finally:
+        GLOBAL_CONF.unset("sml.device")
+    assert out["pandas"] is True and out["a"]["loaded"] == []
+    assert out["b"]["alias_moves_key"] is True
+    assert out["c"]["mapInPandas"]["launches"] == out["c"]["batches"] > 8
+    assert out["c"]["pandas_udf"]["launches"] == out["c"]["batches"]
+    assert out["c"]["applyInPandas"]["groups"] == 3
+    assert out["launches"]["forest_traverse"] == 2 * out["c"]["batches"] + 2
+    assert out["d"]["len"] == out["d"]["shape"][0] > 0
+    assert out["launches"]["hist_accumulate"] == 0
 
 
 @pytest.fixture(scope="module")

@@ -8,9 +8,11 @@ reports a device, and every site is asked for "cuda:0". Under
 "forced-mode" in the dispatch audit), bind the CPU and run there,
 touching no CUDA tensor, with the bits of the same call given
 device="cpu". A site that ignored the decision would try to copy to
-"cuda:0" and raise. The fused routes keep their fixed rules, and the
-DataFrame action the JAX package routes (`mapInPandas`) waits for
-ROADMAP item 9b.
+"cuda:0" and raise. The fused routes keep their fixed rules. The
+DataFrame action the JAX package routes (`mapInPandas`,
+`tests/test_dispatch_economics.py:225-250`) decides once a call: under
+the forced mode its UDF body runs with the CPU bound, and otherwise the
+binding is left as it was.
 
 The binding is per thread: `routed` on one thread never moves another
 thread's work, and it restores the outer binding on exit.
@@ -220,6 +222,59 @@ def test_frame_fits_bind_the_cpu_under_host_mode(host_mode, kind, hint):
         PCONF.unset("sml.dispatch.mode")
         PCONF.set("sml.device", "cpu")
         np.testing.assert_array_equal(got, _frame_fit(kind))
+    finally:
+        PCONF.unset("sml.device")
+
+
+# ------------------------------------------------------------ mapInPandas
+def _map_in_pandas_bindings() -> list:
+    """The device bound on the UDF's thread at each batch of a
+    `mapInPandas` over 200 rows."""
+    import pandas as pd
+    from sml_tpu_torch.frame.session import get_session
+    seen = []
+
+    def fn(batches):
+        for b in batches:
+            seen.append(pdevice.bound_device())
+            yield pd.DataFrame({"y": b["x"] * 2})
+
+    df = get_session().createDataFrame({"x": np.arange(200.0)})
+    out = df.mapInPandas(fn, "y double")
+    assert out.count() == 200
+    np.testing.assert_array_equal(out._whole()["y"], np.arange(200.0) * 2)
+    return seen
+
+
+def test_map_in_pandas_binds_the_cpu_under_host_mode(host_mode):
+    seen = _map_in_pandas_bindings()
+    assert seen and set(seen) == {torch.device("cpu")}
+    _assert_routed_host(["blas"])
+    assert pdevice.bound_device() is None
+
+
+def test_map_in_pandas_on_a_card_leaves_the_binding(monkeypatch):
+    """Auto mode on a (stub) card decides "device" ("local-chip") and
+    binds nothing: the body sees the caller's binding, here none."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    PCONF.set("sml.obs.enabled", True)
+    pobs.reset()
+    try:
+        seen = _map_in_pandas_bindings()
+        assert _decisions() == [("device", "local-chip", "blas")]
+    finally:
+        PCONF.set("sml.obs.enabled", False)
+        pobs.reset()
+    assert seen and set(seen) == {None}
+
+
+def test_map_in_pandas_on_the_cpu_session_leaves_the_binding():
+    PCONF.set("sml.device", "cpu")
+    try:
+        assert set(_map_in_pandas_bindings()) == {None}
+        with pdevice.use_device_local("meta"):
+            assert set(_map_in_pandas_bindings()) == {torch.device("meta")}
     finally:
         PCONF.unset("sml.device")
 
