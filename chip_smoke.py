@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py [--seed N] [--only 23|24|25|26]
+    python3 chip_smoke.py [--seed N] [--only 23|24|25|26|27] [--record PATH]
 
 Run from the repository root. It needs a CUDA card, `nvcc` and `g++` (it
 builds every kernel under `sml_tpu_torch/csrc/` and the host binning at
@@ -484,11 +484,35 @@ Phases:
    matplotlib found, the wall and the card; `launches_by_path` gains
    "pandas".
 
+27. regress (`phase_regress`): the regression gate
+   (`sml_tpu_torch/obs/regress.py`) on this run's own record, assembled
+   from the JSON blocks above, the card, the host CPU, the versions, the
+   commit, the seed, each phase's wall (phases 2-26, timed in `main`) and
+   the proofs phases 22-24 and 26 assert (`regress.record_from_blocks`).
+   The record against itself gives no finding; copies of it, each with
+   one injection (`rg_injections`: a deterministic path's launches +1, a
+   psum byte count +2%, a bit-equal proof flipped, a block removed, a
+   phase wall +25%, lint rules at 10), each give exactly their finding; a
+   racy path's launches +10% give none; the same wall +25% on another
+   card is listed as not comparable; the findings land in the flight
+   recorder through `obs.annotate_regressions`; and
+   `scripts/torch_bench_diff.py`, in a fresh interpreter under `-X
+   importtime`, exits 0 on the written record and 1 on an injected one,
+   importing none of torch, jax, sml_tpu or sml_tpu_torch. A
+   `{"regress": ...}` line gives the checks and walls.
+
+`--record PATH` writes the run record (JSON) to PATH, for example
+`chiprun_out/run.json` (git-ignored); without it phase 27 writes it to a
+temporary directory and removes it. `python3 scripts/torch_bench_diff.py
+BASE CAND` diffs two records.
+
 `--only 23` runs phase 7's float64 histogram check, the phases that
 phase 23 compares with (fit, tuning and model selection) and phase 23;
 `--only 24` runs model selection, the non-tree phase and phase 24;
-`--only 25` runs phase 25; `--only 26` runs phase 26. Each prints its phases' lines but no kernels
-line and no result.
+`--only 25` runs phase 25; `--only 26` runs phase 26; `--only 27` runs
+phases 25 and 26 and phase 27 on their smaller record (the injections
+it lacks the blocks for are skipped and named). Each prints its phases'
+lines but no kernels line and no result.
 
 The second-to-last line is a JSON object listing each kernel, with the
 launches the profiler saw in each window behind its device times
@@ -8224,7 +8248,9 @@ def phase_lint(card: str) -> dict:
     interpreter: `scripts/torch_lint.py --json` must exit 0, and `-X
     importtime`'s record of every import must hold none of
     LINT_FORBIDDEN. Returns the rule count, the suppressions and the
-    wall (seconds, the whole subprocess)."""
+    wall (seconds, the whole subprocess), and the forbidden modules
+    imported (none: the phase raises first), which the printed line
+    leaves out (`lint_block`)."""
     root = os.path.dirname(os.path.abspath(__file__))
     t0 = time.perf_counter()
     proc = subprocess.run(
@@ -8251,13 +8277,20 @@ def phase_lint(card: str) -> dict:
            "suppressed_baseline": report["suppressed"]["baseline"],
            "rules_s": sum(report["rule_times"].values()),
            "wall_s": wall, "modules_imported": len(imported),
-           "python": sys.version.split()[0], "card": card}
+           "python": sys.version.split()[0], "card": card,
+           "forbidden_imported": bad}
     print(f"lint: {out['rules']} rules over {out['files']} files clean "
           f"({out['suppressed_pragma']} suppressed by pragma, "
           f"{out['suppressed_baseline']} by baseline), none of "
           f"{', '.join(LINT_FORBIDDEN)} imported, wall {wall!r} s "
           f"(rules {out['rules_s']!r} s); {card}")
     return out
+
+
+def lint_block(lint: dict) -> dict:
+    """Phase 25's printed block: its result less the forbidden modules
+    imported, which only the run record carries."""
+    return {k: v for k, v in lint.items() if k != "forbidden_imported"}
 
 
 #: what phase 26 must find unloaded after the pandas-free imports
@@ -8601,28 +8634,298 @@ def phase_pandas(seed: int, device, card: str) -> dict:
     return out
 
 
+def host_cpu() -> dict:
+    """The host CPU's model and logical count, from /proc/cpuinfo. Where
+    the model name reads "unknown" (a virtual machine may hide it), the
+    model is the vendor, family, model number and clock instead."""
+    first, count = {}, 0
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            key, _, value = line.partition(":")
+            key = key.strip()
+            if key == "processor":
+                count += 1
+            elif key:
+                first.setdefault(key, value.strip())
+    model = first.get("model name")
+    if model in (None, "", "unknown"):
+        model = (f"{first.get('vendor_id')} family "
+                 f"{first.get('cpu family')} model {first.get('model')} "
+                 f"at {first.get('cpu MHz')} MHz")
+    return {"model": model, "count": count}
+
+
+def git_commit() -> Optional[str]:
+    """`git rev-parse HEAD` of the checkout, None outside one."""
+    try:
+        proc = subprocess.run(
+            ["git", "rev-parse", "HEAD"], capture_output=True, text=True,
+            timeout=60, cwd=os.path.dirname(os.path.abspath(__file__)))
+    except OSError:
+        return None
+    return proc.stdout.strip() if proc.returncode == 0 else None
+
+
+def run_meta(seed: int, card: str, walls: dict, t_start: float,
+             proofs: dict) -> dict:
+    """The run record's own keys (`regress.META_KEYS`) but its shape."""
+    return {"card": card, "host_cpu": host_cpu(),
+            "versions": {"torch": torch.__version__,
+                         "cuda": torch.version.cuda,
+                         "python": sys.version.split()[0]},
+            "commit": git_commit(), "seed": seed, "phases": dict(walls),
+            "wall_s": time.perf_counter() - t_start, "proofs": dict(proofs)}
+
+
+def write_record(record: dict, path: str) -> None:
+    folder = os.path.dirname(os.path.abspath(path))
+    os.makedirs(folder, exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(record, f)
+
+
+def rg_injections(regress) -> list:
+    """Phase 27's injections: (label, change) pairs, where change(doc)
+    alters a copy of the run record and returns the (kind, key) of the
+    one regression it must give, None for no finding at all, or False
+    where the record lacks what it changes (the smaller record of
+    `--only 27`)."""
+    def launches(doc):
+        for k in doc.get("kernels") or []:
+            for path, n in k["launches_by_path"].items():
+                if path not in regress.RACY_PATHS and n > 0:
+                    k["launches_by_path"][path] = n + 1
+                    return "kernel-launches", f"{k['name']}:{path}"
+        return False
+
+    def psum_bytes(doc):
+        for blk in ("multirank_tuning", "multirank_nontree"):
+            for layout, e in (doc.get(blk) or {}).items():
+                if isinstance(e, dict) and (e.get("psum_bytes") or 0) > 0:
+                    e["psum_bytes"] *= 1.02
+                    return ("multirank-collective",
+                            f"{blk}/{layout}/psum_bytes")
+        return False
+
+    def proof(doc):
+        for path in (("nontree", "linear", "ml02", "coefficients_bit_equal"),
+                     ("proofs", "pandas.handouts_equal_score_block"),
+                     ("proofs", "ok")):
+            node = doc
+            for p in path[:-1]:
+                node = node.get(p) or {}
+            if node.get(path[-1]) is True:
+                node[path[-1]] = False
+                return "proof", ".".join(path)
+        return False
+
+    def block(doc):
+        name = "dataframe" if "dataframe" in doc else "pandas"
+        doc.pop(name)
+        return "missing-block", name
+
+    def wall(doc):
+        for name, s in doc["phases"].items():
+            if name.split(" ", 1)[-1] not in regress.INFO_PHASES and s > 0:
+                doc["phases"][name] = s * 1.25
+                return "leg-wall", f"phase {name}"
+        return False
+
+    def lint_rules(doc):
+        doc["lint"]["rules"] = 10
+        return "lint-rule-floor", "rules"
+
+    def racy(doc):
+        for k in doc.get("kernels") or []:
+            n = k["launches_by_path"].get("fleet", 0)
+            if n >= 10:
+                k["launches_by_path"]["fleet"] = -(-n * 11 // 10)
+                return None
+        return False
+
+    return [("a deterministic path's launches +1", launches),
+            ("a psum byte count +2%", psum_bytes),
+            ("a bit-equal proof flipped", proof),
+            ("a block removed", block),
+            ("a phase wall +25%, same card", wall),
+            ("lint rules at 10", lint_rules),
+            ("a racy path's launches +10%", racy)]
+
+
+def phase_regress(record: dict, path: str, card: str) -> dict:
+    """Phase 27: the regression gate (`sml_tpu_torch/obs/regress.py`) on
+    this run's own record. The record against itself gives no finding;
+    each of `rg_injections` gives exactly its finding (or none); the same
+    phase wall +25% on another card is not judged; the findings land in
+    the flight recorder through `obs.annotate_regressions`; and
+    `scripts/torch_bench_diff.py`, in a fresh interpreter under `-X
+    importtime`, exits 0 on the written record and 1 on an injected one,
+    importing none of LINT_FORBIDDEN. Every check raises on failure."""
+    from sml_tpu_torch import GLOBAL_CONF, obs
+    from sml_tpu_torch.obs import regress
+    t0 = time.perf_counter()
+    base = regress.normalize(record)
+    self_diff = regress.compare(base, base)
+    if self_diff["regressions"] or self_diff["improvements"] \
+            or self_diff["not_comparable"] or not self_diff["checked"]:
+        raise AssertionError(f"27: the record against itself: {self_diff}")
+    out = {"self_checks": self_diff["checked"], "injections": {},
+           "skipped": []}
+
+    def judge(doc):
+        return regress.compare(base, regress.normalize(doc))
+
+    flagged = None
+    for label, change in rg_injections(regress):
+        doc = json.loads(json.dumps(record))
+        want = change(doc)
+        if want is False:
+            out["skipped"].append(label)
+            continue
+        got = judge(doc)
+        found = [(f["kind"], f["key"]) for f in got["regressions"]]
+        if found != ([want] if want else []) or got["improvements"]:
+            raise AssertionError(
+                f"27 {label}: regressions {found}, improvements "
+                f"{got['improvements']}; want {want}")
+        out["injections"][label] = found[0][0] if found else "none"
+        if found and flagged is None:
+            flagged = (doc, got)
+    doc = json.loads(json.dumps(record))
+    key = "phase " + next(n for n, s in doc["phases"].items() if s > 0 and
+                          n.split(" ", 1)[-1] not in regress.INFO_PHASES)
+    doc["phases"][key[len("phase "):]] *= 1.25
+    doc["card"] = "another card, 350.00 W"
+    got = judge(doc)
+    if got["regressions"] or key not in [
+            f["key"] for f in got["not_comparable"]]:
+        raise AssertionError(f"27 another card: regressions "
+                             f"{got['regressions']}, {key} not listed as "
+                             f"not comparable")
+    out["injections"]["the same wall +25%, another card"] = \
+        f"not comparable ({len(got['not_comparable'])} walls)"
+
+    GLOBAL_CONF.set("sml.obs.enabled", True)
+    obs.reset()
+    try:
+        n = obs.annotate_regressions(flagged[1]["regressions"])
+        marks = [e for e in obs.RECORDER.events()
+                 if e.name == "regress.verdict"]
+    finally:
+        GLOBAL_CONF.unset("sml.obs.enabled")
+        obs.reset()
+    if n != 1 or len(marks) != 1 or marks[0].args["key"] != \
+            flagged[1]["regressions"][0]["key"]:
+        raise AssertionError(f"27: {n} verdicts annotated, {len(marks)} "
+                             f"in the recorder")
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    injected = path + ".injected.json"
+    write_record(flagged[0], injected)
+    runs = {}
+    try:
+        for name, args in (("self", [path]), ("injected", [path, injected])):
+            t = time.perf_counter()
+            runs[name] = subprocess.run(
+                [sys.executable, "-X", "importtime",
+                 os.path.join(root, "scripts", "torch_bench_diff.py"),
+                 *args, "--json"], cwd=root, capture_output=True, text=True,
+                timeout=300)
+            out[f"cli_{name}_s"] = time.perf_counter() - t
+    finally:
+        os.remove(injected)
+    for name, rc in (("self", 0), ("injected", 1)):
+        proc = runs[name]
+        if proc.returncode != rc:
+            raise AssertionError(f"27: torch_bench_diff.py ({name}) exited "
+                                 f"{proc.returncode}:\n{proc.stdout[-3000:]}"
+                                 f"\n{proc.stderr[-2000:]}")
+        imported = {line.rsplit("|", 1)[-1].strip()
+                    for line in proc.stderr.splitlines()
+                    if line.startswith("import time:")}
+        bad = sorted(m for m in imported
+                     if m.split(".")[0] in LINT_FORBIDDEN)
+        if bad:
+            raise AssertionError(f"27: torch_bench_diff.py imported {bad}")
+    if json.loads(runs["self"].stdout)["regressions"]:
+        raise AssertionError("27: torch_bench_diff.py flagged the record "
+                             "against itself")
+    out["wall_s"] = time.perf_counter() - t0
+    out["card"] = card
+    print(f"regress: the record against itself {out['self_checks']} checks, "
+          f"no finding; injections {out['injections']}"
+          f"{'; skipped ' + str(out['skipped']) if out['skipped'] else ''}; "
+          f"torch_bench_diff.py exits 0 / 1 importing none of "
+          f"{', '.join(LINT_FORBIDDEN)}; wall {out['wall_s']!r} s; {card}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=["23", "24", "25", "26"],
+    ap.add_argument("--only", choices=["23", "24", "25", "26", "27"],
                     default=None,
-                    help="run phase 23, 24, 25 or 26 and what it compares "
-                         "with; no result line")
+                    help="run phase 23, 24, 25, 26 or 27 and what it "
+                         "compares with; no result line")
+    ap.add_argument("--record", default=None, metavar="PATH",
+                    help="write the run record (JSON) to PATH; with the "
+                         "whole script or --only 27")
     args = ap.parse_args(argv)
+    if args.record and args.only not in (None, "27"):
+        ap.error("--record takes the whole script or --only 27")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     from sml_tpu_torch.native import build
+    from sml_tpu_torch.obs import regress
+    t_start = time.perf_counter()
+    walls = {}
+
+    def timed(name: str, phase, *a, **kw):
+        """Call one phase; its wall (seconds) adds to walls[name]."""
+        t = time.perf_counter()
+        try:
+            return phase(*a, **kw)
+        finally:
+            walls[name] = walls.get(name, 0.0) + time.perf_counter() - t
+
     device = torch.device("cuda", 0)
     card = card_line()
     print(f"card: {card}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
 
-    t0 = time.perf_counter()
-    build.build(build.kernel_sources() + build.host_sources())
+    timed("02 build", build.build,
+          build.kernel_sources() + build.host_sources())
     print(f"build: {build.kernel_sources()} (nvcc) and "
-          f"{build.host_sources()} (g++) in {time.perf_counter() - t0:.1f} s")
+          f"{build.host_sources()} (g++) in {walls['02 build']:.1f} s")
+
+    def regress_phase(blocks: dict, proofs: dict) -> None:
+        """Phase 27 on this run's record, written to --record or to a
+        temporary file removed after."""
+        record = regress.record_from_blocks(
+            blocks, run_meta(args.seed, card, walls, t_start,
+                             dict(proofs, ok=True)))
+        path = args.record
+        tmp = None
+        if not path:
+            import tempfile
+            tmp = tempfile.mkdtemp(prefix="chip_smoke_record_")
+            path = os.path.join(tmp, "record.json")
+        try:
+            write_record(record, path)
+            print(json.dumps({"regress": phase_regress(record, path,
+                                                       card)}))
+        finally:
+            if tmp:
+                import shutil
+                shutil.rmtree(tmp, ignore_errors=True)
+        if args.record:
+            print(f"record: {args.record}")
+
+    def handouts(pandas_: dict) -> str:
+        return ("pandas.handouts_equal_score_block" if pandas_["pandas"]
+                else "pandas.handouts_raise_import_error")
 
     if args.only == "23":
         print(json.dumps({"hist_f64": phase_hist_f64(args.seed, device)}))
@@ -8634,11 +8937,20 @@ def main(argv=None) -> int:
         print(card)
         return 0
     if args.only == "25":
-        print(json.dumps({"lint": phase_lint(card)}))
+        print(json.dumps({"lint": lint_block(phase_lint(card))}))
         print(card)
         return 0
     if args.only == "26":
         print(json.dumps({"pandas": phase_pandas(args.seed, device, card)}))
+        print(card)
+        return 0
+    if args.only == "27":
+        lint = timed("25 lint", phase_lint, card)
+        pandas_ = timed("26 pandas", phase_pandas, args.seed, device, card)
+        print(json.dumps({"lint": lint_block(lint)}))
+        print(json.dumps({"pandas": pandas_}))
+        regress_phase({"lint": lint, "pandas": pandas_},
+                      {handouts(pandas_): True})
         print(card)
         return 0
     if args.only == "24":
@@ -8648,39 +8960,45 @@ def main(argv=None) -> int:
             device, card, nontree, selection)}))
         print(card)
         return 0
-    err = phase_kernels(args.seed, device)
-    main_path = phase_main_path(args.seed, device)
-    times = phase_times(args.seed, device, card)
-    phase_breakdown(args.seed, device, card)
-    binning = phase_binning(args.seed, card)
-    fit_err = phase_fit_kernels(args.seed, device)
-    fit_err.update(phase_draw_kernels(device))
-    fit = phase_fit(args.seed, device)
-    fit_times = phase_fit_times(args.seed, device, card)
-    draw_times = phase_draw_times(device, card)
-    phase_fit_breakdown(args.seed, card, "ML 11 XgboostRegressor", _fit_xgb,
-                        fit_times["per_fit"])
-    phase_fit_breakdown(args.seed, card, "ML 07 RandomForestRegressor",
-                        _fit_rf)
-    tuning = phase_tuning(args.seed, device, card)
-    frames = phase_dataframe(device, card)
-    selection = phase_selection(device, card)
-    chunked = phase_chunked(args.seed, device, card, fit["xgb"])
-    nontree = phase_nontree(device, card)
-    timeseries = phase_timeseries(args.seed, device, card)
-    featurizer = phase_featurizer(device, card)
-    registry = phase_registry(device, card)
-    dispatch = phase_dispatch(args.seed, device, card)
-    dataplane = phase_dataplane(device, card)
-    observed = phase_observed(args.seed, device, card)
-    fleet = phase_fleet(args.seed, device, card)
-    multirank = phase_multirank(args.seed, device, card, fit)
-    multirank_tuning = phase_multirank_tuning(args.seed, device, card, tuning,
-                                              selection, fit)
-    multirank_nontree = phase_multirank_nontree(device, card, nontree,
-                                                selection)
-    lint = phase_lint(card)
-    pandas_ = phase_pandas(args.seed, device, card)
+    err = timed("03 kernels", phase_kernels, args.seed, device)
+    main_path = timed("04 main_path", phase_main_path, args.seed, device)
+    times = timed("05 times", phase_times, args.seed, device, card)
+    timed("06 breakdown", phase_breakdown, args.seed, device, card)
+    binning = timed("06 breakdown", phase_binning, args.seed, card)
+    fit_err = timed("07 fit_kernels", phase_fit_kernels, args.seed, device)
+    fit_err.update(timed("07 fit_kernels", phase_draw_kernels, device))
+    fit = timed("08 fit", phase_fit, args.seed, device)
+    fit_times = timed("09 fit_times", phase_fit_times, args.seed, device,
+                      card)
+    draw_times = timed("09 fit_times", phase_draw_times, device, card)
+    timed("09 fit_times", phase_fit_breakdown, args.seed, card,
+          "ML 11 XgboostRegressor", _fit_xgb, fit_times["per_fit"])
+    timed("09 fit_times", phase_fit_breakdown, args.seed, card,
+          "ML 07 RandomForestRegressor", _fit_rf)
+    tuning = timed("10 tuning", phase_tuning, args.seed, device, card)
+    frames = timed("11 dataframe", phase_dataframe, device, card)
+    selection = timed("12 selection", phase_selection, device, card)
+    chunked = timed("13 chunked", phase_chunked, args.seed, device, card,
+                    fit["xgb"])
+    nontree = timed("14 nontree", phase_nontree, device, card)
+    timeseries = timed("15 timeseries", phase_timeseries, args.seed, device,
+                       card)
+    featurizer = timed("16 featurizer", phase_featurizer, device, card)
+    registry = timed("17 registry", phase_registry, device, card)
+    dispatch = timed("18 dispatch", phase_dispatch, args.seed, device, card)
+    dataplane = timed("19 dataplane", phase_dataplane, device, card)
+    observed = timed("20 observed", phase_observed, args.seed, device, card)
+    fleet = timed("21 fleet", phase_fleet, args.seed, device, card)
+    multirank = timed("22 multirank", phase_multirank, args.seed, device,
+                      card, fit)
+    multirank_tuning = timed("23 multirank_tuning", phase_multirank_tuning,
+                             args.seed, device, card, tuning, selection,
+                             fit)
+    multirank_nontree = timed("24 multirank_nontree",
+                              phase_multirank_nontree, device, card,
+                              nontree, selection)
+    lint = timed("25 lint", phase_lint, card)
+    pandas_ = timed("26 pandas", phase_pandas, args.seed, device, card)
 
     def by_path(kernel: str) -> dict:
         return {"fit": fit["launches"][kernel],
@@ -8863,49 +9181,50 @@ def main(argv=None) -> int:
         one_round={c.what: draw("feature_mask", c, 1)
                    for c in (RF_DRAWS, FUSED_DRAWS)},
         host_us=draw_times["host_us"]["feature_mask"]))
-    print(json.dumps({"tuning": {
-        "launches_fused": tuning["fused"],
-        "launches_one_by_one": tuning["sequential"],
-        "walls_ms": tuning["walls"], "busy_ms": tuning["busy"],
-        "binning_ms_cpp_numpy": binning, "selection": selection}}))
-    print(json.dumps({"chunked": {k: v for k, v in chunked.items()
-                                  if k != "replay"}}))
-    print(json.dumps({"nontree": {k: v for k, v in nontree.items()
-                                  if k != "refs"}}))
-    print(json.dumps({"timeseries": timeseries}))
-    print(json.dumps({"featurizer": featurizer}))
-    print(json.dumps({"registry": registry}))
-    print(json.dumps({"dispatch": dispatch}))
-    print(json.dumps({"dataplane": dataplane}))
-    print(json.dumps({"observed": observed}))
-    print(json.dumps({"fleet": fleet}))
-    print(json.dumps({"multirank": multirank}))
-    print(json.dumps({"multirank_tuning": {
-        k: v for k, v in multirank_tuning.items()}}))
-    print(json.dumps({"multirank_nontree": multirank_nontree}))
-    print(json.dumps({"lint": lint}))
-    print(json.dumps({"pandas": pandas_}))
-    print(json.dumps({"dataframe": {
-        "launches_fit": frames["fit"], "launches_evaluate":
-        frames["evaluate"], "rmse": frames["rmse"],
-        "ml07_split_ms": frames["split_ms"]}}))
     host = dispatch["host_mode"]
-    print(json.dumps({"host_routes": [{
-        "name": "forest_host", "route": "c++ (g++, host threads)",
-        "source": "sml_tpu_torch/csrc/forest_host.cc",
-        "replaces": "sml_tpu/ml/inference.py:600 (score_block_host: "
-                    "predict_forest, XLA on the host mesh)",
-        "calls": dispatch["host_traversals"]
-        + sum(registry["endpoint"][f"canary_{f}"]["mirror_host_scored"]
-              for f in REG_CANARY),
-        "calls_by_path": {
-            "dispatch": dispatch["host_traversals"],
-            "endpoint_canary": sum(
-                registry["endpoint"][f"canary_{f}"]["mirror_host_scored"]
-                for f in REG_CANARY)},
-        "bit_equal_to_card": True,
-        "by_rows": {str(n): host[n] for n in DSP_ROWS},
-        "card": card}]}))
+    blocks = {
+        "tuning": {
+            "launches_fused": tuning["fused"],
+            "launches_one_by_one": tuning["sequential"],
+            "walls_ms": tuning["walls"], "busy_ms": tuning["busy"],
+            "binning_ms_cpp_numpy": binning, "selection": selection},
+        "chunked": {k: v for k, v in chunked.items() if k != "replay"},
+        "nontree": {k: v for k, v in nontree.items() if k != "refs"},
+        "timeseries": timeseries, "featurizer": featurizer,
+        "registry": registry, "dispatch": dispatch, "dataplane": dataplane,
+        "observed": observed, "fleet": fleet, "multirank": multirank,
+        "multirank_tuning": multirank_tuning,
+        "multirank_nontree": multirank_nontree, "lint": lint,
+        "pandas": pandas_,
+        "dataframe": {
+            "launches_fit": frames["fit"], "launches_evaluate":
+            frames["evaluate"], "rmse": frames["rmse"],
+            "ml07_split_ms": frames["split_ms"]},
+        "host_routes": [{
+            "name": "forest_host", "route": "c++ (g++, host threads)",
+            "source": "sml_tpu_torch/csrc/forest_host.cc",
+            "replaces": "sml_tpu/ml/inference.py:600 (score_block_host: "
+                        "predict_forest, XLA on the host mesh)",
+            "calls": dispatch["host_traversals"]
+            + sum(registry["endpoint"][f"canary_{f}"]["mirror_host_scored"]
+                  for f in REG_CANARY),
+            "calls_by_path": {
+                "dispatch": dispatch["host_traversals"],
+                "endpoint_canary": sum(
+                    registry["endpoint"][f"canary_{f}"][
+                        "mirror_host_scored"] for f in REG_CANARY)},
+            "bit_equal_to_card": True,
+            "by_rows": {str(n): host[n] for n in DSP_ROWS},
+            "card": card}]}
+    for name, block in blocks.items():
+        print(json.dumps({name: lint_block(block) if name == "lint"
+                          else block}))
+    # what phases 22-24 and 26 assert before they return
+    regress_phase(dict(blocks, kernels=kernels), {
+        "multirank.trees_equal_one_card": True,
+        "multirank_tuning.models_equal_one_card": True,
+        "multirank_nontree.fits_match_one_card": True,
+        handouts(pandas_): True})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

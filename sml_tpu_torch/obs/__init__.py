@@ -38,9 +38,11 @@ The port's copy of `sml_tpu/obs`, on ONE structured event bus:
   in the JAX package's layout.
 - `drift` / `DRIFT` (`drift`): live traffic and ingest chunks judged
   against the training baseline a tree model carries.
-
-The JAX package's `regress.py` (the bench-record comparison) is not
-ported: the port writes no bench records yet.
+- `regress` (stdlib-only, also loadable standalone by
+  `scripts/torch_bench_diff.py`): noise-aware comparison of two run
+  records (the torch-smoke record `chip_smoke.py --record` writes, or
+  the JAX package's bench records), the machine-checkable regression
+  gate; `annotate_regressions` lands its verdicts here.
 """
 
 from __future__ import annotations
@@ -263,7 +265,8 @@ def engine_health(window_s: Optional[float] = None) -> Dict[str, object]:
 
 
 def annotate_regressions(findings) -> int:
-    """Land regression verdicts (dicts) in the flight recorder as
+    """Land regression verdicts (dicts: `regress.compare`'s findings, or
+    `scripts/torch_bench_diff.py --json`'s) in the flight recorder as
     `regress.verdict` events, so an exported Chrome trace pins each one
     on the timeline next to the engine activity it indicts. Returns the
     number of events emitted (0 with the recorder off)."""

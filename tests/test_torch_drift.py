@@ -1,7 +1,7 @@
 """The port's drift layer (`sml_tpu_torch/obs/drift.py`) against the
 JAX package's (`sml_tpu/obs/drift.py`), on the CPU; the cases of
-tests/test_drift.py but its regress sentry (the bench-record comparison
-is not ported).
+tests/test_drift.py but its regress sentry, whose port counterpart is in
+tests/test_torch_regress.py.
 
 - Sketches round-trip through JSON bit for bit, exact and compressed,
   and a sketch either package serializes loads in the other.

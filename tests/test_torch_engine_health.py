@@ -1,8 +1,9 @@
 """The port's engine-health layer (`sml_tpu_torch.obs`: `_skew`,
 `_trace` / `_tracefmt`, `engine_health`, `annotate_regressions`)
 against the JAX package's, on the CPU; the cases of
-tests/test_engine_health.py but its `bench_diff` ones (the port writes
-no bench records yet).
+tests/test_engine_health.py but its `bench_diff` ones, whose port
+counterparts (over `obs/regress.py` and `scripts/torch_bench_diff.py`)
+are in tests/test_torch_regress.py.
 
 - An injected 8-device skewed profile: the report names the slow device,
   the skew ratio is the injected imbalance, and it equals the JAX

@@ -1,7 +1,7 @@
 """The port's serving fleet (`sml_tpu_torch/fleet`) on the CPU, held
-against the live JAX package (modelled on tests/test_fleet.py, less its
-`test_regress_guards_fleet_proofs`, which reads `obs/regress.py`: the
-port has none yet).
+against the live JAX package (modelled on tests/test_fleet.py; its
+`test_regress_guards_fleet_proofs` has its port counterpart in
+tests/test_torch_regress.py, over the port's `obs/regress.py`).
 
 Each scenario runs in both packages on linear pipelines fitted on the
 same rows, each registered in a store of its own; the port's replicas

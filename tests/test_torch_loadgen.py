@@ -1,8 +1,10 @@
 """The port's open-loop load harness (`sml_tpu_torch/loadgen`), its
 `dispatch.bucket_rows` and `prewarm.speculative_prewarm`, on the CPU,
 held against the live JAX package (modelled on
-tests/test_loadgen.py:66-330; its regress, sidecar and `bench.py` tests
-read `obs/regress.py` and `bench.py`, which the port has not yet).
+tests/test_loadgen.py:66-330; its regress rule tests have their port
+counterparts in tests/test_torch_regress.py, over the port's
+`obs/regress.py`; those that read the committed sidecar or run
+`bench.py` have none: the port has no bench records yet).
 
 - `TraceSpec.compile()` gives the JAX package's schedule bit for bit
   (every `Request` field, the instants as float64 ==) over several
