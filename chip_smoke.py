@@ -762,7 +762,8 @@ def device_ms(fn, reps: int, names, per_call: int = 1, what: str = ""):
         seen = {}        # kernel name -> (device us, launches)
         for ev in prof.key_averages():
             t = float(getattr(ev, "self_device_time_total", 0.0))
-            if t > 0 and any(nm in ev.key for nm in names):
+            if t > 0 and any(nm in ev.key for nm in names) \
+                    and not getattr(ev, "is_user_annotation", False):
                 tot, cnt = seen.get(ev.key, (0.0, 0))
                 seen[ev.key] = (tot + t, cnt + int(ev.count))
         count = sum(cnt for _, cnt in seen.values())
@@ -2294,20 +2295,27 @@ def profile_busy(run, span: str):
                    if sp.name == span) * 1e3
     finally:
         PROFILER.enabled = False
+    return device_busy(prof.key_averages()), prog
+
+
+def device_busy(rows) -> dict:
+    """Device ms by kernel name over `key_averages()` rows: the device's
+    own rows only (kernels, copies, fills). An operator's row repeats its
+    kernels' time; "Activity Buffer Request" is the profiler's own; and a
+    host `record_function` range (every port span, under a collecting
+    profiler) has a device copy whose time is the range's whole length."""
     from torch.autograd import DeviceType
     busy = {}
-    for ev in prof.key_averages():
-        # device rows only (kernels, copies, fills): an operator's row
-        # repeats its kernels' time, and "Activity Buffer Request" is
-        # the profiler's own
+    for ev in rows:
         if ev.device_type != DeviceType.CUDA or \
-                ev.key.startswith("Activity Buffer"):
+                ev.key.startswith("Activity Buffer") or \
+                getattr(ev, "is_user_annotation", False):
             continue
         t = float(getattr(ev, "self_device_time_total",
                           getattr(ev, "self_cuda_time_total", 0.0))) / 1e3
         if t > 0:
             busy[ev.key] = busy.get(ev.key, 0.0) + t
-    return busy, prog
+    return busy
 
 
 def print_busy(label: str, busy: dict, prog: float, card: str,

@@ -89,15 +89,20 @@ def _content_key(a: np.ndarray) -> tuple:
     """Cache fingerprint of a normalized array: the full bytes' hash up
     to 16 MB; above, 16 evenly spaced 64 KB window hashes plus a
     whole-array word checksum, with length, shape and dtype."""
+    from ..utils.profiler import PROFILER
     if not a.flags.c_contiguous:
         raise ValueError("_content_key needs a C-contiguous array")
-    if a.nbytes <= _FULL_HASH_MAX_BYTES:
-        return ("h", a.shape, str(a.dtype), hash(a.tobytes()))
-    u8 = a.reshape(-1).view(np.uint8)
-    n = u8.size
-    starts = np.linspace(0, n - _SAMPLE_WINDOW, _SAMPLE_COUNT).astype(np.int64)
-    parts = tuple(hash(u8[s:s + _SAMPLE_WINDOW].tobytes()) for s in starts)
-    return ("s", a.shape, str(a.dtype), hash((n, _word_checksum(u8)) + parts))
+    with PROFILER.span("staging.content_key", bytes=int(a.nbytes)):
+        if a.nbytes <= _FULL_HASH_MAX_BYTES:
+            return ("h", a.shape, str(a.dtype), hash(a.tobytes()))
+        u8 = a.reshape(-1).view(np.uint8)
+        n = u8.size
+        starts = np.linspace(0, n - _SAMPLE_WINDOW,
+                             _SAMPLE_COUNT).astype(np.int64)
+        parts = tuple(hash(u8[s:s + _SAMPLE_WINDOW].tobytes())
+                      for s in starts)
+        return ("s", a.shape, str(a.dtype),
+                hash((n, _word_checksum(u8)) + parts))
 
 
 def _nbytes(t: torch.Tensor) -> int:

@@ -509,17 +509,19 @@ def _fit_ensemble(X: Optional[np.ndarray], y: np.ndarray, *,
         trees, base = fit_ensemble_on_device(binned_dev, y_dev, es, seed,
                                              rounds_per_dispatch, on_rounds,
                                              shard=shard)
-    mode = "binary" if loss == "logistic" else "regression"
-    if boosting:
-        weights = np.full(len(trees), step_size, dtype=np.float32)
-        out = _EnsembleSpec(trees, max_depth, binning, weights, base, F,
-                            mode)
-    else:
-        out = _EnsembleSpec(trees, max_depth, binning, None, 0.0, F, mode)
-    # the training distribution, host numpy only: capture launches no
-    # kernel and stages nothing
-    out.baseline = _drift.capture_fit_baseline(
-        X, y32, categorical, out, binned=binned, sketch=baseline_sketch)
+    with PROFILER.span("estimator.assemble"):
+        mode = "binary" if loss == "logistic" else "regression"
+        if boosting:
+            weights = np.full(len(trees), step_size, dtype=np.float32)
+            out = _EnsembleSpec(trees, max_depth, binning, weights, base, F,
+                                mode)
+        else:
+            out = _EnsembleSpec(trees, max_depth, binning, None, 0.0, F,
+                                mode)
+        # the training distribution, host numpy only: capture launches no
+        # kernel and stages nothing
+        out.baseline = _drift.capture_fit_baseline(
+            X, y32, categorical, out, binned=binned, sketch=baseline_sketch)
     return out
 
 
@@ -843,21 +845,26 @@ class _Estimator(_DeclaredParams, Estimator):
         model."""
         from ..frame.dataframe import DataFrame
         from ..obs import autolog_fit
+        from ..utils.profiler import PROFILER
         if isinstance(dataset, DataFrame):
             return super().fit(dataset, y if y is not None else params)
-        X = np.asarray(dataset)
-        if X.dtype != np.float32:  # f32 features bin as f32, as in JAX
-            X = X.astype(np.float64)
-        y = np.asarray(y, dtype=np.float64)
-        ok = np.isfinite(y)
-        # a matrix fit autologs like a DataFrame fit (the outermost only)
-        with autolog_fit(self):
-            spec = _fit_ensemble(X[ok], y[ok],
-                                 categorical=dict(categorical or {}),
-                                 device=device,
-                                 **self._fit_args(X.shape[1]))
-        model = self._model_cls(spec)
-        model._inherit_params(self)
+        with PROFILER.span("estimator.fit"):
+            with PROFILER.span("estimator.select_rows"):
+                X = np.asarray(dataset)
+                if X.dtype != np.float32:  # f32 features bin as f32, as in JAX
+                    X = X.astype(np.float64)
+                y = np.asarray(y, dtype=np.float64)
+                ok = np.isfinite(y)
+                X, y = X[ok], y[ok]
+            # a matrix fit autologs like a DataFrame fit (the outermost only)
+            with autolog_fit(self):
+                spec = _fit_ensemble(X, y,
+                                     categorical=dict(categorical or {}),
+                                     device=device,
+                                     **self._fit_args(X.shape[1]))
+            with PROFILER.span("estimator.assemble"):
+                model = self._model_cls(spec)
+                model._inherit_params(self)
         return model
 
     def _extract(self, df):

@@ -41,6 +41,11 @@ SPANS = {
     # around `_cached_bins`, or the folds' / grid's binning) and the
     # copy of its bins and labels onto the device
     "binning.fit", "staging.fit",
+    # a matrix fit's host stages around them (`_Estimator.fit`): the
+    # whole fit, the finite-label rows' copy, the model's assembly; and
+    # every content key of the bin, stage and predict caches
+    "estimator.fit", "estimator.select_rows", "estimator.assemble",
+    "staging.content_key",
 }
 
 COUNTERS = {

@@ -13,7 +13,10 @@ package counts only while the profiler is on), and feed the flight
 recorder while it is on. With the recorder on, a span also lands as a
 recorder span tagged with the riding trace context, and a span carrying
 a dispatch `route` holds a stall-watchdog ticket and hands its measured
-wall to the dispatch audit.
+wall to the dispatch audit. While a `torch.profiler` session collects,
+with `enabled` on or off, a span is also a `record_function` range of
+its name around the same block, so the device trace names the host
+work the card waits on.
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ import threading
 import time
 from dataclasses import dataclass, field
 from typing import Dict, Iterator, List, Optional
+
+from torch.autograd import profiler as _torch_profiler
 
 from ..conf import GLOBAL_CONF
 from ..obs import _audit as _obs_audit
@@ -89,10 +94,15 @@ class Profiler:
         the riding trace context), and a span carrying a dispatch
         `route` ("host" or "device") opens a watchdog ticket (expected
         wall: the audit's prediction of this thread's pending decision)
-        and attaches its measured wall to that decision."""
+        and attaches its measured wall to that decision. While a
+        `torch.profiler` session collects, the block is also a
+        `record_function` range named `name`, whether `enabled` or not."""
         prof_on = self.enabled
         obs_on = _OBS.enabled
-        if not prof_on and not obs_on:
+        # a collecting torch.profiler session: mirror the span as a range
+        rng = (_torch_profiler.record_function(name)
+               if _torch_profiler._is_profiler_enabled else None)
+        if not prof_on and not obs_on and rng is None:
             yield
             return
         route = meta.get("route")
@@ -110,11 +120,15 @@ class Profiler:
             stack = tls.stack
             children = [0.0]
             stack.append(children)
+        if rng is not None:
+            rng.__enter__()
         t0 = time.perf_counter()
         try:
             yield
         finally:
             dt = time.perf_counter() - t0
+            if rng is not None:
+                rng.__exit__(None, None, None)
             _OBS_WATCHDOG.close(ticket)
             if prof_on and self._gen == gen:
                 stack.pop()
