@@ -1409,6 +1409,171 @@ def phase_hist_f64(seed: int, device) -> dict:
     return out
 
 
+#: the benchmark cell `higgs-xgb-mcw0.fit`'s histograms: 10,500,000 rows
+#: x 28 uint8 features at 256 bins; with histogram subtraction the kernel
+#: sees 1, 1, 2, 4, 8 and 16 slots at tree levels 0-5 (level 6's sums are
+#: a float64 product), every row weighted at the root and about half
+#: below it (the rows of the children it does not histogram weigh 0)
+HIGGS_ROWS, HIGGS_FEAT, HIGGS_BINS, HIGGS_TREES = 10_500_000, 28, 256, 100
+HIGGS_LEVEL_SLOTS = (1, 1, 2, 4, 8, 16)
+#: (rows, features, bins, slots) whose plans read the rows in several
+#: passes of tile-split clusters: three passes of 8 blocks over 22 tiles
+#: (the last pass's two last ranks own none) with bins read from device
+#: memory, and two passes of 5 blocks with staged bins
+HIST_PASS_SHAPES = ((1_000_000, 220, 256, 2), (2_000_000, 250, 256, 1))
+
+
+def higgs_level_operands(seed: int, level: int, n_slots: int, device):
+    """Seeded rows of one level of the HIGGS cell, made on the card:
+    uniform bins and slots, normal gradients, Hessians in [0.1, 1], and
+    weight 1 (every row at the root, half the rows below it) or 0."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed * 1_000 + 700 + level)
+    n = HIGGS_ROWS
+    binned = torch.randint(0, HIGGS_BINS, (n, HIGGS_FEAT), generator=gen,
+                           device=device, dtype=torch.uint8)
+    lid = torch.randint(0, n_slots, (n,), generator=gen, device=device,
+                        dtype=torch.int32)
+    grad = torch.randn(n, generator=gen, device=device)
+    hess = torch.rand(n, generator=gen, device=device) * 0.9 + 0.1
+    weight = torch.ones(n, device=device) if level == 0 else \
+        (torch.rand(n, generator=gen, device=device) < 0.5).to(torch.float32)
+    return binned, lid, grad, hess, weight
+
+
+def check_hist_against_plain(got, got64, ops, n_bins: int, n_slots: int,
+                             what: str) -> dict:
+    """`hist_accumulate`'s f32 output (`got`) and float64 output
+    (`got64`) of one call on `ops` against the plain version: the float64
+    sums within `f64_bound`, the f32 cells equal to the plain version's
+    rounding except where the plain float64 sum lies within that bound of
+    the f32 rounding boundary between the two (then 1 ulp apart), the
+    weight sums exact, and `got64` rounded equal to `got` bit for bit."""
+    from sml_tpu_torch.native import hist_kernel as hk
+    b, lid, g, h, w = ops
+    if not torch.equal(got64.to(torch.float32), got):
+        raise AssertionError(f"{what}: the float64 output rounded is not "
+                             f"the f32 output")
+    want64 = hk.hist_accumulate_plain(b, lid, g, h, w, n_bins, n_slots,
+                                      torch.float64)
+    scale = hk.hist_accumulate_plain(b, lid, g.abs(), h.abs(), w, n_bins,
+                                     n_slots, torch.float64)
+    bound = f64_bound(b.shape[0], scale)
+    err64 = (got64 - want64).abs()
+    if not bool((err64 <= bound).all()):
+        raise AssertionError(f"{what}: float64 sums past the bound, max "
+                             f"abs err {float(err64.max())}")
+    want = want64.to(torch.float32)
+    if not torch.equal(got[:, 2::3], want[:, 2::3]):
+        raise AssertionError(f"{what}: weight sums differ")
+    differ = got != want
+    if bool(differ.any()):
+        a, c = got[differ], want[differ]
+        one_ulp = torch.nextafter(a, c) == c
+        mid = (a.double() + c.double()) / 2
+        near = (want64[differ] - mid).abs() <= bound[differ]
+        if not bool((one_ulp & near).all()):
+            raise AssertionError(f"{what}: {int((~(one_ulp & near)).sum())} "
+                                 f"cells differ from the plain version "
+                                 f"away from an f32 rounding boundary")
+    return {"cells_differing": int(differ.sum()), "cells": got.numel(),
+            "max_abs_err_f64": float(err64.max())}
+
+
+def phase_hist_levels(seed: int, device, card: str) -> dict:
+    """`hist_accumulate` alone at the six level shapes of the benchmark
+    cell `higgs-xgb-mcw0.fit` (`HIGGS_LEVEL_SLOTS`): two launches
+    bit-equal, the float64 output rounded equal to the f32 output, both
+    against the plain version (`check_hist_against_plain`); then kernel,
+    device, plain, bound and `index_add_` times, the plan and its row
+    passes (reads of the rows from device memory), and a tree's and a
+    fit's device time over the six levels. Then the same checks at
+    `HIST_PASS_SHAPES`, plans of several passes and ranks with no tile,
+    which the cell's levels do not take."""
+    from sml_tpu_torch.native import hist_kernel as hk
+    saved = dict(hk.LAUNCHES)
+    out = {}
+    for level, n_slots in enumerate(HIGGS_LEVEL_SLOTS):
+        ops = higgs_level_operands(seed, level, n_slots, device)
+        what = f"hist_accumulate HIGGS level {level} S={n_slots}"
+
+        def call(out_dtype=torch.float32):
+            return hk.hist_accumulate(*ops, n_bins=HIGGS_BINS,
+                                      n_slots=n_slots, out_dtype=out_dtype)
+        got, again, got64 = call(), call(), call(torch.float64)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"{what}: two launches differ")
+        check = check_hist_against_plain(got, got64, ops, HIGGS_BINS,
+                                         n_slots, what)
+        del got, again, got64
+        torch.cuda.empty_cache()
+        k_ms, d_ms, p_ms, b_ms, b_by, l_ms = time_hist(
+            ops, HIGGS_BINS, n_slots, what, reps=10)
+        plan = hk.hist_plan(HIGGS_ROWS, HIGGS_FEAT, HIGGS_BINS, n_slots)
+        tiles = (-(-HIGGS_FEAT // plan.ft) * -(-HIGGS_BINS // plan.bt)
+                 * -(-n_slots // plan.st))
+        passes = getattr(plan, "passes", tiles)
+        out[level] = dict(slots=n_slots, ms=k_ms, device_ms=d_ms,
+                          plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                          library_ms=l_ms, tiles=tiles, row_passes=passes,
+                          **check)
+        print(f"time  {what} rows={HIGGS_ROWS} F={HIGGS_FEAT} "
+              f"B={HIGGS_BINS} uint8 {plan}: tiles {tiles}, row passes "
+              f"{passes}; kernel {k_ms!r} ms (device {fmt_ms(d_ms)} ms), "
+              f"plain {p_ms!r} ms, index_add_ {l_ms!r} ms, bound {b_ms!r} "
+              f"ms ({b_by}); deterministic, f64 output rounds to the f32 "
+              f"output, cells differing from the plain version "
+              f"{check['cells_differing']}/{check['cells']} (each 1 ulp at "
+              f"an f32 boundary)  ok; card {card}")
+        del ops
+        torch.cuda.empty_cache()
+    ds = [out[k]["device_ms"] for k in out]
+    tree = None if None in ds else sum(ds)
+    out["tree_device_ms"] = tree
+    out["fit_device_s"] = None if tree is None else tree * HIGGS_TREES / 1e3
+    out["tree_row_passes"] = sum(out[k]["row_passes"]
+                                 for k in range(len(HIGGS_LEVEL_SLOTS)))
+    print(f"time  hist_accumulate HIGGS tree (levels 0-5): device "
+          f"{fmt_ms(tree)} ms a tree, {fmt_ms(out['fit_device_s'])} s a "
+          f"{HIGGS_TREES}-tree fit, {out['tree_row_passes']} row passes a "
+          f"tree; card {card}")
+    for n, n_feat, n_bins, n_slots in HIST_PASS_SHAPES:
+        plan = hk.hist_plan(n, n_feat, n_bins, n_slots)
+        tiles = (-(-n_feat // plan.ft) * -(-n_bins // plan.bt)
+                 * -(-n_slots // plan.st))
+        if plan.split_rows or plan.passes < 2:
+            raise AssertionError(f"rows={n} F={n_feat}: {plan} is not a "
+                                 f"tile-split plan of several passes")
+        rng = np.random.default_rng([seed, 28, n_feat])
+        ops = hist_operands(rng, n, n_bins, np.uint8, n_slots, device,
+                            n_feat=n_feat)
+        what = (f"hist_accumulate rows={n} F={n_feat} B={n_bins} "
+                f"S={n_slots}")
+
+        def call(out_dtype=torch.float32):
+            return hk.hist_accumulate(*ops, n_bins=n_bins, n_slots=n_slots,
+                                      out_dtype=out_dtype)
+        got, again, got64 = call(), call(), call(torch.float64)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"{what}: two launches differ")
+        check = check_hist_against_plain(got, got64, ops, n_bins, n_slots,
+                                         what)
+        out[f"{n}x{n_feat}x{n_slots}"] = dict(passes=plan.passes,
+                                              tiles=tiles, **check)
+        print(f"kernel-vs-plain  {what} {plan}: {plan.passes} passes of "
+              f"clusters of {plan.cluster}, {tiles} tiles "
+              f"({plan.passes * plan.cluster - tiles} ranks with none); "
+              f"deterministic, f64 output rounds to the f32 output, cells "
+              f"differing from the plain version {check['cells_differing']}"
+              f"/{check['cells']} (each 1 ulp at an f32 boundary)  ok")
+        del ops, got, again, got64
+        torch.cuda.empty_cache()
+    hk.LAUNCHES.update(saved)
+    return out
+
+
 #: the ML 07 grid's fused last level: 12 elements x 16 nodes, and a least
 #: child weight of 1, 2 or 5 per element
 FUSED_NODES = 12 * 16
@@ -1879,12 +2044,14 @@ HIST_KERNELS = ("hist_cluster_kernel", "hist_reduce_kernel")
 SCAN_KERNELS = ("split_scan_kernel",)
 
 
-def hist_launches(n: int, n_bins: int, n_slots: int, **kw) -> int:
-    """Kernels one `hist_accumulate` call launches: the cluster pass, and
-    the pass over the clusters' partials when there is more than one."""
+def hist_launches(n: int, n_bins: int, n_slots: int, n_feat: int = N_FEAT,
+                  **kw) -> int:
+    """Kernels one `hist_accumulate` call launches: the cluster kernel,
+    and the sum of the clusters' partials when there is more than one."""
     from sml_tpu_torch.native import hist_kernel as hk
-    p = hk.hist_plan(n, N_FEAT, n_bins, n_slots, **kw)
-    return 1 + int(p.n_chunks // p.cluster > 1)
+    p = hk.hist_plan(n, n_feat, n_bins, n_slots, **kw)
+    parts = p.n_chunks // p.cluster if p.split_rows else p.n_chunks
+    return 1 + int(parts > 1)
 
 
 def hist_f32acc_launcher():
@@ -1938,23 +2105,24 @@ def time_hist(ops, n_bins: int, n_slots: int, what: str, reps: int = 50,
     cell indices into an `out_dtype` histogram."""
     from sml_tpu_torch.native import hist_kernel as hk
     b, lid, g, h, w = ops
-    n = b.shape[0]
+    n, n_feat = b.shape
 
     def call():
         return hk.hist_accumulate(b, lid, g, h, w, n_bins=n_bins,
                                   n_slots=n_slots, out_dtype=out_dtype)
     k_ms = time_ms(call, reps)
     d_ms = device_ms(call, reps, HIST_KERNELS,
-                     hist_launches(n, n_bins, n_slots), what)
+                     hist_launches(n, n_bins, n_slots, n_feat), what)
     p_ms = time_ms(lambda: hk.hist_accumulate_plain(
         b, lid, g, h, w, n_bins, n_slots, out_dtype), 5)
-    ok = (w > 0)[:, None].expand(-1, N_FEAT)
-    cell = ((torch.arange(N_FEAT, device=b.device)[None, :] * n_bins
+    ok = (w > 0)[:, None].expand(-1, n_feat)
+    cell = ((torch.arange(n_feat, device=b.device)[None, :] * n_bins
              + b.to(torch.int64)) * n_slots + lid.to(torch.int64)[:, None])
     src = torch.stack([g * w, h * w, w], 1)[:, None, :] \
-        .expand(-1, N_FEAT, 3)[ok].to(out_dtype).contiguous()
+        .expand(-1, n_feat, 3)[ok].to(out_dtype).contiguous()
     idx = cell[ok].contiguous()
-    acc = torch.zeros((N_FEAT * n_bins * n_slots, 3), dtype=out_dtype,
+    del cell, ok
+    acc = torch.zeros((n_feat * n_bins * n_slots, 3), dtype=out_dtype,
                       device=b.device)
     l_ms = time_ms(lambda: acc.index_add_(0, idx, src), reps)
     return (k_ms, d_ms, p_ms,
@@ -8871,10 +9039,13 @@ def phase_regress(record: dict, path: str, card: str) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=["23", "24", "25", "26", "27"],
+    ap.add_argument("--only", choices=["hist", "23", "24", "25", "26",
+                                       "27"],
                     default=None,
-                    help="run phase 23, 24, 25, 26 or 27 and what it "
-                         "compares with; no result line")
+                    help="run the histogram kernel's phases (its checks "
+                         "and times, at the course's shapes and at the "
+                         "HIGGS cell's levels), or phase 23, 24, 25, 26 "
+                         "or 27 and what it compares with; no result line")
     ap.add_argument("--record", default=None, metavar="PATH",
                     help="write the run record (JSON) to PATH; with the "
                          "whole script or --only 27")
@@ -8935,6 +9106,18 @@ def main(argv=None) -> int:
         return ("pandas.handouts_equal_score_block" if pandas_["pandas"]
                 else "pandas.handouts_raise_import_error")
 
+    if args.only == "hist":
+        worst = phase_fit_kernels(args.seed, device)
+        levels = phase_hist_levels(args.seed, device, card)
+        times = phase_fit_times(args.seed, device, card)
+        print(json.dumps({"hist": {
+            "max_abs_err": worst["hist_accumulate"],
+            "f64": worst["hist_f64"],
+            "levels": {str(k): v for k, v in levels.items()},
+            "times": {f"{k[0]} {k[1]}": v for k, v in times.items()
+                      if isinstance(k, tuple)}}}))
+        print(card)
+        return 0
     if args.only == "23":
         print(json.dumps({"hist_f64": phase_hist_f64(args.seed, device)}))
         fit = phase_fit(args.seed, device)
@@ -8978,6 +9161,7 @@ def main(argv=None) -> int:
     fit = timed("08 fit", phase_fit, args.seed, device)
     fit_times = timed("09 fit_times", phase_fit_times, args.seed, device,
                       card)
+    timed("09 fit_times", phase_hist_levels, args.seed, device, card)
     draw_times = timed("09 fit_times", phase_draw_times, device, card)
     timed("09 fit_times", phase_fit_breakdown, args.seed, card,
           "ML 11 XgboostRegressor", _fit_xgb, fit_times["per_fit"])

@@ -16,8 +16,11 @@ trace's breakdown, the device), each fit's span table, and each fit's
 host stages (`STAGES`) as self seconds and as a share of its
 `estimator.fit` wall, beside the outside-program share the harness
 reads. The breakdown's idle gaps name the program's spans where the
-port mirrors them into the device trace. `--device cpu` runs the cell
-at its configuration's `test_scale`; by default it takes the card.
+port mirrors them into the device trace. Beside each fit's table, the
+histogram wrapper's calls and row passes (`hist_kernel.LAUNCHES`,
+`ROW_PASSES`) since the table before it: the first counts the warm-up
+fit too. `--device cpu` runs the cell at its configuration's
+`test_scale`; by default it takes the card.
 """
 
 from __future__ import annotations
@@ -67,11 +70,18 @@ def main(argv=None) -> int:
     p.add_argument("--seconds", type=float, default=51.0)
     p.add_argument("--device", default=None)
     args = p.parse_args(argv)
-    tables = []
+    from sml_tpu_torch.native import hist_kernel as hk
+    tables, counters = [], []
     reset = program.span_seconds
+    seen = {"calls": hk.LAUNCHES["hist_accumulate"],
+            "row_passes": hk.ROW_PASSES["hist_accumulate"]}
 
     def kept_then_reset() -> float:
         tables.append(span_table())
+        now = {"calls": hk.LAUNCHES["hist_accumulate"],
+               "row_passes": hk.ROW_PASSES["hist_accumulate"]}
+        counters.append({k: now[k] - seen[k] for k in now})
+        seen.update(now)
         return reset()
     program.span_seconds = kept_then_reset
     scale = run.load_cell(args.workload)["config"]["test_scale"] \
@@ -79,7 +89,8 @@ def main(argv=None) -> int:
     result = run.run(args.workload, args.seed, args.seconds, True,
                      device=args.device, scale=scale)
     print(json.dumps({"result": result, "spans": tables,
-                      "stages": [stages(t) for t in tables]}), flush=True)
+                      "stages": [stages(t) for t in tables],
+                      "hist_accumulate": counters}), flush=True)
     return 0
 
 

@@ -10,63 +10,97 @@
 // Pallas body.
 //
 // What bounds it on an H100. Per level it reads n*(F*binbytes + 16)
-// bytes of rows and writes F*B*S*12 bytes of histogram: a few MB at the
-// course widths, against three adds for each of a row's F cells, so its
-// bound is bytes, well under a microsecond. What holds it above that is
-// latency: a warp adds its rows 32 at a time, and each round is a chain
-// of shared-memory reads, a vote, and read-add-writes of float64 cells.
-// Only warps that own cells do that work, and the float64 tile they own
-// takes the shared memory (64 bins x 16 slots of one feature is 24 KB), so
-// an SM holds a dozen of them. The design therefore gives each warp few
-// rows, keeps its rounds short, and keeps every other step off their path.
-// (The first design, one block per 2,048-row chunk with each warp walking
-// its chunk through dependent loads from L2, with __match_any_sync in every
-// round and a float64 partial of every chunk summed by a second pass, ran
-// some 100x its bound.) The Pallas body builds two one-hot tiles and
-// contracts them on the MXU because that was the TPU's fast path; here
-// that would be O(n*F*B) wasted work, so rows are added straight into
-// their cells.
+// bytes of rows and writes F*B*S*12 bytes of histogram: at HIGGS's shape
+// (10.5M rows x 28 uint8 features, 256 bins) 462 MB, 0.14 ms at 3.35
+// TB/s, against three float64 adds for each of a row's F cells. What
+// holds it above that is latency: a warp adds its rows 32 at a time, and
+// each round is a chain of shared-memory reads, a vote, and
+// read-add-writes of float64 cells (about 1,500 cycles of the warp's time
+// on the card, PERF.md), so the adds, not the reads, set the pace at
+// every shape the port runs. Only warps that own cells do that
+// work, and the float64 cells they own take the shared memory (256 bins
+// x 16 slots of one feature is 96 KB). The Pallas body builds two
+// one-hot tiles and contracts them on the MXU because that was the TPU's
+// fast path; here that would be O(n*F*B) wasted work, so rows are added
+// straight into their cells.
 //
-// Design:
-// - A block takes one chunk of rows and a tile of ft features x bt bins x
-//   st slots, held in shared memory. The tile's slots fall into `groups`
-//   slot groups; warp (fi, g) owns feature fi's cells of group g outright
-//   and walks only the rows whose slot lies in group g, so a level with
-//   many slots spreads one feature's rows over several warps. The launch
-//   plan (hist_plan in native/hist_kernel.py) picks ft, groups and the
-//   staging size that keep the most owning warps on an SM, and sizes
-//   chunks so that one wave of blocks covers the rows.
-// - Thread 0 stages the chunk's rows into shared memory with 1-D bulk
-//   copies (cp.async.bulk into an mbarrier), `sub_rows` rows at a time
-//   into a ring of kStages buffers, kStages - 1 copies ahead: the
-//   contiguous sub_rows x F bins (when they fit the staging budget;
-//   otherwise the owners read bins from global memory), lid, g, h and w.
-//   Bulk copies need 16-byte-aligned addresses and sizes: the wrapper
-//   checks the operands' alignment, chunks and sub-chunks are multiples
-//   of 32 rows, and the last (n mod 16) rows of the matrix are loaded by
-//   plain loads.
-// - One listing warp per slot group waits for a sub-chunk one step ahead
-//   of the owners and lists, in row order, its weighted rows whose slot
-//   lies in the group (ballots), into one of two lists.
+// The design before this one gave each tile of 52 KB (a few features x
+// bins x slots) its own blocks, each staging every row: at 16 slots and
+// 256 bins that is 56 tiles, so a level's rows crossed device memory 56
+// times, 13.6 ms a call against a bound of 0.14 ms. Reading them once
+// (below) measured that the passes cost less than thought: the adds set
+// the pace, and where one slot holds most rows, the spread of its work
+// over many blocks matters more than the passes (PERF.md). (The design
+// before that, a block per 2,048-row chunk whose warps walked it through
+// dependent loads from L2, ran some 100x its bound.)
+//
+// Design. A thread block cluster of up to 8 blocks splits either the
+// tiles of a row range or the rows of a tile; the plan picks by shape.
+// - Tile-split clusters (one read of the rows for many tiles): a cluster
+//   reads a contiguous range of rows once. Each block of it owns a
+//   different tile of the
+//   level's histogram (ft features x bt bins x st slots, features tiled
+//   first, then slots, then bins), held in its own shared memory, which
+//   is sized to the SM (one block an SM at HIGGS's shape), not to a
+//   budget that leaves room for other blocks. A pass is the grid's
+//   clusters over all rows for the tiles of one cluster; gridDim.y counts
+//   the passes, so a histogram of at most 8 tiles takes one read of the
+//   rows. The blocks are persistent, one wave over long row ranges, so a
+//   slot that holds most of a level's rows lands on few warps: the plan
+//   takes them for levels of a few slots and many rows (HIGGS's levels
+//   0-3, 1.3-1.5x faster than the design before).
+// - Row-split clusters (the design before, kept for the rest): a tile of
+//   at most 52 KB a block, consecutive short row ranges of one tile a
+//   cluster, each block staging its own rows into a ring one sub-chunk
+//   shorter (a deeper one cost the course's shapes a block an SM, or
+//   half their sub-chunk, 5-40%), many waves of blocks; after
+//   the adds the cluster sums its blocks' tiles cell by cell in rank
+//   order through distributed shared memory into one partial. A skewed
+//   level spreads over many blocks, and a small call over short ones.
+// - The launch plan (hist_plan in native/hist_kernel.py) picks the kind,
+//   the tile, the slot groups, the staging size and the clusters, from
+//   the shapes alone.
+// - The rows are staged once for the whole cluster: a producer thread of
+//   block 0 copies each sub-chunk of `sub_rows` rows (the bins of all F
+//   features, lid, g, h and w) from device memory into the same offset of
+//   every block's ring with one multicast bulk copy a column
+//   (cp.async.bulk ... .multicast::cluster), completing on each block's
+//   own mbarrier. Multicast rather than peers reading block 0's copy
+//   through distributed shared memory: the owners read their rows in a
+//   data-dependent order, a round at a time, and a remote read costs
+//   them several times a local one; multicast also reads L2 once for
+//   the cluster. Each block arms its own "full" barrier for a sub-chunk
+//   and, once it is done with a ring slot, arrives on block 0's "empty"
+//   barrier for it; the producer refills a slot when every block has
+//   released it. The ring holds 4 sub-chunks (kTileSplitStages), 3 in
+//   row-split clusters (kRowSplitStages).
+// - A tile's slots fall into `groups` slot groups; warp (fi, g) owns
+//   feature fi's cells of group g outright and walks only the rows whose
+//   slot lies in group g. One listing warp per group waits for a
+//   sub-chunk one step ahead of the owners and lists, in row order, its
+//   weighted rows whose slot lies in the group (ballots), into one of two
+//   lists.
 // - An owner takes its group's rows 32 at a time, a row to a lane, loading
 //   the next round's rows ahead of this round's adds. To find out whether
 //   two lanes hit one (bin, slot) cell, each writes its lane number to the
-//   cell's one-byte tag and reads it back; a lane that reads another
-//   lane's has company. A round where no lane has company adds each lane's
-//   row to its own cell. A round with company groups the lanes by cell
-//   with __match_any_sync, and the lowest lane of each group sums the
-//   group's contributions in lane order and adds the result to the cell.
-//   (__match_any_sync serialises over the distinct cells of a warp, so it
-//   is kept off the rounds that do not need it; the tags need no
-//   clearing, as only this round's writes are read.)
-// - The blocks of consecutive chunks (the same tile) form a thread block
-//   cluster of up to 8. After cluster.sync() each block sums a slice of
-//   the tile's cells over the cluster's blocks in rank order through
-//   distributed shared memory, so one partial per cluster, not per chunk,
-//   leaves the SMs. With one cluster per tile the block rounds to f32 and
-//   writes the output: one launch, no scratch. Otherwise it writes a
-//   float64 partial, and a second kernel sums the clusters' partials in
-//   cluster order and rounds to f32.
+//   cell's one-byte tag and reads it back: the lanes of one cell all read
+//   the one lane whose write stayed, and five ballots over its bits group
+//   them (the groups __match_any_sync would give; it serialises over the
+//   distinct cells of a warp, and cost a fifth of the kernel's time at
+//   one slot). The lowest lane of each group sums the group's products
+//   in lane order, taking its members' by shuffles while all lanes step
+//   through the largest group together (reloading them from the ring
+//   made a feature with three distinct bins, as HIGGS's b-tags are, the
+//   straggler of its block), and adds the sum to the cell; a lane alone
+//   adds its own row. (The tags need no clearing, as only this round's
+//   writes are read.)
+// - Bulk copies need 16-byte-aligned addresses and sizes: the wrapper
+//   checks the operands' alignment, row ranges and sub-chunks are
+//   multiples of 32 rows, and the last (n mod 16) rows of the matrix are
+//   loaded by plain loads.
+// - Each cluster writes its float64 partial, and a second kernel sums the
+//   partials in order and rounds to f32. With one partial the blocks
+//   round and write the output themselves: one launch, no scratch.
 //
 // Numerics. The products g*w and h*w are rounded to f32, as in the
 // Pallas body; the sums run in float64 and each cell is rounded to f32
@@ -85,8 +119,10 @@
 //
 // Determinism. The fit needs bit-stable histograms from run to run (the
 // warm-start contract), so there are no float atomics: the order of every
-// add follows from the inputs and the plan (chunk rows, tiles, cluster
-// size), which the wrapper derives from the shapes alone.
+// add follows from the inputs and the plan (row ranges, tiles, slot
+// groups, sub-chunks), which the wrapper derives from the shapes alone.
+// A cell is owned by one warp of one block in each row range, which adds
+// its rows in row order; the partials are summed in row-range order.
 //
 // Contract. Launches on the caller's stream, does not synchronise,
 // allocates nothing (the wrapper allocates the output and the scratch).
@@ -105,11 +141,15 @@ namespace {
 constexpr int kWarp = 32;
 constexpr int kReduceThreads = 256;
 constexpr int kMaxCluster = 8;
-constexpr int kMaxThreads = 512;
-// blocks of kMaxThreads an SM must hold: caps a thread at 64 registers,
-// which hist_plan counts on (_REGS)
-constexpr int kMinBlocks = 2;
-constexpr int kStages = 3;  // row buffers in the ring
+constexpr int kMaxThreads = 1024;
+// one block of kMaxThreads an SM: caps a thread at 64 registers, which
+// hist_plan counts on (_REGS)
+constexpr int kMinBlocks = 1;
+// row buffers in a block's ring: the tile-split clusters' producer
+// serves up to 8 blocks and keeps more sub-chunks in flight; a
+// row-split block's smaller ring leaves room for one more block an SM
+constexpr int kTileSplitStages = 4;
+constexpr int kRowSplitStages = 3;
 
 __device__ __forceinline__ double add_rn(double a, double b) {
   return __dadd_rn(a, b);
@@ -131,17 +171,19 @@ __host__ __device__ constexpr size_t round16(size_t x) {
 }
 
 // Byte offsets of the dynamic shared memory of one block (mirrored by
-// hist_plan's `smem`): an mbarrier per stage, the tile, a one-byte lane
-// tag per cell of the tile, two lists of rows of each slot group and
-// their counts,
-// then a ring of kStages row buffers, each [bins][lid][g][h][w].
+// hist_plan's `smem`): a "full" and an "empty" mbarrier per stage, the
+// tile, a one-byte lane tag per cell of the tile, two lists of rows of
+// each slot group and their counts, then a ring of `stages` row buffers,
+// each [bins][lid][g][h][w]. Every block of a cluster has the same
+// layout, so a multicast copy lands at one offset in all of them.
 struct Layout {
   size_t tile_off, tag_off, list_off, count_off, buf_off, buf_bytes, lid_off,
       g_off, h_off, w_off, total;
   __host__ __device__ Layout(int acc_bytes, int ft, int bt, int st,
-                             int groups, int sub_rows, int row_bin_bytes) {
+                             int groups, int sub_rows, int row_bin_bytes,
+                             int stages) {
     const size_t keys = static_cast<size_t>(ft) * bt * st;
-    tile_off = round16(8 * kStages);
+    tile_off = round16(16 * static_cast<size_t>(stages));
     tag_off = tile_off + round16(static_cast<size_t>(acc_bytes) * 3 * keys);
     list_off = tag_off + round16(keys);
     count_off = list_off + round16(4 * static_cast<size_t>(groups) * sub_rows);
@@ -151,7 +193,7 @@ struct Layout {
     h_off = g_off + 4 * static_cast<size_t>(sub_rows);
     w_off = h_off + 4 * static_cast<size_t>(sub_rows);
     buf_bytes = w_off + 4 * static_cast<size_t>(sub_rows);
-    total = buf_off + kStages * buf_bytes;
+    total = buf_off + stages * buf_bytes;
   }
 };
 
@@ -175,6 +217,20 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
       : "memory");
 }
 
+// Arrives on the mbarrier at `bar`'s offset in block `rank` of the
+// cluster (this block's own included).
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar,
+                                                    uint32_t rank) {
+  asm volatile(
+      "{\n"
+      ".reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(rank)
+      : "memory");
+}
+
 // Waits for the phase of `bar` with this parity to complete. A copy that
 // never lands traps (the launch fails with an error) instead of hanging.
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
@@ -195,14 +251,31 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 }
 
 // 1-D bulk copy of `bytes` (a multiple of 16, both addresses 16-aligned)
-// from global to this block's shared memory, completing on `bar`.
+// from global memory to shared memory at `dst`'s offset: into this block
+// alone (mask 0), or into each block of the cluster in `mask`, each
+// completing on the mbarrier at `bar`'s offset in that block.
 __device__ __forceinline__ void bulk_g2s(void* dst, const void* src,
-                                         uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
+                                         uint32_t bytes, uint64_t* bar,
+                                         uint16_t mask) {
+  if (mask == 0) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+        "l"(src), "r"(bytes), "r"(smem_u32(bar))
+        : "memory");
+  } else {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+        ".multicast::cluster [%0], [%1], %2, [%3], %4;\n" ::"r"(
+            smem_u32(dst)),
+        "l"(src), "r"(bytes), "r"(smem_u32(bar)), "h"(mask)
+        : "memory");
+  }
+}
+
+// Consumers' barrier (id 2): every warp of the block but the producer's.
+__device__ __forceinline__ void consumers_sync(int threads) {
+  asm volatile("bar.sync 2, %0;\n" ::"r"(threads) : "memory");
 }
 
 template <typename BinT>
@@ -214,55 +287,96 @@ struct Rows {
   const float* weight;
 };
 
-// Thread 0: stage rows [r, r + cnt) into buffer `buf` (the bulk part: a
-// multiple of 16 rows) and arm `bar` with its bytes.
+// The bulk part of a sub-chunk of cnt rows: a multiple of 16 rows.
+__device__ __forceinline__ uint32_t bulk_rows(int cnt) {
+  return static_cast<uint32_t>(cnt) & ~15u;
+}
+
+// Bytes a block's copy of a sub-chunk of cnt rows brings.
+__device__ __forceinline__ uint32_t fill_bytes(int cnt, int row_bin_bytes) {
+  return bulk_rows(cnt) * (static_cast<uint32_t>(row_bin_bytes) + 16u);
+}
+
+// The producer: copy rows [r, r + cnt) (the bulk part) into buffer `buf`
+// of the blocks in `mask` (this block alone for 0), completing on `bar`.
 template <typename BinT>
 __device__ __forceinline__ void issue_rows(const Rows<BinT>& in,
                                            unsigned char* buf,
                                            const Layout& L, uint64_t* bar,
                                            int64_t r, int cnt, int n_feat,
-                                           bool stage_bins) {
-  const uint32_t bulk = static_cast<uint32_t>(cnt) & ~15u;
-  const uint32_t bin_bytes =
-      stage_bins ? bulk * n_feat * static_cast<uint32_t>(sizeof(BinT)) : 0u;
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  mbar_expect_tx(bar, bin_bytes + 16u * bulk);
+                                           bool stage_bins, uint16_t mask) {
+  const uint32_t bulk = bulk_rows(cnt);
   if (bulk == 0) return;
-  if (bin_bytes) bulk_g2s(buf, in.binned + r * n_feat, bin_bytes, bar);
-  bulk_g2s(buf + L.lid_off, in.lid + r, 4u * bulk, bar);
-  bulk_g2s(buf + L.g_off, in.grad + r, 4u * bulk, bar);
-  bulk_g2s(buf + L.h_off, in.hess + r, 4u * bulk, bar);
-  bulk_g2s(buf + L.w_off, in.weight + r, 4u * bulk, bar);
+  if (stage_bins) {
+    bulk_g2s(buf, in.binned + r * n_feat,
+             bulk * n_feat * static_cast<uint32_t>(sizeof(BinT)), bar, mask);
+  }
+  bulk_g2s(buf + L.lid_off, in.lid + r, 4u * bulk, bar, mask);
+  bulk_g2s(buf + L.g_off, in.grad + r, 4u * bulk, bar, mask);
+  bulk_g2s(buf + L.h_off, in.hess + r, 4u * bulk, bar, mask);
+  bulk_g2s(buf + L.w_off, in.weight + r, 4u * bulk, bar, mask);
 }
 
 // AccT is the type of the sums: double in the port, float in the
 // f32-accumulating build that is only timed. OutT is the output's: f32,
 // or double for the unrounded sums. `partial` is null when the grid
-// holds one cluster per tile (the block then writes `out`).
-template <typename BinT, typename AccT, typename OutT>
+// holds one row range (the blocks then write `out`).
+//
+// A cluster splits either the tiles or the rows, one instantiation
+// each, so that each compiles with its own ring depth and no branch on
+// the kind. Tiles (SplitRows false):
+// grid (cluster x row ranges, passes); block `rank` of cluster c of pass
+// p owns tile p * cluster + rank of the histogram (none past the last)
+// and adds the rows of range c, [c * chunk_rows, (c + 1) * chunk_rows),
+// staged for the whole cluster by block 0. Rows (SplitRows true): grid
+// (row ranges, tiles); the blocks of a cluster own one tile, each adds
+// its own range of rows, staged by itself, and the cluster sums its
+// blocks' tiles through distributed shared memory into one partial.
+template <typename BinT, typename AccT, typename OutT, bool SplitRows>
 __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
 hist_cluster_kernel(Rows<BinT> in, AccT* __restrict__ partial,
                     OutT* __restrict__ out, int n, int n_feat, int n_bins,
                     int n_slots, int chunk_rows, int sub_rows, int ft,
-                    int bt, int st, int groups, int n_stiles,
-                    int stage_bins) {
+                    int bt, int st, int groups, int stage_bins) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const Layout L(sizeof(AccT), ft, bt, st, groups, sub_rows,
-                 stage_bins ? n_feat * static_cast<int>(sizeof(BinT)) : 0);
-  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);       // [kStages]
+  const int row_bin_bytes =
+      stage_bins ? n_feat * static_cast<int>(sizeof(BinT)) : 0;
+  constexpr bool split_rows = SplitRows;
+  constexpr int stages = SplitRows ? kRowSplitStages : kTileSplitStages;
+  const Layout L(sizeof(AccT), ft, bt, st, groups, sub_rows, row_bin_bytes,
+                 stages);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);       // [stages]
+  uint64_t* empty = full + stages;                          // [stages]
   AccT* hist = reinterpret_cast<AccT*>(smem + L.tile_off);  // [ft][bt][st][3]
   uint8_t* tag = smem + L.tag_off;                          // [ft][bt][st]
   uint16_t* list =
       reinterpret_cast<uint16_t*>(smem + L.list_off);  // [2][groups][sub_rows]
   int* count = reinterpret_cast<int*>(smem + L.count_off);  // [2][groups]
-  unsigned char* bufs = smem + L.buf_off;                   // [kStages]
+  unsigned char* bufs = smem + L.buf_off;                   // [stages]
 
-  const int warp = threadIdx.x / kWarp;
-  const int lane = threadIdx.x % kWarp;
-  const int f0 = blockIdx.y * ft;
-  const int b0 = (blockIdx.z / n_stiles) * bt;
-  const int s0 = (blockIdx.z % n_stiles) * st;
-  const int64_t begin = static_cast<int64_t>(blockIdx.x) * chunk_rows;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int csize = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int n_btiles = (n_bins + bt - 1) / bt;
+  const int n_stiles = (n_slots + st - 1) / st;
+  const int n_tiles = (n_feat + ft - 1) / ft * n_btiles * n_stiles;
+  // the cluster's first tile, and its blocks that own one
+  const int first = static_cast<int>(blockIdx.y) * (split_rows ? 1 : csize);
+  const int n_live = split_rows ? csize : min(csize, n_tiles - first);
+  if (rank >= n_live) {  // no tile: no row of the pass comes here
+    cluster.sync();
+    cluster.sync();
+    return;
+  }
+  const int tile = split_rows ? first : first + rank;
+  const int f0 = tile / (n_btiles * n_stiles) * ft;
+  const int b0 = tile / n_stiles % n_btiles * bt;
+  const int s0 = tile % n_stiles * st;
+  const int64_t begin =
+      static_cast<int64_t>(split_rows ? blockIdx.x : blockIdx.x / csize) *
+      chunk_rows;
+  // the block whose producer stages this block's rows
+  const int stager = split_rows ? rank : 0;
   const int64_t end = begin + chunk_rows < n ? begin + chunk_rows
                                              : static_cast<int64_t>(n);
   const int rows = end > begin ? static_cast<int>(end - begin) : 0;
@@ -271,24 +385,29 @@ hist_cluster_kernel(Rows<BinT> in, AccT* __restrict__ partial,
   const int b_hi = min(bt, n_bins - b0);   // bins of this tile
   const int s_hi = min(st, n_slots - s0);  // slots of this tile
   const int gs = (st + groups - 1) / groups;  // slots of a group
-  // thread 0: stage sub-chunk j into its ring slot
-  auto issue = [&](int j) {
-    const int64_t r = begin + static_cast<int64_t>(j) * sub_rows;
-    issue_rows(in, bufs + (j % kStages) * L.buf_bytes, L, &bar[j % kStages],
-               r, min(sub_rows, static_cast<int>(end - r)), n_feat,
-               stage_bins != 0);
+  const int consumers = static_cast<int>(blockDim.x) - kWarp;
+  // rows of sub-chunk j
+  auto sub_cnt = [&](int j) {
+    return min(sub_rows,
+               static_cast<int>(end - begin - static_cast<int64_t>(j) *
+                                                  sub_rows));
   };
 
   // warp (fi, g) of the first ft x groups owns feature f0 + fi's cells of
   // the slots of group g; the next `groups` warps list the rows of each
-  // group one sub-chunk ahead of the owners
+  // group one sub-chunk ahead of the owners; the last warp is the
+  // producer's
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  const bool producer = static_cast<int>(threadIdx.x) >= consumers;
   const int fi = warp / groups;
   const int g = warp % groups;
   const int f = f0 + fi;
   const int g_lo = g * gs;                  // the group's slots in the tile
   const int g_hi = min(s_hi, g_lo + gs);
   const bool owner = fi < ft && f < n_feat && g_lo < g_hi;
-  const int lister = warp - ft * groups;    // the group it lists, if any
+  const int lister = producer ? -1 : warp - ft * groups;  // its group
+  const bool lists = lister >= 0 && lister < groups;
   AccT* own = hist + fi * bt * st * 3;
   uint8_t* own_tag = tag + fi * bt * st;
 
@@ -296,16 +415,16 @@ hist_cluster_kernel(Rows<BinT> in, AccT* __restrict__ partial,
   // ends there, and list the weighted rows of group `lister` whose slot
   // lies in the tile, in row order
   auto list_rows = [&](int j) {
-    mbar_wait(&bar[j % kStages], (j / kStages) & 1);
-    unsigned char* buf = bufs + (j % kStages) * L.buf_bytes;
+    mbar_wait(&full[j % stages], (j / stages) & 1);
+    unsigned char* buf = bufs + (j % stages) * L.buf_bytes;
     const int64_t r_lo = begin + static_cast<int64_t>(j) * sub_rows;
-    const int cnt = min(sub_rows, static_cast<int>(end - r_lo));
+    const int cnt = sub_cnt(j);
     BinT* sb = reinterpret_cast<BinT*>(buf);
     int32_t* sl = reinterpret_cast<int32_t*>(buf + L.lid_off);
     float* sg = reinterpret_cast<float*>(buf + L.g_off);
     float* sh = reinterpret_cast<float*>(buf + L.h_off);
     float* sw = reinterpret_cast<float*>(buf + L.w_off);
-    const int bulk = cnt & ~15;
+    const int bulk = static_cast<int>(bulk_rows(cnt));
     if (bulk != cnt) {  // the matrix's last rows: plain loads
       const int tail = cnt - bulk;
       const int t0 = lister * kWarp + lane, step = groups * kWarp;
@@ -344,158 +463,224 @@ hist_cluster_kernel(Rows<BinT> in, AccT* __restrict__ partial,
   };
 
   if (threadIdx.x == 0) {
-    for (int k = 0; k < kStages; ++k) mbar_init(&bar[k], 1);
+    for (int k = 0; k < stages; ++k) {
+      mbar_init(&full[k], 1);
+      // the stager's: every block it stages for frees a slot
+      mbar_init(&empty[k], split_rows ? 1 : n_live);
+    }
+    // the first sub-chunks' bytes, before the producer may issue them
+    for (int j = 0; j < stages && j < n_sub; ++j) {
+      mbar_expect_tx(&full[j], fill_bytes(sub_cnt(j), row_bin_bytes));
+    }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    for (int j = 0; j < kStages - 1 && j < n_sub; ++j) issue(j);
   }
   for (int i = threadIdx.x; i < tile_cells; i += blockDim.x) {
     hist[i] = AccT(0);
   }
-  __syncthreads();  // the barriers are initialised
-  if (lister >= 0 && lister < groups && n_sub > 0) list_rows(0);
-  __syncthreads();
+  // every block's barriers are initialised and armed before any copy or
+  // arrival reaches them: a row-split block's come only from itself
+  if constexpr (SplitRows) {
+    __syncthreads();
+  } else {
+    cluster.sync();
+  }
 
-  for (int i = 0; i < n_sub; ++i) {
-    // the slot refilled here was last read in round i - 1 by the owners
-    // and i - 2 by the listers (the __syncthreads at the end of the loop)
-    if (threadIdx.x == 0 && i + kStages - 1 < n_sub) issue(i + kStages - 1);
-    if (lister >= 0 && lister < groups && i + 1 < n_sub) list_rows(i + 1);
-    if (owner) {
-      mbar_wait(&bar[i % kStages], (i / kStages) & 1);
-    }
-    unsigned char* buf = bufs + (i % kStages) * L.buf_bytes;
-    const int64_t r_lo = begin + static_cast<int64_t>(i) * sub_rows;
-    BinT* sb = reinterpret_cast<BinT*>(buf);
-    int32_t* sl = reinterpret_cast<int32_t*>(buf + L.lid_off);
-    float* sg = reinterpret_cast<float*>(buf + L.g_off);
-    float* sh = reinterpret_cast<float*>(buf + L.h_off);
-    float* sw = reinterpret_cast<float*>(buf + L.w_off);
-
-    if (owner) {
-      const uint16_t* rows_g = list + ((i & 1) * groups + g) * sub_rows;
-      const int n_g = count[(i & 1) * groups + g];
-      // a lane's row of the round: its cell (-1 for none) and its
-      // products g*w, h*w rounded to f32, loaded a round ahead
-      auto load = [&](int j, int& key, float& gw, float& hw, float& w) {
-        key = -1;
-        gw = hw = w = 0.0f;
-        if (j >= n_g) return;
-        const int r = rows_g[j];
-        const int b =
-            static_cast<int>(stage_bins ? sb[r * n_feat + f]
-                                        : in.binned[(r_lo + r) * n_feat + f]) -
-            b0;
-        if (b >= 0 && b < b_hi) {
-          const float wr = sw[r];
-          key = b * st + (sl[r] - s0);
-          gw = __fmul_rn(sg[r], wr);
-          hw = __fmul_rn(sh[r], wr);
-          w = wr;
+  if (producer) {
+    // the stager's producer stages every sub-chunk into every block it
+    // serves, refilling a ring slot once each of them has released it
+    if (rank == stager && lane == 0) {
+      const uint16_t mask = split_rows || n_live == 1
+                                ? 0
+                                : static_cast<uint16_t>((1u << n_live) - 1);
+      for (int j = 0; j < n_sub; ++j) {
+        if (j >= stages) {
+          mbar_wait(&empty[j % stages], (j / stages - 1) & 1);
         }
-      };
-      int key;
-      float gw, hw, w;
-      load(lane, key, gw, hw, w);
-      for (int j0 = 0; j0 < n_g; j0 += kWarp) {
-        int key_n;
-        float gw_n, hw_n, w_n;
-        load(j0 + kWarp + lane, key_n, gw_n, hw_n, w_n);
-        // do two lanes hit one cell? each writes its lane to the cell's
-        // tag and reads it back: a lane that reads another's has company
-        if (key >= 0) own_tag[key] = static_cast<uint8_t>(lane);
-        __syncwarp();
-        const bool company = key >= 0 && own_tag[key] != lane;
-        // a round with company groups the lanes by cell (the ballot is the
-        // same whichever lane's tag stayed); the others add alone
-        const unsigned group = __ballot_sync(0xffffffffu, company)
-                                   ? __match_any_sync(0xffffffffu, key)
-                                   : 1u << lane;
-        if (key >= 0 && lane == __ffs(group) - 1) {
-          // the leader (lowest lane) sums its group in lane order, each
-          // member's products recomputed from the row buffer
-          AccT a0 = gw, a1 = hw, a2 = w;
-          unsigned rest = group & (group - 1);
-          while (rest) {
-            const int r = rows_g[j0 + __ffs(rest) - 1];
-            rest &= rest - 1;
-            const float wr = sw[r];
-            a0 = add_rn(a0, AccT(__fmul_rn(sg[r], wr)));
-            a1 = add_rn(a1, AccT(__fmul_rn(sh[r], wr)));
-            a2 = add_rn(a2, AccT(wr));
-          }
-          AccT* cell = own + key * 3;
-          cell[0] = add_rn(cell[0], a0);
-          cell[1] = add_rn(cell[1], a1);
-          cell[2] = add_rn(cell[2], a2);
-        }
-        __syncwarp();  // the cells and tags are read again next round
-        key = key_n;
-        gw = gw_n;
-        hw = hw_n;
-        w = w_n;
+        issue_rows(in, bufs + (j % stages) * L.buf_bytes, L,
+                   &full[j % stages],
+                   begin + static_cast<int64_t>(j) * sub_rows, sub_cnt(j),
+                   n_feat, stage_bins != 0, mask);
       }
     }
-    __syncthreads();  // the slot and the lists are refilled
+  } else {
+    if (lists && n_sub > 0) list_rows(0);
+    consumers_sync(consumers);
+    for (int i = 0; i < n_sub; ++i) {
+      if (lists && i + 1 < n_sub) list_rows(i + 1);
+      if (owner) {
+        mbar_wait(&full[i % stages], (i / stages) & 1);
+      }
+      unsigned char* buf = bufs + (i % stages) * L.buf_bytes;
+      const int64_t r_lo = begin + static_cast<int64_t>(i) * sub_rows;
+      BinT* sb = reinterpret_cast<BinT*>(buf);
+      int32_t* sl = reinterpret_cast<int32_t*>(buf + L.lid_off);
+      float* sg = reinterpret_cast<float*>(buf + L.g_off);
+      float* sh = reinterpret_cast<float*>(buf + L.h_off);
+      float* sw = reinterpret_cast<float*>(buf + L.w_off);
+
+      if (owner) {
+        const uint16_t* rows_g = list + ((i & 1) * groups + g) * sub_rows;
+        const int n_g = count[(i & 1) * groups + g];
+        // a lane's row of the round: its cell (-1 for none) and its
+        // products g*w, h*w rounded to f32, loaded a round ahead
+        auto load = [&](int j, int& key, float& gw, float& hw, float& w) {
+          key = -1;
+          gw = hw = w = 0.0f;
+          if (j >= n_g) return;
+          const int r = rows_g[j];
+          const int b =
+              static_cast<int>(stage_bins
+                                   ? sb[r * n_feat + f]
+                                   : in.binned[(r_lo + r) * n_feat + f]) -
+              b0;
+          if (b >= 0 && b < b_hi) {
+            const float wr = sw[r];
+            key = b * st + (sl[r] - s0);
+            gw = __fmul_rn(sg[r], wr);
+            hw = __fmul_rn(sh[r], wr);
+            w = wr;
+          }
+        };
+        int key;
+        float gw, hw, w;
+        load(lane, key, gw, hw, w);
+        for (int j0 = 0; j0 < n_g; j0 += kWarp) {
+          int key_n;
+          float gw_n, hw_n, w_n;
+          load(j0 + kWarp + lane, key_n, gw_n, hw_n, w_n);
+          // do two lanes hit one cell? each writes its lane to the cell's
+          // tag and reads it back: a lane that reads another's has company
+          if (key >= 0) own_tag[key] = static_cast<uint8_t>(lane);
+          __syncwarp();
+          // the lanes of one cell all read the lane whose write stayed:
+          // five ballots over its bits group the lanes by cell (the
+          // groups __match_any_sync would give, at a fraction of its
+          // cost); a lane alone is a group of one
+          const int won = key >= 0 ? own_tag[key] : lane;
+          unsigned group = 0xffffffffu;
+#pragma unroll
+          for (int bit = 0; bit < 5; ++bit) {
+            const unsigned m = __ballot_sync(0xffffffffu, (won >> bit) & 1);
+            group &= ((won >> bit) & 1) ? m : ~m;
+          }
+          // the leader (lowest lane) of each group sums the group's
+          // products in lane order; its members' come to it by shuffles,
+          // all lanes stepping together through the largest group
+          const bool lead = key >= 0 && lane == __ffs(group) - 1;
+          unsigned rest = lead ? group & (group - 1) : 0u;
+          const int steps = static_cast<int>(
+              __reduce_max_sync(0xffffffffu, __popc(rest)));
+          AccT a0 = gw, a1 = hw, a2 = w;
+          for (int k = 0; k < steps; ++k) {
+            const int src = rest ? __ffs(rest) - 1 : lane;
+            rest &= rest - 1;
+            const float g_k = __shfl_sync(0xffffffffu, gw, src);
+            const float h_k = __shfl_sync(0xffffffffu, hw, src);
+            const float w_k = __shfl_sync(0xffffffffu, w, src);
+            if (src != lane) {
+              a0 = add_rn(a0, AccT(g_k));
+              a1 = add_rn(a1, AccT(h_k));
+              a2 = add_rn(a2, AccT(w_k));
+            }
+          }
+          if (lead) {
+            AccT* cell = own + key * 3;
+            cell[0] = add_rn(cell[0], a0);
+            cell[1] = add_rn(cell[1], a1);
+            cell[2] = add_rn(cell[2], a2);
+          }
+          __syncwarp();  // the cells and tags are read again next round
+          key = key_n;
+          gw = gw_n;
+          hw = hw_n;
+          w = w_n;
+        }
+      }
+      // the owners are done with sub-chunk i and the listers with i + 1
+      consumers_sync(consumers);
+      if (threadIdx.x == 0 && i + stages < n_sub) {
+        // arm this block's slot for sub-chunk i + stages (its phase for
+        // sub-chunk i is complete), then free the slot at the stager,
+        // whose producer copies into it only after every block it serves
+        // has
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        mbar_expect_tx(&full[i % stages],
+                       fill_bytes(sub_cnt(i + stages), row_bin_bytes));
+        mbar_arrive_cluster(&empty[i % stages], stager);
+      }
+    }
   }
 
-  // sum the cluster's tiles cell by cell in rank order
-  cg::cluster_group cluster = cg::this_cluster();
-  cluster.sync();
-  const int csize = static_cast<int>(cluster.num_blocks());
-  const int rank = static_cast<int>(cluster.block_rank());
-  const AccT* peer[kMaxCluster];
-#pragma unroll
-  for (int q = 0; q < kMaxCluster; ++q) {
-    peer[q] = cluster.map_shared_rank(hist, q < csize ? q : 0);
-  }
-  const int per = (tile_cells + csize - 1) / csize;
-  const int lo = rank * per;
-  const int hi = min(tile_cells, lo + per);
-  const int64_t n_cells = static_cast<int64_t>(n_feat) * n_bins * n_slots * 3;
+  // cell i of the tile, summed, into the cluster's partial or rounded
+  // into the output
+  const int64_t n_cells =
+      static_cast<int64_t>(n_feat) * n_bins * n_slots * 3;
   AccT* dst = partial == nullptr
                   ? nullptr
                   : partial + static_cast<int64_t>(blockIdx.x / csize) *
                                   n_cells;
-  // two cells a thread at a time, so that their remote loads are in
-  // flight together
-  for (int i0 = lo + threadIdx.x; i0 < hi; i0 += 2 * blockDim.x) {
-    AccT acc[2];
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      const int i = i0 + u * blockDim.x;
-      AccT v[kMaxCluster];
-#pragma unroll
-      for (int q = 0; q < kMaxCluster; ++q) {
-        v[q] = q < csize && i < hi ? peer[q][i] : AccT(0);
-      }
-      acc[u] = v[0];
-#pragma unroll
-      for (int q = 1; q < kMaxCluster; ++q) {
-        if (q < csize) acc[u] = add_rn(acc[u], v[q]);
+  auto put = [&](int i, AccT v) {
+    const int k = i % 3;
+    int rest = i / 3;
+    const int s = rest % st;
+    rest /= st;
+    const int b = rest % bt;
+    const int cf = f0 + rest / bt, cb = b0 + b, cs = s0 + s;
+    if (cf < n_feat && cb < n_bins && cs < n_slots) {
+      const int64_t at =
+          ((static_cast<int64_t>(cf) * n_bins + cb) * n_slots + cs) * 3 + k;
+      if (dst != nullptr) {
+        dst[at] = v;
+      } else {
+        store(out + at, v);
       }
     }
+  };
+  if constexpr (!SplitRows) {
+    if (!producer) {
+      for (int i = threadIdx.x; i < tile_cells; i += consumers) {
+        put(i, hist[i]);
+      }
+    }
+  } else {
+    // sum the cluster's tiles cell by cell in rank order, each block a
+    // slice of the cells, two cells a thread at a time so that their
+    // remote loads are in flight together
+    cluster.sync();
+    const AccT* peer[kMaxCluster];
 #pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      const int i = i0 + u * blockDim.x;
-      if (i >= hi) break;
-      const int k = i % 3;
-      int rest = i / 3;
-      const int s = rest % st;
-      rest /= st;
-      const int b = rest % bt;
-      const int cf = f0 + rest / bt, cb = b0 + b, cs = s0 + s;
-      if (cf < n_feat && cb < n_bins && cs < n_slots) {
-        const int64_t at =
-            ((static_cast<int64_t>(cf) * n_bins + cb) * n_slots + cs) * 3 + k;
-        if (dst != nullptr) {
-          dst[at] = acc[u];
-        } else {
-          store(out + at, acc[u]);
+    for (int q = 0; q < kMaxCluster; ++q) {
+      peer[q] = cluster.map_shared_rank(hist, q < csize ? q : 0);
+    }
+    const int per = (tile_cells + csize - 1) / csize;
+    const int lo = rank * per;
+    const int hi = min(tile_cells, lo + per);
+    for (int i0 = lo + threadIdx.x; i0 < hi; i0 += 2 * blockDim.x) {
+      AccT acc[2];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int i = i0 + u * blockDim.x;
+        AccT v[kMaxCluster];
+#pragma unroll
+        for (int q = 0; q < kMaxCluster; ++q) {
+          v[q] = q < csize && i < hi ? peer[q][i] : AccT(0);
         }
+        acc[u] = v[0];
+#pragma unroll
+        for (int q = 1; q < kMaxCluster; ++q) {
+          if (q < csize) acc[u] = add_rn(acc[u], v[q]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int i = i0 + u * blockDim.x;
+        if (i < hi) put(i, acc[u]);
       }
     }
   }
-  cluster.sync();  // no block leaves while a peer still reads its tile
+  // no block leaves while a copy, an arrival or a peer's read may still
+  // reach it
+  cluster.sync();
 }
 
 template <typename AccT, typename OutT>
@@ -524,25 +709,31 @@ __global__ void hist_reduce_kernel(const AccT* __restrict__ partial,
 
 struct Plan {
   int chunk_rows, n_chunks, ft, bt, st, groups, cluster, sub_rows,
-      stage_bins, threads;
+      stage_bins, threads, split_rows;
 };
 
-template <typename BinT, typename AccT, typename OutT>
+template <typename BinT, typename AccT, typename OutT, bool SplitRows>
 cudaError_t launch(const void* binned, const void* lid, const void* grad,
                    const void* hess, const void* weight, void* partial,
                    void* out, int n, int n_feat, int n_bins, int n_slots,
                    const Plan& p, cudaStream_t stream) {
-  const int n_ftiles = (n_feat + p.ft - 1) / p.ft;
-  const int n_btiles = (n_bins + p.bt - 1) / p.bt;
-  const int n_stiles = (n_slots + p.st - 1) / p.st;
-  if (n_ftiles > 65535 || static_cast<int64_t>(n_btiles) * n_stiles > 65535) {
+  const int64_t n_tiles = static_cast<int64_t>((n_feat + p.ft - 1) / p.ft) *
+                          ((n_bins + p.bt - 1) / p.bt) *
+                          ((n_slots + p.st - 1) / p.st);
+  // grid: (blocks of the row ranges, passes or tiles), and the partials
+  const int64_t grid_x =
+      p.split_rows ? p.n_chunks : static_cast<int64_t>(p.n_chunks) * p.cluster;
+  const int64_t grid_y =
+      p.split_rows ? n_tiles : (n_tiles + p.cluster - 1) / p.cluster;
+  const int n_parts = p.split_rows ? p.n_chunks / p.cluster : p.n_chunks;
+  if (grid_y > 65535 || grid_x >= (int64_t{1} << 31)) {
     return cudaErrorInvalidConfiguration;
   }
-  const int n_clusters = p.n_chunks / p.cluster;
-  if ((n_clusters > 1) != (partial != nullptr)) return cudaErrorInvalidValue;
+  if ((n_parts > 1) != (partial != nullptr)) return cudaErrorInvalidValue;
   const Layout L(sizeof(AccT), p.ft, p.bt, p.st, p.groups, p.sub_rows,
-                 p.stage_bins ? n_feat * static_cast<int>(sizeof(BinT)) : 0);
-  auto kernel = hist_cluster_kernel<BinT, AccT, OutT>;
+                 p.stage_bins ? n_feat * static_cast<int>(sizeof(BinT)) : 0,
+                 SplitRows ? kRowSplitStages : kTileSplitStages);
+  auto kernel = hist_cluster_kernel<BinT, AccT, OutT, SplitRows>;
   // the opt-in above 48 KB, made on each device when a launch needs more
   // than any before it there; under a lock, so that launches from two
   // threads cannot leave the attribute below what the larger one needs
@@ -563,7 +754,8 @@ cudaError_t launch(const void* binned, const void* lid, const void* grad,
     }
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(p.n_chunks, n_ftiles, n_btiles * n_stiles);
+  cfg.gridDim = dim3(static_cast<unsigned>(grid_x),
+                     static_cast<unsigned>(grid_y));
   cfg.blockDim = dim3(p.threads);
   cfg.dynamicSmemBytes = L.total;
   cfg.stream = stream;
@@ -582,17 +774,33 @@ cudaError_t launch(const void* binned, const void* lid, const void* grad,
   err = cudaLaunchKernelEx(&cfg, kernel, rows, static_cast<AccT*>(partial),
                            static_cast<OutT*>(out), n, n_feat, n_bins,
                            n_slots, p.chunk_rows, p.sub_rows, p.ft, p.bt,
-                           p.st, p.groups, n_stiles, p.stage_bins);
+                           p.st, p.groups, p.stage_bins);
   if (err != cudaSuccess) return err;
   err = cudaGetLastError();
-  if (err != cudaSuccess || n_clusters == 1) return err;
+  if (err != cudaSuccess || n_parts == 1) return err;
   const int64_t n_cells = static_cast<int64_t>(n_feat) * n_bins * n_slots * 3;
   const int64_t blocks = (n_cells + kReduceThreads - 1) / kReduceThreads;
   hist_reduce_kernel<AccT, OutT>
       <<<static_cast<unsigned>(blocks), kReduceThreads, 0, stream>>>(
           static_cast<const AccT*>(partial), static_cast<OutT*>(out),
-          n_cells, n_clusters);
+          n_cells, n_parts);
   return cudaGetLastError();
+}
+
+// The launch of the plan's kind of cluster.
+template <typename BinT, typename AccT, typename OutT>
+cudaError_t launch_plan(const void* binned, const void* lid, const void* grad,
+                        const void* hess, const void* weight, void* partial,
+                        void* out, int n, int n_feat, int n_bins, int n_slots,
+                        const Plan& p, cudaStream_t stream) {
+  return p.split_rows
+             ? launch<BinT, AccT, OutT, true>(binned, lid, grad, hess, weight,
+                                              partial, out, n, n_feat, n_bins,
+                                              n_slots, p, stream)
+             : launch<BinT, AccT, OutT, false>(binned, lid, grad, hess,
+                                               weight, partial, out, n,
+                                               n_feat, n_bins, n_slots, p,
+                                               stream);
 }
 
 bool aligned16(const void* p) {
@@ -607,12 +815,12 @@ int dispatch(int bin_bytes, const void* binned, const void* lid,
   if (n <= 0 || n_feat <= 0 || n_bins <= 0 || n_slots <= 0 ||
       p.chunk_rows <= 0 || p.chunk_rows % kWarp != 0 || p.n_chunks <= 0 ||
       p.ft <= 0 || p.bt <= 0 || p.st <= 0 || p.cluster <= 0 ||
-      p.cluster > kMaxCluster || p.n_chunks % p.cluster != 0 ||
-      p.sub_rows <= 0 || p.sub_rows % kWarp != 0 ||
-      p.groups <= 0 || p.groups > p.st || p.sub_rows > 65536 ||
-      p.threads < (p.ft + 1) * p.groups * kWarp ||
-      p.threads > kMaxThreads ||
-      p.threads % kWarp != 0 ||
+      p.cluster > kMaxCluster || p.sub_rows <= 0 ||
+      (p.split_rows != 0 && p.n_chunks % p.cluster != 0) ||
+      p.sub_rows % kWarp != 0 || p.groups <= 0 || p.groups > p.st ||
+      p.sub_rows > 65536 ||
+      p.threads < ((p.ft + 1) * p.groups + 1) * kWarp ||
+      p.threads > kMaxThreads || p.threads % kWarp != 0 ||
       static_cast<int64_t>(p.chunk_rows) * p.n_chunks <
           static_cast<int64_t>(n) ||
       !aligned16(binned) || !aligned16(lid) || !aligned16(grad) ||
@@ -622,15 +830,15 @@ int dispatch(int bin_bytes, const void* binned, const void* lid,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (bin_bytes) {
     case 1:
-      return static_cast<int>(launch<uint8_t, AccT, OutT>(
+      return static_cast<int>(launch_plan<uint8_t, AccT, OutT>(
           binned, lid, grad, hess, weight, partial, out, n, n_feat, n_bins,
           n_slots, p, s));
     case 2:
-      return static_cast<int>(launch<uint16_t, AccT, OutT>(
+      return static_cast<int>(launch_plan<uint16_t, AccT, OutT>(
           binned, lid, grad, hess, weight, partial, out, n, n_feat, n_bins,
           n_slots, p, s));
     case 4:
-      return static_cast<int>(launch<int32_t, AccT, OutT>(
+      return static_cast<int>(launch_plan<int32_t, AccT, OutT>(
           binned, lid, grad, hess, weight, partial, out, n, n_feat, n_bins,
           n_slots, p, s));
     default:
@@ -642,13 +850,17 @@ int dispatch(int bin_bytes, const void* binned, const void* lid,
 
 // bin_bytes: 1 = uint8, 2 = uint16, 4 = int32 bin matrix (n, n_feat),
 // row-major. lid: int32 (n,); grad, hess, weight: f32 (n,); every operand
-// 16-byte aligned. out: f32 (n_feat*n_bins, n_slots*3). partial: float64
-// (n_chunks/cluster, n_feat*n_bins*n_slots*3) scratch, null when
-// n_chunks == cluster. Rows [c*chunk_rows, (c+1)*chunk_rows) form chunk c;
-// tiles are ft features x bt bins x st slots in `groups` slot groups;
-// `cluster` consecutive chunks form a cluster; rows are staged sub_rows at
-// a time (bins too when stage_bins); `threads` per block, at least
-// (ft + 1) * groups warps. Returns a cudaError_t.
+// 16-byte aligned. out: f32 (n_feat*n_bins, n_slots*3). Rows
+// [c*chunk_rows, (c+1)*chunk_rows) form row range c; tiles are ft
+// features x bt bins x st slots in `groups` slot groups. split_rows 0:
+// one cluster of `cluster` blocks reads each row range once for
+// `cluster` tiles (a pass); split_rows 1: each row range is one block's,
+// and `cluster` consecutive ones share a tile (n_chunks a multiple of
+// cluster). partial: float64 (partials, n_feat*n_bins*n_slots*3)
+// scratch, one a cluster of a pass (n_chunks, or n_chunks / cluster with
+// split_rows), null when that is 1. Rows are staged sub_rows at a time
+// (bins too when stage_bins); `threads` per block, at least
+// ((ft + 1) * groups + 1) warps. Returns a cudaError_t.
 extern "C" int sml_hist_accumulate(int bin_bytes, const void* binned,
                                    const void* lid, const void* grad,
                                    const void* hess, const void* weight,
@@ -657,9 +869,9 @@ extern "C" int sml_hist_accumulate(int bin_bytes, const void* binned,
                                    int chunk_rows, int n_chunks, int ft,
                                    int bt, int st, int groups, int cluster,
                                    int sub_rows, int stage_bins, int threads,
-                                   void* stream) {
+                                   int split_rows, void* stream) {
   const Plan p{chunk_rows, n_chunks, ft, bt, st, groups, cluster, sub_rows,
-               stage_bins, threads};
+               stage_bins, threads, split_rows};
   return dispatch<double, float>(bin_bytes, binned, lid, grad, hess,
                                  weight, partial, out, n, n_feat, n_bins,
                                  n_slots, p, stream);
@@ -674,9 +886,9 @@ extern "C" int sml_hist_accumulate_f64out(
     const void* hess, const void* weight, void* partial, void* out, int n,
     int n_feat, int n_bins, int n_slots, int chunk_rows, int n_chunks,
     int ft, int bt, int st, int groups, int cluster, int sub_rows,
-    int stage_bins, int threads, void* stream) {
+    int stage_bins, int threads, int split_rows, void* stream) {
   const Plan p{chunk_rows, n_chunks, ft, bt, st, groups, cluster, sub_rows,
-               stage_bins, threads};
+               stage_bins, threads, split_rows};
   return dispatch<double, double>(bin_bytes, binned, lid, grad, hess,
                                   weight, partial, out, n, n_feat, n_bins,
                                   n_slots, p, stream);
@@ -689,9 +901,9 @@ extern "C" int sml_hist_accumulate_f32acc(
     const void* hess, const void* weight, void* partial, void* out, int n,
     int n_feat, int n_bins, int n_slots, int chunk_rows, int n_chunks,
     int ft, int bt, int st, int groups, int cluster, int sub_rows,
-    int stage_bins, int threads, void* stream) {
+    int stage_bins, int threads, int split_rows, void* stream) {
   const Plan p{chunk_rows, n_chunks, ft, bt, st, groups, cluster, sub_rows,
-               stage_bins, threads};
+               stage_bins, threads, split_rows};
   return dispatch<float, float>(bin_bytes, binned, lid, grad, hess, weight,
                                 partial, out, n, n_feat, n_bins, n_slots, p,
                                 stream);

@@ -6,7 +6,7 @@ replace the TPU kernels of the same names in
 `sml_tpu/native/hist_kernel.py`. Their signatures are the JAX ones
 without `interpret`, `block_rows` and `hist_dtype`: operands and results
 are f32, as the JAX package computes off the TPU, and the launches
-(row chunks, tiles, clusters, staging; warps and bin segments) come from
+(row ranges, tiles, clusters, staging; warps and bin segments) come from
 the shapes (`hist_plan`, `scan_plan`, cached per shape), never from
 configuration or from the device.
 
@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 import threading
 from typing import NamedTuple
 
@@ -37,6 +38,9 @@ from . import build
 
 #: kernel launches made by each wrapper in this process
 LAUNCHES = {"hist_accumulate": 0, "split_scan": 0}
+#: reads of the call's rows from device memory by `hist_accumulate`'s
+#: kernel launches (its plans' `passes`, summed over the calls)
+ROW_PASSES = {"hist_accumulate": 0}
 _count_lock = threading.Lock()
 
 _BIN_BYTES = {torch.uint8: 1, torch.uint16: 2, torch.int32: 4}
@@ -57,33 +61,57 @@ _SMEM_RESERVED = 1024
 _SM_THREADS = 2048
 _SM_REGS = 65536
 _REGS = 64
-#: shared-memory bytes of one block's histogram tile and its lane tags:
-#: four or more blocks per SM
-_TILE_BYTES = 52 * 1024
-#: warps that own a feature each, and threads, per block
-_MAX_WARPS = 16
-_MIN_THREADS = 256
-#: rows a feature warp takes in one round (one to a lane); chunks and
+#: warps of a block: owners, listers and the producer's
+_MAX_WARPS = 32
+#: rows a feature warp takes in one round (one to a lane); row ranges and
 #: staged sub-chunks are multiples of it
 _ROUND = 32
-#: row buffers in a block's ring (`kStages` in the kernel), the rows of
-#: one (the sizes the plan may take), and the most bytes of bins one holds
-_STAGES = 3
-_SUB_ROWS = (64, 128, 256)
-_STAGE_BIN_BYTES = 8 * 1024
-#: owning warps an SM is given before other choices count
-_SM_WARPS = 12
-#: rows of one chunk: the least, and the most before the scratch bound
-_MIN_CHUNK_ROWS = 256
-_MAX_CHUNK_ROWS = 4096
-#: blocks of a thread block cluster (the portable limit)
+#: row buffers in a block's ring of a tile-split and of a row-split
+#: cluster (`kTileSplitStages`, `kRowSplitStages` in the kernel), the rows
+#: of one (the sizes the plan may take), and the most bytes of bins one holds
+_STAGES = 4
+_RS_STAGES = 3
+_SUB_ROWS = (64, 128, 256, 512)
+_STAGE_BIN_BYTES = 16 * 1024
+#: blocks of a thread block cluster (the portable limit), and the clusters
+#: of each size 1-8 that an H100 SXM runs at once at one block an SM
+#: (`cudaOccupancyMaxActiveClusters` on the card: a cluster's blocks share
+#: one GPC of 16-18 SMs); k blocks an SM hold about k times as many
 _MAX_CLUSTER = 8
-#: the share of the card's block slots one wave of clusters is sized to
-#: fill: a cluster's blocks share one GPC (16-18 SMs), which leaves some
-#: slots of each GPC to no whole cluster
-_WAVE_SHARE = (7, 8)
-#: bound on the cluster-partials scratch
+_CLUSTER_SLOTS = (132, 66, 39, 30, 22, 17, 15, 15)
+#: bound on the row ranges' float64 partials
 _SCRATCH_BYTES = 64 << 20
+#: where a cluster splits the tiles of a row range: tiles of at most this
+#: many slots, row ranges of at least this many rows. Else its blocks
+#: split the rows of one tile: a slot that holds most of a level's rows
+#: (as deep levels of a boosted fit do) then spreads over many blocks, and
+#: a small call over many short blocks
+_TILE_SPLIT_SLOTS = 4
+_TILE_SPLIT_ROWS = 65536
+#: row-split clusters: a tile's bytes (four blocks an SM), owning warps an
+#: SM is given before other choices count, the sub-chunk sizes and staged
+#: bins, the rows of one block, and the share of the card's block slots
+#: one wave of clusters is sized to fill (a cluster's blocks share one GPC)
+_RS_TILE_BYTES = 52 * 1024
+_RS_MAX_WARPS = 16
+_RS_MIN_THREADS = 256
+_RS_SM_WARPS = 12
+_RS_SUB_ROWS = (64, 128, 256)
+_RS_STAGE_BIN_BYTES = 8 * 1024
+_RS_MIN_CHUNK_ROWS = 256
+_RS_MAX_CHUNK_ROWS = 4096
+_RS_WAVE_SHARE = (7, 8)
+#: the plan's cost model, fitted to the kernel's times on an H100 at
+#: HIGGS's level shapes (PERF.md): an owner round (up to 32 rows of one
+#: feature) takes about `_ROUND_LATENCY` cycles from one to the warp's
+#: next, and an SM retires at most one every `_ROUND_CYCLES` cycles over
+#: all its warps; below the root about half the rows weigh 0; the boost
+#: clock, the bandwidth, and the cost of the second launch
+_ROUND_CYCLES = 110
+_ROUND_LATENCY = 1500
+_CLOCK_HZ = 1.98e9
+_HBM_BYTES_PER_S = 3.35e12
+_LAUNCH_S = 3e-6
 #: split_scan: dynamic shared memory of one block (48 KB without opting
 #: in, less the block's 256 static bytes), and warps (features) per block
 _SCAN_SMEM = 47 * 1024
@@ -91,17 +119,20 @@ _SCAN_MAX_WARPS = 16
 
 
 class HistPlan(NamedTuple):
-    chunk_rows: int   # rows of a chunk, a multiple of 32
-    n_chunks: int     # a multiple of `cluster`; trailing chunks may be empty
-    ft: int           # features per tile (one warp each)
+    chunk_rows: int   # rows of a row range, a multiple of 32
+    n_chunks: int     # row ranges (with split_rows, a multiple of cluster)
+    ft: int           # features per tile
     bt: int           # bins per tile
     st: int           # slots per tile
     groups: int       # slot groups of a tile (one warp each per feature)
-    cluster: int      # chunks (blocks) per thread block cluster
+    cluster: int      # blocks per thread block cluster
+    passes: int       # reads of the rows: tiles / cluster, or tiles
     sub_rows: int     # rows staged at a time, a multiple of 32
     stage_bins: int   # 1: bins are staged too; 0: read from global memory
-    threads: int      # per block
+    threads: int      # per block: owners, listers and the producer
     smem: int         # dynamic shared memory of a block, in bytes
+    split_rows: int   # 0: a cluster's blocks hold `cluster` tiles of one
+                      # row range; 1: they hold one tile, a range each
 
 
 class ScanPlan(NamedTuple):
@@ -122,95 +153,239 @@ def _up(x: int, m: int) -> int:
 
 
 def hist_smem(acc_bytes: int, ft: int, bt: int, st: int, groups: int,
-              sub_rows: int, row_bin_bytes: int) -> int:
+              sub_rows: int, row_bin_bytes: int, stages: int) -> int:
     """Dynamic shared memory of one `hist_accumulate` block, as the
-    kernel lays it out (`Layout` in `csrc/hist_accumulate.cu`): an
-    mbarrier per stage, the tile, a one-byte lane tag per cell, two lists
-    of rows (uint16) of each slot group and their counts, and a ring of
-    `_STAGES` row buffers of [bins][lid][g][h][w]."""
+    kernel lays it out (`Layout` in `csrc/hist_accumulate.cu`): a full
+    and an empty mbarrier per stage, the tile, a one-byte lane tag per
+    cell, two lists of rows (uint16) of each slot group and their counts,
+    and a ring of `stages` row buffers of [bins][lid][g][h][w]."""
     keys = ft * bt * st
     buf = _up(sub_rows * row_bin_bytes, 16) + 16 * sub_rows
-    return (_up(8 * _STAGES, 16) + _up(3 * acc_bytes * keys, 16)
+    return (_up(16 * stages, 16) + _up(3 * acc_bytes * keys, 16)
             + _up(keys, 16) + _up(4 * groups * sub_rows, 16)
-            + _up(8 * groups, 16) + _STAGES * buf)
+            + _up(8 * groups, 16) + stages * buf)
+
+
+def _tiles(n_feat: int, n_bins: int, n_slots: int, cell: int,
+           row_bin_bytes: int):
+    """Candidate tiles (ft, bt, st) that fit a block beside the least
+    ring: whole features (every bin and slot) where one fits, else one
+    feature's slots in tiles, else one slot's bins."""
+    sub = _SUB_ROWS[0]
+    staged = row_bin_bytes if sub * row_bin_bytes <= _STAGE_BIN_BYTES else 0
+    room = _SMEM_BLOCK - hist_smem(0, 0, 0, 0, 1, sub, staged, _STAGES)
+    if n_bins * n_slots * cell <= room:
+        return [(ft, n_bins, n_slots)
+                for ft in sorted({_even(n_feat, k)
+                                  for k in range(1, n_feat + 1)})
+                if ft * n_bins * n_slots * cell <= room]
+    if n_bins * cell <= room:
+        return [(1, n_bins, st)
+                for st in sorted({_even(n_slots, k)
+                                  for k in range(1, n_slots + 1)})
+                if n_bins * st * cell <= room]
+    return [(1, _even(n_bins, room // cell), 1)]
+
+
+def _cost_s(n: int, n_feat: int, cells: int, row_bytes: int, acc_bytes: int,
+            ft: int, groups: int, sub: int, per_sm: int, passes: int,
+            chunks: int) -> float:
+    """The cost model's seconds of one launch: the owners' rounds on the
+    busiest SM (at the shared-memory pipe's rate, or at the round's
+    latency over the SM's owning warps, whichever is slower, with each
+    round's lanes filled by a group's rows of a sub-chunk), or the rows'
+    reads from device memory, whichever is longer; then the row ranges'
+    partials written and read, and the second launch."""
+    chunk = _up(-(-n // chunks), _ROUND)
+    per_group = max(1.0, min(sub, chunk) / (2 * groups))
+    fill = per_group / (_ROUND * -(-per_group // _ROUND))
+    rounds = per_sm * ft * chunk / (2 * _ROUND * fill)
+    cycles = max(_ROUND_CYCLES, _ROUND_LATENCY / (per_sm * ft * groups))
+    compute = rounds * cycles / _CLOCK_HZ
+    reads = passes * n * row_bytes / _HBM_BYTES_PER_S
+    parts = 0.0 if chunks == 1 else \
+        2 * chunks * cells * 3 * acc_bytes / _HBM_BYTES_PER_S + _LAUNCH_S
+    return max(compute, reads) + parts
 
 
 @functools.lru_cache(maxsize=512)
 def hist_plan(n: int, n_feat: int, n_bins: int, n_slots: int, *,
               bin_bytes: int = 1, acc_bytes: int = 8) -> HistPlan:
-    """The launch of `hist_accumulate`, from the shapes alone.
+    """The launch of `hist_accumulate`, from the shapes alone: clusters
+    that split the tiles of a row range (`_tile_split_plan`) where its
+    tiles hold at most `_TILE_SPLIT_SLOTS` slots and its row ranges at
+    least `_TILE_SPLIT_ROWS` rows, else clusters that split the rows of a
+    tile (`_row_split_plan`). The first reads a level's rows once for up
+    to 8 tiles; the second reads them once a tile, but spreads each
+    tile's rows over many short blocks, which a level whose rows crowd
+    into a few slots, or a small call, needs (PERF.md: at HIGGS's deep
+    levels one slot held 43-54% of the weighted rows)."""
+    plan = _tile_split_plan(n, n_feat, n_bins, n_slots, bin_bytes,
+                            acc_bytes)
+    if plan.st <= _TILE_SPLIT_SLOTS \
+            and max(n, 1) >= _TILE_SPLIT_ROWS * plan.n_chunks:
+        return plan
+    return _row_split_plan(n, n_feat, n_bins, n_slots, bin_bytes, acc_bytes)
 
-    A tile of ft features x bt bins x st slots holds three sums of
-    `acc_bytes` (8: the port's float64; 4: the f32-accumulating build
-    that `chip_smoke.py` times) a cell, and its lane tag, within
-    `_TILE_BYTES`: features are tiled first, then slots, then bins. A
-    warp owns one feature's cells of one of `groups` slot groups and
+
+def _tile_split_plan(n: int, n_feat: int, n_bins: int, n_slots: int,
+                     bin_bytes: int, acc_bytes: int) -> HistPlan:
+    """The launch of `hist_accumulate` with clusters that split tiles.
+
+    The level's histogram (F x B x S cells of three sums of `acc_bytes`,
+    8: the port's float64; 4: the f32-accumulating build that
+    `chip_smoke.py` times, and a one-byte lane tag) is cut into tiles of
+    ft features x bt bins x st slots, each held by one block in its own
+    shared memory: whole features where one fits a block (up to
+    `_SMEM_BLOCK` with its ring), else one feature's slots, else one
+    slot's bins. A thread block cluster of up to `_MAX_CLUSTER` blocks
+    holds as many tiles and reads a row range once for all of them, so
+    the rows cross device memory `passes` = ceil(tiles / cluster) times.
+    A warp owns one feature's cells of one of `groups` slot groups and
     walks only the rows of its group, which a listing warp per group
-    lists a sub-chunk ahead. Rows are staged `sub_rows` at a
-    time into a ring of `_STAGES` buffers (their bins too, when they fit
-    `_STAGE_BIN_BYTES`). Of the feature tiles, group counts and sub-chunk
-    sizes that fit, the plan takes the one that keeps the most owning
-    warps resident on an SM (up to `_SM_WARPS`; then fewer groups, wider
-    feature tiles, staged bins, longer sub-chunks), as many blocks to an
-    SM as its shared memory, threads and registers hold. Chunks are sized so that about one
-    wave of blocks covers the rows (about `_MIN_CHUNK_ROWS` to
-    `_MAX_CHUNK_ROWS` rows), then grouped in whole clusters of up to
-    `_MAX_CLUSTER`; the clusters' float64 partials stay within
-    `_SCRATCH_BYTES`, else chunks grow."""
+    lists a sub-chunk ahead; block 0's producer warp stages `sub_rows`
+    rows at a time into every block's ring of `_STAGES` buffers (their
+    bins too, when they fit `_STAGE_BIN_BYTES`).
+
+    Of the tiles, group counts and sub-chunk sizes that fit a block, the
+    plan takes those with the fewest passes, then the least time by its
+    cost model (`_cost_s`: the owners' rounds at the SM's rate or at
+    their own latency, with lanes filled by a group's rows of a
+    sub-chunk, against the rows' reads and the partials' traffic; costs
+    within 5% count as equal), then fewer tiles and groups. The adds,
+    not the reads, set the pace at every shape the port runs: a round
+    costs about 1,500 cycles of one warp's time, so the plan wants many
+    owning warps with full rounds, and tiles sized to the SM serve that
+    too. Row ranges: as many clusters a pass as the card
+    runs at once (`_CLUSTER_SLOTS`, times the blocks an SM holds), or
+    fewer where the partials' traffic costs more than the rows' spread
+    saves, within `_SCRATCH_BYTES` of partials."""
     cell = 3 * acc_bytes + 1   # three sums and the cell's lane tag
-    if n_bins * n_slots * cell <= _TILE_BYTES:
-        bt, st = n_bins, n_slots
-        ft_most = min(_MAX_WARPS, _TILE_BYTES // (n_bins * n_slots * cell))
-    elif n_bins * cell <= _TILE_BYTES:
-        ft_most, bt = 1, n_bins
-        st = _even(n_slots, _TILE_BYTES // (n_bins * cell))
-    else:
-        ft_most, st = 1, 1
-        bt = _even(n_bins, _TILE_BYTES // cell)
+    cells = n_feat * n_bins * n_slots
+    row_bytes = n_feat * bin_bytes + 16
+    n = max(n, 1)
     best = None
-    for ft in sorted({_even(n_feat, k) for k in range(1, ft_most + 1)}):
-        for groups in (1, 2, 4, 8, 16):
-            if groups > st or (ft + 1) * groups > _MAX_WARPS \
-                    or (groups - 1) * -(-st // groups) >= st:
-                continue   # too many warps, or a group with no slot
+    for ft, bt, st in _tiles(n_feat, n_bins, n_slots, cell,
+                             n_feat * bin_bytes):
+        tiles = -(-n_feat // ft) * -(-n_bins // bt) * -(-n_slots // st)
+        passes = -(-tiles // _MAX_CLUSTER)
+        cluster = -(-tiles // passes)
+        for groups in range(1, min(st, 16) + 1):
+            if (groups - 1) * -(-st // groups) >= st \
+                    or (ft + 1) * groups + 1 > _MAX_WARPS:
+                continue   # a group with no slot, or too many warps
+            threads = 32 * ((ft + 1) * groups + 1)
             for sub in _SUB_ROWS:
-                if sub < _ROUND * groups:
-                    continue
                 stage_bins = sub * n_feat * bin_bytes <= _STAGE_BIN_BYTES
-                row_bins = n_feat * bin_bytes if stage_bins else 0
-                # owners, then one listing warp per group
-                threads = 32 * max((ft + 1) * groups, _MIN_THREADS // 32)
                 smem = hist_smem(acc_bytes, ft, bt, st, groups, sub,
-                                 row_bins)
+                                 n_feat * bin_bytes if stage_bins else 0,
+                                 _STAGES)
                 per_sm = min(_SMEM_SM // (smem + _SMEM_RESERVED),
                              _SM_THREADS // threads,
                              _SM_REGS // (threads * _REGS))
                 if smem > _SMEM_BLOCK or per_sm < 1:
                     continue
-                score = (min(per_sm * ft * groups, _SM_WARPS), -groups, ft,
-                         stage_bins, sub)
+                most = max(1, min(_CLUSTER_SLOTS[cluster - 1] * per_sm
+                                  // passes, -(-n // _ROUND),
+                                  _SCRATCH_BYTES // (cells * 3 * acc_bytes)))
+                for chunks in {most} | {1 << k for k in range(20)
+                                        if 1 << k < most}:
+                    cost = _cost_s(n, n_feat, cells, row_bytes, acc_bytes,
+                                   ft, groups, sub, per_sm, passes, chunks)
+                    # costs within 5% count as equal: the model is no
+                    # closer than that to the card
+                    key = (passes, round(math.log(cost) / math.log(1.05)),
+                           tiles, groups, -stage_bins, -sub, cost)
+                    if best is None or key < best[0]:
+                        best = (key, ft, bt, st, groups, cluster, passes,
+                                sub, int(stage_bins), threads, chunks)
+    _, ft, bt, st, groups, cluster, passes, sub, stage_bins, threads, \
+        chunks = best
+    chunk_rows = _up(-(-n // chunks), _ROUND)
+    n_chunks = -(-n // chunk_rows)
+    sub = min(sub, chunk_rows)
+    smem = hist_smem(acc_bytes, ft, bt, st, groups, sub,
+                     n_feat * bin_bytes if stage_bins else 0,
+                     _STAGES)
+    return HistPlan(chunk_rows, n_chunks, ft, bt, st, groups, cluster,
+                    passes, sub, stage_bins, threads, smem, 0)
+
+
+def _row_split_plan(n: int, n_feat: int, n_bins: int, n_slots: int,
+                    bin_bytes: int, acc_bytes: int) -> HistPlan:
+    """The launch of `hist_accumulate` with clusters that split rows.
+
+    A tile of ft features x bt bins x st slots and its lane tags fit
+    `_RS_TILE_BYTES` (features are tiled first, then slots, then bins);
+    each block adds one range of rows into it, staged by itself into a
+    ring of `_RS_STAGES` sub-chunks (one fewer than a tile-split block's:
+    the room goes to a third or fourth block an SM), and the
+    blocks of a cluster (consecutive ranges of one tile) sum their tiles
+    through distributed shared memory into one partial. Of the feature
+    tiles, group counts and sub-chunk sizes that fit, the plan takes the
+    one that keeps the most owning warps resident on an SM (up to
+    `_RS_SM_WARPS`; then fewer groups, wider feature tiles, staged bins,
+    longer sub-chunks). Row ranges are sized so that about one wave of
+    blocks covers the rows (`_RS_MIN_CHUNK_ROWS` to `_RS_MAX_CHUNK_ROWS`
+    rows), grouped in whole clusters of up to `_MAX_CLUSTER`, whose
+    float64 partials stay within `_SCRATCH_BYTES`, else ranges grow."""
+    cell = 3 * acc_bytes + 1
+    if n_bins * n_slots * cell <= _RS_TILE_BYTES:
+        bt, st = n_bins, n_slots
+        ft_most = min(_RS_MAX_WARPS,
+                      _RS_TILE_BYTES // (n_bins * n_slots * cell))
+    elif n_bins * cell <= _RS_TILE_BYTES:
+        ft_most, bt = 1, n_bins
+        st = _even(n_slots, _RS_TILE_BYTES // (n_bins * cell))
+    else:
+        ft_most, st = 1, 1
+        bt = _even(n_bins, _RS_TILE_BYTES // cell)
+    best = None
+    for ft in sorted({_even(n_feat, k) for k in range(1, ft_most + 1)}):
+        for groups in (1, 2, 4, 8, 16):
+            if groups > st or (ft + 1) * groups + 1 > _RS_MAX_WARPS \
+                    or (groups - 1) * -(-st // groups) >= st:
+                continue   # too many warps, or a group with no slot
+            for sub in _RS_SUB_ROWS:
+                if sub < _ROUND * groups:
+                    continue
+                stage_bins = sub * n_feat * bin_bytes <= _RS_STAGE_BIN_BYTES
+                threads = 32 * max((ft + 1) * groups + 1,
+                                   _RS_MIN_THREADS // 32)
+                smem = hist_smem(acc_bytes, ft, bt, st, groups, sub,
+                                 n_feat * bin_bytes if stage_bins else 0,
+                                 _RS_STAGES)
+                per_sm = min(_SMEM_SM // (smem + _SMEM_RESERVED),
+                             _SM_THREADS // threads,
+                             _SM_REGS // (threads * _REGS))
+                if smem > _SMEM_BLOCK or per_sm < 1:
+                    continue
+                score = (min(per_sm * ft * groups, _RS_SM_WARPS), -groups,
+                         ft, stage_bins, sub)
                 if best is None or score > best[0]:
                     best = (score, ft, groups, sub, int(stage_bins), threads,
-                            smem, per_sm)
-    _, ft, groups, sub, stage_bins, threads, smem, per_sm = best
+                            per_sm)
+    _, ft, groups, sub, stage_bins, threads, per_sm = best
     tiles = -(-n_feat // ft) * -(-n_bins // bt) * -(-n_slots // st)
-    want = max(1, _SMS * per_sm * _WAVE_SHARE[0] // _WAVE_SHARE[1] // tiles)
-    chunk_rows = min(_MAX_CHUNK_ROWS,
-                     max(_MIN_CHUNK_ROWS, _up(-(-max(n, 1) // want), _ROUND)))
-    chunks = -(-max(n, 1) // chunk_rows)
+    n = max(n, 1)
+    want = max(1, _SMS * per_sm * _RS_WAVE_SHARE[0] // _RS_WAVE_SHARE[1]
+               // tiles)
+    chunk_rows = min(_RS_MAX_CHUNK_ROWS,
+                     max(_RS_MIN_CHUNK_ROWS, _up(-(-n // want), _ROUND)))
+    chunks = -(-n // chunk_rows)
     cluster = min(_MAX_CLUSTER, chunks)
     clusters = max(1, chunks // cluster)   # whole clusters within the wave
     if clusters > 1:
         per_part = n_feat * n_bins * n_slots * 3 * acc_bytes
         clusters = min(clusters, max(1, _SCRATCH_BYTES // per_part))
     n_chunks = clusters * cluster
-    chunk_rows = _up(-(-max(n, 1) // n_chunks), _ROUND)
-    if sub > chunk_rows:
-        sub = chunk_rows
-        smem = hist_smem(acc_bytes, ft, bt, st, groups, sub,
-                         n_feat * bin_bytes if stage_bins else 0)
-    return HistPlan(chunk_rows, n_chunks, ft, bt, st, groups, cluster, sub,
-                    stage_bins, threads, smem)
+    chunk_rows = _up(-(-n // n_chunks), _ROUND)
+    sub = min(sub, chunk_rows)
+    smem = hist_smem(acc_bytes, ft, bt, st, groups, sub,
+                     n_feat * bin_bytes if stage_bins else 0,
+                     _RS_STAGES)
+    return HistPlan(chunk_rows, n_chunks, ft, bt, st, groups, cluster,
+                    tiles, sub, stage_bins, threads, smem, 1)
 
 
 @functools.lru_cache(maxsize=512)
@@ -351,7 +526,7 @@ def _check_scan(hist, feat_mask, min_inst) -> None:
 # ------------------------------------------------------------ launches
 #: ctypes argument types of each entry point
 HIST_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 7 \
-    + [ctypes.c_int] * 14 + [ctypes.c_void_p]
+    + [ctypes.c_int] * 15 + [ctypes.c_void_p]
 _SCAN_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
     + [ctypes.c_float] * 2 + [ctypes.c_void_p]
 
@@ -385,9 +560,9 @@ def launch_hist(fn, plan: HistPlan, binned, lid, grad, hess, weight,
                 out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Launch a `hist_accumulate` entry point (`fn`) with `plan` on the
     current stream; allocates the `out_dtype` output and, with more than
-    one cluster, the (clusters, F*B*S*3) `acc_dtype` scratch. `record`
-    puts the launch into the prewarm manifest (`hist_accumulate`'s
-    own)."""
+    one row range, the (row ranges, F*B*S*3) `acc_dtype` scratch.
+    `record` puts the launch into the prewarm manifest
+    (`hist_accumulate`'s own)."""
     n, n_feat = binned.shape
     dev = binned.device
     out = torch.empty((n_feat * n_bins, n_slots * 3), dtype=out_dtype,
@@ -395,7 +570,8 @@ def launch_hist(fn, plan: HistPlan, binned, lid, grad, hess, weight,
     scalars = {"n_bins": n_bins, "n_slots": n_slots}
     if out_dtype != torch.float32:
         scalars["out_dtype"] = _OUT_DTYPES[out_dtype]
-    parts = plan.n_chunks // plan.cluster
+    parts = plan.n_chunks // plan.cluster if plan.split_rows \
+        else plan.n_chunks
     scratch = None if parts == 1 else torch.empty(
         (parts, n_feat * n_bins * n_slots * 3), dtype=acc_dtype, device=dev)
     err = build.launch_on_stream(
@@ -404,7 +580,7 @@ def launch_hist(fn, plan: HistPlan, binned, lid, grad, hess, weight,
         None if scratch is None else scratch.data_ptr(), out.data_ptr(), n,
         n_feat, n_bins, n_slots, plan.chunk_rows, plan.n_chunks, plan.ft,
         plan.bt, plan.st, plan.groups, plan.cluster, plan.sub_rows,
-        plan.stage_bins, plan.threads,
+        plan.stage_bins, plan.threads, plan.split_rows,
         record=("hist_accumulate", plan, [binned, lid, grad, hess, weight],
                 scalars) if record else None)
     if err != 0:
@@ -414,9 +590,11 @@ def launch_hist(fn, plan: HistPlan, binned, lid, grad, hess, weight,
     return out
 
 
-def _count(name: str) -> None:
+def _count(name: str, passes: int = 0) -> None:
     with _count_lock:
         LAUNCHES[name] += 1
+        if passes:
+            ROW_PASSES[name] += passes
 
 
 def hist_accumulate(binned: torch.Tensor, lid: torch.Tensor,
@@ -432,11 +610,12 @@ def hist_accumulate(binned: torch.Tensor, lid: torch.Tensor,
     ranks' sums before it rounds).
 
     CUDA operands (16-byte aligned) launch the kernel on the current
-    stream: blocks of row chunks sum their cells in float64, clusters of
-    them add their tiles in rank order, and (with more than one cluster)
-    a second pass sums the clusters' partials in order, rounded to f32
-    (or not). The result is bit-identical from run to run. CPU operands
-    run `hist_accumulate_plain`."""
+    stream: thread block clusters that read a row range once for the
+    tiles of all their blocks, or that split a tile's rows over their
+    blocks (`hist_plan`), sum the cells in float64, and (with more than
+    one cluster) a second kernel sums the clusters' partials in order,
+    rounded to f32 (or not). The result is bit-identical from run to
+    run. CPU operands run `hist_accumulate_plain`."""
     B, S = int(n_bins), int(n_slots)
     if isinstance(out_dtype, str):
         out_dtype = getattr(torch, out_dtype)
@@ -454,12 +633,21 @@ def hist_accumulate(binned: torch.Tensor, lid: torch.Tensor,
     if n == 0:
         return torch.zeros((n_feat * B, S * 3), dtype=out_dtype, device=dev)
     check_aligned(binned, lid, grad, hess, weight)
-    plan = hist_plan(n, n_feat, B, S, bin_bytes=_BIN_BYTES[binned.dtype])
+    return _launch_level(binned, lid, grad, hess, weight, B, S, out_dtype)
+
+
+def _launch_level(binned, lid, grad, hess, weight, n_bins: int,
+                  n_slots: int, out_dtype) -> torch.Tensor:
+    """One checked `hist_accumulate` call's launch with its shapes' plan,
+    counted in `LAUNCHES` and `ROW_PASSES`."""
+    n, n_feat = binned.shape
+    plan = hist_plan(n, n_feat, n_bins, n_slots,
+                     bin_bytes=_BIN_BYTES[binned.dtype])
     entry = "" if out_dtype == torch.float32 else "_f64out"
     out = launch_hist(_kernel("hist_accumulate", entry), plan, binned, lid,
-                      grad, hess, weight, B, S, torch.float64, record=True,
-                      out_dtype=out_dtype)
-    _count("hist_accumulate")
+                      grad, hess, weight, n_bins, n_slots, torch.float64,
+                      record=True, out_dtype=out_dtype)
+    _count("hist_accumulate", plan.passes)
     return out
 
 

@@ -229,65 +229,195 @@ def test_wrappers_refuse_bad_operands():
                       gamma=0.0)
 
 
+#: the benchmark cell's level shapes (HIGGS: 10.5M x 28 uint8 rows, 256
+#: bins; 1, 2, 4, 8 and 16 slots with histogram subtraction), and the
+#: course's: ML 11's XGBoost (80,000 rows, 64 bins, up to 32 slots) and
+#: the fused ML 07 grid's last level (640,008 rows, 40 bins, 96 slots)
+HIGGS_LEVELS = [(10_500_000, 28, 256, s, 1, 8) for s in (1, 2, 4, 8, 16)]
+COURSE_LEVELS = [(80_000, 10, 64, s, 1, 8) for s in (1, 2, 4, 8, 16, 32)] \
+    + [(640_008, 10, 40, 96, 1, 8)]
+#: shapes whose plans read the rows in several passes of tile-split
+#: clusters, with ranks that own no tile (`chip_smoke.HIST_PASS_SHAPES`)
+PASS_SHAPES = [(1_000_000, 220, 256, 2, 1, 8), (2_000_000, 250, 256, 1, 1, 8)]
+
+
 @pytest.mark.parametrize("n, n_feat, n_bins, n_slots, bin_bytes, acc_bytes", [
     (80_000, 10, 64, 1, 1, 8), (80_000, 10, 64, 16, 1, 8),
     (80_000, 10, 64, 32, 1, 8), (64_000, 10, 40, 16, 1, 8),
     (80_000, 10, 300, 32, 2, 8), (50_000, 4, 70_000, 2, 4, 8),
     (5, 3, 8, 1, 1, 8), (1_000_000, 10, 256, 64, 1, 8),
     (80_000, 10, 64, 16, 1, 4), (80_001, 10, 64, 8, 1, 8),
-    (3_001, 400, 16, 4, 4, 8), (16_000, 10, 64, 4, 1, 8)])
+    (3_001, 400, 16, 4, 4, 8), (16_000, 10, 64, 4, 1, 8)]
+    + HIGGS_LEVELS + COURSE_LEVELS + PASS_SHAPES)
 def test_hist_plan_fits_shared_memory_and_covers_every_row(
         n, n_feat, n_bins, n_slots, bin_bytes, acc_bytes):
     """The launch of `hist_accumulate` fits the card (shared memory of a
-    block and of an SM, clusters, grid and block limits), covers every
-    row exactly once, and stages rows with bulk copies whose addresses and
-    sizes are multiples of 16 bytes."""
+    block and of an SM, threads and registers, cluster size, every
+    cluster of a tile-split plan resident at once, grid limits), gives
+    every cell of the histogram to exactly one tile, covers every row
+    exactly once a pass, stages rows with bulk copies whose addresses and
+    sizes are multiples of 16 bytes, and keeps the partials within their
+    bound. The benchmark cell's levels of up to 4 slots read their rows
+    once, for every tile; its deeper levels and the course's small calls
+    take clusters that split a tile's rows."""
     p = hk.hist_plan(n, n_feat, n_bins, n_slots, bin_bytes=bin_bytes,
                      acc_bytes=acc_bytes)
-    assert (3 * acc_bytes + 1) * p.ft * p.bt * p.st <= hk._TILE_BYTES
-    assert 1 <= p.ft <= min(hk._MAX_WARPS, n_feat)
-    assert 1 <= p.groups <= p.st and (p.ft + 1) * p.groups <= hk._MAX_WARPS
+    assert 1 <= p.bt <= n_bins and 1 <= p.st <= n_slots
+    assert 1 <= p.ft <= n_feat
+    # one warp per (feature, slot group), one lister per group, the
+    # producer; within a block's threads and 64 registers a thread
+    assert 1 <= p.groups <= p.st
+    assert 32 * ((p.ft + 1) * p.groups + 1) <= p.threads <= 1024
+    assert p.threads % 32 == 0 and p.split_rows in (0, 1)
+    assert p.threads * hk._REGS <= 65536
     # the slot groups (ceil(st / groups) slots each) cover the tile's slots
     gs = -(-p.st // p.groups)
     assert (p.groups - 1) * gs < p.st <= p.groups * gs
-    assert 1 <= p.bt <= n_bins and 1 <= p.st <= n_slots
     # shared memory: the kernel's layout, a block's limit, and at least
     # one resident block per SM with its reserved kilobyte
     row_bins = n_feat * bin_bytes if p.stage_bins else 0
+    stages = hk._RS_STAGES if p.split_rows else hk._STAGES
     assert p.smem == hk.hist_smem(acc_bytes, p.ft, p.bt, p.st, p.groups,
-                                  p.sub_rows, row_bins)
+                                  p.sub_rows, row_bins, stages)
     assert p.smem <= 227 * 1024
-    per_sm = (228 * 1024) // (p.smem + 1024)
-    assert per_sm >= 1 and per_sm * (p.smem + 1024) <= 228 * 1024
+    per_sm = min((228 * 1024) // (p.smem + 1024), 2048 // p.threads)
+    assert per_sm >= 1
     assert p.sub_rows * row_bins <= hk._STAGE_BIN_BYTES
     assert p.sub_rows in hk._SUB_ROWS or p.sub_rows == p.chunk_rows
     assert p.sub_rows < 2 ** 16          # row lists hold uint16
-    # clusters, grid and block
-    assert 1 <= p.cluster <= 8 and p.n_chunks % p.cluster == 0
-    assert -(-n_feat // p.ft) <= 65535
-    assert -(-n_bins // p.bt) * -(-n_slots // p.st) <= 65535
-    assert p.n_chunks < 2 ** 31
-    assert p.threads % 32 == 0 and 32 * (p.ft + 1) * p.groups <= p.threads
-    assert p.threads <= 512
-    parts = p.n_chunks // p.cluster
+    # tiles: a cluster's blocks hold `cluster` of them a pass, and every
+    # cell lies in exactly one tile
+    tiles = -(-n_feat // p.ft) * -(-n_bins // p.bt) * -(-n_slots // p.st)
+    assert 1 <= p.cluster <= 8
+    if p.split_rows:      # a tile a cluster, its rows over the blocks
+        assert p.passes == tiles and p.n_chunks % p.cluster == 0
+        parts = p.n_chunks // p.cluster
+    else:                 # `cluster` tiles a cluster, its rows read once
+        assert p.passes == -(-tiles // p.cluster)
+        assert (p.passes - 1) * p.cluster < tiles <= p.passes * p.cluster
+        parts = p.n_chunks
+    owned = np.zeros((n_feat, n_bins, n_slots), np.int8) \
+        if n_feat * n_bins * n_slots <= 10 ** 7 else None
+    if owned is not None:
+        n_bt, n_st = -(-n_bins // p.bt), -(-n_slots // p.st)
+        for t in range(tiles):
+            f0, b0, s0 = (t // (n_bt * n_st) * p.ft, t // n_st % n_bt * p.bt,
+                          t % n_st * p.st)
+            owned[f0:f0 + p.ft, b0:b0 + p.bt, s0:s0 + p.st] += 1
+        assert (owned == 1).all()
+    # every cluster of every pass of a tile-split plan resident at once
+    # (the clusters an H100 SXM holds) unless the passes alone outnumber
+    # them, within the grid's limits
+    if not p.split_rows:
+        assert p.passes * p.n_chunks \
+            <= max(p.passes, hk._CLUSTER_SLOTS[p.cluster - 1] * per_sm)
+    assert p.n_chunks * p.cluster < 2 ** 31 and p.passes <= 65535
     if parts > 1:
         assert parts * n_feat * n_bins * n_slots * 3 * acc_bytes \
             <= hk._SCRATCH_BYTES
-    # rows: chunks and their staged sub-chunks cover [0, n) exactly once,
-    # at 16-byte-aligned offsets, in bulk copies of multiples of 16 bytes
+    shape = (n, n_feat, n_bins, n_slots, bin_bytes, acc_bytes)
+    if shape in HIGGS_LEVELS:
+        assert (p.split_rows, p.passes) == ((0, 1) if n_slots <= 4
+                                            else (1, tiles))
+    if shape in COURSE_LEVELS:
+        assert p.split_rows == 1
+    if shape in PASS_SHAPES:
+        assert not p.split_rows and p.passes >= 2
+    # rows: row ranges and their staged sub-chunks cover [0, n) exactly
+    # once (a pass), at 16-byte-aligned offsets, in bulk copies of
+    # multiples of 16 bytes
     assert p.chunk_rows % 32 == 0 and p.sub_rows % 32 == 0
     assert p.sub_rows <= p.chunk_rows
-    seen = np.zeros(n, np.int64)
-    for c in range(p.n_chunks):
+    assert n <= p.n_chunks * p.chunk_rows    # trailing ranges may be empty
+    if not p.split_rows:
+        assert (p.n_chunks - 1) * p.chunk_rows < n
+    edges = np.zeros(n + 1, np.int64)   # +1 where a sub-chunk starts,
+    for c in range(p.n_chunks):         # -1 where it ends
         begin, end = c * p.chunk_rows, min((c + 1) * p.chunk_rows, n)
-        for r in range(begin, end, p.sub_rows):
-            cnt = min(p.sub_rows, end - r)
-            seen[r:r + cnt] += 1
-            bulk = cnt & ~15
-            assert (r * n_feat * bin_bytes) % 16 == 0 and (r * 4) % 16 == 0
-            assert (bulk * n_feat * bin_bytes) % 16 == 0 and (bulk * 4) % 16 == 0
-            assert cnt == bulk or r + cnt == n   # only the matrix's last rows
-    assert (seen == 1).all()
+        r = np.arange(begin, end, p.sub_rows)
+        cnt = np.minimum(p.sub_rows, end - r)
+        np.add.at(edges, r, 1)
+        np.add.at(edges, r + cnt, -1)
+        bulk = cnt & ~15
+        assert ((r * n_feat * bin_bytes) % 16 == 0).all()
+        assert ((r * 4) % 16 == 0).all()
+        assert ((bulk * n_feat * bin_bytes) % 16 == 0).all()
+        # only the matrix's last rows are left to plain loads
+        assert ((cnt == bulk) | (r + cnt == n)).all()
+    assert (np.cumsum(edges[:n]) == 1).all()
+
+
+#: the launches the course's calls took before tile-split clusters came
+#: in (chunk_rows, n_chunks, ft, bt, st, groups, cluster, sub_rows,
+#: stage_bins): ML 11 at each slot count, the fused ML 07 grid's last
+#: level, and the float64-output shapes of a mesh's ranks
+BEFORE = {
+    (80_000, 10, 64, 1): (384, 224, 10, 64, 1, 1, 8, 256, 1),
+    (80_000, 10, 64, 2): (384, 224, 10, 64, 2, 1, 8, 256, 1),
+    (80_000, 10, 64, 4): (384, 224, 5, 64, 4, 1, 8, 256, 1),
+    (80_000, 10, 64, 8): (736, 112, 4, 64, 8, 1, 8, 256, 1),
+    (80_000, 10, 64, 16): (1280, 64, 2, 64, 16, 2, 8, 256, 1),
+    (80_000, 10, 64, 32): (2528, 32, 1, 64, 32, 4, 8, 256, 1),
+    (640_008, 10, 40, 96): (4224, 152, 1, 40, 48, 4, 8, 256, 1),
+    (40_000, 10, 64, 16): (640, 64, 2, 64, 16, 2, 8, 256, 1),
+    (20_000, 10, 64, 16): (384, 56, 2, 64, 16, 2, 8, 256, 1),
+    (160_008, 10, 40, 96): (4032, 40, 1, 40, 48, 4, 8, 256, 1),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(BEFORE))
+def test_course_plans_keep_their_row_split_launches(shape):
+    """The course's calls keep the row-split launches they had before
+    tile-split clusters: the same row ranges, tiles, slot groups, staged
+    sub-chunks and clusters (a block's ring of `_RS_STAGES` sub-chunks
+    leaves room for as many blocks an SM), with one more warp a block,
+    the producer's."""
+    p = hk.hist_plan(*shape)
+    assert p.split_rows == 1
+    assert (p.chunk_rows, p.n_chunks, p.ft, p.bt, p.st, p.groups, p.cluster,
+            p.sub_rows, p.stage_bins) == BEFORE[shape]
+    assert p.threads == 32 * max((p.ft + 1) * p.groups + 1, 8)
+
+
+def test_hist_plan_reads_a_higgs_tree_in_88_passes():
+    """The benchmark cell's six histogram levels (1, 1, 2, 4, 8 and 16
+    slots) read their 10.5M rows 88 times a tree, where one pass a tile
+    read them 113 times: once at each of the four levels of up to 4
+    slots, once a tile at the two deeper ones."""
+    plans = [hk.hist_plan(10_500_000, 28, 256, s) for s in (1, 1, 2, 4, 8, 16)]
+    assert [p.passes for p in plans] == [1, 1, 1, 1, 28, 56]
+    assert [p.split_rows for p in plans] == [0, 0, 0, 0, 1, 1]
+
+
+def test_row_passes_count_each_launch_plan(monkeypatch):
+    """`ROW_PASSES` advances by the plan's passes with each launch (and
+    `LAUNCHES` by one), through the wrapper's launch path with the
+    kernel's call stubbed."""
+    launched = []
+    monkeypatch.setattr(hk, "_kernel", lambda name, entry="": name + entry)
+    monkeypatch.setattr(hk.build, "launch_on_stream",
+                        lambda dev, fn, *args, record=None:
+                        launched.append((fn, args)) or 0)
+    passes0 = hk.ROW_PASSES["hist_accumulate"]
+    launches0 = hk.LAUNCHES["hist_accumulate"]
+    want = 0
+    for n, n_feat, n_bins, n_slots, dtype in [
+            (80_000, 10, 64, 16, torch.uint8), (50_000, 4, 70_000, 2,
+                                                torch.int32),
+            (3_001, 400, 16, 4, torch.int32), (5, 3, 8, 1, torch.uint8)]:
+        binned = torch.zeros((n, n_feat), dtype=dtype)
+        lid = torch.zeros(n, dtype=torch.int32)
+        f = torch.ones(n)
+        out = hk._launch_level(binned, lid, f, f, f, n_bins, n_slots,
+                               torch.float32)
+        assert out.shape == (n_feat * n_bins, n_slots * 3)
+        plan = hk.hist_plan(n, n_feat, n_bins, n_slots,
+                            bin_bytes=binned.element_size())
+        want += plan.passes
+        assert launched[-1][0] == "hist_accumulate"
+        assert hk.ROW_PASSES["hist_accumulate"] - passes0 == want
+    assert want > 4     # some plans take more than one pass
+    assert hk.LAUNCHES["hist_accumulate"] - launches0 == 4
 
 
 @pytest.mark.parametrize("n_feat, n_bins, width", [
